@@ -1,0 +1,398 @@
+"""Whole-rollout candidate scoring: one CUDA kernel launch per plan.
+
+Counterpart of mujoco_mpc_tpu/ops/megarollout.py. The sampling planner
+scores N open-loop action sequences through T physics steps and keeps the
+returns (reference fan-out: mjpc/planners/sampling/planner.cc:355-393).
+
+`MegaRollout.returns` launches the hand-written kernel in
+csrc/megarollout.cu when its tensors lie on a CUDA device, and runs the
+plain PyTorch version (`_rollout_body` over tilestep.step_tb) when they lie
+on the CPU. There is no fallback from one to the other. Built once per
+(task, horizon); TaskParams stay runtime operands.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from mujoco_mpc_torch.ops import _cuda_build
+from mujoco_mpc_torch.ops import norms
+from mujoco_mpc_torch.physics import tilestep
+from mujoco_mpc_torch.tasks.base import (CostSpec, Task, TaskParams,
+                                         risk_transform)
+
+# reference kMaxReturnValue: divergence sentinel cost
+MAX_RETURN = 1e6
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+
+def cost_value_t(spec: CostSpec, weights, norm_params, risk, res):
+  """Tile analogue of tasks.base.cost_value: res (nres, B) -> (B,);
+  weights (nterm,), norm_params (nterm, 2), risk ()."""
+  total = None
+  shift = 0
+  for k in range(spec.nterm):
+    block = res[shift:shift + spec.dims[k]]
+    val = norms.norm_value(block, spec.norm_types[k], norm_params[k, 0],
+                           norm_params[k, 1], dim=0)
+    term = weights[k] * val
+    total = term if total is None else total + term
+    shift += spec.dims[k]
+  return risk_transform(total, risk)
+
+
+def _rollout_body(tm, task, horizon, qpos0, qvel0, actions, weights,
+                  norm_params, risk, res_params, t0):
+  """Mean per-step cost (N,) of actions (N, T, nu) from (qpos0, qvel0),
+  with the non-finite -> MAX_RETURN divergence guard."""
+  n = actions.shape[0]
+  acts = actions.permute(1, 2, 0)  # (T, nu, N)
+  qpos = qpos0[:, None].expand(tm.nq, n)
+  qvel = qvel0[:, None].expand(tm.nv, n)
+  # APGD warm-start carry: zeros = cold first step
+  lam = torch.zeros((max(tm.nrow, 1), n), dtype=qpos0.dtype,
+                    device=qpos0.device)
+  total = torch.zeros((n,), dtype=qpos0.dtype, device=qpos0.device)
+  for i in range(horizon):
+    qpos, qvel, view = tilestep.step_tb(tm, qpos, qvel, acts[i],
+                                        efc_lambda=lam)
+    view.time = t0 + (i + 1) * tm.timestep
+    res = task.residual(task.model, view, res_params)
+    total = total + cost_value_t(task.spec, weights, norm_params, risk, res)
+    lam = view.efc_lambda
+  total = total / horizon
+  return torch.where(torch.isfinite(total), total,
+                     torch.full_like(total, MAX_RETURN))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's model struct (csrc/megarollout.cu: MRModel)
+# ---------------------------------------------------------------------------
+
+MAX_NV, MAX_BODY, MAX_JNT, MAX_NU = 16, 16, 16, 16
+MAX_CON, MAX_LIM, MAX_ROW, MAX_DENSE = 20, 16, 64, 32
+MAX_TERM, MAX_RES, MAX_RES_INT = 16, 32, 8
+
+_F, _I = ctypes.c_float, ctypes.c_int32
+
+
+def _arr(t, *dims):
+  for d in reversed(dims):
+    t = t * d
+  return t
+
+
+class _MRModel(ctypes.Structure):
+  _fields_ = [
+      ("nq", _I), ("nv", _I), ("nu", _I), ("nbody", _I), ("njnt", _I),
+      ("ncon", _I), ("nlim", _I), ("nrow", _I), ("dense", _I),
+      ("nterm", _I), ("nres", _I), ("res_id", _I),
+      ("res_int", _arr(_I, MAX_RES_INT)),
+      ("timestep", _F), ("gravity", _arr(_F, 3)),
+      ("body_parentid", _arr(_I, MAX_BODY)),
+      ("body_jntadr", _arr(_I, MAX_BODY)),
+      ("body_jntnum", _arr(_I, MAX_BODY)),
+      ("body_pos", _arr(_F, MAX_BODY, 3)),
+      ("body_quat", _arr(_F, MAX_BODY, 4)),
+      ("body_ipos", _arr(_F, MAX_BODY, 3)),
+      ("body_iquat", _arr(_F, MAX_BODY, 4)),
+      ("body_mass", _arr(_F, MAX_BODY)),
+      ("body_inertia", _arr(_F, MAX_BODY, 3)),
+      ("jnt_type", _arr(_I, MAX_JNT)),
+      ("jnt_qposadr", _arr(_I, MAX_JNT)),
+      ("jnt_dofadr", _arr(_I, MAX_JNT)),
+      ("jnt_pos", _arr(_F, MAX_JNT, 3)),
+      ("jnt_axis", _arr(_F, MAX_JNT, 3)),
+      ("jnt_stiffness", _arr(_F, MAX_JNT)),
+      ("qpos0", _arr(_F, MAX_NV)),
+      ("qpos_spring", _arr(_F, MAX_NV)),
+      ("dof_damping", _arr(_F, MAX_NV)),
+      ("dof_armature", _arr(_F, MAX_NV)),
+      ("dof_frictionloss", _arr(_F, MAX_NV)),
+      ("dof_body", _arr(_I, MAX_NV)),
+      ("dof_body_mask", _arr(_I, MAX_NV, MAX_BODY)),
+      ("dof_ancestor_mask", _arr(_I, MAX_NV, MAX_NV)),
+      ("cdofdot_vel_mask", _arr(_I, MAX_NV, MAX_NV)),
+      ("act_vadr", _arr(_I, MAX_NU)),
+      ("act_qadr", _arr(_I, MAX_NU)),
+      ("act_gain_fixed", _arr(_I, MAX_NU)),
+      ("act_bias_fixed", _arr(_I, MAX_NU)),
+      ("ctrl_limited", _arr(_I, MAX_NU)),
+      ("force_limited", _arr(_I, MAX_NU)),
+      ("act_gear", _arr(_F, MAX_NU)),
+      ("act_gainprm", _arr(_F, MAX_NU, 3)),
+      ("act_biasprm", _arr(_F, MAX_NU, 3)),
+      ("ctrl_lo", _arr(_F, MAX_NU)),
+      ("ctrl_hi", _arr(_F, MAX_NU)),
+      ("force_lo", _arr(_F, MAX_NU)),
+      ("force_hi", _arr(_F, MAX_NU)),
+      ("con_gbody", _arr(_I, MAX_CON)),
+      ("con_gpos", _arr(_F, MAX_CON, 3)),
+      ("con_gquat", _arr(_F, MAX_CON, 4)),
+      ("con_end", _arr(_F, MAX_CON)),
+      ("con_r", _arr(_F, MAX_CON)),
+      ("con_margin", _arr(_F, MAX_CON)),
+      ("con_mu", _arr(_F, MAX_CON)),
+      ("con_frame", _arr(_F, MAX_CON, 3, 3)),
+      ("con_ppos", _arr(_F, MAX_CON, 3)),
+      ("con_sgn", _arr(_F, MAX_CON, MAX_NV)),
+      ("con_imp", _arr(_F, MAX_CON, 5)),
+      ("con_k", _arr(_F, MAX_CON)),
+      ("con_b", _arr(_F, MAX_CON)),
+      ("lim_qadr", _arr(_I, MAX_LIM)),
+      ("lim_vadr", _arr(_I, MAX_LIM)),
+      ("lim_lo", _arr(_F, MAX_LIM)),
+      ("lim_hi", _arr(_F, MAX_LIM)),
+      ("lim_margin", _arr(_F, MAX_LIM)),
+      ("lim_k", _arr(_F, MAX_LIM)),
+      ("lim_b", _arr(_F, MAX_LIM)),
+      ("lim_imp", _arr(_F, 5)),
+      ("term_dim", _arr(_I, MAX_TERM)),
+      ("term_norm", _arr(_I, MAX_TERM)),
+  ]
+
+
+def pack_model(tm: tilestep.TileModel, task: Task) -> bytes:
+  """The kernel's MRModel for a TileModel and task; raises
+  tilestep.UnsupportedModel where the model exceeds the struct's maxima or
+  the task has no CUDA residual."""
+  if task.device_residual is None:
+    raise tilestep.UnsupportedModel(
+        f"task {task.name!r} has no CUDA residual in csrc/megarollout.cu")
+  spec = task.spec
+  limits = [("nv", tm.nv, MAX_NV), ("nbody", tm.nbody, MAX_BODY),
+            ("njnt", tm.njnt, MAX_JNT), ("nu", tm.nu, MAX_NU),
+            ("contact points", tm.ncon, MAX_CON),
+            ("limited joints", len(tm.lim_jnt), MAX_LIM),
+            ("constraint rows", tm.nrow, MAX_ROW),
+            ("cost terms", spec.nterm, MAX_TERM),
+            ("residual entries", spec.nresidual, MAX_RES),
+            ("residual indices", len(task.device_residual.ints),
+             MAX_RES_INT)]
+  for what, n, cap in limits:
+    if n > cap:
+      raise tilestep.UnsupportedModel(
+          f"{what} {n} exceed the kernel's maximum {cap}")
+
+  s = _MRModel()
+
+  def put(name, values):
+    np.ctypeslib.as_array(getattr(s, name))[:len(values)] = values
+
+  nlimj = len(tm.lim_jnt)
+  for name, v in (("nq", tm.nq), ("nv", tm.nv), ("nu", tm.nu),
+                  ("nbody", tm.nbody), ("njnt", tm.njnt),
+                  ("ncon", tm.ncon), ("nlim", nlimj), ("nrow", tm.nrow),
+                  ("dense", int(tilestep.amat_is_dense(tm.nrow))),
+                  ("nterm", spec.nterm), ("nres", spec.nresidual),
+                  ("res_id", task.device_residual.id),
+                  ("timestep", tm.timestep)):
+    setattr(s, name, v)
+  put("res_int", list(task.device_residual.ints))
+  put("gravity", tm.gravity)
+  for name in ("body_parentid", "body_jntadr", "body_jntnum", "body_pos",
+               "body_quat", "body_ipos", "body_iquat", "body_mass",
+               "body_inertia", "jnt_type", "jnt_qposadr", "jnt_dofadr",
+               "jnt_pos", "jnt_axis", "jnt_stiffness", "qpos0",
+               "qpos_spring", "dof_damping", "dof_armature",
+               "dof_frictionloss", "dof_body", "act_vadr", "act_qadr",
+               "act_gainprm", "act_biasprm", "ctrl_lo", "ctrl_hi",
+               "force_lo", "force_hi"):
+    put(name, np.asarray(getattr(tm, name)))
+  put("act_gear", tm.act_gear)
+  put("act_gain_fixed", tm.act_gain_fixed.astype(np.int32))
+  put("act_bias_fixed", tm.act_bias_fixed.astype(np.int32))
+  put("ctrl_limited", tm.ctrl_limited.astype(np.int32))
+  put("force_limited", tm.force_limited.astype(np.int32))
+  mask = np.zeros((tm.nv, MAX_BODY), np.int32)
+  mask[:, :tm.nbody] = tm.dof_body_mask
+  put("dof_body_mask", mask)
+  for name in ("dof_ancestor_mask", "cdofdot_vel_mask"):
+    sq = np.zeros((tm.nv, MAX_NV), np.int32)
+    sq[:, :tm.nv] = getattr(tm, name)
+    put(name, sq)
+
+  cps = tm.con_points
+  if cps:
+    put("con_gbody", [tm.geom_bodyid[cp.g2] for cp in cps])
+    put("con_gpos", np.stack([tm.geom_pos[cp.g2] for cp in cps]))
+    put("con_gquat", np.stack([tm.geom_quat[cp.g2] for cp in cps]))
+    put("con_end", [cp.sign * cp.half2 for cp in cps])
+    put("con_r", [cp.r2 for cp in cps])
+    put("con_margin", [cp.margin for cp in cps])
+    put("con_mu", [cp.mu for cp in cps])
+    put("con_frame", np.stack([cp.frame for cp in cps]))
+    put("con_ppos", np.stack([cp.ppos for cp in cps]))
+    sgn = np.zeros((len(cps), MAX_NV), np.float32)
+    for ci, cp in enumerate(cps):
+      sgn[ci, :tm.nv] = (tm.dof_body_mask[:, cp.body2].astype(np.float32)
+                         - tm.dof_body_mask[:, cp.body1])
+    put("con_sgn", sgn)
+    put("con_imp", [tilestep.impedance_consts(cp.solimp) for cp in cps])
+    kbs = [tilestep.kb(cp.solref, float(cp.solimp[1])) for cp in cps]
+    put("con_k", [v[0] for v in kbs])
+    put("con_b", [v[1] for v in kbs])
+  if nlimj:
+    imp = tilestep.impedance_consts(tilestep._DEFAULT_SOLIMP)
+    kbs = [tilestep.kb(tm.lim_solref[li], imp[1]) for li in range(nlimj)]
+    put("lim_qadr", tm.lim_qadr)
+    put("lim_vadr", tm.lim_vadr)
+    put("lim_lo", tm.lim_lo)
+    put("lim_hi", tm.lim_hi)
+    put("lim_margin", tm.lim_margin)
+    put("lim_k", [v[0] for v in kbs])
+    put("lim_b", [v[1] for v in kbs])
+    put("lim_imp", imp)
+  put("term_dim", spec.dims)
+  put("term_norm", spec.norm_types)
+  return bytes(s)
+
+
+def _check_layout(lib) -> None:
+  """The ctypes mirror must match the compiled struct field by field."""
+  names = [f[0] for f in _MRModel._fields_]
+  offsets = (ctypes.c_longlong * 256)()
+  count = lib.mr_model_layout(ctypes.cast(offsets, ctypes.c_void_p), 256)
+  want = [getattr(_MRModel, n).offset for n in names]
+  if (count != len(names) or list(offsets[:count]) != want
+      or lib.mr_model_size() != ctypes.sizeof(_MRModel)):
+    raise RuntimeError("MRModel layout differs between csrc/megarollout.cu "
+                       "and ops/megarollout.py")
+
+
+def _check(name, t, device, shape):
+  if t.device != device:
+    raise ValueError(f"{name} is on {t.device}, expected {device}")
+  if t.dtype != torch.float32:
+    raise ValueError(f"{name} is {t.dtype}; the kernel takes float32")
+  if tuple(t.shape) != tuple(shape):
+    raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                     f"{tuple(shape)}")
+  if not t.is_contiguous():
+    raise ValueError(f"{name} is not contiguous")
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+
+class MegaRollout:
+  """Whole-rollout scoring for a concrete (task, horizon).
+
+  Raises tilestep.UnsupportedModel when the model is outside the kernel's
+  class; built for a CUDA device, also when the task has no CUDA residual.
+  `launches` and `step_launches` count the kernel launches of `returns`
+  and `step`.
+  """
+
+  def __init__(self, task: Task, horizon: int, device="cpu"):
+    self.tm = tilestep.extract(task.model)
+    self.task = task
+    self.horizon = int(horizon)
+    self.launches = 0
+    self.step_launches = 0
+    self.device = torch.device(device)
+    self._buf = None  # the packed MRModel on the card, when built for CUDA
+    if self.device.type == "cuda":
+      raw = pack_model(self.tm, self.task)
+      _check_layout(_cuda_build.load())
+      self._buf = torch.frombuffer(bytearray(raw),
+                                   dtype=torch.uint8).to(self.device)
+
+  def _model_buffer(self, device: torch.device) -> torch.Tensor:
+    if self._buf is None or self._buf.device != device:
+      raise ValueError(f"tensors on {device}; this MegaRollout was built "
+                       f"for {self.device}")
+    return self._buf
+
+  # ----------------------------------------------------------------- returns
+  def returns(self, qpos0, qvel0, actions, params: TaskParams, t0):
+    """Candidate returns (N,) for actions (N, T, nu) from qpos0 (nq,),
+    qvel0 (nv,). CUDA tensors: the kernel; CPU tensors: the plain
+    version."""
+    if actions.device.type == "cpu":
+      return self.returns_plain(qpos0, qvel0, actions, params, t0)
+    if actions.device.type != "cuda":
+      raise ValueError(f"no kernel for device {actions.device}")
+    tm, task = self.tm, self.task
+    dev = actions.device
+    n = actions.shape[0]
+    nterm = task.spec.nterm
+    rp = params.residual_params
+    if rp.numel() == 0:
+      rp = torch.zeros((1,), dtype=torch.float32, device=dev)
+    t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
+    _check("qpos0", qpos0, dev, (tm.nq,))
+    _check("qvel0", qvel0, dev, (tm.nv,))
+    _check("actions", actions, dev, (n, self.horizon, tm.nu))
+    _check("weights", params.weights, dev, (nterm,))
+    _check("norm_params", params.norm_params, dev, (nterm, 2))
+    _check("risk", params.risk, dev, ())
+    _check("residual_params", rp, dev, (max(len(task.param_names), 1),))
+    _check("t0", t0, dev, ())
+    buf = self._model_buffer(dev)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+      return out
+    lib = _cuda_build.load()
+    with torch.cuda.device(dev):
+      err = lib.mr_returns(
+          buf.data_ptr(), qpos0.data_ptr(), qvel0.data_ptr(),
+          actions.data_ptr(), params.weights.data_ptr(),
+          params.norm_params.data_ptr(), params.risk.data_ptr(),
+          rp.data_ptr(), t0.data_ptr(), out.data_ptr(), n, self.horizon,
+          torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+      raise RuntimeError(f"mr_returns launch failed: CUDA error {err}")
+    self.launches += 1
+    return out
+
+  def returns_plain(self, qpos0, qvel0, actions, params: TaskParams, t0):
+    """The same returns from the plain PyTorch version, on any device (the
+    tile path is float32 only; inputs are cast)."""
+    f32 = torch.float32
+    p = params.to(dtype=f32)
+    return _rollout_body(
+        self.tm, self.task, self.horizon, qpos0.to(f32), qvel0.to(f32),
+        actions.to(f32), p.weights, p.norm_params, p.risk,
+        p.residual_params, torch.as_tensor(t0, dtype=f32,
+                                           device=actions.device))
+
+  # -------------------------------------------------------------------- step
+  def step(self, qpos, qvel, ctrl, efc_lambda=None):
+    """One step_tb on B states in tile layout: qpos (nq, B), qvel (nv, B),
+    ctrl (nu, B), efc_lambda (nrow, B) or None (cold). Returns (qpos2,
+    qvel2, duals). CUDA tensors: the kernel's step; CPU: step_tb."""
+    tm = self.tm
+    if qpos.device.type == "cpu":
+      q2, v2, view = tilestep.step_tb(tm, qpos, qvel, ctrl, efc_lambda)
+      return q2, v2, view.efc_lambda
+    if qpos.device.type != "cuda":
+      raise ValueError(f"no kernel for device {qpos.device}")
+    dev = qpos.device
+    b = qpos.shape[1]
+    if efc_lambda is None:
+      efc_lambda = torch.zeros((tm.nrow, b), dtype=torch.float32, device=dev)
+    ins = [x.T.contiguous() for x in (qpos, qvel, ctrl, efc_lambda)]
+    for name, t, w in zip(("qpos", "qvel", "ctrl", "efc_lambda"), ins,
+                          (tm.nq, tm.nv, tm.nu, tm.nrow)):
+      _check(name, t, dev, (b, w))
+    outs = [torch.empty_like(ins[i]) for i in (0, 1, 3)]
+    buf = self._model_buffer(dev)
+    lib = _cuda_build.load()
+    with torch.cuda.device(dev):
+      err = lib.mr_step(buf.data_ptr(), *(t.data_ptr() for t in ins),
+                        *(t.data_ptr() for t in outs), b,
+                        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+      raise RuntimeError(f"mr_step launch failed: CUDA error {err}")
+    self.step_launches += 1
+    return tuple(t.T for t in outs)

@@ -1,0 +1,878 @@
+"""Tile-layout physics step for the megakernel's model class.
+
+Counterpart of mujoco_mpc_tpu/physics/tilestep.py. `extract` turns a Model
+into a TileModel of host (numpy) constants; `step_tb` is the plain PyTorch
+version of one semi-implicit Euler step with the batch dimension trailing
+(qpos (nq, B)), as in JAX. The CUDA kernel (csrc/megarollout.cu) computes
+the same step, one thread per candidate; `step_tb` is what it is held
+against, and what runs when the tensors lie on the CPU.
+
+The class this port covers so far: hinge and slide joints, joint-
+transmission actuators (fixed or affine gain/bias), scalar-joint springs
+and friction loss, plane-capsule/cylinder end-point contacts with condim
+3, joint limits, and the dense or matrix-free Delassus solve. Everything
+else raises UnsupportedModel naming the ROADMAP item that ports it.
+
+Constraint rows are in the tile layout: contact points (n, t1, t2 each),
+then joint limits (lo, hi each) -- the same layout as the JAX tile path,
+so the duals compare row by row.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from mujoco_mpc_torch.physics.types import (ActDyn, GainBias, GeomType,
+                                            JointType, Model, TrnType)
+
+_ITERATIONS = 12  # warm-started APGD iterations (physics/solver.py)
+_POWER_ITERS = 8  # power iterations for the matrix-free step size
+_MINIMP, _MAXIMP = 1e-4, 0.9999
+_DEFAULT_SOLIMP = (0.9, 0.95, 0.001, 0.5, 2.0)
+
+
+class UnsupportedModel(Exception):
+  """Model is outside the megakernel's supported class."""
+
+
+def amat_is_dense(nrow: int) -> bool:
+  """Whether the (nrow, nrow) Delassus matrix is materialized or the
+  constraint solve runs matrix-free (the JAX package's threshold)."""
+  return nrow * nrow * 4096 <= 4 * 1024 * 1024
+
+
+def _unsupported(what: str, item: str):
+  raise UnsupportedModel(f"{what}: not in the ported kernel class yet "
+                         f"(ROADMAP {item})")
+
+
+_S3 = "queue 2 slice S3"
+_S4 = "queue 2 slice S4"
+_S5 = "queue 2 slice S5"
+_GENERAL = "queue 1 items 3 and 6, the general engine"
+
+
+# ---------------------------------------------------------------------------
+# build-time extraction: model constants as numpy
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ConPoint:
+  """One static candidate contact point (a capsule end against a plane)."""
+  kind: str  # 'plane_capend'
+  g1: int
+  g2: int
+  body1: int
+  body2: int
+  sign: float  # +-1 capsule-end selector
+  r1: float
+  r2: float
+  half1: float
+  half2: float
+  frame: np.ndarray  # (3, 3) constant contact frame, rows n, t1, t2
+  ppos: np.ndarray  # (3,) plane point
+  mu: float
+  solref: np.ndarray
+  solimp: np.ndarray
+  margin: float
+  condim: int = 3
+
+
+@dataclasses.dataclass
+class TileModel:
+  """Concrete (numpy) model constants for the supported class."""
+  nq: int
+  nv: int
+  nu: int
+  nbody: int
+  njnt: int
+  timestep: float
+  gravity: np.ndarray  # (3,)
+  body_parentid: tuple
+  body_pos: np.ndarray
+  body_quat: np.ndarray
+  body_ipos: np.ndarray
+  body_iquat: np.ndarray
+  body_mass: np.ndarray
+  body_inertia: np.ndarray
+  jnt_type: tuple
+  jnt_qposadr: tuple
+  jnt_dofadr: tuple
+  jnt_bodyid: tuple
+  jnt_pos: np.ndarray
+  jnt_axis: np.ndarray
+  body_jntadr: tuple
+  body_jntnum: tuple
+  qpos0: np.ndarray
+  dof_damping: np.ndarray
+  dof_armature: np.ndarray
+  dof_body_mask: np.ndarray  # (nv, nbody) bool
+  dof_ancestor_mask: np.ndarray  # (nv, nv)
+  cdofdot_vel_mask: np.ndarray  # (nv, nv): dofs whose vel rotates cdof[k]
+  dof_body: tuple  # (nv,) body id of every dof
+  # actuators (scalar joint transmission)
+  act_vadr: np.ndarray  # (nu,) dof index
+  act_qadr: np.ndarray  # (nu,)
+  act_gear: np.ndarray  # (nu,)
+  act_gainprm: np.ndarray  # (nu, 3)
+  act_biasprm: np.ndarray  # (nu, 3)
+  act_gain_fixed: np.ndarray  # (nu,) bool
+  act_bias_fixed: np.ndarray  # (nu,) bool
+  ctrl_limited: np.ndarray  # (nu,) bool
+  ctrl_lo: np.ndarray
+  ctrl_hi: np.ndarray
+  force_limited: np.ndarray
+  force_lo: np.ndarray
+  force_hi: np.ndarray
+  # contacts: static candidate contact points
+  con_points: tuple
+  geom_bodyid: tuple
+  geom_pos: np.ndarray
+  geom_quat: np.ndarray
+  # limits
+  lim_jnt: tuple  # joint ids (two rows each: lo, hi)
+  lim_qadr: tuple
+  lim_vadr: tuple
+  lim_lo: tuple
+  lim_hi: tuple
+  lim_margin: tuple
+  lim_solref: np.ndarray  # (nlim_jnt, 2)
+  # scalar-joint springs + smoothed Coulomb friction loss
+  jnt_stiffness: np.ndarray  # (njnt,)
+  qpos_spring: np.ndarray  # (nq,)
+  dof_frictionloss: np.ndarray  # (nv,)
+
+  @property
+  def ncon(self) -> int:
+    return len(self.con_points)
+
+  @property
+  def nlim(self) -> int:
+    return 2 * len(self.lim_jnt)
+
+  @property
+  def nrow(self) -> int:
+    """Constraint rows: 3 per contact point, 2 per limited joint."""
+    return 3 * self.ncon + self.nlim
+
+
+def extract(m: Model) -> TileModel:
+  """Concretize a Model into a TileModel; raises UnsupportedModel."""
+
+  def npy(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+  for jt in m.jnt_type:
+    if jt not in (JointType.HINGE, JointType.SLIDE):
+      _unsupported("free and ball joints", _S3)
+  if m.na != 0:
+    _unsupported("stateful actuators", _GENERAL)
+  if m.nmocap:
+    _unsupported("mocap bodies", _S4)
+  if m.opt.has_fluid:
+    _unsupported("fluid forces", _GENERAL)
+  if m.ntendon:
+    _unsupported("tendons", _S5)
+  if any(m.eq_active0):
+    _unsupported("equality constraints", _S5)
+  for u in range(m.nu):
+    if m.actuator_trntype[u] == TrnType.TENDON:
+      _unsupported("tendon transmission", _S5)
+    if m.actuator_trntype[u] != TrnType.JOINT:
+      _unsupported("site transmission", _GENERAL)
+    if m.actuator_dyntype[u] != ActDyn.NONE:
+      _unsupported("actuator dynamics", _GENERAL)
+
+  # contacts: a plane on the world body against capsule/cylinder ends
+  con_points = []
+  geom_xpos0, geom_xmat0 = _static_geom_frames(m)
+  gs = npy(m.geom_size)
+  fr = npy(m.geom_friction)
+  for g1, g2 in m.collision_pairs:
+    t1, t2 = GeomType(m.geom_type[g1]), GeomType(m.geom_type[g2])
+    b1, b2 = m.geom_bodyid[g1], m.geom_bodyid[g2]
+    if t1 != GeomType.PLANE or t2 not in (GeomType.CAPSULE,
+                                          GeomType.CYLINDER):
+      _unsupported(f"contact pair {t1.name}/{t2.name}", _S5)
+    if b1 != 0:
+      _unsupported("plane on a moving body", _GENERAL)
+    condim = int(max(m.geom_condim[g1], m.geom_condim[g2]))
+    if condim != 3:
+      _unsupported(f"condim {condim} contacts", _S5)
+    n = geom_xmat0[g1][:, 2]
+    t1v = (np.array([1.0, 0, 0]) if abs(n[0]) < 0.5
+           else np.array([0, 1.0, 0]))
+    t1v = np.cross(n, t1v)
+    t1v = t1v / np.linalg.norm(t1v)
+    frame = np.stack([n, t1v, np.cross(n, t1v)]).astype(np.float32)
+    for sgn in (-1.0, 1.0):
+      con_points.append(ConPoint(
+          kind="plane_capend", g1=g1, g2=g2, body1=b1, body2=b2, sign=sgn,
+          r1=float(gs[g1, 0]), r2=float(gs[g2, 0]),
+          half1=float(gs[g1, 1]), half2=float(gs[g2, 1]),
+          frame=frame, ppos=geom_xpos0[g1],
+          mu=float(max(fr[g1, 0], fr[g2, 0])),
+          solref=0.5 * (npy(m.geom_solref)[g1] + npy(m.geom_solref)[g2]),
+          solimp=0.5 * (npy(m.geom_solimp)[g1] + npy(m.geom_solimp)[g2]),
+          margin=float(max(npy(m.geom_margin)[g1], npy(m.geom_margin)[g2])),
+          condim=condim))
+
+  lim = [j for j in range(m.njnt) if m.jnt_limited[j]]
+  jr = npy(m.jnt_range)
+  dof_body = [0] * m.nv
+  for j in range(m.njnt):
+    dof_body[m.jnt_dofadr[j]] = m.jnt_bodyid[j]
+
+  return TileModel(
+      nq=m.nq, nv=m.nv, nu=m.nu, nbody=m.nbody, njnt=m.njnt,
+      timestep=float(m.opt.timestep),
+      gravity=npy(m.opt.gravity),
+      body_parentid=tuple(m.body_parentid),
+      body_pos=npy(m.body_pos), body_quat=npy(m.body_quat),
+      body_ipos=npy(m.body_ipos), body_iquat=npy(m.body_iquat),
+      body_mass=npy(m.body_mass), body_inertia=npy(m.body_inertia),
+      jnt_type=tuple(m.jnt_type), jnt_qposadr=tuple(m.jnt_qposadr),
+      jnt_dofadr=tuple(m.jnt_dofadr), jnt_bodyid=tuple(m.jnt_bodyid),
+      jnt_pos=npy(m.jnt_pos), jnt_axis=npy(m.jnt_axis),
+      body_jntadr=tuple(m.body_jntadr), body_jntnum=tuple(m.body_jntnum),
+      qpos0=npy(m.qpos0),
+      dof_damping=npy(m.dof_damping), dof_armature=npy(m.dof_armature),
+      dof_body_mask=npy(m.dof_body_mask),
+      dof_ancestor_mask=npy(m.dof_ancestor_mask),
+      cdofdot_vel_mask=npy(m.cdofdot_vel_mask),
+      dof_body=tuple(dof_body),
+      act_vadr=np.asarray([m.jnt_dofadr[m.actuator_trnid[u]]
+                           for u in range(m.nu)], np.int32),
+      act_qadr=np.asarray([m.jnt_qposadr[m.actuator_trnid[u]]
+                           for u in range(m.nu)], np.int32),
+      act_gear=npy(m.actuator_gear)[:, 0] if m.nu else np.zeros(0),
+      act_gainprm=npy(m.actuator_gainprm),
+      act_biasprm=npy(m.actuator_biasprm),
+      act_gain_fixed=np.asarray(
+          [t == GainBias.FIXED for t in m.actuator_gaintype]),
+      act_bias_fixed=np.asarray(
+          [t == GainBias.FIXED for t in m.actuator_biastype]),
+      ctrl_limited=npy(m.actuator_ctrllimited),
+      ctrl_lo=npy(m.actuator_ctrlrange)[:, 0] if m.nu else np.zeros(0),
+      ctrl_hi=npy(m.actuator_ctrlrange)[:, 1] if m.nu else np.zeros(0),
+      force_limited=npy(m.actuator_forcelimited),
+      force_lo=npy(m.actuator_forcerange)[:, 0] if m.nu else np.zeros(0),
+      force_hi=npy(m.actuator_forcerange)[:, 1] if m.nu else np.zeros(0),
+      con_points=tuple(con_points),
+      geom_bodyid=tuple(m.geom_bodyid),
+      geom_pos=npy(m.geom_pos), geom_quat=npy(m.geom_quat),
+      lim_jnt=tuple(lim),
+      lim_qadr=tuple(m.jnt_qposadr[j] for j in lim),
+      lim_vadr=tuple(m.jnt_dofadr[j] for j in lim),
+      lim_lo=tuple(float(jr[j, 0]) for j in lim),
+      lim_hi=tuple(float(jr[j, 1]) for j in lim),
+      lim_margin=tuple(float(npy(m.jnt_margin)[j]) for j in lim),
+      lim_solref=(np.stack([npy(m.jnt_solref)[j] for j in lim])
+                  if lim else np.zeros((0, 2))),
+      jnt_stiffness=npy(m.jnt_stiffness),
+      qpos_spring=npy(m.qpos_spring),
+      dof_frictionloss=npy(m.dof_frictionloss),
+  )
+
+
+def _static_geom_frames(m: Model):
+  """World pose of geoms on the world body (numpy, build time)."""
+  gpos = m.geom_pos.detach().cpu().numpy()
+  gquat = m.geom_quat.detach().cpu().numpy()
+  xpos = {g: gpos[g] for g in range(m.ngeom)}
+  xmat = {}
+  for g in range(m.ngeom):
+    w, x, y, z = gquat[g]
+    xmat[g] = np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+  return xpos, xmat
+
+
+def impedance_consts(solimp) -> Tuple[float, float, float, float, float]:
+  """(d0, d1, width, mid, power) of a constant solimp, clamped as in
+  _impedance."""
+  d0, d1, width, mid, power = (float(v) for v in np.asarray(solimp)[:5])
+  return (d0, d1, max(width, 1e-12), min(max(mid, 1e-4), 1 - 1e-4),
+          max(power, 1.0))
+
+
+def kb(solref, dmax: float) -> Tuple[float, float]:
+  """Constant stiffness/damping from constant solref (solver.py:_kb)."""
+  solref = np.asarray(solref)
+  tc, dr = max(float(solref[0]), 1e-8), max(float(solref[1]), 1e-8)
+  if solref[0] <= 0 and solref[1] <= 0:
+    return -float(solref[0]) / dmax ** 2, -float(solref[1]) / dmax
+  return 1.0 / (dmax * dmax * tc * tc * dr * dr), 2.0 / (dmax * tc)
+
+
+# ---------------------------------------------------------------------------
+# tile math: component-leading, batch-trailing
+# ---------------------------------------------------------------------------
+
+
+def _c(v):
+  """Model constant as Python floats of its float32 value."""
+  return [float(x) for x in np.asarray(v, dtype=np.float32).ravel()]
+
+
+def _quat_mul(q1, q2):
+  """(4, B) x (4, B) -> (4, B); either may be a list of 4 floats."""
+  w1, x1, y1, z1 = q1[0], q1[1], q1[2], q1[3]
+  w2, x2, y2, z2 = q2[0], q2[1], q2[2], q2[3]
+  return torch.stack([
+      w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+      w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+      w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+      w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+  ])
+
+
+def _cross(a, b):
+  return torch.stack([
+      a[1] * b[2] - a[2] * b[1],
+      a[2] * b[0] - a[0] * b[2],
+      a[0] * b[1] - a[1] * b[0],
+  ])
+
+
+def _quat_rot(q, v):
+  """Rotate v (3 floats or (3, B)) by quaternion q (4, B)."""
+  w = q[0]
+  u = q[1:]
+  uv = _cross(u, v)
+  uuv = _cross(u, uv)
+  return torch.stack([v[k] + 2.0 * (w * uv[k] + uuv[k]) for k in range(3)])
+
+
+def _dot3(a, b):
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _quat_to_mat(q):
+  """(4, B) -> (3, 3, B)."""
+  w, x, y, z = q[0], q[1], q[2], q[3]
+  return torch.stack([
+      torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                   2 * (x * z + w * y)]),
+      torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                   2 * (y * z - w * x)]),
+      torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                   1 - 2 * (x * x + y * y)]),
+  ])
+
+
+def _axis_angle_quat(axis, angle):
+  """3 axis floats + (B,) angle -> (4, B) quaternion."""
+  half = 0.5 * angle
+  s = torch.sin(half)
+  return torch.stack([torch.cos(half), axis[0] * s, axis[1] * s,
+                      axis[2] * s])
+
+
+def _chol_factor(a, eps=1e-12):
+  """Cholesky of a (B, n, n) SPD batch, pivots clamped at eps."""
+  n = a.shape[-1]
+  low = torch.zeros_like(a)
+  for j in range(n):
+    s = a[:, j, j] - torch.sum(low[:, j, :j] * low[:, j, :j], dim=-1)
+    ljj = torch.sqrt(torch.clamp(s, min=eps))
+    low[:, j, j] = ljj
+    if j + 1 < n:
+      r = a[:, j + 1:, j] - torch.sum(
+          low[:, j + 1:, :j] * low[:, j:j + 1, :j], dim=-1)
+      low[:, j + 1:, j] = r * (1.0 / ljj)[:, None]
+  return low
+
+
+def _chol_solve(low, rhs):
+  """Solve L L^T x = rhs for rhs (n, B) or (n, R, B); low (B, n, n)."""
+  if rhs.dim() == 2:
+    x = rhs.T.unsqueeze(-1)  # (B, n, 1)
+  else:
+    x = rhs.permute(2, 0, 1)  # (B, n, R)
+  y = torch.linalg.solve_triangular(low, x, upper=False)
+  x = torch.linalg.solve_triangular(low.mT, y, upper=True)
+  return x.squeeze(-1).T if rhs.dim() == 2 else x.permute(1, 2, 0)
+
+
+def _impedance(pos, d0, d1, width, mid, power):
+  """MuJoCo impedance sigmoid; the constants may be (rows, 1) tensors."""
+  x = torch.clamp(torch.abs(pos) / width, 0.0, 1.0)
+  y_lo = torch.pow(x / mid, power) * mid
+  y_hi = 1.0 - torch.pow((1 - x) / (1 - mid), power) * (1 - mid)
+  y = torch.where(x < mid, y_lo, y_hi)
+  return torch.clamp(d0 + y * (d1 - d0), _MINIMP, _MAXIMP)
+
+
+@dataclasses.dataclass
+class StepView:
+  """What a task residual reads after a step (component-leading,
+  batch-trailing). Frames are PRE-step (the state the step started from),
+  qpos/qvel are POST-step -- the convention of the JAX tile path."""
+  qpos: torch.Tensor  # (nq, B) post-step
+  qvel: torch.Tensor  # (nv, B) post-step
+  ctrl: torch.Tensor  # (nu, B) as given, before clamping
+  xpos: torch.Tensor  # (nbody, 3, B)
+  xquat: torch.Tensor  # (nbody, 4, B)
+  xmat: torch.Tensor  # (nbody, 3, 3, B)
+  xipos: torch.Tensor  # (nbody, 3, B)
+  ximat: torch.Tensor  # (nbody, 3, 3, B)
+  cvel: torch.Tensor  # (nbody, 6, B)
+  efc_lambda: torch.Tensor  # (nrow, B) converged duals
+  time: Optional[torch.Tensor] = None
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+
+
+def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
+  """One physics step in tile layout (plain PyTorch).
+
+  Args: qpos (nq, B); qvel (nv, B); ctrl (nu, B); efc_lambda (nrow, B)
+  warm-start duals (None or all-zero columns = cold start).
+  Returns (qpos2, qvel2, view) with view a StepView.
+  """
+  nv, nbody = tm.nv, tm.nbody
+  h = tm.timestep
+  B = qpos.shape[1]
+  dtype, dev = qpos.dtype, qpos.device
+  zero = torch.zeros_like(qpos[0])
+  zero3 = torch.stack([zero, zero, zero])
+
+  def const(v):
+    return torch.as_tensor(np.asarray(v, dtype=np.float32), dtype=dtype,
+                           device=dev)
+
+  # ---- forward kinematics (scalar joints)
+  xpos = [zero3]
+  xquat = [torch.stack([zero + 1.0, zero, zero, zero])]
+  xanchor = [None] * tm.njnt
+  xaxis = [None] * tm.njnt
+  for bd in range(1, nbody):
+    p = tm.body_parentid[bd]
+    quat = _quat_mul(xquat[p], _c(tm.body_quat[bd]))
+    pos = xpos[p] + _quat_rot(xquat[p], _c(tm.body_pos[bd]))
+    jadr, jnum = tm.body_jntadr[bd], tm.body_jntnum[bd]
+    for j in range(jadr, jadr + jnum):
+      qadr = tm.jnt_qposadr[j]
+      ax = _c(tm.jnt_axis[j])
+      jp = _c(tm.jnt_pos[j])
+      anchor = pos + _quat_rot(quat, jp)
+      if tm.jnt_type[j] == JointType.SLIDE:
+        pos = pos + _quat_rot(quat, ax) * (
+            qpos[qadr] - float(tm.qpos0[qadr]))
+      else:  # HINGE
+        angle = qpos[qadr] - float(tm.qpos0[qadr])
+        quat = _quat_mul(quat, _axis_angle_quat(ax, angle))
+        pos = anchor - _quat_rot(quat, jp)
+      xanchor[j] = anchor
+      xaxis[j] = _quat_rot(quat, ax)
+    xpos.append(pos)
+    xquat.append(quat)
+
+  xmat = [_quat_to_mat(q) for q in xquat]
+  xipos = [xpos[bd] + _quat_rot(xquat[bd], _c(tm.body_ipos[bd]))
+           for bd in range(nbody)]
+  ximat = [_quat_to_mat(_quat_mul(xquat[bd], _c(tm.body_iquat[bd])))
+           for bd in range(nbody)]
+
+  # ---- cdof (world-origin motion subspace) per dof
+  cdof = [None] * nv
+  for j in range(tm.njnt):
+    k0 = tm.jnt_dofadr[j]
+    if tm.jnt_type[j] == JointType.SLIDE:
+      cdof[k0] = (zero3, xaxis[j])
+    else:  # HINGE
+      cdof[k0] = (xaxis[j], _cross(xanchor[j], xaxis[j]))
+
+  # ---- body spatial velocities + cdof_dot (static masks)
+  contrib = [(cdof[k][0] * qvel[k], cdof[k][1] * qvel[k]) for k in range(nv)]
+
+  def _msum(ks, comp):
+    if not ks:
+      return zero3
+    acc = contrib[ks[0]][comp]
+    for k in ks[1:]:
+      acc = acc + contrib[k][comp]
+    return acc
+
+  cvel = []
+  for bd in range(nbody):
+    ks = [k for k in range(nv) if tm.dof_body_mask[k, bd]]
+    cvel.append((_msum(ks, 0), _msum(ks, 1)))
+  cdof_dot = []
+  for k in range(nv):
+    ks = [i for i in range(nv) if tm.cdofdot_vel_mask[k, i]]
+    va, vl = _msum(ks, 0), _msum(ks, 1)
+    ca, cl = cdof[k]
+    cdof_dot.append((_cross(va, ca), _cross(va, cl) + _cross(vl, ca)))
+
+  dof_of_body = [[] for _ in range(nbody)]
+  for k in range(nv):
+    dof_of_body[tm.dof_body[k]].append(k)
+
+  # ---- spatial inertia about the world origin per body
+  ibody = []  # (Iw (3,3,B), com (3,B), mass float)
+  for bd in range(nbody):
+    R = ximat[bd]
+    idiag = _c(tm.body_inertia[bd])
+    Iw = torch.stack([
+        torch.stack([sum(R[i, k] * idiag[k] * R[jj, k] for k in range(3))
+                     for jj in range(3)]) for i in range(3)])
+    ibody.append((Iw, xipos[bd], float(tm.body_mass[bd])))
+
+  def inert_mul(Iw, com, mass, va, vl):
+    ang = (torch.stack([sum(Iw[i, k] * va[k] for k in range(3))
+                        for i in range(3)])
+           - mass * _cross(com, _cross(com, va)) + mass * _cross(com, vl))
+    lin = -mass * _cross(com, va) + mass * vl
+    return ang, lin
+
+  # ---- CRB: composite inertias
+  comp_mc = [ibody[bd][2] * ibody[bd][1] for bd in range(nbody)]
+  comp_m = [ibody[bd][2] for bd in range(nbody)]
+
+  def topleft(Iw, com, mass):
+    cx, cy, cz = com[0], com[1], com[2]
+    cc = torch.stack([
+        torch.stack([cy * cy + cz * cz, -cx * cy, -cx * cz]),
+        torch.stack([-cx * cy, cx * cx + cz * cz, -cy * cz]),
+        torch.stack([-cx * cz, -cy * cz, cx * cx + cy * cy]),
+    ])
+    return Iw + mass * cc
+
+  comp_TL = [topleft(*ibody[bd]) for bd in range(nbody)]
+  for bd in range(nbody - 1, 0, -1):
+    p = tm.body_parentid[bd]
+    if p > 0:
+      comp_TL[p] = comp_TL[p] + comp_TL[bd]
+      comp_mc[p] = comp_mc[p] + comp_mc[bd]
+      comp_m[p] = comp_m[p] + comp_m[bd]
+
+  def comp_mul(bd, va, vl):
+    TL, mc, mm = comp_TL[bd], comp_mc[bd], comp_m[bd]
+    ang = (torch.stack([sum(TL[i, k] * va[k] for k in range(3))
+                        for i in range(3)]) + _cross(mc, vl))
+    lin = -_cross(mc, va) + mm * vl
+    return ang, lin
+
+  dof_body = tm.dof_body
+  f_dof = [comp_mul(dof_body[j], cdof[j][0], cdof[j][1]) for j in range(nv)]
+  anc = tm.dof_ancestor_mask
+  qM = {}  # upper-triangular entries on the ancestor sparsity
+  for j in range(nv):
+    fa, fl = f_dof[j]
+    for i in range(j + 1):
+      if anc[i, j]:
+        qM[(i, j)] = _dot3(cdof[i][0], fa) + _dot3(cdof[i][1], fl)
+
+  # ---- RNE bias (qacc = 0, base acceleration = -gravity)
+  g = _c(tm.gravity)
+  cacc = [(zero3, torch.stack([zero - g[0], zero - g[1], zero - g[2]]))]
+  for bd in range(1, nbody):
+    aa, al = cacc[tm.body_parentid[bd]]
+    for k in dof_of_body[bd]:
+      da, dl = cdof_dot[k]
+      aa = aa + da * qvel[k]
+      al = al + dl * qvel[k]
+    cacc.append((aa, al))
+  cfa, cfl = [], []
+  for bd in range(nbody):
+    Iw, com, mass = ibody[bd]
+    va, vl = cvel[bd]
+    fa_v, fl_v = inert_mul(Iw, com, mass, va, vl)
+    fa_a, fl_a = inert_mul(Iw, com, mass, *cacc[bd])
+    cfa.append(fa_a + _cross(va, fa_v) + _cross(vl, fl_v))
+    cfl.append(fl_a + _cross(va, fl_v))
+  for bd in range(nbody - 1, 0, -1):
+    p = tm.body_parentid[bd]
+    cfa[p] = cfa[p] + cfa[bd]
+    cfl[p] = cfl[p] + cfl[bd]
+  qfrc_bias = [_dot3(cdof[k][0], cfa[dof_body[k]])
+               + _dot3(cdof[k][1], cfl[dof_body[k]]) for k in range(nv)]
+
+  # ---- passive forces + actuation
+  qfrc_passive = [-float(tm.dof_damping[k]) * qvel[k] for k in range(nv)]
+  for k in range(nv):
+    fl = float(tm.dof_frictionloss[k])
+    if fl != 0.0:
+      qfrc_passive[k] = qfrc_passive[k] - fl * torch.tanh(qvel[k] / 0.01)
+  for j in range(tm.njnt):
+    ks = float(tm.jnt_stiffness[j])
+    if ks != 0.0:
+      qadr, vadr = tm.jnt_qposadr[j], tm.jnt_dofadr[j]
+      qfrc_passive[vadr] = qfrc_passive[vadr] - ks * (
+          qpos[qadr] - float(tm.qpos_spring[qadr]))
+
+  qfrc_act = [zero for _ in range(nv)]
+  for u in range(tm.nu):
+    c = ctrl[u]
+    if tm.ctrl_limited[u]:
+      c = torch.clamp(c, float(tm.ctrl_lo[u]), float(tm.ctrl_hi[u]))
+    gear = float(tm.act_gear[u])
+    length = gear * qpos[int(tm.act_qadr[u])]
+    velocity = gear * qvel[int(tm.act_vadr[u])]
+    gp = tm.act_gainprm[u]
+    if tm.act_gain_fixed[u]:
+      gain = float(gp[0])
+    else:
+      gain = float(gp[0]) + float(gp[1]) * length + float(gp[2]) * velocity
+    bp = tm.act_biasprm[u]
+    if tm.act_bias_fixed[u]:
+      bias = 0.0
+    else:
+      bias = float(bp[0]) + float(bp[1]) * length + float(bp[2]) * velocity
+    force = gain * c + bias
+    if tm.force_limited[u]:
+      force = torch.clamp(force, float(tm.force_lo[u]),
+                          float(tm.force_hi[u]))
+    k = int(tm.act_vadr[u])
+    qfrc_act[k] = qfrc_act[k] + gear * force
+
+  # ---- implicit-damping inertia factor
+  amat_m = torch.zeros((B, nv, nv), dtype=dtype, device=dev)
+  for (i, j), v in qM.items():
+    amat_m[:, i, j] = v
+    amat_m[:, j, i] = v
+  for k in range(nv):
+    amat_m[:, k, k] = (amat_m[:, k, k] + float(tm.dof_armature[k])
+                       + h * float(tm.dof_damping[k]))
+  L = _chol_factor(amat_m)
+
+  qfrc_smooth = torch.stack([qfrc_passive[k] + qfrc_act[k] - qfrc_bias[k]
+                             for k in range(nv)])
+  qacc_smooth = _chol_solve(L, qfrc_smooth)
+
+  # ---- contacts + limits -> constraint solve
+  nrow = tm.nrow
+  if nrow:
+    f, lam_out = _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L,
+                                   qacc_smooth, efc_lambda, const)
+    qfrc_constraint = f
+  else:
+    qfrc_constraint = torch.zeros_like(qfrc_smooth)
+    lam_out = (torch.zeros((1, B), dtype=dtype, device=dev)
+               if efc_lambda is None else efc_lambda)
+
+  # ---- integrate (semi-implicit Euler, implicit damping in the factor)
+  qacc = _chol_solve(L, qfrc_smooth + qfrc_constraint)
+  qvel2 = qvel + h * qacc
+  qpos2 = qpos + h * qvel2  # scalar joints: nq == nv, dense addressing
+
+  view = StepView(
+      qpos=qpos2, qvel=qvel2, ctrl=ctrl,
+      xpos=torch.stack(xpos), xquat=torch.stack(xquat),
+      xmat=torch.stack(xmat), xipos=torch.stack(xipos),
+      ximat=torch.stack(ximat),
+      cvel=torch.stack([torch.cat([va, vl]) for va, vl in cvel]),
+      efc_lambda=lam_out)
+  return qpos2, qvel2, view
+
+
+def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
+                      efc_lambda, const):
+  """Rows, Delassus operator, preconditioned APGD; (qfrc (nv, B),
+  converged physical duals (nrow, B))."""
+  nv, nrow, ncon = tm.nv, tm.nrow, tm.ncon
+  B = qpos.shape[1]
+  dtype, dev = qpos.dtype, qpos.device
+  cdof_ang = torch.stack([c[0] for c in cdof])  # (nv, 3, B)
+  cdof_lin = torch.stack([c[1] for c in cdof])
+
+  J_parts, pos_parts, act_parts, imp_parts, k_parts, b_parts = \
+      [], [], [], [], [], []
+  if ncon:
+    cps = tm.con_points
+    ends = []
+    for cp in cps:
+      bg = tm.geom_bodyid[cp.g2]
+      gpos = xpos[bg] + _quat_rot(xquat[bg], _c(tm.geom_pos[cp.g2]))
+      gmat = _quat_to_mat(_quat_mul(xquat[bg], _c(tm.geom_quat[cp.g2])))
+      ends.append(gpos + cp.sign * cp.half2 * gmat[:, 2])
+    end = torch.stack(ends)  # (ncon, 3, B)
+    normal = const([cp.frame[0] for cp in cps])  # (ncon, 3)
+    ppos = const([cp.ppos for cp in cps])
+    r = const([cp.r2 for cp in cps])[:, None]
+    dist = (torch.sum(normal[:, :, None] * (end - ppos[:, :, None]), dim=1)
+            - r)
+    cpos = end - normal[:, :, None] * (r + 0.5 * dist)[:, None]
+    dist = dist - const([cp.margin for cp in cps])[:, None]  # (ncon, B)
+
+    # relative-velocity Jacobian: sign per dof from the two bodies' paths
+    sgn = const([[float(tm.dof_body_mask[k, cp.body2])
+                  - float(tm.dof_body_mask[k, cp.body1])
+                  for k in range(nv)] for cp in cps])  # (ncon, nv)
+    jp = cdof_lin[None] + torch.linalg.cross(
+        cdof_ang[None], cpos[:, None], dim=2)  # (ncon, nv, 3, B)
+    frame = const([cp.frame for cp in cps])  # (ncon, 3 rows, 3)
+    J_c = torch.sum(frame[:, :, None, :, None] * jp[:, None], dim=3)
+    J_c = J_c * sgn[:, None, :, None]  # (ncon, 3, nv, B)
+    J_parts.append(J_c.reshape(3 * ncon, nv, B))
+    zc = torch.zeros_like(dist)
+    pos_parts.append(torch.stack([torch.clamp(dist, max=0.0), zc, zc],
+                                 dim=1).reshape(3 * ncon, B))
+    act_parts.append((dist < 0)[:, None].expand(ncon, 3, B)
+                     .reshape(3 * ncon, B))
+    ic = const([impedance_consts(cp.solimp) for cp in cps])  # (ncon, 5)
+    imp = _impedance(dist, *(ic[:, i:i + 1] for i in range(5)))
+    imp_parts.append(imp[:, None].expand(ncon, 3, B).reshape(3 * ncon, B))
+    kbs = [kb(cp.solref, float(cp.solimp[1])) for cp in cps]
+    k_parts.append(const([[v[0]] * 3 for v in kbs]).reshape(3 * ncon))
+    b_parts.append(const([[v[1]] * 3 for v in kbs]).reshape(3 * ncon))
+
+  nl = len(tm.lim_jnt)
+  if nl:
+    q = qpos[list(tm.lim_qadr)]  # (nl, B)
+    lo = (q - const(tm.lim_lo)[:, None]) - const(tm.lim_margin)[:, None]
+    hi = (const(tm.lim_hi)[:, None] - q) - const(tm.lim_margin)[:, None]
+    posv = torch.stack([lo, hi], dim=1).reshape(2 * nl, B)
+    jl = np.zeros((2 * nl, nv), np.float32)
+    for li in range(nl):
+      jl[2 * li, tm.lim_vadr[li]] = 1.0
+      jl[2 * li + 1, tm.lim_vadr[li]] = -1.0
+    J_parts.append(const(jl)[:, :, None].expand(2 * nl, nv, B))
+    pos_parts.append(torch.clamp(posv, max=0.0))
+    act_parts.append(posv < 0)
+    ic = impedance_consts(_DEFAULT_SOLIMP)
+    imp_parts.append(_impedance(posv, *ic))
+    kbs = [kb(tm.lim_solref[li], ic[1]) for li in range(nl)]
+    k_parts.append(const([[v[0]] * 2 for v in kbs]).reshape(2 * nl))
+    b_parts.append(const([[v[1]] * 2 for v in kbs]).reshape(2 * nl))
+
+  J = torch.cat(J_parts)  # (nrow, nv, B)
+  rows_pos = torch.cat(pos_parts)
+  active_rows = torch.cat(act_parts)
+  imp_s = torch.cat(imp_parts)
+  rows_k = torch.cat(k_parts)[:, None]
+  rows_b = torch.cat(b_parts)[:, None]
+
+  def jmat_vec(v):  # J v: (nv, B) -> (nrow, B)
+    return torch.sum(J * v[None], dim=1)
+
+  def jmat_t_vec(v):  # J^T v: (nrow, B) -> (nv, B)
+    return torch.sum(J * v[:, None], dim=0)
+
+  # aref = -imp (k pos + b J qvel)
+  vel_r = jmat_vec(qvel)
+  aref = -imp_s * (rows_k * rows_pos + rows_b * vel_r)
+
+  dense = amat_is_dense(nrow)
+  Jt = J.permute(1, 0, 2)  # (nv, nrow, B)
+  X = _chol_solve(L, Jt)  # M^-1 J^T
+  if dense:
+    amat = torch.sum(J[:, :, None] * X[None], dim=1)  # (nrow, nrow, B)
+    raw_diag = torch.diagonal(amat).T
+  else:
+    raw_diag = torch.sum(Jt * X, dim=0)
+  diag = torch.clamp(raw_diag, min=1e-10)
+  a0 = jmat_vec(qacc_smooth)
+
+  # softness R = (1 - d)/d * A_rr; degenerate rows (A_rr ~ 0 relative to
+  # the candidate's largest) are deactivated
+  reg = (1.0 - imp_s) / imp_s * diag
+  nondeg = raw_diag > 1e-8 * torch.max(raw_diag, dim=0, keepdim=True)[0]
+  active = active_rows & nondeg
+
+  # Jacobi preconditioning, tangent scales tied so the cone stays circular
+  nf = ncon
+  dr = diag + reg
+  if nf:
+    fc = dr[:3 * nf].reshape(nf, 3, B)
+    mt = 0.5 * (fc[:, 1] + fc[:, 2])
+    dr_s = torch.cat([torch.stack([fc[:, 0], mt, mt], dim=1)
+                      .reshape(3 * nf, B), dr[3 * nf:]])
+  else:
+    dr_s = dr
+  s_pre = 1.0 / torch.sqrt(torch.clamp(dr_s, min=1e-12))
+  if nf:
+    fs = s_pre[:3 * nf].reshape(nf, 3, B)
+    mu = const([cp.mu for cp in tm.con_points])[:, None]
+    mu_t = mu * fs[:, 0] / fs[:, 1]
+
+  def project(g):
+    parts = []
+    if nf:
+      gc = g[:3 * nf].reshape(nf, 3, B)
+      gn = torch.clamp(gc[:, 0], min=0.0)
+      gt1, gt2 = gc[:, 1], gc[:, 2]
+      tsq = gt1 * gt1 + gt2 * gt2
+      tiny = tsq < 1e-24
+      tnorm = torch.sqrt(torch.where(tiny, torch.ones_like(tsq), tsq))
+      tnorm = torch.where(tiny, torch.zeros_like(tnorm), tnorm)
+      cap = mu_t * gn
+      scale = torch.where(tnorm > cap, cap / torch.clamp(tnorm, min=1e-12),
+                          torch.ones_like(tnorm))
+      parts.append(torch.stack([gn, gt1 * scale, gt2 * scale], dim=1)
+                   .reshape(3 * nf, B))
+    if nrow > 3 * nf:  # joint limit rows
+      parts.append(torch.clamp(g[3 * nf:], min=0.0))
+    g = torch.cat(parts) if len(parts) > 1 else parts[0]
+    return torch.where(active, g, torch.zeros_like(g))
+
+  dinv = 1.0 / (diag + reg)
+  g_init = project((aref - a0) * dinv / s_pre)
+  if efc_lambda is not None:
+    # warm start from the previous step's physical duals, unless all-zero
+    cold = torch.sum(torch.abs(efc_lambda), dim=0) == 0
+    g0 = project(torch.where(cold[None], g_init, efc_lambda / s_pre))
+  else:
+    g0 = g_init
+  b_vec = a0 - aref
+
+  if dense:
+    def amul(v):
+      return torch.sum(amat * v[None], dim=1)
+  else:
+    def amul(v):  # J M^-1 J^T v, the Delassus matrix never formed
+      return jmat_vec(_chol_solve(L, jmat_t_vec(v)))
+
+  # step denominators floored at 1 (an all-inactive candidate stays finite)
+  if dense:
+    row_sum = (s_pre * torch.sum(torch.abs(amat) * s_pre[None], dim=1)
+               + s_pre * s_pre * reg)
+    step = 1.0 / torch.clamp(torch.max(
+        torch.where(active, row_sum, torch.zeros_like(row_sum)), dim=0)[0],
+        min=1.0)
+  else:
+    def opmul(v):
+      v = torch.where(active, v, torch.zeros_like(v))
+      sv = s_pre * v
+      out = s_pre * (amul(sv) + reg * sv)
+      return torch.where(active, out, torch.zeros_like(out))
+
+    v_p = active.to(dtype)
+    for _ in range(_POWER_ITERS):
+      w_p = opmul(v_p)
+      v_p = w_p / torch.sqrt(torch.clamp(torch.sum(w_p * w_p, dim=0),
+                                         min=1e-30))
+    lam = torch.sum(v_p * opmul(v_p), dim=0)
+    step = 1.0 / torch.clamp(1.25 * lam, min=1.0)
+
+  def grad(g):
+    f = s_pre * g
+    return s_pre * (amul(f) + reg * f + b_vec)
+
+  g, y = g0, g0
+  t = torch.ones((B,), dtype=dtype, device=dev)
+  for _ in range(_ITERATIONS):
+    g_new = project(y - step[None] * grad(y))
+    t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
+    beta = (t - 1.0) / t_new
+    dg = g_new - g
+    reverse = torch.sum(dg * (y - g_new), dim=0) > 0
+    y = torch.where(reverse[None], g_new, g_new + beta * dg)
+    t = torch.where(reverse, torch.ones_like(t), t_new)
+    g = g_new
+  f = s_pre * g  # physical dual forces
+  return jmat_t_vec(f), f

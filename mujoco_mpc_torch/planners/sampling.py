@@ -1,0 +1,187 @@
+"""Predictive Sampling: the zero-order random-search planner.
+
+Counterpart of mujoco_mpc_tpu/planners/sampling.py (reference
+mjpc/planners/sampling/planner.cc:155-393): N noisy copies of the nominal
+spline policy (index 0 = the noise-free nominal), one rollout each, keep
+the argmin. The rollouts are one MegaRollout call (ops/megarollout.py):
+the CUDA kernel on the card, its plain version on the CPU.
+
+Noise follows the reference (AddNoiseToPolicy, planner.cc:326-352):
+per-actuator std = exploration * ctrlrange/2, with 20% of samples on a
+second std when one is set, then clamping to ctrlrange. Noise comes from
+an explicit torch.Generator, or is given (tests hand the same numbers to
+both packages).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from mujoco_mpc_torch.ops import megarollout
+from mujoco_mpc_torch.ops import spline
+from mujoco_mpc_torch.physics import tilestep
+from mujoco_mpc_torch.physics.types import Data
+from mujoco_mpc_torch.planners.base import PlanInfo
+from mujoco_mpc_torch.tasks.base import Task, TaskParams
+
+_STD2_PROPORTION = 0.2  # reference kStd2Proportion
+
+
+@dataclasses.dataclass
+class SamplingPolicy:
+  """Spline control policy: (times, values) node arrays."""
+  times: torch.Tensor  # (k,)
+  values: torch.Tensor  # (k, nu)
+  exploration: torch.Tensor  # () noise std
+  exploration2: torch.Tensor  # () second mixture std (0 = disabled)
+
+  def replace(self, **kw) -> "SamplingPolicy":
+    return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingConfig:
+  num_trajectories: int = 128
+  spline_points: int = 10
+  horizon: int = 100  # steps
+  interp: spline.Interp = spline.Interp.ZERO
+
+  @classmethod
+  def from_task(cls, task: Task, horizon_steps: Optional[int] = None):
+    m = task.model
+    dt = float(m.custom("agent_timestep", float(m.opt.timestep)))
+    hor = horizon_steps or int(
+        round(float(m.custom("agent_horizon", 1.0)) / dt))
+    return cls(
+        num_trajectories=int(m.custom("sampling_trajectories", 128)),
+        spline_points=int(m.custom("sampling_spline_points", 10)),
+        horizon=hor,
+        interp=spline.Interp(int(m.custom("sampling_representation", 0))),
+    )
+
+
+class SamplingPlanner:
+  """Predictive-sampling planner over MegaRollout."""
+
+  def __init__(self, config: SamplingConfig):
+    self.config = config
+    self.mega: Optional[megarollout.MegaRollout] = None
+
+  def init(self, task: Task) -> SamplingPolicy:
+    """Fresh policy; builds the MegaRollout for this task on its model's
+    device (raises NotImplementedError for a model outside its class)."""
+    if self.mega is None:
+      try:
+        self.mega = megarollout.MegaRollout(task, self.config.horizon,
+                                            device=task.model.device)
+      except tilestep.UnsupportedModel as e:
+        raise NotImplementedError(
+            f"{e}; the general batched rollout that would run it is not "
+            "ported yet (ROADMAP queue 1 item 6)") from e
+    m = task.model
+    k = self.config.spline_points
+    horizon_time = self.config.horizon * m.opt.timestep
+    times = torch.linspace(0.0, float(horizon_time), k, dtype=m.dtype,
+                           device=m.device)
+    values = task.default_ctrl()[None].repeat(k, 1)
+    expl = torch.tensor(float(m.custom("sampling_exploration", 0.1)),
+                        dtype=m.dtype, device=m.device)
+    return SamplingPolicy(times=times, values=values, exploration=expl,
+                          exploration2=torch.zeros_like(expl))
+
+  # ---------------------------------------------------------------- action
+  def action(self, task: Task, policy: SamplingPolicy,
+             data: Data) -> torch.Tensor:
+    u = spline.sample(policy.times, policy.values, data.time,
+                      self.config.interp)
+    lo = task.model.actuator_ctrlrange[:, 0]
+    hi = task.model.actuator_ctrlrange[:, 1]
+    return torch.where(task.model.actuator_ctrllimited,
+                       torch.clamp(u, lo, hi), u)
+
+  # -------------------------------------------------------------- optimize
+  def _gen_candidates(self, task: Task, policy: SamplingPolicy, data: Data,
+                      generator: Optional[torch.Generator],
+                      noise: Optional[torch.Tensor] = None,
+                      use2: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(new_times, nominal, candidate values (N, k, nu)).
+
+    `noise` (N-1, k, nu) standard normals and `use2` (N-1,) bool replace
+    the draws from `generator` when given."""
+    cfg = self.config
+    m = task.model
+    k, n = cfg.spline_points, cfg.num_trajectories
+    dt = m.opt.timestep
+
+    # 1. resample the nominal onto a grid anchored at the current time
+    horizon_time = (cfg.horizon - 1) * dt
+    denom = k if cfg.interp == spline.Interp.ZERO else k - 1
+    new_times = data.time + torch.arange(
+        k, dtype=policy.times.dtype, device=m.device) * (
+            horizon_time / max(denom, 1))
+    nominal = spline.resample(policy.times, policy.values, new_times,
+                              cfg.interp)
+
+    # 2. two-component Gaussian noise on the nodes, scaled by ctrlrange
+    if noise is None:
+      noise = torch.randn((n - 1, k, m.nu), generator=generator,
+                          dtype=nominal.dtype, device=m.device)
+    if use2 is None:
+      use2 = torch.rand((n - 1,), generator=generator, dtype=nominal.dtype,
+                        device=m.device) < _STD2_PROPORTION
+    scale = 0.5 * (m.actuator_ctrlrange[:, 1] - m.actuator_ctrlrange[:, 0])
+    scale = torch.where(m.actuator_ctrllimited, scale,
+                        torch.ones_like(scale))
+    use2 = use2 & (policy.exploration2 > 0)
+    stds = torch.where(use2, policy.exploration2, policy.exploration)
+    noise = noise * stds[:, None, None] * scale[None, None, :]
+    cands = torch.cat([nominal[None], nominal[None] + noise])
+    lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+    cands = torch.where(m.actuator_ctrllimited, torch.clamp(cands, lo, hi),
+                        cands)
+    return new_times, nominal, cands
+
+  def _actions(self, task: Task, data: Data, new_times: torch.Tensor,
+               cands: torch.Tensor) -> torch.Tensor:
+    """Per-step actions (N, T, nu) of the candidate splines."""
+    cfg = self.config
+    ts = data.time + torch.arange(
+        cfg.horizon, dtype=cands.dtype, device=cands.device) * \
+        task.model.opt.timestep
+    return spline.sample_many(new_times, cands, ts, cfg.interp).contiguous()
+
+  def _returns(self, task: Task, data: Data, new_times: torch.Tensor,
+               cands: torch.Tensor,
+               params: Optional[TaskParams]) -> torch.Tensor:
+    """Candidate returns (N,) from one MegaRollout call."""
+    actions = self._actions(task, data, new_times, cands)
+    return self.mega.returns(
+        data.qpos, data.qvel, actions,
+        params if params is not None else task.params, data.time)
+
+  def candidates(self, task: Task, policy: SamplingPolicy, data: Data,
+                 generator: Optional[torch.Generator],
+                 params: Optional[TaskParams] = None, noise=None, use2=None
+                 ) -> Tuple[SamplingPolicy, torch.Tensor, torch.Tensor]:
+    """(resampled nominal policy, candidate values (N, k, nu), returns)."""
+    new_times, nominal, cands = self._gen_candidates(
+        task, policy, data, generator, noise, use2)
+    returns = self._returns(task, data, new_times, cands, params)
+    resampled = policy.replace(times=new_times, values=nominal)
+    return resampled, cands, returns
+
+  def optimize(self, task: Task, policy: SamplingPolicy, data: Data,
+               generator: Optional[torch.Generator],
+               params: Optional[TaskParams] = None, noise=None, use2=None
+               ) -> Tuple[SamplingPolicy, PlanInfo]:
+    resampled, cands, returns = self.candidates(
+        task, policy, data, generator, params, noise, use2)
+    winner = torch.argmin(returns)
+    new_policy = resampled.replace(values=cands[winner])
+    info = PlanInfo(costs=returns, winner=winner,
+                    best_return=returns[winner])
+    return new_policy, info

@@ -1,0 +1,180 @@
+"""Task system: cost specs from MJCF, residual functions, cost with risk.
+
+Counterpart of mujoco_mpc_tpu/tasks/base.py. Cost terms are `<user>`
+sensors with user="norm weight lo hi params..."; residual parameters come
+from `<custom><numeric name="residual_*">`; the risk transform is
+rho(l, R) = (e^{R l} - 1) / R (mjpc/task.cc:91-110).
+
+Runtime-tunable quantities (weights, norm params, risk, residual params)
+live in TaskParams, so changing them rebuilds nothing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from mujoco_mpc_torch.ops import norms
+from mujoco_mpc_torch.physics.types import Model
+
+_RISK_TOL = 1e-6
+
+
+@dataclasses.dataclass
+class TaskParams:
+  """Runtime-mutable task quantities."""
+  weights: torch.Tensor  # (nterm,)
+  norm_params: torch.Tensor  # (nterm, 2)
+  risk: torch.Tensor  # ()
+  residual_params: torch.Tensor  # (nres_param,) residual_* custom numerics
+
+  def replace(self, **kw) -> "TaskParams":
+    return dataclasses.replace(self, **kw)
+
+  def to(self, device=None, dtype=None) -> "TaskParams":
+    return TaskParams(*(getattr(self, f.name).to(device=device, dtype=dtype)
+                        for f in dataclasses.fields(self)))
+
+
+@dataclasses.dataclass(frozen=True)
+class CostSpec:
+  """Static structure of the cost: one entry per `<user>` sensor term."""
+  names: Tuple[str, ...]
+  norm_types: Tuple[int, ...]
+  dims: Tuple[int, ...]
+
+  @property
+  def nterm(self) -> int:
+    return len(self.names)
+
+  @property
+  def nresidual(self) -> int:
+    return sum(self.dims)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceResidual:
+  """Selects a task residual written as a CUDA device function.
+
+  `id` picks the function in csrc/megarollout.cu; `ints` are the model
+  indices it reads (body, dof, ...), resolved once from the Model."""
+  id: int
+  ints: Tuple[int, ...] = ()
+
+
+def parse_cost_spec_mj(mj_model, model: Model, dtype=torch.float32,
+                       device="cpu"):
+  """(CostSpec, TaskParams, residual param names) from a mujoco.MjModel."""
+  import mujoco
+
+  names, norm_types, dims, weights, params = [], [], [], [], []
+  for i in range(mj_model.nsensor):
+    if mj_model.sensor_type[i] != mujoco.mjtSensor.mjSENS_USER:
+      break
+    user = mj_model.sensor_user[i]
+    names.append(model.sensor_names[i])
+    norm_types.append(int(user[0]))
+    dims.append(int(mj_model.sensor_dim[i]))
+    weights.append(float(user[1]))
+    p = list(user[4:6]) + [0.0, 0.0]
+    params.append((float(p[0]), float(p[1])))
+
+  res_params, res_names = [], []
+  for key, vals in model.custom_numeric:
+    if key.startswith("residual_"):
+      res_params.append(vals[0] if vals else 0.0)
+      res_names.append(key)
+
+  risk = model.custom("task_risk", 0.0)
+  spec = CostSpec(tuple(names), tuple(norm_types), tuple(dims))
+
+  def t(x):
+    return torch.tensor(x, dtype=dtype, device=device)
+
+  tp = TaskParams(weights=t(weights), norm_params=t(params), risk=t(risk),
+                  residual_params=t(res_params))
+  return spec, tp, tuple(res_names)
+
+
+def cost_terms(spec: CostSpec, tp: TaskParams, residual: torch.Tensor,
+               weighted: bool = True) -> torch.Tensor:
+  """Per-term costs (nterm,) from a residual vector (mjpc/task.cc:71-88)."""
+  terms = []
+  shift = 0
+  for k in range(spec.nterm):
+    block = residual[shift:shift + spec.dims[k]]
+    val = norms.norm_value(block, norms.NormType(spec.norm_types[k]),
+                           tp.norm_params[k, 0], tp.norm_params[k, 1])
+    if weighted:
+      val = tp.weights[k] * val
+    terms.append(val)
+    shift += spec.dims[k]
+  return torch.stack(terms) if terms else residual.new_zeros((0,))
+
+
+def risk_transform(cost: torch.Tensor, risk: torch.Tensor) -> torch.Tensor:
+  """(e^{R l} - 1) / R, and l itself for |R| below tolerance."""
+  small = torch.abs(risk) < _RISK_TOL
+  risky = (torch.exp(risk * cost) - 1.0) / torch.where(
+      small, torch.ones_like(risk), risk)
+  return torch.where(small, cost, risky)
+
+
+def cost_value(spec: CostSpec, tp: TaskParams,
+               residual: torch.Tensor) -> torch.Tensor:
+  """Scalar cost with exponential risk transform (mjpc/task.cc:91-110)."""
+  return risk_transform(torch.sum(cost_terms(spec, tp, residual)), tp.risk)
+
+
+ResidualFn = Callable[[Model, object, torch.Tensor], torch.Tensor]
+
+
+@dataclasses.dataclass
+class Task:
+  """A control task: model + cost spec + residual function.
+
+  Task modes, transitions and state-dependent weights (the JAX Task's
+  `transition`, `mode_names`, `weight_mod`) come with the tasks that use
+  them (ROADMAP queue 2 slice S4)."""
+  model: Model
+  params: TaskParams
+  name: str
+  spec: CostSpec
+  residual: ResidualFn
+  param_names: Tuple[str, ...] = ()
+  # the residual as a CUDA device function, for MegaRollout on the card
+  device_residual: Optional[DeviceResidual] = None
+
+  def replace(self, **kw) -> "Task":
+    return dataclasses.replace(self, **kw)
+
+  def default_ctrl(self) -> torch.Tensor:
+    """Initial nominal control: the home keyframe's ctrl when present and
+    nonzero, otherwise mid-ctrlrange."""
+    m = self.model
+    try:
+      ctrl = torch.tensor(m.keyframe("home")[2], dtype=m.dtype,
+                          device=m.device)
+      if ctrl.shape[0] == m.nu and bool(torch.any(ctrl != 0)):
+        return ctrl
+    except KeyError:
+      pass
+    mid = 0.5 * (m.actuator_ctrlrange[:, 0] + m.actuator_ctrlrange[:, 1])
+    return torch.where(m.actuator_ctrllimited, mid, torch.zeros_like(mid))
+
+  def set_weight(self, name: str, value) -> "Task":
+    """SetCostWeights by term name (reference agent.proto:161-170)."""
+    i = self.spec.names.index(name)
+    weights = self.params.weights.clone()
+    weights[i] = value
+    return self.replace(params=self.params.replace(weights=weights))
+
+  def set_parameter(self, name: str, value) -> "Task":
+    """SetTaskParameters by residual_* name (agent.proto:152-159)."""
+    key = name if name.startswith("residual_") else f"residual_{name}"
+    i = self.param_names.index(key)
+    rp = self.params.residual_params.clone()
+    rp[i] = value
+    return self.replace(params=self.params.replace(residual_params=rp))

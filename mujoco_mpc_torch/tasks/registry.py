@@ -1,0 +1,104 @@
+"""Task registry: name -> Task factory (reference GetTasks,
+mjpc/tasks/tasks.cc:46-75).
+
+Each ported task loads its model from a snapshot under tasks/models/, made
+on a host with `mujoco` and `dm_control` by `write_snapshots()`:
+
+    python -c "from mujoco_mpc_torch.tasks import registry; \\
+               registry.write_snapshots()"
+
+A snapshot holds the Model that physics/io.py::from_mjmodel builds (in
+f64), the cost spec and the default TaskParams. tests/test_torch_model.py
+holds each snapshot equal to a fresh build.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from mujoco_mpc_torch.physics import io as phys_io
+from mujoco_mpc_torch.tasks import base
+
+_MODEL_DIR = os.path.join(os.path.dirname(__file__), "models")
+
+_FACTORIES: Dict[str, Callable[..., base.Task]] = {}
+# task name -> (snapshot stem, mujoco builder returning an MjModel)
+_SNAPSHOTS: Dict[str, Tuple[str, Callable]] = {}
+
+
+def register(name: str, snapshot: str, builder: Callable):
+  def wrap(fn):
+    _FACTORIES[name] = fn
+    _SNAPSHOTS[name] = (snapshot, builder)
+    return fn
+  return wrap
+
+
+def task_names():
+  return sorted(_FACTORIES)
+
+
+def get_task(name: str, dtype=torch.float32, device="cpu") -> base.Task:
+  if name not in _FACTORIES:
+    raise KeyError(
+        f"task {name!r} is not ported yet: ROADMAP queue 1 items 5 and 11 "
+        f"port the other tasks; ported: {task_names()}")
+  return _FACTORIES[name](dtype=dtype, device=device)
+
+
+def snapshot_path(stem: str) -> str:
+  return os.path.join(_MODEL_DIR, f"{stem}.npz")
+
+
+def build_task_model(builder, dtype=torch.float32, device="cpu"):
+  """(Model, CostSpec, TaskParams, param_names) from a mujoco builder."""
+  mj = builder()
+  model = phys_io.from_mjmodel(mj, dtype=dtype, device=device)
+  spec, params, names = base.parse_cost_spec_mj(mj, model, dtype=dtype,
+                                                device=device)
+  return model, spec, params, names
+
+
+def write_snapshots() -> None:
+  """Rebuild every registered task's snapshot (needs mujoco, dm_control)."""
+  os.makedirs(_MODEL_DIR, exist_ok=True)
+  for stem, builder in _SNAPSHOTS.values():
+    model, spec, params, names = build_task_model(builder, torch.float64)
+    meta = {"names": spec.names, "norm_types": spec.norm_types,
+            "dims": spec.dims, "param_names": names}
+    phys_io.save_snapshot(
+        snapshot_path(stem), model,
+        **{"task.spec": np.asarray(json.dumps(meta)),
+           "task.weights": params.weights.numpy(),
+           "task.norm_params": params.norm_params.numpy(),
+           "task.risk": params.risk.numpy(),
+           "task.residual_params": params.residual_params.numpy()})
+
+
+def load_task_model(stem: str, dtype=torch.float32, device="cpu"):
+  """(Model, CostSpec, TaskParams, param_names) from a snapshot."""
+  model, extra = phys_io.load_snapshot(snapshot_path(stem), dtype, device)
+  meta = json.loads(str(extra["task.spec"]))
+  spec = base.CostSpec(tuple(meta["names"]), tuple(meta["norm_types"]),
+                       tuple(meta["dims"]))
+
+  def t(key):
+    return torch.as_tensor(extra[key], device=device).to(dtype)
+
+  params = base.TaskParams(weights=t("task.weights"),
+                           norm_params=t("task.norm_params"),
+                           risk=t("task.risk"),
+                           residual_params=t("task.residual_params"))
+  return model, spec, params, tuple(meta["param_names"])
+
+
+def _register_all():
+  from mujoco_mpc_torch.tasks import walker  # noqa: F401
+
+
+_register_all()

@@ -1,0 +1,108 @@
+"""The CUDA kernel (csrc/megarollout.cu) against its plain PyTorch version.
+
+Needs an NVIDIA GPU (sm_90a) and nvcc; every test skips without a card.
+On the card: python -m pytest tests/test_torch_megarollout_cuda.py -q
+
+Tolerances as in tests/test_torch_tilestep.py: one step qpos atol 1e-6,
+qvel atol 1e-4, duals atol 1e-5 * max|duals|; returns rtol 2e-3.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mujoco_mpc_torch.ops import megarollout as tmr
+from mujoco_mpc_torch.physics import tilestep as tts
+from mujoco_mpc_torch.tasks import registry as treg
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def walker():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device and nvcc")
+  dev = torch.device("cuda")
+  return treg.get_task("Walker", device=dev), dev
+
+
+def _feet_only(task):
+  """Walker with only the feet colliding: nrow 24, the dense branch."""
+  feet = (task.model.geom("right_foot"), task.model.geom("left_foot"))
+  pairs = tuple(p for p in task.model.collision_pairs if p[1] in feet)
+  return task.replace(model=task.model.replace(collision_pairs=pairs))
+
+
+def _states(dev, b, seed=1):
+  rng = np.random.RandomState(seed)
+  home = np.asarray(treg.get_task("Walker").model.keyframe("home")[0])
+  qp = (home + rng.uniform(-0.05, 0.05, (b, 9))).astype(np.float32)
+  qp[:, 0] -= 0.03
+  qv = rng.uniform(-0.5, 0.5, (b, 9)).astype(np.float32)
+  ct = rng.uniform(-1.0, 1.0, (b, 6)).astype(np.float32)
+  return [torch.tensor(x.T.copy(), device=dev) for x in (qp, qv, ct)]
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_step_matches_plain(walker, dense):
+  task, dev = walker
+  task = _feet_only(task) if dense else task
+  mr = tmr.MegaRollout(task, 1, device=dev)
+  assert tts.amat_is_dense(mr.tm.nrow) == dense
+  q, v, c = _states(dev, 96)
+  kq, kv, kl = q, v, None
+  pq, pv, pl = q, v, None
+  for _ in range(2):  # cold, then warm-started
+    kq, kv, kl = mr.step(kq, kv, c, kl)
+    pq, pv, view = tts.step_tb(mr.tm, pq, pv, c, pl)
+    pl = view.efc_lambda
+    torch.cuda.synchronize()
+    scale = float(pl.abs().max())
+    assert scale > 1.0
+    torch.testing.assert_close(kq, pq, atol=1e-6, rtol=0)
+    torch.testing.assert_close(kv, pv, atol=1e-4, rtol=0)
+    torch.testing.assert_close(kl, pl, atol=1e-5 * scale, rtol=0)
+  assert mr.step_launches == 2 and mr.launches == 0
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_returns_match_plain(walker, dense):
+  task, dev = walker
+  task = _feet_only(task) if dense else task
+  n, horizon = 100, 8  # n not a multiple of the block: ragged edge
+  mr = tmr.MegaRollout(task, horizon, device=dev)
+  acts = torch.tensor(0.4 * np.random.RandomState(0).randn(n, horizon, 6),
+                      dtype=torch.float32, device=dev)
+  acts[5] = 1e30
+  q0 = torch.tensor(task.model.keyframe("home")[0], device=dev)
+  v0 = torch.zeros(9, device=dev)
+  t0 = torch.tensor(0.75, device=dev)  # a runtime operand, as on the CPU
+  got = mr.returns(q0, v0, acts, task.params, t0)
+  want = mr.returns_plain(q0, v0, acts, task.params, t0)
+  got_f = mr.returns(q0, v0, acts, task.params, 0.75)
+  torch.cuda.synchronize()
+  assert mr.launches == 2
+  torch.testing.assert_close(got_f, got, rtol=0, atol=0)
+  assert float(got[5]) == float(want[5]) == tmr.MAX_RETURN
+  torch.testing.assert_close(got, want, rtol=2e-3, atol=0)
+  heavier = task.params.replace(weights=task.params.weights * 3.0)
+  got3 = mr.returns(q0, v0, acts, heavier, t0)
+  keep = torch.arange(n, device=dev) != 5
+  torch.testing.assert_close(got3[keep], 3.0 * got[keep], rtol=1e-5, atol=0)
+
+
+def test_wrapper_checks_inputs(walker):
+  task, dev = walker
+  mr = tmr.MegaRollout(task, 4, device=dev)
+  q0 = torch.tensor(task.model.keyframe("home")[0], device=dev)
+  acts = torch.zeros((8, 4, 6), device=dev)
+  with pytest.raises(ValueError, match="float32"):
+    mr.returns(q0.double(), torch.zeros(9, device=dev), acts, task.params,
+               0.0)
+  with pytest.raises(ValueError, match="shape"):
+    mr.returns(q0, torch.zeros(9, device=dev), acts[:, :3], task.params,
+               0.0)
+  with pytest.raises(ValueError, match="built for cpu"):
+    tmr.MegaRollout(task, 4).returns(q0, torch.zeros(9, device=dev), acts,
+                                     task.params, 0.0)
+  assert mr.launches == 0

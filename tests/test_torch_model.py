@@ -1,0 +1,159 @@
+"""mujoco_mpc_torch model loading held against the JAX package.
+
+The same MjModel goes through both packages' from_mjmodel; the JAX Model is
+carried across with mujoco_mpc_torch.convert and compared field by field
+(integers and booleans exactly, floats to 1e-6). The port's tile extraction
+is compared with mujoco_mpc_tpu.physics.tilestep.extract the same way.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mujoco_mpc_torch import convert
+from mujoco_mpc_torch.agent.agent import Agent
+from mujoco_mpc_torch.physics import io as tio
+from mujoco_mpc_torch.physics import tilestep as tts
+from mujoco_mpc_torch.tasks import dm_suite
+from mujoco_mpc_torch.tasks import registry as treg
+from mujoco_mpc_tpu.physics import io as jio
+from mujoco_mpc_tpu.physics import tilestep as jts
+from mujoco_mpc_tpu.tasks import registry as jreg
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _same(name, a, b, atol):
+  """Field equality: tensors/arrays by value, everything else by ==."""
+  if isinstance(a, torch.Tensor):
+    a = a.cpu().numpy()
+  if isinstance(b, torch.Tensor):
+    b = b.cpu().numpy()
+  if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape, name
+    if np.issubdtype(a.dtype, np.floating):
+      np.testing.assert_allclose(a, b, rtol=0, atol=atol, err_msg=name)
+    else:
+      np.testing.assert_array_equal(a, b, err_msg=name)
+  else:
+    assert a == b, name
+
+
+@pytest.fixture(scope="module")
+def walker_mj():
+  return dm_suite.build_walker()
+
+
+def test_from_mjmodel_matches_jax_model(walker_mj):
+  ours = tio.from_mjmodel(walker_mj, dtype=torch.float32)
+  jm = jio.from_mjmodel(walker_mj, dtype=jnp.float32)
+  theirs = convert.model(jax.tree_util.tree_map(np.asarray, jm))
+  for f in dataclasses.fields(ours):
+    if f.name == "opt":
+      for g in dataclasses.fields(ours.opt):
+        _same(f"opt.{g.name}", getattr(ours.opt, g.name),
+              getattr(theirs.opt, g.name), 1e-6)
+    else:
+      _same(f.name, getattr(ours, f.name), getattr(theirs, f.name), 1e-6)
+  assert ours.body("torso") == jm.body("torso")
+  assert ours.custom("agent_timestep") == jm.custom("agent_timestep")
+  assert ours.keyframe("home") == jm.keyframe("home")
+
+
+def test_walker_snapshot_matches_fresh_build():
+  """The committed snapshot is exactly what from_mjmodel builds now."""
+  fresh, spec, params, names = treg.build_task_model(
+      dm_suite.build_walker, dtype=torch.float64)
+  snap, sspec, sparams, snames = treg.load_task_model(
+      "walker", dtype=torch.float64)
+  for f in dataclasses.fields(fresh):
+    if f.name == "opt":
+      for g in dataclasses.fields(fresh.opt):
+        _same(g.name, getattr(fresh.opt, g.name), getattr(snap.opt, g.name),
+              0.0)
+    else:
+      _same(f.name, getattr(fresh, f.name), getattr(snap, f.name), 0.0)
+  assert (spec, names) == (sspec, snames)
+  for f in dataclasses.fields(params):
+    _same(f.name, getattr(params, f.name), getattr(sparams, f.name), 0.0)
+
+
+def test_task_matches_jax_task():
+  ours = treg.get_task("Walker")
+  theirs = jreg.get_task("Walker", dtype=jnp.float32)
+  assert tuple(ours.spec.names) == tuple(theirs.spec.names)
+  assert tuple(ours.spec.norm_types) == tuple(theirs.spec.norm_types)
+  assert tuple(ours.spec.dims) == tuple(theirs.spec.dims)
+  assert ours.param_names == theirs.param_names
+  p = convert.task_params(jax.tree_util.tree_map(np.asarray, theirs.params))
+  for f in dataclasses.fields(p):
+    _same(f.name, getattr(ours.params, f.name), getattr(p, f.name), 1e-6)
+  _same("default_ctrl", ours.default_ctrl(),
+        np.asarray(theirs.default_ctrl()), 1e-6)
+
+
+def test_extract_matches_jax_extract():
+  ours = tts.extract(treg.get_task("Walker").model)
+  theirs = jts.extract(jreg.get_task("Walker", dtype=jnp.float32).model)
+  assert (ours.ncon, ours.nlim, ours.nrow) == (
+      theirs.ncon, theirs.nlim, theirs.nrow) == (14, 12, 54)
+  for f in dataclasses.fields(ours):
+    if f.name == "con_points":
+      continue
+    _same(f.name, getattr(ours, f.name), getattr(theirs, f.name), 1e-6)
+  assert len(ours.con_points) == len(theirs.con_points)
+  for i, (a, b) in enumerate(zip(ours.con_points, theirs.con_points)):
+    for f in dataclasses.fields(a):
+      _same(f"con_points[{i}].{f.name}", getattr(a, f.name),
+            getattr(b, f.name), 1e-6)
+
+
+def test_import_leaves_jax_out():
+  code = ("import sys\n"
+          "import mujoco_mpc_torch.agent.agent, mujoco_mpc_torch.convert\n"
+          "import mujoco_mpc_torch.ops.megarollout\n"
+          "bad = [m for m in sys.modules if m.split('.')[0] in "
+          "('jax', 'jaxlib', 'flax', 'mujoco_mpc_tpu')]\n"
+          "assert not bad, bad\n")
+  proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                        capture_output=True, text=True, timeout=120)
+  assert proc.returncode == 0, proc.stderr
+
+
+def test_out_of_class_models_raise():
+  free = tio.load_model(
+      "<mujoco><worldbody><body><freejoint/><geom size='.1'/></body>"
+      "</worldbody></mujoco>")
+  with pytest.raises(tts.UnsupportedModel, match="S3"):
+    tts.extract(free)
+  walker = treg.get_task("Walker").model
+  # a box on the floor is a contact kind of slice S5
+  boxes = walker.replace(geom_type=tuple(
+      6 if g == 4 else t for g, t in enumerate(walker.geom_type)))
+  with pytest.raises(tts.UnsupportedModel, match="S5"):
+    tts.extract(boxes)
+  with pytest.raises(KeyError, match="not ported yet"):
+    treg.get_task("Humanoid Walk")
+
+
+def test_make_data_matches_jax():
+  ours = tio.make_data(treg.get_task("Walker").model)
+  theirs = convert.data(jax.tree_util.tree_map(
+      np.asarray, jio.make_data(jreg.get_task("Walker",
+                                              dtype=jnp.float32).model)))
+  for f in dataclasses.fields(ours):
+    _same(f.name, getattr(ours, f.name), getattr(theirs, f.name), 0.0)
+
+
+def test_agent_step_is_not_ported():
+  agent = Agent("Walker", device="cpu", horizon_steps=2)
+  with pytest.raises(NotImplementedError, match="general physics engine"):
+    agent.step()

@@ -1,0 +1,144 @@
+"""The port's plain tile step and rollout held against the JAX tile path.
+
+mujoco_mpc_torch.physics.tilestep.step_tb against
+mujoco_mpc_tpu.physics.tilestep.step_tb, and the port's CPU
+MegaRollout.returns against the JAX MegaRollout.returns_xla (which
+tests/test_megarollout.py pins to the interpret-mode Pallas kernel), on the
+same float32 inputs made with numpy from a seed.
+
+Tolerances, with the errors measured when they were set:
+  one step: qpos atol 1e-6 (measured 3e-8), qvel atol 1e-4 (8e-6), duals
+    atol 1e-5 * max|duals| (3e-3 of 2.2e3, i.e. 1.4e-6 relative);
+  returns: rtol 2e-3, the repo's tolerance between two implementations
+    (test_megarollout.py), measured 2.4e-7 at T=10, n=8.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mujoco_mpc_torch.ops import megarollout as tmr
+from mujoco_mpc_torch.physics import tilestep as tts
+from mujoco_mpc_torch.tasks import registry as treg
+from mujoco_mpc_tpu.ops import megarollout as jmr
+from mujoco_mpc_tpu.physics import tilestep as jts
+from mujoco_mpc_tpu.tasks import registry as jreg
+
+T, N, B = 10, 8, 8
+
+
+@pytest.fixture(scope="module")
+def tasks():
+  return treg.get_task("Walker"), jreg.get_task("Walker", dtype=jnp.float32)
+
+
+def _states(seed, home):
+  rng = np.random.RandomState(seed)
+  qp = (home + rng.uniform(-0.05, 0.05, (B, 9))).astype(np.float32)
+  qp[:, 0] -= 0.03  # sink the walker a little: contacts active
+  qv = rng.uniform(-0.5, 0.5, (B, 9)).astype(np.float32)
+  ct = rng.uniform(-1.0, 1.0, (B, 6)).astype(np.float32)
+  return qp.T.copy(), qv.T.copy(), ct.T.copy()
+
+
+def _jax_step(jtm):
+  def f(q, v, c, lam):
+    q2, v2, view = jts.step_tb(jtm, q, v, c, efc_lambda=lam)
+    return q2, v2, view.efc_lambda
+  return jax.jit(f)
+
+
+def _compare_two_steps(ttm, jtm, home):
+  qp, qv, ct = _states(1, home)
+  jstep = _jax_step(jtm)
+  lam = np.zeros((ttm.nrow, B), np.float32)
+  tq, tv, tl = torch.tensor(qp), torch.tensor(qv), torch.tensor(lam)
+  jq, jv, jl = jnp.asarray(qp), jnp.asarray(qv), jnp.asarray(lam)
+  for _ in range(2):  # a cold step, then a warm-started one
+    tq, tv, view = tts.step_tb(ttm, tq, tv, torch.tensor(ct), tl)
+    tl = view.efc_lambda
+    jq, jv, jl = jstep(jq, jv, jnp.asarray(ct), jl)
+    scale = float(np.abs(np.asarray(jl)).max())
+    assert scale > 1.0  # contacts carry force
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=1e-6)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-4)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                               atol=1e-5 * scale)
+
+
+def test_step_matches_jax_matrix_free(tasks):
+  """Walker: nrow = 54 > the dense threshold, matrix-free solve."""
+  t, j = tasks
+  ttm, jtm = tts.extract(t.model), jts.extract(j.model)
+  assert not tts.amat_is_dense(ttm.nrow)
+  _compare_two_steps(ttm, jtm, np.asarray(t.model.keyframe("home")[0]))
+
+
+def test_step_matches_jax_dense(tasks):
+  """Walker with only the feet colliding: nrow = 24, the dense Delassus
+  branch with the Gershgorin step."""
+  t, j = tasks
+  feet = (t.model.geom("right_foot"), t.model.geom("left_foot"))
+  pairs = tuple(p for p in t.model.collision_pairs if p[1] in feet)
+  ttm = tts.extract(t.model.replace(collision_pairs=pairs))
+  jtm = jts.extract(j.model.replace(collision_pairs=pairs))
+  assert ttm.nrow == 24 and tts.amat_is_dense(ttm.nrow)
+  _compare_two_steps(ttm, jtm, np.asarray(t.model.keyframe("home")[0]))
+
+
+@pytest.fixture(scope="module")
+def rollouts(tasks):
+  t, j = tasks
+  home = np.asarray(t.model.keyframe("home")[0], np.float32)
+  acts = (0.4 * np.random.RandomState(0).randn(N, T, 6)).astype(np.float32)
+  jm = jmr.MegaRollout(j, T)
+  jf = jax.jit(jm.returns_xla)
+
+  def jax_returns(actions, params):
+    return np.asarray(jf(jnp.asarray(home), jnp.zeros(9, jnp.float32),
+                         jnp.asarray(actions), params, 0.0))
+
+  def torch_returns(actions, params):
+    return tmr.MegaRollout(t, T).returns(
+        torch.tensor(home), torch.zeros(9), torch.tensor(actions), params,
+        torch.tensor(0.0)).numpy()
+
+  return t, j, acts, jax_returns, torch_returns
+
+
+def test_returns_match_jax_returns_xla(rollouts):
+  t, j, acts, jax_returns, torch_returns = rollouts
+  got = torch_returns(acts, t.params)
+  want = jax_returns(acts, j.params)
+  np.testing.assert_allclose(got, want, rtol=2e-3)
+  assert np.all(np.isfinite(got)) and np.all(got < tmr.MAX_RETURN)
+
+
+def test_divergence_guard(rollouts):
+  """Exploding actions -> MAX_RETURN in both packages, not nan."""
+  t, j, acts, jax_returns, torch_returns = rollouts
+  bad = acts.copy()
+  bad[0] = 1e30
+  got = torch_returns(bad, t.params)
+  assert got[0] == tmr.MAX_RETURN
+  np.testing.assert_allclose(got, jax_returns(bad, j.params), rtol=2e-3)
+
+
+def test_params_are_runtime_tunable(rollouts):
+  """Changing weights and residual params changes returns, no rebuild."""
+  t, j, acts, jax_returns, torch_returns = rollouts
+  mr = tmr.MegaRollout(t, T)
+  args = (torch.tensor(np.asarray(t.model.keyframe("home")[0], np.float32)),
+          torch.zeros(9), torch.tensor(acts))
+  r1 = mr.returns(*args, t.params, 0.0).numpy()
+  heavier = t.params.replace(weights=t.params.weights * 3.0)
+  r2 = mr.returns(*args, heavier, 0.0).numpy()
+  np.testing.assert_allclose(r2, 3.0 * r1, rtol=1e-5)
+  faster = t.set_parameter("Speed", 2.0).params
+  r3 = mr.returns(*args, faster, 0.0).numpy()
+  assert not np.allclose(r1, r3)
+  np.testing.assert_allclose(
+      r3, jax_returns(acts, j.set_parameter("Speed", 2.0).params),
+      rtol=2e-3)
