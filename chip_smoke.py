@@ -2,12 +2,17 @@
 
     python3 chip_smoke.py [--out FILE.json]
 
-Builds the CUDA kernel from mujoco_mpc_torch/csrc/, holds it against its
-plain PyTorch version, drives the Walker agent's plan loop through it, and
-times the planner at 1024 candidates x 80 steps. Exits non-zero, printing
-no result, without a CUDA device or on any failed check. The last line of
-standard output is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launch counts, errors and times.
+Builds the CUDA kernel from mujoco_mpc_torch/csrc/ and, for each path it
+serves (Walker, Humanoid Walk), holds it against its plain PyTorch version,
+drives the agent's plan loop through it, and times the planner: Walker at
+1024 candidates x 80 steps, Humanoid at the north-star 256 x 67 at the
+planning dt 0.015. Humanoid rollouts that long are chaotic in float32, so
+there the kernel's float64 instance is held against the plain version in
+float64 candidate by candidate, and the float32 kernel as a population.
+Exits non-zero, printing no result, without a CUDA
+device or on any failed check. The last line of standard output is
+{"ok": true, "device": {...}}; the line before it lists the kernel once per
+path with its launch count, error, time, plain time and bound.
 """
 
 from __future__ import annotations
@@ -41,6 +46,136 @@ def agreement(got, want, what: str):
   return rel, float(diff.max())
 
 
+# H100 SXM data sheet: f32 outside the tensor cores, HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
+
+# aten ops counted as arithmetic, by their output size (elementwise) or by
+# their input size (reductions); a triangular solve counts n*n per column
+_ELEMENTWISE = {"add", "sub", "rsub", "mul", "div", "neg", "reciprocal",
+                "sqrt", "rsqrt", "pow", "exp", "log1p", "sin", "cos", "cosh",
+                "tanh", "abs", "clamp", "clamp_min", "clamp_max", "minimum",
+                "maximum", "where", "lt", "le", "gt", "ge", "eq", "ne",
+                "bitwise_and", "bitwise_or", "logical_not", "isfinite"}
+_REDUCTIONS = {"sum", "max", "amax", "min", "amin"}
+
+
+def step_ops(task) -> int:
+  """Floating-point operations of one plain step at B = 1: step_tb, the
+  task residual and the cost, counted per aten op. step_tb computes both
+  sides of every torch.where and runs fixed iteration counts, so the count
+  does not depend on the data. Counted on CPU tensors: it is a count of
+  work from shapes, not a measurement."""
+  import numpy as np
+  import torch
+  from torch.utils._python_dispatch import TorchDispatchMode
+  from mujoco_mpc_torch.ops import megarollout as MR
+  from mujoco_mpc_torch.physics import tilestep
+
+  total = 0
+
+  class Count(TorchDispatchMode):
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+      nonlocal total
+      out = func(*args, **(kwargs or {}))
+      name = func.overloadpacket.__name__
+      if name in _ELEMENTWISE:
+        total += out.numel()
+      elif name == "linalg_cross":
+        total += 3 * out.numel()  # two products and a difference each
+      elif name in _REDUCTIONS:
+        total += args[0].numel()
+      elif name == "linalg_solve_triangular":
+        a, b = args[0], args[1]
+        total += a.shape[-1] * a.shape[-1] * b[..., 0, :].numel()
+      return out
+
+  tm = tilestep.extract(task.model)
+  p = task.params
+  qpos = torch.tensor(np.asarray(task.model.keyframe("home")[0],
+                                 np.float32))[:, None]
+  with Count():
+    _, _, view = tilestep.step_tb(tm, qpos, torch.zeros(tm.nv, 1),
+                                  torch.zeros(tm.nu, 1),
+                                  torch.zeros(tm.nrow, 1))
+    view.time = torch.tensor(0.0)
+    res = task.residual(task.model, view, p.residual_params)
+    MR.cost_value_t(task.spec, p.weights, p.norm_params, p.risk, res)
+  return total
+
+
+def bound(ops_per_step: int, n: int, horizon: int, task):
+  """(bound ms, what bounds it) for returns at n x horizon: the larger of
+  the operations over the f32 peak and the bytes (actions in, returns
+  out, the start state and task parameters, each once) over HBM
+  bandwidth."""
+  m = task.model
+  p = task.params
+  nbytes = 4 * (n * horizon * m.nu + n + m.nq + m.nv + p.weights.numel()
+                + p.norm_params.numel() + p.residual_params.numel() + 2)
+  t_ops = ops_per_step * n * horizon / PEAK_F32_FLOPS
+  t_bytes = nbytes / PEAK_BYTES_S
+  return (1e3 * max(t_ops, t_bytes),
+          "operations" if t_ops >= t_bytes else "bytes")
+
+
+def agreement64(got, want, what: str) -> dict:
+  """Kernel vs plain returns, both in float64, candidate by candidate at
+  rtol 2e-3. A candidate the plain version scores at MAX_RETURN or more
+  (diverged, or blown up to a finite return past it) must be scored so by
+  the kernel too: past that point nothing compares, in any precision."""
+  import torch
+  from mujoco_mpc_torch.ops import megarollout as MR
+  check(bool(torch.all(~torch.isnan(got))), f"{what}: NaN kernel returns")
+  blown = want >= MR.MAX_RETURN
+  check(bool(torch.all(got[blown] >= MR.MAX_RETURN)),
+        f"{what}: the kernel scores a candidate below MAX_RETURN that the "
+        f"plain version scores at or above it")
+  ok = ~blown
+  diff = (got[ok] - want[ok]).abs()
+  rel = diff / want[ok].abs()
+  out = {"max_rel": float(rel.max()), "max_abs": float(diff.max()),
+         "blown": int(blown.sum())}
+  check(out["max_rel"] <= 2e-3, f"{what}: kernel disagrees with the plain "
+        f"version (max rel err {out['max_rel']:.3g} > 2e-3)")
+  return out
+
+
+def float_noise(got, plain, plain64, what: str) -> dict:
+  """The float32 kernel's distance from the float64 answer against the
+  plain float32 version's, over all candidates: long humanoid rollouts
+  amplify float rounding until no two float32 orderings agree to 2e-3 on
+  every candidate, so the float kernel is held, as a population, to be no
+  noisier than the plain float32 version (at most twice its count beyond
+  rel 2e-3 of float64, at least 2, and at most twice its median, at least
+  1e-5), and to pick a winner the plain float32 version scores within
+  2e-3 of its best. Candidate by candidate the code is held in float64
+  (agreement64)."""
+  import torch
+  check(bool(torch.all(torch.isfinite(got))),
+        f"{what}: non-finite kernel returns")
+  rel_k = ((got.double() - plain64) / plain64).abs()
+  rel_p = ((plain.double() - plain64) / plain64).abs()
+  out = {"kernel_beyond": int((rel_k > 2e-3).sum()),
+         "plain_beyond": int((rel_p > 2e-3).sum()),
+         "kernel_median": float(rel_k.median()),
+         "plain_median": float(rel_p.median()),
+         "kernel_vs_plain_max_rel": float(((got - plain) / plain).abs().max()),
+         "winner": int(torch.argmin(got)),
+         "plain_winner": int(torch.argmin(plain))}
+  best = float(plain.min())
+  allowed = max(2 * out["plain_beyond"], 2)
+  check(out["kernel_beyond"] <= allowed,
+        f"{what}: {out['kernel_beyond']} candidates beyond rel 2e-3 of "
+        f"float64, the plain float32 version has {out['plain_beyond']}")
+  check(out["kernel_median"] <= max(2 * out["plain_median"], 1e-5),
+        f"{what}: median rel err {out['kernel_median']:.3g} above the "
+        f"plain float32 version's")
+  check(float(plain[out["winner"]]) <= best + 2e-3 * abs(best),
+        f"{what}: the kernel's winner is not the plain version's best")
+  return out
+
+
 def timed_cuda(fn, reps: int) -> float:
   """Mean milliseconds per call of fn() between CUDA events."""
   import torch
@@ -71,6 +206,7 @@ def main() -> int:
   from mujoco_mpc_torch.physics import io as phys_io
   from mujoco_mpc_torch.physics import tilestep
   from mujoco_mpc_torch.planners import sampling
+  from mujoco_mpc_torch.tasks import humanoid
   from mujoco_mpc_torch.tasks import registry
 
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -94,7 +230,8 @@ def main() -> int:
   _cuda_build.load()
   rec["build_s"] = time.perf_counter() - t
   ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
-           .splitlines() if "registers" in ln or "stack frame" in ln]
+           .splitlines() if "registers" in ln or "stack frame" in ln
+           or "Function properties" in ln]
   print(f"[2] built {so.name} in {rec['build_s']:.2f} s")
   for ln in ptxas:
     print(f"    {ln}")
@@ -237,12 +374,201 @@ def main() -> int:
              optimize_ms=per_call,
              kernel_ms_1024x80=ms_big, plain_ms_1024x80=plain_big)
 
-  kernels = {"kernels": [{
-      "name": "megarollout_returns", "route": "cuda",
+  ops_w = step_ops(registry.get_task("Walker", device="cpu"))
+  bound_w, by_w = bound(ops_w, 1024, 80, task)
+  print(f"[5] plain Walker step at B=1: {ops_w} operations; bound at "
+        f"1024x80 {bound_w:.4f} ms ({by_w}); kernel at "
+        f"{100 * bound_w / ms_big:.4f} % of it")
+  rec.update(walker_step_ops=ops_w, walker_bound_ms=bound_w)
+  walker_row = {
+      "name": "megarollout_returns[walker]", "route": "cuda",
       "source": "mujoco_mpc_torch/csrc/megarollout.cu",
       "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
       "launches": launches, "max_abs_err": abs5,
-      "ms": ms_big, "plain_ms": plain_big}]}
+      "ms": ms_big, "plain_ms": plain_big, "bound_ms": bound_w,
+      "bound_by": by_w, "library_ms": None,
+      "err_over_tol": max(rel, rel4, rel5) / 2e-3}
+
+  # ---- 3h. Humanoid: one step against the plain version, on states in
+  #      which every constraint row class carries force. float32 at the
+  #      stated tolerances, except that a state whose own float32 step is
+  #      far from float64 (stiff leg-leg crossings) may have qvel up to 8
+  #      times that distance; the double kernel against float64 everywhere
+  htask = registry.get_task("Humanoid Walk", device=dev)
+  mrh = MR.MegaRollout(htask, 1, device=dev)
+  kinds = np.asarray(tilestep.row_kinds(mrh.tm))
+  states = humanoid.probe_states(htask.model, 128)
+  plain = {}
+  for dt in (torch.float32, torch.float64):
+    x = [torch.tensor(v, device=dev, dtype=dt) for v in states]
+    pq, pv, view = tilestep.step_tb(mrh.tm, *x)
+    plain[dt] = (x, pq, pv, view.efc_lambda)
+  torch.cuda.synchronize()
+  lam = plain[torch.float32][3].abs().cpu().numpy()
+  per_kind = {str(k): float(lam[kinds == k].max())
+              for k in dict.fromkeys(kinds)}
+  check(all(v > 0.0 for v in per_kind.values()),
+        "a constraint row class carries no force in the step check")
+  noise = (plain[torch.float32][2].double()
+           - plain[torch.float64][2]).abs().amax(0)
+  err, ev = {}, {}
+  for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+    x, pq, pv, pl = plain[dt]
+    kq, kv, kl = mrh.step(*x)
+    torch.cuda.synchronize()
+    scale = float(pl.abs().max())
+    ev[tag] = (kv - pv).abs().amax(0).double()  # per state
+    err[tag] = {"qpos": float((kq - pq).abs().max()),
+                "qvel": float(ev[tag].max()),
+                "lambda": float((kl - pl).abs().max()), "scale": scale,
+                "qvel_state": int(ev[tag].argmax()),
+                "qvel_over_noise": float((ev[tag] / noise).max()),
+                "states_qvel_over_1e-3": int((ev[tag] > 1e-3).sum())}
+  e32, e64 = err["f32"], err["f64"]
+  print(f"[3h] Humanoid one step, B=128, nrow {mrh.tm.nrow}, float32: max "
+        f"|kernel - plain| qpos {e32['qpos']:.3g} (tol 1e-5), qvel "
+        f"{e32['qvel']!r} at state {e32['qvel_state']} (tol max(1e-3, 8 x "
+        f"the state's plain float32-vs-float64 qvel distance); "
+        f"{e32['states_qvel_over_1e-3']} states above 1e-3; worst ratio to "
+        f"that distance {e32['qvel_over_noise']:.3g}), lambda "
+        f"{e32['lambda']:.3g} (tol {1e-4 * e32['scale']:.3g} = 1e-4 * "
+        f"max|lambda|); plain float32 vs float64 qvel at that state "
+        f"{float(noise[e32['qvel_state']])!r}")
+  print(f"[3h] float64: qpos {e64['qpos']:.3g} (tol 1e-12), qvel "
+        f"{e64['qvel']:.3g} (tol 1e-10), lambda {e64['lambda']:.3g} (tol "
+        f"{1e-12 * e64['scale']:.3g} = 1e-12 * max|lambda|); max |lambda| per "
+        f"row class {({k: round(v, 1) for k, v in per_kind.items()})}")
+  check(e32["qpos"] <= 1e-5 and e32["lambda"] <= 1e-4 * e32["scale"]
+        and bool(torch.all(ev["f32"] <= torch.clamp(8.0 * noise, min=1e-3))),
+        "Humanoid float32 step kernel disagrees")
+  check(e64["qpos"] <= 1e-12 and e64["qvel"] <= 1e-10
+        and e64["lambda"] <= 1e-12 * e64["scale"],
+        "Humanoid float64 step kernel disagrees")
+  rec["humanoid_step_err"] = err
+
+  # ---- 4h. the main path: Agent("Humanoid Walk") at its defaults
+  hagent = Agent("Humanoid Walk", device=dev)
+  hagent.reset("home")
+  hcfg = hagent.planner.config
+  hagent.planner.mega.launches = 0
+  best = []
+  t = time.perf_counter()
+  for _ in range(5):
+    info = hagent.planner_step()
+    best.append(float(info.best_return))
+    check(bool(torch.all(torch.isfinite(info.costs))), "non-finite costs")
+  u = hagent.action()
+  hplan_ms = (time.perf_counter() - t) * 1e3 / 5
+  hlaunches = hagent.planner.mega.launches
+  print(f"[4h] Agent('Humanoid Walk', cuda) {hcfg.num_trajectories}x"
+        f"{hcfg.horizon} at dt {float(hagent.task.model.opt.timestep):g}: "
+        f"best returns {[round(x, 4) for x in best]}, kernel launches "
+        f"{hlaunches}, {hplan_ms:.1f} ms per planner_step (first call "
+        f"included)")
+  check(np.all(np.isfinite(u)) and u.shape == (21,), "bad action")
+  check(all(b2 <= b1 for b1, b2 in zip(best, best[1:])),
+        "best return increased at a fixed state")
+  check(hlaunches == 5, f"{hlaunches} kernel launches for 5 plan steps")
+  pl, atask, d = hagent.planner, hagent.task, hagent.data
+  new_times, _, cands = pl._gen_candidates(atask, hagent.policy, d,
+                                           hagent.generator)
+  plan_args = (d.qpos, d.qvel, pl._actions(atask, d, new_times, cands),
+               atask.params, d.time)
+  got = pl.mega.returns(*plan_args)
+  want = pl.mega.returns_plain(*plan_args)
+  torch.cuda.synchronize()
+  rel4h, abs4h = agreement(
+      got, want, f"Humanoid returns {hcfg.num_trajectories}x{hcfg.horizon} "
+      "at the agent's dt")
+  print(f"[4h] one plan's candidates {tuple(plan_args[2].shape)}: max rel "
+        f"err {rel4h:.3g} (tol 2e-3), max abs err {abs4h:.3g}")
+  rec.update(humanoid_agent_best=best, humanoid_agent_launches=hlaunches,
+             humanoid_agent_ms_per_plan=hplan_ms,
+             humanoid_agent_returns_rel_err=rel4h,
+             humanoid_agent_returns_abs_err=abs4h)
+
+  # ---- 5h. the north star: 256 candidates x 67 steps at the planning dt
+  hcfg = sampling.SamplingConfig(num_trajectories=256, horizon=67,
+                                 spline_points=hcfg.spline_points,
+                                 interp=hcfg.interp)
+  hplanner = sampling.SamplingPlanner(hcfg)
+  hpolicy = hplanner.init(atask)
+  hhome = torch.tensor(atask.model.keyframe("home")[0], device=dev)
+  hdata = phys_io.make_data(atask.model).replace(qpos=hhome.clone())
+  gen = torch.Generator(device=dev).manual_seed(0)
+  for _ in range(2):
+    hpolicy, info = hplanner.optimize(atask, hpolicy, hdata, gen)
+  torch.cuda.synchronize()
+  per_call = []
+  for _ in range(reps):
+    t = time.perf_counter()
+    hpolicy, info = hplanner.optimize(atask, hpolicy, hdata, gen)
+    torch.cuda.synchronize()
+    per_call.append((time.perf_counter() - t) * 1e3)
+  wall = sum(per_call) / 1e3
+  q = np.percentile(per_call, [50, 66.7, 100])
+  hsteps_s = reps * 256 * 67 / wall
+  new_times, _, cands = hplanner._gen_candidates(atask, hpolicy, hdata, gen)
+  acts = hplanner._actions(atask, hdata, new_times, cands)
+  hv0 = torch.zeros(27, device=dev)
+  got = hplanner.mega.returns(hhome, hv0, acts, atask.params, hdata.time)
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  plain = hplanner.mega.returns_plain(hhome, hv0, acts, atask.params,
+                                      hdata.time)
+  torch.cuda.synchronize()
+  hplain_ms = (time.perf_counter() - t) * 1e3
+  args64 = (hhome.double(), hv0.double(), acts.double(),
+            atask.params.to(dtype=torch.float64), hdata.time.double())
+  got64 = hplanner.mega.returns(*args64)
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  plain64 = hplanner.mega.returns_plain(*args64, dtype=torch.float64)
+  torch.cuda.synchronize()
+  hplain64_ms = (time.perf_counter() - t) * 1e3
+  r5h64 = agreement64(got64, plain64, "Humanoid returns 256x67 in float64")
+  r5h = float_noise(got, plain, plain64, "Humanoid returns 256x67")
+  hms = timed_cuda(lambda: hplanner.mega.returns(
+      hhome, hv0, acts, atask.params, hdata.time), 3)
+  hms64 = timed_cuda(lambda: hplanner.mega.returns(*args64), 1)
+  ops_h = step_ops(registry.get_task("Humanoid Walk", device="cpu"))
+  bound_h, by_h = bound(ops_h, 256, 67, atask)
+  print(f"[5h] SamplingPlanner 256x67 at dt "
+        f"{float(atask.model.opt.timestep):g}: {hsteps_s:.0f} steps/s, "
+        f"{reps / wall:.3f} plan Hz; optimize ms median {q[0]:.3f}, p66.7 "
+        f"{q[1]:.3f}, max {q[2]:.3f} (n={reps}); kernel {hms:.3f} ms/call, "
+        f"plain {hplain_ms:.1f} ms/call")
+  print(f"[5h] float64 kernel vs float64 plain at 256x67, per candidate: "
+        f"max rel err {r5h64['max_rel']:.3g} (tol 2e-3), max abs err "
+        f"{r5h64['max_abs']:.3g}, {r5h64['blown']} candidates at or past "
+        f"MAX_RETURN in both; float64 kernel {hms64:.3f} ms/call, plain "
+        f"{hplain64_ms:.1f} ms/call")
+  print(f"[5h] float32 at 256x67 against float64: kernel "
+        f"{r5h['kernel_beyond']} candidates beyond rel 2e-3 (median rel "
+        f"{r5h['kernel_median']:.3g}), plain float32 {r5h['plain_beyond']} "
+        f"(median {r5h['plain_median']:.3g}); kernel vs plain float32 max "
+        f"rel {r5h['kernel_vs_plain_max_rel']:.3g}; winner kernel "
+        f"{r5h['winner']}, plain {r5h['plain_winner']}")
+  print(f"[5h] plain Humanoid step at B=1: {ops_h} operations; bound at "
+        f"256x67 {bound_h:.4f} ms ({by_h}); kernel at "
+        f"{100 * bound_h / hms:.4f} % of it")
+  rec.update(humanoid_plan_steps_per_s=hsteps_s, humanoid_plan_hz=reps / wall,
+             humanoid_optimize_ms=per_call, humanoid_kernel_ms_256x67=hms,
+             humanoid_plain_ms_256x67=hplain_ms,
+             humanoid_returns_256x67=r5h,
+             humanoid_returns_256x67_f64=r5h64,
+             humanoid_kernel64_ms_256x67=hms64,
+             humanoid_plain64_ms_256x67=hplain64_ms,
+             humanoid_step_ops=ops_h, humanoid_bound_ms=bound_h)
+
+  kernels = {"kernels": [walker_row, {
+      "name": "megarollout_returns[humanoid]", "route": "cuda",
+      "source": "mujoco_mpc_torch/csrc/megarollout.cu",
+      "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
+      "launches": hlaunches, "max_abs_err": abs4h,
+      "ms": hms, "plain_ms": hplain_ms, "bound_ms": bound_h,
+      "bound_by": by_h, "library_ms": None,
+      "err_over_tol": max(rel4h, r5h64["max_rel"]) / 2e-3}]}
   if args.out:
     with open(args.out, "w") as f:
       json.dump({**rec, **kernels}, f, indent=1)

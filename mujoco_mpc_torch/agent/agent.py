@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mujoco_mpc_torch import device as devices
 from mujoco_mpc_torch.physics import io as phys_io
 from mujoco_mpc_torch.planners import sampling
 from mujoco_mpc_torch.tasks import base as task_base
@@ -31,11 +32,8 @@ class Agent:
   def __init__(self, task: str | task_base.Task,
                planner: Optional[str] = None,
                horizon_steps: Optional[int] = None, seed: int = 0,
-               device="cpu"):
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-      raise RuntimeError(f"device {device} requested, but "
-                         "torch.cuda.is_available() is False")
+               device=devices.DEFAULT):
+    device = devices.resolve(device)
     if isinstance(task, str):
       task = registry.get_task(task, device=device)
     if planner is None:

@@ -33,17 +33,17 @@ def _fields(cls, src, device, **override):
   return cls(**kw)
 
 
-def model(jax_model_np, device="cpu") -> types.Model:
+def model(jax_model_np, device) -> types.Model:
   """JAX Model (numpy leaves) -> Model on `device`."""
   opt = _fields(types.Option, jax_model_np.opt, device)
   return _fields(types.Model, jax_model_np, device, opt=opt)
 
 
-def task_params(jax_params_np, device="cpu") -> base.TaskParams:
+def task_params(jax_params_np, device) -> base.TaskParams:
   """JAX TaskParams (numpy leaves) -> TaskParams on `device`."""
   return _fields(base.TaskParams, jax_params_np, device)
 
 
-def data(jax_data_np, device="cpu") -> types.Data:
+def data(jax_data_np, device) -> types.Data:
   """JAX Data (numpy leaves) -> Data (its state fields) on `device`."""
   return _fields(types.Data, jax_data_np, device)

@@ -13,16 +13,37 @@
 // its whole state in local arrays with compile-time maximum sizes (qpos,
 // qvel, the duals, the constraint Jacobian J[nrow][nv], the nv x nv
 // Cholesky factor, the APGD vectors) and runs the T-step loop itself. The
-// model is a POD struct (MRModel) packed once per MegaRollout; each block
+// model is a POD struct (MRModelT) packed once per MegaRollout; each block
 // copies it into shared memory.
 //
-// What bounds it on this card: latency, not bytes or FLOPs. A Walker step
-// is ~30 kFLOP of dependent scalar arithmetic per candidate, most of it in
-// the 21 matrix-free Delassus products of the constraint solve, and the
-// ~19 KB per-thread working set lives in local memory (L1/L2). 1024
-// candidates fill only 1024 threads: 16 blocks of 64 on 132 SMs, two warps
-// per busy SM. That occupancy is a known limit, left to later performance
-// work (e.g. one warp per candidate with rows spread over the lanes).
+// Precision: everything is a template on the scalar type T. The planner
+// runs T = float. T = double (the C entries ending in 64) is there to hold
+// the code against the plain version run in float64: long humanoid
+// rollouts amplify float rounding until two float orderings disagree on
+// some candidates, while two double orderings still agree to far below
+// any tolerance, so each candidate can be checked at the planner's full
+// shape. The model's constants are float values in both precisions (the
+// plain version rounds them to float32 in every dtype); literals that a
+// float cannot hold exactly are written T(...), as the plain version's
+// Python constants are rounded to its dtype.
+//
+// The model class: hinge, slide and free joints (the free joint's
+// quaternion normalized in forward kinematics and after the exact
+// exponential-map integration), joint-transmission actuators, joint
+// springs, friction loss, fixed-tendon limits, contacts of a world plane
+// against sphere and capsule ends and of capsule against capsule with
+// condim 1 or 3, joint limits, and the dense or matrix-free solve. Task
+// residuals are __device__ functions selected by MRModelT::res_id.
+//
+// What bounds it on this card: latency, not bytes or FLOPs. A step is a
+// long chain of dependent scalar arithmetic per candidate (Walker ~30
+// kFLOP, Humanoid ~10x that), most of it in the 21 matrix-free Delassus
+// products of the constraint solve, and the per-thread working set
+// (the constraint Jacobian J[nrow][nv] above all) lives in local memory
+// (L1/L2). N candidates fill only N threads: at 1024, 16 blocks of 64 on
+// 132 SMs, two warps per busy SM. That occupancy is a known limit, left to
+// later performance work (e.g. one warp per candidate with rows spread
+// over the lanes).
 //
 // Not built with --use_fast_math: it could fold away the isfinite guard and
 // changes expf/sqrtf/log1pf against the plain version.
@@ -30,30 +51,42 @@
 #include <cstddef>
 #include <cuda_runtime.h>
 
-#define MR_MAX_NV 16      // nq == nv for hinge/slide models
-#define MR_MAX_BODY 16
-#define MR_MAX_JNT 16
-#define MR_MAX_NU 16
-#define MR_MAX_CON 20     // contact points
-#define MR_MAX_LIM 16     // limited joints (two rows each)
-#define MR_MAX_ROW 64     // constraint rows
+// Maxima, sized for the dm_control humanoid (nq 28, nv 27, nbody 17,
+// njnt 22, nu 21, 37 contact points, 21 limited joints, 2 limited
+// tendons, nrow 117, 57 residual entries)
+#define MR_MAX_NQ 32
+#define MR_MAX_NV 28
+#define MR_MAX_BODY 20    // <= 32: residuals take body sets as bitmasks
+#define MR_MAX_JNT 24
+#define MR_MAX_NU 24
+#define MR_MAX_CON 40     // contact points
+#define MR_MAX_LIM 24     // limited joints (two rows each)
+#define MR_MAX_TEN 4      // limited fixed tendons (two rows each)
+#define MR_MAX_WRAP 4     // joints a fixed tendon wraps
+#define MR_MAX_ROW 120    // constraint rows
 #define MR_MAX_DENSE 32   // largest nrow solved with a materialized Delassus
 #define MR_MAX_TERM 16
-#define MR_MAX_RES 32     // residual entries
+#define MR_MAX_RES 64     // residual entries
 #define MR_MAX_RES_INT 8
+#define MR_MAX_RES_FLOAT 4
 
 #define MR_ITERATIONS 12
 #define MR_POWER_ITERS 8
 #define MR_MAX_RETURN 1e6f
 
+#define MR_FREE 0
 #define MR_SLIDE 2
 #define MR_HINGE 3
 
-#define MR_RES_WALKER 1
+#define MR_CON_PLANE 0    // world plane vs sphere / capsule end
+#define MR_CON_CAPCAP 1   // capsule vs capsule
 
-// Every field is 4 bytes wide, so the layout has no padding; the wrapper
-// (ops/megarollout.py::_MRModel) mirrors it and checks it against
-// mr_model_layout().
+#define MR_RES_WALKER 1
+#define MR_RES_HUMANOID 2
+
+// Fields are int or T. The wrapper (ops/megarollout.py::_model_struct)
+// mirrors both instantiations with ctypes, which pads as C does, and
+// checks each against mr_model_layout().
 #define MR_MODEL_FIELDS(X)                                                   \
   X(int, nq, )                                                               \
   X(int, nv, )                                                               \
@@ -61,35 +94,39 @@
   X(int, nbody, )                                                            \
   X(int, njnt, )                                                             \
   X(int, ncon, )                                                             \
+  X(int, nfric, )                                                            \
   X(int, nlim, )                                                             \
+  X(int, nten, )                                                             \
   X(int, nrow, )                                                             \
   X(int, dense, )                                                            \
   X(int, nterm, )                                                            \
   X(int, nres, )                                                             \
   X(int, res_id, )                                                           \
   X(int, res_int, [MR_MAX_RES_INT])                                          \
-  X(float, timestep, )                                                       \
-  X(float, gravity, [3])                                                     \
+  X(T, res_float, [MR_MAX_RES_FLOAT])                                        \
+  X(T, timestep, )                                                           \
+  X(T, gravity, [3])                                                         \
   X(int, body_parentid, [MR_MAX_BODY])                                       \
   X(int, body_jntadr, [MR_MAX_BODY])                                         \
   X(int, body_jntnum, [MR_MAX_BODY])                                         \
-  X(float, body_pos, [MR_MAX_BODY][3])                                       \
-  X(float, body_quat, [MR_MAX_BODY][4])                                      \
-  X(float, body_ipos, [MR_MAX_BODY][3])                                      \
-  X(float, body_iquat, [MR_MAX_BODY][4])                                     \
-  X(float, body_mass, [MR_MAX_BODY])                                         \
-  X(float, body_inertia, [MR_MAX_BODY][3])                                   \
+  X(T, body_pos, [MR_MAX_BODY][3])                                           \
+  X(T, body_quat, [MR_MAX_BODY][4])                                          \
+  X(T, body_ipos, [MR_MAX_BODY][3])                                          \
+  X(T, body_iquat, [MR_MAX_BODY][4])                                         \
+  X(T, body_mass, [MR_MAX_BODY])                                             \
+  X(T, body_inertia, [MR_MAX_BODY][3])                                       \
   X(int, jnt_type, [MR_MAX_JNT])                                             \
   X(int, jnt_qposadr, [MR_MAX_JNT])                                          \
   X(int, jnt_dofadr, [MR_MAX_JNT])                                           \
-  X(float, jnt_pos, [MR_MAX_JNT][3])                                         \
-  X(float, jnt_axis, [MR_MAX_JNT][3])                                        \
-  X(float, jnt_stiffness, [MR_MAX_JNT])                                      \
-  X(float, qpos0, [MR_MAX_NV])                                               \
-  X(float, qpos_spring, [MR_MAX_NV])                                         \
-  X(float, dof_damping, [MR_MAX_NV])                                         \
-  X(float, dof_armature, [MR_MAX_NV])                                        \
-  X(float, dof_frictionloss, [MR_MAX_NV])                                    \
+  X(int, jnt_bodyid, [MR_MAX_JNT])                                           \
+  X(T, jnt_pos, [MR_MAX_JNT][3])                                             \
+  X(T, jnt_axis, [MR_MAX_JNT][3])                                            \
+  X(T, jnt_stiffness, [MR_MAX_JNT])                                          \
+  X(T, qpos0, [MR_MAX_NQ])                                                   \
+  X(T, qpos_spring, [MR_MAX_NQ])                                             \
+  X(T, dof_damping, [MR_MAX_NV])                                             \
+  X(T, dof_armature, [MR_MAX_NV])                                            \
+  X(T, dof_frictionloss, [MR_MAX_NV])                                        \
   X(int, dof_body, [MR_MAX_NV])                                              \
   X(int, dof_body_mask, [MR_MAX_NV][MR_MAX_BODY])                            \
   X(int, dof_ancestor_mask, [MR_MAX_NV][MR_MAX_NV])                          \
@@ -100,78 +137,131 @@
   X(int, act_bias_fixed, [MR_MAX_NU])                                        \
   X(int, ctrl_limited, [MR_MAX_NU])                                          \
   X(int, force_limited, [MR_MAX_NU])                                         \
-  X(float, act_gear, [MR_MAX_NU])                                            \
-  X(float, act_gainprm, [MR_MAX_NU][3])                                      \
-  X(float, act_biasprm, [MR_MAX_NU][3])                                      \
-  X(float, ctrl_lo, [MR_MAX_NU])                                             \
-  X(float, ctrl_hi, [MR_MAX_NU])                                             \
-  X(float, force_lo, [MR_MAX_NU])                                            \
-  X(float, force_hi, [MR_MAX_NU])                                            \
-  X(int, con_gbody, [MR_MAX_CON])                                            \
-  X(float, con_gpos, [MR_MAX_CON][3])                                        \
-  X(float, con_gquat, [MR_MAX_CON][4])                                       \
-  X(float, con_end, [MR_MAX_CON])                                            \
-  X(float, con_r, [MR_MAX_CON])                                              \
-  X(float, con_margin, [MR_MAX_CON])                                         \
-  X(float, con_mu, [MR_MAX_CON])                                             \
-  X(float, con_frame, [MR_MAX_CON][3][3])                                    \
-  X(float, con_ppos, [MR_MAX_CON][3])                                        \
-  X(float, con_sgn, [MR_MAX_CON][MR_MAX_NV])                                 \
-  X(float, con_imp, [MR_MAX_CON][5])                                         \
-  X(float, con_k, [MR_MAX_CON])                                              \
-  X(float, con_b, [MR_MAX_CON])                                              \
+  X(T, act_gear, [MR_MAX_NU])                                                \
+  X(T, act_gainprm, [MR_MAX_NU][3])                                          \
+  X(T, act_biasprm, [MR_MAX_NU][3])                                          \
+  X(T, ctrl_lo, [MR_MAX_NU])                                                 \
+  X(T, ctrl_hi, [MR_MAX_NU])                                                 \
+  X(T, force_lo, [MR_MAX_NU])                                                \
+  X(T, force_hi, [MR_MAX_NU])                                                \
+  X(int, con_kind, [MR_MAX_CON])                                             \
+  X(int, con_gbody, [MR_MAX_CON][2])                                         \
+  X(T, con_gpos, [MR_MAX_CON][2][3])                                         \
+  X(T, con_gquat, [MR_MAX_CON][2][4])                                        \
+  X(T, con_half, [MR_MAX_CON][2])                                            \
+  X(T, con_r, [MR_MAX_CON][2])                                               \
+  X(T, con_end, [MR_MAX_CON])                                                \
+  X(T, con_margin, [MR_MAX_CON])                                             \
+  X(T, con_mu, [MR_MAX_CON])                                                 \
+  X(T, con_frame, [MR_MAX_CON][3][3])                                        \
+  X(T, con_ppos, [MR_MAX_CON][3])                                            \
+  X(T, con_sgn, [MR_MAX_CON][MR_MAX_NV])                                     \
+  X(T, con_imp, [MR_MAX_CON][5])                                             \
+  X(T, con_k, [MR_MAX_CON])                                                  \
+  X(T, con_b, [MR_MAX_CON])                                                  \
   X(int, lim_qadr, [MR_MAX_LIM])                                             \
   X(int, lim_vadr, [MR_MAX_LIM])                                             \
-  X(float, lim_lo, [MR_MAX_LIM])                                             \
-  X(float, lim_hi, [MR_MAX_LIM])                                             \
-  X(float, lim_margin, [MR_MAX_LIM])                                         \
-  X(float, lim_k, [MR_MAX_LIM])                                              \
-  X(float, lim_b, [MR_MAX_LIM])                                              \
-  X(float, lim_imp, [5])                                                     \
+  X(T, lim_lo, [MR_MAX_LIM])                                                 \
+  X(T, lim_hi, [MR_MAX_LIM])                                                 \
+  X(T, lim_margin, [MR_MAX_LIM])                                             \
+  X(T, lim_k, [MR_MAX_LIM])                                                  \
+  X(T, lim_b, [MR_MAX_LIM])                                                  \
+  X(T, lim_imp, [5])                                                         \
+  X(int, ten_nwrap, [MR_MAX_TEN])                                            \
+  X(int, ten_qadr, [MR_MAX_TEN][MR_MAX_WRAP])                                \
+  X(int, ten_vadr, [MR_MAX_TEN][MR_MAX_WRAP])                                \
+  X(T, ten_coef, [MR_MAX_TEN][MR_MAX_WRAP])                                  \
+  X(T, ten_lo, [MR_MAX_TEN])                                                 \
+  X(T, ten_hi, [MR_MAX_TEN])                                                 \
+  X(T, ten_margin, [MR_MAX_TEN])                                             \
+  X(T, ten_k, [MR_MAX_TEN])                                                  \
+  X(T, ten_b, [MR_MAX_TEN])                                                  \
   X(int, term_dim, [MR_MAX_TERM])                                            \
   X(int, term_norm, [MR_MAX_TERM])
 
-struct MRModel {
+template <class T>
+struct MRModelT {
 #define MR_DECLARE(type, name, dims) type name dims;
   MR_MODEL_FIELDS(MR_DECLARE)
 #undef MR_DECLARE
 };
 
 // ---------------------------------------------------------------------------
+// scalar math in both precisions (the float functions for T = float)
+// ---------------------------------------------------------------------------
+
+template <class T> struct Same { typedef T type; };
+
+#define MR_UNARY(name, f32, f64)                                             \
+  __device__ __forceinline__ float name(float x) { return f32(x); }          \
+  __device__ __forceinline__ double name(double x) { return f64(x); }
+MR_UNARY(r_sqrt, sqrtf, sqrt)
+MR_UNARY(r_abs, fabsf, fabs)
+MR_UNARY(r_sin, sinf, sin)
+MR_UNARY(r_cos, cosf, cos)
+MR_UNARY(r_exp, expf, exp)
+MR_UNARY(r_log1p, log1pf, log1p)
+MR_UNARY(r_tanh, tanhf, tanh)
+MR_UNARY(r_cosh, coshf, cosh)
+#undef MR_UNARY
+
+// two-argument functions take their type from the first argument
+#define MR_BINARY(name, f32, f64)                                            \
+  __device__ __forceinline__ float name##_(float a, float b) {               \
+    return f32(a, b);                                                        \
+  }                                                                          \
+  __device__ __forceinline__ double name##_(double a, double b) {            \
+    return f64(a, b);                                                        \
+  }                                                                          \
+  template <class T>                                                         \
+  __device__ __forceinline__ T name(T a, typename Same<T>::type b) {         \
+    return name##_(a, b);                                                    \
+  }
+MR_BINARY(r_max, fmaxf, fmax)
+MR_BINARY(r_min, fminf, fmin)
+MR_BINARY(r_pow, powf, pow)
+#undef MR_BINARY
+
+// ---------------------------------------------------------------------------
 // small vector math (row-major 3x3 matrices, quaternions w, x, y, z)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void quat_mul(const float* a, const float* b,
-                                         float* o) {
-  float w = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
-  float x = a[0] * b[1] + a[1] * b[0] + a[2] * b[3] - a[3] * b[2];
-  float y = a[0] * b[2] - a[1] * b[3] + a[2] * b[0] + a[3] * b[1];
-  float z = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
+template <class T>
+__device__ __forceinline__ void quat_mul(const T* a, const T* b,
+                                         T* o) {
+  T w = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
+  T x = a[0] * b[1] + a[1] * b[0] + a[2] * b[3] - a[3] * b[2];
+  T y = a[0] * b[2] - a[1] * b[3] + a[2] * b[0] + a[3] * b[1];
+  T z = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
   o[0] = w; o[1] = x; o[2] = y; o[3] = z;
 }
 
-__device__ __forceinline__ void cross3(const float* a, const float* b,
-                                       float* o) {
-  float x = a[1] * b[2] - a[2] * b[1];
-  float y = a[2] * b[0] - a[0] * b[2];
-  float z = a[0] * b[1] - a[1] * b[0];
+template <class T>
+__device__ __forceinline__ void cross3(const T* a, const T* b,
+                                       T* o) {
+  T x = a[1] * b[2] - a[2] * b[1];
+  T y = a[2] * b[0] - a[0] * b[2];
+  T z = a[0] * b[1] - a[1] * b[0];
   o[0] = x; o[1] = y; o[2] = z;
 }
 
-__device__ __forceinline__ float dot3(const float* a, const float* b) {
+template <class T>
+__device__ __forceinline__ T dot3(const T* a, const T* b) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
 
-__device__ __forceinline__ void quat_rot(const float* q, const float* v,
-                                         float* o) {
-  float uv[3], uuv[3];
+template <class T>
+__device__ __forceinline__ void quat_rot(const T* q, const T* v,
+                                         T* o) {
+  T uv[3], uuv[3];
   cross3(q + 1, v, uv);
   cross3(q + 1, uv, uuv);
   for (int k = 0; k < 3; ++k) o[k] = v[k] + 2.0f * (q[0] * uv[k] + uuv[k]);
 }
 
-__device__ __forceinline__ void quat_to_mat(const float* q, float* m) {
-  float w = q[0], x = q[1], y = q[2], z = q[3];
+template <class T>
+__device__ __forceinline__ void quat_to_mat(const T* q, T* m) {
+  T w = q[0], x = q[1], y = q[2], z = q[3];
   m[0] = 1 - 2 * (y * y + z * z); m[1] = 2 * (x * y - w * z);
   m[2] = 2 * (x * z + w * y);
   m[3] = 2 * (x * y + w * z); m[4] = 1 - 2 * (x * x + z * z);
@@ -181,42 +271,85 @@ __device__ __forceinline__ void quat_to_mat(const float* q, float* m) {
 }
 
 // spatial inertia about the world origin times motion [va; vl]
-__device__ __forceinline__ void inert_mul(const float* Iw, const float* com,
-                                          float mass, const float* va,
-                                          const float* vl, float* fa,
-                                          float* fl) {
-  float t1[3], t2[3], t3[3];
+template <class T>
+__device__ __forceinline__ void inert_mul(const T* Iw, const T* com,
+                                          T mass, const T* va,
+                                          const T* vl, T* fa,
+                                          T* fl) {
+  T t1[3], t2[3], t3[3];
   cross3(com, va, t1);
   cross3(com, t1, t2);
   cross3(com, vl, t3);
   for (int i = 0; i < 3; ++i) {
-    float s = 0.0f;
+    T s = 0.0f;
     for (int k = 0; k < 3; ++k) s += Iw[3 * i + k] * va[k];
     fa[i] = s - mass * t2[i] + mass * t3[i];
     fl[i] = -mass * t1[i] + mass * vl[i];
   }
 }
 
-__device__ __forceinline__ float impedance(float pos, const float* c) {
+template <class T>
+__device__ __forceinline__ void quat_normalize(T* q) {
+  const T inv = 1.0f / r_sqrt(r_max(
+      q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3], T(1e-24)));
+  for (int i = 0; i < 4; ++i) q[i] *= inv;
+}
+
+// q advanced by the exact exponential of the body-frame angular velocity w
+// over dt, NaN-free at w = 0, then normalized (tilestep._quat_integrate)
+template <class T>
+__device__ __forceinline__ void quat_integrate(T* q, const T* w,
+                                               T dt) {
+  const T sq = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+  const bool small = sq < T(1e-24);
+  const T theta = r_sqrt(small ? 1.0f : sq);
+  const T inv = 1.0f / theta;
+  const T half = 0.5f * theta * dt;
+  const T s = r_sin(half) * inv;
+  const T dq[4] = {small ? 1.0f : r_cos(half), small ? 0.0f : w[0] * s,
+                       small ? 0.0f : w[1] * s, small ? 0.0f : w[2] * s};
+  T o[4];
+  quat_mul(q, dq, o);
+  quat_normalize(o);
+  for (int i = 0; i < 4; ++i) q[i] = o[i];
+}
+
+// contact frame rows (n, t1, t2) from a unit normal
+// (collision._frame_from_normal)
+template <class T>
+__device__ __forceinline__ void frame_from_normal(const T* n,
+                                                  T (*fr)[3]) {
+  const bool use_x = r_abs(n[0]) < 0.5f;
+  const T ref[3] = {use_x ? 1.0f : 0.0f, use_x ? 0.0f : 1.0f, 0.0f};
+  T t1[3];
+  cross3(n, ref, t1);
+  const T nrm = r_sqrt(r_max(dot3(t1, t1), T(1e-24)));
+  for (int i = 0; i < 3; ++i) { fr[0][i] = n[i]; fr[1][i] = t1[i] / nrm; }
+  cross3(n, fr[1], fr[2]);
+}
+
+template <class T>
+__device__ __forceinline__ T impedance(T pos, const T* c) {
   // c = d0, d1, width, mid, power (already clamped on the host)
-  float x = fminf(fmaxf(fabsf(pos) / c[2], 0.0f), 1.0f);
-  float mid = c[3], power = c[4];
-  float y = x < mid ? powf(x / mid, power) * mid
-                    : 1.0f - powf((1 - x) / (1 - mid), power) * (1 - mid);
-  return fminf(fmaxf(c[0] + y * (c[1] - c[0]), 1e-4f), 0.9999f);
+  T x = r_min(r_max(r_abs(pos) / c[2], 0.0f), 1.0f);
+  T mid = c[3], power = c[4];
+  T y = x < mid ? r_pow(x / mid, power) * mid
+                    : 1.0f - r_pow((1 - x) / (1 - mid), power) * (1 - mid);
+  return r_min(r_max(c[0] + y * (c[1] - c[0]), T(1e-4)), T(0.9999));
 }
 
 // L L^T x = b with L lower-triangular, stored in l[MR_MAX_NV][MR_MAX_NV]
-__device__ __forceinline__ void chol_solve(const float (*l)[MR_MAX_NV],
-                                           const float* b, float* x, int n) {
-  float y[MR_MAX_NV];
+template <class T>
+__device__ __forceinline__ void chol_solve(const T (*l)[MR_MAX_NV],
+                                           const T* b, T* x, int n) {
+  T y[MR_MAX_NV];
   for (int i = 0; i < n; ++i) {
-    float acc = b[i];
+    T acc = b[i];
     for (int k = 0; k < i; ++k) acc -= l[i][k] * y[k];
     y[i] = acc / l[i][i];
   }
   for (int i = n - 1; i >= 0; --i) {
-    float acc = y[i];
+    T acc = y[i];
     for (int k = i + 1; k < n; ++k) acc -= l[k][i] * x[k];
     x[i] = acc / l[i][i];
   }
@@ -226,64 +359,69 @@ __device__ __forceinline__ void chol_solve(const float (*l)[MR_MAX_NV],
 // constraint solve helpers
 // ---------------------------------------------------------------------------
 
+template <class T>
 struct Rows {
-  float J[MR_MAX_ROW][MR_MAX_NV];
-  float s_pre[MR_MAX_ROW];
-  float reg[MR_MAX_ROW];
+  T J[MR_MAX_ROW][MR_MAX_NV];
+  T s_pre[MR_MAX_ROW];
+  T reg[MR_MAX_ROW];
   int active[MR_MAX_ROW];
-  float mu_t[MR_MAX_CON];
-  float amat[MR_MAX_DENSE * MR_MAX_DENSE];  // only when m.dense
+  T mu_t[MR_MAX_CON];
+  T amat[MR_MAX_DENSE * MR_MAX_DENSE];  // only when m.dense
 };
 
 // out = A v with A = J M^-1 J^T (dense: the materialized matrix)
-__device__ void amul(const MRModel& m, const Rows& R,
-                     const float (*l)[MR_MAX_NV], const float* v,
-                     float* out) {
+template <class T>
+__device__ void amul(const MRModelT<T>& m, const Rows<T>& R,
+                     const T (*l)[MR_MAX_NV], const T* v,
+                     T* out) {
   const int nrow = m.nrow, nv = m.nv;
   if (m.dense) {
     for (int r = 0; r < nrow; ++r) {
-      float s = 0.0f;
+      T s = 0.0f;
       for (int c = 0; c < nrow; ++c) s += R.amat[r * nrow + c] * v[c];
       out[r] = s;
     }
     return;
   }
-  float jtv[MR_MAX_NV], x[MR_MAX_NV];
+  T jtv[MR_MAX_NV], x[MR_MAX_NV];
   for (int k = 0; k < nv; ++k) {
-    float s = 0.0f;
+    T s = 0.0f;
     for (int r = 0; r < nrow; ++r) s += R.J[r][k] * v[r];
     jtv[k] = s;
   }
   chol_solve(l, jtv, x, nv);
   for (int r = 0; r < nrow; ++r) {
-    float s = 0.0f;
+    T s = 0.0f;
     for (int k = 0; k < nv; ++k) s += R.J[r][k] * x[k];
     out[r] = s;
   }
 }
 
-// friction-cone / orthant projection, then the active mask
-__device__ void project(const MRModel& m, const Rows& R, float* g) {
-  for (int ci = 0; ci < m.ncon; ++ci) {
-    float* gc = g + 3 * ci;
-    float gn = fmaxf(gc[0], 0.0f);
-    float tsq = gc[1] * gc[1] + gc[2] * gc[2];
-    float tnorm = tsq < 1e-24f ? 0.0f : sqrtf(tsq);
-    float cap = R.mu_t[ci] * gn;
-    float sc = tnorm > cap ? cap / fmaxf(tnorm, 1e-12f) : 1.0f;
+// friction cone on the condim-3 points, nonnegative orthant on the rest
+// (condim-1 normals, joint and tendon limits), then the active mask
+template <class T>
+__device__ void project(const MRModelT<T>& m, const Rows<T>& R, T* g) {
+  for (int ci = 0; ci < m.nfric; ++ci) {
+    T* gc = g + 3 * ci;
+    T gn = r_max(gc[0], 0.0f);
+    T tsq = gc[1] * gc[1] + gc[2] * gc[2];
+    T tnorm = tsq < T(1e-24) ? 0.0f : r_sqrt(tsq);
+    T cap = R.mu_t[ci] * gn;
+    T sc = tnorm > cap ? cap / r_max(tnorm, T(1e-12)) : 1.0f;
     gc[0] = gn;
     gc[1] *= sc;
     gc[2] *= sc;
   }
-  for (int r = 3 * m.ncon; r < m.nrow; ++r) g[r] = fmaxf(g[r], 0.0f);
+  for (int r = 3 * m.nfric; r < m.nrow; ++r) g[r] = r_max(g[r], 0.0f);
   for (int r = 0; r < m.nrow; ++r)
     if (!R.active[r]) g[r] = 0.0f;
 }
 
-__device__ void opmul(const MRModel& m, const Rows& R,
-                      const float (*l)[MR_MAX_NV], const float* v,
-                      float* out) {
-  float sv[MR_MAX_ROW], av[MR_MAX_ROW];
+template <class T>
+__device__ void opmul(const MRModelT<T>& m, const Rows<T>& R,
+                      const T (*l)[MR_MAX_NV], const T* v,
+                      T* out) {
+  T sv[MR_MAX_ROW], av[MR_MAX_ROW];
   for (int r = 0; r < m.nrow; ++r)
     sv[r] = R.active[r] ? R.s_pre[r] * v[r] : 0.0f;
   amul(m, R, l, sv, av);
@@ -295,41 +433,129 @@ __device__ void opmul(const MRModel& m, const Rows& R,
 // one physics step (physics/tilestep.py::step_tb)
 // ---------------------------------------------------------------------------
 
+// What a residual reads after a step: PRE-step frames (the state the step
+// started from), as in tilestep.StepView
+template <class T>
+struct StepOut {
+  T xpos[MR_MAX_BODY][3];
+  T xmat[MR_MAX_BODY][9];
+  T xipos[MR_MAX_BODY][3];
+  T cvel[MR_MAX_BODY][6];
+  T subtree_com[MR_MAX_BODY][3];
+};
+
+// world pose of geom side s (0 = g1, 1 = g2) of contact point ci
+template <class T>
+__device__ __forceinline__ void geom_pose(const MRModelT<T>& m,
+                                          const T (*xpos)[3],
+                                          const T (*xquat)[4], int ci,
+                                          int s, T* gpos, T* gaxis) {
+  const int bg = m.con_gbody[ci][s];
+  T tmp[3], gq[4], gm[9];
+  quat_rot(xquat[bg], m.con_gpos[ci][s], tmp);
+  for (int i = 0; i < 3; ++i) gpos[i] = xpos[bg][i] + tmp[i];
+  quat_mul(xquat[bg], m.con_gquat[ci][s], gq);
+  quat_to_mat(gq, gm);
+  gaxis[0] = gm[2]; gaxis[1] = gm[5]; gaxis[2] = gm[8];
+}
+
+// narrowphase of contact point ci: dist (margin taken off), frame rows
+// (n, t1, t2), contact position
+template <class T>
+__device__ T contact_geometry(const MRModelT<T>& m, const T (*xpos)[3],
+                              const T (*xquat)[4], int ci,
+                              T (*frame)[3], T* cpos) {
+  T dist;
+  if (m.con_kind[ci] == MR_CON_PLANE) {
+    T gpos[3], axis[3], end[3];
+    geom_pose(m, xpos, xquat, ci, 1, gpos, axis);
+    for (int i = 0; i < 3; ++i) end[i] = gpos[i] + m.con_end[ci] * axis[i];
+    const T* n = m.con_frame[ci][0];
+    const T* pp = m.con_ppos[ci];
+    const T rad = m.con_r[ci][1];
+    dist = (n[0] * (end[0] - pp[0]) + n[1] * (end[1] - pp[1]) +
+            n[2] * (end[2] - pp[2])) - rad;
+    const T scale = rad + 0.5f * dist;
+    for (int i = 0; i < 3; ++i) cpos[i] = end[i] - n[i] * scale;
+    for (int r = 0; r < 3; ++r)
+      for (int i = 0; i < 3; ++i) frame[r][i] = m.con_frame[ci][r][i];
+  } else {  // capsule-capsule: smooth clamped closest points
+    T p1[3], u1[3], p2[3], u2[3], rvec[3], w[3], c1[3], c2[3], d[3];
+    geom_pose(m, xpos, xquat, ci, 0, p1, u1);
+    geom_pose(m, xpos, xquat, ci, 1, p2, u2);
+    const T h1 = m.con_half[ci][0], h2 = m.con_half[ci][1];
+    const T r1 = m.con_r[ci][0], r2 = m.con_r[ci][1];
+    for (int i = 0; i < 3; ++i) rvec[i] = p2[i] - p1[i];
+    const T uu = dot3(u1, u2);
+    const T ru1 = dot3(rvec, u1), ru2 = dot3(rvec, u2);
+    const T det = r_max(1.0f - uu * uu, T(1e-9));
+    T t1 = r_min(r_max((ru1 - uu * ru2) / det, -h1), h1);
+    for (int i = 0; i < 3; ++i) w[i] = p1[i] + t1 * u1[i] - p2[i];
+    const T t2 = r_min(r_max(dot3(w, u2), -h2), h2);
+    for (int i = 0; i < 3; ++i) w[i] = p2[i] + t2 * u2[i] - p1[i];
+    t1 = r_min(r_max(dot3(w, u1), -h1), h1);
+    for (int i = 0; i < 3; ++i) {
+      c1[i] = p1[i] + t1 * u1[i];
+      c2[i] = p2[i] + t2 * u2[i];
+      d[i] = c2[i] - c1[i];
+    }
+    const T dn = r_sqrt(r_max(dot3(d, d), T(1e-24)));
+    T n[3];
+    for (int i = 0; i < 3; ++i) n[i] = d[i] / dn;
+    dist = dn - (r1 + r2);
+    const T scale = r1 + 0.5f * dist;
+    for (int i = 0; i < 3; ++i) cpos[i] = c1[i] + n[i] * scale;
+    frame_from_normal(n, frame);
+  }
+  return dist - m.con_margin[ci];
+}
+
 // Advances qpos/qvel in place and replaces lam with the converged duals.
-// xpos/xmat receive the PRE-step body frames the residual reads.
-__device__ void tile_step(const MRModel& m, float* qpos, float* qvel,
-                          const float* ctrl, float* lam,
-                          float (*xpos)[3], float (*xmat)[9]) {
+// `out` receives the PRE-step quantities the residual reads.
+template <class T>
+__device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
+                          const T* ctrl, T* lam, StepOut<T>& out) {
   const int nv = m.nv, nbody = m.nbody;
-  const float h = m.timestep;
+  const T h = m.timestep;
+  T (*xpos)[3] = out.xpos;
+  T (*xmat)[9] = out.xmat;
+  T (*xipos)[3] = out.xipos;
 
   // ---- forward kinematics
-  float xquat[MR_MAX_BODY][4];
-  float xanchor[MR_MAX_JNT][3], xaxis[MR_MAX_JNT][3];
+  T xquat[MR_MAX_BODY][4];
+  T xanchor[MR_MAX_JNT][3], xaxis[MR_MAX_JNT][3];
   for (int i = 0; i < 3; ++i) xpos[0][i] = 0.0f;
   xquat[0][0] = 1.0f; xquat[0][1] = xquat[0][2] = xquat[0][3] = 0.0f;
   for (int bd = 1; bd < nbody; ++bd) {
     const int p = m.body_parentid[bd];
-    float quat[4], pos[3], tmp[3];
+    T quat[4], pos[3], tmp[3];
     quat_mul(xquat[p], m.body_quat[bd], quat);
     quat_rot(xquat[p], m.body_pos[bd], tmp);
     for (int i = 0; i < 3; ++i) pos[i] = xpos[p][i] + tmp[i];
     const int j0 = m.body_jntadr[bd], j1 = j0 + m.body_jntnum[bd];
     for (int j = j0; j < j1; ++j) {
       const int qadr = m.jnt_qposadr[j];
-      const float* ax = m.jnt_axis[j];
-      const float* jp = m.jnt_pos[j];
-      float anchor[3];
+      const T* ax = m.jnt_axis[j];
+      const T* jp = m.jnt_pos[j];
+      if (m.jnt_type[j] == MR_FREE) {
+        for (int i = 0; i < 3; ++i) pos[i] = qpos[qadr + i];
+        for (int i = 0; i < 4; ++i) quat[i] = qpos[qadr + 3 + i];
+        quat_normalize(quat);
+        for (int i = 0; i < 3; ++i) xanchor[j][i] = pos[i];
+        quat_rot(quat, ax, xaxis[j]);
+        continue;
+      }
+      T anchor[3];
       quat_rot(quat, jp, tmp);
       for (int i = 0; i < 3; ++i) anchor[i] = pos[i] + tmp[i];
-      float d = qpos[qadr] - m.qpos0[qadr];
+      T d = qpos[qadr] - m.qpos0[qadr];
       if (m.jnt_type[j] == MR_SLIDE) {
         quat_rot(quat, ax, tmp);
         for (int i = 0; i < 3; ++i) pos[i] = pos[i] + tmp[i] * d;
       } else {  // hinge
-        float half = 0.5f * d, s = sinf(half);
-        float aq[4] = {cosf(half), ax[0] * s, ax[1] * s, ax[2] * s};
-        float q2[4];
+        T half = 0.5f * d, s = r_sin(half);
+        T aq[4] = {r_cos(half), ax[0] * s, ax[1] * s, ax[2] * s};
+        T q2[4];
         quat_mul(quat, aq, q2);
         for (int i = 0; i < 4; ++i) quat[i] = q2[i];
         quat_rot(quat, jp, tmp);
@@ -341,9 +567,9 @@ __device__ void tile_step(const MRModel& m, float* qpos, float* qvel,
     for (int i = 0; i < 3; ++i) xpos[bd][i] = pos[i];
     for (int i = 0; i < 4; ++i) xquat[bd][i] = quat[i];
   }
-  float xipos[MR_MAX_BODY][3], ximat[MR_MAX_BODY][9];
+  T ximat[MR_MAX_BODY][9];
   for (int bd = 0; bd < nbody; ++bd) {
-    float tmp[3], q[4];
+    T tmp[3], q[4];
     quat_to_mat(xquat[bd], xmat[bd]);
     quat_rot(xquat[bd], m.body_ipos[bd], tmp);
     for (int i = 0; i < 3; ++i) xipos[bd][i] = xpos[bd][i] + tmp[i];
@@ -351,33 +577,44 @@ __device__ void tile_step(const MRModel& m, float* qpos, float* qvel,
     quat_to_mat(q, ximat[bd]);
   }
 
-  // ---- cdof [ang; lin] per dof
-  float cdof[MR_MAX_NV][6];
+  // ---- cdof [ang; lin] per dof; a free joint's translations are the
+  //      world axes, its rotations the body axes (xmat columns) about xpos
+  T cdof[MR_MAX_NV][6];
   for (int j = 0; j < m.njnt; ++j) {
     const int k = m.jnt_dofadr[j];
     if (m.jnt_type[j] == MR_SLIDE) {
       for (int i = 0; i < 3; ++i) { cdof[k][i] = 0.0f; cdof[k][3 + i] = xaxis[j][i]; }
-    } else {
+    } else if (m.jnt_type[j] == MR_HINGE) {
       for (int i = 0; i < 3; ++i) cdof[k][i] = xaxis[j][i];
       cross3(xanchor[j], xaxis[j], cdof[k] + 3);
+    } else {  // free
+      const int bd = m.jnt_bodyid[j];
+      for (int a = 0; a < 3; ++a) {
+        for (int i = 0; i < 3; ++i) {
+          cdof[k + a][i] = 0.0f;
+          cdof[k + a][3 + i] = i == a ? 1.0f : 0.0f;
+          cdof[k + 3 + a][i] = xmat[bd][3 * i + a];
+        }
+        cross3(xpos[bd], cdof[k + 3 + a], cdof[k + 3 + a] + 3);
+      }
     }
   }
 
   // ---- body velocities + cdof_dot (static masks)
-  float cvel[MR_MAX_BODY][6];
+  T (*cvel)[6] = out.cvel;
   for (int bd = 0; bd < nbody; ++bd) {
     for (int i = 0; i < 6; ++i) cvel[bd][i] = 0.0f;
     for (int k = 0; k < nv; ++k)
       if (m.dof_body_mask[k][bd])
         for (int i = 0; i < 6; ++i) cvel[bd][i] += cdof[k][i] * qvel[k];
   }
-  float cdofdot[MR_MAX_NV][6];
+  T cdofdot[MR_MAX_NV][6];
   for (int k = 0; k < nv; ++k) {
-    float v[6] = {0, 0, 0, 0, 0, 0};
+    T v[6] = {0, 0, 0, 0, 0, 0};
     for (int i = 0; i < nv; ++i)
       if (m.cdofdot_vel_mask[k][i])
         for (int c = 0; c < 6; ++c) v[c] += cdof[i][c] * qvel[i];
-    float t1[3], t2[3];
+    T t1[3], t2[3];
     cross3(v, cdof[k], cdofdot[k]);
     cross3(v, cdof[k] + 3, t1);
     cross3(v + 3, cdof[k], t2);
@@ -385,20 +622,20 @@ __device__ void tile_step(const MRModel& m, float* qpos, float* qvel,
   }
 
   // ---- spatial inertias and composite (CRB) inertias
-  float Iw[MR_MAX_BODY][9], compTL[MR_MAX_BODY][9];
-  float compMC[MR_MAX_BODY][3], compM[MR_MAX_BODY];
+  T Iw[MR_MAX_BODY][9], compTL[MR_MAX_BODY][9];
+  T compMC[MR_MAX_BODY][3], compM[MR_MAX_BODY];
   for (int bd = 0; bd < nbody; ++bd) {
-    const float* R = ximat[bd];
-    const float* I = m.body_inertia[bd];
-    const float mass = m.body_mass[bd];
+    const T* R = ximat[bd];
+    const T* I = m.body_inertia[bd];
+    const T mass = m.body_mass[bd];
     for (int i = 0; i < 3; ++i)
       for (int j = 0; j < 3; ++j) {
-        float s = 0.0f;
+        T s = 0.0f;
         for (int k = 0; k < 3; ++k) s += R[3 * i + k] * I[k] * R[3 * j + k];
         Iw[bd][3 * i + j] = s;
       }
-    const float cx = xipos[bd][0], cy = xipos[bd][1], cz = xipos[bd][2];
-    const float cc[9] = {cy * cy + cz * cz, -cx * cy, -cx * cz,
+    const T cx = xipos[bd][0], cy = xipos[bd][1], cz = xipos[bd][2];
+    const T cc[9] = {cy * cy + cz * cz, -cx * cy, -cx * cz,
                          -cx * cy, cx * cx + cz * cz, -cy * cz,
                          -cx * cz, -cy * cz, cx * cx + cy * cy};
     for (int i = 0; i < 9; ++i) compTL[bd][i] = Iw[bd][i] + mass * cc[i];
@@ -413,19 +650,34 @@ __device__ void tile_step(const MRModel& m, float* qpos, float* qvel,
       compM[p] += compM[bd];
     }
   }
+  // subtree CoM: the composite sums per body; body 0 is the whole system
+  {
+    T mc[3] = {compMC[0][0], compMC[0][1], compMC[0][2]};
+    T mm = compM[0];
+    for (int bd = 1; bd < nbody; ++bd)
+      if (m.body_parentid[bd] == 0) {
+        for (int i = 0; i < 3; ++i) mc[i] += compMC[bd][i];
+        mm += compM[bd];
+      }
+    for (int i = 0; i < 3; ++i)
+      out.subtree_com[0][i] = mc[i] / r_max(mm, T(1e-12));
+    for (int bd = 1; bd < nbody; ++bd)
+      for (int i = 0; i < 3; ++i)
+        out.subtree_com[bd][i] = compMC[bd][i] / r_max(compM[bd], T(1e-12));
+  }
 
   // ---- joint-space inertia (ancestor sparsity) + implicit damping
-  float L[MR_MAX_NV][MR_MAX_NV];
+  T L[MR_MAX_NV][MR_MAX_NV];
   for (int i = 0; i < nv; ++i)
     for (int j = 0; j < nv; ++j) L[i][j] = 0.0f;
   for (int j = 0; j < nv; ++j) {
     const int bd = m.dof_body[j];
-    const float* va = cdof[j];
-    const float* vl = cdof[j] + 3;
-    float fa[3], fl[3], t[3];
+    const T* va = cdof[j];
+    const T* vl = cdof[j] + 3;
+    T fa[3], fl[3], t[3];
     cross3(compMC[bd], vl, t);
     for (int i = 0; i < 3; ++i) {
-      float s = 0.0f;
+      T s = 0.0f;
       for (int k = 0; k < 3; ++k) s += compTL[bd][3 * i + k] * va[k];
       fa[i] = s + t[i];
     }
@@ -433,7 +685,7 @@ __device__ void tile_step(const MRModel& m, float* qpos, float* qvel,
     for (int i = 0; i < 3; ++i) fl[i] = -t[i] + compM[bd] * vl[i];
     for (int i = 0; i <= j; ++i)
       if (m.dof_ancestor_mask[i][j]) {
-        float v = dot3(cdof[i], fa) + dot3(cdof[i] + 3, fl);
+        T v = dot3(cdof[i], fa) + dot3(cdof[i] + 3, fl);
         L[i][j] = v;
         L[j][i] = v;
       }
@@ -442,20 +694,20 @@ __device__ void tile_step(const MRModel& m, float* qpos, float* qvel,
     L[k][k] = L[k][k] + m.dof_armature[k] + h * m.dof_damping[k];
   // in-place Cholesky (lower triangle), pivots clamped at 1e-12
   for (int j = 0; j < nv; ++j) {
-    float s = L[j][j];
+    T s = L[j][j];
     for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-    const float ljj = sqrtf(fmaxf(s, 1e-12f));
-    const float inv = 1.0f / ljj;
+    const T ljj = r_sqrt(r_max(s, T(1e-12)));
+    const T inv = 1.0f / ljj;
     L[j][j] = ljj;
     for (int i = j + 1; i < nv; ++i) {
-      float r = L[i][j];
+      T r = L[i][j];
       for (int k = 0; k < j; ++k) r -= L[i][k] * L[j][k];
       L[i][j] = r * inv;
     }
   }
 
   // ---- RNE bias (qacc = 0, base acceleration = -gravity)
-  float cacc[MR_MAX_BODY][6], cfrc[MR_MAX_BODY][6];
+  T cacc[MR_MAX_BODY][6], cfrc[MR_MAX_BODY][6];
   for (int i = 0; i < 3; ++i) { cacc[0][i] = 0.0f; cacc[0][3 + i] = 0.0f - m.gravity[i]; }
   for (int bd = 1; bd < nbody; ++bd) {
     const int p = m.body_parentid[bd];
@@ -465,9 +717,9 @@ __device__ void tile_step(const MRModel& m, float* qpos, float* qvel,
         for (int i = 0; i < 6; ++i) cacc[bd][i] += cdofdot[k][i] * qvel[k];
   }
   for (int bd = 0; bd < nbody; ++bd) {
-    float fav[3], flv[3], faa[3], fla[3], t1[3], t2[3], t3[3];
-    const float* va = cvel[bd];
-    const float* vl = cvel[bd] + 3;
+    T fav[3], flv[3], faa[3], fla[3], t1[3], t2[3], t3[3];
+    const T* va = cvel[bd];
+    const T* vl = cvel[bd] + 3;
     inert_mul(Iw[bd], xipos[bd], m.body_mass[bd], va, vl, fav, flv);
     inert_mul(Iw[bd], xipos[bd], m.body_mass[bd], cacc[bd], cacc[bd] + 3,
               faa, fla);
@@ -485,159 +737,169 @@ __device__ void tile_step(const MRModel& m, float* qpos, float* qvel,
   }
 
   // ---- passive + actuation -> smooth force and acceleration
-  float qfrc[MR_MAX_NV], qacc_smooth[MR_MAX_NV];
-  float qact[MR_MAX_NV];
+  T qfrc[MR_MAX_NV], qacc_smooth[MR_MAX_NV];
+  T qact[MR_MAX_NV];
   for (int k = 0; k < nv; ++k) {
-    float f = -m.dof_damping[k] * qvel[k];
+    T f = -m.dof_damping[k] * qvel[k];
     if (m.dof_frictionloss[k] != 0.0f)
-      f = f - m.dof_frictionloss[k] * tanhf(qvel[k] / 0.01f);
+      f = f - m.dof_frictionloss[k] * r_tanh(qvel[k] / T(0.01));
     qfrc[k] = f;
     qact[k] = 0.0f;
   }
   for (int j = 0; j < m.njnt; ++j) {
-    const float ks = m.jnt_stiffness[j];
-    if (ks != 0.0f) {
+    const T ks = m.jnt_stiffness[j];
+    if (ks != 0.0f && m.jnt_type[j] != MR_FREE) {
       const int qadr = m.jnt_qposadr[j], vadr = m.jnt_dofadr[j];
       qfrc[vadr] = qfrc[vadr] - ks * (qpos[qadr] - m.qpos_spring[qadr]);
     }
   }
   for (int u = 0; u < m.nu; ++u) {
-    float c = ctrl[u];
-    if (m.ctrl_limited[u]) c = fminf(fmaxf(c, m.ctrl_lo[u]), m.ctrl_hi[u]);
-    const float gear = m.act_gear[u];
-    const float length = gear * qpos[m.act_qadr[u]];
-    const float velocity = gear * qvel[m.act_vadr[u]];
-    const float* gp = m.act_gainprm[u];
-    const float* bp = m.act_biasprm[u];
-    const float gain = m.act_gain_fixed[u]
+    T c = ctrl[u];
+    if (m.ctrl_limited[u]) c = r_min(r_max(c, m.ctrl_lo[u]), m.ctrl_hi[u]);
+    const T gear = m.act_gear[u];
+    const T length = gear * qpos[m.act_qadr[u]];
+    const T velocity = gear * qvel[m.act_vadr[u]];
+    const T* gp = m.act_gainprm[u];
+    const T* bp = m.act_biasprm[u];
+    const T gain = m.act_gain_fixed[u]
         ? gp[0] : gp[0] + gp[1] * length + gp[2] * velocity;
-    const float bias = m.act_bias_fixed[u]
+    const T bias = m.act_bias_fixed[u]
         ? 0.0f : bp[0] + bp[1] * length + bp[2] * velocity;
-    float force = gain * c + bias;
+    T force = gain * c + bias;
     if (m.force_limited[u])
-      force = fminf(fmaxf(force, m.force_lo[u]), m.force_hi[u]);
+      force = r_min(r_max(force, m.force_lo[u]), m.force_hi[u]);
     qact[m.act_vadr[u]] += gear * force;
   }
   for (int k = 0; k < nv; ++k) {
     const int bd = m.dof_body[k];
-    const float bias = dot3(cdof[k], cfrc[bd]) + dot3(cdof[k] + 3, cfrc[bd] + 3);
+    const T bias = dot3(cdof[k], cfrc[bd]) + dot3(cdof[k] + 3, cfrc[bd] + 3);
     qfrc[k] = qfrc[k] + qact[k] - bias;
   }
   chol_solve(L, qfrc, qacc_smooth, nv);
 
-  // ---- constraint rows: contact points (n, t1, t2), then limits (lo, hi)
+  // ---- constraint rows: condim-3 points (n, t1, t2), condim-1 points (n),
+  //      joint limits (lo, hi), tendon limits (lo, hi)
   const int nrow = m.nrow;
-  float qfrc_c[MR_MAX_NV];
+  T qfrc_c[MR_MAX_NV];
   for (int k = 0; k < nv; ++k) qfrc_c[k] = 0.0f;
   if (nrow > 0) {
-    Rows R;
-    float aref[MR_MAX_ROW], raw_diag[MR_MAX_ROW], a0[MR_MAX_ROW];
-    float imp[MR_MAX_ROW];
-    int r = 0;
+    Rows<T> R;
+    T aref[MR_MAX_ROW], raw_diag[MR_MAX_ROW], a0[MR_MAX_ROW];
+    T imp[MR_MAX_ROW];
     for (int ci = 0; ci < m.ncon; ++ci) {
-      const int bg = m.con_gbody[ci];
-      float gpos[3], gq[4], gm[9], tmp[3], end[3], cpos[3];
-      quat_rot(xquat[bg], m.con_gpos[ci], tmp);
-      for (int i = 0; i < 3; ++i) gpos[i] = xpos[bg][i] + tmp[i];
-      quat_mul(xquat[bg], m.con_gquat[ci], gq);
-      quat_to_mat(gq, gm);
-      const float axis[3] = {gm[2], gm[5], gm[8]};
-      for (int i = 0; i < 3; ++i) end[i] = gpos[i] + m.con_end[ci] * axis[i];
-      const float* n = m.con_frame[ci][0];
-      const float* pp = m.con_ppos[ci];
-      const float rad = m.con_r[ci];
-      float dist = (n[0] * (end[0] - pp[0]) + n[1] * (end[1] - pp[1]) +
-                    n[2] * (end[2] - pp[2])) - rad;
-      const float scale = rad + 0.5f * dist;
-      for (int i = 0; i < 3; ++i) cpos[i] = end[i] - n[i] * scale;
-      dist = dist - m.con_margin[ci];
-      const float im = impedance(dist, m.con_imp[ci]);
-      for (int row = 0; row < 3; ++row, ++r) {
-        const float* fr = m.con_frame[ci][row];
+      T frame[3][3], cpos[3];
+      const T dist = contact_geometry(m, xpos, xquat, ci, frame, cpos);
+      const T im = impedance(dist, m.con_imp[ci]);
+      const bool fric = ci < m.nfric;
+      const int r0 = fric ? 3 * ci : 3 * m.nfric + (ci - m.nfric);
+      for (int row = 0; row < (fric ? 3 : 1); ++row) {
+        const int r = r0 + row;
         for (int k = 0; k < nv; ++k) {
-          const float sg = m.con_sgn[ci][k];
+          const T sg = m.con_sgn[ci][k];
           if (sg != 0.0f) {
-            float jp[3];
+            T jp[3], tmp[3];
             cross3(cdof[k], cpos, tmp);
             for (int i = 0; i < 3; ++i) jp[i] = cdof[k][3 + i] + tmp[i];
-            R.J[r][k] = sg * dot3(fr, jp);
+            R.J[r][k] = sg * dot3(frame[row], jp);
           } else {
             R.J[r][k] = 0.0f;
           }
         }
-        const float pos = row == 0 ? fminf(dist, 0.0f) : 0.0f;
+        const T pos = row == 0 ? r_min(dist, 0.0f) : 0.0f;
         R.active[r] = dist < 0.0f;
         imp[r] = im;
-        float vel = 0.0f;
+        T vel = 0.0f;
         for (int k = 0; k < nv; ++k) vel += R.J[r][k] * qvel[k];
         aref[r] = -im * (m.con_k[ci] * pos + m.con_b[ci] * vel);
       }
     }
+    int r = 3 * m.nfric + (m.ncon - m.nfric);
     for (int li = 0; li < m.nlim; ++li) {
-      const float q = qpos[m.lim_qadr[li]];
+      const T q = qpos[m.lim_qadr[li]];
       for (int side = 0; side < 2; ++side, ++r) {
-        const float posv = side == 0 ? q - m.lim_lo[li] - m.lim_margin[li]
+        const T posv = side == 0 ? q - m.lim_lo[li] - m.lim_margin[li]
                                      : m.lim_hi[li] - q - m.lim_margin[li];
-        const float sgn = side == 0 ? 1.0f : -1.0f;
+        const T sgn = side == 0 ? 1.0f : -1.0f;
         for (int k = 0; k < nv; ++k) R.J[r][k] = 0.0f;
         R.J[r][m.lim_vadr[li]] = sgn;
         R.active[r] = posv < 0.0f;
         imp[r] = impedance(posv, m.lim_imp);
-        const float vel = sgn * qvel[m.lim_vadr[li]];
-        aref[r] = -imp[r] * (m.lim_k[li] * fminf(posv, 0.0f) +
+        const T vel = sgn * qvel[m.lim_vadr[li]];
+        aref[r] = -imp[r] * (m.lim_k[li] * r_min(posv, 0.0f) +
                              m.lim_b[li] * vel);
+      }
+    }
+    for (int ti = 0; ti < m.nten; ++ti) {
+      T len = 0.0f;
+      for (int w = 0; w < m.ten_nwrap[ti]; ++w) {
+        const T term = m.ten_coef[ti][w] * qpos[m.ten_qadr[ti][w]];
+        len = w == 0 ? term : len + term;
+      }
+      for (int side = 0; side < 2; ++side, ++r) {
+        const T posv = side == 0
+            ? len - m.ten_lo[ti] - m.ten_margin[ti]
+            : m.ten_hi[ti] - len - m.ten_margin[ti];
+        const T sgn = side == 0 ? 1.0f : -1.0f;
+        for (int k = 0; k < nv; ++k) R.J[r][k] = 0.0f;
+        for (int w = 0; w < m.ten_nwrap[ti]; ++w)
+          R.J[r][m.ten_vadr[ti][w]] += sgn * m.ten_coef[ti][w];
+        R.active[r] = posv < 0.0f;
+        imp[r] = impedance(posv, m.lim_imp);
+        T vel = 0.0f;
+        for (int k = 0; k < nv; ++k) vel += R.J[r][k] * qvel[k];
+        aref[r] = -imp[r] * (m.ten_k[ti] * r_min(posv, 0.0f) +
+                             m.ten_b[ti] * vel);
       }
     }
 
     // ---- Delassus diagonal (and matrix when dense), free acceleration
     for (int s = 0; s < nrow; ++s) {
-      float x[MR_MAX_NV];
+      T x[MR_MAX_NV];
       chol_solve(L, R.J[s], x, nv);
       if (m.dense) {
         for (int rr = 0; rr < nrow; ++rr) {
-          float a = 0.0f;
+          T a = 0.0f;
           for (int k = 0; k < nv; ++k) a += R.J[rr][k] * x[k];
           R.amat[rr * nrow + s] = a;
         }
         raw_diag[s] = R.amat[s * nrow + s];
       } else {
-        float a = 0.0f;
+        T a = 0.0f;
         for (int k = 0; k < nv; ++k) a += R.J[s][k] * x[k];
         raw_diag[s] = a;
       }
     }
-    float maxd = raw_diag[0];
-    for (int rr = 1; rr < nrow; ++rr) maxd = fmaxf(maxd, raw_diag[rr]);
-    float dr[MR_MAX_ROW], diag[MR_MAX_ROW];
+    T maxd = raw_diag[0];
+    for (int rr = 1; rr < nrow; ++rr) maxd = r_max(maxd, raw_diag[rr]);
+    T dr[MR_MAX_ROW], diag[MR_MAX_ROW];
     for (int rr = 0; rr < nrow; ++rr) {
-      float a = 0.0f;
+      T a = 0.0f;
       for (int k = 0; k < nv; ++k) a += R.J[rr][k] * qacc_smooth[k];
       a0[rr] = a;
-      diag[rr] = fmaxf(raw_diag[rr], 1e-10f);
+      diag[rr] = r_max(raw_diag[rr], T(1e-10));
       R.reg[rr] = (1.0f - imp[rr]) / imp[rr] * diag[rr];
       // degenerate rows (A_rr ~ 0 against the largest) are deactivated
-      R.active[rr] = R.active[rr] && (raw_diag[rr] > 1e-8f * maxd);
+      R.active[rr] = R.active[rr] && (raw_diag[rr] > T(1e-8) * maxd);
       dr[rr] = diag[rr] + R.reg[rr];
     }
 
     // ---- Jacobi preconditioning, tangent scales tied inside a point
-    for (int ci = 0; ci < m.ncon; ++ci) {
-      const float mt = 0.5f * (dr[3 * ci + 1] + dr[3 * ci + 2]);
+    for (int ci = 0; ci < m.nfric; ++ci) {
+      const T mt = 0.5f * (dr[3 * ci + 1] + dr[3 * ci + 2]);
       dr[3 * ci + 1] = mt;
       dr[3 * ci + 2] = mt;
     }
     for (int rr = 0; rr < nrow; ++rr)
-      R.s_pre[rr] = 1.0f / sqrtf(fmaxf(dr[rr], 1e-12f));
-    for (int ci = 0; ci < m.ncon; ++ci)
+      R.s_pre[rr] = 1.0f / r_sqrt(r_max(dr[rr], T(1e-12)));
+    for (int ci = 0; ci < m.nfric; ++ci)
       R.mu_t[ci] = m.con_mu[ci] * R.s_pre[3 * ci] / R.s_pre[3 * ci + 1];
-
     // ---- initial iterate: cold start, or the previous step's duals
-    float g[MR_MAX_ROW], y[MR_MAX_ROW], gn[MR_MAX_ROW], b_vec[MR_MAX_ROW];
-    float lam_abs = 0.0f;
-    for (int rr = 0; rr < nrow; ++rr) lam_abs += fabsf(lam[rr]);
+    T g[MR_MAX_ROW], y[MR_MAX_ROW], gn[MR_MAX_ROW], b_vec[MR_MAX_ROW];
+    T lam_abs = 0.0f;
+    for (int rr = 0; rr < nrow; ++rr) lam_abs += r_abs(lam[rr]);
     const bool cold = lam_abs == 0.0f;
     for (int rr = 0; rr < nrow; ++rr) {
-      const float dinv = 1.0f / (diag[rr] + R.reg[rr]);
+      const T dinv = 1.0f / (diag[rr] + R.reg[rr]);
       g[rr] = (aref[rr] - a0[rr]) * dinv / R.s_pre[rr];
     }
     project(m, R, g);
@@ -648,52 +910,52 @@ __device__ void tile_step(const MRModel& m, float* qpos, float* qvel,
 
     // ---- step size: Gershgorin (dense) or power iteration (matrix-free),
     //      denominators floored at 1
-    float step;
+    T step;
     if (m.dense) {
-      float mx = 0.0f;
+      T mx = 0.0f;
       for (int rr = 0; rr < nrow; ++rr) {
-        float s = 0.0f;
+        T s = 0.0f;
         for (int c = 0; c < nrow; ++c)
-          s += fabsf(R.amat[rr * nrow + c]) * R.s_pre[c];
-        const float rs = R.s_pre[rr] * s + R.s_pre[rr] * R.s_pre[rr] * R.reg[rr];
-        mx = fmaxf(mx, R.active[rr] ? rs : 0.0f);
+          s += r_abs(R.amat[rr * nrow + c]) * R.s_pre[c];
+        const T rs = R.s_pre[rr] * s + R.s_pre[rr] * R.s_pre[rr] * R.reg[rr];
+        mx = r_max(mx, R.active[rr] ? rs : 0.0f);
       }
-      step = 1.0f / fmaxf(mx, 1.0f);
+      step = 1.0f / r_max(mx, 1.0f);
     } else {
-      float v[MR_MAX_ROW], w[MR_MAX_ROW];
+      T v[MR_MAX_ROW], w[MR_MAX_ROW];
       for (int rr = 0; rr < nrow; ++rr) v[rr] = R.active[rr] ? 1.0f : 0.0f;
       for (int it = 0; it < MR_POWER_ITERS; ++it) {
         opmul(m, R, L, v, w);
-        float ss = 0.0f;
+        T ss = 0.0f;
         for (int rr = 0; rr < nrow; ++rr) ss += w[rr] * w[rr];
-        const float nrm = sqrtf(fmaxf(ss, 1e-30f));
+        const T nrm = r_sqrt(r_max(ss, T(1e-30)));
         for (int rr = 0; rr < nrow; ++rr) v[rr] = w[rr] / nrm;
       }
       opmul(m, R, L, v, w);
-      float lmax = 0.0f;
+      T lmax = 0.0f;
       for (int rr = 0; rr < nrow; ++rr) lmax += v[rr] * w[rr];
-      step = 1.0f / fmaxf(1.25f * lmax, 1.0f);
+      step = 1.0f / r_max(1.25f * lmax, 1.0f);
     }
 
     // ---- APGD with adaptive restart, in g = f / s coordinates
     for (int rr = 0; rr < nrow; ++rr) y[rr] = g[rr];
-    float t = 1.0f;
+    T t = 1.0f;
     for (int it = 0; it < MR_ITERATIONS; ++it) {
-      float f[MR_MAX_ROW], af[MR_MAX_ROW];
+      T f[MR_MAX_ROW], af[MR_MAX_ROW];
       for (int rr = 0; rr < nrow; ++rr) f[rr] = R.s_pre[rr] * y[rr];
       amul(m, R, L, f, af);
       for (int rr = 0; rr < nrow; ++rr) {
-        const float gr = R.s_pre[rr] * (af[rr] + R.reg[rr] * f[rr] + b_vec[rr]);
+        const T gr = R.s_pre[rr] * (af[rr] + R.reg[rr] * f[rr] + b_vec[rr]);
         gn[rr] = y[rr] - step * gr;
       }
       project(m, R, gn);
-      const float t_new = 0.5f * (1.0f + sqrtf(1.0f + 4.0f * t * t));
-      const float beta = (t - 1.0f) / t_new;
-      float dot = 0.0f;
+      const T t_new = 0.5f * (1.0f + r_sqrt(1.0f + 4.0f * t * t));
+      const T beta = (t - 1.0f) / t_new;
+      T dot = 0.0f;
       for (int rr = 0; rr < nrow; ++rr) dot += (gn[rr] - g[rr]) * (y[rr] - gn[rr]);
       const bool reverse = dot > 0.0f;
       for (int rr = 0; rr < nrow; ++rr) {
-        const float dg = gn[rr] - g[rr];
+        const T dg = gn[rr] - g[rr];
         y[rr] = reverse ? gn[rr] : gn[rr] + beta * dg;
         g[rr] = gn[rr];
       }
@@ -701,41 +963,145 @@ __device__ void tile_step(const MRModel& m, float* qpos, float* qvel,
     }
     for (int rr = 0; rr < nrow; ++rr) lam[rr] = R.s_pre[rr] * g[rr];
     for (int k = 0; k < nv; ++k) {
-      float s = 0.0f;
+      T s = 0.0f;
       for (int rr = 0; rr < nrow; ++rr) s += R.J[rr][k] * lam[rr];
       qfrc_c[k] = s;
     }
   }
 
-  // ---- integrate (semi-implicit Euler, implicit damping in the factor)
-  float qacc[MR_MAX_NV];
+  // ---- integrate (semi-implicit Euler, implicit damping in the factor);
+  //      a free joint's quaternion by the exact exponential map
+  T qacc[MR_MAX_NV];
   for (int k = 0; k < nv; ++k) qfrc[k] = qfrc[k] + qfrc_c[k];
   chol_solve(L, qfrc, qacc, nv);
   for (int k = 0; k < nv; ++k) qvel[k] = qvel[k] + h * qacc[k];
-  for (int k = 0; k < nv; ++k) qpos[k] = qpos[k] + h * qvel[k];
+  for (int j = 0; j < m.njnt; ++j) {
+    const int qadr = m.jnt_qposadr[j], vadr = m.jnt_dofadr[j];
+    if (m.jnt_type[j] == MR_FREE) {
+      for (int i = 0; i < 3; ++i) qpos[qadr + i] += h * qvel[vadr + i];
+      quat_integrate(qpos + qadr + 3, qvel + vadr + 3, h);
+    } else {
+      qpos[qadr] = qpos[qadr] + h * qvel[vadr];
+    }
+  }
 }
+
 
 // ---------------------------------------------------------------------------
 // task residuals (tasks/*.py::residual) and the cost (cost_value_t)
 // ---------------------------------------------------------------------------
 
-// Residuals read pre-step frames, post-step qvel, the step's ctrl and the
-// post-step time t0 + (i+1)*dt (megarollout.py::_rollout_body).
+// Residuals read pre-step frames (StepOut), post-step qpos/qvel, the
+// step's ctrl and the post-step time t0 + (i+1)*dt
+// (megarollout.py::_rollout_body).
 // tasks/walker.py::residual; res_int = (torso body, rootx dof); no time
-__device__ void residual_walker(const MRModel& m, const float (*xpos)[3],
-                                const float (*xmat)[9], const float* qvel,
-                                const float* ctrl, float /*time*/,
-                                const float* rp, float* res) {
+template <class T>
+__device__ void residual_walker(const MRModelT<T>& m, const StepOut<T>& o,
+                                const T* /*qpos*/, const T* qvel,
+                                const T* ctrl, T /*time*/,
+                                const T* rp, T* res) {
   const int torso = m.res_int[0], vx = m.res_int[1];
-  res[0] = xpos[torso][2] - rp[1];
-  res[1] = xmat[torso][8] - 1.0f;
+  res[0] = o.xpos[torso][2] - rp[1];
+  res[1] = o.xmat[torso][8] - 1.0f;
   res[2] = qvel[vx] - rp[0];
   for (int i = 0; i < 6; ++i) res[3 + i] = ctrl[i];
 }
 
-__device__ float norm_value(int type, const float* x, int n, float p,
-                            float q) {
-  float s = 0.0f;
+// world velocity of body b's centre of mass (cvel about the world origin)
+template <class T>
+__device__ __forceinline__ void com_vel(const StepOut<T>& o, int b, T* v) {
+  T t[3];
+  cross3(o.cvel[b], o.xipos[b], t);
+  for (int i = 0; i < 3; ++i) v[i] = o.cvel[b][3 + i] + t[i];
+}
+
+// physics/sensors.py::subtree_linvel over the bodies in bitmask `set`
+template <class T>
+__device__ void subtree_linvel(const MRModelT<T>& m, const StepOut<T>& o,
+                               int set, T mass, T* v) {
+  T mom[3] = {0.0f, 0.0f, 0.0f};
+  for (int b = 0; b < m.nbody; ++b)
+    if (set & (1 << b)) {
+      T vb[3];
+      com_vel(o, b, vb);
+      for (int i = 0; i < 3; ++i) mom[i] += m.body_mass[b] * vb[i];
+    }
+  for (int i = 0; i < 3; ++i) v[i] = mom[i] / r_max(mass, T(1e-12));
+}
+
+// tasks/humanoid.py::residual (36 + (nq - 7) + nu entries, 57 for the
+// dm_control humanoid); res_int = (torso, pelvis,
+// lower_waist, right_foot, left_foot, torso subtree mask, lower_waist
+// subtree mask), res_float = (torso, lower_waist subtree masses);
+// rp = (Height, Speed, Balance); no time
+template <class T>
+__device__ void residual_humanoid(const MRModelT<T>& m, const StepOut<T>& o,
+                                  const T* qpos, const T* /*qvel*/,
+                                  const T* ctrl, T /*time*/,
+                                  const T* rp, T* res) {
+  const int torso = m.res_int[0], pelvis = m.res_int[1];
+  const int rfoot = m.res_int[3], lfoot = m.res_int[4];
+  const T* fr = o.xpos[rfoot];
+  const T* fl = o.xpos[lfoot];
+  // torso height, pelvis / feet, the standing gate
+  const T torso_h = o.xpos[torso][2];
+  res[0] = torso_h - rp[0];
+  res[1] = 0.5f * (fl[2] + fr[2]) - o.xpos[pelvis][2] - T(0.2);
+  const T standing =
+      torso_h / r_sqrt(torso_h * torso_h + T(0.45 * 0.45)) - T(0.4);
+  // balance: capture point onto the inter-foot segment
+  T subvel[3];
+  subtree_linvel(m, o, m.res_int[5], m.res_float[0], subvel);
+  T capture[2], axis[2], center[2];
+  for (int i = 0; i < 2; ++i) {
+    capture[i] = o.subtree_com[torso][i] + rp[2] * subvel[i];
+    axis[i] = fr[i] - fl[i];
+    center[i] = 0.5f * (fr[i] + fl[i]);
+  }
+  const T anorm = r_sqrt(axis[0] * axis[0] + axis[1] * axis[1]);
+  const T length = 0.5f * anorm - T(0.05);
+  for (int i = 0; i < 2; ++i) axis[i] = axis[i] / r_max(anorm, T(1e-9));
+  T t = (capture[0] - center[0]) * axis[0] +
+            (capture[1] - center[1]) * axis[1];
+  t = r_min(r_max(t, -length), length);
+  for (int i = 0; i < 2; ++i)
+    res[2 + i] = standing * (capture[i] - (center[i] + t * axis[i]));
+  // upright: torso, pelvis, both feet
+  res[4] = o.xmat[torso][8] - 1.0f;
+  res[5] = T(0.3) * (o.xmat[pelvis][8] - 1.0f);
+  const T sf = T(0.1) * standing;
+  for (int i = 0; i < 3; ++i) {
+    res[6 + i] = sf * (o.xmat[rfoot][3 * i + 2] - (i == 2 ? 1.0f : 0.0f));
+    res[9 + i] = sf * (o.xmat[lfoot][3 * i + 2] - (i == 2 ? 1.0f : 0.0f));
+  }
+  // posture: the joint angles after the step (qpos past the free joint)
+  const int nposture = m.nq - 7;
+  for (int i = 0; i < nposture; ++i) res[12 + i] = qpos[7 + i];
+  T* tail = res + 12 + nposture;
+  // walk forward, move feet
+  T fwd[2];
+  for (int i = 0; i < 2; ++i)
+    fwd[i] = o.xmat[torso][3 * i] + o.xmat[pelvis][3 * i] +
+             o.xmat[rfoot][3 * i] + o.xmat[lfoot][3 * i];
+  const T fnorm = r_max(r_sqrt(fwd[0] * fwd[0] + fwd[1] * fwd[1]), T(1e-9));
+  T waist_vel[3], torso_vel[3], rvel[3], lvel[3], cv[2];
+  subtree_linvel(m, o, m.res_int[6], m.res_float[1], waist_vel);
+  com_vel(o, torso, torso_vel);
+  com_vel(o, rfoot, rvel);
+  com_vel(o, lfoot, lvel);
+  for (int i = 0; i < 2; ++i) cv[i] = 0.5f * (waist_vel[i] + torso_vel[i]);
+  tail[0] = standing * (cv[0] * (fwd[0] / fnorm) + cv[1] * (fwd[1] / fnorm)
+                        - rp[1]);
+  for (int i = 0; i < 2; ++i)
+    tail[1 + i] = standing * (cv[i] - 0.5f * rvel[i] - 0.5f * lvel[i]);
+  // control: the raw commands
+  for (int i = 0; i < m.nu; ++i) tail[3 + i] = ctrl[i];
+}
+
+template <class T>
+__device__ T norm_value(int type, const T* x, int n, T p,
+                        T q) {
+  T s = 0.0f;
   switch (type) {
     case -1:  // NULL
       return x[0];
@@ -744,29 +1110,29 @@ __device__ float norm_value(int type, const float* x, int n, float p,
       return 0.5f * s;
     case 1:  // L22
       for (int i = 0; i < n; ++i) s += x[i] * x[i];
-      return powf(powf(s, q / 2) + powf(p, q), 1.0f / q) - p;
+      return r_pow(r_pow(s, q / 2) + r_pow(p, q), 1.0f / q) - p;
     case 2:  // L2
       for (int i = 0; i < n; ++i) s += x[i] * x[i];
-      return sqrtf(s + p * p) - p;
+      return r_sqrt(s + p * p) - p;
     case 3:  // COSH
-      for (int i = 0; i < n; ++i) s += p * p * (coshf(x[i] / p) - 1.0f);
+      for (int i = 0; i < n; ++i) s += p * p * (r_cosh(x[i] / p) - 1.0f);
       return s;
     case 5:  // POWER_LOSS
-      for (int i = 0; i < n; ++i) s += powf(fabsf(x[i]), p);
+      for (int i = 0; i < n; ++i) s += r_pow(r_abs(x[i]), p);
       return s;
     case 6:  // SMOOTH_ABS
-      for (int i = 0; i < n; ++i) s += sqrtf(x[i] * x[i] + p * p) - p;
+      for (int i = 0; i < n; ++i) s += r_sqrt(x[i] * x[i] + p * p) - p;
       return s;
     case 7:  // SMOOTH_ABS2
       for (int i = 0; i < n; ++i)
-        s += powf(powf(fabsf(x[i]), q) + powf(p, q), 1.0f / q) - p;
+        s += r_pow(r_pow(r_abs(x[i]), q) + r_pow(p, q), 1.0f / q) - p;
       return s;
     case 8: {  // RECTIFY: softplus when p > 0, relu otherwise
       if (p > 0.0f) {
-        const float sp = fmaxf(p, 1e-10f);
-        for (int i = 0; i < n; ++i) s += sp * log1pf(expf(x[i] / sp));
+        const T sp = r_max(p, T(1e-10));
+        for (int i = 0; i < n; ++i) s += sp * r_log1p(r_exp(x[i] / sp));
       } else {
-        for (int i = 0; i < n; ++i) s += fmaxf(x[i], 0.0f);
+        for (int i = 0; i < n; ++i) s += r_max(x[i], 0.0f);
       }
       return s;
     }
@@ -774,19 +1140,20 @@ __device__ float norm_value(int type, const float* x, int n, float p,
   return __int_as_float(0x7fc00000);  // unknown norm: NaN
 }
 
-__device__ float cost_value(const MRModel& m, const float* res,
-                            const float* weights, const float* norm_params,
-                            float risk) {
-  float total = 0.0f;
+template <class T>
+__device__ T cost_value(const MRModelT<T>& m, const T* res,
+                        const T* weights, const T* norm_params,
+                        T risk) {
+  T total = 0.0f;
   int shift = 0;
   for (int k = 0; k < m.nterm; ++k) {
-    const float v = norm_value(m.term_norm[k], res + shift, m.term_dim[k],
-                               norm_params[2 * k], norm_params[2 * k + 1]);
+    const T v = norm_value(m.term_norm[k], res + shift, m.term_dim[k],
+                           norm_params[2 * k], norm_params[2 * k + 1]);
     total += weights[k] * v;
     shift += m.term_dim[k];
   }
-  const bool small = fabsf(risk) < 1e-6f;
-  const float risky = (expf(risk * total) - 1.0f) / (small ? 1.0f : risk);
+  const bool small = r_abs(risk) < T(1e-6);
+  const T risky = (r_exp(risk * total) - 1.0f) / (small ? 1.0f : risk);
   return small ? total : risky;
 }
 
@@ -794,111 +1161,159 @@ __device__ float cost_value(const MRModel& m, const float* res,
 // kernels
 // ---------------------------------------------------------------------------
 
-__device__ void load_model(const MRModel* __restrict__ src, MRModel* dst) {
+template <class T>
+__device__ void load_model(const MRModelT<T>* __restrict__ src,
+                           MRModelT<T>* dst) {
   const int* s = reinterpret_cast<const int*>(src);
   int* d = reinterpret_cast<int*>(dst);
-  for (int i = threadIdx.x; i < (int)(sizeof(MRModel) / 4); i += blockDim.x)
+  for (int i = threadIdx.x; i < (int)(sizeof(MRModelT<T>) / 4);
+       i += blockDim.x)
     d[i] = s[i];
   __syncthreads();
 }
 
+template <class T>
 __global__ void __launch_bounds__(64) mr_returns_kernel(
-    const MRModel* __restrict__ model, const float* __restrict__ qpos0,
-    const float* __restrict__ qvel0, const float* __restrict__ actions,
-    const float* __restrict__ weights, const float* __restrict__ norm_params,
-    const float* __restrict__ risk, const float* __restrict__ res_params,
-    const float* __restrict__ t0, float* __restrict__ out, int n,
+    const MRModelT<T>* __restrict__ model, const T* __restrict__ qpos0,
+    const T* __restrict__ qvel0, const T* __restrict__ actions,
+    const T* __restrict__ weights, const T* __restrict__ norm_params,
+    const T* __restrict__ risk, const T* __restrict__ res_params,
+    const T* __restrict__ t0, T* __restrict__ out, int n,
     int horizon) {
-  __shared__ MRModel sm;
+  __shared__ MRModelT<T> sm;
   load_model(model, &sm);
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n) return;  // ragged edge
-  const MRModel& m = sm;
-  float qpos[MR_MAX_NV], qvel[MR_MAX_NV], lam[MR_MAX_ROW];
-  float xpos[MR_MAX_BODY][3], xmat[MR_MAX_BODY][9], res[MR_MAX_RES];
-  for (int k = 0; k < m.nv; ++k) { qpos[k] = qpos0[k]; qvel[k] = qvel0[k]; }
-  for (int r = 0; r < MR_MAX_ROW; ++r) lam[r] = 0.0f;  // first step is cold
-  const float rk = *risk, time0 = *t0;
-  float total = 0.0f;
+  const MRModelT<T>& m = sm;
+  T qpos[MR_MAX_NQ], qvel[MR_MAX_NV], lam[MR_MAX_ROW], res[MR_MAX_RES];
+  StepOut<T> o;
+  for (int k = 0; k < m.nq; ++k) qpos[k] = qpos0[k];
+  for (int k = 0; k < m.nv; ++k) qvel[k] = qvel0[k];
+  for (int r = 0; r < m.nrow; ++r) lam[r] = 0.0f;  // first step is cold
+  const T rk = *risk, time0 = *t0;
+  T total = 0.0f;
   for (int i = 0; i < horizon; ++i) {
-    const float* u = actions + ((size_t)c * horizon + i) * m.nu;
-    tile_step(m, qpos, qvel, u, lam, xpos, xmat);
-    const float time = time0 + (float)(i + 1) * m.timestep;
+    const T* u = actions + ((size_t)c * horizon + i) * m.nu;
+    tile_step(m, qpos, qvel, u, lam, o);
+    const T time = time0 + (T)(i + 1) * m.timestep;
     if (m.res_id == MR_RES_WALKER)
-      residual_walker(m, xpos, xmat, qvel, u, time, res_params, res);
+      residual_walker(m, o, qpos, qvel, u, time, res_params, res);
+    else if (m.res_id == MR_RES_HUMANOID)
+      residual_humanoid(m, o, qpos, qvel, u, time, res_params, res);
     total += cost_value(m, res, weights, norm_params, rk);
   }
   total = total / horizon;
   out[c] = isfinite(total) ? total : MR_MAX_RETURN;
 }
 
+template <class T>
 __global__ void __launch_bounds__(64) mr_step_kernel(
-    const MRModel* __restrict__ model, const float* __restrict__ qpos_in,
-    const float* __restrict__ qvel_in, const float* __restrict__ ctrl,
-    const float* __restrict__ lam_in, float* __restrict__ qpos_out,
-    float* __restrict__ qvel_out, float* __restrict__ lam_out, int b) {
-  __shared__ MRModel sm;
+    const MRModelT<T>* __restrict__ model, const T* __restrict__ qpos_in,
+    const T* __restrict__ qvel_in, const T* __restrict__ ctrl,
+    const T* __restrict__ lam_in, T* __restrict__ qpos_out,
+    T* __restrict__ qvel_out, T* __restrict__ lam_out, int b) {
+  __shared__ MRModelT<T> sm;
   load_model(model, &sm);
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= b) return;
-  const MRModel& m = sm;
-  float qpos[MR_MAX_NV], qvel[MR_MAX_NV], lam[MR_MAX_ROW];
-  float xpos[MR_MAX_BODY][3], xmat[MR_MAX_BODY][9];
-  for (int k = 0; k < m.nv; ++k) {
-    qpos[k] = qpos_in[c * m.nq + k];
-    qvel[k] = qvel_in[c * m.nv + k];
-  }
+  const MRModelT<T>& m = sm;
+  T qpos[MR_MAX_NQ], qvel[MR_MAX_NV], lam[MR_MAX_ROW];
+  StepOut<T> o;
+  for (int k = 0; k < m.nq; ++k) qpos[k] = qpos_in[c * m.nq + k];
+  for (int k = 0; k < m.nv; ++k) qvel[k] = qvel_in[c * m.nv + k];
   for (int r = 0; r < m.nrow; ++r) lam[r] = lam_in[c * m.nrow + r];
-  tile_step(m, qpos, qvel, ctrl + c * m.nu, lam, xpos, xmat);
-  for (int k = 0; k < m.nv; ++k) {
-    qpos_out[c * m.nq + k] = qpos[k];
-    qvel_out[c * m.nv + k] = qvel[k];
-  }
+  tile_step(m, qpos, qvel, ctrl + c * m.nu, lam, o);
+  for (int k = 0; k < m.nq; ++k) qpos_out[c * m.nq + k] = qpos[k];
+  for (int k = 0; k < m.nv; ++k) qvel_out[c * m.nv + k] = qvel[k];
   for (int r = 0; r < m.nrow; ++r) lam_out[c * m.nrow + r] = lam[r];
 }
 
 // ---------------------------------------------------------------------------
 // C interface (loaded with ctypes): pointers are device pointers, the
-// stream is PyTorch's current stream; each entry returns cudaGetLastError()
+// stream is PyTorch's current stream; each entry returns cudaGetLastError().
+// The plain names take float operands and MRModelT<float>; the names ending
+// in 64 take double operands and MRModelT<double>.
 // ---------------------------------------------------------------------------
 
-extern "C" int mr_model_layout(long long* offsets, int capacity) {
+template <class T>
+static int model_layout(long long* offsets, int capacity) {
   int i = 0;
 #define MR_OFFSET(type, name, dims) \
-  if (i < capacity) offsets[i] = (long long)offsetof(MRModel, name); ++i;
+  if (i < capacity) offsets[i] = (long long)offsetof(MRModelT<T>, name); ++i;
   MR_MODEL_FIELDS(MR_OFFSET)
 #undef MR_OFFSET
   return i;
 }
 
-extern "C" long long mr_model_size() { return (long long)sizeof(MRModel); }
+extern "C" int mr_model_layout(int dbl, long long* offsets, int capacity) {
+  return dbl ? model_layout<double>(offsets, capacity)
+             : model_layout<float>(offsets, capacity);
+}
 
-extern "C" int mr_returns(const void* model, const void* qpos0,
+extern "C" long long mr_model_size(int dbl) {
+  return dbl ? (long long)sizeof(MRModelT<double>)
+             : (long long)sizeof(MRModelT<float>);
+}
+
+template <class T>
+static int launch_returns(const void* model, const void* qpos0,
                           const void* qvel0, const void* actions,
                           const void* weights, const void* norm_params,
                           const void* risk, const void* res_params,
                           const void* t0, void* out, int n, int horizon,
                           void* stream) {
   if (n > 0) {
-    mr_returns_kernel<<<(n + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
-        (const MRModel*)model, (const float*)qpos0, (const float*)qvel0,
-        (const float*)actions, (const float*)weights,
-        (const float*)norm_params, (const float*)risk,
-        (const float*)res_params, (const float*)t0, (float*)out, n,
+    mr_returns_kernel<T><<<(n + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
+        (const MRModelT<T>*)model, (const T*)qpos0, (const T*)qvel0,
+        (const T*)actions, (const T*)weights, (const T*)norm_params,
+        (const T*)risk, (const T*)res_params, (const T*)t0, (T*)out, n,
         horizon);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int mr_step(const void* model, const void* qpos,
+template <class T>
+static int launch_step(const void* model, const void* qpos,
                        const void* qvel, const void* ctrl, const void* lam,
                        void* qpos_out, void* qvel_out, void* lam_out, int b,
                        void* stream) {
   if (b > 0) {
-    mr_step_kernel<<<(b + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
-        (const MRModel*)model, (const float*)qpos, (const float*)qvel,
-        (const float*)ctrl, (const float*)lam, (float*)qpos_out,
-        (float*)qvel_out, (float*)lam_out, b);
+    mr_step_kernel<T><<<(b + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
+        (const MRModelT<T>*)model, (const T*)qpos, (const T*)qvel,
+        (const T*)ctrl, (const T*)lam, (T*)qpos_out, (T*)qvel_out,
+        (T*)lam_out, b);
   }
   return (int)cudaGetLastError();
+}
+
+#define MR_RETURNS_ARGS                                                      \
+  const void* model, const void* qpos0, const void* qvel0,                   \
+      const void* actions, const void* weights, const void* norm_params,     \
+      const void* risk, const void* res_params, const void* t0, void* out,   \
+      int n, int horizon, void* stream
+#define MR_STEP_ARGS                                                         \
+  const void* model, const void* qpos, const void* qvel, const void* ctrl,   \
+      const void* lam, void* qpos_out, void* qvel_out, void* lam_out, int b, \
+      void* stream
+
+extern "C" int mr_returns(MR_RETURNS_ARGS) {
+  return launch_returns<float>(model, qpos0, qvel0, actions, weights,
+                               norm_params, risk, res_params, t0, out, n,
+                               horizon, stream);
+}
+
+extern "C" int mr_returns64(MR_RETURNS_ARGS) {
+  return launch_returns<double>(model, qpos0, qvel0, actions, weights,
+                                norm_params, risk, res_params, t0, out, n,
+                                horizon, stream);
+}
+
+extern "C" int mr_step(MR_STEP_ARGS) {
+  return launch_step<float>(model, qpos, qvel, ctrl, lam, qpos_out, qvel_out,
+                            lam_out, b, stream);
+}
+
+extern "C" int mr_step64(MR_STEP_ARGS) {
+  return launch_step<double>(model, qpos, qvel, ctrl, lam, qpos_out,
+                             qvel_out, lam_out, b, stream);
 }

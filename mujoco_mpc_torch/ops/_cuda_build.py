@@ -61,12 +61,14 @@ def load() -> ctypes.CDLL:
   """The built library with argument types declared (built on first use)."""
   lib = ctypes.CDLL(str(build()))
   p, i = ctypes.c_void_p, ctypes.c_int
-  lib.mr_model_layout.argtypes = [p, i]
+  lib.mr_model_layout.argtypes = [i, p, i]
   lib.mr_model_layout.restype = i
-  lib.mr_model_size.argtypes = []
+  lib.mr_model_size.argtypes = [i]
   lib.mr_model_size.restype = ctypes.c_longlong
-  lib.mr_returns.argtypes = [p] * 10 + [i, i, p]
-  lib.mr_returns.restype = i
-  lib.mr_step.argtypes = [p] * 8 + [i, p]
-  lib.mr_step.restype = i
+  for name in ("mr_returns", "mr_returns64"):
+    getattr(lib, name).argtypes = [p] * 10 + [i, i, p]
+    getattr(lib, name).restype = i
+  for name in ("mr_step", "mr_step64"):
+    getattr(lib, name).argtypes = [p] * 8 + [i, p]
+    getattr(lib, name).restype = i
   return lib

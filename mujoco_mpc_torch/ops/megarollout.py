@@ -18,6 +18,7 @@ import ctypes
 import numpy as np
 import torch
 
+from mujoco_mpc_torch import device as devices
 from mujoco_mpc_torch.ops import _cuda_build
 from mujoco_mpc_torch.ops import norms
 from mujoco_mpc_torch.physics import tilestep
@@ -76,11 +77,16 @@ def _rollout_body(tm, task, horizon, qpos0, qvel0, actions, weights,
 # the kernel's model struct (csrc/megarollout.cu: MRModel)
 # ---------------------------------------------------------------------------
 
-MAX_NV, MAX_BODY, MAX_JNT, MAX_NU = 16, 16, 16, 16
-MAX_CON, MAX_LIM, MAX_ROW, MAX_DENSE = 20, 16, 64, 32
-MAX_TERM, MAX_RES, MAX_RES_INT = 16, 32, 8
+MAX_NQ, MAX_NV, MAX_BODY, MAX_JNT, MAX_NU = 32, 28, 20, 24, 24
+MAX_CON, MAX_LIM, MAX_TEN, MAX_WRAP = 40, 24, 4, 4
+MAX_ROW, MAX_DENSE = 120, 32
+MAX_TERM, MAX_RES, MAX_RES_INT, MAX_RES_FLOAT = 16, 64, 8, 4
+_CON_KIND = {"plane_sphere": 0, "plane_capend": 0, "cap_cap": 1}
 
-_F, _I = ctypes.c_float, ctypes.c_int32
+_I = ctypes.c_int32
+# the kernel's scalar type per torch dtype, and its C entry points
+_PRECISION = {torch.float32: (ctypes.c_float, "mr_returns", "mr_step"),
+              torch.float64: (ctypes.c_double, "mr_returns64", "mr_step64")}
 
 
 def _arr(t, *dims):
@@ -89,12 +95,15 @@ def _arr(t, *dims):
   return t
 
 
-class _MRModel(ctypes.Structure):
-  _fields_ = [
+def _model_struct(_F):
+  """ctypes mirror of MRModelT<T> for the scalar type _F."""
+  fields = [
       ("nq", _I), ("nv", _I), ("nu", _I), ("nbody", _I), ("njnt", _I),
-      ("ncon", _I), ("nlim", _I), ("nrow", _I), ("dense", _I),
+      ("ncon", _I), ("nfric", _I), ("nlim", _I), ("nten", _I),
+      ("nrow", _I), ("dense", _I),
       ("nterm", _I), ("nres", _I), ("res_id", _I),
       ("res_int", _arr(_I, MAX_RES_INT)),
+      ("res_float", _arr(_F, MAX_RES_FLOAT)),
       ("timestep", _F), ("gravity", _arr(_F, 3)),
       ("body_parentid", _arr(_I, MAX_BODY)),
       ("body_jntadr", _arr(_I, MAX_BODY)),
@@ -108,11 +117,12 @@ class _MRModel(ctypes.Structure):
       ("jnt_type", _arr(_I, MAX_JNT)),
       ("jnt_qposadr", _arr(_I, MAX_JNT)),
       ("jnt_dofadr", _arr(_I, MAX_JNT)),
+      ("jnt_bodyid", _arr(_I, MAX_JNT)),
       ("jnt_pos", _arr(_F, MAX_JNT, 3)),
       ("jnt_axis", _arr(_F, MAX_JNT, 3)),
       ("jnt_stiffness", _arr(_F, MAX_JNT)),
-      ("qpos0", _arr(_F, MAX_NV)),
-      ("qpos_spring", _arr(_F, MAX_NV)),
+      ("qpos0", _arr(_F, MAX_NQ)),
+      ("qpos_spring", _arr(_F, MAX_NQ)),
       ("dof_damping", _arr(_F, MAX_NV)),
       ("dof_armature", _arr(_F, MAX_NV)),
       ("dof_frictionloss", _arr(_F, MAX_NV)),
@@ -133,11 +143,13 @@ class _MRModel(ctypes.Structure):
       ("ctrl_hi", _arr(_F, MAX_NU)),
       ("force_lo", _arr(_F, MAX_NU)),
       ("force_hi", _arr(_F, MAX_NU)),
-      ("con_gbody", _arr(_I, MAX_CON)),
-      ("con_gpos", _arr(_F, MAX_CON, 3)),
-      ("con_gquat", _arr(_F, MAX_CON, 4)),
+      ("con_kind", _arr(_I, MAX_CON)),
+      ("con_gbody", _arr(_I, MAX_CON, 2)),
+      ("con_gpos", _arr(_F, MAX_CON, 2, 3)),
+      ("con_gquat", _arr(_F, MAX_CON, 2, 4)),
+      ("con_half", _arr(_F, MAX_CON, 2)),
+      ("con_r", _arr(_F, MAX_CON, 2)),
       ("con_end", _arr(_F, MAX_CON)),
-      ("con_r", _arr(_F, MAX_CON)),
       ("con_margin", _arr(_F, MAX_CON)),
       ("con_mu", _arr(_F, MAX_CON)),
       ("con_frame", _arr(_F, MAX_CON, 3, 3)),
@@ -154,53 +166,78 @@ class _MRModel(ctypes.Structure):
       ("lim_k", _arr(_F, MAX_LIM)),
       ("lim_b", _arr(_F, MAX_LIM)),
       ("lim_imp", _arr(_F, 5)),
+      ("ten_nwrap", _arr(_I, MAX_TEN)),
+      ("ten_qadr", _arr(_I, MAX_TEN, MAX_WRAP)),
+      ("ten_vadr", _arr(_I, MAX_TEN, MAX_WRAP)),
+      ("ten_coef", _arr(_F, MAX_TEN, MAX_WRAP)),
+      ("ten_lo", _arr(_F, MAX_TEN)),
+      ("ten_hi", _arr(_F, MAX_TEN)),
+      ("ten_margin", _arr(_F, MAX_TEN)),
+      ("ten_k", _arr(_F, MAX_TEN)),
+      ("ten_b", _arr(_F, MAX_TEN)),
       ("term_dim", _arr(_I, MAX_TERM)),
       ("term_norm", _arr(_I, MAX_TERM)),
   ]
+  return type(f"MRModel_{_F.__name__}", (ctypes.Structure,),
+              {"_fields_": fields})
 
 
-def pack_model(tm: tilestep.TileModel, task: Task) -> bytes:
-  """The kernel's MRModel for a TileModel and task; raises
-  tilestep.UnsupportedModel where the model exceeds the struct's maxima or
-  the task has no CUDA residual."""
+_MODEL_STRUCT = {dt: _model_struct(v[0]) for dt, v in _PRECISION.items()}
+
+
+def pack_model(tm: tilestep.TileModel, task: Task,
+               dtype=torch.float32) -> bytes:
+  """The kernel's MRModelT for a TileModel and task, with float or double
+  scalars for dtype float32 or float64 (the same float32 values in both);
+  raises tilestep.UnsupportedModel where the model exceeds the struct's
+  maxima or the task has no CUDA residual."""
   if task.device_residual is None:
     raise tilestep.UnsupportedModel(
         f"task {task.name!r} has no CUDA residual in csrc/megarollout.cu")
   spec = task.spec
-  limits = [("nv", tm.nv, MAX_NV), ("nbody", tm.nbody, MAX_BODY),
+  dres = task.device_residual
+  limits = [("nq", tm.nq, MAX_NQ), ("nv", tm.nv, MAX_NV),
+            ("nbody", tm.nbody, MAX_BODY),
             ("njnt", tm.njnt, MAX_JNT), ("nu", tm.nu, MAX_NU),
             ("contact points", tm.ncon, MAX_CON),
             ("limited joints", len(tm.lim_jnt), MAX_LIM),
+            ("limited tendons", len(tm.ten_lim), MAX_TEN),
+            ("tendon wraps", max([len(w) for w in tm.ten_wraps] or [0]),
+             MAX_WRAP),
             ("constraint rows", tm.nrow, MAX_ROW),
             ("cost terms", spec.nterm, MAX_TERM),
             ("residual entries", spec.nresidual, MAX_RES),
-            ("residual indices", len(task.device_residual.ints),
-             MAX_RES_INT)]
+            ("residual indices", len(dres.ints), MAX_RES_INT),
+            ("residual constants", len(dres.floats), MAX_RES_FLOAT)]
   for what, n, cap in limits:
     if n > cap:
       raise tilestep.UnsupportedModel(
           f"{what} {n} exceed the kernel's maximum {cap}")
 
-  s = _MRModel()
+  s = _MODEL_STRUCT[torch.float32]()
 
   def put(name, values):
     np.ctypeslib.as_array(getattr(s, name))[:len(values)] = values
 
   nlimj = len(tm.lim_jnt)
+  fric, ones = tilestep.row_points(tm)
+  cps, nfric = fric + ones, len(fric)
   for name, v in (("nq", tm.nq), ("nv", tm.nv), ("nu", tm.nu),
                   ("nbody", tm.nbody), ("njnt", tm.njnt),
-                  ("ncon", tm.ncon), ("nlim", nlimj), ("nrow", tm.nrow),
+                  ("ncon", tm.ncon), ("nfric", nfric), ("nlim", nlimj),
+                  ("nten", len(tm.ten_lim)), ("nrow", tm.nrow),
                   ("dense", int(tilestep.amat_is_dense(tm.nrow))),
                   ("nterm", spec.nterm), ("nres", spec.nresidual),
-                  ("res_id", task.device_residual.id),
+                  ("res_id", dres.id),
                   ("timestep", tm.timestep)):
     setattr(s, name, v)
-  put("res_int", list(task.device_residual.ints))
+  put("res_int", list(dres.ints))
+  put("res_float", list(dres.floats))
   put("gravity", tm.gravity)
   for name in ("body_parentid", "body_jntadr", "body_jntnum", "body_pos",
                "body_quat", "body_ipos", "body_iquat", "body_mass",
                "body_inertia", "jnt_type", "jnt_qposadr", "jnt_dofadr",
-               "jnt_pos", "jnt_axis", "jnt_stiffness", "qpos0",
+               "jnt_bodyid", "jnt_pos", "jnt_axis", "jnt_stiffness", "qpos0",
                "qpos_spring", "dof_damping", "dof_armature",
                "dof_frictionloss", "dof_body", "act_vadr", "act_qadr",
                "act_gainprm", "act_biasprm", "ctrl_lo", "ctrl_hi",
@@ -219,17 +256,22 @@ def pack_model(tm: tilestep.TileModel, task: Task) -> bytes:
     sq[:, :tm.nv] = getattr(tm, name)
     put(name, sq)
 
-  cps = tm.con_points
   if cps:
-    put("con_gbody", [tm.geom_bodyid[cp.g2] for cp in cps])
-    put("con_gpos", np.stack([tm.geom_pos[cp.g2] for cp in cps]))
-    put("con_gquat", np.stack([tm.geom_quat[cp.g2] for cp in cps]))
+    put("con_kind", [_CON_KIND[cp.kind] for cp in cps])
+    put("con_gbody", [[tm.geom_bodyid[cp.g1], tm.geom_bodyid[cp.g2]]
+                      for cp in cps])
+    put("con_gpos", np.stack([tm.geom_pos[[cp.g1, cp.g2]] for cp in cps]))
+    put("con_gquat", np.stack([tm.geom_quat[[cp.g1, cp.g2]] for cp in cps]))
+    put("con_half", [[cp.half1, cp.half2] for cp in cps])
+    put("con_r", [[cp.r1, cp.r2] for cp in cps])
     put("con_end", [cp.sign * cp.half2 for cp in cps])
-    put("con_r", [cp.r2 for cp in cps])
     put("con_margin", [cp.margin for cp in cps])
     put("con_mu", [cp.mu for cp in cps])
-    put("con_frame", np.stack([cp.frame for cp in cps]))
-    put("con_ppos", np.stack([cp.ppos for cp in cps]))
+    # plane contacts: the constant frame and plane point
+    put("con_frame", np.stack([cp.frame if cp.frame is not None
+                               else np.zeros((3, 3)) for cp in cps]))
+    put("con_ppos", np.stack([cp.ppos if cp.ppos is not None
+                              else np.zeros(3) for cp in cps]))
     sgn = np.zeros((len(cps), MAX_NV), np.float32)
     for ci, cp in enumerate(cps):
       sgn[ci, :tm.nv] = (tm.dof_body_mask[:, cp.body2].astype(np.float32)
@@ -239,8 +281,10 @@ def pack_model(tm: tilestep.TileModel, task: Task) -> bytes:
     kbs = [tilestep.kb(cp.solref, float(cp.solimp[1])) for cp in cps]
     put("con_k", [v[0] for v in kbs])
     put("con_b", [v[1] for v in kbs])
+  # joint and tendon limits share the default solimp
+  imp = tilestep.impedance_consts(tilestep._DEFAULT_SOLIMP)
+  put("lim_imp", imp)
   if nlimj:
-    imp = tilestep.impedance_consts(tilestep._DEFAULT_SOLIMP)
     kbs = [tilestep.kb(tm.lim_solref[li], imp[1]) for li in range(nlimj)]
     put("lim_qadr", tm.lim_qadr)
     put("lim_vadr", tm.lim_vadr)
@@ -249,29 +293,55 @@ def pack_model(tm: tilestep.TileModel, task: Task) -> bytes:
     put("lim_margin", tm.lim_margin)
     put("lim_k", [v[0] for v in kbs])
     put("lim_b", [v[1] for v in kbs])
-    put("lim_imp", imp)
+  if tm.ten_lim:
+    wraps = [tm.ten_wraps[t] for t in tm.ten_lim]
+    grid = np.zeros((len(wraps), MAX_WRAP, 3))
+    for ti, ws in enumerate(wraps):
+      grid[ti, :len(ws)] = ws
+    put("ten_nwrap", [len(ws) for ws in wraps])
+    put("ten_qadr", grid[..., 0].astype(np.int32))
+    put("ten_vadr", grid[..., 1].astype(np.int32))
+    put("ten_coef", grid[..., 2])
+    put("ten_lo", tm.ten_lim_range[:, 0])
+    put("ten_hi", tm.ten_lim_range[:, 1])
+    put("ten_margin", tm.ten_lim_margin)
+    kbs = [tilestep.kb(sr, imp[1]) for sr in tm.ten_lim_solref]
+    put("ten_k", [v[0] for v in kbs])
+    put("ten_b", [v[1] for v in kbs])
   put("term_dim", spec.dims)
   put("term_norm", spec.norm_types)
-  return bytes(s)
+  if dtype == torch.float32:
+    return bytes(s)
+  wide = _MODEL_STRUCT[dtype]()
+  for name, _ in wide._fields_:
+    v = getattr(s, name)
+    if isinstance(v, (int, float)):
+      setattr(wide, name, v)
+    else:
+      np.ctypeslib.as_array(getattr(wide, name))[...] = \
+          np.ctypeslib.as_array(v)
+  return bytes(wide)
 
 
 def _check_layout(lib) -> None:
-  """The ctypes mirror must match the compiled struct field by field."""
-  names = [f[0] for f in _MRModel._fields_]
-  offsets = (ctypes.c_longlong * 256)()
-  count = lib.mr_model_layout(ctypes.cast(offsets, ctypes.c_void_p), 256)
-  want = [getattr(_MRModel, n).offset for n in names]
-  if (count != len(names) or list(offsets[:count]) != want
-      or lib.mr_model_size() != ctypes.sizeof(_MRModel)):
-    raise RuntimeError("MRModel layout differs between csrc/megarollout.cu "
-                       "and ops/megarollout.py")
+  """The ctypes mirrors must match the compiled structs field by field."""
+  for dbl, struct in enumerate(_MODEL_STRUCT.values()):
+    names = [f[0] for f in struct._fields_]
+    offsets = (ctypes.c_longlong * 256)()
+    count = lib.mr_model_layout(dbl, ctypes.cast(offsets, ctypes.c_void_p),
+                                256)
+    want = [getattr(struct, n).offset for n in names]
+    if (count != len(names) or list(offsets[:count]) != want
+        or lib.mr_model_size(dbl) != ctypes.sizeof(struct)):
+      raise RuntimeError(f"{struct.__name__} layout differs between "
+                         "csrc/megarollout.cu and ops/megarollout.py")
 
 
-def _check(name, t, device, shape):
+def _check(name, t, device, shape, dtype):
   if t.device != device:
     raise ValueError(f"{name} is on {t.device}, expected {device}")
-  if t.dtype != torch.float32:
-    raise ValueError(f"{name} is {t.dtype}; the kernel takes float32")
+  if t.dtype != dtype:
+    raise ValueError(f"{name} is {t.dtype}, expected {dtype}")
   if tuple(t.shape) != tuple(shape):
     raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                      f"{tuple(shape)}")
@@ -289,110 +359,122 @@ class MegaRollout:
 
   Raises tilestep.UnsupportedModel when the model is outside the kernel's
   class; built for a CUDA device, also when the task has no CUDA residual.
-  `launches` and `step_launches` count the kernel launches of `returns`
-  and `step`.
+  The kernel runs in the dtype of its operands: float32 (the planner's) or
+  float64 (to hold the kernel against the plain version in float64, where
+  chaotic rollouts still compare candidate by candidate). `launches` and
+  `step_launches` count the kernel launches of `returns` and `step`.
   """
 
-  def __init__(self, task: Task, horizon: int, device="cpu"):
+  def __init__(self, task: Task, horizon: int, device=devices.DEFAULT):
     self.tm = tilestep.extract(task.model)
     self.task = task
     self.horizon = int(horizon)
     self.launches = 0
     self.step_launches = 0
-    self.device = torch.device(device)
-    self._buf = None  # the packed MRModel on the card, when built for CUDA
+    self.device = devices.resolve(device)
+    self._bufs = {}  # packed MRModelT on the card, per dtype
     if self.device.type == "cuda":
-      raw = pack_model(self.tm, self.task)
+      self._model_buffer(self.device, torch.float32)
       _check_layout(_cuda_build.load())
-      self._buf = torch.frombuffer(bytearray(raw),
-                                   dtype=torch.uint8).to(self.device)
 
-  def _model_buffer(self, device: torch.device) -> torch.Tensor:
-    if self._buf is None or self._buf.device != device:
+  def _model_buffer(self, device: torch.device, dtype) -> torch.Tensor:
+    if self.device.type != "cuda" or device != self.device:
       raise ValueError(f"tensors on {device}; this MegaRollout was built "
                        f"for {self.device}")
-    return self._buf
+    if dtype not in _PRECISION:
+      raise ValueError(f"no kernel for {dtype}")
+    if dtype not in self._bufs:
+      raw = pack_model(self.tm, self.task, dtype)
+      self._bufs[dtype] = torch.frombuffer(
+          bytearray(raw), dtype=torch.uint8).to(self.device)
+    return self._bufs[dtype]
 
   # ----------------------------------------------------------------- returns
   def returns(self, qpos0, qvel0, actions, params: TaskParams, t0):
     """Candidate returns (N,) for actions (N, T, nu) from qpos0 (nq,),
-    qvel0 (nv,). CUDA tensors: the kernel; CPU tensors: the plain
-    version."""
+    qvel0 (nv,), in the dtype of `actions`. CUDA tensors: the kernel; CPU
+    tensors: the plain version."""
+    dtype = actions.dtype
     if actions.device.type == "cpu":
-      return self.returns_plain(qpos0, qvel0, actions, params, t0)
+      return self.returns_plain(qpos0, qvel0, actions, params, t0, dtype)
     if actions.device.type != "cuda":
       raise ValueError(f"no kernel for device {actions.device}")
     tm, task = self.tm, self.task
     dev = actions.device
+    buf = self._model_buffer(dev, dtype)
     n = actions.shape[0]
     nterm = task.spec.nterm
     rp = params.residual_params
     if rp.numel() == 0:
-      rp = torch.zeros((1,), dtype=torch.float32, device=dev)
-    t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
-    _check("qpos0", qpos0, dev, (tm.nq,))
-    _check("qvel0", qvel0, dev, (tm.nv,))
-    _check("actions", actions, dev, (n, self.horizon, tm.nu))
-    _check("weights", params.weights, dev, (nterm,))
-    _check("norm_params", params.norm_params, dev, (nterm, 2))
-    _check("risk", params.risk, dev, ())
-    _check("residual_params", rp, dev, (max(len(task.param_names), 1),))
-    _check("t0", t0, dev, ())
-    buf = self._model_buffer(dev)
-    out = torch.empty((n,), dtype=torch.float32, device=dev)
+      rp = torch.zeros((1,), dtype=dtype, device=dev)
+    t0 = torch.as_tensor(t0, dtype=dtype, device=dev)
+    _check("qpos0", qpos0, dev, (tm.nq,), dtype)
+    _check("qvel0", qvel0, dev, (tm.nv,), dtype)
+    _check("actions", actions, dev, (n, self.horizon, tm.nu), dtype)
+    _check("weights", params.weights, dev, (nterm,), dtype)
+    _check("norm_params", params.norm_params, dev, (nterm, 2), dtype)
+    _check("risk", params.risk, dev, (), dtype)
+    _check("residual_params", rp, dev, (max(len(task.param_names), 1),),
+           dtype)
+    _check("t0", t0, dev, (), dtype)
+    out = torch.empty((n,), dtype=dtype, device=dev)
     if n == 0:
       return out
-    lib = _cuda_build.load()
+    entry = getattr(_cuda_build.load(), _PRECISION[dtype][1])
     with torch.cuda.device(dev):
-      err = lib.mr_returns(
+      err = entry(
           buf.data_ptr(), qpos0.data_ptr(), qvel0.data_ptr(),
           actions.data_ptr(), params.weights.data_ptr(),
           params.norm_params.data_ptr(), params.risk.data_ptr(),
           rp.data_ptr(), t0.data_ptr(), out.data_ptr(), n, self.horizon,
           torch.cuda.current_stream(dev).cuda_stream)
     if err:
-      raise RuntimeError(f"mr_returns launch failed: CUDA error {err}")
+      raise RuntimeError(f"{_PRECISION[dtype][1]} launch failed: CUDA error "
+                         f"{err}")
     self.launches += 1
     return out
 
-  def returns_plain(self, qpos0, qvel0, actions, params: TaskParams, t0):
-    """The same returns from the plain PyTorch version, on any device (the
-    tile path is float32 only; inputs are cast)."""
-    f32 = torch.float32
-    p = params.to(dtype=f32)
+  def returns_plain(self, qpos0, qvel0, actions, params: TaskParams, t0,
+                    dtype=torch.float32):
+    """The same returns from the plain PyTorch version, on any device, in
+    `dtype` (float32 as the planner's kernel; float64 as an arbiter of f32
+    rounding); inputs are cast."""
+    p = params.to(dtype=dtype)
     return _rollout_body(
-        self.tm, self.task, self.horizon, qpos0.to(f32), qvel0.to(f32),
-        actions.to(f32), p.weights, p.norm_params, p.risk,
-        p.residual_params, torch.as_tensor(t0, dtype=f32,
+        self.tm, self.task, self.horizon, qpos0.to(dtype), qvel0.to(dtype),
+        actions.to(dtype), p.weights, p.norm_params, p.risk,
+        p.residual_params, torch.as_tensor(t0, dtype=dtype,
                                            device=actions.device))
 
   # -------------------------------------------------------------------- step
   def step(self, qpos, qvel, ctrl, efc_lambda=None):
     """One step_tb on B states in tile layout: qpos (nq, B), qvel (nv, B),
-    ctrl (nu, B), efc_lambda (nrow, B) or None (cold). Returns (qpos2,
-    qvel2, duals). CUDA tensors: the kernel's step; CPU: step_tb."""
+    ctrl (nu, B), efc_lambda (nrow, B) or None (cold), in the dtype of
+    qpos. Returns (qpos2, qvel2, duals). CUDA tensors: the kernel's step;
+    CPU: step_tb."""
     tm = self.tm
     if qpos.device.type == "cpu":
       q2, v2, view = tilestep.step_tb(tm, qpos, qvel, ctrl, efc_lambda)
       return q2, v2, view.efc_lambda
     if qpos.device.type != "cuda":
       raise ValueError(f"no kernel for device {qpos.device}")
-    dev = qpos.device
+    dev, dtype = qpos.device, qpos.dtype
+    buf = self._model_buffer(dev, dtype)
     b = qpos.shape[1]
     if efc_lambda is None:
-      efc_lambda = torch.zeros((tm.nrow, b), dtype=torch.float32, device=dev)
+      efc_lambda = torch.zeros((tm.nrow, b), dtype=dtype, device=dev)
     ins = [x.T.contiguous() for x in (qpos, qvel, ctrl, efc_lambda)]
     for name, t, w in zip(("qpos", "qvel", "ctrl", "efc_lambda"), ins,
                           (tm.nq, tm.nv, tm.nu, tm.nrow)):
-      _check(name, t, dev, (b, w))
+      _check(name, t, dev, (b, w), dtype)
     outs = [torch.empty_like(ins[i]) for i in (0, 1, 3)]
-    buf = self._model_buffer(dev)
-    lib = _cuda_build.load()
+    entry = getattr(_cuda_build.load(), _PRECISION[dtype][2])
     with torch.cuda.device(dev):
-      err = lib.mr_step(buf.data_ptr(), *(t.data_ptr() for t in ins),
-                        *(t.data_ptr() for t in outs), b,
-                        torch.cuda.current_stream(dev).cuda_stream)
+      err = entry(buf.data_ptr(), *(t.data_ptr() for t in ins),
+                  *(t.data_ptr() for t in outs), b,
+                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
-      raise RuntimeError(f"mr_step launch failed: CUDA error {err}")
+      raise RuntimeError(f"{_PRECISION[dtype][2]} launch failed: CUDA error "
+                         f"{err}")
     self.step_launches += 1
     return tuple(t.T for t in outs)

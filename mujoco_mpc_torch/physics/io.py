@@ -14,6 +14,7 @@ import json
 import numpy as np
 import torch
 
+from mujoco_mpc_torch import device as devices
 from mujoco_mpc_torch.physics import types
 
 # supported narrowphase pair kinds of the general engine (collision.py)
@@ -231,9 +232,11 @@ def _cdofdot_vel_mask(body_parentid, body_dofadr, body_dofnum,
 
 
 def load_model(path_or_xml: str, dtype=torch.float32,
-               device="cpu") -> types.Model:
+               device=devices.DEFAULT) -> types.Model:
   """Load an MJCF file (or XML string) into a Model."""
   import mujoco  # host-only import
+
+  device = devices.resolve(device)
 
   if path_or_xml.lstrip().startswith("<"):
     mj = mujoco.MjModel.from_xml_string(path_or_xml)
@@ -242,7 +245,8 @@ def load_model(path_or_xml: str, dtype=torch.float32,
   return from_mjmodel(mj, dtype=dtype, device=device)
 
 
-def from_mjmodel(mj, dtype=torch.float32, device="cpu") -> types.Model:
+def from_mjmodel(mj, dtype=torch.float32,
+                 device=devices.DEFAULT) -> types.Model:
   import mujoco
 
   sens_map = _sensor_type_map(mujoco)
@@ -594,9 +598,10 @@ def save_snapshot(path: str, m: types.Model, **extra) -> None:
   np.savez(path, **arrays, **extra)
 
 
-def load_snapshot(path: str, dtype=torch.float32, device="cpu"):
+def load_snapshot(path: str, dtype=torch.float32, device=devices.DEFAULT):
   """(Model, {extra name: ndarray}) from an .npz written by save_snapshot;
   floating arrays are cast to `dtype`."""
+  device = devices.resolve(device)
   with np.load(path, allow_pickle=False) as f:
     arrays = {k: f[k] for k in f.files}
   static = {k: _tuples(v)

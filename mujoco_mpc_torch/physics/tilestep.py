@@ -7,15 +7,18 @@ version of one semi-implicit Euler step with the batch dimension trailing
 the same step, one thread per candidate; `step_tb` is what it is held
 against, and what runs when the tensors lie on the CPU.
 
-The class this port covers so far: hinge and slide joints, joint-
-transmission actuators (fixed or affine gain/bias), scalar-joint springs
-and friction loss, plane-capsule/cylinder end-point contacts with condim
-3, joint limits, and the dense or matrix-free Delassus solve. Everything
-else raises UnsupportedModel naming the ROADMAP item that ports it.
+The class this port covers so far: hinge, slide and free joints,
+joint-transmission actuators (fixed or affine gain/bias) on scalar joints,
+scalar-joint springs and friction loss, fixed tendons with limits,
+contacts of a world plane against sphere, capsule and cylinder ends and
+of capsule against capsule, with condim 1 or 3, joint limits, and the
+dense or matrix-free Delassus solve. Everything else raises
+UnsupportedModel naming the ROADMAP item that ports it.
 
-Constraint rows are in the tile layout: contact points (n, t1, t2 each),
-then joint limits (lo, hi each) -- the same layout as the JAX tile path,
-so the duals compare row by row.
+Constraint rows are in the tile layout: condim-3 points (n, t1, t2 each),
+condim-1 points (n), joint limits (lo, hi each), tendon limits (lo, hi
+each) -- the same layout as the JAX tile path, so the duals compare row by
+row.
 """
 
 from __future__ import annotations
@@ -63,24 +66,24 @@ _GENERAL = "queue 1 items 3 and 6, the general engine"
 
 @dataclasses.dataclass
 class ConPoint:
-  """One static candidate contact point (a capsule end against a plane)."""
-  kind: str  # 'plane_capend'
+  """One static candidate contact point."""
+  kind: str  # 'plane_sphere' | 'plane_capend' | 'cap_cap'
   g1: int
   g2: int
   body1: int
   body2: int
-  sign: float  # +-1 capsule-end selector
+  sign: float  # +-1 capsule-end selector (plane_capend), else 0
   r1: float
   r2: float
   half1: float
   half2: float
-  frame: np.ndarray  # (3, 3) constant contact frame, rows n, t1, t2
-  ppos: np.ndarray  # (3,) plane point
+  frame: Optional[np.ndarray]  # (3, 3) constant frame of plane contacts
+  ppos: Optional[np.ndarray]  # (3,) plane point of plane contacts
   mu: float
   solref: np.ndarray
   solimp: np.ndarray
   margin: float
-  condim: int = 3
+  condim: int = 3  # 1 = normal row only
 
 
 @dataclasses.dataclass
@@ -146,19 +149,31 @@ class TileModel:
   jnt_stiffness: np.ndarray  # (njnt,)
   qpos_spring: np.ndarray  # (nq,)
   dof_frictionloss: np.ndarray  # (nv,)
+  # fixed tendons: per tendon ((qadr, vadr, coef), ...)
+  ten_wraps: tuple = ()
+  ten_lim: tuple = ()  # limited tendon ids (two rows each: lo, hi)
+  ten_lim_range: Optional[np.ndarray] = None  # (nlimten, 2)
+  ten_lim_margin: tuple = ()
+  ten_lim_solref: Optional[np.ndarray] = None  # (nlimten, 2)
 
   @property
   def ncon(self) -> int:
     return len(self.con_points)
 
   @property
+  def ncon_rows(self) -> int:
+    """Contact rows: 1 per condim-1 point, 3 otherwise."""
+    return sum(1 if cp.condim == 1 else 3 for cp in self.con_points)
+
+  @property
   def nlim(self) -> int:
-    return 2 * len(self.lim_jnt)
+    return 2 * len(self.lim_jnt) + 2 * len(self.ten_lim)
 
   @property
   def nrow(self) -> int:
-    """Constraint rows: 3 per contact point, 2 per limited joint."""
-    return 3 * self.ncon + self.nlim
+    """Constraint rows: contact rows, then 2 per limited joint and 2 per
+    limited tendon."""
+    return self.ncon_rows + self.nlim
 
 
 def extract(m: Model) -> TileModel:
@@ -168,17 +183,20 @@ def extract(m: Model) -> TileModel:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
 
-  for jt in m.jnt_type:
-    if jt not in (JointType.HINGE, JointType.SLIDE):
-      _unsupported("free and ball joints", _S3)
+  scalar = (JointType.HINGE, JointType.SLIDE)
+  for j, jt in enumerate(m.jnt_type):
+    if jt == JointType.BALL:
+      _unsupported("ball joints", _S3)
+    if jt not in scalar + (JointType.FREE,):
+      _unsupported(f"joint type {jt}", _GENERAL)
+    if jt not in scalar and float(npy(m.jnt_stiffness)[j]) != 0.0:
+      _unsupported("spring on a free joint", _S3)
   if m.na != 0:
     _unsupported("stateful actuators", _GENERAL)
   if m.nmocap:
     _unsupported("mocap bodies", _S4)
   if m.opt.has_fluid:
     _unsupported("fluid forces", _GENERAL)
-  if m.ntendon:
-    _unsupported("tendons", _S5)
   if any(m.eq_active0):
     _unsupported("equality constraints", _S5)
   for u in range(m.nu):
@@ -188,8 +206,26 @@ def extract(m: Model) -> TileModel:
       _unsupported("site transmission", _GENERAL)
     if m.actuator_dyntype[u] != ActDyn.NONE:
       _unsupported("actuator dynamics", _GENERAL)
+    if m.jnt_type[m.actuator_trnid[u]] not in scalar:
+      _unsupported("actuator on a free joint", _GENERAL)
 
-  # contacts: a plane on the world body against capsule/cylinder ends
+  # fixed tendons over scalar joints: constant Jacobian rows; only their
+  # limits are in the class (springs and dampers are slice S5)
+  ten_wraps = []
+  for t, wraps in enumerate(m.tendon_joints):
+    if (float(npy(m.tendon_stiffness)[t]) != 0.0
+        or float(npy(m.tendon_damping)[t]) != 0.0):
+      _unsupported("tendon springs and dampers", _S5)
+    lst = []
+    for jid, coef in wraps:
+      if m.jnt_type[jid] not in scalar:
+        _unsupported("tendon wrapping a free joint", _GENERAL)
+      lst.append((int(m.jnt_qposadr[jid]), int(m.jnt_dofadr[jid]),
+                  float(coef)))
+    ten_wraps.append(tuple(lst))
+  ten_lim = [t for t in range(m.ntendon) if m.tendon_limited[t]]
+
+  # contacts: static pointwise expansion of the supported pairs
   con_points = []
   geom_xpos0, geom_xmat0 = _static_geom_frames(m)
   gs = npy(m.geom_size)
@@ -197,37 +233,53 @@ def extract(m: Model) -> TileModel:
   for g1, g2 in m.collision_pairs:
     t1, t2 = GeomType(m.geom_type[g1]), GeomType(m.geom_type[g2])
     b1, b2 = m.geom_bodyid[g1], m.geom_bodyid[g2]
-    if t1 != GeomType.PLANE or t2 not in (GeomType.CAPSULE,
-                                          GeomType.CYLINDER):
-      _unsupported(f"contact pair {t1.name}/{t2.name}", _S5)
-    if b1 != 0:
-      _unsupported("plane on a moving body", _GENERAL)
     condim = int(max(m.geom_condim[g1], m.geom_condim[g2]))
-    if condim != 3:
+    if condim not in (1, 3):
       _unsupported(f"condim {condim} contacts", _S5)
-    n = geom_xmat0[g1][:, 2]
-    t1v = (np.array([1.0, 0, 0]) if abs(n[0]) < 0.5
-           else np.array([0, 1.0, 0]))
-    t1v = np.cross(n, t1v)
-    t1v = t1v / np.linalg.norm(t1v)
-    frame = np.stack([n, t1v, np.cross(n, t1v)]).astype(np.float32)
-    for sgn in (-1.0, 1.0):
-      con_points.append(ConPoint(
-          kind="plane_capend", g1=g1, g2=g2, body1=b1, body2=b2, sign=sgn,
-          r1=float(gs[g1, 0]), r2=float(gs[g2, 0]),
-          half1=float(gs[g1, 1]), half2=float(gs[g2, 1]),
-          frame=frame, ppos=geom_xpos0[g1],
-          mu=float(max(fr[g1, 0], fr[g2, 0])),
-          solref=0.5 * (npy(m.geom_solref)[g1] + npy(m.geom_solref)[g2]),
-          solimp=0.5 * (npy(m.geom_solimp)[g1] + npy(m.geom_solimp)[g2]),
-          margin=float(max(npy(m.geom_margin)[g1], npy(m.geom_margin)[g2])),
-          condim=condim))
+    common = dict(
+        g1=g1, g2=g2, body1=b1, body2=b2,
+        r1=float(gs[g1, 0]), r2=float(gs[g2, 0]),
+        half1=float(gs[g1, 1]), half2=float(gs[g2, 1]),
+        mu=float(max(fr[g1, 0], fr[g2, 0])),
+        solref=0.5 * (npy(m.geom_solref)[g1] + npy(m.geom_solref)[g2]),
+        solimp=0.5 * (npy(m.geom_solimp)[g1] + npy(m.geom_solimp)[g2]),
+        margin=float(max(npy(m.geom_margin)[g1], npy(m.geom_margin)[g2])),
+        condim=condim)
+    if t1 == GeomType.PLANE and t2 in (GeomType.SPHERE, GeomType.CAPSULE,
+                                       GeomType.CYLINDER):
+      if b1 != 0:
+        _unsupported("plane on a moving body", _GENERAL)
+      n = geom_xmat0[g1][:, 2]
+      t1v = (np.array([1.0, 0, 0]) if abs(n[0]) < 0.5
+             else np.array([0, 1.0, 0]))
+      t1v = np.cross(n, t1v)
+      t1v = t1v / np.linalg.norm(t1v)
+      frame = np.stack([n, t1v, np.cross(n, t1v)]).astype(np.float32)
+      if t2 == GeomType.SPHERE:
+        con_points.append(ConPoint(kind="plane_sphere", sign=0.0,
+                                   frame=frame, ppos=geom_xpos0[g1],
+                                   **common))
+      else:
+        for sgn in (-1.0, 1.0):
+          con_points.append(ConPoint(kind="plane_capend", sign=sgn,
+                                     frame=frame, ppos=geom_xpos0[g1],
+                                     **common))
+    elif (t1, t2) == (GeomType.CAPSULE, GeomType.CAPSULE):
+      con_points.append(ConPoint(kind="cap_cap", sign=0.0, frame=None,
+                                 ppos=None, **common))
+    else:
+      _unsupported(f"contact pair {t1.name}/{t2.name}", _S5)
 
   lim = [j for j in range(m.njnt) if m.jnt_limited[j]]
+  for j in lim:
+    if m.jnt_type[j] not in scalar:
+      _unsupported("limit on a free joint", _GENERAL)
   jr = npy(m.jnt_range)
   dof_body = [0] * m.nv
   for j in range(m.njnt):
-    dof_body[m.jnt_dofadr[j]] = m.jnt_bodyid[j]
+    ndof = 6 if m.jnt_type[j] == JointType.FREE else 1
+    for i in range(ndof):
+      dof_body[m.jnt_dofadr[j] + i] = m.jnt_bodyid[j]
 
   return TileModel(
       nq=m.nq, nv=m.nv, nu=m.nu, nbody=m.nbody, njnt=m.njnt,
@@ -278,7 +330,35 @@ def extract(m: Model) -> TileModel:
       jnt_stiffness=npy(m.jnt_stiffness),
       qpos_spring=npy(m.qpos_spring),
       dof_frictionloss=npy(m.dof_frictionloss),
+      ten_wraps=tuple(ten_wraps),
+      ten_lim=tuple(ten_lim),
+      ten_lim_range=(np.stack([npy(m.tendon_range)[t] for t in ten_lim])
+                     if ten_lim else np.zeros((0, 2))),
+      ten_lim_margin=tuple(float(npy(m.tendon_margin)[t])
+                           for t in ten_lim),
+      ten_lim_solref=(np.stack([npy(m.tendon_solref_lim)[t]
+                                for t in ten_lim])
+                      if ten_lim else np.zeros((0, 2))),
   )
+
+
+def row_points(tm: TileModel) -> Tuple[tuple, tuple]:
+  """Contact points in row order: the condim-3 points (three rows each),
+  then the condim-1 points (one row each)."""
+  return (tuple(cp for cp in tm.con_points if cp.condim == 3),
+          tuple(cp for cp in tm.con_points if cp.condim == 1))
+
+
+def row_kinds(tm: TileModel) -> Tuple[str, ...]:
+  """The class of every constraint row, in the tile layout: the contact
+  kind ('plane_capend', 'plane_sphere', 'cap_cap'), 'joint_limit' or
+  'tendon_limit'."""
+  fric, ones = row_points(tm)
+  kinds = [cp.kind for cp in fric for _ in range(3)]
+  kinds += [cp.kind for cp in ones]
+  kinds += ["joint_limit"] * (2 * len(tm.lim_jnt))
+  kinds += ["tendon_limit"] * (2 * len(tm.ten_lim))
+  return tuple(kinds)
 
 
 def _static_geom_frames(m: Model):
@@ -370,6 +450,29 @@ def _quat_to_mat(q):
   ])
 
 
+def _quat_normalize(q):
+  inv = 1.0 / torch.sqrt(torch.clamp(
+      q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3], min=1e-24))
+  return torch.stack([q[0] * inv, q[1] * inv, q[2] * inv, q[3] * inv])
+
+
+def _quat_integrate(q, w0, w1, w2, dt: float):
+  """q (4, B) advanced by the exact exponential of the body-frame angular
+  velocity (w0, w1, w2) over dt, NaN-free at w = 0, then normalized."""
+  sq = w0 * w0 + w1 * w1 + w2 * w2
+  small = sq < 1e-24
+  theta = torch.sqrt(torch.where(small, torch.ones_like(sq), sq))
+  inv = 1.0 / theta
+  half = 0.5 * theta * dt
+  s = torch.sin(half) * inv
+  zero = torch.zeros_like(sq)
+  dq = torch.stack([torch.where(small, zero + 1.0, torch.cos(half)),
+                    torch.where(small, zero, w0 * s),
+                    torch.where(small, zero, w1 * s),
+                    torch.where(small, zero, w2 * s)])
+  return _quat_normalize(_quat_mul(q, dq))
+
+
 def _axis_angle_quat(axis, angle):
   """3 axis floats + (B,) angle -> (4, B) quaternion."""
   half = 0.5 * angle
@@ -427,6 +530,7 @@ class StepView:
   xipos: torch.Tensor  # (nbody, 3, B)
   ximat: torch.Tensor  # (nbody, 3, 3, B)
   cvel: torch.Tensor  # (nbody, 6, B)
+  subtree_com: torch.Tensor  # (nbody, 3, B)
   efc_lambda: torch.Tensor  # (nrow, B) converged duals
   time: Optional[torch.Tensor] = None
 
@@ -454,7 +558,7 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
     return torch.as_tensor(np.asarray(v, dtype=np.float32), dtype=dtype,
                            device=dev)
 
-  # ---- forward kinematics (scalar joints)
+  # ---- forward kinematics
   xpos = [zero3]
   xquat = [torch.stack([zero + 1.0, zero, zero, zero])]
   xanchor = [None] * tm.njnt
@@ -468,6 +572,12 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
       qadr = tm.jnt_qposadr[j]
       ax = _c(tm.jnt_axis[j])
       jp = _c(tm.jnt_pos[j])
+      if tm.jnt_type[j] == JointType.FREE:
+        pos = qpos[qadr:qadr + 3]
+        quat = _quat_normalize(qpos[qadr + 3:qadr + 7])
+        xanchor[j] = pos
+        xaxis[j] = _quat_rot(quat, ax)
+        continue
       anchor = pos + _quat_rot(quat, jp)
       if tm.jnt_type[j] == JointType.SLIDE:
         pos = pos + _quat_rot(quat, ax) * (
@@ -487,14 +597,23 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
   ximat = [_quat_to_mat(_quat_mul(xquat[bd], _c(tm.body_iquat[bd])))
            for bd in range(nbody)]
 
-  # ---- cdof (world-origin motion subspace) per dof
+  # ---- cdof (world-origin motion subspace) per dof; a free joint's
+  #      translations are the world axes, its rotations the body axes
+  #      (xmat columns) about xpos
   cdof = [None] * nv
   for j in range(tm.njnt):
     k0 = tm.jnt_dofadr[j]
     if tm.jnt_type[j] == JointType.SLIDE:
       cdof[k0] = (zero3, xaxis[j])
-    else:  # HINGE
+    elif tm.jnt_type[j] == JointType.HINGE:
       cdof[k0] = (xaxis[j], _cross(xanchor[j], xaxis[j]))
+    else:  # FREE
+      bd = tm.jnt_bodyid[j]
+      for i in range(3):
+        cdof[k0 + i] = (zero3, torch.stack(
+            [zero + 1.0 if c == i else zero for c in range(3)]))
+        ang = xmat[bd][:, i]
+        cdof[k0 + 3 + i] = (ang, _cross(xpos[bd], ang))
 
   # ---- body spatial velocities + cdof_dot (static masks)
   contrib = [(cdof[k][0] * qvel[k], cdof[k][1] * qvel[k]) for k in range(nv)]
@@ -610,7 +729,7 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
       qfrc_passive[k] = qfrc_passive[k] - fl * torch.tanh(qvel[k] / 0.01)
   for j in range(tm.njnt):
     ks = float(tm.jnt_stiffness[j])
-    if ks != 0.0:
+    if ks != 0.0 and tm.jnt_type[j] != JointType.FREE:
       qadr, vadr = tm.jnt_qposadr[j], tm.jnt_dofadr[j]
       qfrc_passive[vadr] = qfrc_passive[vadr] - ks * (
           qpos[qadr] - float(tm.qpos_spring[qadr]))
@@ -665,10 +784,33 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
     lam_out = (torch.zeros((1, B), dtype=dtype, device=dev)
                if efc_lambda is None else efc_lambda)
 
-  # ---- integrate (semi-implicit Euler, implicit damping in the factor)
+  # ---- integrate (semi-implicit Euler, implicit damping in the factor);
+  #      a free joint's quaternion by the exact exponential map
   qacc = _chol_solve(L, qfrc_smooth + qfrc_constraint)
   qvel2 = qvel + h * qacc
-  qpos2 = qpos + h * qvel2  # scalar joints: nq == nv, dense addressing
+  out_q = [None] * tm.nq
+  for j in range(tm.njnt):
+    qadr, vadr = tm.jnt_qposadr[j], tm.jnt_dofadr[j]
+    if tm.jnt_type[j] == JointType.FREE:
+      for i in range(3):
+        out_q[qadr + i] = qpos[qadr + i] + h * qvel2[vadr + i]
+      quat = _quat_integrate(qpos[qadr + 3:qadr + 7], qvel2[vadr + 3],
+                             qvel2[vadr + 4], qvel2[vadr + 5], h)
+      for i in range(4):
+        out_q[qadr + 3 + i] = quat[i]
+    else:
+      out_q[qadr] = qpos[qadr] + h * qvel2[vadr]
+  qpos2 = torch.stack(out_q)
+
+  # subtree CoM: comp_mc / comp_m are the subtree sums after the CRB pass;
+  # body 0 is the whole system
+  root_mc, root_m = comp_mc[0], comp_m[0]
+  for bd in range(1, nbody):
+    if tm.body_parentid[bd] == 0:
+      root_mc = root_mc + comp_mc[bd]
+      root_m = root_m + comp_m[bd]
+  sub_com = [root_mc / max(root_m, 1e-12)] + [
+      comp_mc[bd] / max(comp_m[bd], 1e-12) for bd in range(1, nbody)]
 
   view = StepView(
       qpos=qpos2, qvel=qvel2, ctrl=ctrl,
@@ -676,15 +818,66 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
       xmat=torch.stack(xmat), xipos=torch.stack(xipos),
       ximat=torch.stack(ximat),
       cvel=torch.stack([torch.cat([va, vl]) for va, vl in cvel]),
+      subtree_com=torch.stack(sub_com),
       efc_lambda=lam_out)
   return qpos2, qvel2, view
+
+
+def _frame_from_normal(n):
+  """Contact frame rows (n, t1, t2) from a unit normal (3, B)
+  (collision._frame_from_normal)."""
+  use_x = torch.abs(n[0]) < 0.5
+  one, zero = torch.ones_like(n[0]), torch.zeros_like(n[0])
+  ref = torch.stack([torch.where(use_x, one, zero),
+                     torch.where(use_x, zero, one), zero])
+  t1 = _cross(n, ref)
+  t1 = t1 / torch.sqrt(torch.clamp(_dot3(t1, t1), min=1e-24))
+  return torch.stack([n, t1, _cross(n, t1)])
+
+
+def _contact_geometry(tm, cp, geom_frame, const):
+  """(dist (B,), frame (3 rows, 3, B), cpos (3, B)) of one contact point,
+  the margin taken off dist (tilestep.py narrowphase)."""
+  if cp.kind in ("plane_sphere", "plane_capend"):
+    gpos, gquat = geom_frame(cp.g2)
+    end = gpos
+    if cp.kind == "plane_capend":
+      end = gpos + cp.sign * cp.half2 * _quat_to_mat(gquat)[:, 2]
+    n_c = _c(cp.frame[0])
+    pp = _c(cp.ppos)
+    r = cp.r2
+    dist = (n_c[0] * (end[0] - pp[0]) + n_c[1] * (end[1] - pp[1]) +
+            n_c[2] * (end[2] - pp[2])) - r
+    scale = r + 0.5 * dist
+    cpos = torch.stack([end[k] - n_c[k] * scale for k in range(3)])
+    frame = const(cp.frame)[:, :, None].expand(3, 3, dist.shape[0])
+  else:  # cap_cap (collision._capsule_capsule, smooth clamped)
+    p1, q1 = geom_frame(cp.g1)
+    p2, q2 = geom_frame(cp.g2)
+    u1, u2 = _quat_to_mat(q1)[:, 2], _quat_to_mat(q2)[:, 2]
+    rvec = p2 - p1
+    uu = _dot3(u1, u2)
+    ru1, ru2 = _dot3(rvec, u1), _dot3(rvec, u2)
+    det = torch.clamp(1.0 - uu * uu, min=1e-9)
+    t1c = torch.clamp((ru1 - uu * ru2) / det, -cp.half1, cp.half1)
+    t2c = torch.clamp(_dot3(p1 + t1c * u1 - p2, u2), -cp.half2, cp.half2)
+    t1c = torch.clamp(_dot3(p2 + t2c * u2 - p1, u1), -cp.half1, cp.half1)
+    c1 = p1 + t1c * u1
+    c2 = p2 + t2c * u2
+    delta = c2 - c1
+    dn = torch.sqrt(torch.clamp(_dot3(delta, delta), min=1e-24))
+    n = delta / dn
+    dist = dn - (cp.r1 + cp.r2)
+    cpos = c1 + n * (cp.r1 + 0.5 * dist)
+    frame = _frame_from_normal(n)
+  return dist - cp.margin, frame, cpos
 
 
 def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
                       efc_lambda, const):
   """Rows, Delassus operator, preconditioned APGD; (qfrc (nv, B),
   converged physical duals (nrow, B))."""
-  nv, nrow, ncon = tm.nv, tm.nrow, tm.ncon
+  nv, nrow = tm.nv, tm.nrow
   B = qpos.shape[1]
   dtype, dev = qpos.dtype, qpos.device
   cdof_ang = torch.stack([c[0] for c in cdof])  # (nv, 3, B)
@@ -692,61 +885,79 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
 
   J_parts, pos_parts, act_parts, imp_parts, k_parts, b_parts = \
       [], [], [], [], [], []
-  if ncon:
-    cps = tm.con_points
-    ends = []
-    for cp in cps:
-      bg = tm.geom_bodyid[cp.g2]
-      gpos = xpos[bg] + _quat_rot(xquat[bg], _c(tm.geom_pos[cp.g2]))
-      gmat = _quat_to_mat(_quat_mul(xquat[bg], _c(tm.geom_quat[cp.g2])))
-      ends.append(gpos + cp.sign * cp.half2 * gmat[:, 2])
-    end = torch.stack(ends)  # (ncon, 3, B)
-    normal = const([cp.frame[0] for cp in cps])  # (ncon, 3)
-    ppos = const([cp.ppos for cp in cps])
-    r = const([cp.r2 for cp in cps])[:, None]
-    dist = (torch.sum(normal[:, :, None] * (end - ppos[:, :, None]), dim=1)
-            - r)
-    cpos = end - normal[:, :, None] * (r + 0.5 * dist)[:, None]
-    dist = dist - const([cp.margin for cp in cps])[:, None]  # (ncon, B)
+  gf_memo = {}
 
+  def geom_frame(g):
+    if g not in gf_memo:
+      bg = tm.geom_bodyid[g]
+      gf_memo[g] = (xpos[bg] + _quat_rot(xquat[bg], _c(tm.geom_pos[g])),
+                    _quat_mul(xquat[bg], _c(tm.geom_quat[g])))
+    return gf_memo[g]
+
+  # contact rows: condim-3 points (n, t1, t2), then condim-1 points (n)
+  fric, ones = row_points(tm)
+  for cps, nr in ((fric, 3), (ones, 1)):
+    if not cps:
+      continue
+    npt = len(cps)
+    geo = [_contact_geometry(tm, cp, geom_frame, const) for cp in cps]
+    dist = torch.stack([g[0] for g in geo])  # (npt, B)
+    frame = torch.stack([g[1][:nr] for g in geo])  # (npt, nr, 3, B)
+    cpos = torch.stack([g[2] for g in geo])  # (npt, 3, B)
     # relative-velocity Jacobian: sign per dof from the two bodies' paths
     sgn = const([[float(tm.dof_body_mask[k, cp.body2])
                   - float(tm.dof_body_mask[k, cp.body1])
-                  for k in range(nv)] for cp in cps])  # (ncon, nv)
+                  for k in range(nv)] for cp in cps])  # (npt, nv)
     jp = cdof_lin[None] + torch.linalg.cross(
-        cdof_ang[None], cpos[:, None], dim=2)  # (ncon, nv, 3, B)
-    frame = const([cp.frame for cp in cps])  # (ncon, 3 rows, 3)
-    J_c = torch.sum(frame[:, :, None, :, None] * jp[:, None], dim=3)
-    J_c = J_c * sgn[:, None, :, None]  # (ncon, 3, nv, B)
-    J_parts.append(J_c.reshape(3 * ncon, nv, B))
+        cdof_ang[None], cpos[:, None], dim=2)  # (npt, nv, 3, B)
+    J_c = torch.sum(frame[:, :, None] * jp[:, None], dim=3)
+    J_c = J_c * sgn[:, None, :, None]  # (npt, nr, nv, B)
+    J_parts.append(J_c.reshape(nr * npt, nv, B))
     zc = torch.zeros_like(dist)
-    pos_parts.append(torch.stack([torch.clamp(dist, max=0.0), zc, zc],
-                                 dim=1).reshape(3 * ncon, B))
-    act_parts.append((dist < 0)[:, None].expand(ncon, 3, B)
-                     .reshape(3 * ncon, B))
-    ic = const([impedance_consts(cp.solimp) for cp in cps])  # (ncon, 5)
+    pos_parts.append(torch.stack(
+        [torch.clamp(dist, max=0.0)] + [zc] * (nr - 1),
+        dim=1).reshape(nr * npt, B))
+    act_parts.append((dist < 0)[:, None].expand(npt, nr, B)
+                     .reshape(nr * npt, B))
+    ic = const([impedance_consts(cp.solimp) for cp in cps])  # (npt, 5)
     imp = _impedance(dist, *(ic[:, i:i + 1] for i in range(5)))
-    imp_parts.append(imp[:, None].expand(ncon, 3, B).reshape(3 * ncon, B))
+    imp_parts.append(imp[:, None].expand(npt, nr, B).reshape(nr * npt, B))
     kbs = [kb(cp.solref, float(cp.solimp[1])) for cp in cps]
-    k_parts.append(const([[v[0]] * 3 for v in kbs]).reshape(3 * ncon))
-    b_parts.append(const([[v[1]] * 3 for v in kbs]).reshape(3 * ncon))
+    k_parts.append(const([[v[0]] * nr for v in kbs]).reshape(nr * npt))
+    b_parts.append(const([[v[1]] * nr for v in kbs]).reshape(nr * npt))
 
-  nl = len(tm.lim_jnt)
+  # limit rows: joints, then fixed tendons (constant Jacobians)
+  lims = [(qpos[tm.lim_qadr[li]], {tm.lim_vadr[li]: 1.0}, tm.lim_lo[li],
+           tm.lim_hi[li], tm.lim_margin[li], tm.lim_solref[li])
+          for li in range(len(tm.lim_jnt))]
+  for li, t in enumerate(tm.ten_lim):
+    ln, coefs = None, {}
+    for qadr, vadr, coef in tm.ten_wraps[t]:
+      term = coef * qpos[qadr]
+      ln = term if ln is None else ln + term
+      coefs[vadr] = coefs.get(vadr, 0.0) + coef
+    lims.append((ln, coefs, float(tm.ten_lim_range[li, 0]),
+                 float(tm.ten_lim_range[li, 1]), tm.ten_lim_margin[li],
+                 tm.ten_lim_solref[li]))
+  nl = len(lims)
   if nl:
-    q = qpos[list(tm.lim_qadr)]  # (nl, B)
-    lo = (q - const(tm.lim_lo)[:, None]) - const(tm.lim_margin)[:, None]
-    hi = (const(tm.lim_hi)[:, None] - q) - const(tm.lim_margin)[:, None]
+    q = torch.stack([x[0] for x in lims])  # (nl, B)
+    lo = (q - const([x[2] for x in lims])[:, None]) \
+        - const([x[4] for x in lims])[:, None]
+    hi = (const([x[3] for x in lims])[:, None] - q) \
+        - const([x[4] for x in lims])[:, None]
     posv = torch.stack([lo, hi], dim=1).reshape(2 * nl, B)
     jl = np.zeros((2 * nl, nv), np.float32)
-    for li in range(nl):
-      jl[2 * li, tm.lim_vadr[li]] = 1.0
-      jl[2 * li + 1, tm.lim_vadr[li]] = -1.0
+    for li, x in enumerate(lims):
+      for vadr, coef in x[1].items():
+        jl[2 * li, vadr] = coef
+        jl[2 * li + 1, vadr] = -coef
     J_parts.append(const(jl)[:, :, None].expand(2 * nl, nv, B))
     pos_parts.append(torch.clamp(posv, max=0.0))
     act_parts.append(posv < 0)
     ic = impedance_consts(_DEFAULT_SOLIMP)
-    imp_parts.append(_impedance(posv, *ic))
-    kbs = [kb(tm.lim_solref[li], ic[1]) for li in range(nl)]
+    imp_parts.append(_impedance(posv, *_c(ic)))
+    kbs = [kb(x[5], ic[1]) for x in lims]
     k_parts.append(const([[v[0]] * 2 for v in kbs]).reshape(2 * nl))
     b_parts.append(const([[v[1]] * 2 for v in kbs]).reshape(2 * nl))
 
@@ -785,7 +996,7 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
   active = active_rows & nondeg
 
   # Jacobi preconditioning, tangent scales tied so the cone stays circular
-  nf = ncon
+  nf = len(fric)
   dr = diag + reg
   if nf:
     fc = dr[:3 * nf].reshape(nf, 3, B)
@@ -797,7 +1008,7 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
   s_pre = 1.0 / torch.sqrt(torch.clamp(dr_s, min=1e-12))
   if nf:
     fs = s_pre[:3 * nf].reshape(nf, 3, B)
-    mu = const([cp.mu for cp in tm.con_points])[:, None]
+    mu = const([cp.mu for cp in fric])[:, None]
     mu_t = mu * fs[:, 0] / fs[:, 1]
 
   def project(g):
@@ -815,7 +1026,7 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
                           torch.ones_like(tnorm))
       parts.append(torch.stack([gn, gt1 * scale, gt2 * scale], dim=1)
                    .reshape(3 * nf, B))
-    if nrow > 3 * nf:  # joint limit rows
+    if nrow > 3 * nf:  # condim-1 normals, joint and tendon limits
       parts.append(torch.clamp(g[3 * nf:], min=0.0))
     g = torch.cat(parts) if len(parts) > 1 else parts[0]
     return torch.where(active, g, torch.zeros_like(g))

@@ -59,13 +59,14 @@ class DeviceResidual:
   """Selects a task residual written as a CUDA device function.
 
   `id` picks the function in csrc/megarollout.cu; `ints` are the model
-  indices it reads (body, dof, ...), resolved once from the Model."""
+  indices it reads (body, dof, body bitmask, ...) and `floats` the model
+  constants it reads, resolved once from the Model."""
   id: int
   ints: Tuple[int, ...] = ()
+  floats: Tuple[float, ...] = ()
 
 
-def parse_cost_spec_mj(mj_model, model: Model, dtype=torch.float32,
-                       device="cpu"):
+def parse_cost_spec_mj(mj_model, model: Model, dtype, device):
   """(CostSpec, TaskParams, residual param names) from a mujoco.MjModel."""
   import mujoco
 

@@ -85,3 +85,80 @@ def build_walker():
   spec.add_key(name="home",
                qpos=[0, 0, 0, 0.2, -0.3, 0.1, -0.2, -0.1, -0.1])
   return compile_model(spec)
+
+
+def _humanoid_spec():
+  """The full-DOF dm_control humanoid plant with the reference patch
+  semantics (humanoid.xml.patch): spawn height 1.282, knee gear 100,
+  hip_x range -30..10, hip_y -150..20, elbow -100..50, two limited
+  hamstring tendons (hip_y/knee, range -0.3..2), lower_waist/thigh contact
+  excludes, dm_control's sensors removed. The planning model's contacts
+  are scoped with contype/conaffinity bits (bit 0 = floor group, bit 1 =
+  legs): floor against feet, shins, butt, torso and head, plus the
+  leg-leg pairs (condim 1); no arm or waist self-collision."""
+  import mujoco
+
+  spec = load_spec("humanoid")
+  spec.modelname = "Humanoid (dm_control)"
+  spec.option.timestep = 0.005
+  strip_sensors(spec)
+  spec.body("torso").pos = [0.0, 0.0, 1.282]
+
+  floor_only = ("butt", "torso", "head")
+  leg_floor = ("right_shin", "left_shin", "right_right_foot",
+               "left_right_foot", "left_left_foot", "right_left_foot")
+  leg_only = ("right_thigh", "left_thigh")
+  for g in spec.geoms:
+    if g.name == "floor":
+      g.contype, g.conaffinity = 1, 1
+    elif g.name in leg_floor:
+      g.contype, g.conaffinity = 3, 2
+    elif g.name in leg_only:
+      g.contype, g.conaffinity = 2, 2
+    elif g.name in floor_only:
+      g.contype, g.conaffinity = 1, 0
+    else:
+      g.contype, g.conaffinity = 0, 0
+
+  for side in ("right", "left"):
+    spec.actuator(f"{side}_knee").gear = [100, 0, 0, 0, 0, 0]
+    spec.joint(f"{side}_hip_x").range = [-30.0, 10.0]
+    spec.joint(f"{side}_hip_y").range = [-150.0, 20.0]
+    spec.joint(f"{side}_elbow").range = [-100.0, 50.0]
+    t = spec.add_tendon(name=f"hamstring_{side}",
+                        limited=mujoco.mjtLimited.mjLIMITED_TRUE,
+                        range=[-0.3, 2.0])
+    t.wrap_joint(f"{side}_hip_y", 0.5)
+    t.wrap_joint(f"{side}_knee", -0.5)
+    spec.add_exclude(bodyname1="lower_waist", bodyname2=f"{side}_thigh")
+  return spec
+
+
+def build_humanoid():
+  """Humanoid Stand/Walk model: the plant above plus the cost spec of
+  the reference's tasks/humanoid/walk/task.xml (Stand sets Speed to 0)."""
+  spec = _humanoid_spec()
+  add_numerics(spec, {
+      "agent_planner": 0,
+      "agent_horizon": 0.5,
+      "agent_timestep": 0.015,
+      "sampling_spline_points": 4,
+      "sampling_trajectories": 128,
+      "sampling_exploration": 0.12,
+      "residual_Height": 1.35,
+      "residual_Speed": 1.0,
+      "residual_Balance": 0.3,
+  })
+  add_cost_sensors(spec, [
+      ("Height", 1, [7, 5.0, 0, 25.0, 0.1, 4.0]),
+      ("Pelvis/Feet", 1, [8, 1.0, 0, 10.0, 0.05]),
+      ("Balance", 2, [1, 5.0, 0, 25.0, 0.02, 4.0]),
+      ("Upright", 8, [2, 5.0, 0, 25.0, 0.01]),
+      ("Posture", 21, [0, 0.025, 0, 1.0]),
+      ("Walk", 1, [7, 1.0, 0, 25.0, 0.5, 3.0]),
+      ("Velocity", 2, [7, 0.625, 0, 25.0, 0.2, 4.0]),
+      ("Control", 21, [3, 0.025, 0, 1.0, 0.3]),
+  ])
+  spec.add_key(name="home",
+               qpos=[0, 0, 1.282, 1, 0, 0, 0] + [0.0] * 21)
+  return compile_model(spec)

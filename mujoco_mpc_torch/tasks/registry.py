@@ -21,6 +21,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from mujoco_mpc_torch import device as devices
 from mujoco_mpc_torch.physics import io as phys_io
 from mujoco_mpc_torch.tasks import base
 
@@ -43,7 +44,9 @@ def task_names():
   return sorted(_FACTORIES)
 
 
-def get_task(name: str, dtype=torch.float32, device="cpu") -> base.Task:
+def get_task(name: str, dtype=torch.float32,
+             device=devices.DEFAULT) -> base.Task:
+  device = devices.resolve(device)
   if name not in _FACTORIES:
     raise KeyError(
         f"task {name!r} is not ported yet: ROADMAP queue 1 items 5 and 11 "
@@ -55,7 +58,7 @@ def snapshot_path(stem: str) -> str:
   return os.path.join(_MODEL_DIR, f"{stem}.npz")
 
 
-def build_task_model(builder, dtype=torch.float32, device="cpu"):
+def build_task_model(builder, dtype=torch.float32, device=devices.DEFAULT):
   """(Model, CostSpec, TaskParams, param_names) from a mujoco builder."""
   mj = builder()
   model = phys_io.from_mjmodel(mj, dtype=dtype, device=device)
@@ -67,8 +70,9 @@ def build_task_model(builder, dtype=torch.float32, device="cpu"):
 def write_snapshots() -> None:
   """Rebuild every registered task's snapshot (needs mujoco, dm_control)."""
   os.makedirs(_MODEL_DIR, exist_ok=True)
-  for stem, builder in _SNAPSHOTS.values():
-    model, spec, params, names = build_task_model(builder, torch.float64)
+  for stem, builder in dict(_SNAPSHOTS.values()).items():
+    model, spec, params, names = build_task_model(builder, torch.float64,
+                                                  device="cpu")
     meta = {"names": spec.names, "norm_types": spec.norm_types,
             "dims": spec.dims, "param_names": names}
     phys_io.save_snapshot(
@@ -80,7 +84,8 @@ def write_snapshots() -> None:
            "task.residual_params": params.residual_params.numpy()})
 
 
-def load_task_model(stem: str, dtype=torch.float32, device="cpu"):
+def load_task_model(stem: str, dtype=torch.float32,
+                    device=devices.DEFAULT):
   """(Model, CostSpec, TaskParams, param_names) from a snapshot."""
   model, extra = phys_io.load_snapshot(snapshot_path(stem), dtype, device)
   meta = json.loads(str(extra["task.spec"]))
@@ -98,7 +103,7 @@ def load_task_model(stem: str, dtype=torch.float32, device="cpu"):
 
 
 def _register_all():
-  from mujoco_mpc_torch.tasks import walker  # noqa: F401
+  from mujoco_mpc_torch.tasks import humanoid, walker  # noqa: F401
 
 
 _register_all()

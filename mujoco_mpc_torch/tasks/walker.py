@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from mujoco_mpc_torch import device as devices
 from mujoco_mpc_torch.tasks import base, dm_suite, registry
 
 # residual_walker in csrc/megarollout.cu
@@ -33,7 +34,7 @@ def residual(model, data, params):
 
 @registry.register("Walker", snapshot="walker",
                    builder=dm_suite.build_walker)
-def make(dtype=torch.float32, device="cpu") -> base.Task:
+def make(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
   model, spec, params, pnames = registry.load_task_model(
       "walker", dtype, device)
   return base.Task(

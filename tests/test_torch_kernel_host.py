@@ -1,0 +1,283 @@
+"""The CUDA kernel's source, compiled for the host, against the plain version.
+
+csrc/megarollout.cu is built here with the host C++ compiler under a stub
+cuda_runtime.h (the CUDA qualifiers empty, one thread per block, the launch
+syntax removed), and each candidate's block is run in turn. That checks the
+kernel's arithmetic, its struct layout against ops/megarollout.py::_MRModel
+and its task residuals on a host without a card; the card's own build is
+tested in tests/test_torch_megarollout_cuda.py. Built without contraction
+(-ffp-contract=off), so it rounds as the plain version does.
+
+Tolerances, with the errors measured when they were set: Walker step qpos
+atol 1e-6 (3.0e-8), qvel 1e-4 (6.4e-6), duals 1e-5 * max (1.2e-3 of 1.1e3);
+Humanoid step qpos 1e-5 (5.1e-7), qvel 1e-3 (7.6e-5), duals 1e-4 * max
+(3.2e-3 of 2.2e3); returns rtol 2e-3 (Walker 1.2e-7, Humanoid 1.3e-6).
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from mujoco_mpc_torch.ops import _cuda_build
+from mujoco_mpc_torch.ops import megarollout as tmr
+from mujoco_mpc_torch.physics import tilestep as tts
+from mujoco_mpc_torch.tasks import humanoid as thum
+from mujoco_mpc_torch.tasks import registry as treg
+
+_STUB = r"""
+#pragma once
+#include <cmath>
+#include <cstring>
+#define __device__
+#define __forceinline__ inline
+#define __global__
+#define __launch_bounds__(x)
+#define __shared__ static
+#define __restrict__
+struct host_dim3 { unsigned x, y, z; };
+static host_dim3 threadIdx, blockIdx, blockDim;
+#define __syncthreads()
+typedef void* cudaStream_t;
+static inline int cudaGetLastError() { return 0; }
+static inline float __int_as_float(int i) {
+  float f; std::memcpy(&f, &i, 4); return f;
+}
+using std::isfinite;
+"""
+
+_HOST_MAIN = r"""
+#include "kernel.cc"
+// one thread per block, so a block's load_model copies the whole struct
+template <class T>
+static void returns(const void* model, const void* qpos0, const void* qvel0,
+    const void* actions, const void* weights, const void* norm_params,
+    const void* risk, const void* res_params, const void* t0, void* out,
+    int n, int horizon) {
+  blockDim.x = 1; threadIdx.x = 0;
+  for (int c = 0; c < n; ++c) {
+    blockIdx.x = c;
+    mr_returns_kernel<T>((const MRModelT<T>*)model, (const T*)qpos0,
+        (const T*)qvel0, (const T*)actions, (const T*)weights,
+        (const T*)norm_params, (const T*)risk, (const T*)res_params,
+        (const T*)t0, (T*)out, n, horizon);
+  }
+}
+template <class T>
+static void step(const void* model, const void* qpos, const void* qvel,
+    const void* ctrl, const void* lam, void* qpos_out, void* qvel_out,
+    void* lam_out, int b) {
+  blockDim.x = 1; threadIdx.x = 0;
+  for (int c = 0; c < b; ++c) {
+    blockIdx.x = c;
+    mr_step_kernel<T>((const MRModelT<T>*)model, (const T*)qpos,
+        (const T*)qvel, (const T*)ctrl, (const T*)lam, (T*)qpos_out,
+        (T*)qvel_out, (T*)lam_out, b);
+  }
+}
+#define RETURNS_ARGS const void* m, const void* q, const void* v, \
+    const void* a, const void* w, const void* np, const void* r, \
+    const void* rp, const void* t0, void* out, int n, int h
+#define STEP_ARGS const void* m, const void* q, const void* v, \
+    const void* c, const void* l, void* qo, void* vo, void* lo, int b
+extern "C" void host_returns(RETURNS_ARGS) {
+  returns<float>(m, q, v, a, w, np, r, rp, t0, out, n, h);
+}
+extern "C" void host_returns64(RETURNS_ARGS) {
+  returns<double>(m, q, v, a, w, np, r, rp, t0, out, n, h);
+}
+extern "C" void host_step(STEP_ARGS) {
+  step<float>(m, q, v, c, l, qo, vo, lo, b);
+}
+extern "C" void host_step64(STEP_ARGS) {
+  step<double>(m, q, v, c, l, qo, vo, lo, b);
+}
+"""
+
+_P = ctypes.c_void_p
+
+
+def _ptr(a):
+  return a.ctypes.data_as(_P)
+
+
+def _build(d, flags):
+  """The kernel source under the stub, built into d with extra flags."""
+  cxx = shutil.which("g++") or shutil.which("c++")
+  if cxx is None:
+    pytest.skip("needs a host C++ compiler")
+  src = _cuda_build.SOURCE.read_text()
+  (d / "kernel.cc").write_text(re.sub(r"<<<[^>]*>>>", "", src))
+  (d / "cuda_runtime.h").write_text(_STUB)
+  (d / "host_main.cc").write_text(_HOST_MAIN)
+  so = d / "kernel_host.so"
+  subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", *flags,
+                  "-I", str(d), "-o", str(so), str(d / "host_main.cc")],
+                 check=True, capture_output=True)
+  lib = ctypes.CDLL(str(so))
+  lib.mr_model_layout.argtypes = [ctypes.c_int, _P, ctypes.c_int]
+  lib.mr_model_size.argtypes = [ctypes.c_int]
+  lib.mr_model_size.restype = ctypes.c_longlong
+  for name in ("host_returns", "host_returns64"):
+    getattr(lib, name).argtypes = [_P] * 10 + [ctypes.c_int] * 2
+  for name in ("host_step", "host_step64"):
+    getattr(lib, name).argtypes = [_P] * 8 + [ctypes.c_int]
+  tmr._check_layout(lib)  # the ctypes mirrors match the compiled structs
+  return lib
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+  return _build(tmp_path_factory.mktemp("kernel_host"),
+                ["-ffp-contract=off"])
+
+
+@pytest.fixture(scope="module")
+def lib_contracted(tmp_path_factory):
+  """Built as nvcc builds for the card: multiply-adds contracted (on a
+  host CPU with FMA)."""
+  return _build(tmp_path_factory.mktemp("kernel_host_fma"),
+                ["-march=native", "-ffp-contract=fast"])
+
+
+def _walker_states(model, b):
+  rng = np.random.RandomState(1)
+  home = np.asarray(model.keyframe("home")[0])
+  qp = (home + rng.uniform(-0.05, 0.05, (b, 9))).astype(np.float32)
+  qp[:, 0] -= 0.03  # sink the walker a little: contacts active
+  qv = rng.uniform(-0.5, 0.5, (b, 9)).astype(np.float32)
+  ct = rng.uniform(-1.0, 1.0, (b, 6)).astype(np.float32)
+  return qp.T.copy(), qv.T.copy(), ct.T.copy()
+
+
+_CASES = {
+    # task, states, (qpos, qvel, duals-relative) tolerances in float32
+    "Walker": (_walker_states, (1e-6, 1e-4, 1e-5)),
+    "Humanoid Walk": (thum.probe_states, (1e-5, 1e-3, 1e-4)),
+}
+# float64: the kernel's double instance against step_tb in float64
+_TOL64 = (1e-12, 1e-11, 1e-12)
+_NP = {torch.float32: np.float32, torch.float64: np.float64}
+_SUFFIX = {torch.float32: "", torch.float64: "64"}
+
+
+def _host_step(lib, raw, dtype, qp, qv, ct, lam):
+  ins = [np.ascontiguousarray(x.T) for x in (qp, qv, ct, lam)]
+  outs = [np.empty_like(ins[i]) for i in (0, 1, 3)]
+  getattr(lib, "host_step" + _SUFFIX[dtype])(
+      _ptr(raw), *map(_ptr, ins), *map(_ptr, outs), qp.shape[1])
+  return tuple(x.T.copy() for x in outs)
+
+
+def _check_steps(lib, name, dtype, tols):
+  states, _ = _CASES[name]
+  tq, tv, tl = tols
+  task = treg.get_task(name, device="cpu")
+  tm = tts.extract(task.model)
+  raw = np.frombuffer(tmr.pack_model(tm, task, dtype), np.uint8).copy()
+  qp, qv, ct = (x.astype(_NP[dtype]) for x in states(task.model, 8))
+  b = qp.shape[1]
+  kq, kv, kl = qp, qv, np.zeros((tm.nrow, b), _NP[dtype])
+  pq, pv, pl = torch.tensor(qp), torch.tensor(qv), None
+  for _ in range(2):  # cold, then warm-started
+    kq, kv, kl = _host_step(lib, raw, dtype, kq, kv, ct, kl)
+    pq, pv, view = tts.step_tb(tm, pq, pv, torch.tensor(ct), pl)
+    pl = view.efc_lambda
+    scale = float(pl.abs().max())
+    assert scale > 1.0  # contacts carry force
+    np.testing.assert_allclose(kq, pq.numpy(), atol=tq, rtol=0)
+    np.testing.assert_allclose(kv, pv.numpy(), atol=tv, rtol=0)
+    np.testing.assert_allclose(kl, pl.numpy(), atol=tl * scale, rtol=0)
+
+
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_host_kernel_step_matches_plain(lib, name):
+  _check_steps(lib, name, torch.float32, _CASES[name][1])
+
+
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_host_kernel_float64_step_matches_plain(lib, name):
+  """Measured: Walker qvel 9.3e-15, duals 2.5e-12 of 9.6e2; Humanoid qpos
+  4.2e-16, qvel 8.2e-14, duals 9.1e-12 of 2.2e3."""
+  _check_steps(lib, name, torch.float64, _TOL64)
+
+
+def _check_returns(lib, name, dtype, horizon, rtol):
+  task = treg.get_task(name, device="cpu")
+  n = 8
+  mr = tmr.MegaRollout(task, horizon, device="cpu")
+  raw = np.frombuffer(tmr.pack_model(mr.tm, task, dtype), np.uint8).copy()
+  home = np.asarray(task.model.keyframe("home")[0], np.float32)
+  v0 = np.zeros(mr.tm.nv, np.float32)
+  acts = (0.4 * np.random.RandomState(0).randn(n, horizon, mr.tm.nu)
+          ).astype(np.float32)
+  home, v0, acts = (x.astype(_NP[dtype]) for x in (home, v0, acts))
+  # a diverging candidate: its squared controls overflow
+  acts[1] = 1e30 if dtype == torch.float32 else 1e300
+  p = task.params.to(dtype=dtype)
+  ops = [raw, home, v0, acts] + [
+      np.ascontiguousarray(x.numpy().reshape(-1))
+      for x in (p.weights, p.norm_params, p.risk, p.residual_params)] + [
+          np.asarray([0.25], _NP[dtype])]
+  out = np.empty(n, _NP[dtype])
+  getattr(lib, "host_returns" + _SUFFIX[dtype])(
+      *map(_ptr, ops), _ptr(out), n, horizon)
+  want = mr.returns(torch.tensor(home), torch.tensor(v0),
+                    torch.tensor(acts), p, 0.25).numpy()
+  assert want.dtype == _NP[dtype]
+  assert out[1] == want[1] == tmr.MAX_RETURN
+  np.testing.assert_allclose(out, want, rtol=rtol)
+
+
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_host_kernel_returns_match_plain(lib, name):
+  _check_returns(lib, name, torch.float32, 4, 2e-3)
+
+
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_host_kernel_float64_returns_match_plain(lib, name):
+  """30 steps, against the plain version in float64. Measured: rel
+  7.6e-16 (Walker) and 1.4e-15 (Humanoid)."""
+  _check_returns(lib, name, torch.float64, 30, 1e-9)
+
+
+def test_host_kernel_contraction_moves_only_float_rounding(lib_contracted):
+  """Contracted multiply-adds (as nvcc builds for the card) round
+  differently: at a few stiff leg-leg crossings of the 128 probe states
+  the float kernel's one-step qvel moves by more than 1e-3 from the plain
+  float32 step, while the double kernel still matches the plain float64
+  step to 1e-11. Measured with FMA contraction: worst float32 qvel error
+  1.49e-3 (state 124, whose plain float32 step is 2.2e-4 from float64: a
+  ratio of 6.9); every other state is under 3.4 times its own
+  float32-vs-float64 error; double 1.5e-12. The same limit, max(1e-3,
+  8 x the state's float32-vs-float64 error), is what chip_smoke.py holds
+  the card's float kernel to at these states."""
+  task = treg.get_task("Humanoid Walk", device="cpu")
+  tm = tts.extract(task.model)
+  qp, qv, ct = thum.probe_states(task.model, 128)
+  lam0 = np.zeros((tm.nrow, 128))
+  plain = {}
+  for dt in (torch.float32, torch.float64):
+    q2, v2, view = tts.step_tb(tm, *(torch.tensor(x).to(dt)
+                                     for x in (qp, qv, ct)))
+    plain[dt] = (q2.double().numpy(), v2.double().numpy(),
+                 view.efc_lambda.double().numpy())
+  noise = np.abs(plain[torch.float32][1] - plain[torch.float64][1]).max(0)
+  for dt in (torch.float32, torch.float64):
+    raw = np.frombuffer(tmr.pack_model(tm, task, dt), np.uint8).copy()
+    kq, kv, kl = _host_step(lib_contracted, raw, dt,
+                            *(x.astype(_NP[dt]) for x in (qp, qv, ct, lam0)))
+    err = np.abs(kv - plain[dt][1]).max(0)
+    if dt == torch.float64:
+      np.testing.assert_allclose(kq, plain[dt][0], atol=1e-12, rtol=0)
+      assert err.max() <= 1e-11
+      scale = np.abs(plain[dt][2]).max()
+      np.testing.assert_allclose(kl, plain[dt][2], atol=1e-12 * scale,
+                                 rtol=0)
+    else:
+      assert np.all(err <= np.maximum(1e-3, 8.0 * noise)), (
+          err.max(), (err / noise).max())

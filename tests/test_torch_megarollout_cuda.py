@@ -3,8 +3,13 @@
 Needs an NVIDIA GPU (sm_90a) and nvcc; every test skips without a card.
 On the card: python -m pytest tests/test_torch_megarollout_cuda.py -q
 
-Tolerances as in tests/test_torch_tilestep.py: one step qpos atol 1e-6,
-qvel atol 1e-4, duals atol 1e-5 * max|duals|; returns rtol 2e-3.
+Tolerances as in tests/test_torch_tilestep.py: one Walker step qpos atol
+1e-6, qvel atol 1e-4, duals atol 1e-5 * max|duals|; one Humanoid step qpos
+atol 1e-5, qvel atol 1e-3, duals atol 1e-4 * max|duals| (27 dofs and 117
+rows carry more f32 rounding); returns rtol 2e-3. The kernel's float64
+instance against the plain version in float64, as in
+tests/test_torch_kernel_host.py: step qpos atol 1e-12, qvel 1e-10, duals
+1e-12 * max|duals|; returns over 30 steps rtol 1e-9.
 """
 
 import numpy as np
@@ -13,6 +18,7 @@ import torch
 
 from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.physics import tilestep as tts
+from mujoco_mpc_torch.tasks import humanoid as thum
 from mujoco_mpc_torch.tasks import registry as treg
 
 pytestmark = pytest.mark.cuda
@@ -35,7 +41,8 @@ def _feet_only(task):
 
 def _states(dev, b, seed=1):
   rng = np.random.RandomState(seed)
-  home = np.asarray(treg.get_task("Walker").model.keyframe("home")[0])
+  home = np.asarray(treg.get_task("Walker", device="cpu").model
+                    .keyframe("home")[0])
   qp = (home + rng.uniform(-0.05, 0.05, (b, 9))).astype(np.float32)
   qp[:, 0] -= 0.03
   qv = rng.uniform(-0.5, 0.5, (b, 9)).astype(np.float32)
@@ -103,6 +110,90 @@ def test_wrapper_checks_inputs(walker):
     mr.returns(q0, torch.zeros(9, device=dev), acts[:, :3], task.params,
                0.0)
   with pytest.raises(ValueError, match="built for cpu"):
-    tmr.MegaRollout(task, 4).returns(q0, torch.zeros(9, device=dev), acts,
-                                     task.params, 0.0)
+    tmr.MegaRollout(task, 4, device="cpu").returns(
+        q0, torch.zeros(9, device=dev), acts, task.params, 0.0)
   assert mr.launches == 0
+
+
+@pytest.fixture(scope="module")
+def humanoid():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device and nvcc")
+  dev = torch.device("cuda")
+  return treg.get_task("Humanoid Walk", device=dev), dev
+
+
+def test_humanoid_step_matches_plain(humanoid):
+  """Free joint, plane-sphere, capsule-capsule (condim 1) and tendon-limit
+  rows, each carrying force in some of the states."""
+  task, dev = humanoid
+  mr = tmr.MegaRollout(task, 1, device=dev)
+  assert mr.tm.nrow == 117 and not tts.amat_is_dense(mr.tm.nrow)
+  kinds = np.array(tts.row_kinds(mr.tm))
+  q, v, c = (torch.tensor(x, device=dev)
+             for x in thum.probe_states(task.model, 72))
+  kq, kv, kl = q, v, None
+  pq, pv, pl = q, v, None
+  for _ in range(2):  # cold, then warm-started
+    kq, kv, kl = mr.step(kq, kv, c, kl)
+    pq, pv, view = tts.step_tb(mr.tm, pq, pv, c, pl)
+    pl = view.efc_lambda
+    torch.cuda.synchronize()
+    lam = pl.abs().cpu().numpy()
+    for kind in set(kinds):
+      assert lam[kinds == kind].max() > 0.0, kind
+    scale = float(lam.max())
+    torch.testing.assert_close(kq, pq, atol=1e-5, rtol=0)
+    torch.testing.assert_close(kv, pv, atol=1e-3, rtol=0)
+    torch.testing.assert_close(kl, pl, atol=1e-4 * scale, rtol=0)
+  assert mr.step_launches == 2
+
+
+def test_humanoid_returns_match_plain(humanoid):
+  task, dev = humanoid
+  n, horizon = 70, 6
+  mr = tmr.MegaRollout(task, horizon, device=dev)
+  acts = torch.tensor(0.3 * np.random.RandomState(2).randn(n, horizon, 21),
+                      dtype=torch.float32, device=dev)
+  acts[3] = 1e30
+  q0 = torch.tensor(task.model.keyframe("home")[0], device=dev)
+  v0 = torch.zeros(27, device=dev)
+  got = mr.returns(q0, v0, acts, task.params, 0.3)
+  want = mr.returns_plain(q0, v0, acts, task.params, 0.3)
+  torch.cuda.synchronize()
+  assert mr.launches == 1
+  assert float(got[3]) == float(want[3]) == tmr.MAX_RETURN
+  torch.testing.assert_close(got, want, rtol=2e-3, atol=0)
+
+
+def test_humanoid_float64_step_matches_plain(humanoid):
+  task, dev = humanoid
+  mr = tmr.MegaRollout(task, 1, device=dev)
+  q, v, c = (torch.tensor(x, device=dev, dtype=torch.float64)
+             for x in thum.probe_states(task.model, 72))
+  kq, kv, kl = mr.step(q, v, c)
+  pq, pv, view = tts.step_tb(mr.tm, q, v, c)
+  torch.cuda.synchronize()
+  assert kq.dtype == torch.float64
+  scale = float(view.efc_lambda.abs().max())
+  torch.testing.assert_close(kq, pq, atol=1e-12, rtol=0)
+  torch.testing.assert_close(kv, pv, atol=1e-10, rtol=0)
+  torch.testing.assert_close(kl, view.efc_lambda, atol=1e-12 * scale, rtol=0)
+
+
+def test_humanoid_float64_returns_match_plain(humanoid):
+  task, dev = humanoid
+  n, horizon = 70, 30
+  mr = tmr.MegaRollout(task, horizon, device=dev)
+  acts = torch.tensor(0.3 * np.random.RandomState(2).randn(n, horizon, 21),
+                      dtype=torch.float64, device=dev)
+  acts[3] = 1e300
+  q0 = torch.tensor(task.model.keyframe("home")[0], device=dev).double()
+  v0 = torch.zeros(27, device=dev, dtype=torch.float64)
+  params = task.params.to(dtype=torch.float64)
+  got = mr.returns(q0, v0, acts, params, 0.3)
+  want = mr.returns_plain(q0, v0, acts, params, 0.3, dtype=torch.float64)
+  torch.cuda.synchronize()
+  assert got.dtype == torch.float64 and mr.launches == 1
+  assert float(got[3]) == float(want[3]) == tmr.MAX_RETURN
+  torch.testing.assert_close(got, want, rtol=1e-9, atol=0)

@@ -53,9 +53,9 @@ def walker_mj():
 
 
 def test_from_mjmodel_matches_jax_model(walker_mj):
-  ours = tio.from_mjmodel(walker_mj, dtype=torch.float32)
+  ours = tio.from_mjmodel(walker_mj, dtype=torch.float32, device="cpu")
   jm = jio.from_mjmodel(walker_mj, dtype=jnp.float32)
-  theirs = convert.model(jax.tree_util.tree_map(np.asarray, jm))
+  theirs = convert.model(jax.tree_util.tree_map(np.asarray, jm), "cpu")
   for f in dataclasses.fields(ours):
     if f.name == "opt":
       for g in dataclasses.fields(ours.opt):
@@ -71,9 +71,9 @@ def test_from_mjmodel_matches_jax_model(walker_mj):
 def test_walker_snapshot_matches_fresh_build():
   """The committed snapshot is exactly what from_mjmodel builds now."""
   fresh, spec, params, names = treg.build_task_model(
-      dm_suite.build_walker, dtype=torch.float64)
+      dm_suite.build_walker, dtype=torch.float64, device="cpu")
   snap, sspec, sparams, snames = treg.load_task_model(
-      "walker", dtype=torch.float64)
+      "walker", dtype=torch.float64, device="cpu")
   for f in dataclasses.fields(fresh):
     if f.name == "opt":
       for g in dataclasses.fields(fresh.opt):
@@ -87,13 +87,14 @@ def test_walker_snapshot_matches_fresh_build():
 
 
 def test_task_matches_jax_task():
-  ours = treg.get_task("Walker")
+  ours = treg.get_task("Walker", device="cpu")
   theirs = jreg.get_task("Walker", dtype=jnp.float32)
   assert tuple(ours.spec.names) == tuple(theirs.spec.names)
   assert tuple(ours.spec.norm_types) == tuple(theirs.spec.norm_types)
   assert tuple(ours.spec.dims) == tuple(theirs.spec.dims)
   assert ours.param_names == theirs.param_names
-  p = convert.task_params(jax.tree_util.tree_map(np.asarray, theirs.params))
+  p = convert.task_params(jax.tree_util.tree_map(np.asarray, theirs.params),
+                          "cpu")
   for f in dataclasses.fields(p):
     _same(f.name, getattr(ours.params, f.name), getattr(p, f.name), 1e-6)
   _same("default_ctrl", ours.default_ctrl(),
@@ -101,7 +102,7 @@ def test_task_matches_jax_task():
 
 
 def test_extract_matches_jax_extract():
-  ours = tts.extract(treg.get_task("Walker").model)
+  ours = tts.extract(treg.get_task("Walker", device="cpu").model)
   theirs = jts.extract(jreg.get_task("Walker", dtype=jnp.float32).model)
   assert (ours.ncon, ours.nlim, ours.nrow) == (
       theirs.ncon, theirs.nlim, theirs.nrow) == (14, 12, 54)
@@ -120,6 +121,8 @@ def test_import_leaves_jax_out():
   code = ("import sys\n"
           "import mujoco_mpc_torch.agent.agent, mujoco_mpc_torch.convert\n"
           "import mujoco_mpc_torch.ops.megarollout\n"
+          "import mujoco_mpc_torch.tasks.humanoid\n"
+          "import mujoco_mpc_torch.physics.sensors\n"
           "bad = [m for m in sys.modules if m.split('.')[0] in "
           "('jax', 'jaxlib', 'flax', 'mujoco_mpc_tpu')]\n"
           "assert not bad, bad\n")
@@ -128,27 +131,43 @@ def test_import_leaves_jax_out():
   assert proc.returncode == 0, proc.stderr
 
 
-def test_out_of_class_models_raise():
-  free = tio.load_model(
-      "<mujoco><worldbody><body><freejoint/><geom size='.1'/></body>"
-      "</worldbody></mujoco>")
-  with pytest.raises(tts.UnsupportedModel, match="S3"):
-    tts.extract(free)
-  walker = treg.get_task("Walker").model
-  # a box on the floor is a contact kind of slice S5
-  boxes = walker.replace(geom_type=tuple(
-      6 if g == 4 else t for g, t in enumerate(walker.geom_type)))
-  with pytest.raises(tts.UnsupportedModel, match="S5"):
-    tts.extract(boxes)
+_BODY = "<body><joint name='a' type='hinge'/><geom size='.1'/></body>"
+_OUT_OF_CLASS = {
+    "ball": ("<mujoco><worldbody><body><joint type='ball'/><geom size='.1'/>"
+             "</body></worldbody></mujoco>", "S3"),
+    "mocap": ("<mujoco><worldbody><body mocap='true' pos='0 0 1'><geom "
+              "size='.1' contype='0' conaffinity='0'/></body>" + _BODY +
+              "</worldbody></mujoco>", "S4"),
+    "tendon_actuator": ("<mujoco><worldbody>" + _BODY + "</worldbody><tendon>"
+                        "<fixed name='t'><joint joint='a' coef='1'/></fixed>"
+                        "</tendon><actuator><motor tendon='t'/></actuator>"
+                        "</mujoco>", "S5"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_OUT_OF_CLASS) + ["box_pair"])
+def test_out_of_class_models_raise(case):
+  """The free joint, fixed-tendon limits, plane-sphere and capsule-capsule
+  contacts are in the class now; these stay out, naming their slice."""
+  if case == "box_pair":  # a box on the floor: slice S5
+    walker = treg.get_task("Walker", device="cpu").model
+    model, item = walker.replace(geom_type=tuple(
+        6 if g == 4 else t for g, t in enumerate(walker.geom_type))), "S5"
+  else:
+    xml, item = _OUT_OF_CLASS[case]
+    model = tio.load_model(xml, device="cpu")
+  with pytest.raises(tts.UnsupportedModel, match=item):
+    tts.extract(model)
   with pytest.raises(KeyError, match="not ported yet"):
-    treg.get_task("Humanoid Walk")
+    treg.get_task("Quadruped Flat", device="cpu")
 
 
 def test_make_data_matches_jax():
-  ours = tio.make_data(treg.get_task("Walker").model)
+  ours = tio.make_data(treg.get_task("Walker", device="cpu").model)
   theirs = convert.data(jax.tree_util.tree_map(
       np.asarray, jio.make_data(jreg.get_task("Walker",
-                                              dtype=jnp.float32).model)))
+                                              dtype=jnp.float32).model)),
+      "cpu")
   for f in dataclasses.fields(ours):
     _same(f.name, getattr(ours, f.name), getattr(theirs, f.name), 0.0)
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from mujoco_mpc_torch.agent.agent import Agent
+from mujoco_mpc_torch.ops import megarollout
 from mujoco_mpc_torch.ops import spline as tspline
 from mujoco_mpc_torch.physics import io as tio
 from mujoco_mpc_torch.planners import sampling as tsampling
@@ -28,7 +29,7 @@ T, N, K = 10, 8, 6
 
 @pytest.fixture(scope="module")
 def setup():
-  t = treg.get_task("Walker")
+  t = treg.get_task("Walker", device="cpu")
   j = jreg.get_task("Walker", dtype=jnp.float32)
   jf = jax.jit(jmr.MegaRollout(j, T).returns_xla)
   return t, j, jf
@@ -114,6 +115,25 @@ def test_agent_cuda_without_card_raises():
     pytest.skip("this host has a CUDA device")
   with pytest.raises(RuntimeError, match="cuda"):
     Agent("Walker", device="cuda")
+
+
+@pytest.mark.parametrize("entry", ["Agent", "get_task", "MegaRollout",
+                                   "load_snapshot"])
+def test_default_device_is_the_card(entry):
+  """With no device given, the entry points run on the card: a host
+  without one raises instead of planning on the CPU."""
+  if torch.cuda.is_available():
+    pytest.skip("this host has a CUDA device")
+  calls = {
+      "Agent": lambda: Agent("Walker"),
+      "get_task": lambda: treg.get_task("Walker"),
+      "MegaRollout": lambda: megarollout.MegaRollout(
+          treg.get_task("Walker", device="cpu"), 4),
+      "load_snapshot": lambda: tio.load_snapshot(
+          treg.snapshot_path("walker")),
+  }
+  with pytest.raises(RuntimeError, match="cuda"):
+    calls[entry]()
 
 
 def test_other_planners_are_not_ported():

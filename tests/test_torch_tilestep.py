@@ -31,7 +31,8 @@ T, N, B = 10, 8, 8
 
 @pytest.fixture(scope="module")
 def tasks():
-  return treg.get_task("Walker"), jreg.get_task("Walker", dtype=jnp.float32)
+  return (treg.get_task("Walker", device="cpu"),
+          jreg.get_task("Walker", dtype=jnp.float32))
 
 
 def _states(seed, home):
@@ -101,7 +102,7 @@ def rollouts(tasks):
                          jnp.asarray(actions), params, 0.0))
 
   def torch_returns(actions, params):
-    return tmr.MegaRollout(t, T).returns(
+    return tmr.MegaRollout(t, T, device="cpu").returns(
         torch.tensor(home), torch.zeros(9), torch.tensor(actions), params,
         torch.tensor(0.0)).numpy()
 
@@ -129,7 +130,7 @@ def test_divergence_guard(rollouts):
 def test_params_are_runtime_tunable(rollouts):
   """Changing weights and residual params changes returns, no rebuild."""
   t, j, acts, jax_returns, torch_returns = rollouts
-  mr = tmr.MegaRollout(t, T)
+  mr = tmr.MegaRollout(t, T, device="cpu")
   args = (torch.tensor(np.asarray(t.model.keyframe("home")[0], np.float32)),
           torch.zeros(9), torch.tensor(acts))
   r1 = mr.returns(*args, t.params, 0.0).numpy()
