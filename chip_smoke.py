@@ -3,12 +3,14 @@
     python3 chip_smoke.py [--out FILE.json]
 
 Builds the CUDA kernel from mujoco_mpc_torch/csrc/ and, for each path it
-serves (Walker, Humanoid Walk), holds it against its plain PyTorch version,
-drives the agent's plan loop through it, and times the planner: Walker at
-1024 candidates x 80 steps, Humanoid at the north-star 256 x 67 at the
-planning dt 0.015. Humanoid rollouts that long are chaotic in float32, so
-there the kernel's float64 instance is held against the plain version in
-float64 candidate by candidate, and the float32 kernel as a population.
+serves (Walker, Humanoid Walk, Quadruped Flat), holds it against its plain
+PyTorch version, drives the agent's plan loop through it, and times the
+planner: Walker at 1024 candidates x 80 steps, Humanoid at the north-star
+256 x 67 at the planning dt 0.015, Quadruped at 1024 x 70 at dt 0.005.
+Humanoid rollouts that long are chaotic in float32, so there the kernel's
+float64 instance is held against the plain version in float64 candidate by
+candidate, and the float32 kernel as a population; the Quadruped's float32
+kernel is held per candidate within its own float32 noise.
 Exits non-zero, printing no result, without a CUDA
 device or on any failed check. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernel once per
@@ -62,7 +64,7 @@ _REDUCTIONS = {"sum", "max", "amax", "min", "amin"}
 
 def step_ops(task) -> int:
   """Floating-point operations of one plain step at B = 1: step_tb, the
-  task residual and the cost, counted per aten op. step_tb computes both
+  task residual, its weight_mod and the cost, counted per aten op. step_tb computes both
   sides of every torch.where and runs fixed iteration counts, so the count
   does not depend on the data. Counted on CPU tensors: it is a count of
   work from shapes, not a measurement."""
@@ -100,7 +102,9 @@ def step_ops(task) -> int:
                                   torch.zeros(tm.nrow, 1))
     view.time = torch.tensor(0.0)
     res = task.residual(task.model, view, p.residual_params)
-    MR.cost_value_t(task.spec, p.weights, p.norm_params, p.risk, res)
+    scale = (task.weight_mod(task.model, view, p.residual_params)
+             if task.weight_mod is not None else None)
+    MR.cost_value_t(task.spec, p.weights, p.norm_params, p.risk, res, scale)
   return total
 
 
@@ -189,6 +193,246 @@ def timed_cuda(fn, reps: int) -> float:
   return start.elapsed_time(end) / reps
 
 
+def run_quadruped(dev, rec: dict, reps: int) -> dict:
+  """Phases 3q, 4q, 4q-modes and 5q: Quadruped Flat, with the goal mocap
+  body and the gait FSM's userdata as rollout-constant operands. Returns
+  its row of the kernels line."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.ops import megarollout as MR
+  from mujoco_mpc_torch.physics import io as phys_io
+  from mujoco_mpc_torch.physics import tilestep
+  from mujoco_mpc_torch.planners import sampling
+  from mujoco_mpc_torch.tasks import quadruped
+  from mujoco_mpc_torch.tasks import registry
+
+  name = "Quadruped Flat"
+  task = registry.get_task(name, device=dev)
+  nud = task.model.nuserdata
+  goal = [[1.0, 0.3, 0.3]]
+
+  def operands(dtype, userdata=None):
+    return dict(
+        mocap_pos=torch.tensor(goal, dtype=dtype, device=dev),
+        mocap_quat=torch.tensor([[1.0, 0.0, 0.0, 0.0]], dtype=dtype,
+                                device=dev),
+        userdata=torch.tensor(quadruped.fsm_userdata(nud) if userdata is None
+                              else userdata, dtype=dtype, device=dev))
+
+  # ---- 3q. one step on states in which every row class carries force;
+  #      float32 at the stated tolerances (qvel up to 8 times a state's own
+  #      float32-vs-float64 distance where that exceeds 1e-3), the double
+  #      kernel against float64
+  mrq = MR.MegaRollout(task, 1, device=dev)
+  kinds = np.asarray(tilestep.row_kinds(mrq.tm))
+  states = quadruped.probe_states(task.model, 128)
+  plain = {}
+  for dt in (torch.float32, torch.float64):
+    x = [torch.tensor(v, device=dev, dtype=dt) for v in states]
+    ops = operands(dt)
+    pq, pv, view = tilestep.step_tb(mrq.tm, *x, **ops)
+    plain[dt] = (x, ops, pq, pv, view.efc_lambda)
+  torch.cuda.synchronize()
+  lam = plain[torch.float32][4].abs().cpu().numpy()
+  per_kind = {str(k): float(lam[kinds == k].max())
+              for k in dict.fromkeys(kinds)}
+  check(all(v > 0.0 for v in per_kind.values()),
+        "Quadruped: a constraint row class carries no force in the step "
+        "check")
+  noise = (plain[torch.float32][3].double()
+           - plain[torch.float64][3]).abs().amax(0)
+  err = {}
+  for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+    x, ops, pq, pv, pl = plain[dt]
+    kq, kv, kl = mrq.step(*x, **ops)
+    torch.cuda.synchronize()
+    ev = (kv - pv).abs().amax(0).double()
+    err[tag] = {"qpos": float((kq - pq).abs().max()),
+                "qvel": float(ev.max()), "qvel_state": int(ev.argmax()),
+                "lambda": float((kl - pl).abs().max()),
+                "scale": float(pl.abs().max()),
+                "qvel_ok": bool(torch.all(
+                    ev <= torch.clamp(8.0 * noise, min=1e-3)))}
+  e32, e64 = err["f32"], err["f64"]
+  print(f"[3q] Quadruped one step, B=128, nrow {mrq.tm.nrow}, float32: max "
+        f"|kernel - plain| qpos {e32['qpos']:.3g} (tol 1e-5), qvel "
+        f"{e32['qvel']!r} at state {e32['qvel_state']} (tol max(1e-3, 8 x "
+        f"the state's float32-vs-float64 distance)), lambda "
+        f"{e32['lambda']:.3g} (tol {1e-4 * e32['scale']:.3g} = 1e-4 * "
+        f"max|lambda|)")
+  print(f"[3q] float64: qpos {e64['qpos']:.3g} (tol 1e-12), qvel "
+        f"{e64['qvel']:.3g} (tol 1e-10), lambda {e64['lambda']:.3g} (tol "
+        f"{1e-12 * e64['scale']:.3g}); max |lambda| per row class "
+        f"{({k: round(v, 1) for k, v in per_kind.items()})}")
+  check(e32["qpos"] <= 1e-5 and e32["lambda"] <= 1e-4 * e32["scale"]
+        and e32["qvel_ok"], "Quadruped float32 step kernel disagrees")
+  check(e64["qpos"] <= 1e-12 and e64["qvel"] <= 1e-10
+        and e64["lambda"] <= 1e-12 * e64["scale"],
+        "Quadruped float64 step kernel disagrees")
+  rec["quadruped_step_err"] = err
+
+  # ---- 4q. the main path: Agent("Quadruped Flat") at its defaults, the
+  #      goal and a trot set through set_state
+  agent = Agent(name, device=dev)
+  agent.reset("home")
+  agent.set_state(mocap_pos=goal, userdata=quadruped.fsm_userdata(nud))
+  cfg = agent.planner.config
+  agent.planner.mega.launches = 0
+  best = []
+  t = time.perf_counter()
+  for _ in range(5):
+    info = agent.planner_step()
+    best.append(float(info.best_return))
+    check(bool(torch.all(torch.isfinite(info.costs))), "non-finite costs")
+  u = agent.action()
+  plan_ms = (time.perf_counter() - t) * 1e3 / 5
+  launches = agent.planner.mega.launches
+  print(f"[4q] Agent('{name}', cuda) {cfg.num_trajectories}x{cfg.horizon} at "
+        f"dt {float(agent.task.model.opt.timestep):g}: best returns "
+        f"{[round(x, 4) for x in best]}, kernel launches {launches}, "
+        f"{plan_ms:.1f} ms per planner_step (first call included)")
+  check(np.all(np.isfinite(u)) and u.shape == (12,), "bad action")
+  check(all(b2 <= b1 for b1, b2 in zip(best, best[1:])),
+        "best return increased at a fixed state")
+  check(launches == 5, f"{launches} kernel launches for 5 plan steps")
+  pl, atask, d = agent.planner, agent.task, agent.data
+  new_times, _, cands = pl._gen_candidates(atask, agent.policy, d,
+                                           agent.generator)
+  acts = pl._actions(atask, d, new_times, cands)
+  got = pl.mega.returns(d.qpos, d.qvel, acts, atask.params, d.time,
+                        **operands(torch.float32))
+  want = pl.mega.returns_plain(d.qpos, d.qvel, acts, atask.params, d.time,
+                               **operands(torch.float32))
+  torch.cuda.synchronize()
+  rel4, abs4 = agreement(got, want, f"Quadruped returns {tuple(acts.shape)}")
+  print(f"[4q] one plan's candidates {tuple(acts.shape)}: max rel err "
+        f"{rel4:.3g} (tol 2e-3), max abs err {abs4:.3g}")
+
+  # ---- 4q-modes. every branch of residual_quadruped and
+  #      weight_mod_quadruped on the same candidates: the mode in userdata
+  #      (a Flip entered 0.4 s before: the jump, then the flight) and the
+  #      Biped type parameter
+  modes = {"quadruped": (quadruped.MODE_QUADRUPED, 0),
+           "biped": (quadruped.MODE_BIPED, 0),
+           "handstand": (quadruped.MODE_BIPED, 1),
+           "walk": (quadruped.MODE_WALK, 0),
+           "scramble": (quadruped.MODE_SCRAMBLE, 0),
+           "flip": (quadruped.MODE_FLIP, 0)}
+  mode_err = {}
+  for case, (mode, biped_type) in modes.items():
+    ud = quadruped.fsm_userdata(
+        nud, mode, time=float(d.time) - 0.4 if mode == quadruped.MODE_FLIP
+        else float(d.time))
+    params = atask.set_parameter("select_Biped type", biped_type).params
+    got = pl.mega.returns(d.qpos, d.qvel, acts, params, d.time,
+                          **operands(torch.float32, ud))
+    want = pl.mega.returns_plain(d.qpos, d.qvel, acts, params, d.time,
+                                 **operands(torch.float32, ud))
+    torch.cuda.synchronize()
+    mode_err[case] = agreement(got, want, f"Quadruped {case} returns")
+  print(f"[4q-modes] per candidate at {tuple(acts.shape)}, (max rel, max "
+        f"abs) err per branch (tol rel 2e-3): "
+        f"{({k: (float(f'{r:.3g}'), float(f'{a:.3g}')) for k, (r, a) in mode_err.items()})}")
+  rec.update(quadruped_agent_best=best, quadruped_agent_launches=launches,
+             quadruped_agent_ms_per_plan=plan_ms,
+             quadruped_agent_returns_rel_err=rel4,
+             quadruped_agent_returns_abs_err=abs4,
+             quadruped_mode_errs=mode_err)
+
+  # ---- 5q. the bench shape: 1024 candidates x 70 steps at the XML dt
+  bcfg = sampling.SamplingConfig(num_trajectories=1024, horizon=70,
+                                 spline_points=cfg.spline_points,
+                                 interp=cfg.interp)
+  planner = sampling.SamplingPlanner(bcfg)
+  policy = planner.init(task)
+  home = torch.tensor(task.model.keyframe("home")[0], device=dev)
+  ops32 = operands(torch.float32)
+  data = phys_io.make_data(task.model).replace(qpos=home.clone(), **ops32)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  for _ in range(2):
+    policy, info = planner.optimize(task, policy, data, gen)
+  torch.cuda.synchronize()
+  per_call = []
+  for _ in range(reps):
+    t = time.perf_counter()
+    policy, info = planner.optimize(task, policy, data, gen)
+    torch.cuda.synchronize()
+    per_call.append((time.perf_counter() - t) * 1e3)
+  wall = sum(per_call) / 1e3
+  q = np.percentile(per_call, [50, 66.7, 100])
+  steps_s = reps * 1024 * 70 / wall
+  new_times, _, cands = planner._gen_candidates(task, policy, data, gen)
+  acts = planner._actions(task, data, new_times, cands)
+  v0 = torch.zeros(task.model.nv, device=dev)
+  args = (home, v0, acts, task.params, data.time)
+  got = planner.mega.returns(*args, **ops32)
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  plain = planner.mega.returns_plain(*args, **ops32)
+  torch.cuda.synchronize()
+  plain_ms = (time.perf_counter() - t) * 1e3
+  ops64 = operands(torch.float64)
+  args64 = (home.double(), v0.double(), acts.double(),
+            task.params.to(dtype=torch.float64), data.time.double())
+  got64 = planner.mega.returns(*args64, **ops64)
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  plain64 = planner.mega.returns_plain(*args64, dtype=torch.float64, **ops64)
+  torch.cuda.synchronize()
+  plain64_ms = (time.perf_counter() - t) * 1e3
+  r64 = agreement64(got64, plain64, "Quadruped returns 1024x70 in float64")
+  check(bool(torch.all(torch.isfinite(got))), "Quadruped: non-finite "
+        "kernel returns at 1024x70")
+  p64 = plain64.float()
+  gap = (got - plain).abs()
+  allowed = 2e-3 * plain.abs() + 4.0 * (plain - p64).abs()
+  over = int((gap > allowed).sum())
+  rel5 = float((gap / plain.abs()).max())
+  abs5 = float(gap.max())
+  check(over == 0, f"Quadruped float32 kernel: {over} candidates beyond "
+        f"|k - p32| <= 2e-3 |p32| + 4 |p32 - p64| at 1024x70")
+  ms = timed_cuda(lambda: planner.mega.returns(*args, **ops32), 5)
+  ms64 = timed_cuda(lambda: planner.mega.returns(*args64, **ops64), 1)
+  ops_q = step_ops(registry.get_task(name, device="cpu"))
+  bound_q, by_q = bound(ops_q, 1024, 70, task)
+  print(f"[5q] SamplingPlanner 1024x70 at dt "
+        f"{float(task.model.opt.timestep):g}: {steps_s:.0f} steps/s, "
+        f"{reps / wall:.3f} plan Hz; optimize ms median {q[0]:.3f}, p66.7 "
+        f"{q[1]:.3f}, max {q[2]:.3f} (n={reps}); kernel {ms:.3f} ms/call, "
+        f"plain {plain_ms:.1f} ms/call")
+  print(f"[5q] float64 kernel vs float64 plain, per candidate: max rel err "
+        f"{r64['max_rel']:.3g} (tol 2e-3), max abs err {r64['max_abs']:.3g}, "
+        f"{r64['blown']} at or past MAX_RETURN in both; float64 kernel "
+        f"{ms64:.3f} ms/call, plain {plain64_ms:.1f} ms/call")
+  print(f"[5q] float32 kernel vs float32 plain, per candidate: max rel err "
+        f"{rel5:.3g}, max abs err {abs5:.3g}; beyond 2e-3 |p32| + 4 |p32 - "
+        f"p64|: {over}; plain float32 vs float64 max rel "
+        f"{float(((plain.double() - plain64) / plain64).abs().max()):.3g}")
+  print(f"[5q] plain Quadruped step at B=1: {ops_q} operations; bound at "
+        f"1024x70 {bound_q:.4f} ms ({by_q}); kernel at "
+        f"{100 * bound_q / ms:.4f} % of it")
+  rec.update(quadruped_plan_steps_per_s=steps_s,
+             quadruped_plan_hz=reps / wall, quadruped_optimize_ms=per_call,
+             quadruped_kernel_ms_1024x70=ms,
+             quadruped_plain_ms_1024x70=plain_ms,
+             quadruped_kernel64_ms_1024x70=ms64,
+             quadruped_plain64_ms_1024x70=plain64_ms,
+             quadruped_returns_1024x70_f64=r64,
+             quadruped_returns_1024x70_rel_err=rel5,
+             quadruped_returns_1024x70_abs_err=abs5,
+             quadruped_step_ops=ops_q, quadruped_bound_ms=bound_q)
+  return {
+      "name": "megarollout_returns[quadruped]", "route": "cuda",
+      "source": "mujoco_mpc_torch/csrc/megarollout.cu",
+      "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
+      "launches": launches, "max_abs_err": max(abs4, abs5),
+      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_q,
+      "bound_by": by_q, "library_ms": None,
+      "err_over_tol": max([rel4, r64["max_rel"]]
+                          + [r for r, _ in mode_err.values()]) / 2e-3}
+
+
 def main() -> int:
   ap = argparse.ArgumentParser()
   ap.add_argument("--out", help="also write every measured number here")
@@ -207,6 +451,7 @@ def main() -> int:
   from mujoco_mpc_torch.physics import tilestep
   from mujoco_mpc_torch.planners import sampling
   from mujoco_mpc_torch.tasks import humanoid
+  from mujoco_mpc_torch.tasks import quadruped
   from mujoco_mpc_torch.tasks import registry
 
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -561,14 +806,17 @@ def main() -> int:
              humanoid_plain64_ms_256x67=hplain64_ms,
              humanoid_step_ops=ops_h, humanoid_bound_ms=bound_h)
 
-  kernels = {"kernels": [walker_row, {
+  humanoid_row = {
       "name": "megarollout_returns[humanoid]", "route": "cuda",
       "source": "mujoco_mpc_torch/csrc/megarollout.cu",
       "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
       "launches": hlaunches, "max_abs_err": abs4h,
       "ms": hms, "plain_ms": hplain_ms, "bound_ms": bound_h,
       "bound_by": by_h, "library_ms": None,
-      "err_over_tol": max(rel4h, r5h64["max_rel"]) / 2e-3}]}
+      "err_over_tol": max(rel4h, r5h64["max_rel"]) / 2e-3}
+
+  quadruped_row = run_quadruped(dev, rec, reps)
+  kernels = {"kernels": [walker_row, humanoid_row, quadruped_row]}
   if args.out:
     with open(args.out, "w") as f:
       json.dump({**rec, **kernels}, f, indent=1)

@@ -30,10 +30,13 @@
 // The model class: hinge, slide and free joints (the free joint's
 // quaternion normalized in forward kinematics and after the exact
 // exponential-map integration), joint-transmission actuators, joint
-// springs, friction loss, fixed-tendon limits, contacts of a world plane
-// against sphere and capsule ends and of capsule against capsule with
-// condim 1 or 3, joint limits, and the dense or matrix-free solve. Task
-// residuals are __device__ functions selected by MRModelT::res_id.
+// springs, friction loss, fixed-tendon limits, mocap bodies (their poses
+// are rollout-constant operands, like the task's userdata; each block keeps
+// them in shared memory), contacts of a world plane against sphere and
+// capsule ends and box corners, of sphere against sphere and box, and of
+// capsule against capsule, with condim 1 or 3, joint limits, and the dense
+// or matrix-free solve. Task residuals (and a task's state-dependent cost
+// weights) are __device__ functions selected by MRModelT::res_id.
 //
 // What bounds it on this card: latency, not bytes or FLOPs. A step is a
 // long chain of dependent scalar arithmetic per candidate (Walker ~30
@@ -53,7 +56,8 @@
 
 // Maxima, sized for the dm_control humanoid (nq 28, nv 27, nbody 17,
 // njnt 22, nu 21, 37 contact points, 21 limited joints, 2 limited
-// tendons, nrow 117, 57 residual entries)
+// tendons, nrow 117, 57 residual entries) and the quadruped (28 residual
+// constants, 5 residual sites, one mocap body, 24 userdata)
 #define MR_MAX_NQ 32
 #define MR_MAX_NV 28
 #define MR_MAX_BODY 20    // <= 32: residuals take body sets as bitmasks
@@ -68,7 +72,10 @@
 #define MR_MAX_TERM 16
 #define MR_MAX_RES 64     // residual entries
 #define MR_MAX_RES_INT 8
-#define MR_MAX_RES_FLOAT 4
+#define MR_MAX_RES_FLOAT 32
+#define MR_MAX_SITE 8     // world points a residual reads
+#define MR_MAX_MOCAP 4
+#define MR_MAX_USERDATA 32
 
 #define MR_ITERATIONS 12
 #define MR_POWER_ITERS 8
@@ -78,11 +85,15 @@
 #define MR_SLIDE 2
 #define MR_HINGE 3
 
-#define MR_CON_PLANE 0    // world plane vs sphere / capsule end
-#define MR_CON_CAPCAP 1   // capsule vs capsule
+#define MR_CON_PLANE 0      // world plane vs sphere / capsule end
+#define MR_CON_CAPCAP 1     // capsule vs capsule
+#define MR_CON_BOXCORNER 2  // world plane vs a box corner
+#define MR_CON_SPHERE 3     // sphere vs sphere
+#define MR_CON_SPHEREBOX 4  // sphere vs box
 
 #define MR_RES_WALKER 1
 #define MR_RES_HUMANOID 2
+#define MR_RES_QUADRUPED 3
 
 // Fields are int or T. The wrapper (ops/megarollout.py::_model_struct)
 // mirrors both instantiations with ctypes, which pads as C does, and
@@ -102,13 +113,19 @@
   X(int, nterm, )                                                            \
   X(int, nres, )                                                             \
   X(int, res_id, )                                                           \
+  X(int, nmocap, )                                                           \
+  X(int, nuserdata, )                                                        \
+  X(int, nsite, )                                                            \
   X(int, res_int, [MR_MAX_RES_INT])                                          \
   X(T, res_float, [MR_MAX_RES_FLOAT])                                        \
+  X(int, site_body, [MR_MAX_SITE])                                           \
+  X(T, site_pos, [MR_MAX_SITE][3])                                           \
   X(T, timestep, )                                                           \
   X(T, gravity, [3])                                                         \
   X(int, body_parentid, [MR_MAX_BODY])                                       \
   X(int, body_jntadr, [MR_MAX_BODY])                                         \
   X(int, body_jntnum, [MR_MAX_BODY])                                         \
+  X(int, body_mocapid, [MR_MAX_BODY])                                        \
   X(T, body_pos, [MR_MAX_BODY][3])                                           \
   X(T, body_quat, [MR_MAX_BODY][4])                                          \
   X(T, body_ipos, [MR_MAX_BODY][3])                                          \
@@ -155,6 +172,7 @@
   X(T, con_mu, [MR_MAX_CON])                                                 \
   X(T, con_frame, [MR_MAX_CON][3][3])                                        \
   X(T, con_ppos, [MR_MAX_CON][3])                                            \
+  X(T, con_box, [MR_MAX_CON][3])                                             \
   X(T, con_sgn, [MR_MAX_CON][MR_MAX_NV])                                     \
   X(T, con_imp, [MR_MAX_CON][5])                                             \
   X(T, con_k, [MR_MAX_CON])                                                  \
@@ -220,6 +238,7 @@ MR_UNARY(r_cosh, coshf, cosh)
 MR_BINARY(r_max, fmaxf, fmax)
 MR_BINARY(r_min, fminf, fmin)
 MR_BINARY(r_pow, powf, pow)
+MR_BINARY(r_fmod, fmodf, fmod)
 #undef MR_BINARY
 
 // ---------------------------------------------------------------------------
@@ -434,29 +453,81 @@ __device__ void opmul(const MRModelT<T>& m, const Rows<T>& R,
 // ---------------------------------------------------------------------------
 
 // What a residual reads after a step: PRE-step frames (the state the step
-// started from), as in tilestep.StepView
+// started from), as in tilestep.StepView, and the actuator forces of the
+// step's clamped ctrl
 template <class T>
 struct StepOut {
   T xpos[MR_MAX_BODY][3];
+  T xquat[MR_MAX_BODY][4];
   T xmat[MR_MAX_BODY][9];
   T xipos[MR_MAX_BODY][3];
+  T ximat[MR_MAX_BODY][9];
   T cvel[MR_MAX_BODY][6];
   T subtree_com[MR_MAX_BODY][3];
+  T site_xpos[MR_MAX_SITE][3];
+  T act_force[MR_MAX_NU];
 };
 
-// world pose of geom side s (0 = g1, 1 = g2) of contact point ci
+// world position and rotation matrix of geom side s (0 = g1, 1 = g2) of
+// contact point ci
 template <class T>
 __device__ __forceinline__ void geom_pose(const MRModelT<T>& m,
                                           const T (*xpos)[3],
                                           const T (*xquat)[4], int ci,
-                                          int s, T* gpos, T* gaxis) {
+                                          int s, T* gpos, T* gm) {
   const int bg = m.con_gbody[ci][s];
-  T tmp[3], gq[4], gm[9];
+  T tmp[3], gq[4];
   quat_rot(xquat[bg], m.con_gpos[ci][s], tmp);
   for (int i = 0; i < 3; ++i) gpos[i] = xpos[bg][i] + tmp[i];
   quat_mul(xquat[bg], m.con_gquat[ci][s], gq);
   quat_to_mat(gq, gm);
-  gaxis[0] = gm[2]; gaxis[1] = gm[5]; gaxis[2] = gm[8];
+}
+
+// m v for a row-major 3x3 m, summed in index order
+template <class T>
+__device__ __forceinline__ void mat_vec(const T* m, const T* v, T* o) {
+  for (int i = 0; i < 3; ++i)
+    o[i] = m[3 * i] * v[0] + m[3 * i + 1] * v[1] + m[3 * i + 2] * v[2];
+}
+
+// sphere (centre c, radius) against a box of half-sizes s at (bp, bm):
+// returns dist and writes the contact position and the normal from the
+// sphere into the box (collision._sphere_box_point; the argmin of the face
+// distances as a first-min select)
+template <class T>
+__device__ T sphere_box_point(const T* c, T radius, const T* bp,
+                              const T* bm, const T* s, T* pos, T* n) {
+  T rel[3], local[3], absl[3], fd[3], sgn[3], surf[3], world[3], delta[3];
+  for (int i = 0; i < 3; ++i) rel[i] = c[i] - bp[i];
+  for (int i = 0; i < 3; ++i)
+    local[i] = bm[i] * rel[0] + bm[3 + i] * rel[1] + bm[6 + i] * rel[2];
+  bool inside = true;
+  for (int i = 0; i < 3; ++i) {
+    absl[i] = r_abs(local[i]);
+    inside = inside && absl[i] < s[i];
+    fd[i] = s[i] - absl[i];
+    sgn[i] = local[i] > 0.0f ? T(1) : (local[i] < 0.0f ? T(-1) : T(0));
+  }
+  const bool is0 = fd[0] <= fd[1] && fd[0] <= fd[2];
+  const bool is1 = !is0 && fd[1] <= fd[2];
+  const bool is_k[3] = {is0, is1, !(is0 || is1)};
+  for (int i = 0; i < 3; ++i)
+    surf[i] = inside ? (is_k[i] ? sgn[i] * s[i] : local[i])
+                     : r_min(r_max(local[i], -s[i]), s[i]);
+  mat_vec(bm, surf, world);
+  for (int i = 0; i < 3; ++i) {
+    world[i] = bp[i] + world[i];
+    delta[i] = c[i] - world[i];
+  }
+  const T dn = r_sqrt(r_max(dot3(delta, delta), T(0)));
+  const T inv = 1.0f / r_max(dn, T(1e-12));
+  T push[3], n_in[3];
+  for (int i = 0; i < 3; ++i) push[i] = is_k[i] ? -sgn[i] : T(0);
+  mat_vec(bm, push, n_in);
+  for (int i = 0; i < 3; ++i) n[i] = inside ? n_in[i] : -delta[i] * inv;
+  const T dist = inside ? -dn - radius : dn - radius;
+  for (int i = 0; i < 3; ++i) pos[i] = world[i] - 0.5f * dist * n[i];
+  return dist;
 }
 
 // narrowphase of contact point ci: dist (margin taken off), frame rows
@@ -465,26 +536,46 @@ template <class T>
 __device__ T contact_geometry(const MRModelT<T>& m, const T (*xpos)[3],
                               const T (*xquat)[4], int ci,
                               T (*frame)[3], T* cpos) {
+  const int kind = m.con_kind[ci];
   T dist;
-  if (m.con_kind[ci] == MR_CON_PLANE) {
-    T gpos[3], axis[3], end[3];
-    geom_pose(m, xpos, xquat, ci, 1, gpos, axis);
-    for (int i = 0; i < 3; ++i) end[i] = gpos[i] + m.con_end[ci] * axis[i];
+  if (kind == MR_CON_PLANE || kind == MR_CON_BOXCORNER) {
+    T gpos[3], gm[9], end[3], rad;
+    geom_pose(m, xpos, xquat, ci, 1, gpos, gm);
+    if (kind == MR_CON_BOXCORNER) {  // con_box: the corner's offset
+      mat_vec(gm, m.con_box[ci], end);
+      for (int i = 0; i < 3; ++i) end[i] = gpos[i] + end[i];
+      rad = 0.0f;
+    } else {  // a sphere, or a capsule end at con_end along its axis
+      for (int i = 0; i < 3; ++i)
+        end[i] = gpos[i] + m.con_end[ci] * gm[3 * i + 2];
+      rad = m.con_r[ci][1];
+    }
     const T* n = m.con_frame[ci][0];
     const T* pp = m.con_ppos[ci];
-    const T rad = m.con_r[ci][1];
     dist = (n[0] * (end[0] - pp[0]) + n[1] * (end[1] - pp[1]) +
             n[2] * (end[2] - pp[2])) - rad;
     const T scale = rad + 0.5f * dist;
     for (int i = 0; i < 3; ++i) cpos[i] = end[i] - n[i] * scale;
     for (int r = 0; r < 3; ++r)
       for (int i = 0; i < 3; ++i) frame[r][i] = m.con_frame[ci][r][i];
+    return dist - m.con_margin[ci];
+  }
+  T p1[3], m1[9], p2[3], m2[9], n[3];
+  geom_pose(m, xpos, xquat, ci, 0, p1, m1);
+  geom_pose(m, xpos, xquat, ci, 1, p2, m2);
+  const T r1 = m.con_r[ci][0], r2 = m.con_r[ci][1];
+  if (kind == MR_CON_SPHEREBOX) {  // con_box: the box's half-sizes
+    dist = sphere_box_point(p1, r1, p2, m2, m.con_box[ci], cpos, n);
+    frame_from_normal(n, frame);
+    return dist - m.con_margin[ci];
+  }
+  T c1[3], c2[3], d[3];
+  if (kind == MR_CON_SPHERE) {
+    for (int i = 0; i < 3; ++i) { c1[i] = p1[i]; c2[i] = p2[i]; }
   } else {  // capsule-capsule: smooth clamped closest points
-    T p1[3], u1[3], p2[3], u2[3], rvec[3], w[3], c1[3], c2[3], d[3];
-    geom_pose(m, xpos, xquat, ci, 0, p1, u1);
-    geom_pose(m, xpos, xquat, ci, 1, p2, u2);
+    T u1[3], u2[3], rvec[3], w[3];
+    for (int i = 0; i < 3; ++i) { u1[i] = m1[3 * i + 2]; u2[i] = m2[3 * i + 2]; }
     const T h1 = m.con_half[ci][0], h2 = m.con_half[ci][1];
-    const T r1 = m.con_r[ci][0], r2 = m.con_r[ci][1];
     for (int i = 0; i < 3; ++i) rvec[i] = p2[i] - p1[i];
     const T uu = dot3(u1, u2);
     const T ru1 = dot3(rvec, u1), ru2 = dot3(rvec, u2);
@@ -497,32 +588,34 @@ __device__ T contact_geometry(const MRModelT<T>& m, const T (*xpos)[3],
     for (int i = 0; i < 3; ++i) {
       c1[i] = p1[i] + t1 * u1[i];
       c2[i] = p2[i] + t2 * u2[i];
-      d[i] = c2[i] - c1[i];
     }
-    const T dn = r_sqrt(r_max(dot3(d, d), T(1e-24)));
-    T n[3];
-    for (int i = 0; i < 3; ++i) n[i] = d[i] / dn;
-    dist = dn - (r1 + r2);
-    const T scale = r1 + 0.5f * dist;
-    for (int i = 0; i < 3; ++i) cpos[i] = c1[i] + n[i] * scale;
-    frame_from_normal(n, frame);
   }
+  for (int i = 0; i < 3; ++i) d[i] = c2[i] - c1[i];
+  const T dn = r_sqrt(r_max(dot3(d, d), T(1e-24)));
+  for (int i = 0; i < 3; ++i) n[i] = d[i] / dn;
+  dist = dn - (r1 + r2);
+  const T scale = r1 + 0.5f * dist;
+  for (int i = 0; i < 3; ++i) cpos[i] = c1[i] + n[i] * scale;
+  frame_from_normal(n, frame);
   return dist - m.con_margin[ci];
 }
 
 // Advances qpos/qvel in place and replaces lam with the converged duals.
-// `out` receives the PRE-step quantities the residual reads.
+// `out` receives the PRE-step quantities the residual reads. mocap_pos
+// (nmocap, 3) and mocap_quat (nmocap, 4) are the mocap bodies' poses.
 template <class T>
 __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
-                          const T* ctrl, T* lam, StepOut<T>& out) {
+                          const T* ctrl, T* lam, const T* mocap_pos,
+                          const T* mocap_quat, StepOut<T>& out) {
   const int nv = m.nv, nbody = m.nbody;
   const T h = m.timestep;
   T (*xpos)[3] = out.xpos;
+  T (*xquat)[4] = out.xquat;
   T (*xmat)[9] = out.xmat;
   T (*xipos)[3] = out.xipos;
+  T (*ximat)[9] = out.ximat;
 
   // ---- forward kinematics
-  T xquat[MR_MAX_BODY][4];
   T xanchor[MR_MAX_JNT][3], xaxis[MR_MAX_JNT][3];
   for (int i = 0; i < 3; ++i) xpos[0][i] = 0.0f;
   xquat[0][0] = 1.0f; xquat[0][1] = xquat[0][2] = xquat[0][3] = 0.0f;
@@ -532,6 +625,11 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
     quat_mul(xquat[p], m.body_quat[bd], quat);
     quat_rot(xquat[p], m.body_pos[bd], tmp);
     for (int i = 0; i < 3; ++i) pos[i] = xpos[p][i] + tmp[i];
+    const int mid = m.body_mocapid[bd];
+    if (mid >= 0) {  // the mocap pose overrides (rollout-constant)
+      for (int i = 0; i < 3; ++i) pos[i] = mocap_pos[3 * mid + i];
+      for (int i = 0; i < 4; ++i) quat[i] = mocap_quat[4 * mid + i];
+    }
     const int j0 = m.body_jntadr[bd], j1 = j0 + m.body_jntnum[bd];
     for (int j = j0; j < j1; ++j) {
       const int qadr = m.jnt_qposadr[j];
@@ -567,7 +665,6 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
     for (int i = 0; i < 3; ++i) xpos[bd][i] = pos[i];
     for (int i = 0; i < 4; ++i) xquat[bd][i] = quat[i];
   }
-  T ximat[MR_MAX_BODY][9];
   for (int bd = 0; bd < nbody; ++bd) {
     T tmp[3], q[4];
     quat_to_mat(xquat[bd], xmat[bd]);
@@ -575,6 +672,13 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
     for (int i = 0; i < 3; ++i) xipos[bd][i] = xpos[bd][i] + tmp[i];
     quat_mul(xquat[bd], m.body_iquat[bd], q);
     quat_to_mat(q, ximat[bd]);
+  }
+  // the points the residual reads (sites, geom centres)
+  for (int st = 0; st < m.nsite; ++st) {
+    const int bd = m.site_body[st];
+    T tmp[3];
+    quat_rot(xquat[bd], m.site_pos[st], tmp);
+    for (int i = 0; i < 3; ++i) out.site_xpos[st][i] = xpos[bd][i] + tmp[i];
   }
 
   // ---- cdof [ang; lin] per dof; a free joint's translations are the
@@ -768,6 +872,7 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
     T force = gain * c + bias;
     if (m.force_limited[u])
       force = r_min(r_max(force, m.force_lo[u]), m.force_hi[u]);
+    out.act_force[u] = force;
     qact[m.act_vadr[u]] += gear * force;
   }
   for (int k = 0; k < nv; ++k) {
@@ -1098,6 +1203,244 @@ __device__ void residual_humanoid(const MRModelT<T>& m, const StepOut<T>& o,
   for (int i = 0; i < m.nu; ++i) tail[3 + i] = ctrl[i];
 }
 
+// physics/sensors.py::subtree_angmom: angular momentum about the subtree
+// CoM of body `root`, over the bodies in bitmask `set`
+template <class T>
+__device__ void subtree_angmom(const MRModelT<T>& m, const StepOut<T>& o,
+                               int set, int root, T* h) {
+  const T* com = o.subtree_com[root];
+  for (int i = 0; i < 3; ++i) h[i] = 0.0f;
+  for (int b = 0; b < m.nbody; ++b)
+    if (set & (1 << b)) {
+      const T* omega = o.cvel[b];
+      const T* rot = o.ximat[b];
+      T vcom[3], loc[3], spin[3], d[3], orbit[3];
+      com_vel(o, b, vcom);
+      for (int i = 0; i < 3; ++i)
+        loc[i] = m.body_inertia[b][i] * (rot[i] * omega[0] +
+                                         rot[3 + i] * omega[1] +
+                                         rot[6 + i] * omega[2]);
+      mat_vec(rot, loc, spin);
+      for (int i = 0; i < 3; ++i) d[i] = o.xipos[b][i] - com[i];
+      cross3(d, vcom, orbit);
+      for (int i = 0; i < 3; ++i)
+        h[i] += spin[i] + m.body_mass[b] * orbit[i];
+    }
+}
+
+// tasks/quadruped.py: the gait tables (foot order FL, FR, RL, RR), 0 for a
+// gait outside them
+__constant__ float kGaitPhase[5][4] = {{0.00f, 0.00f, 0.00f, 0.00f},
+                                       {0.00f, 0.50f, 0.75f, 0.25f},
+                                       {0.00f, 0.50f, 0.50f, 0.00f},
+                                       {0.00f, 0.33f, 0.33f, 0.66f},
+                                       {0.00f, 0.05f, 0.40f, 0.35f}};
+// duty ratio, cadence, amplitude, balance, upright and height weights
+__constant__ float kGaitParam[5][6] = {{1.00f, 1.0f, 0.00f, 0.00f, 1.0f, 1.0f},
+                                       {0.75f, 1.0f, 0.03f, 0.00f, 1.0f, 1.0f},
+                                       {0.45f, 2.0f, 0.03f, 0.20f, 1.0f, 1.0f},
+                                       {0.40f, 4.0f, 0.05f, 0.03f, 0.5f, 0.2f},
+                                       {0.30f, 3.5f, 0.10f, 0.03f, 0.2f, 0.1f}};
+#define MR_PI 3.141592653589793
+enum { kQuadruped = 0, kBiped = 1, kWalk = 2, kScramble = 3, kFlip = 4 };
+
+// a userdata entry as an index, truncated toward zero as astype(int32)
+// does; -1 (no table row, no mode) out of range
+template <class T>
+__device__ __forceinline__ int ud_index(T x) {
+  return x > T(-1e9) && x < T(1e9) ? (int)x : -1;
+}
+
+template <class T>
+__device__ __forceinline__ T gait_param(int gait, int col) {
+  return gait >= 0 && gait < 5 ? T(kGaitParam[gait][col]) : T(0);
+}
+
+// the active gait: a biped always trots (quadruped.cc:652-656)
+template <class T>
+__device__ __forceinline__ int quadruped_gait(const T* ud) {
+  return ud_index(ud[16]) == kBiped ? 2 : ud_index(ud[0]);
+}
+
+// tasks/quadruped.py::_step_height; jnp.mod is a floor mod: the fmod
+// remainder shifted to the sign of 2 pi
+template <class T>
+__device__ T step_height(T phase, T footphase, T duty) {
+  const T two_pi = T(2 * MR_PI);
+  T angle = r_fmod(phase + T(MR_PI) - footphase, two_pi);
+  if (angle != 0.0f && angle < 0.0f) angle = angle + two_pi;
+  angle = angle - T(MR_PI);
+  angle = angle * 0.5f / r_max(1.0f - duty, T(1e-6));
+  T value = r_cos(r_min(r_max(angle, T(-MR_PI / 2)), T(MR_PI / 2)));
+  value = duty < 1.0f ? value : T(0);
+  return r_abs(value) < T(1e-6) ? T(0) : value;
+}
+
+// tasks/quadruped.py::weight_mod: the per-term cost weight multipliers;
+// they depend on userdata alone, so once per rollout
+template <class T>
+__device__ void weight_mod_quadruped(const T* ud, T* scale) {
+  const int gait = quadruped_gait(ud);
+  for (int k = 0; k < 9; ++k) scale[k] = 1.0f;
+  scale[4] = gait_param<T>(gait, 3);  // balance
+  scale[0] = gait_param<T>(gait, 4);  // upright
+  scale[1] = gait_param<T>(gait, 5);  // height
+  if (ud_index(ud[16]) == kFlip) {
+    const T flip[9] = {T(0.2), T(5.0), T(0), T(0), T(0), T(0.005 / 0.03),
+                       T(0.1 / 0.02), T(1), T(1)};
+    for (int k = 0; k < 9; ++k) scale[k] = flip[k];
+  }
+}
+
+// tasks/quadruped.py::residual (42 entries): Upright(3), Height,
+// Position(3), Gait(4), Balance(2), Effort(nu), Posture(12),
+// Orientation(2), Angmom(3). res_int = (trunk, trunk subtree mask);
+// res_float = (trunk subtree mass, the home keyframe's 12 joint angles,
+// the flip constants in quadruped._DEVICE_FLIP order); sites = (feet FL,
+// FR, RL, RR, head); rp = (gait, gait switch, walk speed, walk turn, biped
+// type, heading, arm posture, flip direction). The Flip branch tracks the
+// choreographed height and pitch from its entry time ud[8], torso
+// quaternion ud[17:21] and ground height ud[21].
+template <class T>
+__device__ void residual_quadruped(const MRModelT<T>& m, const StepOut<T>& o,
+                                   const T* qpos, T time, const T* rp,
+                                   const T* ud, const T* mocap_pos, T* res) {
+  const int trunk = m.res_int[0];
+  const T* home = m.res_float + 1;
+  const T* fc = m.res_float + 13;
+  const int mode = ud_index(ud[16]);
+  const bool biped = mode == kBiped, flip = mode == kFlip;
+  const bool scramble = mode == kScramble;
+  const bool handstand_type = rp[4] > 0.5f;
+  const T* xm = o.xmat[trunk];
+  const T* head = o.site_xpos[4];
+  const T* goal = mocap_pos;  // mocap body 0
+  T avg[3];
+  for (int i = 0; i < 3; ++i)
+    avg[i] = (((o.site_xpos[0][i] + o.site_xpos[1][i]) + o.site_xpos[2][i])
+              + o.site_xpos[3][i]) / T(4);
+  const T handstand = handstand_type ? T(-1) : T(1);
+  const T ft = time - ud[8];  // time into the flip
+  // ---- Upright
+  if (flip) {
+    // pitch target fc: crouch vel, jump acc/2, jump time, leap height,
+    // jump vel, g/2, flight time, land acc/2, jump + flight time, flip
+    // time, crouch time, jump rot acc/2, jump rot vel, flight rot vel,
+    // land rot acc/2
+    const T tc = ft - fc[10], tf = ft - fc[2], tl = ft - fc[2] - fc[6];
+    T angle;
+    if (ft >= fc[9]) angle = T(2 * MR_PI);
+    else if (ft < fc[2]) angle = ft < fc[10] ? T(0)
+                                             : fc[11] * tc * tc + fc[12] * tc;
+    else if (ft < fc[8]) angle = T(0.5 * MR_PI) + fc[13] * tf;
+    else angle = T(1.75 * MR_PI) + fc[13] * tl - fc[14] * tl * tl;
+    const T half = 0.5f * angle;
+    const T dir = rp[7] > 0.5f ? T(1) : T(-1);
+    const T dq[4] = {r_cos(half), T(0), dir * r_sin(half), T(0)};
+    T target[4], qbc[4], err[4];
+    quat_mul(ud + 17, dq, target);
+    qbc[0] = target[0];
+    for (int i = 1; i < 4; ++i) qbc[i] = -target[i];
+    quat_mul(qbc, o.xquat[trunk], err);
+    const T sg = err[0] < 0.0f ? T(-2) : T(2);
+    for (int i = 0; i < 3; ++i) res[i] = err[1 + i] * sg;
+  } else {
+    res[0] = biped ? xm[6] - handstand : xm[8] - 1.0f;
+    res[1] = 0.0f;
+    res[2] = 0.0f;
+  }
+  // ---- Height
+  const T height_goal = biped ? T(0.5) : T(0.3);
+  if (flip) {
+    T hgt;
+    if (ft >= fc[9]) {
+      hgt = T(0.3);
+    } else if (ft < fc[2]) {
+      hgt = T(0.3) + ft * fc[0] + fc[1] * ft * ft;
+    } else {
+      const T tf = ft - fc[2], tl = ft - fc[2] - fc[6];
+      hgt = ft < fc[8] ? fc[3] + fc[4] * tf - fc[5] * tf * tf
+                       : fc[3] - fc[4] * tl + fc[7] * tl * tl;
+    }
+    res[3] = o.xipos[trunk][2] - (ud[21] + hgt);
+  } else {
+    res[3] = scramble ? T(0) : (o.xipos[trunk][2] - avg[2]) - height_goal;
+  }
+  // ---- Position: the head to the goal
+  res[4] = head[0] - goal[0];
+  res[5] = head[1] - goal[1];
+  res[6] = scramble ? 2.0f * (head[2] - goal[2]) : T(0);
+  // ---- Gait: foot heights against the gait's step profile
+  const int gait = quadruped_gait(ud);
+  const T duty = gait_param<T>(gait, 0);
+  const T amplitude = gait_param<T>(gait, 2);
+  const T phase = ud[1] + (time - ud[2]) * ud[3];
+  for (int f = 0; f < 4; ++f) {
+    const T fphase = T(2 * MR_PI) * (gait >= 0 && gait < 5
+                                         ? T(kGaitPhase[gait][f]) : T(0));
+    const T step = amplitude * step_height(phase, fphase, duty);
+    T hdiff = o.site_xpos[f][2] - (T(0.02) + step);  // flat ground
+    if (scramble) hdiff = r_min(hdiff, T(0));
+    const bool front = f < 2;
+    const bool hand = handstand_type ? !front : front;
+    res[7 + f] = (biped && hand) || step == 0.0f ? T(0) : hdiff;
+  }
+  // ---- Balance: the capture point over the mean foot
+  T comvel[3];
+  subtree_linvel(m, o, m.res_int[1], m.res_float[0], comvel);
+  const T fall_time = r_sqrt(2.0f * height_goal / T(9.81));
+  for (int i = 0; i < 2; ++i)
+    res[11 + i] = (o.subtree_com[trunk][i] + fall_time * comvel[i]) - avg[i];
+  // ---- Effort
+  for (int u = 0; u < m.nu; ++u) res[13 + u] = T(2e-2) * o.act_force[u];
+  // ---- Posture: abduction weighted 2; a biped's arms by rp[6]
+  T* posture = res + 13 + m.nu;
+  for (int i = 0; i < 12; ++i) {
+    const T p = (qpos[7 + i] - home[i]) * (i % 3 == 0 ? T(2) : T(1));
+    const bool front = i < 6;
+    const bool arm = handstand_type ? !front : front;
+    posture[i] = biped && arm ? p * rp[6] : p;
+  }
+  // ---- Orientation: the heading against rp[5]
+  T hd[2];
+  if (biped) {
+    hd[0] = handstand * xm[2];
+    hd[1] = handstand * xm[5];
+  } else {
+    hd[0] = xm[0];
+    hd[1] = xm[3];
+  }
+  const T hn = r_max(r_sqrt(hd[0] * hd[0] + hd[1] * hd[1]), T(1e-9));
+  posture[12] = hd[0] / hn - r_cos(rp[5]);
+  posture[13] = hd[1] / hn - r_sin(rp[5]);
+  // ---- Angular momentum of the trunk's subtree
+  subtree_angmom(m, o, m.res_int[1], trunk, posture + 14);
+}
+
+template <class T>
+__device__ __forceinline__ void residual(const MRModelT<T>& m,
+                                         const StepOut<T>& o, const T* qpos,
+                                         const T* qvel, const T* ctrl,
+                                         T time, const T* rp, const T* ud,
+                                         const T* mocap_pos, T* res) {
+  if (m.res_id == MR_RES_WALKER)
+    residual_walker(m, o, qpos, qvel, ctrl, time, rp, res);
+  else if (m.res_id == MR_RES_HUMANOID)
+    residual_humanoid(m, o, qpos, qvel, ctrl, time, rp, res);
+  else if (m.res_id == MR_RES_QUADRUPED)
+    residual_quadruped(m, o, qpos, time, rp, ud, mocap_pos, res);
+}
+
+// the task's state-dependent cost weight multipliers (Task.weight_mod);
+// false for a task without them
+template <class T>
+__device__ __forceinline__ bool weight_mod(const MRModelT<T>& m,
+                                           const T* ud, T* scale) {
+  if (m.res_id != MR_RES_QUADRUPED) return false;
+  weight_mod_quadruped(ud, scale);
+  return true;
+}
+
 template <class T>
 __device__ T norm_value(int type, const T* x, int n, T p,
                         T q) {
@@ -1140,16 +1483,19 @@ __device__ T norm_value(int type, const T* x, int n, T p,
   return __int_as_float(0x7fc00000);  // unknown norm: NaN
 }
 
+// scale: the task's per-term weight multipliers, or nullptr
 template <class T>
 __device__ T cost_value(const MRModelT<T>& m, const T* res,
                         const T* weights, const T* norm_params,
-                        T risk) {
+                        T risk, const T* scale) {
   T total = 0.0f;
   int shift = 0;
   for (int k = 0; k < m.nterm; ++k) {
     const T v = norm_value(m.term_norm[k], res + shift, m.term_dim[k],
                            norm_params[2 * k], norm_params[2 * k + 1]);
-    total += weights[k] * v;
+    T term = weights[k] * v;
+    if (scale) term = term * scale[k];
+    total += term;
     shift += m.term_dim[k];
   }
   const bool small = r_abs(risk) < T(1e-6);
@@ -1172,16 +1518,40 @@ __device__ void load_model(const MRModelT<T>* __restrict__ src,
   __syncthreads();
 }
 
+// the rollout-constant operands, copied into the block's shared memory
+template <class T>
+struct Aux {
+  T mocap_pos[MR_MAX_MOCAP * 3];
+  T mocap_quat[MR_MAX_MOCAP * 4];
+  T userdata[MR_MAX_USERDATA];
+};
+
+template <class T>
+__device__ void load_aux(const MRModelT<T>& m, const T* __restrict__ mocap_pos,
+                         const T* __restrict__ mocap_quat,
+                         const T* __restrict__ userdata, Aux<T>* dst) {
+  for (int i = threadIdx.x; i < 3 * m.nmocap; i += blockDim.x)
+    dst->mocap_pos[i] = mocap_pos[i];
+  for (int i = threadIdx.x; i < 4 * m.nmocap; i += blockDim.x)
+    dst->mocap_quat[i] = mocap_quat[i];
+  for (int i = threadIdx.x; i < m.nuserdata; i += blockDim.x)
+    dst->userdata[i] = userdata[i];
+  __syncthreads();
+}
+
 template <class T>
 __global__ void __launch_bounds__(64) mr_returns_kernel(
     const MRModelT<T>* __restrict__ model, const T* __restrict__ qpos0,
     const T* __restrict__ qvel0, const T* __restrict__ actions,
     const T* __restrict__ weights, const T* __restrict__ norm_params,
     const T* __restrict__ risk, const T* __restrict__ res_params,
-    const T* __restrict__ t0, T* __restrict__ out, int n,
-    int horizon) {
+    const T* __restrict__ t0, const T* __restrict__ mocap_pos,
+    const T* __restrict__ mocap_quat, const T* __restrict__ userdata,
+    T* __restrict__ out, int n, int horizon) {
   __shared__ MRModelT<T> sm;
+  __shared__ Aux<T> aux;
   load_model(model, &sm);
+  load_aux(sm, mocap_pos, mocap_quat, userdata, &aux);
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n) return;  // ragged edge
   const MRModelT<T>& m = sm;
@@ -1191,16 +1561,18 @@ __global__ void __launch_bounds__(64) mr_returns_kernel(
   for (int k = 0; k < m.nv; ++k) qvel[k] = qvel0[k];
   for (int r = 0; r < m.nrow; ++r) lam[r] = 0.0f;  // first step is cold
   const T rk = *risk, time0 = *t0;
+  // state-dependent weights read userdata alone: once per rollout
+  T scale[MR_MAX_TERM];
+  const bool scaled = weight_mod(m, aux.userdata, scale);
   T total = 0.0f;
   for (int i = 0; i < horizon; ++i) {
     const T* u = actions + ((size_t)c * horizon + i) * m.nu;
-    tile_step(m, qpos, qvel, u, lam, o);
+    tile_step(m, qpos, qvel, u, lam, aux.mocap_pos, aux.mocap_quat, o);
     const T time = time0 + (T)(i + 1) * m.timestep;
-    if (m.res_id == MR_RES_WALKER)
-      residual_walker(m, o, qpos, qvel, u, time, res_params, res);
-    else if (m.res_id == MR_RES_HUMANOID)
-      residual_humanoid(m, o, qpos, qvel, u, time, res_params, res);
-    total += cost_value(m, res, weights, norm_params, rk);
+    residual(m, o, qpos, qvel, u, time, res_params, aux.userdata,
+             aux.mocap_pos, res);
+    total += cost_value(m, res, weights, norm_params, rk,
+                        scaled ? scale : nullptr);
   }
   total = total / horizon;
   out[c] = isfinite(total) ? total : MR_MAX_RETURN;
@@ -1210,10 +1582,14 @@ template <class T>
 __global__ void __launch_bounds__(64) mr_step_kernel(
     const MRModelT<T>* __restrict__ model, const T* __restrict__ qpos_in,
     const T* __restrict__ qvel_in, const T* __restrict__ ctrl,
-    const T* __restrict__ lam_in, T* __restrict__ qpos_out,
-    T* __restrict__ qvel_out, T* __restrict__ lam_out, int b) {
+    const T* __restrict__ lam_in, const T* __restrict__ mocap_pos,
+    const T* __restrict__ mocap_quat, const T* __restrict__ userdata,
+    T* __restrict__ qpos_out, T* __restrict__ qvel_out,
+    T* __restrict__ lam_out, int b) {
   __shared__ MRModelT<T> sm;
+  __shared__ Aux<T> aux;
   load_model(model, &sm);
+  load_aux(sm, mocap_pos, mocap_quat, userdata, &aux);
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= b) return;
   const MRModelT<T>& m = sm;
@@ -1222,7 +1598,8 @@ __global__ void __launch_bounds__(64) mr_step_kernel(
   for (int k = 0; k < m.nq; ++k) qpos[k] = qpos_in[c * m.nq + k];
   for (int k = 0; k < m.nv; ++k) qvel[k] = qvel_in[c * m.nv + k];
   for (int r = 0; r < m.nrow; ++r) lam[r] = lam_in[c * m.nrow + r];
-  tile_step(m, qpos, qvel, ctrl + c * m.nu, lam, o);
+  tile_step(m, qpos, qvel, ctrl + c * m.nu, lam, aux.mocap_pos,
+            aux.mocap_quat, o);
   for (int k = 0; k < m.nq; ++k) qpos_out[c * m.nq + k] = qpos[k];
   for (int k = 0; k < m.nv; ++k) qvel_out[c * m.nv + k] = qvel[k];
   for (int r = 0; r < m.nrow; ++r) lam_out[c * m.nrow + r] = lam[r];
@@ -1260,14 +1637,16 @@ static int launch_returns(const void* model, const void* qpos0,
                           const void* qvel0, const void* actions,
                           const void* weights, const void* norm_params,
                           const void* risk, const void* res_params,
-                          const void* t0, void* out, int n, int horizon,
-                          void* stream) {
+                          const void* t0, const void* mocap_pos,
+                          const void* mocap_quat, const void* userdata,
+                          void* out, int n, int horizon, void* stream) {
   if (n > 0) {
     mr_returns_kernel<T><<<(n + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
         (const MRModelT<T>*)model, (const T*)qpos0, (const T*)qvel0,
         (const T*)actions, (const T*)weights, (const T*)norm_params,
-        (const T*)risk, (const T*)res_params, (const T*)t0, (T*)out, n,
-        horizon);
+        (const T*)risk, (const T*)res_params, (const T*)t0,
+        (const T*)mocap_pos, (const T*)mocap_quat, (const T*)userdata,
+        (T*)out, n, horizon);
   }
   return (int)cudaGetLastError();
 }
@@ -1275,13 +1654,15 @@ static int launch_returns(const void* model, const void* qpos0,
 template <class T>
 static int launch_step(const void* model, const void* qpos,
                        const void* qvel, const void* ctrl, const void* lam,
-                       void* qpos_out, void* qvel_out, void* lam_out, int b,
-                       void* stream) {
+                       const void* mocap_pos, const void* mocap_quat,
+                       const void* userdata, void* qpos_out, void* qvel_out,
+                       void* lam_out, int b, void* stream) {
   if (b > 0) {
     mr_step_kernel<T><<<(b + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
         (const MRModelT<T>*)model, (const T*)qpos, (const T*)qvel,
-        (const T*)ctrl, (const T*)lam, (T*)qpos_out, (T*)qvel_out,
-        (T*)lam_out, b);
+        (const T*)ctrl, (const T*)lam, (const T*)mocap_pos,
+        (const T*)mocap_quat, (const T*)userdata, (T*)qpos_out,
+        (T*)qvel_out, (T*)lam_out, b);
   }
   return (int)cudaGetLastError();
 }
@@ -1289,31 +1670,33 @@ static int launch_step(const void* model, const void* qpos,
 #define MR_RETURNS_ARGS                                                      \
   const void* model, const void* qpos0, const void* qvel0,                   \
       const void* actions, const void* weights, const void* norm_params,     \
-      const void* risk, const void* res_params, const void* t0, void* out,   \
-      int n, int horizon, void* stream
+      const void* risk, const void* res_params, const void* t0,              \
+      const void* mocap_pos, const void* mocap_quat, const void* userdata,   \
+      void* out, int n, int horizon, void* stream
+#define MR_RETURNS_PASS                                                      \
+  model, qpos0, qvel0, actions, weights, norm_params, risk, res_params, t0,  \
+      mocap_pos, mocap_quat, userdata, out, n, horizon, stream
 #define MR_STEP_ARGS                                                         \
   const void* model, const void* qpos, const void* qvel, const void* ctrl,   \
-      const void* lam, void* qpos_out, void* qvel_out, void* lam_out, int b, \
-      void* stream
+      const void* lam, const void* mocap_pos, const void* mocap_quat,        \
+      const void* userdata, void* qpos_out, void* qvel_out, void* lam_out,   \
+      int b, void* stream
+#define MR_STEP_PASS                                                         \
+  model, qpos, qvel, ctrl, lam, mocap_pos, mocap_quat, userdata, qpos_out,   \
+      qvel_out, lam_out, b, stream
 
 extern "C" int mr_returns(MR_RETURNS_ARGS) {
-  return launch_returns<float>(model, qpos0, qvel0, actions, weights,
-                               norm_params, risk, res_params, t0, out, n,
-                               horizon, stream);
+  return launch_returns<float>(MR_RETURNS_PASS);
 }
 
 extern "C" int mr_returns64(MR_RETURNS_ARGS) {
-  return launch_returns<double>(model, qpos0, qvel0, actions, weights,
-                                norm_params, risk, res_params, t0, out, n,
-                                horizon, stream);
+  return launch_returns<double>(MR_RETURNS_PASS);
 }
 
 extern "C" int mr_step(MR_STEP_ARGS) {
-  return launch_step<float>(model, qpos, qvel, ctrl, lam, qpos_out, qvel_out,
-                            lam_out, b, stream);
+  return launch_step<float>(MR_STEP_PASS);
 }
 
 extern "C" int mr_step64(MR_STEP_ARGS) {
-  return launch_step<double>(model, qpos, qvel, ctrl, lam, qpos_out,
-                             qvel_out, lam_out, b, stream);
+  return launch_step<double>(MR_STEP_PASS);
 }

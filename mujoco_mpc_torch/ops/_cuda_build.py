@@ -66,9 +66,9 @@ def load() -> ctypes.CDLL:
   lib.mr_model_size.argtypes = [i]
   lib.mr_model_size.restype = ctypes.c_longlong
   for name in ("mr_returns", "mr_returns64"):
-    getattr(lib, name).argtypes = [p] * 10 + [i, i, p]
+    getattr(lib, name).argtypes = [p] * 13 + [i, i, p]
     getattr(lib, name).restype = i
   for name in ("mr_step", "mr_step64"):
-    getattr(lib, name).argtypes = [p] * 8 + [i, p]
+    getattr(lib, name).argtypes = [p] * 11 + [i, p]
     getattr(lib, name).restype = i
   return lib

@@ -34,9 +34,11 @@ MAX_RETURN = 1e6
 # ---------------------------------------------------------------------------
 
 
-def cost_value_t(spec: CostSpec, weights, norm_params, risk, res):
+def cost_value_t(spec: CostSpec, weights, norm_params, risk, res,
+                 scale=None):
   """Tile analogue of tasks.base.cost_value: res (nres, B) -> (B,);
-  weights (nterm,), norm_params (nterm, 2), risk ()."""
+  weights (nterm,), norm_params (nterm, 2), risk (); `scale` the optional
+  (nterm, ...) multiplier of Task.weight_mod."""
   total = None
   shift = 0
   for k in range(spec.nterm):
@@ -44,15 +46,19 @@ def cost_value_t(spec: CostSpec, weights, norm_params, risk, res):
     val = norms.norm_value(block, spec.norm_types[k], norm_params[k, 0],
                            norm_params[k, 1], dim=0)
     term = weights[k] * val
+    if scale is not None:
+      term = term * scale[k]
     total = term if total is None else total + term
     shift += spec.dims[k]
   return risk_transform(total, risk)
 
 
 def _rollout_body(tm, task, horizon, qpos0, qvel0, actions, weights,
-                  norm_params, risk, res_params, t0):
+                  norm_params, risk, res_params, t0, mocap_pos, mocap_quat,
+                  userdata):
   """Mean per-step cost (N,) of actions (N, T, nu) from (qpos0, qvel0),
-  with the non-finite -> MAX_RETURN divergence guard."""
+  with the non-finite -> MAX_RETURN divergence guard; the mocap poses and
+  userdata (tilestep.aux_operands shapes) are rollout-constant."""
   n = actions.shape[0]
   acts = actions.permute(1, 2, 0)  # (T, nu, N)
   qpos = qpos0[:, None].expand(tm.nq, n)
@@ -62,11 +68,15 @@ def _rollout_body(tm, task, horizon, qpos0, qvel0, actions, weights,
                     device=qpos0.device)
   total = torch.zeros((n,), dtype=qpos0.dtype, device=qpos0.device)
   for i in range(horizon):
-    qpos, qvel, view = tilestep.step_tb(tm, qpos, qvel, acts[i],
-                                        efc_lambda=lam)
+    qpos, qvel, view = tilestep.step_tb(
+        tm, qpos, qvel, acts[i], efc_lambda=lam, mocap_pos=mocap_pos,
+        mocap_quat=mocap_quat, userdata=userdata)
     view.time = t0 + (i + 1) * tm.timestep
     res = task.residual(task.model, view, res_params)
-    total = total + cost_value_t(task.spec, weights, norm_params, risk, res)
+    scale = (task.weight_mod(task.model, view, res_params)
+             if task.weight_mod is not None else None)
+    total = total + cost_value_t(task.spec, weights, norm_params, risk, res,
+                                 scale)
     lam = view.efc_lambda
   total = total / horizon
   return torch.where(torch.isfinite(total), total,
@@ -80,8 +90,10 @@ def _rollout_body(tm, task, horizon, qpos0, qvel0, actions, weights,
 MAX_NQ, MAX_NV, MAX_BODY, MAX_JNT, MAX_NU = 32, 28, 20, 24, 24
 MAX_CON, MAX_LIM, MAX_TEN, MAX_WRAP = 40, 24, 4, 4
 MAX_ROW, MAX_DENSE = 120, 32
-MAX_TERM, MAX_RES, MAX_RES_INT, MAX_RES_FLOAT = 16, 64, 8, 4
-_CON_KIND = {"plane_sphere": 0, "plane_capend": 0, "cap_cap": 1}
+MAX_TERM, MAX_RES, MAX_RES_INT, MAX_RES_FLOAT = 16, 64, 8, 32
+MAX_SITE, MAX_MOCAP, MAX_USERDATA = 8, 4, 32
+_CON_KIND = {"plane_sphere": 0, "plane_capend": 0, "cap_cap": 1,
+             "plane_boxcorner": 2, "sphere_sphere": 3, "sphere_box": 4}
 
 _I = ctypes.c_int32
 # the kernel's scalar type per torch dtype, and its C entry points
@@ -102,12 +114,16 @@ def _model_struct(_F):
       ("ncon", _I), ("nfric", _I), ("nlim", _I), ("nten", _I),
       ("nrow", _I), ("dense", _I),
       ("nterm", _I), ("nres", _I), ("res_id", _I),
+      ("nmocap", _I), ("nuserdata", _I), ("nsite", _I),
       ("res_int", _arr(_I, MAX_RES_INT)),
       ("res_float", _arr(_F, MAX_RES_FLOAT)),
+      ("site_body", _arr(_I, MAX_SITE)),
+      ("site_pos", _arr(_F, MAX_SITE, 3)),
       ("timestep", _F), ("gravity", _arr(_F, 3)),
       ("body_parentid", _arr(_I, MAX_BODY)),
       ("body_jntadr", _arr(_I, MAX_BODY)),
       ("body_jntnum", _arr(_I, MAX_BODY)),
+      ("body_mocapid", _arr(_I, MAX_BODY)),
       ("body_pos", _arr(_F, MAX_BODY, 3)),
       ("body_quat", _arr(_F, MAX_BODY, 4)),
       ("body_ipos", _arr(_F, MAX_BODY, 3)),
@@ -154,6 +170,7 @@ def _model_struct(_F):
       ("con_mu", _arr(_F, MAX_CON)),
       ("con_frame", _arr(_F, MAX_CON, 3, 3)),
       ("con_ppos", _arr(_F, MAX_CON, 3)),
+      ("con_box", _arr(_F, MAX_CON, 3)),
       ("con_sgn", _arr(_F, MAX_CON, MAX_NV)),
       ("con_imp", _arr(_F, MAX_CON, 5)),
       ("con_k", _arr(_F, MAX_CON)),
@@ -188,9 +205,10 @@ _MODEL_STRUCT = {dt: _model_struct(v[0]) for dt, v in _PRECISION.items()}
 def pack_model(tm: tilestep.TileModel, task: Task,
                dtype=torch.float32) -> bytes:
   """The kernel's MRModelT for a TileModel and task, with float or double
-  scalars for dtype float32 or float64 (the same float32 values in both);
-  raises tilestep.UnsupportedModel where the model exceeds the struct's
-  maxima or the task has no CUDA residual."""
+  scalars for dtype float32 or float64 (the same float32 model values in
+  both; the residual's constants at the struct's precision, as the plain
+  residual reads them); raises tilestep.UnsupportedModel where the model
+  exceeds the struct's maxima or the task has no CUDA residual."""
   if task.device_residual is None:
     raise tilestep.UnsupportedModel(
         f"task {task.name!r} has no CUDA residual in csrc/megarollout.cu")
@@ -208,7 +226,10 @@ def pack_model(tm: tilestep.TileModel, task: Task,
             ("cost terms", spec.nterm, MAX_TERM),
             ("residual entries", spec.nresidual, MAX_RES),
             ("residual indices", len(dres.ints), MAX_RES_INT),
-            ("residual constants", len(dres.floats), MAX_RES_FLOAT)]
+            ("residual constants", len(dres.floats), MAX_RES_FLOAT),
+            ("residual sites", len(dres.sites), MAX_SITE),
+            ("mocap bodies", tm.nmocap, MAX_MOCAP),
+            ("userdata entries", tm.nuserdata, MAX_USERDATA)]
   for what, n, cap in limits:
     if n > cap:
       raise tilestep.UnsupportedModel(
@@ -228,13 +249,17 @@ def pack_model(tm: tilestep.TileModel, task: Task,
                   ("nten", len(tm.ten_lim)), ("nrow", tm.nrow),
                   ("dense", int(tilestep.amat_is_dense(tm.nrow))),
                   ("nterm", spec.nterm), ("nres", spec.nresidual),
-                  ("res_id", dres.id),
+                  ("res_id", dres.id), ("nmocap", tm.nmocap),
+                  ("nuserdata", tm.nuserdata), ("nsite", len(dres.sites)),
                   ("timestep", tm.timestep)):
     setattr(s, name, v)
   put("res_int", list(dres.ints))
-  put("res_float", list(dres.floats))
+  if dres.sites:
+    put("site_body", [b for b, _ in dres.sites])
+    put("site_pos", [p for _, p in dres.sites])
   put("gravity", tm.gravity)
-  for name in ("body_parentid", "body_jntadr", "body_jntnum", "body_pos",
+  for name in ("body_parentid", "body_jntadr", "body_jntnum",
+               "body_mocapid", "body_pos",
                "body_quat", "body_ipos", "body_iquat", "body_mass",
                "body_inertia", "jnt_type", "jnt_qposadr", "jnt_dofadr",
                "jnt_bodyid", "jnt_pos", "jnt_axis", "jnt_stiffness", "qpos0",
@@ -272,6 +297,12 @@ def pack_model(tm: tilestep.TileModel, task: Task,
                                else np.zeros((3, 3)) for cp in cps]))
     put("con_ppos", np.stack([cp.ppos if cp.ppos is not None
                               else np.zeros(3) for cp in cps]))
+    # box kinds: a corner's offset (plane_boxcorner), the half-sizes
+    # (sphere_box)
+    put("con_box", np.stack([
+        cp.size2 * cp.corner if cp.kind == "plane_boxcorner"
+        else cp.size2 if cp.size2 is not None else np.zeros(3)
+        for cp in cps]))
     sgn = np.zeros((len(cps), MAX_NV), np.float32)
     for ci, cp in enumerate(cps):
       sgn[ci, :tm.nv] = (tm.dof_body_mask[:, cp.body2].astype(np.float32)
@@ -310,17 +341,20 @@ def pack_model(tm: tilestep.TileModel, task: Task,
     put("ten_b", [v[1] for v in kbs])
   put("term_dim", spec.dims)
   put("term_norm", spec.norm_types)
-  if dtype == torch.float32:
-    return bytes(s)
-  wide = _MODEL_STRUCT[dtype]()
-  for name, _ in wide._fields_:
-    v = getattr(s, name)
-    if isinstance(v, (int, float)):
-      setattr(wide, name, v)
-    else:
-      np.ctypeslib.as_array(getattr(wide, name))[...] = \
-          np.ctypeslib.as_array(v)
-  return bytes(wide)
+  if dtype != torch.float32:
+    wide = _MODEL_STRUCT[dtype]()
+    for name, _ in wide._fields_:
+      v = getattr(s, name)
+      if isinstance(v, (int, float)):
+        setattr(wide, name, v)
+      else:
+        np.ctypeslib.as_array(getattr(wide, name))[...] = \
+            np.ctypeslib.as_array(v)
+    s = wide
+  # the residual's constants at the struct's precision: the plain residual
+  # reads them as Python floats
+  np.ctypeslib.as_array(s.res_float)[:len(dres.floats)] = dres.floats
+  return bytes(s)
 
 
 def _check_layout(lib) -> None:
@@ -389,14 +423,36 @@ class MegaRollout:
           bytearray(raw), dtype=torch.uint8).to(self.device)
     return self._bufs[dtype]
 
+  def _aux(self, dev, dtype, mocap_pos, mocap_quat, userdata):
+    """The mocap poses and userdata as the kernel takes them, never empty:
+    (nmocap, 3), (nmocap, 4), (nuserdata,), each checked; the defaults of
+    tilestep.aux_operands where not given."""
+    tm = self.tm
+    out = []
+    for name, x, default in zip(
+        ("mocap_pos", "mocap_quat", "userdata"),
+        (mocap_pos, mocap_quat, userdata),
+        tilestep.aux_operands(tm, dtype=dtype, device=dev)):
+      shape = default.shape[:-1]
+      if x is None or x.numel() == 0:
+        x = default.reshape(shape)
+      _check(name, x, dev, shape, dtype)
+      out.append(x)
+    return out
+
   # ----------------------------------------------------------------- returns
-  def returns(self, qpos0, qvel0, actions, params: TaskParams, t0):
+  def returns(self, qpos0, qvel0, actions, params: TaskParams, t0,
+              mocap_pos=None, mocap_quat=None, userdata=None):
     """Candidate returns (N,) for actions (N, T, nu) from qpos0 (nq,),
-    qvel0 (nv,), in the dtype of `actions`. CUDA tensors: the kernel; CPU
-    tensors: the plain version."""
+    qvel0 (nv,), in the dtype of `actions`; mocap_pos (nmocap, 3),
+    mocap_quat (nmocap, 4) and userdata (nuserdata,) are rollout-constant
+    (None: zeros, identity quaternions, zeros). CUDA tensors: the kernel;
+    CPU tensors: the plain version."""
     dtype = actions.dtype
     if actions.device.type == "cpu":
-      return self.returns_plain(qpos0, qvel0, actions, params, t0, dtype)
+      return self.returns_plain(qpos0, qvel0, actions, params, t0, dtype,
+                                mocap_pos=mocap_pos, mocap_quat=mocap_quat,
+                                userdata=userdata)
     if actions.device.type != "cuda":
       raise ValueError(f"no kernel for device {actions.device}")
     tm, task = self.tm, self.task
@@ -417,6 +473,7 @@ class MegaRollout:
     _check("residual_params", rp, dev, (max(len(task.param_names), 1),),
            dtype)
     _check("t0", t0, dev, (), dtype)
+    aux = self._aux(dev, dtype, mocap_pos, mocap_quat, userdata)
     out = torch.empty((n,), dtype=dtype, device=dev)
     if n == 0:
       return out
@@ -426,7 +483,8 @@ class MegaRollout:
           buf.data_ptr(), qpos0.data_ptr(), qvel0.data_ptr(),
           actions.data_ptr(), params.weights.data_ptr(),
           params.norm_params.data_ptr(), params.risk.data_ptr(),
-          rp.data_ptr(), t0.data_ptr(), out.data_ptr(), n, self.horizon,
+          rp.data_ptr(), t0.data_ptr(), *(x.data_ptr() for x in aux),
+          out.data_ptr(), n, self.horizon,
           torch.cuda.current_stream(dev).cuda_stream)
     if err:
       raise RuntimeError(f"{_PRECISION[dtype][1]} launch failed: CUDA error "
@@ -435,26 +493,33 @@ class MegaRollout:
     return out
 
   def returns_plain(self, qpos0, qvel0, actions, params: TaskParams, t0,
-                    dtype=torch.float32):
+                    dtype=torch.float32, mocap_pos=None, mocap_quat=None,
+                    userdata=None):
     """The same returns from the plain PyTorch version, on any device, in
     `dtype` (float32 as the planner's kernel; float64 as an arbiter of f32
     rounding); inputs are cast."""
     p = params.to(dtype=dtype)
+    dev = actions.device
     return _rollout_body(
         self.tm, self.task, self.horizon, qpos0.to(dtype), qvel0.to(dtype),
         actions.to(dtype), p.weights, p.norm_params, p.risk,
-        p.residual_params, torch.as_tensor(t0, dtype=dtype,
-                                           device=actions.device))
+        p.residual_params, torch.as_tensor(t0, dtype=dtype, device=dev),
+        *tilestep.aux_operands(self.tm, mocap_pos, mocap_quat, userdata,
+                               dtype, dev))
 
   # -------------------------------------------------------------------- step
-  def step(self, qpos, qvel, ctrl, efc_lambda=None):
+  def step(self, qpos, qvel, ctrl, efc_lambda=None, mocap_pos=None,
+           mocap_quat=None, userdata=None):
     """One step_tb on B states in tile layout: qpos (nq, B), qvel (nv, B),
-    ctrl (nu, B), efc_lambda (nrow, B) or None (cold), in the dtype of
-    qpos. Returns (qpos2, qvel2, duals). CUDA tensors: the kernel's step;
-    CPU: step_tb."""
+    ctrl (nu, B), efc_lambda (nrow, B) or None (cold), the mocap poses and
+    userdata as for `returns`, in the dtype of qpos. Returns (qpos2, qvel2,
+    duals). CUDA tensors: the kernel's step; CPU: step_tb."""
     tm = self.tm
     if qpos.device.type == "cpu":
-      q2, v2, view = tilestep.step_tb(tm, qpos, qvel, ctrl, efc_lambda)
+      q2, v2, view = tilestep.step_tb(tm, qpos, qvel, ctrl, efc_lambda,
+                                      mocap_pos=mocap_pos,
+                                      mocap_quat=mocap_quat,
+                                      userdata=userdata)
       return q2, v2, view.efc_lambda
     if qpos.device.type != "cuda":
       raise ValueError(f"no kernel for device {qpos.device}")
@@ -467,10 +532,12 @@ class MegaRollout:
     for name, t, w in zip(("qpos", "qvel", "ctrl", "efc_lambda"), ins,
                           (tm.nq, tm.nv, tm.nu, tm.nrow)):
       _check(name, t, dev, (b, w), dtype)
+    aux = self._aux(dev, dtype, mocap_pos, mocap_quat, userdata)
     outs = [torch.empty_like(ins[i]) for i in (0, 1, 3)]
     entry = getattr(_cuda_build.load(), _PRECISION[dtype][2])
     with torch.cuda.device(dev):
       err = entry(buf.data_ptr(), *(t.data_ptr() for t in ins),
+                  *(x.data_ptr() for x in aux),
                   *(t.data_ptr() for t in outs), b,
                   torch.cuda.current_stream(dev).cuda_stream)
     if err:

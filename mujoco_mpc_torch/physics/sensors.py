@@ -47,3 +47,22 @@ def subtree_linvel(m: Model, d, body: int):
     term = float(m.body_mass[b]) * _point_vel(d, b, d.xipos[b])
     mom = term if mom is None else mom + term
   return mom / max(float(m.body_subtreemass[body]), 1e-12)
+
+
+def subtree_angmom(m: Model, d, body: int):
+  """Angular momentum of the subtree about its centre of mass
+  (mjSENS_SUBTREEANGMOM): the sum over its bodies of
+  R diag(I) R^T omega + m (x - com) x v."""
+  com = d.subtree_com[body]
+  val = None
+  for b in _descendants(m, body):
+    omega = d.cvel[b][:3]
+    vcom = _point_vel(d, b, d.xipos[b])
+    rot = d.ximat[b]  # (3, 3, ...)
+    loc = [sum(rot[k, i] * omega[k] for k in range(3)) for i in range(3)]
+    iloc = [float(m.body_inertia[b][i]) * loc[i] for i in range(3)]
+    spin = torch.stack([sum(rot[i, j] * iloc[j] for j in range(3))
+                        for i in range(3)])
+    term = spin + float(m.body_mass[b]) * cross0(d.xipos[b] - com, vcom)
+    val = term if val is None else val + term
+  return val

@@ -9,11 +9,13 @@ against, and what runs when the tensors lie on the CPU.
 
 The class this port covers so far: hinge, slide and free joints,
 joint-transmission actuators (fixed or affine gain/bias) on scalar joints,
-scalar-joint springs and friction loss, fixed tendons with limits,
-contacts of a world plane against sphere, capsule and cylinder ends and
-of capsule against capsule, with condim 1 or 3, joint limits, and the
-dense or matrix-free Delassus solve. Everything else raises
-UnsupportedModel naming the ROADMAP item that ports it.
+scalar-joint springs and friction loss, fixed tendons with limits, mocap
+bodies (poses are rollout-constant operands; no joints, no colliding
+geoms), contacts of a world plane against sphere, capsule and cylinder
+ends and box corners, of sphere against sphere and box, and of capsule
+against capsule, with condim 1 or 3, joint limits, and the dense or
+matrix-free Delassus solve. Everything else raises UnsupportedModel naming
+the ROADMAP item that ports it.
 
 Constraint rows are in the tile layout: condim-3 points (n, t1, t2 each),
 condim-1 points (n), joint limits (lo, hi each), tendon limits (lo, hi
@@ -24,6 +26,7 @@ row.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -54,7 +57,6 @@ def _unsupported(what: str, item: str):
 
 
 _S3 = "queue 2 slice S3"
-_S4 = "queue 2 slice S4"
 _S5 = "queue 2 slice S5"
 _GENERAL = "queue 1 items 3 and 6, the general engine"
 
@@ -67,7 +69,8 @@ _GENERAL = "queue 1 items 3 and 6, the general engine"
 @dataclasses.dataclass
 class ConPoint:
   """One static candidate contact point."""
-  kind: str  # 'plane_sphere' | 'plane_capend' | 'cap_cap'
+  kind: str  # 'plane_sphere' | 'plane_capend' | 'plane_boxcorner'
+  #            | 'sphere_sphere' | 'sphere_box' | 'cap_cap'
   g1: int
   g2: int
   body1: int
@@ -83,6 +86,8 @@ class ConPoint:
   solref: np.ndarray
   solimp: np.ndarray
   margin: float
+  size2: Optional[np.ndarray] = None  # (3,) box half-sizes of g2 (box kinds)
+  corner: Optional[np.ndarray] = None  # (3,) +-1 corner (plane_boxcorner)
   condim: int = 3  # 1 = normal row only
 
 
@@ -118,6 +123,9 @@ class TileModel:
   dof_ancestor_mask: np.ndarray  # (nv, nv)
   cdofdot_vel_mask: np.ndarray  # (nv, nv): dofs whose vel rotates cdof[k]
   dof_body: tuple  # (nv,) body id of every dof
+  body_mocapid: tuple  # (nbody,) -1 or mocap index (pose = an operand)
+  nmocap: int
+  nuserdata: int
   # actuators (scalar joint transmission)
   act_vadr: np.ndarray  # (nu,) dof index
   act_qadr: np.ndarray  # (nu,)
@@ -145,6 +153,9 @@ class TileModel:
   lim_hi: tuple
   lim_margin: tuple
   lim_solref: np.ndarray  # (nlim_jnt, 2)
+  # sites residuals read (StepView.site_xpos)
+  site_bodyid: tuple
+  site_pos: np.ndarray
   # scalar-joint springs + smoothed Coulomb friction loss
   jnt_stiffness: np.ndarray  # (njnt,)
   qpos_spring: np.ndarray  # (nq,)
@@ -193,8 +204,15 @@ def extract(m: Model) -> TileModel:
       _unsupported("spring on a free joint", _S3)
   if m.na != 0:
     _unsupported("stateful actuators", _GENERAL)
-  if m.nmocap:
-    _unsupported("mocap bodies", _S4)
+  # mocap bodies: rollout-constant poses (kernel operands), as markers and
+  # goals only
+  mocap_bodies = {b for b in range(m.nbody) if m.body_mocapid[b] >= 0}
+  for b in mocap_bodies:
+    if m.body_jntnum[b]:
+      _unsupported("jointed mocap body", _GENERAL)
+  for g1, g2 in m.collision_pairs:
+    if m.geom_bodyid[g1] in mocap_bodies or m.geom_bodyid[g2] in mocap_bodies:
+      _unsupported("colliding mocap geom", _GENERAL)
   if m.opt.has_fluid:
     _unsupported("fluid forces", _GENERAL)
   if any(m.eq_active0):
@@ -246,7 +264,7 @@ def extract(m: Model) -> TileModel:
         margin=float(max(npy(m.geom_margin)[g1], npy(m.geom_margin)[g2])),
         condim=condim)
     if t1 == GeomType.PLANE and t2 in (GeomType.SPHERE, GeomType.CAPSULE,
-                                       GeomType.CYLINDER):
+                                       GeomType.CYLINDER, GeomType.BOX):
       if b1 != 0:
         _unsupported("plane on a moving body", _GENERAL)
       n = geom_xmat0[g1][:, 2]
@@ -255,15 +273,25 @@ def extract(m: Model) -> TileModel:
       t1v = np.cross(n, t1v)
       t1v = t1v / np.linalg.norm(t1v)
       frame = np.stack([n, t1v, np.cross(n, t1v)]).astype(np.float32)
+      plane = dict(sign=0.0, frame=frame, ppos=geom_xpos0[g1], **common)
       if t2 == GeomType.SPHERE:
-        con_points.append(ConPoint(kind="plane_sphere", sign=0.0,
-                                   frame=frame, ppos=geom_xpos0[g1],
-                                   **common))
+        con_points.append(ConPoint(kind="plane_sphere", **plane))
+      elif t2 == GeomType.BOX:  # collision._plane_box: the 8 corners
+        for corner in itertools.product((-1.0, 1.0), repeat=3):
+          con_points.append(ConPoint(
+              kind="plane_boxcorner", size2=gs[g2].astype(np.float32),
+              corner=np.asarray(corner, np.float32), **plane))
       else:
         for sgn in (-1.0, 1.0):
-          con_points.append(ConPoint(kind="plane_capend", sign=sgn,
-                                     frame=frame, ppos=geom_xpos0[g1],
-                                     **common))
+          con_points.append(ConPoint(kind="plane_capend",
+                                     **{**plane, "sign": sgn}))
+    elif (t1, t2) == (GeomType.SPHERE, GeomType.SPHERE):
+      con_points.append(ConPoint(kind="sphere_sphere", sign=0.0, frame=None,
+                                 ppos=None, **common))
+    elif (t1, t2) == (GeomType.SPHERE, GeomType.BOX):
+      con_points.append(ConPoint(kind="sphere_box", sign=0.0, frame=None,
+                                 ppos=None, size2=gs[g2].astype(np.float32),
+                                 **common))
     elif (t1, t2) == (GeomType.CAPSULE, GeomType.CAPSULE):
       con_points.append(ConPoint(kind="cap_cap", sign=0.0, frame=None,
                                  ppos=None, **common))
@@ -299,6 +327,8 @@ def extract(m: Model) -> TileModel:
       dof_ancestor_mask=npy(m.dof_ancestor_mask),
       cdofdot_vel_mask=npy(m.cdofdot_vel_mask),
       dof_body=tuple(dof_body),
+      body_mocapid=tuple(int(x) for x in m.body_mocapid),
+      nmocap=int(m.nmocap), nuserdata=int(m.nuserdata),
       act_vadr=np.asarray([m.jnt_dofadr[m.actuator_trnid[u]]
                            for u in range(m.nu)], np.int32),
       act_qadr=np.asarray([m.jnt_qposadr[m.actuator_trnid[u]]
@@ -327,6 +357,7 @@ def extract(m: Model) -> TileModel:
       lim_margin=tuple(float(npy(m.jnt_margin)[j]) for j in lim),
       lim_solref=(np.stack([npy(m.jnt_solref)[j] for j in lim])
                   if lim else np.zeros((0, 2))),
+      site_bodyid=tuple(m.site_bodyid), site_pos=npy(m.site_pos),
       jnt_stiffness=npy(m.jnt_stiffness),
       qpos_spring=npy(m.qpos_spring),
       dof_frictionloss=npy(m.dof_frictionloss),
@@ -351,8 +382,8 @@ def row_points(tm: TileModel) -> Tuple[tuple, tuple]:
 
 def row_kinds(tm: TileModel) -> Tuple[str, ...]:
   """The class of every constraint row, in the tile layout: the contact
-  kind ('plane_capend', 'plane_sphere', 'cap_cap'), 'joint_limit' or
-  'tendon_limit'."""
+  kind ('plane_capend', 'plane_sphere', 'plane_boxcorner', 'sphere_sphere',
+  'sphere_box', 'cap_cap'), 'joint_limit' or 'tendon_limit'."""
   fric, ones = row_points(tm)
   kinds = [cp.kind for cp in fric for _ in range(3)]
   kinds += [cp.kind for cp in ones]
@@ -520,7 +551,9 @@ def _impedance(pos, d0, d1, width, mid, power):
 class StepView:
   """What a task residual reads after a step (component-leading,
   batch-trailing). Frames are PRE-step (the state the step started from),
-  qpos/qvel are POST-step -- the convention of the JAX tile path."""
+  qpos/qvel are POST-step -- the convention of the JAX tile path. The
+  rollout-constant operands (mocap poses, userdata) have a trailing axis of
+  1 that broadcasts against the batch."""
   qpos: torch.Tensor  # (nq, B) post-step
   qvel: torch.Tensor  # (nv, B) post-step
   ctrl: torch.Tensor  # (nu, B) as given, before clamping
@@ -531,8 +564,36 @@ class StepView:
   ximat: torch.Tensor  # (nbody, 3, 3, B)
   cvel: torch.Tensor  # (nbody, 6, B)
   subtree_com: torch.Tensor  # (nbody, 3, B)
+  site_xpos: torch.Tensor  # (nsite, 3, B)
+  geom_xpos: torch.Tensor  # (ngeom, 3, B)
+  actuator_force: torch.Tensor  # (nu, B) of the clamped ctrl
+  mocap_pos: torch.Tensor  # (nmocap, 3, 1)
+  mocap_quat: torch.Tensor  # (nmocap, 4, 1)
+  userdata: torch.Tensor  # (nuserdata, 1)
   efc_lambda: torch.Tensor  # (nrow, B) converged duals
   time: Optional[torch.Tensor] = None
+
+
+def aux_operands(tm: TileModel, mocap_pos=None, mocap_quat=None,
+                 userdata=None, dtype=torch.float32, device="cpu"):
+  """The rollout-constant operands shaped (nmocap, 3, 1), (nmocap, 4, 1)
+  and (nuserdata, 1), never empty: zeros, identity quaternions and zeros
+  where not given (mujoco_mpc_tpu MegaRollout._aux_operands)."""
+  nmc, nud = max(tm.nmocap, 1), max(tm.nuserdata, 1)
+
+  def given(x):
+    return x is not None and torch.as_tensor(x).numel() > 0
+
+  def t(x, n):
+    return torch.as_tensor(x, dtype=dtype, device=device).reshape(n)
+
+  mp = t(mocap_pos, (nmc, 3)) if given(mocap_pos) else torch.zeros(
+      (nmc, 3), dtype=dtype, device=device)
+  mq = t(mocap_quat, (nmc, 4)) if given(mocap_quat) else torch.tensor(
+      [[1.0, 0.0, 0.0, 0.0]] * nmc, dtype=dtype, device=device)
+  ud = t(userdata, (nud,)) if given(userdata) else torch.zeros(
+      (nud,), dtype=dtype, device=device)
+  return mp[..., None], mq[..., None], ud[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -540,11 +601,14 @@ class StepView:
 # ---------------------------------------------------------------------------
 
 
-def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
+def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
+            mocap_pos=None, mocap_quat=None, userdata=None):
   """One physics step in tile layout (plain PyTorch).
 
   Args: qpos (nq, B); qvel (nv, B); ctrl (nu, B); efc_lambda (nrow, B)
-  warm-start duals (None or all-zero columns = cold start).
+  warm-start duals (None or all-zero columns = cold start); the
+  rollout-constant mocap poses and userdata, as `aux_operands` takes them
+  (None: its defaults). A mocap body's pose overrides its kinematics.
   Returns (qpos2, qvel2, view) with view a StepView.
   """
   nv, nbody = tm.nv, tm.nbody
@@ -558,6 +622,9 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
     return torch.as_tensor(np.asarray(v, dtype=np.float32), dtype=dtype,
                            device=dev)
 
+  mocap_pos, mocap_quat, userdata = aux_operands(
+      tm, mocap_pos, mocap_quat, userdata, dtype, dev)
+
   # ---- forward kinematics
   xpos = [zero3]
   xquat = [torch.stack([zero + 1.0, zero, zero, zero])]
@@ -567,6 +634,10 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
     p = tm.body_parentid[bd]
     quat = _quat_mul(xquat[p], _c(tm.body_quat[bd]))
     pos = xpos[p] + _quat_rot(xquat[p], _c(tm.body_pos[bd]))
+    mid = tm.body_mocapid[bd]
+    if mid >= 0:  # the mocap pose overrides (rollout-constant)
+      pos = torch.stack([zero + mocap_pos[mid, i] for i in range(3)])
+      quat = torch.stack([zero + mocap_quat[mid, i] for i in range(4)])
     jadr, jnum = tm.body_jntadr[bd], tm.body_jntnum[bd]
     for j in range(jadr, jadr + jnum):
       qadr = tm.jnt_qposadr[j]
@@ -735,6 +806,7 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
           qpos[qadr] - float(tm.qpos_spring[qadr]))
 
   qfrc_act = [zero for _ in range(nv)]
+  act_force = []
   for u in range(tm.nu):
     c = ctrl[u]
     if tm.ctrl_limited[u]:
@@ -756,6 +828,7 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
     if tm.force_limited[u]:
       force = torch.clamp(force, float(tm.force_lo[u]),
                           float(tm.force_hi[u]))
+    act_force.append(force)
     k = int(tm.act_vadr[u])
     qfrc_act[k] = qfrc_act[k] + gear * force
 
@@ -812,6 +885,13 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
   sub_com = [root_mc / max(root_m, 1e-12)] + [
       comp_mc[bd] / max(comp_m[bd], 1e-12) for bd in range(1, nbody)]
 
+  # site and geom centres (pre-step frames)
+  def points(bodies, pos):
+    out = [xpos[b] + _quat_rot(xquat[b], _c(pos[i]))
+           for i, b in enumerate(bodies)]
+    return (torch.stack(out) if out
+            else torch.zeros((0, 3, B), dtype=dtype, device=dev))
+
   view = StepView(
       qpos=qpos2, qvel=qvel2, ctrl=ctrl,
       xpos=torch.stack(xpos), xquat=torch.stack(xquat),
@@ -819,6 +899,11 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None):
       ximat=torch.stack(ximat),
       cvel=torch.stack([torch.cat([va, vl]) for va, vl in cvel]),
       subtree_com=torch.stack(sub_com),
+      site_xpos=points(tm.site_bodyid, tm.site_pos),
+      geom_xpos=points(tm.geom_bodyid, tm.geom_pos),
+      actuator_force=(torch.stack(act_force) if act_force
+                      else torch.zeros((0, B), dtype=dtype, device=dev)),
+      mocap_pos=mocap_pos, mocap_quat=mocap_quat, userdata=userdata,
       efc_lambda=lam_out)
   return qpos2, qvel2, view
 
@@ -835,25 +920,77 @@ def _frame_from_normal(n):
   return torch.stack([n, t1, _cross(n, t1)])
 
 
+def _mat_vec(m, v):
+  """(3, 3, B) matrix times 3 floats or (3, B), summed in index order."""
+  return torch.stack([m[i, 0] * v[0] + m[i, 1] * v[1] + m[i, 2] * v[2]
+                      for i in range(3)])
+
+
+def _mat_tvec(m, v):
+  """The transpose of (3, 3, B) times (3, B)."""
+  return torch.stack([m[0, i] * v[0] + m[1, i] * v[1] + m[2, i] * v[2]
+                      for i in range(3)])
+
+
+def _sphere_box_point(center, radius, bp, bm, bsize):
+  """(dist, contact position, normal from the sphere into the box) of a
+  sphere against a box of half-sizes bsize at (bp, bm)
+  (collision._sphere_box_point; argmin as first-min one-hot selects)."""
+  local = _mat_tvec(bm, center - bp)
+  s = [float(x) for x in bsize]
+  absl = [torch.abs(local[i]) for i in range(3)]
+  clamped = [torch.clamp(local[i], -s[i], s[i]) for i in range(3)]
+  inside = (absl[0] < s[0]) & (absl[1] < s[1]) & (absl[2] < s[2])
+  fd = [s[i] - absl[i] for i in range(3)]
+  is0 = (fd[0] <= fd[1]) & (fd[0] <= fd[2])
+  is1 = ~is0 & (fd[1] <= fd[2])
+  is_k = [is0, is1, ~(is0 | is1)]
+  sgn = [torch.sign(local[i]) for i in range(3)]
+  surf = torch.stack([
+      torch.where(inside, torch.where(is_k[i], sgn[i] * s[i], local[i]),
+                  clamped[i]) for i in range(3)])
+  world = bp + _mat_vec(bm, surf)
+  delta = center - world
+  dn = torch.sqrt(torch.clamp(_dot3(delta, delta), min=0.0))
+  inv = 1.0 / torch.clamp(dn, min=1e-12)
+  n_out = torch.stack([-delta[i] * inv for i in range(3)])
+  push = torch.stack([torch.where(is_k[i], -sgn[i], torch.zeros_like(dn))
+                      for i in range(3)])
+  n = torch.where(inside[None], _mat_vec(bm, push), n_out)
+  dist = torch.where(inside, -dn - radius, dn - radius)
+  return dist, world - 0.5 * dist * n, n
+
+
 def _contact_geometry(tm, cp, geom_frame, const):
   """(dist (B,), frame (3 rows, 3, B), cpos (3, B)) of one contact point,
   the margin taken off dist (tilestep.py narrowphase)."""
-  if cp.kind in ("plane_sphere", "plane_capend"):
+  if cp.kind in ("plane_sphere", "plane_capend", "plane_boxcorner"):
     gpos, gquat = geom_frame(cp.g2)
-    end = gpos
-    if cp.kind == "plane_capend":
-      end = gpos + cp.sign * cp.half2 * _quat_to_mat(gquat)[:, 2]
     n_c = _c(cp.frame[0])
     pp = _c(cp.ppos)
-    r = cp.r2
+    if cp.kind == "plane_boxcorner":
+      end = gpos + _mat_vec(_quat_to_mat(gquat), _c(cp.size2 * cp.corner))
+      r = 0.0
+    elif cp.kind == "plane_capend":
+      end = gpos + cp.sign * cp.half2 * _quat_to_mat(gquat)[:, 2]
+      r = cp.r2
+    else:
+      end, r = gpos, cp.r2
     dist = (n_c[0] * (end[0] - pp[0]) + n_c[1] * (end[1] - pp[1]) +
             n_c[2] * (end[2] - pp[2])) - r
     scale = r + 0.5 * dist
     cpos = torch.stack([end[k] - n_c[k] * scale for k in range(3)])
     frame = const(cp.frame)[:, :, None].expand(3, 3, dist.shape[0])
+    return dist - cp.margin, frame, cpos
+  p1, q1 = geom_frame(cp.g1)
+  p2, q2 = geom_frame(cp.g2)
+  if cp.kind == "sphere_box":
+    dist, cpos, n = _sphere_box_point(p1, cp.r1, p2, _quat_to_mat(q2),
+                                      cp.size2)
+    return dist - cp.margin, _frame_from_normal(n), cpos
+  if cp.kind == "sphere_sphere":
+    c1, c2 = p1, p2
   else:  # cap_cap (collision._capsule_capsule, smooth clamped)
-    p1, q1 = geom_frame(cp.g1)
-    p2, q2 = geom_frame(cp.g2)
     u1, u2 = _quat_to_mat(q1)[:, 2], _quat_to_mat(q2)[:, 2]
     rvec = p2 - p1
     uu = _dot3(u1, u2)
@@ -864,13 +1001,12 @@ def _contact_geometry(tm, cp, geom_frame, const):
     t1c = torch.clamp(_dot3(p2 + t2c * u2 - p1, u1), -cp.half1, cp.half1)
     c1 = p1 + t1c * u1
     c2 = p2 + t2c * u2
-    delta = c2 - c1
-    dn = torch.sqrt(torch.clamp(_dot3(delta, delta), min=1e-24))
-    n = delta / dn
-    dist = dn - (cp.r1 + cp.r2)
-    cpos = c1 + n * (cp.r1 + 0.5 * dist)
-    frame = _frame_from_normal(n)
-  return dist - cp.margin, frame, cpos
+  delta = c2 - c1
+  dn = torch.sqrt(torch.clamp(_dot3(delta, delta), min=1e-24))
+  n = delta / dn
+  dist = dn - (cp.r1 + cp.r2)
+  cpos = c1 + n * (cp.r1 + 0.5 * dist)
+  return dist - cp.margin, _frame_from_normal(n), cpos
 
 
 def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,

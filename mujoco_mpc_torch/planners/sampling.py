@@ -157,11 +157,14 @@ class SamplingPlanner:
   def _returns(self, task: Task, data: Data, new_times: torch.Tensor,
                cands: torch.Tensor,
                params: Optional[TaskParams]) -> torch.Tensor:
-    """Candidate returns (N,) from one MegaRollout call."""
+    """Candidate returns (N,) from one MegaRollout call, with the state's
+    mocap poses and userdata as rollout constants."""
     actions = self._actions(task, data, new_times, cands)
     return self.mega.returns(
         data.qpos, data.qvel, actions,
-        params if params is not None else task.params, data.time)
+        params if params is not None else task.params, data.time,
+        mocap_pos=data.mocap_pos, mocap_quat=data.mocap_quat,
+        userdata=data.userdata)
 
   def candidates(self, task: Task, policy: SamplingPolicy, data: Data,
                  generator: Optional[torch.Generator],

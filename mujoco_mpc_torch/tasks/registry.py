@@ -103,7 +103,7 @@ def load_task_model(stem: str, dtype=torch.float32,
 
 
 def _register_all():
-  from mujoco_mpc_torch.tasks import humanoid, walker  # noqa: F401
+  from mujoco_mpc_torch.tasks import humanoid, quadruped, walker  # noqa: F401
 
 
 _register_all()

@@ -147,12 +147,14 @@ def test_humanoid_step_matches_jax(tile_models, two_steps, which):
 
 
 def test_humanoid_residual_matches_jax(tasks, two_steps):
-  """The port's residual on a StepView carried across from the JAX view."""
+  """The port's residual on a StepView carried across from the JAX view
+  (the mocap and userdata operands, which the JAX step leaves None
+  without a mocap body, from the port's view)."""
   t, j = tasks
-  jview = two_steps[0][5]
-  fields = {f.name: torch.tensor(np.asarray(getattr(jview, f.name)))
-            for f in dataclasses.fields(tts.StepView)
-            if f.name != "time"}
+  tview, jview = two_steps[0][2], two_steps[0][5]
+  fields = {f.name: getattr(tview, f.name) if getattr(jview, f.name) is None
+            else torch.tensor(np.asarray(getattr(jview, f.name)))
+            for f in dataclasses.fields(tts.StepView) if f.name != "time"}
   ours = thum.residual(t.model, tts.StepView(**fields),
                        t.params.residual_params)
   theirs = j.residual(j.model, jview, j.params.residual_params)

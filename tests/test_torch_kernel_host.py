@@ -11,7 +11,9 @@ tested in tests/test_torch_megarollout_cuda.py. Built without contraction
 Tolerances, with the errors measured when they were set: Walker step qpos
 atol 1e-6 (3.0e-8), qvel 1e-4 (6.4e-6), duals 1e-5 * max (1.2e-3 of 1.1e3);
 Humanoid step qpos 1e-5 (5.1e-7), qvel 1e-3 (7.6e-5), duals 1e-4 * max
-(3.2e-3 of 2.2e3); returns rtol 2e-3 (Walker 1.2e-7, Humanoid 1.3e-6).
+(3.2e-3 of 2.2e3); Quadruped step qpos 1e-5 (2.4e-7), qvel 1e-3 (6.7e-6),
+duals 1e-4 * max (3.7e-4 of 9.2e2); returns rtol 2e-3 (Walker 1.2e-7,
+Humanoid 1.3e-6).
 """
 
 import ctypes
@@ -27,6 +29,7 @@ from mujoco_mpc_torch.ops import _cuda_build
 from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.physics import tilestep as tts
 from mujoco_mpc_torch.tasks import humanoid as thum
+from mujoco_mpc_torch.tasks import quadruped as tquad
 from mujoco_mpc_torch.tasks import registry as treg
 
 _STUB = r"""
@@ -38,6 +41,7 @@ _STUB = r"""
 #define __global__
 #define __launch_bounds__(x)
 #define __shared__ static
+#define __constant__ static
 #define __restrict__
 struct host_dim3 { unsigned x, y, z; };
 static host_dim3 threadIdx, blockIdx, blockDim;
@@ -56,45 +60,50 @@ _HOST_MAIN = r"""
 template <class T>
 static void returns(const void* model, const void* qpos0, const void* qvel0,
     const void* actions, const void* weights, const void* norm_params,
-    const void* risk, const void* res_params, const void* t0, void* out,
-    int n, int horizon) {
+    const void* risk, const void* res_params, const void* t0,
+    const void* mp, const void* mq, const void* ud, void* out, int n,
+    int horizon) {
   blockDim.x = 1; threadIdx.x = 0;
   for (int c = 0; c < n; ++c) {
     blockIdx.x = c;
     mr_returns_kernel<T>((const MRModelT<T>*)model, (const T*)qpos0,
         (const T*)qvel0, (const T*)actions, (const T*)weights,
         (const T*)norm_params, (const T*)risk, (const T*)res_params,
-        (const T*)t0, (T*)out, n, horizon);
+        (const T*)t0, (const T*)mp, (const T*)mq, (const T*)ud, (T*)out, n,
+        horizon);
   }
 }
 template <class T>
 static void step(const void* model, const void* qpos, const void* qvel,
-    const void* ctrl, const void* lam, void* qpos_out, void* qvel_out,
-    void* lam_out, int b) {
+    const void* ctrl, const void* lam, const void* mp, const void* mq,
+    const void* ud, void* qpos_out, void* qvel_out, void* lam_out, int b) {
   blockDim.x = 1; threadIdx.x = 0;
   for (int c = 0; c < b; ++c) {
     blockIdx.x = c;
     mr_step_kernel<T>((const MRModelT<T>*)model, (const T*)qpos,
-        (const T*)qvel, (const T*)ctrl, (const T*)lam, (T*)qpos_out,
-        (T*)qvel_out, (T*)lam_out, b);
+        (const T*)qvel, (const T*)ctrl, (const T*)lam, (const T*)mp,
+        (const T*)mq, (const T*)ud, (T*)qpos_out, (T*)qvel_out,
+        (T*)lam_out, b);
   }
 }
 #define RETURNS_ARGS const void* m, const void* q, const void* v, \
     const void* a, const void* w, const void* np, const void* r, \
-    const void* rp, const void* t0, void* out, int n, int h
+    const void* rp, const void* t0, const void* mp, const void* mq, \
+    const void* ud, void* out, int n, int h
 #define STEP_ARGS const void* m, const void* q, const void* v, \
-    const void* c, const void* l, void* qo, void* vo, void* lo, int b
+    const void* c, const void* l, const void* mp, const void* mq, \
+    const void* ud, void* qo, void* vo, void* lo, int b
 extern "C" void host_returns(RETURNS_ARGS) {
-  returns<float>(m, q, v, a, w, np, r, rp, t0, out, n, h);
+  returns<float>(m, q, v, a, w, np, r, rp, t0, mp, mq, ud, out, n, h);
 }
 extern "C" void host_returns64(RETURNS_ARGS) {
-  returns<double>(m, q, v, a, w, np, r, rp, t0, out, n, h);
+  returns<double>(m, q, v, a, w, np, r, rp, t0, mp, mq, ud, out, n, h);
 }
 extern "C" void host_step(STEP_ARGS) {
-  step<float>(m, q, v, c, l, qo, vo, lo, b);
+  step<float>(m, q, v, c, l, mp, mq, ud, qo, vo, lo, b);
 }
 extern "C" void host_step64(STEP_ARGS) {
-  step<double>(m, q, v, c, l, qo, vo, lo, b);
+  step<double>(m, q, v, c, l, mp, mq, ud, qo, vo, lo, b);
 }
 """
 
@@ -123,9 +132,9 @@ def _build(d, flags):
   lib.mr_model_size.argtypes = [ctypes.c_int]
   lib.mr_model_size.restype = ctypes.c_longlong
   for name in ("host_returns", "host_returns64"):
-    getattr(lib, name).argtypes = [_P] * 10 + [ctypes.c_int] * 2
+    getattr(lib, name).argtypes = [_P] * 13 + [ctypes.c_int] * 2
   for name in ("host_step", "host_step64"):
-    getattr(lib, name).argtypes = [_P] * 8 + [ctypes.c_int]
+    getattr(lib, name).argtypes = [_P] * 11 + [ctypes.c_int]
   tmr._check_layout(lib)  # the ctypes mirrors match the compiled structs
   return lib
 
@@ -158,6 +167,7 @@ _CASES = {
     # task, states, (qpos, qvel, duals-relative) tolerances in float32
     "Walker": (_walker_states, (1e-6, 1e-4, 1e-5)),
     "Humanoid Walk": (thum.probe_states, (1e-5, 1e-3, 1e-4)),
+    "Quadruped Flat": (tquad.probe_states, (1e-5, 1e-3, 1e-4)),
 }
 # float64: the kernel's double instance against step_tb in float64
 _TOL64 = (1e-12, 1e-11, 1e-12)
@@ -165,11 +175,23 @@ _NP = {torch.float32: np.float32, torch.float64: np.float64}
 _SUFFIX = {torch.float32: "", torch.float64: "64"}
 
 
-def _host_step(lib, raw, dtype, qp, qv, ct, lam):
+def _aux(tm, dtype, userdata=None):
+  """The rollout-constant operands as the kernel takes them: for a model
+  with a mocap body (the quadruped's goal) the goal at (1.0, 0.3, 0.3) and
+  a trot's userdata, otherwise the defaults."""
+  if tm.nmocap and userdata is None:
+    userdata = tquad.fsm_userdata(tm.nuserdata)
+  mp, mq, ud = tts.aux_operands(
+      tm, [[1.0, 0.3, 0.3]] * tm.nmocap, None, userdata, dtype)
+  return [np.ascontiguousarray(x[..., 0].numpy()) for x in (mp, mq, ud)]
+
+
+def _host_step(lib, raw, dtype, qp, qv, ct, lam, aux):
   ins = [np.ascontiguousarray(x.T) for x in (qp, qv, ct, lam)]
   outs = [np.empty_like(ins[i]) for i in (0, 1, 3)]
   getattr(lib, "host_step" + _SUFFIX[dtype])(
-      _ptr(raw), *map(_ptr, ins), *map(_ptr, outs), qp.shape[1])
+      _ptr(raw), *map(_ptr, ins), *map(_ptr, aux), *map(_ptr, outs),
+      qp.shape[1])
   return tuple(x.T.copy() for x in outs)
 
 
@@ -181,11 +203,14 @@ def _check_steps(lib, name, dtype, tols):
   raw = np.frombuffer(tmr.pack_model(tm, task, dtype), np.uint8).copy()
   qp, qv, ct = (x.astype(_NP[dtype]) for x in states(task.model, 8))
   b = qp.shape[1]
+  aux = _aux(tm, dtype)
+  ops = dict(zip(("mocap_pos", "mocap_quat", "userdata"),
+                 (torch.tensor(x)[..., None] for x in aux)))
   kq, kv, kl = qp, qv, np.zeros((tm.nrow, b), _NP[dtype])
   pq, pv, pl = torch.tensor(qp), torch.tensor(qv), None
   for _ in range(2):  # cold, then warm-started
-    kq, kv, kl = _host_step(lib, raw, dtype, kq, kv, ct, kl)
-    pq, pv, view = tts.step_tb(tm, pq, pv, torch.tensor(ct), pl)
+    kq, kv, kl = _host_step(lib, raw, dtype, kq, kv, ct, kl, aux)
+    pq, pv, view = tts.step_tb(tm, pq, pv, torch.tensor(ct), pl, **ops)
     pl = view.efc_lambda
     scale = float(pl.abs().max())
     assert scale > 1.0  # contacts carry force
@@ -202,11 +227,13 @@ def test_host_kernel_step_matches_plain(lib, name):
 @pytest.mark.parametrize("name", sorted(_CASES))
 def test_host_kernel_float64_step_matches_plain(lib, name):
   """Measured: Walker qvel 9.3e-15, duals 2.5e-12 of 9.6e2; Humanoid qpos
-  4.2e-16, qvel 8.2e-14, duals 9.1e-12 of 2.2e3."""
+  4.2e-16, qvel 8.2e-14, duals 9.1e-12 of 2.2e3; Quadruped qpos 1.1e-16,
+  qvel 1.1e-14, duals 9.1e-13 of 9.2e2."""
   _check_steps(lib, name, torch.float64, _TOL64)
 
 
-def _check_returns(lib, name, dtype, horizon, rtol):
+def _check_returns(lib, name, dtype, horizon, rtol, userdata=None,
+                   params=None):
   task = treg.get_task(name, device="cpu")
   n = 8
   mr = tmr.MegaRollout(task, horizon, device="cpu")
@@ -216,20 +243,28 @@ def _check_returns(lib, name, dtype, horizon, rtol):
   acts = (0.4 * np.random.RandomState(0).randn(n, horizon, mr.tm.nu)
           ).astype(np.float32)
   home, v0, acts = (x.astype(_NP[dtype]) for x in (home, v0, acts))
-  # a diverging candidate: its squared controls overflow
-  acts[1] = 1e30 if dtype == torch.float32 else 1e300
-  p = task.params.to(dtype=dtype)
+  # a diverging candidate: its squared controls overflow (the quadruped's
+  # cost reads the actuator forces of the clamped controls instead)
+  diverge = task.weight_mod is None
+  if diverge:
+    acts[1] = 1e30 if dtype == torch.float32 else 1e300
+  p = (params or task.params).to(dtype=dtype)
+  aux = _aux(mr.tm, dtype, userdata)
   ops = [raw, home, v0, acts] + [
       np.ascontiguousarray(x.numpy().reshape(-1))
       for x in (p.weights, p.norm_params, p.risk, p.residual_params)] + [
-          np.asarray([0.25], _NP[dtype])]
+          np.asarray([0.25], _NP[dtype])] + aux
   out = np.empty(n, _NP[dtype])
   getattr(lib, "host_returns" + _SUFFIX[dtype])(
       *map(_ptr, ops), _ptr(out), n, horizon)
   want = mr.returns(torch.tensor(home), torch.tensor(v0),
-                    torch.tensor(acts), p, 0.25).numpy()
+                    torch.tensor(acts), p, 0.25,
+                    *(torch.tensor(x) for x in aux)).numpy()
   assert want.dtype == _NP[dtype]
-  assert out[1] == want[1] == tmr.MAX_RETURN
+  if diverge:
+    assert out[1] == want[1] == tmr.MAX_RETURN
+  else:
+    assert np.all(want < tmr.MAX_RETURN)
   np.testing.assert_allclose(out, want, rtol=rtol)
 
 
@@ -243,6 +278,40 @@ def test_host_kernel_float64_returns_match_plain(lib, name):
   """30 steps, against the plain version in float64. Measured: rel
   7.6e-16 (Walker) and 1.4e-15 (Humanoid)."""
   _check_returns(lib, name, torch.float64, 30, 1e-9)
+
+
+# every branch of residual_quadruped and weight_mod_quadruped: the mode in
+# userdata and the Biped type parameter; Flip entered 0, 0.4, 0.8 and 1.1 s
+# before the rollout's t0 of 0.25 s puts its 30 steps of 5 ms in the jump,
+# the flight, the landing and after the flip
+QUADRUPED_MODES = {
+    "quadruped": (tquad.MODE_QUADRUPED, 0.0, 0),
+    "biped": (tquad.MODE_BIPED, 0.0, 0),
+    "handstand": (tquad.MODE_BIPED, 0.0, 1),
+    "walk": (tquad.MODE_WALK, 0.0, 0),
+    "scramble": (tquad.MODE_SCRAMBLE, 0.0, 0),
+    "flip_jump": (tquad.MODE_FLIP, 0.0, 0),
+    "flip_flight": (tquad.MODE_FLIP, -0.4, 0),
+    "flip_landing": (tquad.MODE_FLIP, -0.8, 0),
+    "flip_done": (tquad.MODE_FLIP, -1.1, 0),
+}
+
+
+def quadruped_mode(task, case):
+  """(userdata, TaskParams) of a QUADRUPED_MODES case."""
+  mode, start, biped_type = QUADRUPED_MODES[case]
+  u = tquad.fsm_userdata(task.model.nuserdata, mode, time=start)
+  return u, task.set_parameter("select_Biped type", biped_type).params
+
+
+@pytest.mark.parametrize("case", sorted(QUADRUPED_MODES))
+def test_host_kernel_quadruped_modes_match_plain(lib, case):
+  """Each residual branch, float32 over 4 steps (rtol 2e-3) and float64
+  over 30 (rtol 1e-9)."""
+  task = treg.get_task("Quadruped Flat", device="cpu")
+  u, params = quadruped_mode(task, case)
+  _check_returns(lib, "Quadruped Flat", torch.float32, 4, 2e-3, u, params)
+  _check_returns(lib, "Quadruped Flat", torch.float64, 30, 1e-9, u, params)
 
 
 def test_host_kernel_contraction_moves_only_float_rounding(lib_contracted):
@@ -270,7 +339,8 @@ def test_host_kernel_contraction_moves_only_float_rounding(lib_contracted):
   for dt in (torch.float32, torch.float64):
     raw = np.frombuffer(tmr.pack_model(tm, task, dt), np.uint8).copy()
     kq, kv, kl = _host_step(lib_contracted, raw, dt,
-                            *(x.astype(_NP[dt]) for x in (qp, qv, ct, lam0)))
+                            *(x.astype(_NP[dt]) for x in (qp, qv, ct, lam0)),
+                            _aux(tm, dt))
     err = np.abs(kv - plain[dt][1]).max(0)
     if dt == torch.float64:
       np.testing.assert_allclose(kq, plain[dt][0], atol=1e-12, rtol=0)

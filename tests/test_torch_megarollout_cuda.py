@@ -4,9 +4,9 @@ Needs an NVIDIA GPU (sm_90a) and nvcc; every test skips without a card.
 On the card: python -m pytest tests/test_torch_megarollout_cuda.py -q
 
 Tolerances as in tests/test_torch_tilestep.py: one Walker step qpos atol
-1e-6, qvel atol 1e-4, duals atol 1e-5 * max|duals|; one Humanoid step qpos
-atol 1e-5, qvel atol 1e-3, duals atol 1e-4 * max|duals| (27 dofs and 117
-rows carry more f32 rounding); returns rtol 2e-3. The kernel's float64
+1e-6, qvel atol 1e-4, duals atol 1e-5 * max|duals|; one Humanoid or
+Quadruped step qpos atol 1e-5, qvel atol 1e-3, duals atol 1e-4 * max|duals|
+(18-27 dofs and 90-117 rows carry more f32 rounding); returns rtol 2e-3. The kernel's float64
 instance against the plain version in float64, as in
 tests/test_torch_kernel_host.py: step qpos atol 1e-12, qvel 1e-10, duals
 1e-12 * max|duals|; returns over 30 steps rtol 1e-9.
@@ -19,7 +19,9 @@ import torch
 from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.physics import tilestep as tts
 from mujoco_mpc_torch.tasks import humanoid as thum
+from mujoco_mpc_torch.tasks import quadruped as tquad
 from mujoco_mpc_torch.tasks import registry as treg
+from tests.test_torch_kernel_host import QUADRUPED_MODES, quadruped_mode
 
 pytestmark = pytest.mark.cuda
 
@@ -197,3 +199,94 @@ def test_humanoid_float64_returns_match_plain(humanoid):
   assert got.dtype == torch.float64 and mr.launches == 1
   assert float(got[3]) == float(want[3]) == tmr.MAX_RETURN
   torch.testing.assert_close(got, want, rtol=1e-9, atol=0)
+
+
+@pytest.fixture(scope="module")
+def quadruped():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device and nvcc")
+  dev = torch.device("cuda")
+  return treg.get_task("Quadruped Flat", device=dev), dev
+
+
+def _quadruped_operands(task, dev, dtype=torch.float32, userdata=None):
+  """The goal mocap at (1.0, 0.3, 0.3) and a trot's userdata, as
+  MegaRollout takes them."""
+  u = tquad.fsm_userdata(task.model.nuserdata) if userdata is None \
+      else userdata
+  return dict(
+      mocap_pos=torch.tensor([[1.0, 0.3, 0.3]], dtype=dtype, device=dev),
+      mocap_quat=torch.tensor([[1.0, 0.0, 0.0, 0.0]], dtype=dtype,
+                              device=dev),
+      userdata=torch.tensor(u, dtype=dtype, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_quadruped_step_matches_plain(quadruped, dtype):
+  """Plane-box corner, sphere-sphere and sphere-box rows and the mocap
+  goal, each row class carrying force in some of the states."""
+  task, dev = quadruped
+  mr = tmr.MegaRollout(task, 1, device=dev)
+  assert mr.tm.nrow == 90 and mr.tm.nmocap == 1
+  kinds = np.array(tts.row_kinds(mr.tm))
+  ops = _quadruped_operands(task, dev, dtype)
+  q, v, c = (torch.tensor(x, device=dev, dtype=dtype)
+             for x in tquad.probe_states(task.model, 72))
+  tq, tv, tl = (1e-5, 1e-3, 1e-4) if dtype == torch.float32 else (
+      1e-12, 1e-10, 1e-12)
+  kq, kv, kl = q, v, None
+  pq, pv, pl = q, v, None
+  for _ in range(2):  # cold, then warm-started
+    kq, kv, kl = mr.step(kq, kv, c, kl, **ops)
+    pq, pv, view = tts.step_tb(mr.tm, pq, pv, c, pl, **ops)
+    pl = view.efc_lambda
+    torch.cuda.synchronize()
+    lam = pl.abs().cpu().numpy()
+    for kind in set(kinds):
+      assert lam[kinds == kind].max() > 0.0, kind
+    scale = float(lam.max())
+    torch.testing.assert_close(kq, pq, atol=tq, rtol=0)
+    torch.testing.assert_close(kv, pv, atol=tv, rtol=0)
+    torch.testing.assert_close(kl, pl, atol=tl * scale, rtol=0)
+  assert mr.step_launches == 2
+
+
+@pytest.mark.parametrize("case", sorted(QUADRUPED_MODES))
+def test_quadruped_returns_match_plain(quadruped, case):
+  """Each residual branch: float32 over 6 steps at rtol 2e-3, float64 over
+  30 at rtol 1e-9, with the goal and the mode's userdata."""
+  task, dev = quadruped
+  u, params = quadruped_mode(task, case)
+  n = 70
+  q0 = torch.tensor(task.model.keyframe("home")[0], device=dev)
+  for dtype, horizon, rtol in ((torch.float32, 6, 2e-3),
+                               (torch.float64, 30, 1e-9)):
+    mr = tmr.MegaRollout(task, horizon, device=dev)
+    acts = (task.default_ctrl().to(dtype) + torch.tensor(
+        0.3 * np.random.RandomState(2).randn(n, horizon, 12), dtype=dtype,
+        device=dev)).contiguous()
+    ops = _quadruped_operands(task, dev, dtype, u)
+    p = params.to(dtype=dtype)
+    args = (q0.to(dtype), torch.zeros(18, device=dev, dtype=dtype), acts, p,
+            0.25)
+    got = mr.returns(*args, **ops)
+    want = mr.returns_plain(*args, dtype=dtype, **ops)
+    torch.cuda.synchronize()
+    assert mr.launches == 1
+    assert bool(torch.all(want < tmr.MAX_RETURN))
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+
+
+def test_quadruped_wrapper_checks_operands(quadruped):
+  task, dev = quadruped
+  mr = tmr.MegaRollout(task, 2, device=dev)
+  q0 = torch.tensor(task.model.keyframe("home")[0], device=dev)
+  acts = torch.zeros((8, 2, 12), device=dev)
+  ops = _quadruped_operands(task, dev)
+  with pytest.raises(ValueError, match="userdata"):
+    mr.returns(q0, torch.zeros(18, device=dev), acts, task.params, 0.0,
+               **{**ops, "userdata": ops["userdata"][:16]})
+  with pytest.raises(ValueError, match="mocap_pos"):
+    mr.returns(q0, torch.zeros(18, device=dev), acts, task.params, 0.0,
+               **{**ops, "mocap_pos": ops["mocap_pos"].double()})
+  assert mr.launches == 0

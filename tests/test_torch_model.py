@@ -122,6 +122,7 @@ def test_import_leaves_jax_out():
           "import mujoco_mpc_torch.agent.agent, mujoco_mpc_torch.convert\n"
           "import mujoco_mpc_torch.ops.megarollout\n"
           "import mujoco_mpc_torch.tasks.humanoid\n"
+          "import mujoco_mpc_torch.tasks.quadruped\n"
           "import mujoco_mpc_torch.physics.sensors\n"
           "bad = [m for m in sys.modules if m.split('.')[0] in "
           "('jax', 'jaxlib', 'flax', 'mujoco_mpc_tpu')]\n"
@@ -132,34 +133,55 @@ def test_import_leaves_jax_out():
 
 
 _BODY = "<body><joint name='a' type='hinge'/><geom size='.1'/></body>"
+
+
+def _bodies(*geoms):
+  """A world of free bodies, one per geom (type, size)."""
+  return ("<mujoco><worldbody>" + "".join(
+      f"<body pos='0 0 {i}'><freejoint/><geom type='{t}' size='{s}'/>"
+      "</body>" for i, (t, s) in enumerate(geoms)) + "</worldbody></mujoco>")
+
+
+# case: (MJCF, the ROADMAP item the error names)
 _OUT_OF_CLASS = {
     "ball": ("<mujoco><worldbody><body><joint type='ball'/><geom size='.1'/>"
              "</body></worldbody></mujoco>", "S3"),
-    "mocap": ("<mujoco><worldbody><body mocap='true' pos='0 0 1'><geom "
-              "size='.1' contype='0' conaffinity='0'/></body>" + _BODY +
-              "</worldbody></mujoco>", "S4"),
     "tendon_actuator": ("<mujoco><worldbody>" + _BODY + "</worldbody><tendon>"
                         "<fixed name='t'><joint joint='a' coef='1'/></fixed>"
                         "</tendon><actuator><motor tendon='t'/></actuator>"
                         "</mujoco>", "S5"),
+    "colliding_mocap": ("<mujoco><worldbody><body mocap='true' pos='0 0 1'>"
+                        "<geom size='.1'/></body>" + _BODY +
+                        "</worldbody></mujoco>", "general engine"),
+    "box_box": (_bodies(("box", ".1 .1 .1"), ("box", ".1 .1 .1")), "S5"),
+    "capsule_box": (_bodies(("capsule", ".05 .1"), ("box", ".1 .1 .1")),
+                    "S5"),
+    "sphere_capsule": (_bodies(("sphere", ".1"), ("capsule", ".05 .1")),
+                       "S5"),
 }
 
 
-@pytest.mark.parametrize("case", sorted(_OUT_OF_CLASS) + ["box_pair"])
+@pytest.mark.parametrize("case", sorted(_OUT_OF_CLASS) + ["jointed_mocap"])
 def test_out_of_class_models_raise(case):
-  """The free joint, fixed-tendon limits, plane-sphere and capsule-capsule
-  contacts are in the class now; these stay out, naming their slice."""
-  if case == "box_pair":  # a box on the floor: slice S5
+  """The free joint, fixed-tendon limits, mocap bodies and the plane-sphere,
+  plane-box, sphere-sphere, sphere-box and capsule-capsule contacts are in
+  the class now; these stay out, naming the ROADMAP item that ports them:
+  ball joints (slice S3), tendon actuators and the remaining pairs (S5),
+  and what the JAX kernel leaves to the general engine, a mocap body with a
+  joint or a colliding geom."""
+  if case == "jointed_mocap":  # MJCF refuses it: the Walker's torso
     walker = treg.get_task("Walker", device="cpu").model
-    model, item = walker.replace(geom_type=tuple(
-        6 if g == 4 else t for g, t in enumerate(walker.geom_type))), "S5"
+    torso = walker.body("torso")
+    model, item = walker.replace(nmocap=1, body_mocapid=tuple(
+        0 if b == torso else -1 for b in range(walker.nbody))), \
+        "general engine"
   else:
     xml, item = _OUT_OF_CLASS[case]
     model = tio.load_model(xml, device="cpu")
   with pytest.raises(tts.UnsupportedModel, match=item):
     tts.extract(model)
   with pytest.raises(KeyError, match="not ported yet"):
-    treg.get_task("Quadruped Flat", device="cpu")
+    treg.get_task("Quadruped Hill", device="cpu")
 
 
 def test_make_data_matches_jax():

@@ -87,13 +87,22 @@ def test_optimize_matches_jax_composition(setup, interp):
                              atol=1e-6)
 
 
-def test_agent_cpu_best_return_does_not_increase():
-  """Three plan iterations at a fixed state: candidate 0 is the previous
-  winner, so the best return cannot rise."""
+def test_agent_walker_defaults():
+  """The Agent plans the Walker at its XML defaults: 128 candidates over
+  0.8 s at agent_timestep 0.01, i.e. 80 steps. Builds no rollout."""
   agent = Agent("Walker", device="cpu")
-  agent.reset("home")
   assert agent.planner.config.num_trajectories == 128
   assert agent.planner.config.horizon == 80
+  assert float(agent.task.model.opt.timestep) == pytest.approx(0.01)
+
+
+def test_agent_cpu_best_return_does_not_increase():
+  """Three plan iterations at a fixed state, over a horizon of 4 steps:
+  candidate 0 is the previous winner, so the best return cannot rise."""
+  agent = Agent("Walker", device="cpu", horizon_steps=4)
+  agent.reset("home")
+  assert agent.planner.config.num_trajectories == 128
+  assert agent.planner.config.horizon == 4
   assert float(agent.task.model.opt.timestep) == pytest.approx(0.01)
   best = []
   for _ in range(3):
