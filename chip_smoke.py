@@ -3,14 +3,16 @@
     python3 chip_smoke.py [--out FILE.json]
 
 Builds the CUDA kernel from mujoco_mpc_torch/csrc/ and, for each path it
-serves (Walker, Humanoid Walk, Quadruped Flat), holds it against its plain
+serves (Walker, Humanoid Walk, Quadruped Flat, Shadow, and the
+cross-entropy planner on Walker and Shadow), holds it against its plain
 PyTorch version, drives the agent's plan loop through it, and times the
 planner: Walker at 1024 candidates x 80 steps, Humanoid at the north-star
-256 x 67 at the planning dt 0.015, Quadruped at 1024 x 70 at dt 0.005.
-Humanoid rollouts that long are chaotic in float32, so there the kernel's
-float64 instance is held against the plain version in float64 candidate by
-candidate, and the float32 kernel as a population; the Quadruped's float32
-kernel is held per candidate within its own float32 noise.
+256 x 67 at the planning dt 0.015, Quadruped at 1024 x 70 and Shadow at
+512 x 100, both at dt 0.005. Humanoid rollouts that long are chaotic in
+float32, so there the kernel's float64 instance is held against the plain
+version in float64 candidate by candidate, and the float32 kernel as a
+population; the Quadruped's and Shadow's float32 kernel is held per
+candidate within its own float32 noise.
 Exits non-zero, printing no result, without a CUDA
 device or on any failed check. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernel once per
@@ -193,17 +195,241 @@ def timed_cuda(fn, reps: int) -> float:
   return start.elapsed_time(end) / reps
 
 
+def probe_step(tag: str, mr, states, operands) -> dict:
+  """One step of the float and double step kernels on probe states in which
+  every row class carries force, against the plain step_tb: float32 qpos
+  1e-5, qvel max(1e-3, 8 x the state's float32-vs-float64 distance), duals
+  1e-4 * max; float64 1e-12, 1e-10, 1e-12 * max. `operands(dtype)` gives
+  the mocap and userdata keywords. Returns the errors per precision and the
+  largest dual per row class."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.physics import tilestep
+
+  dev = mr.device
+  kinds = np.asarray(tilestep.row_kinds(mr.tm))
+  plain = {}
+  for dt in (torch.float32, torch.float64):
+    x = [torch.tensor(v, device=dev, dtype=dt) for v in states]
+    ops = operands(dt)
+    pq, pv, view = tilestep.step_tb(mr.tm, *x, **ops)
+    plain[dt] = (x, ops, pq, pv, view.efc_lambda)
+  torch.cuda.synchronize()
+  lam = plain[torch.float32][4].abs().cpu().numpy()
+  per_kind = {str(k): float(lam[kinds == k].max())
+              for k in dict.fromkeys(kinds)}
+  check(all(v > 0.0 for v in per_kind.values()),
+        f"{tag}: a constraint row class carries no force in the step check")
+  noise = (plain[torch.float32][3].double()
+           - plain[torch.float64][3]).abs().amax(0)
+  err = {}
+  for dt, key in ((torch.float32, "f32"), (torch.float64, "f64")):
+    x, ops, pq, pv, pl = plain[dt]
+    kq, kv, kl = mr.step(*x, **ops)
+    torch.cuda.synchronize()
+    ev = (kv - pv).abs().amax(0).double()
+    err[key] = {"qpos": float((kq - pq).abs().max()),
+                "qvel": float(ev.max()), "qvel_state": int(ev.argmax()),
+                "lambda": float((kl - pl).abs().max()),
+                "scale": float(pl.abs().max()),
+                "qvel_over_noise": float((ev / noise).max()),
+                "states_qvel_over_1e-3": int((ev > 1e-3).sum()),
+                "qvel_ok": bool(torch.all(
+                    ev <= torch.clamp(8.0 * noise, min=1e-3)))}
+  e32, e64 = err["f32"], err["f64"]
+  b = states[0].shape[1]
+  print(f"[{tag}] one step, B={b}, nrow {mr.tm.nrow}, float32: max "
+        f"|kernel - plain| qpos {e32['qpos']:.3g} (tol 1e-5), qvel "
+        f"{e32['qvel']!r} at state {e32['qvel_state']} (tol max(1e-3, 8 x "
+        f"the state's plain float32-vs-float64 distance, which is "
+        f"{float(noise[e32['qvel_state']])!r} there); "
+        f"{e32['states_qvel_over_1e-3']} states above 1e-3; worst ratio to "
+        f"that distance {e32['qvel_over_noise']:.3g}), lambda "
+        f"{e32['lambda']:.3g} (tol {1e-4 * e32['scale']:.3g} = 1e-4 * "
+        f"max|lambda|)")
+  print(f"[{tag}] float64: qpos {e64['qpos']:.3g} (tol 1e-12), qvel "
+        f"{e64['qvel']:.3g} (tol 1e-10), lambda {e64['lambda']:.3g} (tol "
+        f"{1e-12 * e64['scale']:.3g}); max |lambda| per row class "
+        f"{({k: round(v, 3) for k, v in per_kind.items()})}")
+  check(e32["qpos"] <= 1e-5 and e32["lambda"] <= 1e-4 * e32["scale"]
+        and e32["qvel_ok"], f"{tag}: float32 step kernel disagrees")
+  check(e64["qpos"] <= 1e-12 and e64["qvel"] <= 1e-10
+        and e64["lambda"] <= 1e-12 * e64["scale"],
+        f"{tag}: float64 step kernel disagrees")
+  return {"err": err, "max_dual_per_class": per_kind}
+
+
+def drive_agent(tag: str, agent, nu: int, monotone: bool = True):
+  """The main path: the agent's launch count set to 0, 5 plan steps at a
+  fixed state, the count read back. Checks one launch per plan, finite
+  costs and action, and (for the sampling planner, whose candidate 0 is
+  the previous winner) a best return that does not rise. Then one plan's
+  candidates, with the state's mocap poses and userdata, through the
+  kernel (timed) and the plain version, per candidate at rtol 2e-3.
+  Returns (the numbers, that plan's actions)."""
+  import numpy as np
+  import torch
+  cfg = agent.planner.config
+  agent.planner.mega.launches = 0
+  best = []
+  t = time.perf_counter()
+  for _ in range(5):
+    info = agent.planner_step()
+    best.append(float(info.best_return))
+    check(bool(torch.all(torch.isfinite(info.costs))),
+          f"{tag}: non-finite costs")
+  u = agent.action()
+  plan_ms = (time.perf_counter() - t) * 1e3 / 5
+  launches = agent.planner.mega.launches
+  print(f"[{tag}] Agent('{agent.task.name}', {agent.planner_name}, cuda) "
+        f"{cfg.num_trajectories}x{cfg.horizon} at dt "
+        f"{float(agent.task.model.opt.timestep):g}: best returns "
+        f"{[round(x, 4) for x in best]}, kernel launches {launches}, "
+        f"{plan_ms:.1f} ms per planner_step (first call included)")
+  check(np.all(np.isfinite(u)) and u.shape == (nu,), f"{tag}: bad action")
+  if monotone:
+    check(all(b2 <= b1 for b1, b2 in zip(best, best[1:])),
+          f"{tag}: best return increased at a fixed state")
+  check(launches == 5, f"{tag}: {launches} kernel launches for 5 plan steps")
+  pl, atask, d = agent.planner, agent.task, agent.data
+  new_times, _, cands = pl._gen_candidates(atask, agent.policy, d,
+                                           agent.generator)
+  acts = pl._actions(atask, d, new_times, cands)
+  args = (d.qpos, d.qvel, acts, atask.params, d.time)
+  ops = dict(mocap_pos=d.mocap_pos, mocap_quat=d.mocap_quat,
+             userdata=d.userdata)
+  got = pl.mega.returns(*args, **ops)
+  t = time.perf_counter()
+  want = pl.mega.returns_plain(*args, **ops)
+  torch.cuda.synchronize()
+  plain_ms = (time.perf_counter() - t) * 1e3
+  rel, abs_err = agreement(got, want, f"{tag}: returns {tuple(acts.shape)}")
+  ms = timed_cuda(lambda: pl.mega.returns(*args, **ops), 10)
+  print(f"[{tag}] one plan's candidates {tuple(acts.shape)}: max rel err "
+        f"{rel:.3g} (tol 2e-3), max abs err {abs_err:.3g}; kernel {ms:.3f} "
+        f"ms/call, plain {plain_ms:.1f} ms/call")
+  return {"best": best, "launches": launches, "ms_per_plan": plan_ms,
+          "returns_rel_err": rel, "returns_abs_err": abs_err,
+          "kernel_ms": ms, "plain_ms": plain_ms}, acts
+
+
+def bench_shape(tag: str, task, n: int, horizon: int, cfg, operands,
+                reps: int, chaotic: bool = False) -> dict:
+  """The bench shape: SamplingPlanner.optimize timed at n x horizon at the
+  task model's dt (median, p66.7, max over reps calls after 2 warm-up
+  calls), the kernel timed between CUDA events, and one plan's returns held
+  against the plain version: the double instance per candidate in float64
+  (agreement64), and the float kernel per candidate within 2e-3 |p32| +
+  4 |p32 - p64| or, for chaotic rollouts, as a population (float_noise)."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.physics import io as phys_io
+  from mujoco_mpc_torch.planners import sampling
+  from mujoco_mpc_torch.tasks import registry
+
+  dev = task.model.device
+  shape = f"{n}x{horizon}"
+  planner = sampling.SamplingPlanner(sampling.SamplingConfig(
+      num_trajectories=n, horizon=horizon, spline_points=cfg.spline_points,
+      interp=cfg.interp))
+  policy = planner.init(task)
+  home = torch.tensor(task.model.keyframe("home")[0], device=dev)
+  ops32 = operands(torch.float32)
+  data = phys_io.make_data(task.model).replace(qpos=home.clone(), **ops32)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  for _ in range(2):
+    policy, _ = planner.optimize(task, policy, data, gen)
+  torch.cuda.synchronize()
+  per_call = []
+  for _ in range(reps):
+    t = time.perf_counter()
+    policy, _ = planner.optimize(task, policy, data, gen)
+    torch.cuda.synchronize()
+    per_call.append((time.perf_counter() - t) * 1e3)
+  wall = sum(per_call) / 1e3
+  q = np.percentile(per_call, [50, 66.7, 100])
+  steps_s = reps * n * horizon / wall
+  new_times, _, cands = planner._gen_candidates(task, policy, data, gen)
+  acts = planner._actions(task, data, new_times, cands)
+  v0 = torch.zeros(task.model.nv, device=dev)
+  args = (home, v0, acts, task.params, data.time)
+  got = planner.mega.returns(*args, **ops32)
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  plain = planner.mega.returns_plain(*args, **ops32)
+  torch.cuda.synchronize()
+  plain_ms = (time.perf_counter() - t) * 1e3
+  ops64 = operands(torch.float64)
+  args64 = (home.double(), v0.double(), acts.double(),
+            task.params.to(dtype=torch.float64), data.time.double())
+  got64 = planner.mega.returns(*args64, **ops64)
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  plain64 = planner.mega.returns_plain(*args64, dtype=torch.float64, **ops64)
+  torch.cuda.synchronize()
+  plain64_ms = (time.perf_counter() - t) * 1e3
+  name = task.name
+  r64 = agreement64(got64, plain64, f"{name} returns {shape} in float64")
+  check(bool(torch.all(torch.isfinite(got))),
+        f"{name}: non-finite kernel returns at {shape}")
+  gap = (got - plain).abs()
+  allowed = 2e-3 * plain.abs() + 4.0 * (plain - plain64.float()).abs()
+  over = int((gap > allowed).sum())
+  rel_p = ((plain.double() - plain64) / plain64).abs()
+  out = {"optimize_ms": per_call, "steps_per_s": steps_s,
+         "plan_hz": reps / wall, "plain_ms": plain_ms,
+         "plain64_ms": plain64_ms, "f64": r64,
+         "rel_err": float((gap / plain.abs()).max()),
+         "abs_err": float(gap.max()), "beyond_noise_bound": over,
+         "plain_f32_vs_f64_max_rel": float(rel_p.max()),
+         "plain_f32_beyond_2e-3_of_f64": int((rel_p > 2e-3).sum())}
+  if chaotic:
+    pop = out["population"] = float_noise(got, plain, plain64,
+                                          f"{name} returns {shape}")
+    print(f"[{tag}] float32 against float64, over all candidates: kernel "
+          f"{pop['kernel_beyond']} beyond rel 2e-3 (median rel "
+          f"{pop['kernel_median']:.3g}), plain float32 {pop['plain_beyond']} "
+          f"(median {pop['plain_median']:.3g}); winner kernel "
+          f"{pop['winner']}, plain {pop['plain_winner']}")
+  else:
+    check(over == 0, f"{name} float32 kernel: {over} candidates beyond "
+          f"|k - p32| <= 2e-3 |p32| + 4 |p32 - p64| at {shape}")
+  out["kernel_ms"] = ms = timed_cuda(
+      lambda: planner.mega.returns(*args, **ops32), 5)
+  out["kernel64_ms"] = timed_cuda(
+      lambda: planner.mega.returns(*args64, **ops64), 1)
+  out["step_ops"] = step_ops(registry.get_task(name, device="cpu"))
+  out["bound_ms"], out["bound_by"] = bound(out["step_ops"], n, horizon, task)
+  print(f"[{tag}] SamplingPlanner {shape} at dt "
+        f"{float(task.model.opt.timestep):g}: {steps_s:.0f} steps/s, "
+        f"{reps / wall:.3f} plan Hz; optimize ms median {q[0]:.3f}, p66.7 "
+        f"{q[1]:.3f}, max {q[2]:.3f} (n={reps}); kernel {ms:.3f} ms/call "
+        f"({ms / horizon:.3f} ms per step), plain {plain_ms:.1f} ms/call")
+  print(f"[{tag}] float64 kernel vs float64 plain, per candidate: max rel "
+        f"err {r64['max_rel']:.3g} (tol 2e-3), max abs err "
+        f"{r64['max_abs']:.3g}, {r64['blown']} at or past MAX_RETURN in "
+        f"both; float64 kernel {out['kernel64_ms']:.3f} ms/call, plain "
+        f"{plain64_ms:.1f} ms/call")
+  print(f"[{tag}] float32 kernel vs float32 plain, per candidate: max rel "
+        f"err {out['rel_err']:.3g}, max abs err {out['abs_err']:.3g}; beyond "
+        f"2e-3 |p32| + 4 |p32 - p64|: {over}"
+        f"{' (not a check: chaotic, held as a population)' if chaotic else ''}"
+        f"; plain float32 vs float64 max rel "
+        f"{out['plain_f32_vs_f64_max_rel']:.3g}, "
+        f"{out['plain_f32_beyond_2e-3_of_f64']} candidates beyond 2e-3")
+  print(f"[{tag}] plain {name} step at B=1: {out['step_ops']} operations; "
+        f"bound at {shape} {out['bound_ms']:.4f} ms ({out['bound_by']}); "
+        f"kernel at {100 * out['bound_ms'] / ms:.4f} % of it")
+  return out
+
+
 def run_quadruped(dev, rec: dict, reps: int) -> dict:
   """Phases 3q, 4q, 4q-modes and 5q: Quadruped Flat, with the goal mocap
   body and the gait FSM's userdata as rollout-constant operands. Returns
   its row of the kernels line."""
-  import numpy as np
   import torch
   from mujoco_mpc_torch.agent.agent import Agent
   from mujoco_mpc_torch.ops import megarollout as MR
-  from mujoco_mpc_torch.physics import io as phys_io
-  from mujoco_mpc_torch.physics import tilestep
-  from mujoco_mpc_torch.planners import sampling
   from mujoco_mpc_torch.tasks import quadruped
   from mujoco_mpc_torch.tasks import registry
 
@@ -220,57 +446,10 @@ def run_quadruped(dev, rec: dict, reps: int) -> dict:
         userdata=torch.tensor(quadruped.fsm_userdata(nud) if userdata is None
                               else userdata, dtype=dtype, device=dev))
 
-  # ---- 3q. one step on states in which every row class carries force;
-  #      float32 at the stated tolerances (qvel up to 8 times a state's own
-  #      float32-vs-float64 distance where that exceeds 1e-3), the double
-  #      kernel against float64
+  # ---- 3q. one step on states in which every row class carries force
   mrq = MR.MegaRollout(task, 1, device=dev)
-  kinds = np.asarray(tilestep.row_kinds(mrq.tm))
-  states = quadruped.probe_states(task.model, 128)
-  plain = {}
-  for dt in (torch.float32, torch.float64):
-    x = [torch.tensor(v, device=dev, dtype=dt) for v in states]
-    ops = operands(dt)
-    pq, pv, view = tilestep.step_tb(mrq.tm, *x, **ops)
-    plain[dt] = (x, ops, pq, pv, view.efc_lambda)
-  torch.cuda.synchronize()
-  lam = plain[torch.float32][4].abs().cpu().numpy()
-  per_kind = {str(k): float(lam[kinds == k].max())
-              for k in dict.fromkeys(kinds)}
-  check(all(v > 0.0 for v in per_kind.values()),
-        "Quadruped: a constraint row class carries no force in the step "
-        "check")
-  noise = (plain[torch.float32][3].double()
-           - plain[torch.float64][3]).abs().amax(0)
-  err = {}
-  for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
-    x, ops, pq, pv, pl = plain[dt]
-    kq, kv, kl = mrq.step(*x, **ops)
-    torch.cuda.synchronize()
-    ev = (kv - pv).abs().amax(0).double()
-    err[tag] = {"qpos": float((kq - pq).abs().max()),
-                "qvel": float(ev.max()), "qvel_state": int(ev.argmax()),
-                "lambda": float((kl - pl).abs().max()),
-                "scale": float(pl.abs().max()),
-                "qvel_ok": bool(torch.all(
-                    ev <= torch.clamp(8.0 * noise, min=1e-3)))}
-  e32, e64 = err["f32"], err["f64"]
-  print(f"[3q] Quadruped one step, B=128, nrow {mrq.tm.nrow}, float32: max "
-        f"|kernel - plain| qpos {e32['qpos']:.3g} (tol 1e-5), qvel "
-        f"{e32['qvel']!r} at state {e32['qvel_state']} (tol max(1e-3, 8 x "
-        f"the state's float32-vs-float64 distance)), lambda "
-        f"{e32['lambda']:.3g} (tol {1e-4 * e32['scale']:.3g} = 1e-4 * "
-        f"max|lambda|)")
-  print(f"[3q] float64: qpos {e64['qpos']:.3g} (tol 1e-12), qvel "
-        f"{e64['qvel']:.3g} (tol 1e-10), lambda {e64['lambda']:.3g} (tol "
-        f"{1e-12 * e64['scale']:.3g}); max |lambda| per row class "
-        f"{({k: round(v, 1) for k, v in per_kind.items()})}")
-  check(e32["qpos"] <= 1e-5 and e32["lambda"] <= 1e-4 * e32["scale"]
-        and e32["qvel_ok"], "Quadruped float32 step kernel disagrees")
-  check(e64["qpos"] <= 1e-12 and e64["qvel"] <= 1e-10
-        and e64["lambda"] <= 1e-12 * e64["scale"],
-        "Quadruped float64 step kernel disagrees")
-  rec["quadruped_step_err"] = err
+  rec["quadruped_step"] = probe_step(
+      "3q", mrq, quadruped.probe_states(task.model, 128), operands)
 
   # ---- 4q. the main path: Agent("Quadruped Flat") at its defaults, the
   #      goal and a trot set through set_state
@@ -278,36 +457,9 @@ def run_quadruped(dev, rec: dict, reps: int) -> dict:
   agent.reset("home")
   agent.set_state(mocap_pos=goal, userdata=quadruped.fsm_userdata(nud))
   cfg = agent.planner.config
-  agent.planner.mega.launches = 0
-  best = []
-  t = time.perf_counter()
-  for _ in range(5):
-    info = agent.planner_step()
-    best.append(float(info.best_return))
-    check(bool(torch.all(torch.isfinite(info.costs))), "non-finite costs")
-  u = agent.action()
-  plan_ms = (time.perf_counter() - t) * 1e3 / 5
-  launches = agent.planner.mega.launches
-  print(f"[4q] Agent('{name}', cuda) {cfg.num_trajectories}x{cfg.horizon} at "
-        f"dt {float(agent.task.model.opt.timestep):g}: best returns "
-        f"{[round(x, 4) for x in best]}, kernel launches {launches}, "
-        f"{plan_ms:.1f} ms per planner_step (first call included)")
-  check(np.all(np.isfinite(u)) and u.shape == (12,), "bad action")
-  check(all(b2 <= b1 for b1, b2 in zip(best, best[1:])),
-        "best return increased at a fixed state")
-  check(launches == 5, f"{launches} kernel launches for 5 plan steps")
+  drive, acts = drive_agent("4q", agent, 12)
+  rel4, abs4 = drive["returns_rel_err"], drive["returns_abs_err"]
   pl, atask, d = agent.planner, agent.task, agent.data
-  new_times, _, cands = pl._gen_candidates(atask, agent.policy, d,
-                                           agent.generator)
-  acts = pl._actions(atask, d, new_times, cands)
-  got = pl.mega.returns(d.qpos, d.qvel, acts, atask.params, d.time,
-                        **operands(torch.float32))
-  want = pl.mega.returns_plain(d.qpos, d.qvel, acts, atask.params, d.time,
-                               **operands(torch.float32))
-  torch.cuda.synchronize()
-  rel4, abs4 = agreement(got, want, f"Quadruped returns {tuple(acts.shape)}")
-  print(f"[4q] one plan's candidates {tuple(acts.shape)}: max rel err "
-        f"{rel4:.3g} (tol 2e-3), max abs err {abs4:.3g}")
 
   # ---- 4q-modes. every branch of residual_quadruped and
   #      weight_mod_quadruped on the same candidates: the mode in userdata
@@ -334,103 +486,117 @@ def run_quadruped(dev, rec: dict, reps: int) -> dict:
   print(f"[4q-modes] per candidate at {tuple(acts.shape)}, (max rel, max "
         f"abs) err per branch (tol rel 2e-3): "
         f"{({k: (float(f'{r:.3g}'), float(f'{a:.3g}')) for k, (r, a) in mode_err.items()})}")
-  rec.update(quadruped_agent_best=best, quadruped_agent_launches=launches,
-             quadruped_agent_ms_per_plan=plan_ms,
-             quadruped_agent_returns_rel_err=rel4,
-             quadruped_agent_returns_abs_err=abs4,
-             quadruped_mode_errs=mode_err)
+  rec.update(quadruped_agent=drive, quadruped_mode_errs=mode_err)
 
   # ---- 5q. the bench shape: 1024 candidates x 70 steps at the XML dt
-  bcfg = sampling.SamplingConfig(num_trajectories=1024, horizon=70,
-                                 spline_points=cfg.spline_points,
-                                 interp=cfg.interp)
-  planner = sampling.SamplingPlanner(bcfg)
-  policy = planner.init(task)
-  home = torch.tensor(task.model.keyframe("home")[0], device=dev)
-  ops32 = operands(torch.float32)
-  data = phys_io.make_data(task.model).replace(qpos=home.clone(), **ops32)
-  gen = torch.Generator(device=dev).manual_seed(0)
-  for _ in range(2):
-    policy, info = planner.optimize(task, policy, data, gen)
-  torch.cuda.synchronize()
-  per_call = []
-  for _ in range(reps):
-    t = time.perf_counter()
-    policy, info = planner.optimize(task, policy, data, gen)
-    torch.cuda.synchronize()
-    per_call.append((time.perf_counter() - t) * 1e3)
-  wall = sum(per_call) / 1e3
-  q = np.percentile(per_call, [50, 66.7, 100])
-  steps_s = reps * 1024 * 70 / wall
-  new_times, _, cands = planner._gen_candidates(task, policy, data, gen)
-  acts = planner._actions(task, data, new_times, cands)
-  v0 = torch.zeros(task.model.nv, device=dev)
-  args = (home, v0, acts, task.params, data.time)
-  got = planner.mega.returns(*args, **ops32)
-  torch.cuda.synchronize()
-  t = time.perf_counter()
-  plain = planner.mega.returns_plain(*args, **ops32)
-  torch.cuda.synchronize()
-  plain_ms = (time.perf_counter() - t) * 1e3
-  ops64 = operands(torch.float64)
-  args64 = (home.double(), v0.double(), acts.double(),
-            task.params.to(dtype=torch.float64), data.time.double())
-  got64 = planner.mega.returns(*args64, **ops64)
-  torch.cuda.synchronize()
-  t = time.perf_counter()
-  plain64 = planner.mega.returns_plain(*args64, dtype=torch.float64, **ops64)
-  torch.cuda.synchronize()
-  plain64_ms = (time.perf_counter() - t) * 1e3
-  r64 = agreement64(got64, plain64, "Quadruped returns 1024x70 in float64")
-  check(bool(torch.all(torch.isfinite(got))), "Quadruped: non-finite "
-        "kernel returns at 1024x70")
-  p64 = plain64.float()
-  gap = (got - plain).abs()
-  allowed = 2e-3 * plain.abs() + 4.0 * (plain - p64).abs()
-  over = int((gap > allowed).sum())
-  rel5 = float((gap / plain.abs()).max())
-  abs5 = float(gap.max())
-  check(over == 0, f"Quadruped float32 kernel: {over} candidates beyond "
-        f"|k - p32| <= 2e-3 |p32| + 4 |p32 - p64| at 1024x70")
-  ms = timed_cuda(lambda: planner.mega.returns(*args, **ops32), 5)
-  ms64 = timed_cuda(lambda: planner.mega.returns(*args64, **ops64), 1)
-  ops_q = step_ops(registry.get_task(name, device="cpu"))
-  bound_q, by_q = bound(ops_q, 1024, 70, task)
-  print(f"[5q] SamplingPlanner 1024x70 at dt "
-        f"{float(task.model.opt.timestep):g}: {steps_s:.0f} steps/s, "
-        f"{reps / wall:.3f} plan Hz; optimize ms median {q[0]:.3f}, p66.7 "
-        f"{q[1]:.3f}, max {q[2]:.3f} (n={reps}); kernel {ms:.3f} ms/call, "
-        f"plain {plain_ms:.1f} ms/call")
-  print(f"[5q] float64 kernel vs float64 plain, per candidate: max rel err "
-        f"{r64['max_rel']:.3g} (tol 2e-3), max abs err {r64['max_abs']:.3g}, "
-        f"{r64['blown']} at or past MAX_RETURN in both; float64 kernel "
-        f"{ms64:.3f} ms/call, plain {plain64_ms:.1f} ms/call")
-  print(f"[5q] float32 kernel vs float32 plain, per candidate: max rel err "
-        f"{rel5:.3g}, max abs err {abs5:.3g}; beyond 2e-3 |p32| + 4 |p32 - "
-        f"p64|: {over}; plain float32 vs float64 max rel "
-        f"{float(((plain.double() - plain64) / plain64).abs().max()):.3g}")
-  print(f"[5q] plain Quadruped step at B=1: {ops_q} operations; bound at "
-        f"1024x70 {bound_q:.4f} ms ({by_q}); kernel at "
-        f"{100 * bound_q / ms:.4f} % of it")
-  rec.update(quadruped_plan_steps_per_s=steps_s,
-             quadruped_plan_hz=reps / wall, quadruped_optimize_ms=per_call,
-             quadruped_kernel_ms_1024x70=ms,
-             quadruped_plain_ms_1024x70=plain_ms,
-             quadruped_kernel64_ms_1024x70=ms64,
-             quadruped_plain64_ms_1024x70=plain64_ms,
-             quadruped_returns_1024x70_f64=r64,
-             quadruped_returns_1024x70_rel_err=rel5,
-             quadruped_returns_1024x70_abs_err=abs5,
-             quadruped_step_ops=ops_q, quadruped_bound_ms=bound_q)
+  b5 = bench_shape("5q", task, 1024, 70, cfg, operands, reps)
+  rec["quadruped_bench_1024x70"] = b5
   return {
       "name": "megarollout_returns[quadruped]", "route": "cuda",
       "source": "mujoco_mpc_torch/csrc/megarollout.cu",
       "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
-      "launches": launches, "max_abs_err": max(abs4, abs5),
-      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_q,
-      "bound_by": by_q, "library_ms": None,
-      "err_over_tol": max([rel4, r64["max_rel"]]
+      "launches": drive["launches"], "max_abs_err": max(abs4,
+                                                         b5["abs_err"]),
+      "ms": b5["kernel_ms"], "plain_ms": b5["plain_ms"],
+      "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
+      "library_ms": None,
+      "err_over_tol": max([rel4, b5["f64"]["max_rel"]]
                           + [r for r, _ in mode_err.values()]) / 2e-3}
+
+
+# Shadow's goal orientation: a quarter turn about the vertical
+SHADOW_GOAL = [[0.70710678, 0.0, 0.0, 0.70710678]]
+
+
+def run_shadow(dev, rec: dict, reps: int) -> dict:
+  """Phases 3s, 4s and 5s: Shadow, the goal quaternion a rollout-constant
+  operand. Returns its row of the kernels line."""
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.ops import megarollout as MR
+  from mujoco_mpc_torch.tasks import hand_reorient
+  from mujoco_mpc_torch.tasks import registry
+
+  task = registry.get_task("Shadow", device=dev)
+
+  def operands(dtype):
+    return dict(mocap_quat=torch.tensor(SHADOW_GOAL, dtype=dtype,
+                                        device=dev))
+
+  # ---- 3s. one step on states in which every row class (capsule-box,
+  #      sphere-box, torsional, joint limit) carries force
+  mrs = MR.MegaRollout(task, 1, device=dev)
+  rec["shadow_step"] = probe_step(
+      "3s", mrs, hand_reorient.probe_states(task.model, 128), operands)
+
+  # ---- 4s. the main path: Agent("Shadow") at its defaults, the goal set
+  #      through set_state
+  agent = Agent("Shadow", device=dev)
+  agent.reset("home")
+  agent.set_state(mocap_quat=SHADOW_GOAL)
+  cfg = agent.planner.config
+  drive, _ = drive_agent("4s", agent, 20)
+  rec["shadow_agent"] = drive
+
+  # ---- 5s. the bench shape: 512 candidates x 100 steps at the XML dt
+  b5 = bench_shape("5s", task, 512, 100, cfg, operands, reps)
+  rec["shadow_bench_512x100"] = b5
+  return {
+      "name": "megarollout_returns[shadow]", "route": "cuda",
+      "source": "mujoco_mpc_torch/csrc/megarollout.cu",
+      "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
+      "launches": drive["launches"],
+      "max_abs_err": max(drive["returns_abs_err"], b5["abs_err"]),
+      "ms": b5["kernel_ms"], "plain_ms": b5["plain_ms"],
+      "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
+      "library_ms": None,
+      "err_over_tol": max(drive["returns_rel_err"],
+                          b5["f64"]["max_rel"]) / 2e-3}
+
+
+def run_cem(dev, rec: dict) -> dict:
+  """Phase 4c: Agent(planner="cross_entropy") on the Walker and on Shadow:
+  5 plan steps each with one launch per plan, then one plan's returns
+  against the plain version per candidate (drive_agent); and one more
+  plan, replayed from the same generator state, whose new policy (elite
+  mean and std) must equal the elite update computed on the CPU from its
+  kernel returns. Returns the Shadow CEM agent's row of the kernels line,
+  timed at its shape."""
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.planners import cross_entropy
+  from mujoco_mpc_torch.tasks import registry
+
+  for name, nu, goal in (("Walker", 6, None), ("Shadow", 20, SHADOW_GOAL)):
+    agent = Agent(name, planner="cross_entropy", device=dev)
+    agent.reset("home")
+    if goal is not None:
+      agent.set_state(mocap_quat=goal)
+    drive, acts = drive_agent("4c", agent, nu, monotone=False)
+    pl, cfg = agent.planner, agent.planner.config
+    policy, state = agent.policy, agent.generator.get_state()
+    info = agent.planner_step()
+    agent.generator.set_state(state)
+    _, _, cands = pl._gen_candidates(agent.task, policy, agent.data,
+                                     agent.generator)
+    _, mean, std = cross_entropy.elite_update(
+        cands.cpu(), info.costs.cpu(), cfg.n_elite, cfg.std_min)
+    pol_err = max(float((agent.policy.values.cpu() - mean).abs().max()),
+                  float((agent.policy.std.cpu() - std).abs().max()))
+    print(f"[4c] {name} CEM: the new policy against the CPU elite update "
+          f"from the same kernel returns {pol_err:.3g} (tol 1e-6)")
+    check(pol_err <= 1e-6, f"{name} CEM: the new policy differs from the "
+          f"CPU elite update by {pol_err:.3g}")
+    rec[f"cem_{name.lower()}"] = dict(drive, policy_err=pol_err)
+  ops = step_ops(registry.get_task(name, device="cpu"))
+  bound_ms, bound_by = bound(ops, acts.shape[0], acts.shape[1], agent.task)
+  return {
+      "name": "megarollout_returns[cem shadow]", "route": "cuda",
+      "source": "mujoco_mpc_torch/csrc/megarollout.cu",
+      "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
+      "launches": drive["launches"], "max_abs_err": drive["returns_abs_err"],
+      "ms": drive["kernel_ms"], "plain_ms": drive["plain_ms"],
+      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+      "err_over_tol": drive["returns_rel_err"] / 2e-3}
 
 
 def main() -> int:
@@ -451,7 +617,6 @@ def main() -> int:
   from mujoco_mpc_torch.physics import tilestep
   from mujoco_mpc_torch.planners import sampling
   from mujoco_mpc_torch.tasks import humanoid
-  from mujoco_mpc_torch.tasks import quadruped
   from mujoco_mpc_torch.tasks import registry
 
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -540,41 +705,8 @@ def main() -> int:
   agent = Agent("Walker", device=dev)
   agent.reset("home")
   cfg = agent.planner.config
-  agent.planner.mega.launches = 0
-  best = []
-  t = time.perf_counter()
-  for _ in range(5):
-    info = agent.planner_step()
-    best.append(float(info.best_return))
-    check(bool(torch.all(torch.isfinite(info.costs))), "non-finite costs")
-  u = agent.action()
-  plan_ms = (time.perf_counter() - t) * 1e3 / 5
-  launches = agent.planner.mega.launches
-  print(f"[4] Agent('Walker', cuda) {cfg.num_trajectories}x{cfg.horizon} "
-        f"at dt {float(agent.task.model.opt.timestep):g}: best returns "
-        f"{[round(x, 4) for x in best]}, action {np.round(u, 3).tolist()}, "
-        f"kernel launches {launches}, {plan_ms:.1f} ms per planner_step "
-        f"(first call included)")
-  check(np.all(np.isfinite(u)) and u.shape == (6,), "bad action")
-  check(all(b2 <= b1 for b1, b2 in zip(best, best[1:])),
-        "best return increased at a fixed state")
-  check(launches == 5, f"{launches} kernel launches for 5 plan steps")
-  # one plan's candidates at the agent's shape and dt: kernel vs plain
-  pl, atask, d = agent.planner, agent.task, agent.data
-  new_times, _, cands = pl._gen_candidates(atask, agent.policy, d,
-                                           agent.generator)
-  plan_args = (d.qpos, d.qvel, pl._actions(atask, d, new_times, cands),
-               atask.params, d.time)
-  got = pl.mega.returns(*plan_args)
-  want = pl.mega.returns_plain(*plan_args)
-  torch.cuda.synchronize()
-  rel4, abs4 = agreement(got, want, f"returns {cfg.num_trajectories}x"
-                         f"{cfg.horizon} at the agent's dt")
-  print(f"[4] one plan's candidates {tuple(plan_args[2].shape)}: max rel "
-        f"err {rel4:.3g} (tol 2e-3), max abs err {abs4:.3g}")
-  rec.update(agent_best=best, agent_launches=launches,
-             agent_ms_per_plan=plan_ms, agent_returns_rel_err=rel4,
-             agent_returns_abs_err=abs4)
+  drive, _ = drive_agent("4", agent, 6)
+  rec["walker_agent"] = drive
 
   # ---- 5. the bench shape: 1024 candidates x 80 steps at the XML dt
   cfg = sampling.SamplingConfig(num_trajectories=1024, horizon=80,
@@ -587,7 +719,7 @@ def main() -> int:
   for _ in range(3):
     policy, info = planner.optimize(task, policy, data, gen)
   torch.cuda.synchronize()
-  reps = 30
+  reps = 12
   per_call = []
   for _ in range(reps):
     t = time.perf_counter()
@@ -629,194 +761,47 @@ def main() -> int:
       "name": "megarollout_returns[walker]", "route": "cuda",
       "source": "mujoco_mpc_torch/csrc/megarollout.cu",
       "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
-      "launches": launches, "max_abs_err": abs5,
+      "launches": drive["launches"], "max_abs_err": abs5,
       "ms": ms_big, "plain_ms": plain_big, "bound_ms": bound_w,
       "bound_by": by_w, "library_ms": None,
-      "err_over_tol": max(rel, rel4, rel5) / 2e-3}
+      "err_over_tol": max(rel, drive["returns_rel_err"], rel5) / 2e-3}
 
   # ---- 3h. Humanoid: one step against the plain version, on states in
-  #      which every constraint row class carries force. float32 at the
-  #      stated tolerances, except that a state whose own float32 step is
-  #      far from float64 (stiff leg-leg crossings) may have qvel up to 8
-  #      times that distance; the double kernel against float64 everywhere
+  #      which every constraint row class carries force (a state whose own
+  #      float32 step is far from float64, a stiff leg-leg crossing, may
+  #      have qvel up to 8 times that distance)
   htask = registry.get_task("Humanoid Walk", device=dev)
   mrh = MR.MegaRollout(htask, 1, device=dev)
-  kinds = np.asarray(tilestep.row_kinds(mrh.tm))
-  states = humanoid.probe_states(htask.model, 128)
-  plain = {}
-  for dt in (torch.float32, torch.float64):
-    x = [torch.tensor(v, device=dev, dtype=dt) for v in states]
-    pq, pv, view = tilestep.step_tb(mrh.tm, *x)
-    plain[dt] = (x, pq, pv, view.efc_lambda)
-  torch.cuda.synchronize()
-  lam = plain[torch.float32][3].abs().cpu().numpy()
-  per_kind = {str(k): float(lam[kinds == k].max())
-              for k in dict.fromkeys(kinds)}
-  check(all(v > 0.0 for v in per_kind.values()),
-        "a constraint row class carries no force in the step check")
-  noise = (plain[torch.float32][2].double()
-           - plain[torch.float64][2]).abs().amax(0)
-  err, ev = {}, {}
-  for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
-    x, pq, pv, pl = plain[dt]
-    kq, kv, kl = mrh.step(*x)
-    torch.cuda.synchronize()
-    scale = float(pl.abs().max())
-    ev[tag] = (kv - pv).abs().amax(0).double()  # per state
-    err[tag] = {"qpos": float((kq - pq).abs().max()),
-                "qvel": float(ev[tag].max()),
-                "lambda": float((kl - pl).abs().max()), "scale": scale,
-                "qvel_state": int(ev[tag].argmax()),
-                "qvel_over_noise": float((ev[tag] / noise).max()),
-                "states_qvel_over_1e-3": int((ev[tag] > 1e-3).sum())}
-  e32, e64 = err["f32"], err["f64"]
-  print(f"[3h] Humanoid one step, B=128, nrow {mrh.tm.nrow}, float32: max "
-        f"|kernel - plain| qpos {e32['qpos']:.3g} (tol 1e-5), qvel "
-        f"{e32['qvel']!r} at state {e32['qvel_state']} (tol max(1e-3, 8 x "
-        f"the state's plain float32-vs-float64 qvel distance); "
-        f"{e32['states_qvel_over_1e-3']} states above 1e-3; worst ratio to "
-        f"that distance {e32['qvel_over_noise']:.3g}), lambda "
-        f"{e32['lambda']:.3g} (tol {1e-4 * e32['scale']:.3g} = 1e-4 * "
-        f"max|lambda|); plain float32 vs float64 qvel at that state "
-        f"{float(noise[e32['qvel_state']])!r}")
-  print(f"[3h] float64: qpos {e64['qpos']:.3g} (tol 1e-12), qvel "
-        f"{e64['qvel']:.3g} (tol 1e-10), lambda {e64['lambda']:.3g} (tol "
-        f"{1e-12 * e64['scale']:.3g} = 1e-12 * max|lambda|); max |lambda| per "
-        f"row class {({k: round(v, 1) for k, v in per_kind.items()})}")
-  check(e32["qpos"] <= 1e-5 and e32["lambda"] <= 1e-4 * e32["scale"]
-        and bool(torch.all(ev["f32"] <= torch.clamp(8.0 * noise, min=1e-3))),
-        "Humanoid float32 step kernel disagrees")
-  check(e64["qpos"] <= 1e-12 and e64["qvel"] <= 1e-10
-        and e64["lambda"] <= 1e-12 * e64["scale"],
-        "Humanoid float64 step kernel disagrees")
-  rec["humanoid_step_err"] = err
+  rec["humanoid_step"] = probe_step(
+      "3h", mrh, humanoid.probe_states(htask.model, 128), lambda dt: {})
 
   # ---- 4h. the main path: Agent("Humanoid Walk") at its defaults
   hagent = Agent("Humanoid Walk", device=dev)
   hagent.reset("home")
-  hcfg = hagent.planner.config
-  hagent.planner.mega.launches = 0
-  best = []
-  t = time.perf_counter()
-  for _ in range(5):
-    info = hagent.planner_step()
-    best.append(float(info.best_return))
-    check(bool(torch.all(torch.isfinite(info.costs))), "non-finite costs")
-  u = hagent.action()
-  hplan_ms = (time.perf_counter() - t) * 1e3 / 5
-  hlaunches = hagent.planner.mega.launches
-  print(f"[4h] Agent('Humanoid Walk', cuda) {hcfg.num_trajectories}x"
-        f"{hcfg.horizon} at dt {float(hagent.task.model.opt.timestep):g}: "
-        f"best returns {[round(x, 4) for x in best]}, kernel launches "
-        f"{hlaunches}, {hplan_ms:.1f} ms per planner_step (first call "
-        f"included)")
-  check(np.all(np.isfinite(u)) and u.shape == (21,), "bad action")
-  check(all(b2 <= b1 for b1, b2 in zip(best, best[1:])),
-        "best return increased at a fixed state")
-  check(hlaunches == 5, f"{hlaunches} kernel launches for 5 plan steps")
-  pl, atask, d = hagent.planner, hagent.task, hagent.data
-  new_times, _, cands = pl._gen_candidates(atask, hagent.policy, d,
-                                           hagent.generator)
-  plan_args = (d.qpos, d.qvel, pl._actions(atask, d, new_times, cands),
-               atask.params, d.time)
-  got = pl.mega.returns(*plan_args)
-  want = pl.mega.returns_plain(*plan_args)
-  torch.cuda.synchronize()
-  rel4h, abs4h = agreement(
-      got, want, f"Humanoid returns {hcfg.num_trajectories}x{hcfg.horizon} "
-      "at the agent's dt")
-  print(f"[4h] one plan's candidates {tuple(plan_args[2].shape)}: max rel "
-        f"err {rel4h:.3g} (tol 2e-3), max abs err {abs4h:.3g}")
-  rec.update(humanoid_agent_best=best, humanoid_agent_launches=hlaunches,
-             humanoid_agent_ms_per_plan=hplan_ms,
-             humanoid_agent_returns_rel_err=rel4h,
-             humanoid_agent_returns_abs_err=abs4h)
+  hdrive, _ = drive_agent("4h", hagent, 21)
+  rec["humanoid_agent"] = hdrive
 
-  # ---- 5h. the north star: 256 candidates x 67 steps at the planning dt
-  hcfg = sampling.SamplingConfig(num_trajectories=256, horizon=67,
-                                 spline_points=hcfg.spline_points,
-                                 interp=hcfg.interp)
-  hplanner = sampling.SamplingPlanner(hcfg)
-  hpolicy = hplanner.init(atask)
-  hhome = torch.tensor(atask.model.keyframe("home")[0], device=dev)
-  hdata = phys_io.make_data(atask.model).replace(qpos=hhome.clone())
-  gen = torch.Generator(device=dev).manual_seed(0)
-  for _ in range(2):
-    hpolicy, info = hplanner.optimize(atask, hpolicy, hdata, gen)
-  torch.cuda.synchronize()
-  per_call = []
-  for _ in range(reps):
-    t = time.perf_counter()
-    hpolicy, info = hplanner.optimize(atask, hpolicy, hdata, gen)
-    torch.cuda.synchronize()
-    per_call.append((time.perf_counter() - t) * 1e3)
-  wall = sum(per_call) / 1e3
-  q = np.percentile(per_call, [50, 66.7, 100])
-  hsteps_s = reps * 256 * 67 / wall
-  new_times, _, cands = hplanner._gen_candidates(atask, hpolicy, hdata, gen)
-  acts = hplanner._actions(atask, hdata, new_times, cands)
-  hv0 = torch.zeros(27, device=dev)
-  got = hplanner.mega.returns(hhome, hv0, acts, atask.params, hdata.time)
-  torch.cuda.synchronize()
-  t = time.perf_counter()
-  plain = hplanner.mega.returns_plain(hhome, hv0, acts, atask.params,
-                                      hdata.time)
-  torch.cuda.synchronize()
-  hplain_ms = (time.perf_counter() - t) * 1e3
-  args64 = (hhome.double(), hv0.double(), acts.double(),
-            atask.params.to(dtype=torch.float64), hdata.time.double())
-  got64 = hplanner.mega.returns(*args64)
-  torch.cuda.synchronize()
-  t = time.perf_counter()
-  plain64 = hplanner.mega.returns_plain(*args64, dtype=torch.float64)
-  torch.cuda.synchronize()
-  hplain64_ms = (time.perf_counter() - t) * 1e3
-  r5h64 = agreement64(got64, plain64, "Humanoid returns 256x67 in float64")
-  r5h = float_noise(got, plain, plain64, "Humanoid returns 256x67")
-  hms = timed_cuda(lambda: hplanner.mega.returns(
-      hhome, hv0, acts, atask.params, hdata.time), 3)
-  hms64 = timed_cuda(lambda: hplanner.mega.returns(*args64), 1)
-  ops_h = step_ops(registry.get_task("Humanoid Walk", device="cpu"))
-  bound_h, by_h = bound(ops_h, 256, 67, atask)
-  print(f"[5h] SamplingPlanner 256x67 at dt "
-        f"{float(atask.model.opt.timestep):g}: {hsteps_s:.0f} steps/s, "
-        f"{reps / wall:.3f} plan Hz; optimize ms median {q[0]:.3f}, p66.7 "
-        f"{q[1]:.3f}, max {q[2]:.3f} (n={reps}); kernel {hms:.3f} ms/call, "
-        f"plain {hplain_ms:.1f} ms/call")
-  print(f"[5h] float64 kernel vs float64 plain at 256x67, per candidate: "
-        f"max rel err {r5h64['max_rel']:.3g} (tol 2e-3), max abs err "
-        f"{r5h64['max_abs']:.3g}, {r5h64['blown']} candidates at or past "
-        f"MAX_RETURN in both; float64 kernel {hms64:.3f} ms/call, plain "
-        f"{hplain64_ms:.1f} ms/call")
-  print(f"[5h] float32 at 256x67 against float64: kernel "
-        f"{r5h['kernel_beyond']} candidates beyond rel 2e-3 (median rel "
-        f"{r5h['kernel_median']:.3g}), plain float32 {r5h['plain_beyond']} "
-        f"(median {r5h['plain_median']:.3g}); kernel vs plain float32 max "
-        f"rel {r5h['kernel_vs_plain_max_rel']:.3g}; winner kernel "
-        f"{r5h['winner']}, plain {r5h['plain_winner']}")
-  print(f"[5h] plain Humanoid step at B=1: {ops_h} operations; bound at "
-        f"256x67 {bound_h:.4f} ms ({by_h}); kernel at "
-        f"{100 * bound_h / hms:.4f} % of it")
-  rec.update(humanoid_plan_steps_per_s=hsteps_s, humanoid_plan_hz=reps / wall,
-             humanoid_optimize_ms=per_call, humanoid_kernel_ms_256x67=hms,
-             humanoid_plain_ms_256x67=hplain_ms,
-             humanoid_returns_256x67=r5h,
-             humanoid_returns_256x67_f64=r5h64,
-             humanoid_kernel64_ms_256x67=hms64,
-             humanoid_plain64_ms_256x67=hplain64_ms,
-             humanoid_step_ops=ops_h, humanoid_bound_ms=bound_h)
-
+  # ---- 5h. the north star: 256 candidates x 67 steps at the planning dt;
+  #      chaotic in float32, so the float kernel is held as a population
+  b5h = bench_shape("5h", hagent.task, 256, 67, hagent.planner.config,
+                    lambda dt: {}, reps, chaotic=True)
+  rec["humanoid_bench_256x67"] = b5h
   humanoid_row = {
       "name": "megarollout_returns[humanoid]", "route": "cuda",
       "source": "mujoco_mpc_torch/csrc/megarollout.cu",
       "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
-      "launches": hlaunches, "max_abs_err": abs4h,
-      "ms": hms, "plain_ms": hplain_ms, "bound_ms": bound_h,
-      "bound_by": by_h, "library_ms": None,
-      "err_over_tol": max(rel4h, r5h64["max_rel"]) / 2e-3}
+      "launches": hdrive["launches"], "max_abs_err": hdrive["returns_abs_err"],
+      "ms": b5h["kernel_ms"], "plain_ms": b5h["plain_ms"],
+      "bound_ms": b5h["bound_ms"], "bound_by": b5h["bound_by"],
+      "library_ms": None,
+      "err_over_tol": max(hdrive["returns_rel_err"],
+                          b5h["f64"]["max_rel"]) / 2e-3}
 
   quadruped_row = run_quadruped(dev, rec, reps)
-  kernels = {"kernels": [walker_row, humanoid_row, quadruped_row]}
+  shadow_row = run_shadow(dev, rec, reps)
+  cem_row = run_cem(dev, rec)
+  kernels = {"kernels": [walker_row, humanoid_row, quadruped_row, shadow_row,
+                         cem_row]}
   if args.out:
     with open(args.out, "w") as f:
       json.dump({**rec, **kernels}, f, indent=1)

@@ -17,6 +17,7 @@ import torch
 
 from mujoco_mpc_torch import device as devices
 from mujoco_mpc_torch.physics import io as phys_io
+from mujoco_mpc_torch.planners import cross_entropy
 from mujoco_mpc_torch.planners import sampling
 from mujoco_mpc_torch.tasks import base as task_base
 from mujoco_mpc_torch.tasks import registry
@@ -24,6 +25,15 @@ from mujoco_mpc_torch.tasks import registry
 # reference planner enum order (mjpc/planners/include.h:26-34)
 _PLANNER_INDEX = ("sampling", "gradient", "ilqg", "ilqs", "robust",
                   "cross_entropy", "sample_gradient")
+# the ported planners: (planner class, its config)
+_PLANNERS = {
+    "sampling": (sampling.SamplingPlanner, sampling.SamplingConfig),
+    "cross_entropy": (cross_entropy.CrossEntropyPlanner,
+                      cross_entropy.CEMConfig),
+}
+# the ROADMAP queue 1 item that ports each other planner
+_PLANNER_ITEM = {"robust": 9, "sample_gradient": 9, "gradient": 10,
+                 "ilqg": 10, "ilqs": 10}
 
 
 class Agent:
@@ -40,10 +50,12 @@ class Agent:
       idx = int(task.model.custom("agent_planner", 0))
       planner = _PLANNER_INDEX[idx] if idx < len(_PLANNER_INDEX) \
           else "sampling"
-    if planner != "sampling":
+    if planner not in _PLANNERS:
+      item = _PLANNER_ITEM.get(planner)
       raise NotImplementedError(
-          f"planner {planner!r} is not ported yet (ROADMAP queue 1 items 9 "
-          "and 10); this package has 'sampling'")
+          f"planner {planner!r} is not ported yet"
+          + (f" (ROADMAP queue 1 item {item})" if item else "")
+          + f"; this package has {sorted(_PLANNERS)}")
     self.device = device
     self.sim_task = task  # model at the XML timestep
     # planning model runs at agent_timestep (reference agent.cc:288-293)
@@ -55,8 +67,10 @@ class Agent:
                                 device=device)))
     self.task = task.replace(model=plan_model)
 
-    self.planner = sampling.SamplingPlanner(
-        sampling.SamplingConfig.from_task(self.task, horizon_steps))
+    self.planner_name = planner
+    planner_cls, config_cls = _PLANNERS[planner]
+    self.planner = planner_cls(config_cls.from_task(self.task,
+                                                    horizon_steps))
     self.policy = self.planner.init(self.task)
     self.data = phys_io.make_data(task.model)
     self.generator = torch.Generator(device=device).manual_seed(seed)

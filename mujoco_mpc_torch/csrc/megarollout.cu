@@ -29,14 +29,16 @@
 //
 // The model class: hinge, slide and free joints (the free joint's
 // quaternion normalized in forward kinematics and after the exact
-// exponential-map integration), joint-transmission actuators, joint
-// springs, friction loss, fixed-tendon limits, mocap bodies (their poses
-// are rollout-constant operands, like the task's userdata; each block keeps
-// them in shared memory), contacts of a world plane against sphere and
-// capsule ends and box corners, of sphere against sphere and box, and of
-// capsule against capsule, with condim 1 or 3, joint limits, and the dense
-// or matrix-free solve. Task residuals (and a task's state-dependent cost
-// weights) are __device__ functions selected by MRModelT::res_id.
+// exponential-map integration), actuators on scalar joints or fixed
+// tendons, joint springs, friction loss, fixed tendons with limits, springs
+// and dampers, mocap bodies (their poses are rollout-constant operands,
+// like the task's userdata; each block keeps them in shared memory),
+// contacts of a world plane against sphere and capsule ends and box
+// corners, of sphere against sphere and box, of capsule against capsule,
+// and of capsule ends against a box, with condim 1, 3 or 4 (a torsional
+// row per condim-4 point), joint limits, and the dense or matrix-free
+// solve. Task residuals (and a task's state-dependent cost weights) are
+// __device__ functions selected by MRModelT::res_id.
 //
 // What bounds it on this card: latency, not bytes or FLOPs. A step is a
 // long chain of dependent scalar arithmetic per candidate (Walker ~30
@@ -56,21 +58,23 @@
 
 // Maxima, sized for the dm_control humanoid (nq 28, nv 27, nbody 17,
 // njnt 22, nu 21, 37 contact points, 21 limited joints, 2 limited
-// tendons, nrow 117, 57 residual entries) and the quadruped (28 residual
-// constants, 5 residual sites, one mocap body, 24 userdata)
+// tendons, nrow 117), the quadruped (28 residual constants, 5 residual
+// sites, one mocap body, 24 userdata) and the Shadow hand (nq 31, nv 30,
+// nbody 20, njnt 25, 4 tendons driven by actuators, 24 limited joints, 14
+// condim-4 points, nrow 104, 77 residual entries)
 #define MR_MAX_NQ 32
-#define MR_MAX_NV 28
+#define MR_MAX_NV 30
 #define MR_MAX_BODY 20    // <= 32: residuals take body sets as bitmasks
-#define MR_MAX_JNT 24
+#define MR_MAX_JNT 25
 #define MR_MAX_NU 24
 #define MR_MAX_CON 40     // contact points
 #define MR_MAX_LIM 24     // limited joints (two rows each)
-#define MR_MAX_TEN 4      // limited fixed tendons (two rows each)
+#define MR_MAX_TEN 4      // fixed tendons (limited ones: two rows each)
 #define MR_MAX_WRAP 4     // joints a fixed tendon wraps
 #define MR_MAX_ROW 120    // constraint rows
 #define MR_MAX_DENSE 32   // largest nrow solved with a materialized Delassus
 #define MR_MAX_TERM 16
-#define MR_MAX_RES 64     // residual entries
+#define MR_MAX_RES 80     // residual entries
 #define MR_MAX_RES_INT 8
 #define MR_MAX_RES_FLOAT 32
 #define MR_MAX_SITE 8     // world points a residual reads
@@ -90,10 +94,13 @@
 #define MR_CON_BOXCORNER 2  // world plane vs a box corner
 #define MR_CON_SPHERE 3     // sphere vs sphere
 #define MR_CON_SPHEREBOX 4  // sphere vs box
+#define MR_CON_CAPBOX 5     // capsule end vs box
 
 #define MR_RES_WALKER 1
 #define MR_RES_HUMANOID 2
 #define MR_RES_QUADRUPED 3
+#define MR_RES_SHADOW 4
+#define MR_RES_STATE 5      // (qpos, qvel): the small class models' residual
 
 // Fields are int or T. The wrapper (ops/megarollout.py::_model_struct)
 // mirrors both instantiations with ctypes, which pads as C does, and
@@ -106,8 +113,10 @@
   X(int, njnt, )                                                             \
   X(int, ncon, )                                                             \
   X(int, nfric, )                                                            \
+  X(int, ntor, )                                                             \
   X(int, nlim, )                                                             \
   X(int, nten, )                                                             \
+  X(int, ntenlim, )                                                          \
   X(int, nrow, )                                                             \
   X(int, dense, )                                                            \
   X(int, nterm, )                                                            \
@@ -150,6 +159,7 @@
   X(int, cdofdot_vel_mask, [MR_MAX_NV][MR_MAX_NV])                           \
   X(int, act_vadr, [MR_MAX_NU])                                              \
   X(int, act_qadr, [MR_MAX_NU])                                              \
+  X(int, act_tendon, [MR_MAX_NU])                                            \
   X(int, act_gain_fixed, [MR_MAX_NU])                                        \
   X(int, act_bias_fixed, [MR_MAX_NU])                                        \
   X(int, ctrl_limited, [MR_MAX_NU])                                          \
@@ -170,6 +180,8 @@
   X(T, con_end, [MR_MAX_CON])                                                \
   X(T, con_margin, [MR_MAX_CON])                                             \
   X(T, con_mu, [MR_MAX_CON])                                                 \
+  X(int, con_tor, [MR_MAX_CON])                                              \
+  X(T, con_mu_tor, [MR_MAX_CON])                                             \
   X(T, con_frame, [MR_MAX_CON][3][3])                                        \
   X(T, con_ppos, [MR_MAX_CON][3])                                            \
   X(T, con_box, [MR_MAX_CON][3])                                             \
@@ -189,6 +201,10 @@
   X(int, ten_qadr, [MR_MAX_TEN][MR_MAX_WRAP])                                \
   X(int, ten_vadr, [MR_MAX_TEN][MR_MAX_WRAP])                                \
   X(T, ten_coef, [MR_MAX_TEN][MR_MAX_WRAP])                                  \
+  X(T, ten_stiffness, [MR_MAX_TEN])                                          \
+  X(T, ten_damping, [MR_MAX_TEN])                                            \
+  X(T, ten_lengthspring, [MR_MAX_TEN][2])                                    \
+  X(int, ten_lim_id, [MR_MAX_TEN])                                           \
   X(T, ten_lo, [MR_MAX_TEN])                                                 \
   X(T, ten_hi, [MR_MAX_TEN])                                                 \
   X(T, ten_margin, [MR_MAX_TEN])                                             \
@@ -385,8 +401,16 @@ struct Rows {
   T reg[MR_MAX_ROW];
   int active[MR_MAX_ROW];
   T mu_t[MR_MAX_CON];
+  T mu_tor[MR_MAX_CON];  // per torsional row
   T amat[MR_MAX_DENSE * MR_MAX_DENSE];  // only when m.dense
 };
+
+// first torsional row: after the condim>=3 points' three rows each and the
+// condim-1 points' one
+template <class T>
+__device__ __forceinline__ int tor_row0(const MRModelT<T>& m) {
+  return 3 * m.nfric + (m.ncon - m.nfric);
+}
 
 // out = A v with A = J M^-1 J^T (dense: the materialized matrix)
 template <class T>
@@ -416,10 +440,13 @@ __device__ void amul(const MRModelT<T>& m, const Rows<T>& R,
   }
 }
 
-// friction cone on the condim-3 points, nonnegative orthant on the rest
-// (condim-1 normals, joint and tendon limits), then the active mask
+// friction cone on the condim>=3 points, an interval on each torsional row
+// capped by its point's projected normal iterate (not a coupled elliptic
+// cone: the JAX package's approximation), the nonnegative orthant on the
+// rest (condim-1 normals, joint and tendon limits), then the active mask
 template <class T>
 __device__ void project(const MRModelT<T>& m, const Rows<T>& R, T* g) {
+  const int tor0 = tor_row0(m);
   for (int ci = 0; ci < m.nfric; ++ci) {
     T* gc = g + 3 * ci;
     T gn = r_max(gc[0], 0.0f);
@@ -430,8 +457,14 @@ __device__ void project(const MRModelT<T>& m, const Rows<T>& R, T* g) {
     gc[0] = gn;
     gc[1] *= sc;
     gc[2] *= sc;
+    const int ti = m.con_tor[ci];
+    if (ti >= 0) {
+      const T tcap = R.mu_tor[ti] * gn;
+      g[tor0 + ti] = r_min(r_max(g[tor0 + ti], -tcap), tcap);
+    }
   }
-  for (int r = 3 * m.nfric; r < m.nrow; ++r) g[r] = r_max(g[r], 0.0f);
+  for (int r = 3 * m.nfric; r < tor0; ++r) g[r] = r_max(g[r], 0.0f);
+  for (int r = tor0 + m.ntor; r < m.nrow; ++r) g[r] = r_max(g[r], 0.0f);
   for (int r = 0; r < m.nrow; ++r)
     if (!R.active[r]) g[r] = 0.0f;
 }
@@ -564,7 +597,11 @@ __device__ T contact_geometry(const MRModelT<T>& m, const T (*xpos)[3],
   geom_pose(m, xpos, xquat, ci, 0, p1, m1);
   geom_pose(m, xpos, xquat, ci, 1, p2, m2);
   const T r1 = m.con_r[ci][0], r2 = m.con_r[ci][1];
-  if (kind == MR_CON_SPHEREBOX) {  // con_box: the box's half-sizes
+  if (kind == MR_CON_SPHEREBOX || kind == MR_CON_CAPBOX) {
+    // con_box: the box's half-sizes; a capsule end at con_end along g1's
+    // axis is the sphere
+    if (kind == MR_CON_CAPBOX)
+      for (int i = 0; i < 3; ++i) p1[i] = p1[i] + m.con_end[ci] * m1[3 * i + 2];
     dist = sphere_box_point(p1, r1, p2, m2, m.con_box[ci], cpos, n);
     frame_from_normal(n, frame);
     return dist - m.con_margin[ci];
@@ -857,12 +894,40 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
       qfrc[vadr] = qfrc[vadr] - ks * (qpos[qadr] - m.qpos_spring[qadr]);
     }
   }
+  // fixed tendons: length and velocity (limits, springs, actuators read
+  // them); a spring with a deadband about lengthspring and a damper, through
+  // the tendon's constant Jacobian
+  T ten_len[MR_MAX_TEN], ten_vel[MR_MAX_TEN];
+  for (int t = 0; t < m.nten; ++t) {
+    T ln = 0.0f, vl = 0.0f;
+    for (int w = 0; w < m.ten_nwrap[t]; ++w) {
+      const T lt = m.ten_coef[t][w] * qpos[m.ten_qadr[t][w]];
+      const T vt = m.ten_coef[t][w] * qvel[m.ten_vadr[t][w]];
+      ln = w == 0 ? lt : ln + lt;
+      vl = w == 0 ? vt : vl + vt;
+    }
+    ten_len[t] = ln;
+    ten_vel[t] = vl;
+    const T kt = m.ten_stiffness[t], ct = m.ten_damping[t];
+    if (kt != 0.0f || ct != 0.0f) {
+      const T lo = m.ten_lengthspring[t][0], hi = m.ten_lengthspring[t][1];
+      const T stretch = ln > hi ? ln - hi : (ln < lo ? ln - lo : T(0));
+      const T f = -kt * stretch - ct * vl;
+      for (int w = 0; w < m.ten_nwrap[t]; ++w) {
+        const int vadr = m.ten_vadr[t][w];
+        qfrc[vadr] = qfrc[vadr] + m.ten_coef[t][w] * f;
+      }
+    }
+  }
   for (int u = 0; u < m.nu; ++u) {
     T c = ctrl[u];
     if (m.ctrl_limited[u]) c = r_min(r_max(c, m.ctrl_lo[u]), m.ctrl_hi[u]);
     const T gear = m.act_gear[u];
-    const T length = gear * qpos[m.act_qadr[u]];
-    const T velocity = gear * qvel[m.act_vadr[u]];
+    const int tid = m.act_tendon[u];  // a fixed-tendon transmission, or -1
+    const T length = tid >= 0 ? gear * ten_len[tid]
+                              : gear * qpos[m.act_qadr[u]];
+    const T velocity = tid >= 0 ? gear * ten_vel[tid]
+                                : gear * qvel[m.act_vadr[u]];
     const T* gp = m.act_gainprm[u];
     const T* bp = m.act_biasprm[u];
     const T gain = m.act_gain_fixed[u]
@@ -873,7 +938,14 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
     if (m.force_limited[u])
       force = r_min(r_max(force, m.force_lo[u]), m.force_hi[u]);
     out.act_force[u] = force;
-    qact[m.act_vadr[u]] += gear * force;
+    if (tid >= 0) {  // moment: gear times the tendon's coefficients
+      for (int w = 0; w < m.ten_nwrap[tid]; ++w) {
+        const int vadr = m.ten_vadr[tid][w];
+        qact[vadr] = qact[vadr] + gear * m.ten_coef[tid][w] * force;
+      }
+    } else {
+      qact[m.act_vadr[u]] += gear * force;
+    }
   }
   for (int k = 0; k < nv; ++k) {
     const int bd = m.dof_body[k];
@@ -882,9 +954,11 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
   }
   chol_solve(L, qfrc, qacc_smooth, nv);
 
-  // ---- constraint rows: condim-3 points (n, t1, t2), condim-1 points (n),
-  //      joint limits (lo, hi), tendon limits (lo, hi)
+  // ---- constraint rows: condim>=3 points (n, t1, t2), condim-1 points (n),
+  //      torsional rows of the condim-4 points, joint limits (lo, hi),
+  //      tendon limits (lo, hi)
   const int nrow = m.nrow;
+  const int tor0 = tor_row0(m);
   T qfrc_c[MR_MAX_NV];
   for (int k = 0; k < nv; ++k) qfrc_c[k] = 0.0f;
   if (nrow > 0) {
@@ -917,8 +991,23 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
         for (int k = 0; k < nv; ++k) vel += R.J[r][k] * qvel[k];
         aref[r] = -im * (m.con_k[ci] * pos + m.con_b[ci] * vel);
       }
+      // torsional row: the relative angular velocity about the normal, no
+      // positional error, the point's impedance, solref and activity
+      const int ti = fric ? m.con_tor[ci] : -1;
+      if (ti >= 0) {
+        const int r = tor0 + ti;
+        for (int k = 0; k < nv; ++k) {
+          const T sg = m.con_sgn[ci][k];
+          R.J[r][k] = sg != 0.0f ? sg * dot3(frame[0], cdof[k]) : T(0);
+        }
+        R.active[r] = dist < 0.0f;
+        imp[r] = im;
+        T vel = 0.0f;
+        for (int k = 0; k < nv; ++k) vel += R.J[r][k] * qvel[k];
+        aref[r] = -im * (m.con_k[ci] * T(0) + m.con_b[ci] * vel);
+      }
     }
-    int r = 3 * m.nfric + (m.ncon - m.nfric);
+    int r = tor0 + m.ntor;
     for (int li = 0; li < m.nlim; ++li) {
       const T q = qpos[m.lim_qadr[li]];
       for (int side = 0; side < 2; ++side, ++r) {
@@ -934,20 +1023,17 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
                              m.lim_b[li] * vel);
       }
     }
-    for (int ti = 0; ti < m.nten; ++ti) {
-      T len = 0.0f;
-      for (int w = 0; w < m.ten_nwrap[ti]; ++w) {
-        const T term = m.ten_coef[ti][w] * qpos[m.ten_qadr[ti][w]];
-        len = w == 0 ? term : len + term;
-      }
+    for (int ti = 0; ti < m.ntenlim; ++ti) {
+      const int t = m.ten_lim_id[ti];
+      const T len = ten_len[t];
       for (int side = 0; side < 2; ++side, ++r) {
         const T posv = side == 0
             ? len - m.ten_lo[ti] - m.ten_margin[ti]
             : m.ten_hi[ti] - len - m.ten_margin[ti];
         const T sgn = side == 0 ? 1.0f : -1.0f;
         for (int k = 0; k < nv; ++k) R.J[r][k] = 0.0f;
-        for (int w = 0; w < m.ten_nwrap[ti]; ++w)
-          R.J[r][m.ten_vadr[ti][w]] += sgn * m.ten_coef[ti][w];
+        for (int w = 0; w < m.ten_nwrap[t]; ++w)
+          R.J[r][m.ten_vadr[t][w]] += sgn * m.ten_coef[t][w];
         R.active[r] = posv < 0.0f;
         imp[r] = impedance(posv, m.lim_imp);
         T vel = 0.0f;
@@ -996,9 +1082,15 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
     }
     for (int rr = 0; rr < nrow; ++rr)
       R.s_pre[rr] = 1.0f / r_sqrt(r_max(dr[rr], T(1e-12)));
-    for (int ci = 0; ci < m.nfric; ++ci)
+    for (int ci = 0; ci < m.nfric; ++ci) {
       R.mu_t[ci] = m.con_mu[ci] * R.s_pre[3 * ci] / R.s_pre[3 * ci + 1];
-    // ---- initial iterate: cold start, or the previous step's duals
+      const int ti = m.con_tor[ci];
+      if (ti >= 0)  // the torsional cap against the normal's scale
+        R.mu_tor[ti] = m.con_mu_tor[ci] * R.s_pre[3 * ci] / R.s_pre[tor0 + ti];
+    }
+    // ---- initial iterate: cold start, or the previous step's duals; the
+    //      torsional rows always start cold (their duals can be
+    //      non-unique, and warm-starting them integrates drift)
     T g[MR_MAX_ROW], y[MR_MAX_ROW], gn[MR_MAX_ROW], b_vec[MR_MAX_ROW];
     T lam_abs = 0.0f;
     for (int rr = 0; rr < nrow; ++rr) lam_abs += r_abs(lam[rr]);
@@ -1009,7 +1101,8 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
     }
     project(m, R, g);
     if (!cold)
-      for (int rr = 0; rr < nrow; ++rr) g[rr] = lam[rr] / R.s_pre[rr];
+      for (int rr = 0; rr < nrow; ++rr)
+        if (rr < tor0 || rr >= tor0 + m.ntor) g[rr] = lam[rr] / R.s_pre[rr];
     project(m, R, g);
     for (int rr = 0; rr < nrow; ++rr) b_vec[rr] = a0[rr] - aref[rr];
 
@@ -1417,18 +1510,61 @@ __device__ void residual_quadruped(const MRModelT<T>& m, const StepOut<T>& o,
   subtree_angmom(m, o, m.res_int[1], trunk, posture + 14);
 }
 
+// tasks/hand_reorient.py::residual (77 entries): the cube against the
+// grasp site, the goal (mocap body 0's quaternion, normalized with the
+// norm clamped at 1e-24 inside the root) against the cube's orientation as
+// 2 sign(w) vec(qcube^-1 qgoal), the cube's linear velocity, the actuator
+// forces, the hand's 24 angles against home and their velocities.
+// res_int = (cube qpos address, cube dof address); sites = (grasp site);
+// res_float = the home keyframe's 24 hand angles
+template <class T>
+__device__ void residual_shadow(const MRModelT<T>& m, const StepOut<T>& o,
+                                const T* qpos, const T* qvel,
+                                const T* mocap_quat, T* res) {
+  const T* cube = qpos + m.res_int[0];
+  const T* cube_vel = qvel + m.res_int[1];
+  for (int i = 0; i < 3; ++i) res[i] = cube[i] - o.site_xpos[0][i];
+  T ss = 0.0f;
+  for (int i = 0; i < 4; ++i) ss += mocap_quat[i] * mocap_quat[i];
+  const T nrm = r_sqrt(r_max(ss, T(1e-24)));
+  T goal[4], dq[4];
+  for (int i = 0; i < 4; ++i) goal[i] = mocap_quat[i] / nrm;
+  const T conj[4] = {cube[3], -cube[4], -cube[5], -cube[6]};
+  quat_mul(conj, goal, dq);
+  const T sg = dq[0] < 0.0f ? T(-2) : T(2);  // shortest path
+  for (int i = 0; i < 3; ++i) res[3 + i] = dq[1 + i] * sg;
+  for (int i = 0; i < 3; ++i) res[6 + i] = cube_vel[i];
+  for (int u = 0; u < m.nu; ++u) res[9 + u] = o.act_force[u];
+  T* hand = res + 9 + m.nu;
+  for (int i = 0; i < 24; ++i) hand[i] = qpos[i] - m.res_float[i];
+  for (int i = 0; i < 24; ++i) hand[24 + i] = qvel[i];
+}
+
+// the state itself, (qpos, qvel): the residual of small test models
+template <class T>
+__device__ void residual_state(const MRModelT<T>& m, const T* qpos,
+                               const T* qvel, T* res) {
+  for (int i = 0; i < m.nq; ++i) res[i] = qpos[i];
+  for (int i = 0; i < m.nv; ++i) res[m.nq + i] = qvel[i];
+}
+
 template <class T>
 __device__ __forceinline__ void residual(const MRModelT<T>& m,
                                          const StepOut<T>& o, const T* qpos,
                                          const T* qvel, const T* ctrl,
                                          T time, const T* rp, const T* ud,
-                                         const T* mocap_pos, T* res) {
+                                         const T* mocap_pos,
+                                         const T* mocap_quat, T* res) {
   if (m.res_id == MR_RES_WALKER)
     residual_walker(m, o, qpos, qvel, ctrl, time, rp, res);
   else if (m.res_id == MR_RES_HUMANOID)
     residual_humanoid(m, o, qpos, qvel, ctrl, time, rp, res);
   else if (m.res_id == MR_RES_QUADRUPED)
     residual_quadruped(m, o, qpos, time, rp, ud, mocap_pos, res);
+  else if (m.res_id == MR_RES_SHADOW)
+    residual_shadow(m, o, qpos, qvel, mocap_quat, res);
+  else if (m.res_id == MR_RES_STATE)
+    residual_state(m, qpos, qvel, res);
 }
 
 // the task's state-dependent cost weight multipliers (Task.weight_mod);
@@ -1570,7 +1706,7 @@ __global__ void __launch_bounds__(64) mr_returns_kernel(
     tile_step(m, qpos, qvel, u, lam, aux.mocap_pos, aux.mocap_quat, o);
     const T time = time0 + (T)(i + 1) * m.timestep;
     residual(m, o, qpos, qvel, u, time, res_params, aux.userdata,
-             aux.mocap_pos, res);
+             aux.mocap_pos, aux.mocap_quat, res);
     total += cost_value(m, res, weights, norm_params, rk,
                         scaled ? scale : nullptr);
   }

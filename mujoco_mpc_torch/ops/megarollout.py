@@ -87,13 +87,14 @@ def _rollout_body(tm, task, horizon, qpos0, qvel0, actions, weights,
 # the kernel's model struct (csrc/megarollout.cu: MRModel)
 # ---------------------------------------------------------------------------
 
-MAX_NQ, MAX_NV, MAX_BODY, MAX_JNT, MAX_NU = 32, 28, 20, 24, 24
+MAX_NQ, MAX_NV, MAX_BODY, MAX_JNT, MAX_NU = 32, 30, 20, 25, 24
 MAX_CON, MAX_LIM, MAX_TEN, MAX_WRAP = 40, 24, 4, 4
 MAX_ROW, MAX_DENSE = 120, 32
-MAX_TERM, MAX_RES, MAX_RES_INT, MAX_RES_FLOAT = 16, 64, 8, 32
+MAX_TERM, MAX_RES, MAX_RES_INT, MAX_RES_FLOAT = 16, 80, 8, 32
 MAX_SITE, MAX_MOCAP, MAX_USERDATA = 8, 4, 32
 _CON_KIND = {"plane_sphere": 0, "plane_capend": 0, "cap_cap": 1,
-             "plane_boxcorner": 2, "sphere_sphere": 3, "sphere_box": 4}
+             "plane_boxcorner": 2, "sphere_sphere": 3, "sphere_box": 4,
+             "cap_box": 5}
 
 _I = ctypes.c_int32
 # the kernel's scalar type per torch dtype, and its C entry points
@@ -111,8 +112,8 @@ def _model_struct(_F):
   """ctypes mirror of MRModelT<T> for the scalar type _F."""
   fields = [
       ("nq", _I), ("nv", _I), ("nu", _I), ("nbody", _I), ("njnt", _I),
-      ("ncon", _I), ("nfric", _I), ("nlim", _I), ("nten", _I),
-      ("nrow", _I), ("dense", _I),
+      ("ncon", _I), ("nfric", _I), ("ntor", _I), ("nlim", _I),
+      ("nten", _I), ("ntenlim", _I), ("nrow", _I), ("dense", _I),
       ("nterm", _I), ("nres", _I), ("res_id", _I),
       ("nmocap", _I), ("nuserdata", _I), ("nsite", _I),
       ("res_int", _arr(_I, MAX_RES_INT)),
@@ -148,6 +149,7 @@ def _model_struct(_F):
       ("cdofdot_vel_mask", _arr(_I, MAX_NV, MAX_NV)),
       ("act_vadr", _arr(_I, MAX_NU)),
       ("act_qadr", _arr(_I, MAX_NU)),
+      ("act_tendon", _arr(_I, MAX_NU)),
       ("act_gain_fixed", _arr(_I, MAX_NU)),
       ("act_bias_fixed", _arr(_I, MAX_NU)),
       ("ctrl_limited", _arr(_I, MAX_NU)),
@@ -168,6 +170,8 @@ def _model_struct(_F):
       ("con_end", _arr(_F, MAX_CON)),
       ("con_margin", _arr(_F, MAX_CON)),
       ("con_mu", _arr(_F, MAX_CON)),
+      ("con_tor", _arr(_I, MAX_CON)),
+      ("con_mu_tor", _arr(_F, MAX_CON)),
       ("con_frame", _arr(_F, MAX_CON, 3, 3)),
       ("con_ppos", _arr(_F, MAX_CON, 3)),
       ("con_box", _arr(_F, MAX_CON, 3)),
@@ -187,6 +191,10 @@ def _model_struct(_F):
       ("ten_qadr", _arr(_I, MAX_TEN, MAX_WRAP)),
       ("ten_vadr", _arr(_I, MAX_TEN, MAX_WRAP)),
       ("ten_coef", _arr(_F, MAX_TEN, MAX_WRAP)),
+      ("ten_stiffness", _arr(_F, MAX_TEN)),
+      ("ten_damping", _arr(_F, MAX_TEN)),
+      ("ten_lengthspring", _arr(_F, MAX_TEN, 2)),
+      ("ten_lim_id", _arr(_I, MAX_TEN)),
       ("ten_lo", _arr(_F, MAX_TEN)),
       ("ten_hi", _arr(_F, MAX_TEN)),
       ("ten_margin", _arr(_F, MAX_TEN)),
@@ -219,7 +227,7 @@ def pack_model(tm: tilestep.TileModel, task: Task,
             ("njnt", tm.njnt, MAX_JNT), ("nu", tm.nu, MAX_NU),
             ("contact points", tm.ncon, MAX_CON),
             ("limited joints", len(tm.lim_jnt), MAX_LIM),
-            ("limited tendons", len(tm.ten_lim), MAX_TEN),
+            ("tendons", len(tm.ten_wraps), MAX_TEN),
             ("tendon wraps", max([len(w) for w in tm.ten_wraps] or [0]),
              MAX_WRAP),
             ("constraint rows", tm.nrow, MAX_ROW),
@@ -241,12 +249,13 @@ def pack_model(tm: tilestep.TileModel, task: Task,
     np.ctypeslib.as_array(getattr(s, name))[:len(values)] = values
 
   nlimj = len(tm.lim_jnt)
-  fric, ones = tilestep.row_points(tm)
+  fric, ones, tor = tilestep.row_points(tm)
   cps, nfric = fric + ones, len(fric)
   for name, v in (("nq", tm.nq), ("nv", tm.nv), ("nu", tm.nu),
                   ("nbody", tm.nbody), ("njnt", tm.njnt),
-                  ("ncon", tm.ncon), ("nfric", nfric), ("nlim", nlimj),
-                  ("nten", len(tm.ten_lim)), ("nrow", tm.nrow),
+                  ("ncon", tm.ncon), ("nfric", nfric), ("ntor", len(tor)),
+                  ("nlim", nlimj), ("nten", len(tm.ten_wraps)),
+                  ("ntenlim", len(tm.ten_lim)), ("nrow", tm.nrow),
                   ("dense", int(tilestep.amat_is_dense(tm.nrow))),
                   ("nterm", spec.nterm), ("nres", spec.nresidual),
                   ("res_id", dres.id), ("nmocap", tm.nmocap),
@@ -269,6 +278,7 @@ def pack_model(tm: tilestep.TileModel, task: Task,
                "force_lo", "force_hi"):
     put(name, np.asarray(getattr(tm, name)))
   put("act_gear", tm.act_gear)
+  put("act_tendon", tm.act_tendon)
   put("act_gain_fixed", tm.act_gain_fixed.astype(np.int32))
   put("act_bias_fixed", tm.act_bias_fixed.astype(np.int32))
   put("ctrl_limited", tm.ctrl_limited.astype(np.int32))
@@ -289,16 +299,23 @@ def pack_model(tm: tilestep.TileModel, task: Task,
     put("con_gquat", np.stack([tm.geom_quat[[cp.g1, cp.g2]] for cp in cps]))
     put("con_half", [[cp.half1, cp.half2] for cp in cps])
     put("con_r", [[cp.r1, cp.r2] for cp in cps])
-    put("con_end", [cp.sign * cp.half2 for cp in cps])
+    # the capsule end's offset along its axis: g1's for cap_box, g2's for
+    # plane_capend
+    put("con_end", [cp.sign * (cp.half1 if cp.kind == "cap_box"
+                               else cp.half2) for cp in cps])
     put("con_margin", [cp.margin for cp in cps])
     put("con_mu", [cp.mu for cp in cps])
+    # torsional row index of each condim-4 point, -1 for the others
+    tor_ids = {id(cp): i for i, cp in enumerate(tor)}
+    put("con_tor", [tor_ids.get(id(cp), -1) for cp in cps])
+    put("con_mu_tor", [cp.mu_tor for cp in cps])
     # plane contacts: the constant frame and plane point
     put("con_frame", np.stack([cp.frame if cp.frame is not None
                                else np.zeros((3, 3)) for cp in cps]))
     put("con_ppos", np.stack([cp.ppos if cp.ppos is not None
                               else np.zeros(3) for cp in cps]))
     # box kinds: a corner's offset (plane_boxcorner), the half-sizes
-    # (sphere_box)
+    # (sphere_box, cap_box)
     put("con_box", np.stack([
         cp.size2 * cp.corner if cp.kind == "plane_boxcorner"
         else cp.size2 if cp.size2 is not None else np.zeros(3)
@@ -324,15 +341,19 @@ def pack_model(tm: tilestep.TileModel, task: Task,
     put("lim_margin", tm.lim_margin)
     put("lim_k", [v[0] for v in kbs])
     put("lim_b", [v[1] for v in kbs])
-  if tm.ten_lim:
-    wraps = [tm.ten_wraps[t] for t in tm.ten_lim]
-    grid = np.zeros((len(wraps), MAX_WRAP, 3))
-    for ti, ws in enumerate(wraps):
-      grid[ti, :len(ws)] = ws
-    put("ten_nwrap", [len(ws) for ws in wraps])
+  if tm.ten_wraps:  # every tendon: limits, springs, actuators read it
+    grid = np.zeros((len(tm.ten_wraps), MAX_WRAP, 3))
+    for t, ws in enumerate(tm.ten_wraps):
+      grid[t, :len(ws)] = ws
+    put("ten_nwrap", [len(ws) for ws in tm.ten_wraps])
     put("ten_qadr", grid[..., 0].astype(np.int32))
     put("ten_vadr", grid[..., 1].astype(np.int32))
     put("ten_coef", grid[..., 2])
+    put("ten_stiffness", tm.ten_stiffness)
+    put("ten_damping", tm.ten_damping)
+    put("ten_lengthspring", tm.ten_lengthspring)
+  if tm.ten_lim:
+    put("ten_lim_id", tm.ten_lim)
     put("ten_lo", tm.ten_lim_range[:, 0])
     put("ten_hi", tm.ten_lim_range[:, 1])
     put("ten_margin", tm.ten_lim_margin)

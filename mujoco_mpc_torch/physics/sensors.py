@@ -20,6 +20,39 @@ def cross0(a, b):
                       a[0] * b[1] - a[1] * b[0]])
 
 
+def dot0(a, b):
+  """Dot product over the leading axis, summed in index order."""
+  return sum(a[i] * b[i] for i in range(a.shape[0]))
+
+
+def norm0(a, eps=1e-24):
+  """Euclidean norm over the leading axis, clamped at eps inside the
+  square root."""
+  return torch.sqrt(torch.clamp(dot0(a, a), min=eps))
+
+
+def quat_mul0(u, v):
+  """Quaternion product over the leading axis ((4, ...) each)."""
+  w1, x1, y1, z1 = u[0], u[1], u[2], u[3]
+  w2, x2, y2, z2 = v[0], v[1], v[2], v[3]
+  return torch.stack([
+      w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+      w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+      w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+      w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+  ])
+
+
+def quat_sub0(qa, qb):
+  """Orientation error of qa relative to qb, (3, ...): the sin-weighted
+  surrogate 2 sign(w) vec(qb^-1 qa) = axis 2 sin(theta/2) of the JAX
+  package (not mju_subQuat's log map)."""
+  qbc = torch.stack([qb[0], -qb[1], -qb[2], -qb[3]])
+  dq = quat_mul0(qbc, qa)
+  s = torch.where(dq[0] < 0, -2.0, 2.0).to(dq.dtype)  # shortest path
+  return torch.stack([dq[1] * s, dq[2] * s, dq[3] * s])
+
+
 def _descendants(m: Model, root: int):
   """Bodies of the subtree rooted at `root`, itself included."""
   out = []

@@ -8,19 +8,19 @@ the same step, one thread per candidate; `step_tb` is what it is held
 against, and what runs when the tensors lie on the CPU.
 
 The class this port covers so far: hinge, slide and free joints,
-joint-transmission actuators (fixed or affine gain/bias) on scalar joints,
-scalar-joint springs and friction loss, fixed tendons with limits, mocap
-bodies (poses are rollout-constant operands; no joints, no colliding
-geoms), contacts of a world plane against sphere, capsule and cylinder
-ends and box corners, of sphere against sphere and box, and of capsule
-against capsule, with condim 1 or 3, joint limits, and the dense or
-matrix-free Delassus solve. Everything else raises UnsupportedModel naming
-the ROADMAP item that ports it.
+actuators (fixed or affine gain/bias) on scalar joints or fixed tendons,
+scalar-joint springs and friction loss, fixed tendons with limits, springs
+and dampers, mocap bodies (poses are rollout-constant operands; no joints,
+no colliding geoms), contacts of a world plane against sphere, capsule and
+cylinder ends and box corners, of sphere against sphere and box, of capsule
+against capsule, and of capsule ends against a box, with condim 1, 3 or 4,
+joint limits, and the dense or matrix-free Delassus solve. Everything else
+raises UnsupportedModel naming the ROADMAP item that ports it.
 
-Constraint rows are in the tile layout: condim-3 points (n, t1, t2 each),
-condim-1 points (n), joint limits (lo, hi each), tendon limits (lo, hi
-each) -- the same layout as the JAX tile path, so the duals compare row by
-row.
+Constraint rows are in the tile layout: condim>=3 points (n, t1, t2 each),
+condim-1 points (n), torsional rows (one per condim-4 point), joint limits
+(lo, hi each), tendon limits (lo, hi each) -- the same layout as the JAX
+tile path, so the duals compare row by row.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ def _unsupported(what: str, item: str):
 
 _S3 = "queue 2 slice S3"
 _S5 = "queue 2 slice S5"
+_HANDOVER = "queue 2 slice S5, the Handover slice"
 _GENERAL = "queue 1 items 3 and 6, the general engine"
 
 
@@ -70,12 +71,12 @@ _GENERAL = "queue 1 items 3 and 6, the general engine"
 class ConPoint:
   """One static candidate contact point."""
   kind: str  # 'plane_sphere' | 'plane_capend' | 'plane_boxcorner'
-  #            | 'sphere_sphere' | 'sphere_box' | 'cap_cap'
+  #            | 'sphere_sphere' | 'sphere_box' | 'cap_cap' | 'cap_box'
   g1: int
   g2: int
   body1: int
   body2: int
-  sign: float  # +-1 capsule-end selector (plane_capend), else 0
+  sign: float  # +-1 capsule-end selector (plane_capend, cap_box), else 0
   r1: float
   r2: float
   half1: float
@@ -88,7 +89,8 @@ class ConPoint:
   margin: float
   size2: Optional[np.ndarray] = None  # (3,) box half-sizes of g2 (box kinds)
   corner: Optional[np.ndarray] = None  # (3,) +-1 corner (plane_boxcorner)
-  condim: int = 3  # 1 = normal row only
+  condim: int = 3  # 1 = normal row only; 4 adds a torsional row
+  mu_tor: float = 0.0  # torsional friction coefficient (condim 4)
 
 
 @dataclasses.dataclass
@@ -126,7 +128,8 @@ class TileModel:
   body_mocapid: tuple  # (nbody,) -1 or mocap index (pose = an operand)
   nmocap: int
   nuserdata: int
-  # actuators (scalar joint transmission)
+  # actuators: scalar-joint transmission at (qadr, vadr), or a fixed
+  # tendon's (act_tendon >= 0; its addresses are then 0)
   act_vadr: np.ndarray  # (nu,) dof index
   act_qadr: np.ndarray  # (nu,)
   act_gear: np.ndarray  # (nu,)
@@ -162,10 +165,14 @@ class TileModel:
   dof_frictionloss: np.ndarray  # (nv,)
   # fixed tendons: per tendon ((qadr, vadr, coef), ...)
   ten_wraps: tuple = ()
+  ten_stiffness: Optional[np.ndarray] = None  # (ntendon,)
+  ten_damping: Optional[np.ndarray] = None  # (ntendon,)
+  ten_lengthspring: Optional[np.ndarray] = None  # (ntendon, 2) deadband
   ten_lim: tuple = ()  # limited tendon ids (two rows each: lo, hi)
   ten_lim_range: Optional[np.ndarray] = None  # (nlimten, 2)
   ten_lim_margin: tuple = ()
   ten_lim_solref: Optional[np.ndarray] = None  # (nlimten, 2)
+  act_tendon: tuple = ()  # (nu,) tendon id per actuator, -1 = scalar joint
 
   @property
   def ncon(self) -> int:
@@ -173,8 +180,13 @@ class TileModel:
 
   @property
   def ncon_rows(self) -> int:
-    """Contact rows: 1 per condim-1 point, 3 otherwise."""
+    """Translational contact rows: 1 per condim-1 point, 3 otherwise."""
     return sum(1 if cp.condim == 1 else 3 for cp in self.con_points)
+
+  @property
+  def ntor(self) -> int:
+    """Torsional rows: one per condim-4 point."""
+    return sum(1 for cp in self.con_points if cp.condim >= 4)
 
   @property
   def nlim(self) -> int:
@@ -182,9 +194,9 @@ class TileModel:
 
   @property
   def nrow(self) -> int:
-    """Constraint rows: contact rows, then 2 per limited joint and 2 per
-    limited tendon."""
-    return self.ncon_rows + self.nlim
+    """Constraint rows: translational contact rows, torsional rows, then 2
+    per limited joint and 2 per limited tendon."""
+    return self.ncon_rows + self.ntor + self.nlim
 
 
 def extract(m: Model) -> TileModel:
@@ -216,30 +228,30 @@ def extract(m: Model) -> TileModel:
   if m.opt.has_fluid:
     _unsupported("fluid forces", _GENERAL)
   if any(m.eq_active0):
-    _unsupported("equality constraints", _S5)
+    _unsupported("equality constraints", _HANDOVER)
+  # actuators: scalar-joint and fixed-tendon transmissions
+  act_tendon = [-1] * m.nu
   for u in range(m.nu):
-    if m.actuator_trntype[u] == TrnType.TENDON:
-      _unsupported("tendon transmission", _S5)
-    if m.actuator_trntype[u] != TrnType.JOINT:
+    if m.actuator_trntype[u] not in (TrnType.JOINT, TrnType.TENDON):
       _unsupported("site transmission", _GENERAL)
     if m.actuator_dyntype[u] != ActDyn.NONE:
       _unsupported("actuator dynamics", _GENERAL)
-    if m.jnt_type[m.actuator_trnid[u]] not in scalar:
+    if m.actuator_trntype[u] == TrnType.TENDON:
+      act_tendon[u] = int(m.actuator_trnid[u])
+    elif m.jnt_type[m.actuator_trnid[u]] not in scalar:
       _unsupported("actuator on a free joint", _GENERAL)
 
-  # fixed tendons over scalar joints: constant Jacobian rows; only their
-  # limits are in the class (springs and dampers are slice S5)
+  # fixed tendons over scalar joints: constant Jacobian rows (limits,
+  # springs and dampers, actuation)
   ten_wraps = []
-  for t, wraps in enumerate(m.tendon_joints):
-    if (float(npy(m.tendon_stiffness)[t]) != 0.0
-        or float(npy(m.tendon_damping)[t]) != 0.0):
-      _unsupported("tendon springs and dampers", _S5)
+  for wraps in m.tendon_joints:
     lst = []
     for jid, coef in wraps:
       if m.jnt_type[jid] not in scalar:
         _unsupported("tendon wrapping a free joint", _GENERAL)
+      # the coefficient at float32, as the kernel's model holds it
       lst.append((int(m.jnt_qposadr[jid]), int(m.jnt_dofadr[jid]),
-                  float(coef)))
+                  float(np.float32(coef))))
     ten_wraps.append(tuple(lst))
   ten_lim = [t for t in range(m.ntendon) if m.tendon_limited[t]]
 
@@ -252,8 +264,8 @@ def extract(m: Model) -> TileModel:
     t1, t2 = GeomType(m.geom_type[g1]), GeomType(m.geom_type[g2])
     b1, b2 = m.geom_bodyid[g1], m.geom_bodyid[g2]
     condim = int(max(m.geom_condim[g1], m.geom_condim[g2]))
-    if condim not in (1, 3):
-      _unsupported(f"condim {condim} contacts", _S5)
+    if condim not in (1, 3, 4):
+      _unsupported(f"condim {condim} contacts", _HANDOVER)
     common = dict(
         g1=g1, g2=g2, body1=b1, body2=b2,
         r1=float(gs[g1, 0]), r2=float(gs[g2, 0]),
@@ -262,7 +274,7 @@ def extract(m: Model) -> TileModel:
         solref=0.5 * (npy(m.geom_solref)[g1] + npy(m.geom_solref)[g2]),
         solimp=0.5 * (npy(m.geom_solimp)[g1] + npy(m.geom_solimp)[g2]),
         margin=float(max(npy(m.geom_margin)[g1], npy(m.geom_margin)[g2])),
-        condim=condim)
+        condim=condim, mu_tor=float(max(fr[g1, 1], fr[g2, 1])))
     if t1 == GeomType.PLANE and t2 in (GeomType.SPHERE, GeomType.CAPSULE,
                                        GeomType.CYLINDER, GeomType.BOX):
       if b1 != 0:
@@ -295,8 +307,14 @@ def extract(m: Model) -> TileModel:
     elif (t1, t2) == (GeomType.CAPSULE, GeomType.CAPSULE):
       con_points.append(ConPoint(kind="cap_cap", sign=0.0, frame=None,
                                  ppos=None, **common))
+    elif (t1, t2) == (GeomType.CAPSULE, GeomType.BOX):
+      # collision._capsule_box: a sphere-box query at each capsule end
+      for sgn in (-1.0, 1.0):
+        con_points.append(ConPoint(kind="cap_box", sign=sgn, frame=None,
+                                   ppos=None, size2=gs[g2].astype(np.float32),
+                                   **common))
     else:
-      _unsupported(f"contact pair {t1.name}/{t2.name}", _S5)
+      _unsupported(f"contact pair {t1.name}/{t2.name}", _HANDOVER)
 
   lim = [j for j in range(m.njnt) if m.jnt_limited[j]]
   for j in lim:
@@ -329,9 +347,11 @@ def extract(m: Model) -> TileModel:
       dof_body=tuple(dof_body),
       body_mocapid=tuple(int(x) for x in m.body_mocapid),
       nmocap=int(m.nmocap), nuserdata=int(m.nuserdata),
-      act_vadr=np.asarray([m.jnt_dofadr[m.actuator_trnid[u]]
+      act_vadr=np.asarray([0 if act_tendon[u] >= 0
+                           else m.jnt_dofadr[m.actuator_trnid[u]]
                            for u in range(m.nu)], np.int32),
-      act_qadr=np.asarray([m.jnt_qposadr[m.actuator_trnid[u]]
+      act_qadr=np.asarray([0 if act_tendon[u] >= 0
+                           else m.jnt_qposadr[m.actuator_trnid[u]]
                            for u in range(m.nu)], np.int32),
       act_gear=npy(m.actuator_gear)[:, 0] if m.nu else np.zeros(0),
       act_gainprm=npy(m.actuator_gainprm),
@@ -362,6 +382,11 @@ def extract(m: Model) -> TileModel:
       qpos_spring=npy(m.qpos_spring),
       dof_frictionloss=npy(m.dof_frictionloss),
       ten_wraps=tuple(ten_wraps),
+      ten_stiffness=(npy(m.tendon_stiffness) if m.ntendon
+                     else np.zeros(0)),
+      ten_damping=npy(m.tendon_damping) if m.ntendon else np.zeros(0),
+      ten_lengthspring=(npy(m.tendon_lengthspring) if m.ntendon
+                        else np.zeros((0, 2))),
       ten_lim=tuple(ten_lim),
       ten_lim_range=(np.stack([npy(m.tendon_range)[t] for t in ten_lim])
                      if ten_lim else np.zeros((0, 2))),
@@ -370,23 +395,28 @@ def extract(m: Model) -> TileModel:
       ten_lim_solref=(np.stack([npy(m.tendon_solref_lim)[t]
                                 for t in ten_lim])
                       if ten_lim else np.zeros((0, 2))),
+      act_tendon=tuple(act_tendon),
   )
 
 
-def row_points(tm: TileModel) -> Tuple[tuple, tuple]:
-  """Contact points in row order: the condim-3 points (three rows each),
-  then the condim-1 points (one row each)."""
-  return (tuple(cp for cp in tm.con_points if cp.condim == 3),
-          tuple(cp for cp in tm.con_points if cp.condim == 1))
+def row_points(tm: TileModel) -> Tuple[tuple, tuple, tuple]:
+  """Contact points in row order: the condim>=3 points (three rows each),
+  the condim-1 points (one row each), then the condim-4 points again (one
+  torsional row each, in the order of the first group)."""
+  return (tuple(cp for cp in tm.con_points if cp.condim >= 3),
+          tuple(cp for cp in tm.con_points if cp.condim == 1),
+          tuple(cp for cp in tm.con_points if cp.condim >= 4))
 
 
 def row_kinds(tm: TileModel) -> Tuple[str, ...]:
   """The class of every constraint row, in the tile layout: the contact
   kind ('plane_capend', 'plane_sphere', 'plane_boxcorner', 'sphere_sphere',
-  'sphere_box', 'cap_cap'), 'joint_limit' or 'tendon_limit'."""
-  fric, ones = row_points(tm)
+  'sphere_box', 'cap_cap', 'cap_box'), 'torsional', 'joint_limit' or
+  'tendon_limit'."""
+  fric, ones, tor = row_points(tm)
   kinds = [cp.kind for cp in fric for _ in range(3)]
   kinds += [cp.kind for cp in ones]
+  kinds += ["torsional"] * len(tor)
   kinds += ["joint_limit"] * (2 * len(tm.lim_jnt))
   kinds += ["tendon_limit"] * (2 * len(tm.ten_lim))
   return tuple(kinds)
@@ -805,6 +835,34 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
       qfrc_passive[vadr] = qfrc_passive[vadr] - ks * (
           qpos[qadr] - float(tm.qpos_spring[qadr]))
 
+  # fixed tendons: length and velocity memoised per tendon (springs and
+  # dampers, actuators)
+  ten_memo = {}
+
+  def tendon_len_vel(t):
+    if t not in ten_memo:
+      ln = vl = None
+      for qadr, vadr, coef in tm.ten_wraps[t]:
+        lt, vt = coef * qpos[qadr], coef * qvel[vadr]
+        ln = lt if ln is None else ln + lt
+        vl = vt if vl is None else vl + vt
+      ten_memo[t] = (ln, vl)
+    return ten_memo[t]
+
+  # tendon spring (deadband about lengthspring) and damper, through the
+  # tendon's constant Jacobian
+  for t, wraps in enumerate(tm.ten_wraps):
+    k_t, c_t = float(tm.ten_stiffness[t]), float(tm.ten_damping[t])
+    if k_t == 0.0 and c_t == 0.0:
+      continue
+    ln, vl = tendon_len_vel(t)
+    lo, hi = (float(x) for x in tm.ten_lengthspring[t])
+    stretch = torch.where(ln > hi, ln - hi,
+                          torch.where(ln < lo, ln - lo, torch.zeros_like(ln)))
+    f_t = -k_t * stretch - c_t * vl
+    for _, vadr, coef in wraps:
+      qfrc_passive[vadr] = qfrc_passive[vadr] + coef * f_t
+
   qfrc_act = [zero for _ in range(nv)]
   act_force = []
   for u in range(tm.nu):
@@ -812,8 +870,13 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
     if tm.ctrl_limited[u]:
       c = torch.clamp(c, float(tm.ctrl_lo[u]), float(tm.ctrl_hi[u]))
     gear = float(tm.act_gear[u])
-    length = gear * qpos[int(tm.act_qadr[u])]
-    velocity = gear * qvel[int(tm.act_vadr[u])]
+    tid = tm.act_tendon[u]
+    if tid >= 0:  # fixed-tendon transmission
+      ln, vl = tendon_len_vel(tid)
+      length, velocity = gear * ln, gear * vl
+    else:
+      length = gear * qpos[int(tm.act_qadr[u])]
+      velocity = gear * qvel[int(tm.act_vadr[u])]
     gp = tm.act_gainprm[u]
     if tm.act_gain_fixed[u]:
       gain = float(gp[0])
@@ -829,8 +892,12 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
       force = torch.clamp(force, float(tm.force_lo[u]),
                           float(tm.force_hi[u]))
     act_force.append(force)
-    k = int(tm.act_vadr[u])
-    qfrc_act[k] = qfrc_act[k] + gear * force
+    if tid >= 0:  # moment: gear times the tendon's coefficients
+      for _, vadr, coef in tm.ten_wraps[tid]:
+        qfrc_act[vadr] = qfrc_act[vadr] + gear * coef * force
+    else:
+      k = int(tm.act_vadr[u])
+      qfrc_act[k] = qfrc_act[k] + gear * force
 
   # ---- implicit-damping inertia factor
   amat_m = torch.zeros((B, nv, nv), dtype=dtype, device=dev)
@@ -984,7 +1051,9 @@ def _contact_geometry(tm, cp, geom_frame, const):
     return dist - cp.margin, frame, cpos
   p1, q1 = geom_frame(cp.g1)
   p2, q2 = geom_frame(cp.g2)
-  if cp.kind == "sphere_box":
+  if cp.kind in ("sphere_box", "cap_box"):
+    if cp.kind == "cap_box":  # the sphere at one capsule end
+      p1 = p1 + cp.sign * cp.half1 * _quat_to_mat(q1)[:, 2]
     dist, cpos, n = _sphere_box_point(p1, cp.r1, p2, _quat_to_mat(q2),
                                       cp.size2)
     return dist - cp.margin, _frame_from_normal(n), cpos
@@ -1030,28 +1099,30 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
                     _quat_mul(xquat[bg], _c(tm.geom_quat[g])))
     return gf_memo[g]
 
-  # contact rows: condim-3 points (n, t1, t2), then condim-1 points (n)
-  fric, ones = row_points(tm)
-  for cps, nr in ((fric, 3), (ones, 1)):
-    if not cps:
-      continue
+  def rows_of(cps, nr, ang=False):
+    """Append the rows of contact points cps: nr translational rows each
+    (the frame's first nr directions), or with ang one torsional row each
+    (the relative angular velocity about the normal, no positional error,
+    the point's impedance, solref and activity)."""
     npt = len(cps)
-    geo = [_contact_geometry(tm, cp, geom_frame, const) for cp in cps]
-    dist = torch.stack([g[0] for g in geo])  # (npt, B)
-    frame = torch.stack([g[1][:nr] for g in geo])  # (npt, nr, 3, B)
-    cpos = torch.stack([g[2] for g in geo])  # (npt, 3, B)
+    dist = torch.stack([geo[id(cp)][0] for cp in cps])  # (npt, B)
+    frame = torch.stack([geo[id(cp)][1][:nr] for cp in cps])  # (npt,nr,3,B)
     # relative-velocity Jacobian: sign per dof from the two bodies' paths
     sgn = const([[float(tm.dof_body_mask[k, cp.body2])
                   - float(tm.dof_body_mask[k, cp.body1])
                   for k in range(nv)] for cp in cps])  # (npt, nv)
-    jp = cdof_lin[None] + torch.linalg.cross(
-        cdof_ang[None], cpos[:, None], dim=2)  # (npt, nv, 3, B)
+    if ang:
+      jp = cdof_ang[None].expand(npt, nv, 3, B)
+    else:
+      cpos = torch.stack([geo[id(cp)][2] for cp in cps])  # (npt, 3, B)
+      jp = cdof_lin[None] + torch.linalg.cross(
+          cdof_ang[None], cpos[:, None], dim=2)  # (npt, nv, 3, B)
     J_c = torch.sum(frame[:, :, None] * jp[:, None], dim=3)
     J_c = J_c * sgn[:, None, :, None]  # (npt, nr, nv, B)
     J_parts.append(J_c.reshape(nr * npt, nv, B))
     zc = torch.zeros_like(dist)
     pos_parts.append(torch.stack(
-        [torch.clamp(dist, max=0.0)] + [zc] * (nr - 1),
+        [zc if ang else torch.clamp(dist, max=0.0)] + [zc] * (nr - 1),
         dim=1).reshape(nr * npt, B))
     act_parts.append((dist < 0)[:, None].expand(npt, nr, B)
                      .reshape(nr * npt, B))
@@ -1061,6 +1132,17 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
     kbs = [kb(cp.solref, float(cp.solimp[1])) for cp in cps]
     k_parts.append(const([[v[0]] * nr for v in kbs]).reshape(nr * npt))
     b_parts.append(const([[v[1]] * nr for v in kbs]).reshape(nr * npt))
+
+  # contact rows: condim>=3 points (n, t1, t2), condim-1 points (n), then
+  # the torsional rows of the condim-4 points
+  fric, ones, tor = row_points(tm)
+  geo = {id(cp): _contact_geometry(tm, cp, geom_frame, const)
+         for cp in fric + ones}
+  for cps, nr in ((fric, 3), (ones, 1)):
+    if cps:
+      rows_of(cps, nr)
+  if tor:
+    rows_of(tor, 1, ang=True)
 
   # limit rows: joints, then fixed tendons (constant Jacobians)
   lims = [(qpos[tm.lim_qadr[li]], {tm.lim_vadr[li]: 1.0}, tm.lim_lo[li],
@@ -1132,7 +1214,10 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
   active = active_rows & nondeg
 
   # Jacobi preconditioning, tangent scales tied so the cone stays circular
-  nf = len(fric)
+  nf, ntor = len(fric), len(tor)
+  off_ang = 3 * nf + len(ones)  # first torsional row
+  lim0 = off_ang + ntor  # first limit row
+  tor_f = [i for i, cp in enumerate(fric) if cp.condim >= 4]  # tor's points
   dr = diag + reg
   if nf:
     fc = dr[:3 * nf].reshape(nf, 3, B)
@@ -1146,6 +1231,9 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
     fs = s_pre[:3 * nf].reshape(nf, 3, B)
     mu = const([cp.mu for cp in fric])[:, None]
     mu_t = mu * fs[:, 0] / fs[:, 1]
+  if ntor:  # torsional caps relative to the point's normal scale
+    mu_tor = (const([cp.mu_tor for cp in tor])[:, None] * fs[tor_f, 0]
+              / s_pre[off_ang:lim0])
 
   def project(g):
     parts = []
@@ -1162,17 +1250,29 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
                           torch.ones_like(tnorm))
       parts.append(torch.stack([gn, gt1 * scale, gt2 * scale], dim=1)
                    .reshape(3 * nf, B))
-    if nrow > 3 * nf:  # condim-1 normals, joint and tendon limits
-      parts.append(torch.clamp(g[3 * nf:], min=0.0))
+    if off_ang > 3 * nf:  # condim-1 normals
+      parts.append(torch.clamp(g[3 * nf:off_ang], min=0.0))
+    if ntor:
+      # an interval capped by the same point's projected normal iterate
+      # (not a coupled elliptic cone: the JAX package's approximation)
+      cap = mu_tor * gn[tor_f]
+      parts.append(torch.clamp(g[off_ang:lim0], min=-cap, max=cap))
+    if nrow > lim0:  # joint and tendon limits
+      parts.append(torch.clamp(g[lim0:], min=0.0))
     g = torch.cat(parts) if len(parts) > 1 else parts[0]
     return torch.where(active, g, torch.zeros_like(g))
 
   dinv = 1.0 / (diag + reg)
   g_init = project((aref - a0) * dinv / s_pre)
   if efc_lambda is not None:
-    # warm start from the previous step's physical duals, unless all-zero
+    # warm start from the previous step's physical duals, unless all-zero;
+    # the torsional rows always start cold: their duals can be non-unique,
+    # and warm-starting them integrates drift
     cold = torch.sum(torch.abs(efc_lambda), dim=0) == 0
-    g0 = project(torch.where(cold[None], g_init, efc_lambda / s_pre))
+    warm = efc_lambda / s_pre
+    if ntor:
+      warm = torch.cat([warm[:off_ang], g_init[off_ang:lim0], warm[lim0:]])
+    g0 = project(torch.where(cold[None], g_init, warm))
   else:
     g0 = g_init
   b_vec = a0 - aref

@@ -30,6 +30,39 @@ from mujoco_mpc_torch.tasks.base import Task, TaskParams
 _STD2_PROPORTION = 0.2  # reference kStd2Proportion
 
 
+def build_rollout(task: Task, horizon: int) -> megarollout.MegaRollout:
+  """The MegaRollout a sampling-family planner scores its candidates with,
+  on the task model's device; NotImplementedError for a model outside the
+  kernel's class."""
+  try:
+    return megarollout.MegaRollout(task, horizon, device=task.model.device)
+  except tilestep.UnsupportedModel as e:
+    raise NotImplementedError(
+        f"{e}; the general batched rollout that would run it is not "
+        "ported yet (ROADMAP queue 1 item 6)") from e
+
+
+def spline_action(task: Task, times: torch.Tensor, values: torch.Tensor, t,
+                  interp: spline.Interp) -> torch.Tensor:
+  """The policy spline at time t, clamped to the control range."""
+  u = spline.sample(times, values, t, interp)
+  lo = task.model.actuator_ctrlrange[:, 0]
+  hi = task.model.actuator_ctrlrange[:, 1]
+  return torch.where(task.model.actuator_ctrllimited,
+                     torch.clamp(u, lo, hi), u)
+
+
+def candidate_actions(task: Task, data: Data, new_times: torch.Tensor,
+                      cands: torch.Tensor, horizon: int,
+                      interp: spline.Interp) -> torch.Tensor:
+  """Per-step actions (N, T, nu) of candidate splines (N, k, nu) on the
+  grid new_times, at the planning model's timestep from data.time."""
+  ts = data.time + torch.arange(
+      horizon, dtype=cands.dtype, device=cands.device) * \
+      task.model.opt.timestep
+  return spline.sample_many(new_times, cands, ts, interp).contiguous()
+
+
 @dataclasses.dataclass
 class SamplingPolicy:
   """Spline control policy: (times, values) node arrays."""
@@ -74,13 +107,7 @@ class SamplingPlanner:
     """Fresh policy; builds the MegaRollout for this task on its model's
     device (raises NotImplementedError for a model outside its class)."""
     if self.mega is None:
-      try:
-        self.mega = megarollout.MegaRollout(task, self.config.horizon,
-                                            device=task.model.device)
-      except tilestep.UnsupportedModel as e:
-        raise NotImplementedError(
-            f"{e}; the general batched rollout that would run it is not "
-            "ported yet (ROADMAP queue 1 item 6)") from e
+      self.mega = build_rollout(task, self.config.horizon)
     m = task.model
     k = self.config.spline_points
     horizon_time = self.config.horizon * m.opt.timestep
@@ -95,12 +122,8 @@ class SamplingPlanner:
   # ---------------------------------------------------------------- action
   def action(self, task: Task, policy: SamplingPolicy,
              data: Data) -> torch.Tensor:
-    u = spline.sample(policy.times, policy.values, data.time,
-                      self.config.interp)
-    lo = task.model.actuator_ctrlrange[:, 0]
-    hi = task.model.actuator_ctrlrange[:, 1]
-    return torch.where(task.model.actuator_ctrllimited,
-                       torch.clamp(u, lo, hi), u)
+    return spline_action(task, policy.times, policy.values, data.time,
+                         self.config.interp)
 
   # -------------------------------------------------------------- optimize
   def _gen_candidates(self, task: Task, policy: SamplingPolicy, data: Data,
@@ -148,11 +171,8 @@ class SamplingPlanner:
   def _actions(self, task: Task, data: Data, new_times: torch.Tensor,
                cands: torch.Tensor) -> torch.Tensor:
     """Per-step actions (N, T, nu) of the candidate splines."""
-    cfg = self.config
-    ts = data.time + torch.arange(
-        cfg.horizon, dtype=cands.dtype, device=cands.device) * \
-        task.model.opt.timestep
-    return spline.sample_many(new_times, cands, ts, cfg.interp).contiguous()
+    return candidate_actions(task, data, new_times, cands,
+                             self.config.horizon, self.config.interp)
 
   def _returns(self, task: Task, data: Data, new_times: torch.Tensor,
                cands: torch.Tensor,

@@ -1,0 +1,131 @@
+"""Shadow-hand in-hand cube reorientation (reference:
+mjpc/tasks/shadow_reorient/hand.cc).
+
+Counterpart of mujoco_mpc_tpu/tasks/hand_reorient.py ("Shadow"): 24 hand
+joints, 20 position actuators (the four fingers' distal J1+J2 pairs driven
+through fixed tendons: actuators 4, 7, 10 and 14), a free cube, and the goal
+orientation as the mocap body's quaternion. Contacts are the distal
+capsules' ends and four palm pads against the cube, all condim 4.
+
+The goal-advance and drop-reset FSM (`transition`) needs the current
+state's kinematics, which come with the general engine and Agent.step
+(ROADMAP queue 1 item 3); until then callers set the goal through
+Agent.set_state(mocap_quat=...).
+
+Residual layout (hand.cc:36-85):
+  cube position - grasp site (3), goal (-) cube orientation (3), cube
+  linear velocity (3), actuator force (nu = 20), hand qpos - home (24),
+  hand qvel (24).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from mujoco_mpc_torch import device as devices
+from mujoco_mpc_torch.physics import sensors
+from mujoco_mpc_torch.tasks import base, registry
+
+# residual_shadow in csrc/megarollout.cu
+DEVICE_RESIDUAL_ID = 4
+
+_NHAND = 24
+
+
+def _cube_adr(model):
+  j = model.body_jntadr[model.body("cube")]
+  return model.jnt_qposadr[j], model.jnt_dofadr[j]
+
+
+def residual(model, data, params):
+  """Residual (77, B); `data` fields are component-leading, batch-trailing
+  (the tile view of physics/tilestep.py::step_tb), the mocap quaternion
+  with a trailing axis of 1."""
+  qadr, vadr = _cube_adr(model)
+  cube_pos = data.qpos[qadr:qadr + 3]
+  cube_quat = data.qpos[qadr + 3:qadr + 7]
+  palm = data.site_xpos[model.site("grasp_site")]
+  goal = data.mocap_quat[0]
+  goal = goal / sensors.norm0(goal)
+  home = model.keyframe("home")[0]
+  return torch.cat([
+      cube_pos - palm,
+      sensors.quat_sub0(goal, cube_quat),
+      data.qvel[vadr:vadr + 3],
+      data.actuator_force,  # hand.cc:73 reads actuator_force, not ctrl
+      torch.stack([data.qpos[i] - float(home[i]) for i in range(_NHAND)]),
+      data.qvel[:_NHAND],
+  ])
+
+
+def probe_states(model, b: int, seed: int = 0):
+  """(qpos (31, b), qvel (30, b), ctrl (20, b)) float32 numpy states in
+  which every constraint row class carries force. State i % 4: 0 rests the
+  cube 2 mm into the palm pads, spinning about the vertical (sphere-box and
+  their torsional rows); 1 curls the four fingers onto the lowered cube
+  (capsule-box, torsional); 2 bends every finger past its joint ranges
+  (joint limits); 3 lifts the cube onto the curled fingertips, spinning
+  (capsule-box and torsional rows without the pads)."""
+  rng = np.random.RandomState(seed)
+  home = np.asarray(model.keyframe("home")[0], np.float32)
+  qpos = np.repeat(home[None], b, 0)
+  qpos[:, :_NHAND] += rng.uniform(-0.02, 0.02, (b, _NHAND))
+  qadr, vadr = _cube_adr(model)
+  kind = np.arange(b) % 4
+
+  def adr(name):
+    return model.jnt_qposadr[model.joint(name)]
+
+  qpos[:, qadr + 2] = 0.282 + rng.uniform(-0.001, 0.001, b)
+  curl = (kind == 1) | (kind == 3)
+  for f in ("FF", "MF", "RF", "LF"):
+    for j, val in (("J3", 1.25), ("J2", 1.0), ("J1", 1.0)):
+      qpos[curl, adr(f + j)] = val + rng.uniform(-0.02, 0.02, curl.sum())
+  past = kind == 2
+  for f in ("FF", "MF", "RF", "LF"):
+    qpos[past, adr(f + "J4")] = 0.45
+    qpos[past, adr(f + "J3")] = -0.4
+  qpos[past, adr("THJ5")] = 1.2
+  lift = kind == 3
+  qpos[lift, qadr + 2] = 0.3
+  qvel = rng.uniform(-0.3, 0.3, (b, model.nv))
+  spin = (kind == 0) | (kind == 3)
+  qvel[spin, vadr + 5] = rng.uniform(3.0, 5.0, spin.sum())
+  crange = model.actuator_ctrlrange.detach().cpu().numpy()
+  ctrl = rng.uniform(crange[:, 0], crange[:, 1], (b, model.nu))
+  return tuple(np.ascontiguousarray(x.T, np.float32)
+               for x in (qpos, qvel, ctrl))
+
+
+def _device_residual(model) -> base.DeviceResidual:
+  """residual_shadow's operands: the cube's qpos and dof addresses, the
+  grasp site and the home keyframe's 24 hand angles."""
+  site = model.site("grasp_site")
+  spos = model.site_pos.detach().cpu().numpy()[site]
+  home = model.keyframe("home")[0]
+  return base.DeviceResidual(
+      DEVICE_RESIDUAL_ID, tuple(int(x) for x in _cube_adr(model)),
+      tuple(float(x) for x in home[:_NHAND]),
+      ((model.site_bodyid[site], tuple(float(x) for x in spos)),))
+
+
+def build_hand_reorient():
+  """The Shadow MJCF (tasks/models/hand_reorient.xml) as a mujoco.MjModel
+  (needs mujoco)."""
+  import mujoco
+  return mujoco.MjModel.from_xml_path(
+      os.path.join(os.path.dirname(__file__), "models",
+                   "hand_reorient.xml"))
+
+
+@registry.register("Shadow", snapshot="hand_reorient",
+                   builder=build_hand_reorient)
+def make(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
+  model, spec, params, pnames = registry.load_task_model(
+      "hand_reorient", dtype, device)
+  return base.Task(name="Shadow", model=model, spec=spec, params=params,
+                   residual=residual, param_names=pnames,
+                   device_residual=_device_residual(model))

@@ -139,27 +139,6 @@ def _flip_angle(ft):
                      a)
 
 
-def _quat_mul_l(u, v):
-  w1, x1, y1, z1 = u[0], u[1], u[2], u[3]
-  w2, x2, y2, z2 = v[0], v[1], v[2], v[3]
-  return torch.stack([
-      w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
-      w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
-      w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
-      w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
-  ])
-
-
-def _quat_sub_l(qa, qb):
-  """Orientation error of qa relative to qb, (3, ...): the sin-weighted
-  surrogate 2 sign(w) vec(qb^-1 qa) = axis 2 sin(theta/2) of the JAX
-  package (not mju_subQuat's log map)."""
-  qbc = torch.stack([qb[0], -qb[1], -qb[2], -qb[3]])
-  dq = _quat_mul_l(qbc, qa)
-  s = torch.where(dq[0] < 0, -2.0, 2.0).to(dq.dtype)  # shortest path
-  return torch.stack([dq[1] * s, dq[2] * s, dq[3] * s])
-
-
 def _get_phase(u, time):
   """Internal phase clock (quadruped.cc:628-631)."""
   return u[1] + (time - u[2]) * u[3]
@@ -230,9 +209,10 @@ def residual(model, data, params):
   dq = torch.stack([torch.cos(half), zero,
                     flip_axis_y * torch.sin(half) + zero, zero])
   q_start = u[17:21] + torch.stack([zero] * 4)  # saved at flip entry
-  q_target = _quat_mul_l(q_start, dq)
+  q_target = sensors.quat_mul0(q_start, dq)
   torso_xquat = data.xquat[trunk]
-  upright_flip = _quat_sub_l(torso_xquat + torch.stack([zero] * 4), q_target)
+  upright_flip = sensors.quat_sub0(torso_xquat + torch.stack([zero] * 4),
+                                   q_target)
   upright = torch.where(flip, upright_flip, upright)
 
   # ---------- Height (quadruped.cc:75-89)

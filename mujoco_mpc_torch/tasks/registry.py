@@ -67,10 +67,13 @@ def build_task_model(builder, dtype=torch.float32, device=devices.DEFAULT):
   return model, spec, params, names
 
 
-def write_snapshots() -> None:
-  """Rebuild every registered task's snapshot (needs mujoco, dm_control)."""
+def write_snapshots(stems=None) -> None:
+  """Rebuild the registered tasks' snapshots, all of them or those named in
+  `stems` (needs mujoco, dm_control)."""
   os.makedirs(_MODEL_DIR, exist_ok=True)
   for stem, builder in dict(_SNAPSHOTS.values()).items():
+    if stems is not None and stem not in stems:
+      continue
     model, spec, params, names = build_task_model(builder, torch.float64,
                                                   device="cpu")
     meta = {"names": spec.names, "norm_types": spec.norm_types,
@@ -103,7 +106,8 @@ def load_task_model(stem: str, dtype=torch.float32,
 
 
 def _register_all():
-  from mujoco_mpc_torch.tasks import humanoid, quadruped, walker  # noqa: F401
+  from mujoco_mpc_torch.tasks import (  # noqa: F401
+      hand_reorient, humanoid, quadruped, walker)
 
 
 _register_all()

@@ -12,8 +12,9 @@ Tolerances, with the errors measured when they were set: Walker step qpos
 atol 1e-6 (3.0e-8), qvel 1e-4 (6.4e-6), duals 1e-5 * max (1.2e-3 of 1.1e3);
 Humanoid step qpos 1e-5 (5.1e-7), qvel 1e-3 (7.6e-5), duals 1e-4 * max
 (3.2e-3 of 2.2e3); Quadruped step qpos 1e-5 (2.4e-7), qvel 1e-3 (6.7e-6),
-duals 1e-4 * max (3.7e-4 of 9.2e2); returns rtol 2e-3 (Walker 1.2e-7,
-Humanoid 1.3e-6).
+duals 1e-4 * max (3.7e-4 of 9.2e2); Shadow and the small class models of
+tests/test_torch_tilestep_classes.py as the Quadruped; returns rtol 2e-3
+(Walker 1.2e-7, Humanoid 1.3e-6).
 """
 
 import ctypes
@@ -28,9 +29,13 @@ import torch
 from mujoco_mpc_torch.ops import _cuda_build
 from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.physics import tilestep as tts
+from mujoco_mpc_torch.tasks import hand_reorient as thand
 from mujoco_mpc_torch.tasks import humanoid as thum
 from mujoco_mpc_torch.tasks import quadruped as tquad
 from mujoco_mpc_torch.tasks import registry as treg
+from tests.test_torch_tilestep_classes import (CLASS_MODELS, class_states,
+                                               class_task)
+from tests.torch_cases import QUADRUPED_MODES, SHADOW_GOAL, quadruped_mode
 
 _STUB = r"""
 #pragma once
@@ -168,21 +173,35 @@ _CASES = {
     "Walker": (_walker_states, (1e-6, 1e-4, 1e-5)),
     "Humanoid Walk": (thum.probe_states, (1e-5, 1e-3, 1e-4)),
     "Quadruped Flat": (tquad.probe_states, (1e-5, 1e-3, 1e-4)),
+    "Shadow": (thand.probe_states, (1e-5, 1e-3, 1e-4)),
 }
+for _name in CLASS_MODELS:
+  _CASES[_name] = (lambda model, b, name=_name: class_states(name, model, b),
+                   (1e-5, 1e-3, 1e-4))
 # float64: the kernel's double instance against step_tb in float64
 _TOL64 = (1e-12, 1e-11, 1e-12)
 _NP = {torch.float32: np.float32, torch.float64: np.float64}
 _SUFFIX = {torch.float32: "", torch.float64: "64"}
+# the residuals that read the raw controls: a 1e30 command diverges there
+_RAW_CTRL = ("Walker", "Humanoid Walk")
 
 
-def _aux(tm, dtype, userdata=None):
-  """The rollout-constant operands as the kernel takes them: for a model
-  with a mocap body (the quadruped's goal) the goal at (1.0, 0.3, 0.3) and
-  a trot's userdata, otherwise the defaults."""
-  if tm.nmocap and userdata is None:
+def _task(name):
+  return class_task(name) if name in CLASS_MODELS else treg.get_task(
+      name, device="cpu")
+
+
+def _aux(tm, dtype, userdata=None, name=None):
+  """The rollout-constant operands as the kernel takes them: for the
+  quadruped the goal at (1.0, 0.3, 0.3) and a trot's userdata, for Shadow
+  the goal quaternion SHADOW_GOAL, otherwise the defaults."""
+  mocap_quat = None
+  if name == "Shadow":
+    mocap_quat = SHADOW_GOAL
+  elif tm.nmocap and userdata is None:
     userdata = tquad.fsm_userdata(tm.nuserdata)
   mp, mq, ud = tts.aux_operands(
-      tm, [[1.0, 0.3, 0.3]] * tm.nmocap, None, userdata, dtype)
+      tm, [[1.0, 0.3, 0.3]] * tm.nmocap, mocap_quat, userdata, dtype)
   return [np.ascontiguousarray(x[..., 0].numpy()) for x in (mp, mq, ud)]
 
 
@@ -198,25 +217,26 @@ def _host_step(lib, raw, dtype, qp, qv, ct, lam, aux):
 def _check_steps(lib, name, dtype, tols):
   states, _ = _CASES[name]
   tq, tv, tl = tols
-  task = treg.get_task(name, device="cpu")
+  task = _task(name)
   tm = tts.extract(task.model)
   raw = np.frombuffer(tmr.pack_model(tm, task, dtype), np.uint8).copy()
   qp, qv, ct = (x.astype(_NP[dtype]) for x in states(task.model, 8))
   b = qp.shape[1]
-  aux = _aux(tm, dtype)
+  aux = _aux(tm, dtype, name=name)
   ops = dict(zip(("mocap_pos", "mocap_quat", "userdata"),
                  (torch.tensor(x)[..., None] for x in aux)))
-  kq, kv, kl = qp, qv, np.zeros((tm.nrow, b), _NP[dtype])
+  kq, kv, kl = qp, qv, np.zeros((max(tm.nrow, 1), b), _NP[dtype])
   pq, pv, pl = torch.tensor(qp), torch.tensor(qv), None
   for _ in range(2):  # cold, then warm-started
     kq, kv, kl = _host_step(lib, raw, dtype, kq, kv, ct, kl, aux)
     pq, pv, view = tts.step_tb(tm, pq, pv, torch.tensor(ct), pl, **ops)
     pl = view.efc_lambda
     scale = float(pl.abs().max())
-    assert scale > 1.0  # contacts carry force
+    assert scale > 0.0 or tm.nrow == 0  # contacts and limits carry force
     np.testing.assert_allclose(kq, pq.numpy(), atol=tq, rtol=0)
     np.testing.assert_allclose(kv, pv.numpy(), atol=tv, rtol=0)
-    np.testing.assert_allclose(kl, pl.numpy(), atol=tl * scale, rtol=0)
+    if tm.nrow:
+      np.testing.assert_allclose(kl, pl.numpy(), atol=tl * scale, rtol=0)
 
 
 @pytest.mark.parametrize("name", sorted(_CASES))
@@ -234,22 +254,25 @@ def test_host_kernel_float64_step_matches_plain(lib, name):
 
 def _check_returns(lib, name, dtype, horizon, rtol, userdata=None,
                    params=None):
-  task = treg.get_task(name, device="cpu")
+  task = _task(name)
   n = 8
   mr = tmr.MegaRollout(task, horizon, device="cpu")
   raw = np.frombuffer(tmr.pack_model(mr.tm, task, dtype), np.uint8).copy()
-  home = np.asarray(task.model.keyframe("home")[0], np.float32)
+  if name in CLASS_MODELS:
+    home = class_states(name, task.model, 1)[0][:, 0]
+  else:
+    home = np.asarray(task.model.keyframe("home")[0], np.float32)
   v0 = np.zeros(mr.tm.nv, np.float32)
   acts = (0.4 * np.random.RandomState(0).randn(n, horizon, mr.tm.nu)
           ).astype(np.float32)
   home, v0, acts = (x.astype(_NP[dtype]) for x in (home, v0, acts))
-  # a diverging candidate: its squared controls overflow (the quadruped's
-  # cost reads the actuator forces of the clamped controls instead)
-  diverge = task.weight_mod is None
+  # a diverging candidate: its squared controls overflow (the other costs
+  # read the state or the actuator forces of the clamped controls)
+  diverge = name in _RAW_CTRL
   if diverge:
     acts[1] = 1e30 if dtype == torch.float32 else 1e300
   p = (params or task.params).to(dtype=dtype)
-  aux = _aux(mr.tm, dtype, userdata)
+  aux = _aux(mr.tm, dtype, userdata, name)
   ops = [raw, home, v0, acts] + [
       np.ascontiguousarray(x.numpy().reshape(-1))
       for x in (p.weights, p.norm_params, p.risk, p.residual_params)] + [
@@ -280,28 +303,19 @@ def test_host_kernel_float64_returns_match_plain(lib, name):
   _check_returns(lib, name, torch.float64, 30, 1e-9)
 
 
-# every branch of residual_quadruped and weight_mod_quadruped: the mode in
-# userdata and the Biped type parameter; Flip entered 0, 0.4, 0.8 and 1.1 s
-# before the rollout's t0 of 0.25 s puts its 30 steps of 5 ms in the jump,
-# the flight, the landing and after the flip
-QUADRUPED_MODES = {
-    "quadruped": (tquad.MODE_QUADRUPED, 0.0, 0),
-    "biped": (tquad.MODE_BIPED, 0.0, 0),
-    "handstand": (tquad.MODE_BIPED, 0.0, 1),
-    "walk": (tquad.MODE_WALK, 0.0, 0),
-    "scramble": (tquad.MODE_SCRAMBLE, 0.0, 0),
-    "flip_jump": (tquad.MODE_FLIP, 0.0, 0),
-    "flip_flight": (tquad.MODE_FLIP, -0.4, 0),
-    "flip_landing": (tquad.MODE_FLIP, -0.8, 0),
-    "flip_done": (tquad.MODE_FLIP, -1.1, 0),
-}
-
-
-def quadruped_mode(task, case):
-  """(userdata, TaskParams) of a QUADRUPED_MODES case."""
-  mode, start, biped_type = QUADRUPED_MODES[case]
-  u = tquad.fsm_userdata(task.model.nuserdata, mode, time=start)
-  return u, task.set_parameter("select_Biped type", biped_type).params
+@pytest.mark.parametrize("term", range(6))
+def test_host_kernel_shadow_residual_terms_match_plain(lib, term):
+  """residual_shadow against the Python residual, one cost term at a time
+  (the other weights 0): the cube against the grasp site, the orientation
+  error to the unnormalized goal, the cube's velocity, the actuator forces
+  (four of them through the coupling tendons), the hand posture and its
+  velocity. float32 over 4 steps at rtol 2e-3, float64 over 12 at 1e-9."""
+  task = treg.get_task("Shadow", device="cpu")
+  w = torch.zeros_like(task.params.weights)
+  w[term] = task.params.weights[term]
+  params = task.params.replace(weights=w)
+  _check_returns(lib, "Shadow", torch.float32, 4, 2e-3, params=params)
+  _check_returns(lib, "Shadow", torch.float64, 12, 1e-9, params=params)
 
 
 @pytest.mark.parametrize("case", sorted(QUADRUPED_MODES))
@@ -340,7 +354,7 @@ def test_host_kernel_contraction_moves_only_float_rounding(lib_contracted):
     raw = np.frombuffer(tmr.pack_model(tm, task, dt), np.uint8).copy()
     kq, kv, kl = _host_step(lib_contracted, raw, dt,
                             *(x.astype(_NP[dt]) for x in (qp, qv, ct, lam0)),
-                            _aux(tm, dt))
+                            _aux(tm, dt, name="Humanoid Walk"))
     err = np.abs(kv - plain[dt][1]).max(0)
     if dt == torch.float64:
       np.testing.assert_allclose(kq, plain[dt][0], atol=1e-12, rtol=0)

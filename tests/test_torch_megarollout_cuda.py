@@ -6,22 +6,27 @@ On the card: python -m pytest tests/test_torch_megarollout_cuda.py -q
 Tolerances as in tests/test_torch_tilestep.py: one Walker step qpos atol
 1e-6, qvel atol 1e-4, duals atol 1e-5 * max|duals|; one Humanoid or
 Quadruped step qpos atol 1e-5, qvel atol 1e-3, duals atol 1e-4 * max|duals|
-(18-27 dofs and 90-117 rows carry more f32 rounding); returns rtol 2e-3. The kernel's float64
+(18-30 dofs and 90-117 rows carry more f32 rounding); returns rtol 2e-3. The kernel's float64
 instance against the plain version in float64, as in
 tests/test_torch_kernel_host.py: step qpos atol 1e-12, qvel 1e-10, duals
-1e-12 * max|duals|; returns over 30 steps rtol 1e-9.
+1e-12 * max|duals|; returns over 30 steps rtol 1e-9. The CEM planner's
+elite update from the kernel's returns against the same update on the CPU
+at atol 1e-6.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mujoco_mpc_torch.agent.agent import Agent
 from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.physics import tilestep as tts
+from mujoco_mpc_torch.planners import cross_entropy as tcem
+from mujoco_mpc_torch.tasks import hand_reorient as thand
 from mujoco_mpc_torch.tasks import humanoid as thum
 from mujoco_mpc_torch.tasks import quadruped as tquad
 from mujoco_mpc_torch.tasks import registry as treg
-from tests.test_torch_kernel_host import QUADRUPED_MODES, quadruped_mode
+from tests.torch_cases import QUADRUPED_MODES, SHADOW_GOAL, quadruped_mode
 
 pytestmark = pytest.mark.cuda
 
@@ -290,3 +295,96 @@ def test_quadruped_wrapper_checks_operands(quadruped):
     mr.returns(q0, torch.zeros(18, device=dev), acts, task.params, 0.0,
                **{**ops, "mocap_pos": ops["mocap_pos"].double()})
   assert mr.launches == 0
+
+
+@pytest.fixture(scope="module")
+def shadow():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device and nvcc")
+  dev = torch.device("cuda")
+  return treg.get_task("Shadow", device=dev), dev
+
+
+def _shadow_operands(dev, dtype=torch.float32):
+  return dict(mocap_quat=torch.tensor(SHADOW_GOAL, dtype=dtype, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_shadow_step_matches_plain(shadow, dtype):
+  """Tendon-driven fingers, capsule-box and sphere-box points with their
+  torsional rows, joint limits: each row class carrying force in some of
+  the states."""
+  task, dev = shadow
+  mr = tmr.MegaRollout(task, 1, device=dev)
+  assert mr.tm.nrow == 104 and mr.tm.ntor == 14
+  kinds = np.array(tts.row_kinds(mr.tm))
+  ops = _shadow_operands(dev, dtype)
+  q, v, c = (torch.tensor(x, device=dev, dtype=dtype)
+             for x in thand.probe_states(task.model, 72))
+  tq, tv, tl = (1e-5, 1e-3, 1e-4) if dtype == torch.float32 else (
+      1e-12, 1e-10, 1e-12)
+  kq, kv, kl = q, v, None
+  pq, pv, pl = q, v, None
+  for _ in range(2):  # cold, then warm-started
+    kq, kv, kl = mr.step(kq, kv, c, kl, **ops)
+    pq, pv, view = tts.step_tb(mr.tm, pq, pv, c, pl, **ops)
+    pl = view.efc_lambda
+    torch.cuda.synchronize()
+    lam = pl.abs().cpu().numpy()
+    for kind in set(kinds):
+      assert lam[kinds == kind].max() > 0.0, kind
+    scale = float(lam.max())
+    torch.testing.assert_close(kq, pq, atol=tq, rtol=0)
+    torch.testing.assert_close(kv, pv, atol=tv, rtol=0)
+    torch.testing.assert_close(kl, pl, atol=tl * scale, rtol=0)
+  assert mr.step_launches == 2
+
+
+def test_shadow_returns_match_plain(shadow):
+  """float32 over 6 steps at rtol 2e-3, float64 over 30 at rtol 1e-9, with
+  the goal quaternion as an operand."""
+  task, dev = shadow
+  n = 70
+  q0 = torch.tensor(task.model.keyframe("home")[0], device=dev)
+  for dtype, horizon, rtol in ((torch.float32, 6, 2e-3),
+                               (torch.float64, 30, 1e-9)):
+    mr = tmr.MegaRollout(task, horizon, device=dev)
+    acts = (task.default_ctrl().to(dtype) + torch.tensor(
+        0.2 * np.random.RandomState(2).randn(n, horizon, 20), dtype=dtype,
+        device=dev)).contiguous()
+    args = (q0.to(dtype), torch.zeros(30, device=dev, dtype=dtype), acts,
+            task.params.to(dtype=dtype), 0.1)
+    ops = _shadow_operands(dev, dtype)
+    got = mr.returns(*args, **ops)
+    want = mr.returns_plain(*args, dtype=dtype, **ops)
+    torch.cuda.synchronize()
+    assert mr.launches == 1
+    assert bool(torch.all(want < tmr.MAX_RETURN))
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("name", ["Walker", "Shadow"])
+def test_cem_plans_through_the_kernel(name):
+  """Agent(planner="cross_entropy"): one launch per plan, and the new
+  policy is the elite update of the kernel's returns computed on the
+  CPU."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device and nvcc")
+  agent = Agent(name, planner="cross_entropy", device="cuda")
+  agent.reset("home")
+  assert isinstance(agent.planner, tcem.CrossEntropyPlanner)
+  for i in range(3):
+    policy = agent.policy
+    gen_state = agent.generator.get_state()
+    info = agent.planner_step()
+    assert agent.planner.mega.launches == i + 1
+    pl, cfg = agent.planner, agent.planner.config
+    agent.generator.set_state(gen_state)
+    _, _, cands = pl._gen_candidates(agent.task, policy, agent.data,
+                                     agent.generator)
+    _, mean, std = tcem.elite_update(cands.cpu(), info.costs.cpu(),
+                                     cfg.n_elite, cfg.std_min)
+    torch.testing.assert_close(agent.policy.values.cpu(), mean, atol=1e-6,
+                               rtol=0)
+    torch.testing.assert_close(agent.policy.std.cpu(), std, atol=1e-6,
+                               rtol=0)

@@ -135,27 +135,31 @@ def test_import_leaves_jax_out():
 _BODY = "<body><joint name='a' type='hinge'/><geom size='.1'/></body>"
 
 
-def _bodies(*geoms):
+def _bodies(*geoms, condim=3):
   """A world of free bodies, one per geom (type, size)."""
   return ("<mujoco><worldbody>" + "".join(
-      f"<body pos='0 0 {i}'><freejoint/><geom type='{t}' size='{s}'/>"
-      "</body>" for i, (t, s) in enumerate(geoms)) + "</worldbody></mujoco>")
+      f"<body pos='0 0 {i}'><freejoint/><geom type='{t}' size='{s}' "
+      f"condim='{condim}'/></body>" for i, (t, s) in enumerate(geoms))
+      + "</worldbody></mujoco>")
 
 
 # case: (MJCF, the ROADMAP item the error names)
 _OUT_OF_CLASS = {
     "ball": ("<mujoco><worldbody><body><joint type='ball'/><geom size='.1'/>"
              "</body></worldbody></mujoco>", "S3"),
+    # a tendon actuator with activation dynamics (stateful)
     "tendon_actuator": ("<mujoco><worldbody>" + _BODY + "</worldbody><tendon>"
                         "<fixed name='t'><joint joint='a' coef='1'/></fixed>"
-                        "</tendon><actuator><motor tendon='t'/></actuator>"
-                        "</mujoco>", "S5"),
+                        "</tendon><actuator><general tendon='t' "
+                        "dyntype='filter'/></actuator></mujoco>",
+                        "general engine"),
     "colliding_mocap": ("<mujoco><worldbody><body mocap='true' pos='0 0 1'>"
                         "<geom size='.1'/></body>" + _BODY +
                         "</worldbody></mujoco>", "general engine"),
     "box_box": (_bodies(("box", ".1 .1 .1"), ("box", ".1 .1 .1")), "S5"),
-    "capsule_box": (_bodies(("capsule", ".05 .1"), ("box", ".1 .1 .1")),
-                    "S5"),
+    # capsule-box contacts with rolling friction (condim 6)
+    "capsule_box": (_bodies(("capsule", ".05 .1"), ("box", ".1 .1 .1"),
+                            condim=6), "Handover slice"),
     "sphere_capsule": (_bodies(("sphere", ".1"), ("capsule", ".05 .1")),
                        "S5"),
 }
@@ -163,12 +167,13 @@ _OUT_OF_CLASS = {
 
 @pytest.mark.parametrize("case", sorted(_OUT_OF_CLASS) + ["jointed_mocap"])
 def test_out_of_class_models_raise(case):
-  """The free joint, fixed-tendon limits, mocap bodies and the plane-sphere,
-  plane-box, sphere-sphere, sphere-box and capsule-capsule contacts are in
-  the class now; these stay out, naming the ROADMAP item that ports them:
-  ball joints (slice S3), tendon actuators and the remaining pairs (S5),
-  and what the JAX kernel leaves to the general engine, a mocap body with a
-  joint or a colliding geom."""
+  """The free joint, fixed tendons (limits, springs, actuators), mocap
+  bodies, condim 4 and the plane-sphere, plane-box, sphere-sphere,
+  sphere-box, capsule-capsule and capsule-box contacts are in the class
+  now; these stay out, naming the ROADMAP item that ports them: ball
+  joints (slice S3), condim 6 and the remaining pairs (S5, the Handover
+  slice), and what the JAX kernel leaves to the general engine, stateful
+  actuators and a mocap body with a joint or a colliding geom."""
   if case == "jointed_mocap":  # MJCF refuses it: the Walker's torso
     walker = treg.get_task("Walker", device="cpu").model
     torso = walker.body("torso")

@@ -37,7 +37,7 @@ from mujoco_mpc_torch.tasks import registry as treg
 from mujoco_mpc_tpu.ops import megarollout as jmr
 from mujoco_mpc_tpu.physics import tilestep as jts
 from mujoco_mpc_tpu.tasks import registry as jreg
-from tests.test_torch_kernel_host import QUADRUPED_MODES, quadruped_mode
+from tests.torch_cases import QUADRUPED_MODES, quadruped_mode
 from tests.test_torch_model import _same
 
 B, N, T = 8, 8, 4

@@ -1,0 +1,31 @@
+"""Inputs shared by the port's kernel tests, importable without JAX or
+mujoco (the card's host has neither): the Quadruped's residual branches
+and the Shadow goal."""
+
+from mujoco_mpc_torch.tasks import quadruped as tquad
+
+# Shadow's goal: an unnormalized quaternion (the residual normalizes it)
+SHADOW_GOAL = [[0.8, 0.2, 0.4, 0.3]]
+
+# every branch of residual_quadruped and weight_mod_quadruped: the mode in
+# userdata and the Biped type parameter; Flip entered 0, 0.4, 0.8 and 1.1 s
+# before the rollout's t0 of 0.25 s puts its 30 steps of 5 ms in the jump,
+# the flight, the landing and after the flip
+QUADRUPED_MODES = {
+    "quadruped": (tquad.MODE_QUADRUPED, 0.0, 0),
+    "biped": (tquad.MODE_BIPED, 0.0, 0),
+    "handstand": (tquad.MODE_BIPED, 0.0, 1),
+    "walk": (tquad.MODE_WALK, 0.0, 0),
+    "scramble": (tquad.MODE_SCRAMBLE, 0.0, 0),
+    "flip_jump": (tquad.MODE_FLIP, 0.0, 0),
+    "flip_flight": (tquad.MODE_FLIP, -0.4, 0),
+    "flip_landing": (tquad.MODE_FLIP, -0.8, 0),
+    "flip_done": (tquad.MODE_FLIP, -1.1, 0),
+}
+
+
+def quadruped_mode(task, case):
+  """(userdata, TaskParams) of a QUADRUPED_MODES case."""
+  mode, start, biped_type = QUADRUPED_MODES[case]
+  u = tquad.fsm_userdata(task.model.nuserdata, mode, time=start)
+  return u, task.set_parameter("select_Biped type", biped_type).params
