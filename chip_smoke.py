@@ -3,15 +3,17 @@
     python3 chip_smoke.py [--out FILE.json]
 
 Builds the CUDA kernel from mujoco_mpc_torch/csrc/ and, for each path it
-serves (Walker, Humanoid Walk, Quadruped Flat, Shadow, and the
-cross-entropy planner on Walker and Shadow), holds it against its plain
-PyTorch version, drives the agent's plan loop through it, and times the
-planner: Walker at 1024 candidates x 80 steps, Humanoid at the north-star
-256 x 67 at the planning dt 0.015, Quadruped at 1024 x 70 and Shadow at
-512 x 100, both at dt 0.005. Humanoid rollouts that long are chaotic in
-float32, so there the kernel's float64 instance is held against the plain
-version in float64 candidate by candidate, and the float32 kernel as a
-population; the Quadruped's and Shadow's float32 kernel is held per
+serves (Walker, Humanoid Walk, Quadruped Flat, Shadow, Bimanual Handover,
+and the cross-entropy planner on Walker and Shadow), holds it against its
+plain PyTorch version, drives the agent's plan loop through it, and times
+the planner: Walker at 1024 candidates x 80 steps, Humanoid at the
+north-star 256 x 67 at the planning dt 0.015, Quadruped at 1024 x 70,
+Shadow at 512 x 100 and the handover at 256 x 80, all three at dt 0.005.
+The small class models (every equality kind, condim 6) are held one step
+each. Humanoid rollouts that long are chaotic in float32, so there the
+kernel's float64 instance is held against the plain version in float64
+candidate by candidate, and the float32 kernel as a population; the
+Quadruped's, Shadow's and the handover's float32 kernel is held per
 candidate within its own float32 noise.
 Exits non-zero, printing no result, without a CUDA
 device or on any failed check. The last line of standard output is
@@ -215,9 +217,13 @@ def probe_step(tag: str, mr, states, operands) -> dict:
     pq, pv, view = tilestep.step_tb(mr.tm, *x, **ops)
     plain[dt] = (x, ops, pq, pv, view.efc_lambda)
   torch.cuda.synchronize()
-  lam = plain[torch.float32][4].abs().cpu().numpy()
+  signed = plain[torch.float32][4].cpu().numpy()
+  lam = np.abs(signed)
   per_kind = {str(k): float(lam[kinds == k].max())
               for k in dict.fromkeys(kinds)}
+  sign_range = {str(k): (float(signed[kinds == k].min()),
+                         float(signed[kinds == k].max()))
+                for k in dict.fromkeys(kinds)}
   check(all(v > 0.0 for v in per_kind.values()),
         f"{tag}: a constraint row class carries no force in the step check")
   noise = (plain[torch.float32][3].double()
@@ -256,7 +262,8 @@ def probe_step(tag: str, mr, states, operands) -> dict:
   check(e64["qpos"] <= 1e-12 and e64["qvel"] <= 1e-10
         and e64["lambda"] <= 1e-12 * e64["scale"],
         f"{tag}: float64 step kernel disagrees")
-  return {"err": err, "max_dual_per_class": per_kind}
+  return {"err": err, "max_dual_per_class": per_kind,
+          "dual_range_per_class": sign_range}
 
 
 def drive_agent(tag: str, agent, nu: int, monotone: bool = True):
@@ -554,6 +561,72 @@ def run_shadow(dev, rec: dict, reps: int) -> dict:
                           b5["f64"]["max_rel"]) / 2e-3}
 
 
+# the handover's target: across the table from the box, as its transition
+# places it
+HANDOVER_TARGET = [[0.35, -0.25, 0.3]]
+
+
+def run_handover(dev, rec: dict, reps: int) -> dict:
+  """Phases 3b, 3e, 4b and 5b: Bimanual Handover, the target a
+  rollout-constant operand, and the small class models. Returns its row of
+  the kernels line."""
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.ops import megarollout as MR
+  from mujoco_mpc_torch.tasks import bimanual
+  from mujoco_mpc_torch.tasks import class_models
+  from mujoco_mpc_torch.tasks import registry
+
+  task = registry.get_task("Bimanual Handover", device=dev)
+
+  def operands(dtype):
+    return dict(mocap_pos=torch.tensor(HANDOVER_TARGET, dtype=dtype,
+                                       device=dev))
+
+  # ---- 3b. one step on states in which every row class (plane-box
+  #      corner, capsule-box, torsional, rolling, joint limit, joint
+  #      equality) carries force, the equality rows both ways
+  mrb = MR.MegaRollout(task, 1, device=dev)
+  step = rec["handover_step"] = probe_step(
+      "3b", mrb, bimanual.probe_states(task.model, 128), operands)
+  lo, hi = step["dual_range_per_class"]["eq_joint"]
+  print(f"[3b] joint-equality duals from {lo:.4g} to {hi:.4g}")
+  check(lo < 0.0 < hi, "3b: the equality rows do not pull both ways")
+
+  # ---- 3e. the small class models from their snapshots: each equality
+  #      kind and the condim-6 rolling rows, one step each
+  rec["class_steps"] = {}
+  for name in ("joint_equality", "connect", "weld", "condim6_ball"):
+    ctask = class_models.task(name, device=dev)
+    rec["class_steps"][name] = probe_step(
+        f"3e {name}", MR.MegaRollout(ctask, 1, device=dev),
+        class_models.states(name, ctask.model, 128), lambda dt: {})
+
+  # ---- 4b. the main path: Agent("Bimanual Handover") at its defaults,
+  #      the target set through set_state
+  agent = Agent("Bimanual Handover", device=dev)
+  agent.reset("home")
+  agent.set_state(mocap_pos=HANDOVER_TARGET)
+  cfg = agent.planner.config
+  drive, _ = drive_agent("4b", agent, 16)
+  rec["handover_agent"] = drive
+
+  # ---- 5b. the bench shape: 256 candidates x 80 steps at the XML dt
+  b5 = bench_shape("5b", task, 256, 80, cfg, operands, reps)
+  rec["handover_bench_256x80"] = b5
+  return {
+      "name": "megarollout_returns[handover]", "route": "cuda",
+      "source": "mujoco_mpc_torch/csrc/megarollout.cu",
+      "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
+      "launches": drive["launches"],
+      "max_abs_err": max(drive["returns_abs_err"], b5["abs_err"]),
+      "ms": b5["kernel_ms"], "plain_ms": b5["plain_ms"],
+      "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
+      "library_ms": None,
+      "err_over_tol": max(drive["returns_rel_err"],
+                          b5["f64"]["max_rel"]) / 2e-3}
+
+
 def run_cem(dev, rec: dict) -> dict:
   """Phase 4c: Agent(planner="cross_entropy") on the Walker and on Shadow:
   5 plan steps each with one launch per plan, then one plan's returns
@@ -610,6 +683,7 @@ def main() -> int:
     print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
           file=sys.stderr)
     return 2
+  t_start = time.perf_counter()
   from mujoco_mpc_torch.agent.agent import Agent
   from mujoco_mpc_torch.ops import _cuda_build
   from mujoco_mpc_torch.ops import megarollout as MR
@@ -799,9 +873,13 @@ def main() -> int:
 
   quadruped_row = run_quadruped(dev, rec, reps)
   shadow_row = run_shadow(dev, rec, reps)
+  handover_row = run_handover(dev, rec, reps)
   cem_row = run_cem(dev, rec)
   kernels = {"kernels": [walker_row, humanoid_row, quadruped_row, shadow_row,
-                         cem_row]}
+                         handover_row, cem_row]}
+  rec["total_s"] = time.perf_counter() - t_start
+  print(f"[end] every phase passed in {rec['total_s']:.1f} s, the build "
+        f"included")
   if args.out:
     with open(args.out, "w") as f:
       json.dump({**rec, **kernels}, f, indent=1)

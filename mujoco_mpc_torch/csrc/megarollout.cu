@@ -35,10 +35,13 @@
 // like the task's userdata; each block keeps them in shared memory),
 // contacts of a world plane against sphere and capsule ends and box
 // corners, of sphere against sphere and box, of capsule against capsule,
-// and of capsule ends against a box, with condim 1, 3 or 4 (a torsional
-// row per condim-4 point), joint limits, and the dense or matrix-free
-// solve. Task residuals (and a task's state-dependent cost weights) are
-// __device__ functions selected by MRModelT::res_id.
+// and of capsule ends against a box, with condim 1, 3, 4 or 6 (a torsional
+// row per condim>=4 point, two rolling rows per condim-6 point), joint
+// limits, joint, connect and weld equality rows (bilateral), and the dense
+// or matrix-free solve. Task residuals (and a task's state-dependent cost
+// weights) are __device__ functions selected by MRModelT::res_id; they
+// read the step's pre-step frames, site frames and contact distances and
+// normals (StepOut).
 //
 // What bounds it on this card: latency, not bytes or FLOPs. A step is a
 // long chain of dependent scalar arithmetic per candidate (Walker ~30
@@ -59,9 +62,11 @@
 // Maxima, sized for the dm_control humanoid (nq 28, nv 27, nbody 17,
 // njnt 22, nu 21, 37 contact points, 21 limited joints, 2 limited
 // tendons, nrow 117), the quadruped (28 residual constants, 5 residual
-// sites, one mocap body, 24 userdata) and the Shadow hand (nq 31, nv 30,
+// sites, one mocap body, 24 userdata), the Shadow hand (nq 31, nv 30,
 // nbody 20, njnt 25, 4 tendons driven by actuators, 24 limited joints, 14
-// condim-4 points, nrow 104, 77 residual entries)
+// condim-4 points, nrow 104, 77 residual entries) and the bimanual
+// handover (16 condim-6 points, 2 joint equalities, nrow 130, 9 residual
+// indices)
 #define MR_MAX_NQ 32
 #define MR_MAX_NV 30
 #define MR_MAX_BODY 20    // <= 32: residuals take body sets as bitmasks
@@ -71,15 +76,16 @@
 #define MR_MAX_LIM 24     // limited joints (two rows each)
 #define MR_MAX_TEN 4      // fixed tendons (limited ones: two rows each)
 #define MR_MAX_WRAP 4     // joints a fixed tendon wraps
-#define MR_MAX_ROW 120    // constraint rows
+#define MR_MAX_ROW 130    // constraint rows
 #define MR_MAX_DENSE 32   // largest nrow solved with a materialized Delassus
 #define MR_MAX_TERM 16
 #define MR_MAX_RES 80     // residual entries
-#define MR_MAX_RES_INT 8
+#define MR_MAX_RES_INT 12
 #define MR_MAX_RES_FLOAT 32
 #define MR_MAX_SITE 8     // world points a residual reads
 #define MR_MAX_MOCAP 4
 #define MR_MAX_USERDATA 32
+#define MR_MAX_EQ 4       // equality constraints (a weld has 6 rows)
 
 #define MR_ITERATIONS 12
 #define MR_POWER_ITERS 8
@@ -101,6 +107,11 @@
 #define MR_RES_QUADRUPED 3
 #define MR_RES_SHADOW 4
 #define MR_RES_STATE 5      // (qpos, qvel): the small class models' residual
+#define MR_RES_HANDOVER 6
+
+#define MR_EQ_CONNECT 0
+#define MR_EQ_WELD 1
+#define MR_EQ_JOINT 2
 
 // Fields are int or T. The wrapper (ops/megarollout.py::_model_struct)
 // mirrors both instantiations with ctypes, which pads as C does, and
@@ -114,6 +125,9 @@
   X(int, ncon, )                                                             \
   X(int, nfric, )                                                            \
   X(int, ntor, )                                                             \
+  X(int, nroll, )                                                            \
+  X(int, neq, )                                                              \
+  X(int, neqrow, )                                                           \
   X(int, nlim, )                                                             \
   X(int, nten, )                                                             \
   X(int, ntenlim, )                                                          \
@@ -129,6 +143,7 @@
   X(T, res_float, [MR_MAX_RES_FLOAT])                                        \
   X(int, site_body, [MR_MAX_SITE])                                           \
   X(T, site_pos, [MR_MAX_SITE][3])                                           \
+  X(T, site_quat, [MR_MAX_SITE][4])                                          \
   X(T, timestep, )                                                           \
   X(T, gravity, [3])                                                         \
   X(int, body_parentid, [MR_MAX_BODY])                                       \
@@ -182,6 +197,9 @@
   X(T, con_mu, [MR_MAX_CON])                                                 \
   X(int, con_tor, [MR_MAX_CON])                                              \
   X(T, con_mu_tor, [MR_MAX_CON])                                             \
+  X(int, con_roll, [MR_MAX_CON])                                             \
+  X(T, con_mu_roll, [MR_MAX_CON])                                            \
+  X(int, con_id, [MR_MAX_CON])                                               \
   X(T, con_frame, [MR_MAX_CON][3][3])                                        \
   X(T, con_ppos, [MR_MAX_CON][3])                                            \
   X(T, con_box, [MR_MAX_CON][3])                                             \
@@ -210,6 +228,14 @@
   X(T, ten_margin, [MR_MAX_TEN])                                             \
   X(T, ten_k, [MR_MAX_TEN])                                                  \
   X(T, ten_b, [MR_MAX_TEN])                                                  \
+  X(int, eq_kind, [MR_MAX_EQ])                                               \
+  X(int, eq_ob1, [MR_MAX_EQ])                                                \
+  X(int, eq_ob2, [MR_MAX_EQ])                                                \
+  X(T, eq_data, [MR_MAX_EQ][11])                                             \
+  X(T, eq_k, [MR_MAX_EQ])                                                    \
+  X(T, eq_b, [MR_MAX_EQ])                                                    \
+  X(T, eq_imp, [MR_MAX_EQ][5])                                               \
+  X(T, eq_da, [MR_MAX_EQ][6])                                                \
   X(int, term_dim, [MR_MAX_TERM])                                            \
   X(int, term_norm, [MR_MAX_TERM])
 
@@ -402,6 +428,7 @@ struct Rows {
   int active[MR_MAX_ROW];
   T mu_t[MR_MAX_CON];
   T mu_tor[MR_MAX_CON];  // per torsional row
+  T mu_roll[MR_MAX_CON];  // per rolling pair of rows
   T amat[MR_MAX_DENSE * MR_MAX_DENSE];  // only when m.dense
 };
 
@@ -410,6 +437,20 @@ struct Rows {
 template <class T>
 __device__ __forceinline__ int tor_row0(const MRModelT<T>& m) {
   return 3 * m.nfric + (m.ncon - m.nfric);
+}
+
+// first rolling row: a condim-6 point's rows are roll0 + i (about the first
+// tangent) and roll0 + nroll + i (about the second)
+template <class T>
+__device__ __forceinline__ int roll_row0(const MRModelT<T>& m) {
+  return tor_row0(m) + m.ntor;
+}
+
+// first joint-limit row; the tendon limits follow, then from
+// nrow - neqrow the equality rows
+template <class T>
+__device__ __forceinline__ int lim_row0(const MRModelT<T>& m) {
+  return roll_row0(m) + 2 * m.nroll;
 }
 
 // out = A v with A = J M^-1 J^T (dense: the materialized matrix)
@@ -441,12 +482,14 @@ __device__ void amul(const MRModelT<T>& m, const Rows<T>& R,
 }
 
 // friction cone on the condim>=3 points, an interval on each torsional row
-// capped by its point's projected normal iterate (not a coupled elliptic
-// cone: the JAX package's approximation), the nonnegative orthant on the
-// rest (condim-1 normals, joint and tendon limits), then the active mask
+// and a disc on each pair of rolling rows, capped by the point's projected
+// normal iterate (not a coupled elliptic cone: the JAX package's
+// approximation), the nonnegative orthant on condim-1 normals and joint
+// and tendon limits, nothing on the bilateral equality rows, then the
+// active mask
 template <class T>
 __device__ void project(const MRModelT<T>& m, const Rows<T>& R, T* g) {
-  const int tor0 = tor_row0(m);
+  const int tor0 = tor_row0(m), roll0 = roll_row0(m);
   for (int ci = 0; ci < m.nfric; ++ci) {
     T* gc = g + 3 * ci;
     T gn = r_max(gc[0], 0.0f);
@@ -462,9 +505,21 @@ __device__ void project(const MRModelT<T>& m, const Rows<T>& R, T* g) {
       const T tcap = R.mu_tor[ti] * gn;
       g[tor0 + ti] = r_min(r_max(g[tor0 + ti], -tcap), tcap);
     }
+    const int ri = m.con_roll[ci];
+    if (ri >= 0) {
+      T* r1 = g + roll0 + ri;
+      T* r2 = g + roll0 + m.nroll + ri;
+      const T rsq = *r1 * *r1 + *r2 * *r2;
+      const T rnorm = rsq < T(1e-24) ? 0.0f : r_sqrt(rsq);
+      const T rcap = R.mu_roll[ri] * gn;
+      const T rs = rnorm > rcap ? rcap / r_max(rnorm, T(1e-12)) : 1.0f;
+      *r1 *= rs;
+      *r2 *= rs;
+    }
   }
   for (int r = 3 * m.nfric; r < tor0; ++r) g[r] = r_max(g[r], 0.0f);
-  for (int r = tor0 + m.ntor; r < m.nrow; ++r) g[r] = r_max(g[r], 0.0f);
+  for (int r = lim_row0(m); r < m.nrow - m.neqrow; ++r)
+    g[r] = r_max(g[r], 0.0f);
   for (int r = 0; r < m.nrow; ++r)
     if (!R.active[r]) g[r] = 0.0f;
 }
@@ -498,7 +553,12 @@ struct StepOut {
   T cvel[MR_MAX_BODY][6];
   T subtree_com[MR_MAX_BODY][3];
   T site_xpos[MR_MAX_SITE][3];
+  T site_xmat[MR_MAX_SITE][9];
   T act_force[MR_MAX_NU];
+  // the contact points in the model's order (con_id): dist (the margin
+  // taken off) and normal (frame row 0), from the step's narrowphase
+  T con_dist[MR_MAX_CON];
+  T con_normal[MR_MAX_CON][3];
 };
 
 // world position and rotation matrix of geom side s (0 = g1, 1 = g2) of
@@ -710,12 +770,14 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
     quat_mul(xquat[bd], m.body_iquat[bd], q);
     quat_to_mat(q, ximat[bd]);
   }
-  // the points the residual reads (sites, geom centres)
+  // the frames the residual reads (sites, geom centres)
   for (int st = 0; st < m.nsite; ++st) {
     const int bd = m.site_body[st];
-    T tmp[3];
+    T tmp[3], q[4];
     quat_rot(xquat[bd], m.site_pos[st], tmp);
     for (int i = 0; i < 3; ++i) out.site_xpos[st][i] = xpos[bd][i] + tmp[i];
+    quat_mul(xquat[bd], m.site_quat[st], q);
+    quat_to_mat(q, out.site_xmat[st]);
   }
 
   // ---- cdof [ang; lin] per dof; a free joint's translations are the
@@ -955,10 +1017,13 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
   chol_solve(L, qfrc, qacc_smooth, nv);
 
   // ---- constraint rows: condim>=3 points (n, t1, t2), condim-1 points (n),
-  //      torsional rows of the condim-4 points, joint limits (lo, hi),
-  //      tendon limits (lo, hi)
+  //      torsional rows of the condim>=4 points, rolling rows of the
+  //      condim-6 points (every point's first-tangent row, then every
+  //      point's second), joint limits (lo, hi), tendon limits (lo, hi),
+  //      equality rows
   const int nrow = m.nrow;
-  const int tor0 = tor_row0(m);
+  const int tor0 = tor_row0(m), roll0 = roll_row0(m), lim0 = lim_row0(m);
+  const int eq0 = nrow - m.neqrow;
   T qfrc_c[MR_MAX_NV];
   for (int k = 0; k < nv; ++k) qfrc_c[k] = 0.0f;
   if (nrow > 0) {
@@ -969,6 +1034,9 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
       T frame[3][3], cpos[3];
       const T dist = contact_geometry(m, xpos, xquat, ci, frame, cpos);
       const T im = impedance(dist, m.con_imp[ci]);
+      const int cid = m.con_id[ci];
+      out.con_dist[cid] = dist;
+      for (int i = 0; i < 3; ++i) out.con_normal[cid][i] = frame[0][i];
       const bool fric = ci < m.nfric;
       const int r0 = fric ? 3 * ci : 3 * m.nfric + (ci - m.nfric);
       for (int row = 0; row < (fric ? 3 : 1); ++row) {
@@ -1006,8 +1074,23 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
         for (int k = 0; k < nv; ++k) vel += R.J[r][k] * qvel[k];
         aref[r] = -im * (m.con_k[ci] * T(0) + m.con_b[ci] * vel);
       }
+      // rolling rows: the relative angular velocity about each tangent,
+      // otherwise as the torsional row
+      const int ri = fric ? m.con_roll[ci] : -1;
+      for (int ax = 1; ri >= 0 && ax <= 2; ++ax) {
+        const int r = roll0 + (ax - 1) * m.nroll + ri;
+        for (int k = 0; k < nv; ++k) {
+          const T sg = m.con_sgn[ci][k];
+          R.J[r][k] = sg != 0.0f ? sg * dot3(frame[ax], cdof[k]) : T(0);
+        }
+        R.active[r] = dist < 0.0f;
+        imp[r] = im;
+        T vel = 0.0f;
+        for (int k = 0; k < nv; ++k) vel += R.J[r][k] * qvel[k];
+        aref[r] = -im * (m.con_k[ci] * T(0) + m.con_b[ci] * vel);
+      }
     }
-    int r = tor0 + m.ntor;
+    int r = lim0;
     for (int li = 0; li < m.nlim; ++li) {
       const T q = qpos[m.lim_qadr[li]];
       for (int side = 0; side < 2; ++side, ++r) {
@@ -1042,6 +1125,84 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
                              m.ten_b[ti] * vel);
       }
     }
+    // equality rows: bilateral (a signed position error, always active);
+    // their softness scale is the model's diagApprox
+    T eq_da[6 * MR_MAX_EQ];
+    for (int e = 0; e < m.neq; ++e) {
+      const T* d = m.eq_data[e];
+      const int r_first = r;
+      T pos[6];
+      if (m.eq_kind[e] == MR_EQ_JOINT) {
+        // q1 - qpos0_1 = poly(q2 - qpos0_2), the derivative in q2's column
+        const int qa1 = m.jnt_qposadr[m.eq_ob1[e]];
+        for (int k = 0; k < nv; ++k) R.J[r][k] = 0.0f;
+        R.J[r][m.jnt_dofadr[m.eq_ob1[e]]] = 1.0f;
+        const T q1 = qpos[qa1] - m.qpos0[qa1];
+        if (m.eq_ob2[e] >= 0) {
+          const int qa2 = m.jnt_qposadr[m.eq_ob2[e]];
+          const T dq = qpos[qa2] - m.qpos0[qa2];
+          const T dq2 = dq * dq, dq3 = dq2 * dq;
+          const T poly = d[0] + d[1] * dq + d[2] * dq2 + d[3] * dq3 +
+                         d[4] * (dq2 * dq2);
+          const T dpoly = d[1] + (T(2) * d[2]) * dq + (T(3) * d[3]) * dq2 +
+                          (T(4) * d[4]) * dq3;
+          R.J[r][m.jnt_dofadr[m.eq_ob2[e]]] -= dpoly;
+          pos[0] = q1 - poly;
+        } else {
+          pos[0] = q1 - d[0];
+        }
+        ++r;
+      } else {
+        // connect: the two anchors coincide (a weld's anchors swapped);
+        // each row a difference of point-translation Jacobians
+        const bool weld = m.eq_kind[e] == MR_EQ_WELD;
+        const int b1 = m.eq_ob1[e], b2 = m.eq_ob2[e];
+        T p1[3], p2[3], tmp[3];
+        quat_rot(xquat[b1], weld ? d + 3 : d, tmp);
+        for (int i = 0; i < 3; ++i) p1[i] = xpos[b1][i] + tmp[i];
+        quat_rot(xquat[b2], weld ? d : d + 3, tmp);
+        for (int i = 0; i < 3; ++i) p2[i] = xpos[b2][i] + tmp[i];
+        for (int i = 0; i < 3; ++i, ++r) {
+          for (int k = 0; k < nv; ++k) {
+            const bool m1 = m.dof_body_mask[k][b1], m2 = m.dof_body_mask[k][b2];
+            T c1[3], c2[3];
+            cross3(cdof[k], p1, c1);
+            cross3(cdof[k], p2, c2);
+            const T j1 = cdof[k][3 + i] + c1[i], j2 = cdof[k][3 + i] + c2[i];
+            R.J[r][k] = m1 ? (m2 ? j1 - j2 : j1) : (m2 ? -j2 : T(0));
+          }
+          pos[i] = p1[i] - p2[i];
+        }
+        if (weld) {
+          // orientation: torquescale times the sin-weighted error
+          // 2 sign(w) vec(q2^-1 q1 relpose) (JAX's _quat_sub_tb)
+          const T tq = r_max(d[10], T(1e-8));
+          T q1r[4], dq[4];
+          quat_mul(xquat[b1], d + 6, q1r);
+          const T c2[4] = {xquat[b2][0], -xquat[b2][1], -xquat[b2][2],
+                           -xquat[b2][3]};
+          quat_mul(c2, q1r, dq);
+          const T sg = dq[0] < 0.0f ? T(-2) : T(2);
+          for (int i = 0; i < 3; ++i, ++r) {
+            for (int k = 0; k < nv; ++k) {
+              const T w = T(m.dof_body_mask[k][b1] ? 1 : 0) -
+                          T(m.dof_body_mask[k][b2] ? 1 : 0);
+              R.J[r][k] = w != 0.0f ? (tq * w) * cdof[k][i] : T(0);
+            }
+            pos[3 + i] = tq * (dq[1 + i] * sg);
+          }
+        }
+      }
+      for (int rr = r_first; rr < r; ++rr) {
+        const T posv = pos[rr - r_first];
+        R.active[rr] = 1;
+        imp[rr] = impedance(posv, m.eq_imp[e]);
+        eq_da[rr - eq0] = m.eq_da[e][rr - r_first];
+        T vel = 0.0f;
+        for (int k = 0; k < nv; ++k) vel += R.J[rr][k] * qvel[k];
+        aref[rr] = -imp[rr] * (m.eq_k[e] * posv + m.eq_b[e] * vel);
+      }
+    }
 
     // ---- Delassus diagonal (and matrix when dense), free acceleration
     for (int s = 0; s < nrow; ++s) {
@@ -1068,17 +1229,26 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
       for (int k = 0; k < nv; ++k) a += R.J[rr][k] * qacc_smooth[k];
       a0[rr] = a;
       diag[rr] = r_max(raw_diag[rr], T(1e-10));
-      R.reg[rr] = (1.0f - imp[rr]) / imp[rr] * diag[rr];
-      // degenerate rows (A_rr ~ 0 against the largest) are deactivated
-      R.active[rr] = R.active[rr] && (raw_diag[rr] > T(1e-8) * maxd);
+      const bool eq = rr >= eq0;
+      R.reg[rr] = (1.0f - imp[rr]) / imp[rr] * (eq ? eq_da[rr - eq0]
+                                                    : diag[rr]);
+      // degenerate rows (A_rr ~ 0 against the largest) are deactivated,
+      // except the equality rows, whose softness keeps the dual bounded
+      R.active[rr] = R.active[rr] && (eq || raw_diag[rr] > T(1e-8) * maxd);
       dr[rr] = diag[rr] + R.reg[rr];
     }
 
-    // ---- Jacobi preconditioning, tangent scales tied inside a point
+    // ---- Jacobi preconditioning, tangent scales tied inside a point and
+    //      the scales of a point's two rolling rows tied
     for (int ci = 0; ci < m.nfric; ++ci) {
       const T mt = 0.5f * (dr[3 * ci + 1] + dr[3 * ci + 2]);
       dr[3 * ci + 1] = mt;
       dr[3 * ci + 2] = mt;
+    }
+    for (int i = 0; i < m.nroll; ++i) {
+      const T mr = 0.5f * (dr[roll0 + i] + dr[roll0 + m.nroll + i]);
+      dr[roll0 + i] = mr;
+      dr[roll0 + m.nroll + i] = mr;
     }
     for (int rr = 0; rr < nrow; ++rr)
       R.s_pre[rr] = 1.0f / r_sqrt(r_max(dr[rr], T(1e-12)));
@@ -1087,10 +1257,15 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
       const int ti = m.con_tor[ci];
       if (ti >= 0)  // the torsional cap against the normal's scale
         R.mu_tor[ti] = m.con_mu_tor[ci] * R.s_pre[3 * ci] / R.s_pre[tor0 + ti];
+      const int ri = m.con_roll[ci];
+      if (ri >= 0)  // the rolling cap likewise
+        R.mu_roll[ri] =
+            m.con_mu_roll[ci] * R.s_pre[3 * ci] / R.s_pre[roll0 + ri];
     }
     // ---- initial iterate: cold start, or the previous step's duals; the
-    //      torsional rows always start cold (their duals can be
-    //      non-unique, and warm-starting them integrates drift)
+    //      angular (torsional, rolling) and equality rows always start
+    //      cold (their duals can be non-unique, and warm-starting them
+    //      integrates drift)
     T g[MR_MAX_ROW], y[MR_MAX_ROW], gn[MR_MAX_ROW], b_vec[MR_MAX_ROW];
     T lam_abs = 0.0f;
     for (int rr = 0; rr < nrow; ++rr) lam_abs += r_abs(lam[rr]);
@@ -1102,7 +1277,8 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
     project(m, R, g);
     if (!cold)
       for (int rr = 0; rr < nrow; ++rr)
-        if (rr < tor0 || rr >= tor0 + m.ntor) g[rr] = lam[rr] / R.s_pre[rr];
+        if (rr < tor0 || (rr >= lim0 && rr < eq0))
+          g[rr] = lam[rr] / R.s_pre[rr];
     project(m, R, g);
     for (int rr = 0; rr < nrow; ++rr) b_vec[rr] = a0[rr] - aref[rr];
 
@@ -1540,6 +1716,63 @@ __device__ void residual_shadow(const MRModelT<T>& m, const StepOut<T>& o,
   for (int i = 0; i < 24; ++i) hand[24 + i] = qvel[i];
 }
 
+// tasks/bimanual.py::_finger_normal: the mean normal finger -> box over
+// the slot's contact points within 2 cm of touching (sign: the pair's
+// stored order), normalized with the norm clamped at 1e-24 inside the root
+// and floored at 1e-9; false where there is none
+template <class T>
+__device__ bool finger_normal(const StepOut<T>& o, int start, int count,
+                              T sign, T* n) {
+  T avg[3] = {0.0f, 0.0f, 0.0f};
+  for (int j = start; j < start + count; ++j) {
+    const T on = o.con_dist[j] < T(0.02) ? T(1) : T(0);
+    for (int i = 0; i < 3; ++i) avg[i] += (o.con_normal[j][i] * sign) * on;
+  }
+  const T nrm = r_sqrt(r_max(dot3(avg, avg), T(1e-24)));
+  for (int i = 0; i < 3; ++i) n[i] = avg[i] / r_max(nrm, T(1e-9));
+  return nrm > T(1e-9);
+}
+
+// tasks/bimanual.py::residual (26 entries): the box in each gripper site's
+// frame with y and z doubled, the grasp quality (the geometric mean over
+// hands of 0.5 (n_L . n_R + 1), 1 for a hand without contact on both
+// fingers), box - target (mocap body 0), the 16 arm joint velocities.
+// res_int = (box body, the four finger-box slots' first contact points,
+// their point counts); res_float = their signs; sites = (left gripper,
+// right gripper)
+template <class T>
+__device__ void residual_handover(const MRModelT<T>& m, const StepOut<T>& o,
+                                  const T* qvel, const T* mocap_pos,
+                                  T* res) {
+  const T* box = o.xpos[m.res_int[0]];
+  for (int s = 0; s < 2; ++s) {
+    const T* mat = o.site_xmat[s];
+    T rel[3];
+    for (int i = 0; i < 3; ++i) rel[i] = box[i] - o.site_xpos[s][i];
+    for (int i = 0; i < 3; ++i) {
+      T acc = 0.0f;
+      for (int k = 0; k < 3; ++k) acc += mat[3 * k + i] * rel[k];
+      res[3 * s + i] = i == 0 ? acc : 2.0f * acc;
+    }
+  }
+  T quality = 1.0f;
+  for (int side = 0; side < 2; ++side) {
+    T n[2][3];
+    bool has[2];
+    for (int f = 0; f < 2; ++f) {
+      const int slot = 2 * side + f;
+      has[f] = finger_normal(o, m.res_int[1 + slot], m.res_int[5 + slot],
+                             m.res_float[slot], n[f]);
+    }
+    const T hand = has[0] && has[1] ? 0.5f * (dot3(n[0], n[1]) + 1.0f)
+                                    : T(1);
+    quality = side == 0 ? hand : quality * hand;
+  }
+  res[6] = r_sqrt(r_max(quality, T(0)));
+  for (int i = 0; i < 3; ++i) res[7 + i] = box[i] - mocap_pos[i];
+  for (int i = 0; i < 16; ++i) res[10 + i] = qvel[i];
+}
+
 // the state itself, (qpos, qvel): the residual of small test models
 template <class T>
 __device__ void residual_state(const MRModelT<T>& m, const T* qpos,
@@ -1565,6 +1798,8 @@ __device__ __forceinline__ void residual(const MRModelT<T>& m,
     residual_shadow(m, o, qpos, qvel, mocap_quat, res);
   else if (m.res_id == MR_RES_STATE)
     residual_state(m, qpos, qvel, res);
+  else if (m.res_id == MR_RES_HANDOVER)
+    residual_handover(m, o, qvel, mocap_pos, res);
 }
 
 // the task's state-dependent cost weight multipliers (Task.weight_mod);

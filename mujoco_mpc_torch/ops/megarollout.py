@@ -89,9 +89,9 @@ def _rollout_body(tm, task, horizon, qpos0, qvel0, actions, weights,
 
 MAX_NQ, MAX_NV, MAX_BODY, MAX_JNT, MAX_NU = 32, 30, 20, 25, 24
 MAX_CON, MAX_LIM, MAX_TEN, MAX_WRAP = 40, 24, 4, 4
-MAX_ROW, MAX_DENSE = 120, 32
-MAX_TERM, MAX_RES, MAX_RES_INT, MAX_RES_FLOAT = 16, 80, 8, 32
-MAX_SITE, MAX_MOCAP, MAX_USERDATA = 8, 4, 32
+MAX_ROW, MAX_DENSE = 130, 32
+MAX_TERM, MAX_RES, MAX_RES_INT, MAX_RES_FLOAT = 16, 80, 12, 32
+MAX_SITE, MAX_MOCAP, MAX_USERDATA, MAX_EQ = 8, 4, 32, 4
 _CON_KIND = {"plane_sphere": 0, "plane_capend": 0, "cap_cap": 1,
              "plane_boxcorner": 2, "sphere_sphere": 3, "sphere_box": 4,
              "cap_box": 5}
@@ -112,7 +112,8 @@ def _model_struct(_F):
   """ctypes mirror of MRModelT<T> for the scalar type _F."""
   fields = [
       ("nq", _I), ("nv", _I), ("nu", _I), ("nbody", _I), ("njnt", _I),
-      ("ncon", _I), ("nfric", _I), ("ntor", _I), ("nlim", _I),
+      ("ncon", _I), ("nfric", _I), ("ntor", _I), ("nroll", _I),
+      ("neq", _I), ("neqrow", _I), ("nlim", _I),
       ("nten", _I), ("ntenlim", _I), ("nrow", _I), ("dense", _I),
       ("nterm", _I), ("nres", _I), ("res_id", _I),
       ("nmocap", _I), ("nuserdata", _I), ("nsite", _I),
@@ -120,6 +121,7 @@ def _model_struct(_F):
       ("res_float", _arr(_F, MAX_RES_FLOAT)),
       ("site_body", _arr(_I, MAX_SITE)),
       ("site_pos", _arr(_F, MAX_SITE, 3)),
+      ("site_quat", _arr(_F, MAX_SITE, 4)),
       ("timestep", _F), ("gravity", _arr(_F, 3)),
       ("body_parentid", _arr(_I, MAX_BODY)),
       ("body_jntadr", _arr(_I, MAX_BODY)),
@@ -172,6 +174,9 @@ def _model_struct(_F):
       ("con_mu", _arr(_F, MAX_CON)),
       ("con_tor", _arr(_I, MAX_CON)),
       ("con_mu_tor", _arr(_F, MAX_CON)),
+      ("con_roll", _arr(_I, MAX_CON)),
+      ("con_mu_roll", _arr(_F, MAX_CON)),
+      ("con_id", _arr(_I, MAX_CON)),
       ("con_frame", _arr(_F, MAX_CON, 3, 3)),
       ("con_ppos", _arr(_F, MAX_CON, 3)),
       ("con_box", _arr(_F, MAX_CON, 3)),
@@ -200,6 +205,14 @@ def _model_struct(_F):
       ("ten_margin", _arr(_F, MAX_TEN)),
       ("ten_k", _arr(_F, MAX_TEN)),
       ("ten_b", _arr(_F, MAX_TEN)),
+      ("eq_kind", _arr(_I, MAX_EQ)),
+      ("eq_ob1", _arr(_I, MAX_EQ)),
+      ("eq_ob2", _arr(_I, MAX_EQ)),
+      ("eq_data", _arr(_F, MAX_EQ, 11)),
+      ("eq_k", _arr(_F, MAX_EQ)),
+      ("eq_b", _arr(_F, MAX_EQ)),
+      ("eq_imp", _arr(_F, MAX_EQ, 5)),
+      ("eq_da", _arr(_F, MAX_EQ, 6)),
       ("term_dim", _arr(_I, MAX_TERM)),
       ("term_norm", _arr(_I, MAX_TERM)),
   ]
@@ -231,6 +244,7 @@ def pack_model(tm: tilestep.TileModel, task: Task,
             ("tendon wraps", max([len(w) for w in tm.ten_wraps] or [0]),
              MAX_WRAP),
             ("constraint rows", tm.nrow, MAX_ROW),
+            ("equality constraints", len(tm.eq_rows), MAX_EQ),
             ("cost terms", spec.nterm, MAX_TERM),
             ("residual entries", spec.nresidual, MAX_RES),
             ("residual indices", len(dres.ints), MAX_RES_INT),
@@ -249,11 +263,13 @@ def pack_model(tm: tilestep.TileModel, task: Task,
     np.ctypeslib.as_array(getattr(s, name))[:len(values)] = values
 
   nlimj = len(tm.lim_jnt)
-  fric, ones, tor = tilestep.row_points(tm)
+  fric, ones, tor, roll = tilestep.row_points(tm)
   cps, nfric = fric + ones, len(fric)
   for name, v in (("nq", tm.nq), ("nv", tm.nv), ("nu", tm.nu),
                   ("nbody", tm.nbody), ("njnt", tm.njnt),
                   ("ncon", tm.ncon), ("nfric", nfric), ("ntor", len(tor)),
+                  ("nroll", len(roll)), ("neq", len(tm.eq_rows)),
+                  ("neqrow", tm.neq_rows),
                   ("nlim", nlimj), ("nten", len(tm.ten_wraps)),
                   ("ntenlim", len(tm.ten_lim)), ("nrow", tm.nrow),
                   ("dense", int(tilestep.amat_is_dense(tm.nrow))),
@@ -264,8 +280,11 @@ def pack_model(tm: tilestep.TileModel, task: Task,
     setattr(s, name, v)
   put("res_int", list(dres.ints))
   if dres.sites:
-    put("site_body", [b for b, _ in dres.sites])
-    put("site_pos", [p for _, p in dres.sites])
+    put("site_body", [st[0] for st in dres.sites])
+    put("site_pos", [st[1] for st in dres.sites])
+    # a site's orientation where the residual reads its frame
+    put("site_quat", [st[2] if len(st) > 2 else (1.0, 0.0, 0.0, 0.0)
+                      for st in dres.sites])
   put("gravity", tm.gravity)
   for name in ("body_parentid", "body_jntadr", "body_jntnum",
                "body_mocapid", "body_pos",
@@ -309,6 +328,14 @@ def pack_model(tm: tilestep.TileModel, task: Task,
     tor_ids = {id(cp): i for i, cp in enumerate(tor)}
     put("con_tor", [tor_ids.get(id(cp), -1) for cp in cps])
     put("con_mu_tor", [cp.mu_tor for cp in cps])
+    # rolling row index of each condim-6 point, -1 for the others
+    roll_ids = {id(cp): i for i, cp in enumerate(roll)}
+    put("con_roll", [roll_ids.get(id(cp), -1) for cp in cps])
+    put("con_mu_roll", [cp.mu_roll for cp in cps])
+    # each point's index in tm.con_points: the order of the residual's
+    # contact view
+    order = {id(cp): i for i, cp in enumerate(tm.con_points)}
+    put("con_id", [order[id(cp)] for cp in cps])
     # plane contacts: the constant frame and plane point
     put("con_frame", np.stack([cp.frame if cp.frame is not None
                                else np.zeros((3, 3)) for cp in cps]))
@@ -360,6 +387,20 @@ def pack_model(tm: tilestep.TileModel, task: Task,
     kbs = [tilestep.kb(sr, imp[1]) for sr in tm.ten_lim_solref]
     put("ten_k", [v[0] for v in kbs])
     put("ten_b", [v[1] for v in kbs])
+  if tm.eq_rows:
+    eqs = tm.eq_rows
+    put("eq_kind", [er.kind for er in eqs])
+    put("eq_ob1", [er.ob1 for er in eqs])
+    put("eq_ob2", [er.ob2 for er in eqs])
+    put("eq_data", np.stack([er.data for er in eqs]))
+    kbs = [tilestep.kb(er.solref, float(er.solimp[1])) for er in eqs]
+    put("eq_k", [v[0] for v in kbs])
+    put("eq_b", [v[1] for v in kbs])
+    put("eq_imp", [tilestep.impedance_consts(er.solimp) for er in eqs])
+    da = np.zeros((len(eqs), 6), np.float32)
+    for e, er in enumerate(eqs):
+      da[e, :er.nrows] = er.diagapprox
+    put("eq_da", da)
   put("term_dim", spec.dims)
   put("term_norm", spec.norm_types)
   if dtype != torch.float32:

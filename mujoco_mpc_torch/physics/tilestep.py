@@ -13,14 +13,17 @@ scalar-joint springs and friction loss, fixed tendons with limits, springs
 and dampers, mocap bodies (poses are rollout-constant operands; no joints,
 no colliding geoms), contacts of a world plane against sphere, capsule and
 cylinder ends and box corners, of sphere against sphere and box, of capsule
-against capsule, and of capsule ends against a box, with condim 1, 3 or 4,
-joint limits, and the dense or matrix-free Delassus solve. Everything else
-raises UnsupportedModel naming the ROADMAP item that ports it.
+against capsule, and of capsule ends against a box, with condim 1, 3, 4 or
+6, joint limits, joint, connect and weld equality constraints, and the
+dense or matrix-free Delassus solve. Everything else raises
+UnsupportedModel naming the ROADMAP item that ports it.
 
 Constraint rows are in the tile layout: condim>=3 points (n, t1, t2 each),
-condim-1 points (n), torsional rows (one per condim-4 point), joint limits
-(lo, hi each), tendon limits (lo, hi each) -- the same layout as the JAX
-tile path, so the duals compare row by row.
+condim-1 points (n), torsional rows (one per condim>=4 point), rolling rows
+(one per condim-6 point about the first tangent, then one per point about
+the second), joint limits (lo, hi each), tendon limits (lo, hi each),
+equality rows (1 per joint, 3 per connect, 6 per weld) -- the same layout
+as the JAX tile path, so the duals compare row by row.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from mujoco_mpc_torch.physics.types import (ActDyn, GainBias, GeomType,
-                                            JointType, Model, TrnType)
+from mujoco_mpc_torch.physics.types import (ActDyn, EqType, GainBias,
+                                            GeomType, JointType, Model,
+                                            TrnType)
 
 _ITERATIONS = 12  # warm-started APGD iterations (physics/solver.py)
 _POWER_ITERS = 8  # power iterations for the matrix-free step size
@@ -57,8 +61,8 @@ def _unsupported(what: str, item: str):
 
 
 _S3 = "queue 2 slice S3"
-_S5 = "queue 2 slice S5"
-_HANDOVER = "queue 2 slice S5, the Handover slice"
+_BOXBOX = "queue 2 slice S5, the box-box pair"
+_SPHERE_CAP = "queue 2 slice S5, the sphere-capsule pair"
 _GENERAL = "queue 1 items 3 and 6, the general engine"
 
 
@@ -89,8 +93,28 @@ class ConPoint:
   margin: float
   size2: Optional[np.ndarray] = None  # (3,) box half-sizes of g2 (box kinds)
   corner: Optional[np.ndarray] = None  # (3,) +-1 corner (plane_boxcorner)
-  condim: int = 3  # 1 = normal row only; 4 adds a torsional row
-  mu_tor: float = 0.0  # torsional friction coefficient (condim 4)
+  condim: int = 3  # 1 = normal row only; 4/6 add torsional/rolling rows
+  mu_tor: float = 0.0  # torsional friction coefficient (condim >= 4)
+  mu_roll: float = 0.0  # rolling friction coefficient (condim 6)
+
+
+@dataclasses.dataclass
+class EqRow:
+  """One active equality constraint: bilateral soft rows."""
+  kind: int  # EqType value
+  ob1: int  # body id (connect, weld) or joint id (joint coupling)
+  ob2: int
+  data: np.ndarray  # (11,) float32, MuJoCo's eq_data layout
+  solref: np.ndarray  # (2,) float32
+  solimp: np.ndarray  # (5,) float32
+  # per-row softness scale: MuJoCo's diagApprox from invweight0, not the
+  # live Delassus diagonal (a degenerate row's dual stays bounded)
+  diagapprox: np.ndarray  # (nrows,) float32
+
+  @property
+  def nrows(self) -> int:
+    return {EqType.CONNECT: 3, EqType.WELD: 6, EqType.JOINT: 1}[
+        EqType(self.kind)]
 
 
 @dataclasses.dataclass
@@ -156,9 +180,10 @@ class TileModel:
   lim_hi: tuple
   lim_margin: tuple
   lim_solref: np.ndarray  # (nlim_jnt, 2)
-  # sites residuals read (StepView.site_xpos)
+  # sites residuals read (StepView.site_xpos, site_xmat)
   site_bodyid: tuple
   site_pos: np.ndarray
+  site_quat: np.ndarray
   # scalar-joint springs + smoothed Coulomb friction loss
   jnt_stiffness: np.ndarray  # (njnt,)
   qpos_spring: np.ndarray  # (nq,)
@@ -173,6 +198,7 @@ class TileModel:
   ten_lim_margin: tuple = ()
   ten_lim_solref: Optional[np.ndarray] = None  # (nlimten, 2)
   act_tendon: tuple = ()  # (nu,) tendon id per actuator, -1 = scalar joint
+  eq_rows: tuple = ()  # active equality constraints (EqRow), model order
 
   @property
   def ncon(self) -> int:
@@ -185,18 +211,29 @@ class TileModel:
 
   @property
   def ntor(self) -> int:
-    """Torsional rows: one per condim-4 point."""
+    """Torsional rows: one per condim>=4 point."""
     return sum(1 for cp in self.con_points if cp.condim >= 4)
+
+  @property
+  def nroll(self) -> int:
+    """Condim-6 points: two rolling rows each."""
+    return sum(1 for cp in self.con_points if cp.condim >= 6)
 
   @property
   def nlim(self) -> int:
     return 2 * len(self.lim_jnt) + 2 * len(self.ten_lim)
 
   @property
+  def neq_rows(self) -> int:
+    return sum(e.nrows for e in self.eq_rows)
+
+  @property
   def nrow(self) -> int:
-    """Constraint rows: translational contact rows, torsional rows, then 2
-    per limited joint and 2 per limited tendon."""
-    return self.ncon_rows + self.ntor + self.nlim
+    """Constraint rows: translational contact rows, torsional rows, 2 per
+    rolling point, 2 per limited joint and limited tendon, then the
+    equality rows."""
+    return (self.ncon_rows + self.ntor + 2 * self.nroll + self.nlim
+            + self.neq_rows)
 
 
 def extract(m: Model) -> TileModel:
@@ -227,8 +264,28 @@ def extract(m: Model) -> TileModel:
       _unsupported("colliding mocap geom", _GENERAL)
   if m.opt.has_fluid:
     _unsupported("fluid forces", _GENERAL)
-  if any(m.eq_active0):
-    _unsupported("equality constraints", _HANDOVER)
+  # equality constraints: the active ones, each with its slice of the
+  # model's per-row diagApprox (physics/io.py)
+  eq_rows = []
+  da_off = 0
+  for e in range(len(m.eq_type)):
+    if not m.eq_active0[e]:
+      continue
+    kind = EqType(m.eq_type[e])
+    if kind == EqType.JOINT:
+      for j in (m.eq_obj1id[e], m.eq_obj2id[e]):
+        if j >= 0 and m.jnt_type[j] not in scalar:
+          _unsupported("joint equality on a free joint", _GENERAL)
+    row = EqRow(kind=int(kind), ob1=int(m.eq_obj1id[e]),
+                ob2=int(m.eq_obj2id[e]),
+                data=npy(m.eq_data)[e].astype(np.float32),
+                solref=npy(m.eq_solref)[e].astype(np.float32),
+                solimp=npy(m.eq_solimp)[e].astype(np.float32),
+                diagapprox=np.zeros(0, np.float32))
+    row.diagapprox = np.asarray(
+        m.eq_diagapprox[da_off:da_off + row.nrows], np.float32)
+    da_off += row.nrows
+    eq_rows.append(row)
   # actuators: scalar-joint and fixed-tendon transmissions
   act_tendon = [-1] * m.nu
   for u in range(m.nu):
@@ -264,8 +321,6 @@ def extract(m: Model) -> TileModel:
     t1, t2 = GeomType(m.geom_type[g1]), GeomType(m.geom_type[g2])
     b1, b2 = m.geom_bodyid[g1], m.geom_bodyid[g2]
     condim = int(max(m.geom_condim[g1], m.geom_condim[g2]))
-    if condim not in (1, 3, 4):
-      _unsupported(f"condim {condim} contacts", _HANDOVER)
     common = dict(
         g1=g1, g2=g2, body1=b1, body2=b2,
         r1=float(gs[g1, 0]), r2=float(gs[g2, 0]),
@@ -274,7 +329,8 @@ def extract(m: Model) -> TileModel:
         solref=0.5 * (npy(m.geom_solref)[g1] + npy(m.geom_solref)[g2]),
         solimp=0.5 * (npy(m.geom_solimp)[g1] + npy(m.geom_solimp)[g2]),
         margin=float(max(npy(m.geom_margin)[g1], npy(m.geom_margin)[g2])),
-        condim=condim, mu_tor=float(max(fr[g1, 1], fr[g2, 1])))
+        condim=condim, mu_tor=float(max(fr[g1, 1], fr[g2, 1])),
+        mu_roll=float(max(fr[g1, 2], fr[g2, 2])))
     if t1 == GeomType.PLANE and t2 in (GeomType.SPHERE, GeomType.CAPSULE,
                                        GeomType.CYLINDER, GeomType.BOX):
       if b1 != 0:
@@ -314,7 +370,11 @@ def extract(m: Model) -> TileModel:
                                    ppos=None, size2=gs[g2].astype(np.float32),
                                    **common))
     else:
-      _unsupported(f"contact pair {t1.name}/{t2.name}", _HANDOVER)
+      # the JAX kernel's other pairs; anything else is the general engine's
+      _unsupported(f"contact pair {t1.name}/{t2.name}", {
+          (GeomType.BOX, GeomType.BOX): _BOXBOX,
+          (GeomType.SPHERE, GeomType.CAPSULE): _SPHERE_CAP}.get(
+              (t1, t2), _GENERAL))
 
   lim = [j for j in range(m.njnt) if m.jnt_limited[j]]
   for j in lim:
@@ -378,6 +438,7 @@ def extract(m: Model) -> TileModel:
       lim_solref=(np.stack([npy(m.jnt_solref)[j] for j in lim])
                   if lim else np.zeros((0, 2))),
       site_bodyid=tuple(m.site_bodyid), site_pos=npy(m.site_pos),
+      site_quat=npy(m.site_quat),
       jnt_stiffness=npy(m.jnt_stiffness),
       qpos_spring=npy(m.qpos_spring),
       dof_frictionloss=npy(m.dof_frictionloss),
@@ -396,29 +457,40 @@ def extract(m: Model) -> TileModel:
                                 for t in ten_lim])
                       if ten_lim else np.zeros((0, 2))),
       act_tendon=tuple(act_tendon),
+      eq_rows=tuple(eq_rows),
   )
 
 
-def row_points(tm: TileModel) -> Tuple[tuple, tuple, tuple]:
+def row_points(tm: TileModel) -> Tuple[tuple, tuple, tuple, tuple]:
   """Contact points in row order: the condim>=3 points (three rows each),
-  the condim-1 points (one row each), then the condim-4 points again (one
-  torsional row each, in the order of the first group)."""
+  the condim-1 points (one row each), then the condim>=4 points again (one
+  torsional row each) and the condim-6 points (two rolling rows each, all
+  the first-tangent rows before the second-tangent ones), each in the
+  order of the first group."""
   return (tuple(cp for cp in tm.con_points if cp.condim >= 3),
           tuple(cp for cp in tm.con_points if cp.condim == 1),
-          tuple(cp for cp in tm.con_points if cp.condim >= 4))
+          tuple(cp for cp in tm.con_points if cp.condim >= 4),
+          tuple(cp for cp in tm.con_points if cp.condim >= 6))
+
+
+_EQ_KIND = {EqType.JOINT: "eq_joint", EqType.CONNECT: "eq_connect",
+            EqType.WELD: "eq_weld"}
 
 
 def row_kinds(tm: TileModel) -> Tuple[str, ...]:
   """The class of every constraint row, in the tile layout: the contact
   kind ('plane_capend', 'plane_sphere', 'plane_boxcorner', 'sphere_sphere',
-  'sphere_box', 'cap_cap', 'cap_box'), 'torsional', 'joint_limit' or
-  'tendon_limit'."""
-  fric, ones, tor = row_points(tm)
+  'sphere_box', 'cap_cap', 'cap_box'), 'torsional', 'rolling',
+  'joint_limit', 'tendon_limit', 'eq_joint', 'eq_connect' or 'eq_weld'."""
+  fric, ones, tor, roll = row_points(tm)
   kinds = [cp.kind for cp in fric for _ in range(3)]
   kinds += [cp.kind for cp in ones]
   kinds += ["torsional"] * len(tor)
+  kinds += ["rolling"] * (2 * len(roll))
   kinds += ["joint_limit"] * (2 * len(tm.lim_jnt))
   kinds += ["tendon_limit"] * (2 * len(tm.ten_lim))
+  for er in tm.eq_rows:
+    kinds += [_EQ_KIND[EqType(er.kind)]] * er.nrows
   return tuple(kinds)
 
 
@@ -578,12 +650,24 @@ def _impedance(pos, d0, d1, width, mid, power):
 
 
 @dataclasses.dataclass
+class ContactView:
+  """The step's contact points as a residual reads them, in the order of
+  TileModel.con_points (pre-step geometry, the margin taken off dist)."""
+  dist: torch.Tensor  # (ncon, B)
+  frame: torch.Tensor  # (ncon, 3, 3, B): rows n, t1, t2
+  pairs: tuple  # (ncon,) geom pair (g1, g2) of each point; n points g1->g2
+
+
+@dataclasses.dataclass
 class StepView:
   """What a task residual reads after a step (component-leading,
   batch-trailing). Frames are PRE-step (the state the step started from),
   qpos/qvel are POST-step -- the convention of the JAX tile path. The
   rollout-constant operands (mocap poses, userdata) have a trailing axis of
-  1 that broadcasts against the batch."""
+  1 that broadcasts against the batch. `contact`, a ContactView, is set by
+  step_tb on a model with contact points (None otherwise); it is not a
+  field, as it is not one of the JAX view's arrays."""
+  contact = None
   qpos: torch.Tensor  # (nq, B) post-step
   qvel: torch.Tensor  # (nv, B) post-step
   ctrl: torch.Tensor  # (nu, B) as given, before clamping
@@ -595,6 +679,7 @@ class StepView:
   cvel: torch.Tensor  # (nbody, 6, B)
   subtree_com: torch.Tensor  # (nbody, 3, B)
   site_xpos: torch.Tensor  # (nsite, 3, B)
+  site_xmat: torch.Tensor  # (nsite, 3, 3, B)
   geom_xpos: torch.Tensor  # (ngeom, 3, B)
   actuator_force: torch.Tensor  # (nu, B) of the clamped ctrl
   mocap_pos: torch.Tensor  # (nmocap, 3, 1)
@@ -915,9 +1000,11 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
 
   # ---- contacts + limits -> constraint solve
   nrow = tm.nrow
+  contact = None
   if nrow:
-    f, lam_out = _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L,
-                                   qacc_smooth, efc_lambda, const)
+    f, lam_out, contact = _constraint_solve(tm, qpos, qvel, xpos, xquat,
+                                            cdof, L, qacc_smooth, efc_lambda,
+                                            const)
     qfrc_constraint = f
   else:
     qfrc_constraint = torch.zeros_like(qfrc_smooth)
@@ -959,6 +1046,8 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
     return (torch.stack(out) if out
             else torch.zeros((0, 3, B), dtype=dtype, device=dev))
 
+  site_xmat = [_quat_to_mat(_quat_mul(xquat[b], _c(tm.site_quat[i])))
+               for i, b in enumerate(tm.site_bodyid)]
   view = StepView(
       qpos=qpos2, qvel=qvel2, ctrl=ctrl,
       xpos=torch.stack(xpos), xquat=torch.stack(xquat),
@@ -967,11 +1056,14 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
       cvel=torch.stack([torch.cat([va, vl]) for va, vl in cvel]),
       subtree_com=torch.stack(sub_com),
       site_xpos=points(tm.site_bodyid, tm.site_pos),
+      site_xmat=(torch.stack(site_xmat) if site_xmat
+                 else torch.zeros((0, 3, 3, B), dtype=dtype, device=dev)),
       geom_xpos=points(tm.geom_bodyid, tm.geom_pos),
       actuator_force=(torch.stack(act_force) if act_force
                       else torch.zeros((0, B), dtype=dtype, device=dev)),
       mocap_pos=mocap_pos, mocap_quat=mocap_quat, userdata=userdata,
       efc_lambda=lam_out)
+  view.contact = contact
   return qpos2, qvel2, view
 
 
@@ -1078,10 +1170,69 @@ def _contact_geometry(tm, cp, geom_frame, const):
   return dist - cp.margin, _frame_from_normal(n), cpos
 
 
+def _equality_rows(tm, er, qpos, xpos, xquat, cdof, zero):
+  """The rows of one equality constraint as (Jacobian row, position
+  error) pairs, a row being nv entries of (B,) tensors or None:
+  JOINT q1 - qpos0_1 = poly(q2 - qpos0_2) (the polynomial's derivative in
+  the second joint's column); CONNECT the two anchor points coincide;
+  WELD the same with the anchors swapped, then 3 orientation rows scaled by
+  the torquescale, their error the sin-weighted 2 sign(w) vec(q2^-1 q1)
+  (JAX's _quat_sub_tb, not the log map)."""
+  nv = tm.nv
+  d = _c(er.data)
+  if er.kind == EqType.JOINT:
+    qa1, va1 = tm.jnt_qposadr[er.ob1], tm.jnt_dofadr[er.ob1]
+    jrow = [None] * nv
+    jrow[va1] = zero + 1.0
+    q1 = qpos[qa1] - float(tm.qpos0[qa1])
+    if er.ob2 < 0:
+      return [(jrow, q1 - d[0])]
+    qa2, va2 = tm.jnt_qposadr[er.ob2], tm.jnt_dofadr[er.ob2]
+    dq = qpos[qa2] - float(tm.qpos0[qa2])
+    dq2 = dq * dq
+    dq3 = dq2 * dq
+    poly = d[0] + d[1] * dq + d[2] * dq2 + d[3] * dq3 + d[4] * (dq2 * dq2)
+    dpoly = d[1] + (2 * d[2]) * dq + (3 * d[3]) * dq2 + (4 * d[4]) * dq3
+    jrow[va2] = -dpoly if jrow[va2] is None else jrow[va2] - dpoly
+    return [(jrow, q1 - poly)]
+  b1, b2 = er.ob1, er.ob2
+  a1, a2 = (d[0:3], d[3:6]) if er.kind == EqType.CONNECT else (d[3:6],
+                                                               d[0:3])
+  p1 = xpos[b1] + _quat_rot(xquat[b1], a1)
+  p2 = xpos[b2] + _quat_rot(xquat[b2], a2)
+  m1, m2 = tm.dof_body_mask[:, b1], tm.dof_body_mask[:, b2]
+  # point-translation Jacobians of the two anchors
+  jc1 = {k: cdof[k][1] + _cross(cdof[k][0], p1) for k in range(nv) if m1[k]}
+  jc2 = {k: cdof[k][1] + _cross(cdof[k][0], p2) for k in range(nv) if m2[k]}
+  rows = []
+  for i in range(3):
+    jrow = [None] * nv
+    for k in range(nv):
+      if m1[k]:
+        jrow[k] = jc1[k][i]
+      if m2[k]:
+        jrow[k] = -jc2[k][i] if jrow[k] is None else jrow[k] - jc2[k][i]
+    rows.append((jrow, p1[i] - p2[i]))
+  if er.kind == EqType.WELD:
+    tq = max(d[10], 1e-8)
+    q1r = _quat_mul(xquat[b1], d[6:10])
+    q2 = xquat[b2]
+    dq = _quat_mul(torch.stack([q2[0], -q2[1], -q2[2], -q2[3]]), q1r)
+    s = torch.where(dq[0] < 0, -2.0, 2.0).to(dq.dtype)  # shortest path
+    for i in range(3):
+      jrow = [None] * nv
+      for k in range(nv):
+        sgn = float(m1[k]) - float(m2[k])
+        if sgn != 0.0:
+          jrow[k] = (tq * sgn) * cdof[k][0][i]
+      rows.append((jrow, tq * (dq[1 + i] * s)))
+  return rows
+
+
 def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
                       efc_lambda, const):
   """Rows, Delassus operator, preconditioned APGD; (qfrc (nv, B),
-  converged physical duals (nrow, B))."""
+  converged physical duals (nrow, B), the ContactView)."""
   nv, nrow = tm.nv, tm.nrow
   B = qpos.shape[1]
   dtype, dev = qpos.dtype, qpos.device
@@ -1099,14 +1250,16 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
                     _quat_mul(xquat[bg], _c(tm.geom_quat[g])))
     return gf_memo[g]
 
-  def rows_of(cps, nr, ang=False):
+  def rows_of(cps, nr, ang=False, axis=0):
     """Append the rows of contact points cps: nr translational rows each
-    (the frame's first nr directions), or with ang one torsional row each
-    (the relative angular velocity about the normal, no positional error,
-    the point's impedance, solref and activity)."""
+    (the frame's first nr directions), or with ang one angular row each
+    about frame direction `axis` (the relative angular velocity: torsional
+    about the normal, rolling about a tangent; no positional error, the
+    point's impedance, solref and activity)."""
     npt = len(cps)
     dist = torch.stack([geo[id(cp)][0] for cp in cps])  # (npt, B)
-    frame = torch.stack([geo[id(cp)][1][:nr] for cp in cps])  # (npt,nr,3,B)
+    frame = torch.stack([geo[id(cp)][1][axis:axis + nr]
+                         for cp in cps])  # (npt, nr, 3, B)
     # relative-velocity Jacobian: sign per dof from the two bodies' paths
     sgn = const([[float(tm.dof_body_mask[k, cp.body2])
                   - float(tm.dof_body_mask[k, cp.body1])
@@ -1133,9 +1286,11 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
     k_parts.append(const([[v[0]] * nr for v in kbs]).reshape(nr * npt))
     b_parts.append(const([[v[1]] * nr for v in kbs]).reshape(nr * npt))
 
-  # contact rows: condim>=3 points (n, t1, t2), condim-1 points (n), then
-  # the torsional rows of the condim-4 points
-  fric, ones, tor = row_points(tm)
+  # contact rows: condim>=3 points (n, t1, t2), condim-1 points (n), the
+  # torsional rows of the condim>=4 points, then the rolling rows of the
+  # condim-6 points, about the first tangent for all of them, then about
+  # the second
+  fric, ones, tor, roll = row_points(tm)
   geo = {id(cp): _contact_geometry(tm, cp, geom_frame, const)
          for cp in fric + ones}
   for cps, nr in ((fric, 3), (ones, 1)):
@@ -1143,6 +1298,19 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
       rows_of(cps, nr)
   if tor:
     rows_of(tor, 1, ang=True)
+  for axis in (1, 2):
+    if roll:
+      rows_of(roll, 1, ang=True, axis=axis)
+  pairs = tuple((cp.g1, cp.g2) for cp in tm.con_points)
+  if tm.ncon:
+    contact = ContactView(
+        dist=torch.stack([geo[id(cp)][0] for cp in tm.con_points]),
+        frame=torch.stack([geo[id(cp)][1] for cp in tm.con_points]),
+        pairs=pairs)
+  else:
+    contact = ContactView(dist=torch.zeros((0, B), dtype=dtype, device=dev),
+                          frame=torch.zeros((0, 3, 3, B), dtype=dtype,
+                                            device=dev), pairs=pairs)
 
   # limit rows: joints, then fixed tendons (constant Jacobians)
   lims = [(qpos[tm.lim_qadr[li]], {tm.lim_vadr[li]: 1.0}, tm.lim_lo[li],
@@ -1179,6 +1347,22 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
     k_parts.append(const([[v[0]] * 2 for v in kbs]).reshape(2 * nl))
     b_parts.append(const([[v[1]] * 2 for v in kbs]).reshape(2 * nl))
 
+  # equality rows: bilateral (a signed position error, always active,
+  # never projected)
+  zero = torch.zeros_like(qpos[0])
+  for er in tm.eq_rows:
+    rows = _equality_rows(tm, er, qpos, xpos, xquat, cdof, zero)
+    J_parts.append(torch.stack([
+        torch.stack([v if v is not None else zero for v in jrow])
+        for jrow, _ in rows]))
+    posv = torch.stack([p for _, p in rows])
+    pos_parts.append(posv)
+    act_parts.append(torch.ones_like(posv, dtype=torch.bool))
+    imp_parts.append(_impedance(posv, *_c(impedance_consts(er.solimp))))
+    k_eq, b_eq = kb(er.solref, float(er.solimp[1]))
+    k_parts.append(const([k_eq] * len(rows)))
+    b_parts.append(const([b_eq] * len(rows)))
+
   J = torch.cat(J_parts)  # (nrow, nv, B)
   rows_pos = torch.cat(pos_parts)
   active_rows = torch.cat(act_parts)
@@ -1207,17 +1391,31 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
   diag = torch.clamp(raw_diag, min=1e-10)
   a0 = jmat_vec(qacc_smooth)
 
-  # softness R = (1 - d)/d * A_rr; degenerate rows (A_rr ~ 0 relative to
-  # the candidate's largest) are deactivated
-  reg = (1.0 - imp_s) / imp_s * diag
+  # softness R = (1 - d)/d * A_rr, where the equality rows take the model's
+  # constant diagApprox for A_rr; degenerate rows (A_rr ~ 0 relative to the
+  # candidate's largest, over all rows) are deactivated, except the
+  # equality rows, whose R keeps the dual bounded
+  neq = tm.neq_rows
+  nuni = nrow - neq  # the unilateral rows come first
+  reg_base = diag
+  if neq:
+    eq_da = np.concatenate([er.diagapprox for er in tm.eq_rows])
+    reg_base = torch.cat([diag[:nuni], const(eq_da)[:, None].expand(neq, B)])
+  reg = (1.0 - imp_s) / imp_s * reg_base
   nondeg = raw_diag > 1e-8 * torch.max(raw_diag, dim=0, keepdim=True)[0]
+  if neq:
+    nondeg = torch.cat([nondeg[:nuni], torch.ones_like(nondeg[nuni:])])
   active = active_rows & nondeg
 
-  # Jacobi preconditioning, tangent scales tied so the cone stays circular
-  nf, ntor = len(fric), len(tor)
+  # Jacobi preconditioning, tangent scales tied inside a point and the two
+  # rolling rows' scales tied, so the cone and the rolling disc stay
+  # circular
+  nf, ntor, nroll = len(fric), len(tor), len(roll)
   off_ang = 3 * nf + len(ones)  # first torsional row
-  lim0 = off_ang + ntor  # first limit row
+  roll0 = off_ang + ntor  # first rolling row
+  lim0 = roll0 + 2 * nroll  # first limit row
   tor_f = [i for i, cp in enumerate(fric) if cp.condim >= 4]  # tor's points
+  roll_f = [i for i, cp in enumerate(fric) if cp.condim >= 6]
   dr = diag + reg
   if nf:
     fc = dr[:3 * nf].reshape(nf, 3, B)
@@ -1226,6 +1424,9 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
                       .reshape(3 * nf, B), dr[3 * nf:]])
   else:
     dr_s = dr
+  if nroll:
+    mr = 0.5 * (dr_s[roll0:roll0 + nroll] + dr_s[roll0 + nroll:lim0])
+    dr_s = torch.cat([dr_s[:roll0], mr, mr, dr_s[lim0:]])
   s_pre = 1.0 / torch.sqrt(torch.clamp(dr_s, min=1e-12))
   if nf:
     fs = s_pre[:3 * nf].reshape(nf, 3, B)
@@ -1233,7 +1434,10 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
     mu_t = mu * fs[:, 0] / fs[:, 1]
   if ntor:  # torsional caps relative to the point's normal scale
     mu_tor = (const([cp.mu_tor for cp in tor])[:, None] * fs[tor_f, 0]
-              / s_pre[off_ang:lim0])
+              / s_pre[off_ang:roll0])
+  if nroll:  # rolling caps likewise, one per pair of rows
+    mu_roll = (const([cp.mu_roll for cp in roll])[:, None] * fs[roll_f, 0]
+               / s_pre[roll0:roll0 + nroll])
 
   def project(g):
     parts = []
@@ -1256,9 +1460,21 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
       # an interval capped by the same point's projected normal iterate
       # (not a coupled elliptic cone: the JAX package's approximation)
       cap = mu_tor * gn[tor_f]
-      parts.append(torch.clamp(g[off_ang:lim0], min=-cap, max=cap))
-    if nrow > lim0:  # joint and tendon limits
-      parts.append(torch.clamp(g[lim0:], min=0.0))
+      parts.append(torch.clamp(g[off_ang:roll0], min=-cap, max=cap))
+    if nroll:  # a disc capped by the point's projected normal iterate
+      r1, r2 = g[roll0:roll0 + nroll], g[roll0 + nroll:lim0]
+      rsq = r1 * r1 + r2 * r2
+      tiny = rsq < 1e-24
+      rnorm = torch.sqrt(torch.where(tiny, torch.ones_like(rsq), rsq))
+      rnorm = torch.where(tiny, torch.zeros_like(rnorm), rnorm)
+      cap = mu_roll * gn[roll_f]
+      scale = torch.where(rnorm > cap, cap / torch.clamp(rnorm, min=1e-12),
+                          torch.ones_like(rnorm))
+      parts += [r1 * scale, r2 * scale]
+    if nuni > lim0:  # joint and tendon limits
+      parts.append(torch.clamp(g[lim0:nuni], min=0.0))
+    if neq:  # bilateral equality rows: no projection
+      parts.append(g[nuni:])
     g = torch.cat(parts) if len(parts) > 1 else parts[0]
     return torch.where(active, g, torch.zeros_like(g))
 
@@ -1266,12 +1482,14 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
   g_init = project((aref - a0) * dinv / s_pre)
   if efc_lambda is not None:
     # warm start from the previous step's physical duals, unless all-zero;
-    # the torsional rows always start cold: their duals can be non-unique,
-    # and warm-starting them integrates drift
+    # the angular (torsional, rolling) and equality rows always start
+    # cold: their duals can be non-unique, and warm-starting them
+    # integrates drift
     cold = torch.sum(torch.abs(efc_lambda), dim=0) == 0
     warm = efc_lambda / s_pre
-    if ntor:
-      warm = torch.cat([warm[:off_ang], g_init[off_ang:lim0], warm[lim0:]])
+    if lim0 > off_ang or neq:
+      warm = torch.cat([warm[:off_ang], g_init[off_ang:lim0],
+                        warm[lim0:nuni], g_init[nuni:]])
     g0 = project(torch.where(cold[None], g_init, warm))
   else:
     g0 = g_init
@@ -1322,4 +1540,4 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
     t = torch.where(reverse, torch.ones_like(t), t_new)
     g = g_new
   f = s_pre * g  # physical dual forces
-  return jmat_t_vec(f), f
+  return jmat_t_vec(f), f, contact

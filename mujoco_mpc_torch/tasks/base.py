@@ -62,13 +62,14 @@ class DeviceResidual:
 
   `id` picks the function in csrc/megarollout.cu; `ints` are the model
   indices it reads (body, dof, body bitmask, ...), `floats` the model
-  constants it reads, and `sites` the points fixed to bodies whose world
-  positions it reads (sites and geom centres, as (body, local position)),
-  resolved once from the Model."""
+  constants it reads, and `sites` the frames fixed to bodies whose world
+  positions (and orientations) it reads (sites and geom centres, as (body,
+  local position) or (body, local position, local quaternion)), resolved
+  once from the Model."""
   id: int
   ints: Tuple[int, ...] = ()
   floats: Tuple[float, ...] = ()
-  sites: Tuple[Tuple[int, Tuple[float, float, float]], ...] = ()
+  sites: Tuple[tuple, ...] = ()
 
 
 def parse_cost_spec_mj(mj_model, model: Model, dtype, device):

@@ -12,9 +12,9 @@ Tolerances, with the errors measured when they were set: Walker step qpos
 atol 1e-6 (3.0e-8), qvel 1e-4 (6.4e-6), duals 1e-5 * max (1.2e-3 of 1.1e3);
 Humanoid step qpos 1e-5 (5.1e-7), qvel 1e-3 (7.6e-5), duals 1e-4 * max
 (3.2e-3 of 2.2e3); Quadruped step qpos 1e-5 (2.4e-7), qvel 1e-3 (6.7e-6),
-duals 1e-4 * max (3.7e-4 of 9.2e2); Shadow and the small class models of
-tests/test_torch_tilestep_classes.py as the Quadruped; returns rtol 2e-3
-(Walker 1.2e-7, Humanoid 1.3e-6).
+duals 1e-4 * max (3.7e-4 of 9.2e2); Shadow, Bimanual Handover and the small
+class models of tests/test_torch_tilestep_classes.py as the Quadruped;
+returns rtol 2e-3 (Walker 1.2e-7, Humanoid 1.3e-6).
 """
 
 import ctypes
@@ -29,13 +29,15 @@ import torch
 from mujoco_mpc_torch.ops import _cuda_build
 from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.physics import tilestep as tts
+from mujoco_mpc_torch.tasks import bimanual as tbim
+from mujoco_mpc_torch.tasks import class_models
 from mujoco_mpc_torch.tasks import hand_reorient as thand
 from mujoco_mpc_torch.tasks import humanoid as thum
 from mujoco_mpc_torch.tasks import quadruped as tquad
 from mujoco_mpc_torch.tasks import registry as treg
-from tests.test_torch_tilestep_classes import (CLASS_MODELS, class_states,
-                                               class_task)
-from tests.torch_cases import QUADRUPED_MODES, SHADOW_GOAL, quadruped_mode
+from tests.test_torch_tilestep_classes import CLASS_MODELS, class_task
+from tests.torch_cases import (HANDOVER_TARGET, QUADRUPED_MODES,
+                               SHADOW_GOAL, quadruped_mode)
 
 _STUB = r"""
 #pragma once
@@ -174,9 +176,10 @@ _CASES = {
     "Humanoid Walk": (thum.probe_states, (1e-5, 1e-3, 1e-4)),
     "Quadruped Flat": (tquad.probe_states, (1e-5, 1e-3, 1e-4)),
     "Shadow": (thand.probe_states, (1e-5, 1e-3, 1e-4)),
+    "Bimanual Handover": (tbim.probe_states, (1e-5, 1e-3, 1e-4)),
 }
 for _name in CLASS_MODELS:
-  _CASES[_name] = (lambda model, b, name=_name: class_states(name, model, b),
+  _CASES[_name] = (lambda model, b, name=_name: class_models.states(name, model, b),
                    (1e-5, 1e-3, 1e-4))
 # float64: the kernel's double instance against step_tb in float64
 _TOL64 = (1e-12, 1e-11, 1e-12)
@@ -194,14 +197,16 @@ def _task(name):
 def _aux(tm, dtype, userdata=None, name=None):
   """The rollout-constant operands as the kernel takes them: for the
   quadruped the goal at (1.0, 0.3, 0.3) and a trot's userdata, for Shadow
-  the goal quaternion SHADOW_GOAL, otherwise the defaults."""
-  mocap_quat = None
+  the goal quaternion SHADOW_GOAL, for the handover the target
+  HANDOVER_TARGET, otherwise the defaults."""
+  mocap_pos, mocap_quat = [[1.0, 0.3, 0.3]] * tm.nmocap, None
   if name == "Shadow":
     mocap_quat = SHADOW_GOAL
+  elif name == "Bimanual Handover":
+    mocap_pos = HANDOVER_TARGET
   elif tm.nmocap and userdata is None:
     userdata = tquad.fsm_userdata(tm.nuserdata)
-  mp, mq, ud = tts.aux_operands(
-      tm, [[1.0, 0.3, 0.3]] * tm.nmocap, mocap_quat, userdata, dtype)
+  mp, mq, ud = tts.aux_operands(tm, mocap_pos, mocap_quat, userdata, dtype)
   return [np.ascontiguousarray(x[..., 0].numpy()) for x in (mp, mq, ud)]
 
 
@@ -253,13 +258,15 @@ def test_host_kernel_float64_step_matches_plain(lib, name):
 
 
 def _check_returns(lib, name, dtype, horizon, rtol, userdata=None,
-                   params=None):
+                   params=None, qpos0=None):
   task = _task(name)
   n = 8
   mr = tmr.MegaRollout(task, horizon, device="cpu")
   raw = np.frombuffer(tmr.pack_model(mr.tm, task, dtype), np.uint8).copy()
-  if name in CLASS_MODELS:
-    home = class_states(name, task.model, 1)[0][:, 0]
+  if qpos0 is not None:
+    home = qpos0
+  elif name in CLASS_MODELS:
+    home = class_models.states(name, task.model, 1)[0][:, 0]
   else:
     home = np.asarray(task.model.keyframe("home")[0], np.float32)
   v0 = np.zeros(mr.tm.nv, np.float32)
@@ -316,6 +323,25 @@ def test_host_kernel_shadow_residual_terms_match_plain(lib, term):
   params = task.params.replace(weights=w)
   _check_returns(lib, "Shadow", torch.float32, 4, 2e-3, params=params)
   _check_returns(lib, "Shadow", torch.float64, 12, 1e-9, params=params)
+
+
+@pytest.mark.parametrize("term", range(5))
+def test_host_kernel_handover_residual_terms_match_plain(lib, term):
+  """residual_handover against the Python residual, one cost term at a
+  time (the other weights 0): reach in each gripper's frame, the grasp
+  quality, box - target, the arms' velocities. From a handover (both
+  grippers pinching the box, probe state 1), where the grasp term reads
+  the fingers' contact normals; float32 over 4 steps at rtol 2e-3, float64
+  over 12 at 1e-9."""
+  task = treg.get_task("Bimanual Handover", device="cpu")
+  w = torch.zeros_like(task.params.weights)
+  w[term] = task.params.weights[term]
+  params = task.params.replace(weights=w)
+  pinch = tbim.probe_states(task.model, 2)[0][:, 1]
+  _check_returns(lib, "Bimanual Handover", torch.float32, 4, 2e-3,
+                 params=params, qpos0=pinch)
+  _check_returns(lib, "Bimanual Handover", torch.float64, 12, 1e-9,
+                 params=params, qpos0=pinch)
 
 
 @pytest.mark.parametrize("case", sorted(QUADRUPED_MODES))

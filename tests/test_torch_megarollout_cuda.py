@@ -11,7 +11,8 @@ instance against the plain version in float64, as in
 tests/test_torch_kernel_host.py: step qpos atol 1e-12, qvel 1e-10, duals
 1e-12 * max|duals|; returns over 30 steps rtol 1e-9. The CEM planner's
 elite update from the kernel's returns against the same update on the CPU
-at atol 1e-6.
+at atol 1e-6. The handover and the small class models (from their
+snapshots) as the Quadruped.
 """
 
 import numpy as np
@@ -22,11 +23,14 @@ from mujoco_mpc_torch.agent.agent import Agent
 from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.physics import tilestep as tts
 from mujoco_mpc_torch.planners import cross_entropy as tcem
+from mujoco_mpc_torch.tasks import bimanual as tbim
+from mujoco_mpc_torch.tasks import class_models
 from mujoco_mpc_torch.tasks import hand_reorient as thand
 from mujoco_mpc_torch.tasks import humanoid as thum
 from mujoco_mpc_torch.tasks import quadruped as tquad
 from mujoco_mpc_torch.tasks import registry as treg
-from tests.torch_cases import QUADRUPED_MODES, SHADOW_GOAL, quadruped_mode
+from tests.torch_cases import (HANDOVER_TARGET, QUADRUPED_MODES,
+                               SHADOW_GOAL, quadruped_mode)
 
 pytestmark = pytest.mark.cuda
 
@@ -388,3 +392,108 @@ def test_cem_plans_through_the_kernel(name):
                                rtol=0)
     torch.testing.assert_close(agent.policy.std.cpu(), std, atol=1e-6,
                                rtol=0)
+
+
+@pytest.fixture(scope="module")
+def handover():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device and nvcc")
+  dev = torch.device("cuda")
+  return treg.get_task("Bimanual Handover", device=dev), dev
+
+
+def _handover_operands(dev, dtype=torch.float32):
+  return dict(mocap_pos=torch.tensor(HANDOVER_TARGET, dtype=dtype,
+                                     device=dev))
+
+
+def _check_two_steps(mr, q, v, c, ops, dtype):
+  """A cold step, then a warm-started one, kernel against step_tb: every
+  row class carries force; float32 qpos 1e-5, qvel max(1e-3, 8 x the
+  state's own plain float32-vs-float64 distance) (chip_smoke.py's
+  probe_step: the pinched box spins at up to 16 rad/s, where contracted
+  multiply-adds move qvel by 1e-3), duals 1e-4 * max; float64 1e-12,
+  1e-10, 1e-12 * max."""
+  kinds = np.array(tts.row_kinds(mr.tm))
+  tq, tv, tl = (1e-5, 1e-3, 1e-4) if dtype == torch.float32 else (
+      1e-12, 1e-10, 1e-12)
+  ops64 = {k: x.double() for k, x in ops.items()}
+  kq, kv, kl = q, v, None
+  pq, pv, pl = q, v, None
+  wq, wv, wl = q.double(), v.double(), None  # the plain version in float64
+  for _ in range(2):
+    kq, kv, kl = mr.step(kq, kv, c, kl, **ops)
+    pq, pv, view = tts.step_tb(mr.tm, pq, pv, c, pl, **ops)
+    pl = view.efc_lambda
+    wq, wv, wview = tts.step_tb(mr.tm, wq, wv, c.double(), wl, **ops64)
+    wl = wview.efc_lambda
+    torch.cuda.synchronize()
+    lam = pl.cpu().numpy()
+    for kind in set(kinds):
+      assert np.abs(lam[kinds == kind]).max() > 0.0, kind
+    scale = float(np.abs(lam).max())
+    torch.testing.assert_close(kq, pq, atol=tq, rtol=0)
+    noise = (pv.double() - wv).abs().amax(0)
+    err = (kv - pv).abs().amax(0).double()
+    assert bool(torch.all(err <= torch.clamp(8.0 * noise, min=tv))), (
+        float(err.max()), float((err / noise).max()))
+    torch.testing.assert_close(kl, pl, atol=tl * scale, rtol=0)
+  assert mr.step_launches == 2
+  return lam, kinds
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_handover_step_matches_plain(handover, dtype):
+  """Condim-6 plane-box corner and capsule-box points with their torsional
+  and rolling rows, joint limits and the fingers' joint equalities, each
+  row class carrying force in some of the states, the equality rows both
+  ways."""
+  task, dev = handover
+  mr = tmr.MegaRollout(task, 1, device=dev)
+  assert (mr.tm.nrow, mr.tm.nroll, mr.tm.neq_rows) == (130, 16, 2)
+  q, v, c = (torch.tensor(x, device=dev, dtype=dtype)
+             for x in tbim.probe_states(task.model, 72))
+  lam, kinds = _check_two_steps(mr, q, v, c, _handover_operands(dev, dtype),
+                                dtype)
+  eq = lam[kinds == "eq_joint"]
+  assert eq.min() < 0.0 < eq.max()
+
+
+def test_handover_returns_match_plain(handover):
+  """float32 over 6 steps at rtol 2e-3, float64 over 30 at rtol 1e-9,
+  from a handover (both grippers pinching the box, probe state 1) with the
+  target as an operand: the grasp term reads the contact view."""
+  task, dev = handover
+  n = 70
+  q0 = torch.tensor(tbim.probe_states(task.model, 2)[0][:, 1], device=dev)
+  for dtype, horizon, rtol in ((torch.float32, 6, 2e-3),
+                               (torch.float64, 30, 1e-9)):
+    mr = tmr.MegaRollout(task, horizon, device=dev)
+    acts = (task.default_ctrl().to(dtype) + torch.tensor(
+        0.2 * np.random.RandomState(2).randn(n, horizon, 16), dtype=dtype,
+        device=dev)).contiguous()
+    args = (q0.to(dtype), torch.zeros(22, device=dev, dtype=dtype), acts,
+            task.params.to(dtype=dtype), 0.1)
+    ops = _handover_operands(dev, dtype)
+    got = mr.returns(*args, **ops)
+    want = mr.returns_plain(*args, dtype=dtype, **ops)
+    torch.cuda.synchronize()
+    assert mr.launches == 1
+    assert bool(torch.all(want < tmr.MAX_RETURN))
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["condim6_ball", "connect", "joint_equality",
+                                  "weld"])
+def test_class_model_step_matches_plain(name, dtype):
+  """The small class models loaded from their snapshots: every equality
+  kind and the condim-6 rolling rows on the card."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device and nvcc")
+  dev = torch.device("cuda")
+  task = class_models.task(name, device=dev)
+  mr = tmr.MegaRollout(task, 1, device=dev)
+  q, v, c = (torch.tensor(x, device=dev, dtype=dtype)
+             for x in class_models.states(name, task.model, 72))
+  _check_two_steps(mr, q, v, c, {}, dtype)

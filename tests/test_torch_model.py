@@ -157,23 +157,29 @@ _OUT_OF_CLASS = {
                         "<geom size='.1'/></body>" + _BODY +
                         "</worldbody></mujoco>", "general engine"),
     "box_box": (_bodies(("box", ".1 .1 .1"), ("box", ".1 .1 .1")), "S5"),
-    # capsule-box contacts with rolling friction (condim 6)
+    # capsule-box contacts with rolling friction (condim 6) are in the
+    # class; a ball joint beside them is not
     "capsule_box": (_bodies(("capsule", ".05 .1"), ("box", ".1 .1 .1"),
-                            condim=6), "Handover slice"),
+                            condim=6).replace("<freejoint/>",
+                                              "<joint type='ball'/>", 1),
+                    "S3"),
     "sphere_capsule": (_bodies(("sphere", ".1"), ("capsule", ".05 .1")),
                        "S5"),
+    # the next slice's first task: the Allegro hand's box-box pairs
+    "allegro": (os.path.join(REPO, "mujoco_mpc_tpu", "tasks", "models",
+                             "allegro.xml"), "S5, the box-box pair"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_OUT_OF_CLASS) + ["jointed_mocap"])
 def test_out_of_class_models_raise(case):
   """The free joint, fixed tendons (limits, springs, actuators), mocap
-  bodies, condim 4 and the plane-sphere, plane-box, sphere-sphere,
-  sphere-box, capsule-capsule and capsule-box contacts are in the class
-  now; these stay out, naming the ROADMAP item that ports them: ball
-  joints (slice S3), condim 6 and the remaining pairs (S5, the Handover
-  slice), and what the JAX kernel leaves to the general engine, stateful
-  actuators and a mocap body with a joint or a colliding geom."""
+  bodies, condim 4 and 6, equality constraints and the plane-sphere,
+  plane-box, sphere-sphere, sphere-box, capsule-capsule and capsule-box
+  contacts are in the class now; these stay out, naming the ROADMAP item
+  that ports them: ball joints (slice S3), the remaining pairs (S5), and
+  what the JAX kernel leaves to the general engine, stateful actuators and
+  a mocap body with a joint or a colliding geom."""
   if case == "jointed_mocap":  # MJCF refuses it: the Walker's torso
     walker = treg.get_task("Walker", device="cpu").model
     torso = walker.body("torso")

@@ -1,22 +1,29 @@
 """The kernel's widened class in the port, held against the JAX tile path.
 
-Small models built here through `mujoco` exercise what the Shadow hand
-added to the class, each in isolation: a fixed tendon with a limit, a
-spring (deadband) and a damper (tests/test_tilestep_classes.py:99-105); a
-motor on a fixed tendon (:108-113); the condim-4 version of its ball model
-(:164-184: plane-sphere and sphere-sphere with a torsional row each); and a
-capsule pressing a box (capsule-box and plane-capsule points at condim 4,
-plane-box corners at condim 3). Their residual is the state (qpos, qvel),
-the JAX test's, which the kernel computes as residual_state.
+Small models exercise the class's row kinds in isolation
+(mujoco_mpc_torch/tasks/class_models.py, whose MJCF are the JAX tests'
+models, tests/test_tilestep_classes.py, built here through `mujoco`): a
+fixed tendon with a limit, a spring (deadband) and a damper (:99-105); a
+motor on a fixed tendon (:108-113); a joint equality with a quadratic
+coupling (:116-122); a connect and a weld equality between two bodies
+(:151-161); the condim-4 and condim-6 versions of its ball model
+(:164-196: plane-sphere and sphere-sphere with a torsional row each, and at
+condim 6 two rolling rows each); and a capsule pressing a box
+(capsule-box and plane-capsule points at condim 4, plane-box corners at
+condim 3). Their residual is the state (qpos, qvel), the JAX test's, which
+the kernel computes as residual_state.
 
 The same float32 inputs, made with numpy from a seed, go through both
 packages; the JAX tile step runs eagerly, as in
 tests/test_torch_quadruped.py. Tolerances, with the errors measured when
 they were set: one step, cold then warm, qpos atol 1e-6 (measured 6.0e-8),
-qvel atol 1e-4 (4.8e-7), duals atol 1e-5 * max(max|duals|, 1) (4.8e-6 of
-12.9), actuator forces atol 1e-5 (0); returns at n = 8, T = 8 rtol 2e-3
-(measured 2.5e-7).
+qvel atol 1e-4 (4.8e-7; the connect and weld models 2.4e-6), duals atol
+1e-5 * max(max|duals|, 1) (4.8e-6 of 12.9; connect 9.2e-5 of 413),
+actuator forces atol 1e-5 (0); returns at n = 8, T = 8 rtol 2e-3
+(measured 2.5e-7). A snapshot equals a fresh build exactly.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import mujoco
@@ -27,99 +34,25 @@ import torch
 from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.physics import io as tio
 from mujoco_mpc_torch.physics import tilestep as tts
-from mujoco_mpc_torch.tasks import base as tbase
+from mujoco_mpc_torch.tasks import class_models
 from mujoco_mpc_tpu.ops import megarollout as jmr
 from mujoco_mpc_tpu.physics import tilestep as jts
-from tests.test_tilestep_classes import (_BALL_XML, _MOTOR_J1, _TENDON_XML,
-                                         _make_task)
+from tests import test_tilestep_classes as jtests
+from tests.test_torch_model import _same
 
 B, N, T = 8, 8, 8
-# csrc/megarollout.cu residual_state: the residual (qpos, qvel)
-STATE_RESIDUAL_ID = 5
-
-_CAPBOX_XML = """
-<mujoco>
-  <compiler angle="radian"/>
-  <option timestep="0.005"/>
-  <worldbody>
-    <geom name="floor" type="plane" size="2 2 0.1"/>
-    <body name="arm" pos="0 0 0.2">
-      <joint name="lift" type="slide" axis="0 0 1" damping="2"/>
-      <joint name="tilt" type="hinge" axis="0 1 0" damping="0.5"/>
-      <geom type="capsule" size="0.02" fromto="-0.08 0 0 0.08 0 0"
-            mass="0.5" condim="4" friction="1 0.02 0.001"/>
-    </body>
-    <body name="box" pos="0 0 0.05">
-      <freejoint/>
-      <geom type="box" size="0.1 0.08 0.05" mass="1"/>
-    </body>
-  </worldbody>
-  <actuator>
-    <motor joint="lift" gear="10" ctrlrange="-1 1" ctrllimited="true"/>
-    <motor joint="tilt" gear="1" ctrlrange="-1 1" ctrllimited="true"/>
-  </actuator>
-</mujoco>
-"""
-
-# name: (MJCF, start qpos (numpy), qvel noise, row classes that must carry
-# force in the step test)
-CLASS_MODELS = {
-    "tendon_spring": (
-        _TENDON_XML.format(
-            attr='limited="true" range="-0.25 0.25" stiffness="3" '
-                 'damping="0.5" springlength="0 0.05"',
-            act=_MOTOR_J1, extra=""),
-        [0.35, 0.1], 1.0, ("tendon_limit",)),
-    "tendon_actuator": (
-        _TENDON_XML.format(
-            attr="", act='<motor tendon="t1" gear="1.5" ctrlrange="-1 1" '
-                         'ctrllimited="true"/>', extra=""),
-        [0.3, -0.2], 1.0, ()),
-    "condim4_ball": (
-        _BALL_XML.format(condim=4),
-        # the ball 2 mm into the floor, the pusher into the ball
-        [0.0, 0.0, 0.098, 1.0, 0.0, 0.0, 0.0, -0.33], 0.3,
-        ("plane_sphere", "sphere_sphere", "torsional")),
-    "capsule_box": (
-        _CAPBOX_XML,
-        # the capsule 5 mm into the box's top, the box 1 mm into the floor
-        [-0.085, 0.05, 0.0, 0.0, 0.049, 1.0, 0.0, 0.0, 0.0], 0.3,
-        ("cap_box", "plane_boxcorner", "torsional")),
-}
+# name: ClassModel (MJCF, start qpos, qvel scale, row classes that must
+# carry force in the step test)
+CLASS_MODELS = class_models.MODELS
 
 
 def class_task(name, device="cpu"):
-  """The port's Task of CLASS_MODELS[name]: the model, one QUADRATIC term
-  on (qpos, qvel), and residual_state on the card."""
-  mj = mujoco.MjModel.from_xml_string(CLASS_MODELS[name][0])
-  m = tio.from_mjmodel(mj, dtype=torch.float32, device=device)
-  spec = tbase.CostSpec(("State",), (0,), (m.nq + m.nv,))
-
-  def f(x):
-    return torch.tensor(x, dtype=torch.float32, device=device)
-
-  params = tbase.TaskParams(weights=f([1.0]), norm_params=f([[0.0, 0.0]]),
-                            risk=f(0.0), residual_params=f([]))
-  return tbase.Task(
-      model=m, params=params, name=name, spec=spec,
-      residual=lambda model, data, p: torch.cat([data.qpos, data.qvel]),
-      device_residual=tbase.DeviceResidual(STATE_RESIDUAL_ID))
-
-
-def class_states(name, model, b, seed=0):
-  """(qpos (nq, b), qvel (nv, b), ctrl (nu, b)) float32 numpy: the model's
-  start state with noise; with a spin about the vertical on the free
-  bodies, so the torsional rows carry force."""
-  _, q0, vscale, _ = CLASS_MODELS[name]
-  rng = np.random.RandomState(seed)
-  qp = np.asarray(q0, np.float32)[:, None] + rng.uniform(
-      -0.002, 0.002, (model.nq, b)).astype(np.float32)
-  qv = vscale * rng.uniform(-1.0, 1.0, (model.nv, b))
-  for j in range(model.njnt):
-    if model.jnt_type[j] == 0:  # free joint: spin about z
-      qv[model.jnt_dofadr[j] + 5] = rng.uniform(2.0, 4.0, b)
-  ct = rng.uniform(-1.0, 1.0, (model.nu, b))
-  return qp, qv.astype(np.float32), ct.astype(np.float32)
+  """The port's Task of CLASS_MODELS[name], its model built through
+  mujoco: one QUADRATIC term on (qpos, qvel), residual_state on the
+  card."""
+  m = tio.from_mjmodel(class_models.build(name), dtype=torch.float32,
+                       device=device)
+  return class_models.task(name, device=device, model=m)
 
 
 def jax_returns(j, jtm, qpos0, qvel0, actions, t0=0.0, ops=None):
@@ -151,18 +84,52 @@ def jax_returns(j, jtm, qpos0, qvel0, actions, t0=0.0, ops=None):
 def models(request):
   name = request.param
   t = class_task(name)
-  j = _make_task(CLASS_MODELS[name][0])
+  j = jtests._make_task(CLASS_MODELS[name].xml)
   return name, t, j, tts.extract(t.model), jts.extract(j.model)
+
+
+def test_class_models_are_the_jax_tests_models():
+  """The port's copies of the JAX tests' MJCF are the same text."""
+  for ours, theirs in ((class_models.TENDON_XML, jtests._TENDON_XML),
+                       (class_models.CHAIN_XML, jtests._CHAIN_XML),
+                       (class_models.BALL_XML, jtests._BALL_XML),
+                       (class_models.MOTOR_J1, jtests._MOTOR_J1)):
+    assert ours == theirs
+
+
+@pytest.mark.parametrize("name", sorted(CLASS_MODELS))
+def test_class_model_snapshot_matches_fresh_build(name):
+  """The committed snapshot (what the card's host loads) is exactly what
+  from_mjmodel builds now."""
+  fresh = tio.from_mjmodel(class_models.build(name), dtype=torch.float64,
+                           device="cpu")
+  snap = class_models.task(name, torch.float64, "cpu").model
+  for f in dataclasses.fields(fresh):
+    if f.name == "opt":
+      for g in dataclasses.fields(fresh.opt):
+        _same(g.name, getattr(fresh.opt, g.name), getattr(snap.opt, g.name),
+              0.0)
+    else:
+      _same(f.name, getattr(fresh, f.name), getattr(snap, f.name), 0.0)
 
 
 def test_class_model_extract_matches_jax(models):
   name, _, _, ours, theirs = models
-  assert (ours.nrow, ours.ntor, ours.act_tendon) == (
-      theirs.nrow, len(theirs.tor_pts), theirs.act_tendon)
+  assert (ours.nrow, ours.ntor, ours.nroll, ours.neq_rows,
+          ours.act_tendon) == (theirs.nrow, len(theirs.tor_pts),
+                               len(theirs.roll_pts), theirs.neq_rows,
+                               theirs.act_tendon)
   assert [(c.kind, c.condim, c.sign) for c in ours.con_points] == [
       (c.kind, c.condim, c.sign) for c in theirs.con_points]
-  np.testing.assert_allclose([c.mu_tor for c in ours.con_points],
-                             [c.mu_tor for c in theirs.con_points])
+  for f in ("mu_tor", "mu_roll"):
+    np.testing.assert_allclose([getattr(c, f) for c in ours.con_points],
+                               [getattr(c, f) for c in theirs.con_points])
+  assert len(ours.eq_rows) == len(theirs.eq_rows)
+  for a, b in zip(ours.eq_rows, theirs.eq_rows):
+    assert (a.kind, a.ob1, a.ob2, a.nrows) == (b.kind, b.ob1, b.ob2, b.nrows)
+    for f in ("data", "solref", "solimp", "diagapprox"):
+      np.testing.assert_allclose(getattr(a, f), getattr(b, f), rtol=1e-7,
+                                 err_msg=f)
   # the port holds the coefficients at float32, as the kernel does
   assert [[w[:2] for w in ws] for ws in ours.ten_wraps] == [
       [w[:2] for w in ws] for ws in theirs.ten_wraps]
@@ -177,12 +144,18 @@ def test_class_model_extract_matches_jax(models):
     assert float(ours.ten_stiffness[0]) == 3.0 and ours.ten_lim == (0,)
   if name == "capsule_box":
     assert tts.row_kinds(ours).count("cap_box") == 6  # 2 points x 3 rows
+  if name == "condim6_ball":
+    assert tts.row_kinds(ours).count("rolling") == 2 * ours.ncon
+  if name in ("joint_equality", "connect", "weld"):
+    assert ours.neq_rows == {"joint_equality": 1, "connect": 3,
+                             "weld": 6}[name]
+
 
 
 def test_class_model_step_matches_jax(models):
   """A cold step, then a warm-started one."""
   name, t, _, ttm, jtm = models
-  qp, qv, ct = class_states(name, t.model, B)
+  qp, qv, ct = class_models.states(name, t.model, B)
   kinds = np.asarray(tts.row_kinds(ttm))
   tq, tv, tl = torch.tensor(qp), torch.tensor(qv), None
   jq, jv = jnp.asarray(qp), jnp.asarray(qv)
@@ -193,7 +166,7 @@ def test_class_model_step_matches_jax(models):
     jq, jv, jview = jts.step_tb(jtm, jq, jv, jnp.asarray(ct), efc_lambda=jl)
     jl = jview.efc_lambda
     lam = tl.numpy()
-    for kind in CLASS_MODELS[name][3]:
+    for kind in CLASS_MODELS[name].kinds:
       assert np.abs(lam[kinds == kind]).max() > 0, kind
     np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=1e-6)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-4)
@@ -207,7 +180,7 @@ def test_class_model_returns_match_jax(models):
   """The port's CPU MegaRollout against the JAX composition
   (jax_returns)."""
   name, t, j, _, jtm = models
-  qp, _, _ = class_states(name, t.model, 1)
+  qp, _, _ = class_models.states(name, t.model, 1)
   q0 = qp[:, 0]
   v0 = np.zeros(t.model.nv, np.float32)
   acts = (0.4 * np.random.RandomState(5).randn(N, T, t.model.nu)
@@ -221,13 +194,22 @@ def test_class_model_returns_match_jax(models):
 
 
 def test_condim6_and_equality_stay_outside_the_class():
-  """Condim 6 and equality rows raise UnsupportedModel naming the Handover
-  slice; they are not taken on a plain path."""
-  for xml in (_BALL_XML.format(condim=6),
-              _TENDON_XML.format(attr="", act=_MOTOR_J1,
-                                 extra='<equality><joint joint1="j1" '
-                                       'joint2="j2"/></equality>')):
+  """Condim 6 and the equality rows are in the class now (the models
+  above); what stays outside beside them raises UnsupportedModel naming
+  its ROADMAP item, and is not taken on a plain path: the box-box pair
+  and the sphere-capsule pair (slice S5), a ball joint (slice S3)."""
+  box_box = ("<mujoco><worldbody>" + "".join(
+      f"<body pos='0 0 {i}'><freejoint/><geom type='box' size='.1 .1 .1' "
+      "condim='6'/></body>" for i in range(2)) + "</worldbody></mujoco>")
+  ball = class_models.CHAIN_XML.format(eq="").replace(
+      '<joint name="j3" type="hinge"', '<joint name="j3" type="ball"')
+  for xml, item in ((box_box, "S5, the box-box pair"),
+                    (jtests._BALL_XML.format(condim=6).replace(
+                        'type="sphere" size="0.08"',
+                        'type="capsule" size="0.08 0.05"'),
+                     "S5, the sphere-capsule pair"),
+                    (ball, "S3")):
     m = tio.from_mjmodel(mujoco.MjModel.from_xml_string(xml),
                          dtype=torch.float32, device="cpu")
-    with pytest.raises(tts.UnsupportedModel, match="Handover slice"):
+    with pytest.raises(tts.UnsupportedModel, match=item):
       tts.extract(m)

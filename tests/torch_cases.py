@@ -1,11 +1,15 @@
 """Inputs shared by the port's kernel tests, importable without JAX or
-mujoco (the card's host has neither): the Quadruped's residual branches
-and the Shadow goal."""
+mujoco (the card's host has neither): the Quadruped's residual branches,
+the Shadow goal and the handover's target."""
 
 from mujoco_mpc_torch.tasks import quadruped as tquad
 
 # Shadow's goal: an unnormalized quaternion (the residual normalizes it)
 SHADOW_GOAL = [[0.8, 0.2, 0.4, 0.3]]
+
+# the handover's target: across the table from the box, as the task's
+# transition places it (x +-(0.3..0.4), y +-(0.2..0.3), z 0.25..0.7)
+HANDOVER_TARGET = [[0.35, -0.25, 0.3]]
 
 # every branch of residual_quadruped and weight_mod_quadruped: the mode in
 # userdata and the Biped type parameter; Flip entered 0, 0.4, 0.8 and 1.1 s
