@@ -14,18 +14,21 @@
 // qvel, the duals, the constraint Jacobian J[nrow][nv], the nv x nv
 // Cholesky factor, the APGD vectors) and runs the T-step loop itself. The
 // model is a POD struct (MRModelT) packed once per MegaRollout; each block
-// copies it into shared memory.
+// copies it into its dynamic shared memory. The maxima that size the
+// per-point fields and the per-row arrays come from a size tier (MRSmall,
+// MRLarge), a second template parameter: the ops wrapper picks the
+// smallest tier that holds the model.
 //
 // Precision: everything is a template on the scalar type T. The planner
-// runs T = float. T = double (the C entries ending in 64) is there to hold
-// the code against the plain version run in float64: long humanoid
-// rollouts amplify float rounding until two float orderings disagree on
-// some candidates, while two double orderings still agree to far below
-// any tolerance, so each candidate can be checked at the planner's full
-// shape. The model's constants are float values in both precisions (the
-// plain version rounds them to float32 in every dtype); literals that a
-// float cannot hold exactly are written T(...), as the plain version's
-// Python constants are rounded to its dtype.
+// runs T = float. T = double (the libraries built with -DMR_DOUBLE=1) is
+// there to hold the code against the plain version run in float64: long
+// humanoid rollouts amplify float rounding until two float orderings
+// disagree on some candidates, while two double orderings still agree to
+// far below any tolerance, so each candidate can be checked at the
+// planner's full shape. The model's constants are float values in both
+// precisions (the plain version rounds them to float32 in every dtype);
+// literals that a float cannot hold exactly are written T(...), as the
+// plain version's Python constants are rounded to its dtype.
 //
 // The model class: hinge, slide and free joints (the free joint's
 // quaternion normalized in forward kinematics and after the exact
@@ -35,13 +38,13 @@
 // like the task's userdata; each block keeps them in shared memory),
 // contacts of a world plane against sphere and capsule ends and box
 // corners, of sphere against sphere and box, of capsule against capsule,
-// and of capsule ends against a box, with condim 1, 3, 4 or 6 (a torsional
-// row per condim>=4 point, two rolling rows per condim-6 point), joint
-// limits, joint, connect and weld equality rows (bilateral), and the dense
-// or matrix-free solve. Task residuals (and a task's state-dependent cost
-// weights) are __device__ functions selected by MRModelT::res_id; they
-// read the step's pre-step frames, site frames and contact distances and
-// normals (StepOut).
+// of capsule ends against a box and (large tier) of box against box, with
+// condim 1, 3, 4 or 6 (a torsional row per condim>=4 point, two rolling
+// rows per condim-6 point), joint limits, joint, connect and weld equality
+// rows (bilateral), and the dense or matrix-free solve. Task residuals (and
+// a task's state-dependent cost weights) are __device__ functions selected
+// by MRModelT::res_id; they read the step's pre-step frames, site frames
+// and contact distances and normals (StepOut).
 //
 // What bounds it on this card: latency, not bytes or FLOPs. A step is a
 // long chain of dependent scalar arithmetic per candidate (Walker ~30
@@ -60,23 +63,20 @@
 #include <cuda_runtime.h>
 
 // Maxima, sized for the dm_control humanoid (nq 28, nv 27, nbody 17,
-// njnt 22, nu 21, 37 contact points, 21 limited joints, 2 limited
-// tendons, nrow 117), the quadruped (28 residual constants, 5 residual
-// sites, one mocap body, 24 userdata), the Shadow hand (nq 31, nv 30,
-// nbody 20, njnt 25, 4 tendons driven by actuators, 24 limited joints, 14
-// condim-4 points, nrow 104, 77 residual entries) and the bimanual
-// handover (16 condim-6 points, 2 joint equalities, nrow 130, 9 residual
-// indices)
+// njnt 22, nu 21, 21 limited joints, 2 limited tendons), the quadruped (28
+// residual constants, 5 residual sites, one mocap body, 24 userdata), the
+// Shadow hand (nq 31, nv 30, nbody 20, njnt 25, 4 tendons driven by
+// actuators, 24 limited joints, 77 residual entries) and the bimanual
+// handover (2 joint equalities, 9 residual indices); the contact points and
+// constraint rows are the size tier's (MRSmall, MRLarge below)
 #define MR_MAX_NQ 32
 #define MR_MAX_NV 30
 #define MR_MAX_BODY 20    // <= 32: residuals take body sets as bitmasks
 #define MR_MAX_JNT 25
 #define MR_MAX_NU 24
-#define MR_MAX_CON 40     // contact points
 #define MR_MAX_LIM 24     // limited joints (two rows each)
 #define MR_MAX_TEN 4      // fixed tendons (limited ones: two rows each)
 #define MR_MAX_WRAP 4     // joints a fixed tendon wraps
-#define MR_MAX_ROW 130    // constraint rows
 #define MR_MAX_DENSE 32   // largest nrow solved with a materialized Delassus
 #define MR_MAX_TERM 16
 #define MR_MAX_RES 80     // residual entries
@@ -86,6 +86,26 @@
 #define MR_MAX_MOCAP 4
 #define MR_MAX_USERDATA 32
 #define MR_MAX_EQ 4       // equality constraints (a weld has 6 rows)
+
+// Size tiers: the kernel is a template on one of these, which sizes the
+// model struct's per-point fields (CON contact points) and each thread's
+// constraint arrays (ROW rows; J is ROW x MR_MAX_NV). The small tier holds
+// every model without a box pair, the handover's 130 rows the most, and
+// compiles no box-box code, so its threads keep the stack frame they had
+// before the tiers; the large tier holds the box-box group: Allegro (40
+// points, 144 rows), OP3 (45, 159), Pick (40, 179), PickAndPlace (64, 206),
+// Humanoid Interact (71, 219) and Bimanual Reorient (72, 250). A library
+// is built per tier and precision (-DMR_TIER, -DMR_DOUBLE, below).
+// BBCON sizes the box-box pair's own per-point fields: 1 where the tier
+// has no box-box code.
+struct MRSmall {
+  static constexpr int ROW = 130, CON = 40, BBCON = 1;
+  static constexpr bool BOXBOX = false;
+};
+struct MRLarge {
+  static constexpr int ROW = 250, CON = 72, BBCON = 72;
+  static constexpr bool BOXBOX = true;
+};
 
 #define MR_ITERATIONS 12
 #define MR_POWER_ITERS 8
@@ -101,11 +121,12 @@
 #define MR_CON_SPHERE 3     // sphere vs sphere
 #define MR_CON_SPHEREBOX 4  // sphere vs box
 #define MR_CON_CAPBOX 5     // capsule end vs box
+#define MR_CON_BOXBOX 6     // a box's corner vs the other box's slab
 
 #define MR_RES_WALKER 1
 #define MR_RES_HUMANOID 2
 #define MR_RES_QUADRUPED 3
-#define MR_RES_SHADOW 4
+#define MR_RES_REORIENT 4   // Shadow and Allegro
 #define MR_RES_STATE 5      // (qpos, qvel): the small class models' residual
 #define MR_RES_HANDOVER 6
 
@@ -114,8 +135,8 @@
 #define MR_EQ_JOINT 2
 
 // Fields are int or T. The wrapper (ops/megarollout.py::_model_struct)
-// mirrors both instantiations with ctypes, which pads as C does, and
-// checks each against mr_model_layout().
+// mirrors every instantiation with ctypes, which pads as C does, and
+// checks each against its library's mr_model_layout().
 #define MR_MODEL_FIELDS(X)                                                   \
   X(int, nq, )                                                               \
   X(int, nv, )                                                               \
@@ -186,27 +207,30 @@
   X(T, ctrl_hi, [MR_MAX_NU])                                                 \
   X(T, force_lo, [MR_MAX_NU])                                                \
   X(T, force_hi, [MR_MAX_NU])                                                \
-  X(int, con_kind, [MR_MAX_CON])                                             \
-  X(int, con_gbody, [MR_MAX_CON][2])                                         \
-  X(T, con_gpos, [MR_MAX_CON][2][3])                                         \
-  X(T, con_gquat, [MR_MAX_CON][2][4])                                        \
-  X(T, con_half, [MR_MAX_CON][2])                                            \
-  X(T, con_r, [MR_MAX_CON][2])                                               \
-  X(T, con_end, [MR_MAX_CON])                                                \
-  X(T, con_margin, [MR_MAX_CON])                                             \
-  X(T, con_mu, [MR_MAX_CON])                                                 \
-  X(int, con_tor, [MR_MAX_CON])                                              \
-  X(T, con_mu_tor, [MR_MAX_CON])                                             \
-  X(int, con_roll, [MR_MAX_CON])                                             \
-  X(T, con_mu_roll, [MR_MAX_CON])                                            \
-  X(int, con_id, [MR_MAX_CON])                                               \
-  X(T, con_frame, [MR_MAX_CON][3][3])                                        \
-  X(T, con_ppos, [MR_MAX_CON][3])                                            \
-  X(T, con_box, [MR_MAX_CON][3])                                             \
-  X(T, con_sgn, [MR_MAX_CON][MR_MAX_NV])                                     \
-  X(T, con_imp, [MR_MAX_CON][5])                                             \
-  X(T, con_k, [MR_MAX_CON])                                                  \
-  X(T, con_b, [MR_MAX_CON])                                                  \
+  X(int, con_kind, [S::CON])                                                 \
+  X(int, con_gbody, [S::CON][2])                                             \
+  X(T, con_gpos, [S::CON][2][3])                                             \
+  X(T, con_gquat, [S::CON][2][4])                                            \
+  X(T, con_half, [S::CON][2])                                                \
+  X(T, con_r, [S::CON][2])                                                   \
+  X(T, con_end, [S::CON])                                                    \
+  X(T, con_margin, [S::CON])                                                 \
+  X(T, con_mu, [S::CON])                                                     \
+  X(int, con_tor, [S::CON])                                                  \
+  X(T, con_mu_tor, [S::CON])                                                 \
+  X(int, con_roll, [S::CON])                                                 \
+  X(T, con_mu_roll, [S::CON])                                                \
+  X(int, con_id, [S::CON])                                                   \
+  X(T, con_frame, [S::CON][3][3])                                            \
+  X(T, con_ppos, [S::CON][3])                                                \
+  X(T, con_box, [S::CON][3])                                                 \
+  X(int, con_owner, [S::BBCON])                                              \
+  X(T, con_size, [S::BBCON][2][3])                                           \
+  X(T, con_guard, [S::BBCON][2])                                             \
+  X(T, con_sgn, [S::CON][MR_MAX_NV])                                         \
+  X(T, con_imp, [S::CON][5])                                                 \
+  X(T, con_k, [S::CON])                                                      \
+  X(T, con_b, [S::CON])                                                      \
   X(int, lim_qadr, [MR_MAX_LIM])                                             \
   X(int, lim_vadr, [MR_MAX_LIM])                                             \
   X(T, lim_lo, [MR_MAX_LIM])                                                 \
@@ -239,7 +263,7 @@
   X(int, term_dim, [MR_MAX_TERM])                                            \
   X(int, term_norm, [MR_MAX_TERM])
 
-template <class T>
+template <class T, class S>
 struct MRModelT {
 #define MR_DECLARE(type, name, dims) type name dims;
   MR_MODEL_FIELDS(MR_DECLARE)
@@ -420,42 +444,42 @@ __device__ __forceinline__ void chol_solve(const T (*l)[MR_MAX_NV],
 // constraint solve helpers
 // ---------------------------------------------------------------------------
 
-template <class T>
+template <class T, class S>
 struct Rows {
-  T J[MR_MAX_ROW][MR_MAX_NV];
-  T s_pre[MR_MAX_ROW];
-  T reg[MR_MAX_ROW];
-  int active[MR_MAX_ROW];
-  T mu_t[MR_MAX_CON];
-  T mu_tor[MR_MAX_CON];  // per torsional row
-  T mu_roll[MR_MAX_CON];  // per rolling pair of rows
+  T J[S::ROW][MR_MAX_NV];
+  T s_pre[S::ROW];
+  T reg[S::ROW];
+  int active[S::ROW];
+  T mu_t[S::CON];
+  T mu_tor[S::CON];  // per torsional row
+  T mu_roll[S::CON];  // per rolling pair of rows
   T amat[MR_MAX_DENSE * MR_MAX_DENSE];  // only when m.dense
 };
 
 // first torsional row: after the condim>=3 points' three rows each and the
 // condim-1 points' one
-template <class T>
-__device__ __forceinline__ int tor_row0(const MRModelT<T>& m) {
+template <class T, class S>
+__device__ __forceinline__ int tor_row0(const MRModelT<T, S>& m) {
   return 3 * m.nfric + (m.ncon - m.nfric);
 }
 
 // first rolling row: a condim-6 point's rows are roll0 + i (about the first
 // tangent) and roll0 + nroll + i (about the second)
-template <class T>
-__device__ __forceinline__ int roll_row0(const MRModelT<T>& m) {
+template <class T, class S>
+__device__ __forceinline__ int roll_row0(const MRModelT<T, S>& m) {
   return tor_row0(m) + m.ntor;
 }
 
 // first joint-limit row; the tendon limits follow, then from
 // nrow - neqrow the equality rows
-template <class T>
-__device__ __forceinline__ int lim_row0(const MRModelT<T>& m) {
+template <class T, class S>
+__device__ __forceinline__ int lim_row0(const MRModelT<T, S>& m) {
   return roll_row0(m) + 2 * m.nroll;
 }
 
 // out = A v with A = J M^-1 J^T (dense: the materialized matrix)
-template <class T>
-__device__ void amul(const MRModelT<T>& m, const Rows<T>& R,
+template <class T, class S>
+__device__ void amul(const MRModelT<T, S>& m, const Rows<T, S>& R,
                      const T (*l)[MR_MAX_NV], const T* v,
                      T* out) {
   const int nrow = m.nrow, nv = m.nv;
@@ -487,8 +511,8 @@ __device__ void amul(const MRModelT<T>& m, const Rows<T>& R,
 // approximation), the nonnegative orthant on condim-1 normals and joint
 // and tendon limits, nothing on the bilateral equality rows, then the
 // active mask
-template <class T>
-__device__ void project(const MRModelT<T>& m, const Rows<T>& R, T* g) {
+template <class T, class S>
+__device__ void project(const MRModelT<T, S>& m, const Rows<T, S>& R, T* g) {
   const int tor0 = tor_row0(m), roll0 = roll_row0(m);
   for (int ci = 0; ci < m.nfric; ++ci) {
     T* gc = g + 3 * ci;
@@ -524,11 +548,11 @@ __device__ void project(const MRModelT<T>& m, const Rows<T>& R, T* g) {
     if (!R.active[r]) g[r] = 0.0f;
 }
 
-template <class T>
-__device__ void opmul(const MRModelT<T>& m, const Rows<T>& R,
+template <class T, class S>
+__device__ void opmul(const MRModelT<T, S>& m, const Rows<T, S>& R,
                       const T (*l)[MR_MAX_NV], const T* v,
                       T* out) {
-  T sv[MR_MAX_ROW], av[MR_MAX_ROW];
+  T sv[S::ROW], av[S::ROW];
   for (int r = 0; r < m.nrow; ++r)
     sv[r] = R.active[r] ? R.s_pre[r] * v[r] : 0.0f;
   amul(m, R, l, sv, av);
@@ -543,7 +567,7 @@ __device__ void opmul(const MRModelT<T>& m, const Rows<T>& R,
 // What a residual reads after a step: PRE-step frames (the state the step
 // started from), as in tilestep.StepView, and the actuator forces of the
 // step's clamped ctrl
-template <class T>
+template <class T, class S>
 struct StepOut {
   T xpos[MR_MAX_BODY][3];
   T xquat[MR_MAX_BODY][4];
@@ -557,14 +581,14 @@ struct StepOut {
   T act_force[MR_MAX_NU];
   // the contact points in the model's order (con_id): dist (the margin
   // taken off) and normal (frame row 0), from the step's narrowphase
-  T con_dist[MR_MAX_CON];
-  T con_normal[MR_MAX_CON][3];
+  T con_dist[S::CON];
+  T con_normal[S::CON][3];
 };
 
 // world position and rotation matrix of geom side s (0 = g1, 1 = g2) of
 // contact point ci
-template <class T>
-__device__ __forceinline__ void geom_pose(const MRModelT<T>& m,
+template <class T, class S>
+__device__ __forceinline__ void geom_pose(const MRModelT<T, S>& m,
                                           const T (*xpos)[3],
                                           const T (*xquat)[4], int ci,
                                           int s, T* gpos, T* gm) {
@@ -581,6 +605,13 @@ template <class T>
 __device__ __forceinline__ void mat_vec(const T* m, const T* v, T* o) {
   for (int i = 0; i < 3; ++i)
     o[i] = m[3 * i] * v[0] + m[3 * i + 1] * v[1] + m[3 * i + 2] * v[2];
+}
+
+// m^T v for a row-major 3x3 m, summed in index order
+template <class T>
+__device__ __forceinline__ void mat_tvec(const T* m, const T* v, T* o) {
+  for (int i = 0; i < 3; ++i)
+    o[i] = m[i] * v[0] + m[3 + i] * v[1] + m[6 + i] * v[2];
 }
 
 // sphere (centre c, radius) against a box of half-sizes s at (bp, bm):
@@ -623,10 +654,90 @@ __device__ T sphere_box_point(const T* c, T radius, const T* bp,
   return dist;
 }
 
+// a box's extent along unit axis ax: sum_i |ax . column i of bm| s[i]
+template <class T>
+__device__ __forceinline__ T box_support(const T* ax, const T* bm,
+                                         const T* s) {
+  T r[3];
+  for (int i = 0; i < 3; ++i) {
+    const T col[3] = {bm[i], bm[3 + i], bm[6 + i]};
+    r[i] = r_abs(dot3(ax, col)) * s[i];
+  }
+  return r[0] + r[1] + r[2];
+}
+
+// the face-SAT of a box pair at (p1, m1) and (p2, m2), half-sizes s1 and
+// s2 (collision._box_box): over the 6 face axes of both boxes the one of
+// largest separation, first-max as jnp.argmax ties, signed from box 1 to
+// box 2 (jnp.sign: a zero projection gives a zero normal); writes the
+// normal and the two boxes' support radii along it
+template <class T>
+__device__ void boxbox_sat(const T* p1, const T* m1, const T* p2,
+                           const T* m2, const T* s1, const T* s2, T* n,
+                           T* sup) {
+  T t[3], best_ax[3], best_sep = 0.0f, best_proj = 0.0f;
+  for (int i = 0; i < 3; ++i) t[i] = p2[i] - p1[i];
+  for (int a = 0; a < 6; ++a) {
+    const T* bm = a < 3 ? m1 : m2;
+    const T ax[3] = {bm[a % 3], bm[3 + a % 3], bm[6 + a % 3]};
+    const T r_sum = box_support(ax, m1, s1) + box_support(ax, m2, s2);
+    const T proj = dot3(ax, t);
+    const T sep = r_abs(proj) - r_sum;
+    if (a == 0 || sep > best_sep) {
+      for (int i = 0; i < 3; ++i) best_ax[i] = ax[i];
+      best_proj = proj;
+    }
+    best_sep = a == 0 ? sep : r_max(best_sep, sep);
+  }
+  const T sg = best_proj > 0.0f ? T(1) : (best_proj < 0.0f ? T(-1) : T(0));
+  for (int i = 0; i < 3; ++i) n[i] = best_ax[i] * sg;
+  sup[0] = box_support(n, m1, s1);
+  sup[1] = box_support(n, m2, s2);
+}
+
+// boxbox_corner point ci: its owner's corner (con_box, the offset in the
+// owner's frame) against the other box's slab along the pair's SAT normal,
+// with the lateral-overhang guard (con_guard: big, slack) of
+// collision._box_box corner_points; the SAT is recomputed per point.
+// Returns dist (margin taken off), writes the frame and the position.
+template <class T, class S>
+__device__ T boxbox_corner(const MRModelT<T, S>& m, int ci, const T* p1,
+                           const T* m1, const T* p2, const T* m2,
+                           T (*frame)[3], T* cpos) {
+  T n[3], sup[2];
+  boxbox_sat(p1, m1, p2, m2, m.con_size[ci][0], m.con_size[ci][1], n, sup);
+  // owner 2: box 2's corner against box 1's slab, along +n; owner 1: box
+  // 1's corner against box 2's, along -n
+  const bool two = m.con_owner[ci] == 2;
+  const T* pc = two ? p2 : p1;
+  const T* mc = two ? m2 : m1;
+  const T* po = two ? p1 : p2;
+  const T* mo = two ? m1 : m2;
+  const T* so = m.con_size[ci][two ? 0 : 1];
+  const T sup_o = two ? sup[0] : sup[1];
+  const T sgn = two ? T(1) : T(-1);
+  T c[3], rel[3], local[3], n_loc[3], over[3];
+  mat_vec(mc, m.con_box[ci], c);
+  for (int i = 0; i < 3; ++i) {
+    c[i] = pc[i] + c[i];
+    rel[i] = c[i] - po[i];
+  }
+  T dist = sgn * dot3(rel, n) - sup_o;
+  mat_tvec(mo, rel, local);
+  mat_tvec(mo, n, n_loc);
+  const T big = m.con_guard[ci][0], slack = m.con_guard[ci][1];
+  for (int i = 0; i < 3; ++i)
+    over[i] = r_abs(local[i]) - so[i] - big * r_abs(n_loc[i]);
+  dist = r_max(dist, r_max(r_max(over[0], over[1]), over[2]) - slack);
+  for (int i = 0; i < 3; ++i) cpos[i] = c[i] - 0.5f * dist * sgn * n[i];
+  frame_from_normal(n, frame);
+  return dist - m.con_margin[ci];
+}
+
 // narrowphase of contact point ci: dist (margin taken off), frame rows
 // (n, t1, t2), contact position
-template <class T>
-__device__ T contact_geometry(const MRModelT<T>& m, const T (*xpos)[3],
+template <class T, class S>
+__device__ T contact_geometry(const MRModelT<T, S>& m, const T (*xpos)[3],
                               const T (*xquat)[4], int ci,
                               T (*frame)[3], T* cpos) {
   const int kind = m.con_kind[ci];
@@ -656,6 +767,10 @@ __device__ T contact_geometry(const MRModelT<T>& m, const T (*xpos)[3],
   T p1[3], m1[9], p2[3], m2[9], n[3];
   geom_pose(m, xpos, xquat, ci, 0, p1, m1);
   geom_pose(m, xpos, xquat, ci, 1, p2, m2);
+  if constexpr (S::BOXBOX) {
+    if (kind == MR_CON_BOXBOX)
+      return boxbox_corner(m, ci, p1, m1, p2, m2, frame, cpos);
+  }
   const T r1 = m.con_r[ci][0], r2 = m.con_r[ci][1];
   if (kind == MR_CON_SPHEREBOX || kind == MR_CON_CAPBOX) {
     // con_box: the box's half-sizes; a capsule end at con_end along g1's
@@ -700,10 +815,10 @@ __device__ T contact_geometry(const MRModelT<T>& m, const T (*xpos)[3],
 // Advances qpos/qvel in place and replaces lam with the converged duals.
 // `out` receives the PRE-step quantities the residual reads. mocap_pos
 // (nmocap, 3) and mocap_quat (nmocap, 4) are the mocap bodies' poses.
-template <class T>
-__device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
+template <class T, class S>
+__device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
                           const T* ctrl, T* lam, const T* mocap_pos,
-                          const T* mocap_quat, StepOut<T>& out) {
+                          const T* mocap_quat, StepOut<T, S>& out) {
   const int nv = m.nv, nbody = m.nbody;
   const T h = m.timestep;
   T (*xpos)[3] = out.xpos;
@@ -1027,9 +1142,9 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
   T qfrc_c[MR_MAX_NV];
   for (int k = 0; k < nv; ++k) qfrc_c[k] = 0.0f;
   if (nrow > 0) {
-    Rows<T> R;
-    T aref[MR_MAX_ROW], raw_diag[MR_MAX_ROW], a0[MR_MAX_ROW];
-    T imp[MR_MAX_ROW];
+    Rows<T, S> R;
+    T aref[S::ROW], raw_diag[S::ROW], a0[S::ROW];
+    T imp[S::ROW];
     for (int ci = 0; ci < m.ncon; ++ci) {
       T frame[3][3], cpos[3];
       const T dist = contact_geometry(m, xpos, xquat, ci, frame, cpos);
@@ -1223,7 +1338,7 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
     }
     T maxd = raw_diag[0];
     for (int rr = 1; rr < nrow; ++rr) maxd = r_max(maxd, raw_diag[rr]);
-    T dr[MR_MAX_ROW], diag[MR_MAX_ROW];
+    T dr[S::ROW], diag[S::ROW];
     for (int rr = 0; rr < nrow; ++rr) {
       T a = 0.0f;
       for (int k = 0; k < nv; ++k) a += R.J[rr][k] * qacc_smooth[k];
@@ -1266,7 +1381,7 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
     //      angular (torsional, rolling) and equality rows always start
     //      cold (their duals can be non-unique, and warm-starting them
     //      integrates drift)
-    T g[MR_MAX_ROW], y[MR_MAX_ROW], gn[MR_MAX_ROW], b_vec[MR_MAX_ROW];
+    T g[S::ROW], y[S::ROW], gn[S::ROW], b_vec[S::ROW];
     T lam_abs = 0.0f;
     for (int rr = 0; rr < nrow; ++rr) lam_abs += r_abs(lam[rr]);
     const bool cold = lam_abs == 0.0f;
@@ -1296,7 +1411,7 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
       }
       step = 1.0f / r_max(mx, 1.0f);
     } else {
-      T v[MR_MAX_ROW], w[MR_MAX_ROW];
+      T v[S::ROW], w[S::ROW];
       for (int rr = 0; rr < nrow; ++rr) v[rr] = R.active[rr] ? 1.0f : 0.0f;
       for (int it = 0; it < MR_POWER_ITERS; ++it) {
         opmul(m, R, L, v, w);
@@ -1315,7 +1430,7 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
     for (int rr = 0; rr < nrow; ++rr) y[rr] = g[rr];
     T t = 1.0f;
     for (int it = 0; it < MR_ITERATIONS; ++it) {
-      T f[MR_MAX_ROW], af[MR_MAX_ROW];
+      T f[S::ROW], af[S::ROW];
       for (int rr = 0; rr < nrow; ++rr) f[rr] = R.s_pre[rr] * y[rr];
       amul(m, R, L, f, af);
       for (int rr = 0; rr < nrow; ++rr) {
@@ -1369,8 +1484,8 @@ __device__ void tile_step(const MRModelT<T>& m, T* qpos, T* qvel,
 // step's ctrl and the post-step time t0 + (i+1)*dt
 // (megarollout.py::_rollout_body).
 // tasks/walker.py::residual; res_int = (torso body, rootx dof); no time
-template <class T>
-__device__ void residual_walker(const MRModelT<T>& m, const StepOut<T>& o,
+template <class T, class S>
+__device__ void residual_walker(const MRModelT<T, S>& m, const StepOut<T, S>& o,
                                 const T* /*qpos*/, const T* qvel,
                                 const T* ctrl, T /*time*/,
                                 const T* rp, T* res) {
@@ -1382,16 +1497,16 @@ __device__ void residual_walker(const MRModelT<T>& m, const StepOut<T>& o,
 }
 
 // world velocity of body b's centre of mass (cvel about the world origin)
-template <class T>
-__device__ __forceinline__ void com_vel(const StepOut<T>& o, int b, T* v) {
+template <class T, class S>
+__device__ __forceinline__ void com_vel(const StepOut<T, S>& o, int b, T* v) {
   T t[3];
   cross3(o.cvel[b], o.xipos[b], t);
   for (int i = 0; i < 3; ++i) v[i] = o.cvel[b][3 + i] + t[i];
 }
 
 // physics/sensors.py::subtree_linvel over the bodies in bitmask `set`
-template <class T>
-__device__ void subtree_linvel(const MRModelT<T>& m, const StepOut<T>& o,
+template <class T, class S>
+__device__ void subtree_linvel(const MRModelT<T, S>& m, const StepOut<T, S>& o,
                                int set, T mass, T* v) {
   T mom[3] = {0.0f, 0.0f, 0.0f};
   for (int b = 0; b < m.nbody; ++b)
@@ -1408,8 +1523,9 @@ __device__ void subtree_linvel(const MRModelT<T>& m, const StepOut<T>& o,
 // lower_waist, right_foot, left_foot, torso subtree mask, lower_waist
 // subtree mask), res_float = (torso, lower_waist subtree masses);
 // rp = (Height, Speed, Balance); no time
-template <class T>
-__device__ void residual_humanoid(const MRModelT<T>& m, const StepOut<T>& o,
+template <class T, class S>
+__device__ void residual_humanoid(const MRModelT<T, S>& m,
+                                  const StepOut<T, S>& o,
                                   const T* qpos, const T* /*qvel*/,
                                   const T* ctrl, T /*time*/,
                                   const T* rp, T* res) {
@@ -1474,8 +1590,8 @@ __device__ void residual_humanoid(const MRModelT<T>& m, const StepOut<T>& o,
 
 // physics/sensors.py::subtree_angmom: angular momentum about the subtree
 // CoM of body `root`, over the bodies in bitmask `set`
-template <class T>
-__device__ void subtree_angmom(const MRModelT<T>& m, const StepOut<T>& o,
+template <class T, class S>
+__device__ void subtree_angmom(const MRModelT<T, S>& m, const StepOut<T, S>& o,
                                int set, int root, T* h) {
   const T* com = o.subtree_com[root];
   for (int i = 0; i < 3; ++i) h[i] = 0.0f;
@@ -1570,8 +1686,9 @@ __device__ void weight_mod_quadruped(const T* ud, T* scale) {
 // type, heading, arm posture, flip direction). The Flip branch tracks the
 // choreographed height and pitch from its entry time ud[8], torso
 // quaternion ud[17:21] and ground height ud[21].
-template <class T>
-__device__ void residual_quadruped(const MRModelT<T>& m, const StepOut<T>& o,
+template <class T, class S>
+__device__ void residual_quadruped(const MRModelT<T, S>& m,
+                                   const StepOut<T, S>& o,
                                    const T* qpos, T time, const T* rp,
                                    const T* ud, const T* mocap_pos, T* res) {
   const int trunk = m.res_int[0];
@@ -1686,20 +1803,26 @@ __device__ void residual_quadruped(const MRModelT<T>& m, const StepOut<T>& o,
   subtree_angmom(m, o, m.res_int[1], trunk, posture + 14);
 }
 
-// tasks/hand_reorient.py::residual (77 entries): the cube against the
-// grasp site, the goal (mocap body 0's quaternion, normalized with the
-// norm clamped at 1e-24 inside the root) against the cube's orientation as
-// 2 sign(w) vec(qcube^-1 qgoal), the cube's linear velocity, the actuator
-// forces, the hand's 24 angles against home and their velocities.
-// res_int = (cube qpos address, cube dof address); sites = (grasp site);
-// res_float = the home keyframe's 24 hand angles
-template <class T>
-__device__ void residual_shadow(const MRModelT<T>& m, const StepOut<T>& o,
-                                const T* qpos, const T* qvel,
-                                const T* mocap_quat, T* res) {
+// tasks/hand_reorient.py::reorient_residual (Shadow's 77 entries,
+// Allegro's 45): the cube against a site and a hold offset, the goal
+// (mocap body 0's quaternion, normalized with the norm clamped at 1e-24
+// inside the root) against the cube's orientation as 2 sign(w)
+// vec(qcube^-1 qgoal), the cube's linear velocity, the actuator forces, the
+// hand's nhand angles (first in qpos) against home and their velocities.
+// res_int = (cube qpos address, cube dof address, nhand); sites = (the
+// site); res_float = (the hold offset (3), the home keyframe's hand angles)
+template <class T, class S>
+__device__ void residual_reorient(const MRModelT<T, S>& m,
+                                  const StepOut<T, S>& o, const T* qpos,
+                                  const T* qvel, const T* mocap_quat,
+                                  T* res) {
   const T* cube = qpos + m.res_int[0];
   const T* cube_vel = qvel + m.res_int[1];
-  for (int i = 0; i < 3; ++i) res[i] = cube[i] - o.site_xpos[0][i];
+  const int nhand = m.res_int[2];
+  const T* hold = m.res_float;
+  const T* home = m.res_float + 3;
+  for (int i = 0; i < 3; ++i)
+    res[i] = (cube[i] - o.site_xpos[0][i]) - hold[i];
   T ss = 0.0f;
   for (int i = 0; i < 4; ++i) ss += mocap_quat[i] * mocap_quat[i];
   const T nrm = r_sqrt(r_max(ss, T(1e-24)));
@@ -1712,16 +1835,16 @@ __device__ void residual_shadow(const MRModelT<T>& m, const StepOut<T>& o,
   for (int i = 0; i < 3; ++i) res[6 + i] = cube_vel[i];
   for (int u = 0; u < m.nu; ++u) res[9 + u] = o.act_force[u];
   T* hand = res + 9 + m.nu;
-  for (int i = 0; i < 24; ++i) hand[i] = qpos[i] - m.res_float[i];
-  for (int i = 0; i < 24; ++i) hand[24 + i] = qvel[i];
+  for (int i = 0; i < nhand; ++i) hand[i] = qpos[i] - home[i];
+  for (int i = 0; i < nhand; ++i) hand[nhand + i] = qvel[i];
 }
 
 // tasks/bimanual.py::_finger_normal: the mean normal finger -> box over
 // the slot's contact points within 2 cm of touching (sign: the pair's
 // stored order), normalized with the norm clamped at 1e-24 inside the root
 // and floored at 1e-9; false where there is none
-template <class T>
-__device__ bool finger_normal(const StepOut<T>& o, int start, int count,
+template <class T, class S>
+__device__ bool finger_normal(const StepOut<T, S>& o, int start, int count,
                               T sign, T* n) {
   T avg[3] = {0.0f, 0.0f, 0.0f};
   for (int j = start; j < start + count; ++j) {
@@ -1740,8 +1863,9 @@ __device__ bool finger_normal(const StepOut<T>& o, int start, int count,
 // res_int = (box body, the four finger-box slots' first contact points,
 // their point counts); res_float = their signs; sites = (left gripper,
 // right gripper)
-template <class T>
-__device__ void residual_handover(const MRModelT<T>& m, const StepOut<T>& o,
+template <class T, class S>
+__device__ void residual_handover(const MRModelT<T, S>& m,
+                                  const StepOut<T, S>& o,
                                   const T* qvel, const T* mocap_pos,
                                   T* res) {
   const T* box = o.xpos[m.res_int[0]];
@@ -1774,16 +1898,16 @@ __device__ void residual_handover(const MRModelT<T>& m, const StepOut<T>& o,
 }
 
 // the state itself, (qpos, qvel): the residual of small test models
-template <class T>
-__device__ void residual_state(const MRModelT<T>& m, const T* qpos,
+template <class T, class S>
+__device__ void residual_state(const MRModelT<T, S>& m, const T* qpos,
                                const T* qvel, T* res) {
   for (int i = 0; i < m.nq; ++i) res[i] = qpos[i];
   for (int i = 0; i < m.nv; ++i) res[m.nq + i] = qvel[i];
 }
 
-template <class T>
-__device__ __forceinline__ void residual(const MRModelT<T>& m,
-                                         const StepOut<T>& o, const T* qpos,
+template <class T, class S>
+__device__ __forceinline__ void residual(const MRModelT<T, S>& m,
+                                         const StepOut<T, S>& o, const T* qpos,
                                          const T* qvel, const T* ctrl,
                                          T time, const T* rp, const T* ud,
                                          const T* mocap_pos,
@@ -1794,8 +1918,8 @@ __device__ __forceinline__ void residual(const MRModelT<T>& m,
     residual_humanoid(m, o, qpos, qvel, ctrl, time, rp, res);
   else if (m.res_id == MR_RES_QUADRUPED)
     residual_quadruped(m, o, qpos, time, rp, ud, mocap_pos, res);
-  else if (m.res_id == MR_RES_SHADOW)
-    residual_shadow(m, o, qpos, qvel, mocap_quat, res);
+  else if (m.res_id == MR_RES_REORIENT)
+    residual_reorient(m, o, qpos, qvel, mocap_quat, res);
   else if (m.res_id == MR_RES_STATE)
     residual_state(m, qpos, qvel, res);
   else if (m.res_id == MR_RES_HANDOVER)
@@ -1804,8 +1928,8 @@ __device__ __forceinline__ void residual(const MRModelT<T>& m,
 
 // the task's state-dependent cost weight multipliers (Task.weight_mod);
 // false for a task without them
-template <class T>
-__device__ __forceinline__ bool weight_mod(const MRModelT<T>& m,
+template <class T, class S>
+__device__ __forceinline__ bool weight_mod(const MRModelT<T, S>& m,
                                            const T* ud, T* scale) {
   if (m.res_id != MR_RES_QUADRUPED) return false;
   weight_mod_quadruped(ud, scale);
@@ -1855,8 +1979,8 @@ __device__ T norm_value(int type, const T* x, int n, T p,
 }
 
 // scale: the task's per-term weight multipliers, or nullptr
-template <class T>
-__device__ T cost_value(const MRModelT<T>& m, const T* res,
+template <class T, class S>
+__device__ T cost_value(const MRModelT<T, S>& m, const T* res,
                         const T* weights, const T* norm_params,
                         T risk, const T* scale) {
   T total = 0.0f;
@@ -1878,12 +2002,12 @@ __device__ T cost_value(const MRModelT<T>& m, const T* res,
 // kernels
 // ---------------------------------------------------------------------------
 
-template <class T>
-__device__ void load_model(const MRModelT<T>* __restrict__ src,
-                           MRModelT<T>* dst) {
+template <class T, class S>
+__device__ void load_model(const MRModelT<T, S>* __restrict__ src,
+                           MRModelT<T, S>* dst) {
   const int* s = reinterpret_cast<const int*>(src);
   int* d = reinterpret_cast<int*>(dst);
-  for (int i = threadIdx.x; i < (int)(sizeof(MRModelT<T>) / 4);
+  for (int i = threadIdx.x; i < (int)(sizeof(MRModelT<T, S>) / 4);
        i += blockDim.x)
     d[i] = s[i];
   __syncthreads();
@@ -1897,8 +2021,9 @@ struct Aux {
   T userdata[MR_MAX_USERDATA];
 };
 
-template <class T>
-__device__ void load_aux(const MRModelT<T>& m, const T* __restrict__ mocap_pos,
+template <class T, class S>
+__device__ void load_aux(const MRModelT<T, S>& m,
+                         const T* __restrict__ mocap_pos,
                          const T* __restrict__ mocap_quat,
                          const T* __restrict__ userdata, Aux<T>* dst) {
   for (int i = threadIdx.x; i < 3 * m.nmocap; i += blockDim.x)
@@ -1910,24 +2035,45 @@ __device__ void load_aux(const MRModelT<T>& m, const T* __restrict__ mocap_pos,
   __syncthreads();
 }
 
-template <class T>
-__global__ void __launch_bounds__(64) mr_returns_kernel(
-    const MRModelT<T>* __restrict__ model, const T* __restrict__ qpos0,
+// A block's dynamic shared memory: the model struct, then the
+// rollout-constant operands. The large tier's double struct exceeds the 48
+// KB of static shared memory, so the launch sets the kernel's dynamic
+// maximum first. A host build may define MR_DYNAMIC_SHARED as a static
+// buffer.
+#ifndef MR_DYNAMIC_SHARED
+#define MR_DYNAMIC_SHARED(name) \
+  extern __shared__ __align__(16) unsigned char name[]
+#endif
+
+template <class T, class S>
+constexpr size_t shared_bytes() {
+  return sizeof(MRModelT<T, S>) + sizeof(Aux<T>);
+}
+
+// __launch_bounds__(64, 1): a block of 64 threads, at least one per SM.
+// With the model in dynamic shared memory ptxas no longer sees a block's
+// shared memory and otherwise trades registers for occupancy the few
+// blocks of a launch never use (the small tier's float kernel: 96
+// registers and a spill, against 113 with static shared memory).
+template <class T, class S>
+__global__ void __launch_bounds__(64, 1) mr_returns_kernel(
+    const MRModelT<T, S>* __restrict__ model, const T* __restrict__ qpos0,
     const T* __restrict__ qvel0, const T* __restrict__ actions,
     const T* __restrict__ weights, const T* __restrict__ norm_params,
     const T* __restrict__ risk, const T* __restrict__ res_params,
     const T* __restrict__ t0, const T* __restrict__ mocap_pos,
     const T* __restrict__ mocap_quat, const T* __restrict__ userdata,
     T* __restrict__ out, int n, int horizon) {
-  __shared__ MRModelT<T> sm;
-  __shared__ Aux<T> aux;
+  MR_DYNAMIC_SHARED(smem);
+  MRModelT<T, S>& sm = *reinterpret_cast<MRModelT<T, S>*>(smem);
+  Aux<T>& aux = *reinterpret_cast<Aux<T>*>(smem + sizeof(MRModelT<T, S>));
   load_model(model, &sm);
   load_aux(sm, mocap_pos, mocap_quat, userdata, &aux);
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n) return;  // ragged edge
-  const MRModelT<T>& m = sm;
-  T qpos[MR_MAX_NQ], qvel[MR_MAX_NV], lam[MR_MAX_ROW], res[MR_MAX_RES];
-  StepOut<T> o;
+  const MRModelT<T, S>& m = sm;
+  T qpos[MR_MAX_NQ], qvel[MR_MAX_NV], lam[S::ROW], res[MR_MAX_RES];
+  StepOut<T, S> o;
   for (int k = 0; k < m.nq; ++k) qpos[k] = qpos0[k];
   for (int k = 0; k < m.nv; ++k) qvel[k] = qvel0[k];
   for (int r = 0; r < m.nrow; ++r) lam[r] = 0.0f;  // first step is cold
@@ -1949,23 +2095,24 @@ __global__ void __launch_bounds__(64) mr_returns_kernel(
   out[c] = isfinite(total) ? total : MR_MAX_RETURN;
 }
 
-template <class T>
-__global__ void __launch_bounds__(64) mr_step_kernel(
-    const MRModelT<T>* __restrict__ model, const T* __restrict__ qpos_in,
+template <class T, class S>
+__global__ void __launch_bounds__(64, 1) mr_step_kernel(
+    const MRModelT<T, S>* __restrict__ model, const T* __restrict__ qpos_in,
     const T* __restrict__ qvel_in, const T* __restrict__ ctrl,
     const T* __restrict__ lam_in, const T* __restrict__ mocap_pos,
     const T* __restrict__ mocap_quat, const T* __restrict__ userdata,
     T* __restrict__ qpos_out, T* __restrict__ qvel_out,
     T* __restrict__ lam_out, int b) {
-  __shared__ MRModelT<T> sm;
-  __shared__ Aux<T> aux;
+  MR_DYNAMIC_SHARED(smem);
+  MRModelT<T, S>& sm = *reinterpret_cast<MRModelT<T, S>*>(smem);
+  Aux<T>& aux = *reinterpret_cast<Aux<T>*>(smem + sizeof(MRModelT<T, S>));
   load_model(model, &sm);
   load_aux(sm, mocap_pos, mocap_quat, userdata, &aux);
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= b) return;
-  const MRModelT<T>& m = sm;
-  T qpos[MR_MAX_NQ], qvel[MR_MAX_NV], lam[MR_MAX_ROW];
-  StepOut<T> o;
+  const MRModelT<T, S>& m = sm;
+  T qpos[MR_MAX_NQ], qvel[MR_MAX_NV], lam[S::ROW];
+  StepOut<T, S> o;
   for (int k = 0; k < m.nq; ++k) qpos[k] = qpos_in[c * m.nq + k];
   for (int k = 0; k < m.nv; ++k) qvel[k] = qvel_in[c * m.nv + k];
   for (int r = 0; r < m.nrow; ++r) lam[r] = lam_in[c * m.nrow + r];
@@ -1978,32 +2125,24 @@ __global__ void __launch_bounds__(64) mr_step_kernel(
 
 // ---------------------------------------------------------------------------
 // C interface (loaded with ctypes): pointers are device pointers, the
-// stream is PyTorch's current stream; each entry returns cudaGetLastError().
-// The plain names take float operands and MRModelT<float>; the names ending
-// in 64 take double operands and MRModelT<double>.
+// stream is PyTorch's current stream; each entry returns a CUDA error code
+// (the attribute call's, else cudaGetLastError()). A library holds one
+// tier and one precision: -DMR_TIER=0 the small tier, 1 the large;
+// -DMR_DOUBLE=1 double operands and MRModelT<double, tier>, else float.
 // ---------------------------------------------------------------------------
 
-template <class T>
+template <class T, class S>
 static int model_layout(long long* offsets, int capacity) {
+  typedef MRModelT<T, S> M;
   int i = 0;
 #define MR_OFFSET(type, name, dims) \
-  if (i < capacity) offsets[i] = (long long)offsetof(MRModelT<T>, name); ++i;
+  if (i < capacity) offsets[i] = (long long)offsetof(M, name); ++i;
   MR_MODEL_FIELDS(MR_OFFSET)
 #undef MR_OFFSET
   return i;
 }
 
-extern "C" int mr_model_layout(int dbl, long long* offsets, int capacity) {
-  return dbl ? model_layout<double>(offsets, capacity)
-             : model_layout<float>(offsets, capacity);
-}
-
-extern "C" long long mr_model_size(int dbl) {
-  return dbl ? (long long)sizeof(MRModelT<double>)
-             : (long long)sizeof(MRModelT<float>);
-}
-
-template <class T>
+template <class T, class S>
 static int launch_returns(const void* model, const void* qpos0,
                           const void* qvel0, const void* actions,
                           const void* weights, const void* norm_params,
@@ -2012,8 +2151,13 @@ static int launch_returns(const void* model, const void* qpos0,
                           const void* mocap_quat, const void* userdata,
                           void* out, int n, int horizon, void* stream) {
   if (n > 0) {
-    mr_returns_kernel<T><<<(n + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
-        (const MRModelT<T>*)model, (const T*)qpos0, (const T*)qvel0,
+    const int smem = (int)shared_bytes<T, S>();
+    const cudaError_t err = cudaFuncSetAttribute(
+        mr_returns_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    mr_returns_kernel<T, S><<<(n + 63) / 64, 64, smem, (cudaStream_t)stream>>>(
+        (const MRModelT<T, S>*)model, (const T*)qpos0, (const T*)qvel0,
         (const T*)actions, (const T*)weights, (const T*)norm_params,
         (const T*)risk, (const T*)res_params, (const T*)t0,
         (const T*)mocap_pos, (const T*)mocap_quat, (const T*)userdata,
@@ -2022,15 +2166,20 @@ static int launch_returns(const void* model, const void* qpos0,
   return (int)cudaGetLastError();
 }
 
-template <class T>
+template <class T, class S>
 static int launch_step(const void* model, const void* qpos,
                        const void* qvel, const void* ctrl, const void* lam,
                        const void* mocap_pos, const void* mocap_quat,
                        const void* userdata, void* qpos_out, void* qvel_out,
                        void* lam_out, int b, void* stream) {
   if (b > 0) {
-    mr_step_kernel<T><<<(b + 63) / 64, 64, 0, (cudaStream_t)stream>>>(
-        (const MRModelT<T>*)model, (const T*)qpos, (const T*)qvel,
+    const int smem = (int)shared_bytes<T, S>();
+    const cudaError_t err = cudaFuncSetAttribute(
+        mr_step_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    mr_step_kernel<T, S><<<(b + 63) / 64, 64, smem, (cudaStream_t)stream>>>(
+        (const MRModelT<T, S>*)model, (const T*)qpos, (const T*)qvel,
         (const T*)ctrl, (const T*)lam, (const T*)mocap_pos,
         (const T*)mocap_quat, (const T*)userdata, (T*)qpos_out,
         (T*)qvel_out, (T*)lam_out, b);
@@ -2038,36 +2187,46 @@ static int launch_step(const void* model, const void* qpos,
   return (int)cudaGetLastError();
 }
 
-#define MR_RETURNS_ARGS                                                      \
-  const void* model, const void* qpos0, const void* qvel0,                   \
-      const void* actions, const void* weights, const void* norm_params,     \
-      const void* risk, const void* res_params, const void* t0,              \
-      const void* mocap_pos, const void* mocap_quat, const void* userdata,   \
-      void* out, int n, int horizon, void* stream
-#define MR_RETURNS_PASS                                                      \
-  model, qpos0, qvel0, actions, weights, norm_params, risk, res_params, t0,  \
-      mocap_pos, mocap_quat, userdata, out, n, horizon, stream
-#define MR_STEP_ARGS                                                         \
-  const void* model, const void* qpos, const void* qvel, const void* ctrl,   \
-      const void* lam, const void* mocap_pos, const void* mocap_quat,        \
-      const void* userdata, void* qpos_out, void* qvel_out, void* lam_out,   \
-      int b, void* stream
-#define MR_STEP_PASS                                                         \
-  model, qpos, qvel, ctrl, lam, mocap_pos, mocap_quat, userdata, qpos_out,   \
-      qvel_out, lam_out, b, stream
+#ifndef MR_TIER
+#define MR_TIER 0
+#endif
+#if MR_TIER == 0
+typedef MRSmall MRTier;
+#else
+typedef MRLarge MRTier;
+#endif
+#if defined(MR_DOUBLE) && MR_DOUBLE
+typedef double MRScalar;
+#else
+typedef float MRScalar;
+#endif
 
-extern "C" int mr_returns(MR_RETURNS_ARGS) {
-  return launch_returns<float>(MR_RETURNS_PASS);
+extern "C" int mr_model_layout(long long* offsets, int capacity) {
+  return model_layout<MRScalar, MRTier>(offsets, capacity);
 }
 
-extern "C" int mr_returns64(MR_RETURNS_ARGS) {
-  return launch_returns<double>(MR_RETURNS_PASS);
+extern "C" long long mr_model_size() {
+  return (long long)sizeof(MRModelT<MRScalar, MRTier>);
 }
 
-extern "C" int mr_step(MR_STEP_ARGS) {
-  return launch_step<float>(MR_STEP_PASS);
+extern "C" int mr_returns(
+    const void* model, const void* qpos0, const void* qvel0,
+    const void* actions, const void* weights, const void* norm_params,
+    const void* risk, const void* res_params, const void* t0,
+    const void* mocap_pos, const void* mocap_quat, const void* userdata,
+    void* out, int n, int horizon, void* stream) {
+  return launch_returns<MRScalar, MRTier>(
+      model, qpos0, qvel0, actions, weights, norm_params, risk, res_params,
+      t0, mocap_pos, mocap_quat, userdata, out, n, horizon, stream);
 }
 
-extern "C" int mr_step64(MR_STEP_ARGS) {
-  return launch_step<double>(MR_STEP_PASS);
+extern "C" int mr_step(const void* model, const void* qpos, const void* qvel,
+                       const void* ctrl, const void* lam,
+                       const void* mocap_pos, const void* mocap_quat,
+                       const void* userdata, void* qpos_out, void* qvel_out,
+                       void* lam_out, int b, void* stream) {
+  return launch_step<MRScalar, MRTier>(model, qpos, qvel, ctrl, lam,
+                                       mocap_pos, mocap_quat, userdata,
+                                       qpos_out, qvel_out, lam_out, b,
+                                       stream);
 }

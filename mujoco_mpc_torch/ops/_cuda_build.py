@@ -1,10 +1,15 @@
 """Build csrc/megarollout.cu with nvcc and load it with ctypes.
 
-The library has a plain C interface (no PyTorch headers), so nvcc builds
-it in seconds. It goes to build/mujoco_mpc_torch/ at the repository root
-(git-ignored), named by the hash of the source and the flags, at first
-use; the ptxas report (registers, local memory, spills) is kept beside it
-as a .log file.
+The source is compiled once per size tier and precision (-DMR_TIER,
+-DMR_DOUBLE), each a library with a plain C interface (no PyTorch
+headers), so nvcc builds it in seconds; `build_all` runs the nvcc
+processes at once. A library built with `contract` False (-fmad=false:
+no fused multiply-adds) rounds as the plain version does, op for op; it
+only serves to tell the float kernel's contraction rounding from its
+arithmetic. The libraries go to build/mujoco_mpc_torch/ at the
+repository root (git-ignored), named by the hash of the source and the
+flags, at first use; each one's ptxas report (registers, local memory,
+spills) is kept beside it as a .log file.
 """
 
 from __future__ import annotations
@@ -35,40 +40,60 @@ def nvcc() -> str:
                      "/usr/local/cuda/bin): the CUDA kernel cannot be built")
 
 
-def library_path() -> Path:
-  key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-  return BUILD_DIR / f"megarollout-{key.hexdigest()[:16]}.so"
+def _flags(tier: int, double: bool, contract: bool) -> tuple:
+  return NVCC_FLAGS + (f"-DMR_TIER={tier}", f"-DMR_DOUBLE={int(double)}") \
+      + (() if contract else ("-fmad=false",))
 
 
-def build() -> Path:
-  """Compile the library if it is not built yet; returns its path."""
-  out = library_path()
-  if out.exists():
-    return out
-  BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-  proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                        capture_output=True, text=True)
-  if proc.returncode != 0:
-    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-  out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-  os.replace(tmp, out)
-  return out
+def library_path(tier: int, double: bool, contract: bool = True) -> Path:
+  key = hashlib.sha256(SOURCE.read_bytes()
+                       + " ".join(_flags(tier, double, contract)).encode())
+  return BUILD_DIR / (f"megarollout-t{tier}-{'f64' if double else 'f32'}-"
+                      f"{'' if contract else 'nofma-'}"
+                      f"{key.hexdigest()[:16]}.so")
+
+
+def build_all(variants) -> list:
+  """Compile the libraries of `variants` ((tier index, double, contract)
+  triples, the index into ops/megarollout.py TIERS) that are not built
+  yet, one nvcc process each, all at once; returns their paths."""
+  outs = [library_path(*v) for v in variants]
+  jobs = []
+  for (tier, double, contract), out in zip(variants, outs):
+    if out.exists():
+      continue
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    jobs.append((out, tmp, subprocess.Popen(
+        [nvcc(), *_flags(tier, double, contract), "-o", str(tmp),
+         str(SOURCE)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+  failed = []
+  for out, tmp, proc in jobs:  # wait for all before raising
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+      failed.append(f"nvcc failed ({proc.returncode}) for {out.name}:\n"
+                    f"{stderr}")
+      continue
+    out.with_suffix(".log").write_text(stdout + stderr)
+    os.replace(tmp, out)
+  if failed:
+    raise RuntimeError("\n".join(failed))
+  return outs
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-  """The built library with argument types declared (built on first use)."""
-  lib = ctypes.CDLL(str(build()))
+def load(tier: int, double: bool, contract: bool = True) -> ctypes.CDLL:
+  """The library of one tier and precision with argument types declared
+  (built on first use)."""
+  lib = ctypes.CDLL(str(build_all([(tier, double, contract)])[0]))
   p, i = ctypes.c_void_p, ctypes.c_int
-  lib.mr_model_layout.argtypes = [i, p, i]
+  lib.mr_model_layout.argtypes = [p, i]
   lib.mr_model_layout.restype = i
-  lib.mr_model_size.argtypes = [i]
+  lib.mr_model_size.argtypes = []
   lib.mr_model_size.restype = ctypes.c_longlong
-  for name in ("mr_returns", "mr_returns64"):
-    getattr(lib, name).argtypes = [p] * 13 + [i, i, p]
-    getattr(lib, name).restype = i
-  for name in ("mr_step", "mr_step64"):
-    getattr(lib, name).argtypes = [p] * 11 + [i, p]
-    getattr(lib, name).restype = i
+  lib.mr_returns.argtypes = [p] * 13 + [i, i, p]
+  lib.mr_returns.restype = i
+  lib.mr_step.argtypes = [p] * 11 + [i, p]
+  lib.mr_step.restype = i
   return lib

@@ -14,6 +14,8 @@ on the CPU. There is no fallback from one to the other. Built once per
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -53,11 +55,13 @@ def cost_value_t(spec: CostSpec, weights, norm_params, risk, res,
   return risk_transform(total, risk)
 
 
-def _rollout_body(tm, task, horizon, qpos0, qvel0, actions, weights,
-                  norm_params, risk, res_params, t0, mocap_pos, mocap_quat,
-                  userdata):
+def _rollout_body(tm, task, horizon, qpos0, qvel0, actions, scorings, t0,
+                  mocap_pos, mocap_quat):
   """Mean per-step cost (N,) of actions (N, T, nu) from (qpos0, qvel0),
-  with the non-finite -> MAX_RETURN divergence guard; the mocap poses and
+  with the non-finite -> MAX_RETURN divergence guard, once per scoring of
+  `scorings`, (weights, norm_params, risk, residual params, userdata)
+  tuples: one physics rollout serves them all, as the physics reads
+  neither the task's parameters nor the userdata. The mocap poses and
   userdata (tilestep.aux_operands shapes) are rollout-constant."""
   n = actions.shape[0]
   acts = actions.permute(1, 2, 0)  # (T, nu, N)
@@ -66,21 +70,28 @@ def _rollout_body(tm, task, horizon, qpos0, qvel0, actions, weights,
   # APGD warm-start carry: zeros = cold first step
   lam = torch.zeros((max(tm.nrow, 1), n), dtype=qpos0.dtype,
                     device=qpos0.device)
-  total = torch.zeros((n,), dtype=qpos0.dtype, device=qpos0.device)
+  totals = [torch.zeros((n,), dtype=qpos0.dtype, device=qpos0.device)
+            for _ in scorings]
   for i in range(horizon):
     qpos, qvel, view = tilestep.step_tb(
         tm, qpos, qvel, acts[i], efc_lambda=lam, mocap_pos=mocap_pos,
-        mocap_quat=mocap_quat, userdata=userdata)
+        mocap_quat=mocap_quat, userdata=scorings[0][4])
     view.time = t0 + (i + 1) * tm.timestep
-    res = task.residual(task.model, view, res_params)
-    scale = (task.weight_mod(task.model, view, res_params)
-             if task.weight_mod is not None else None)
-    total = total + cost_value_t(task.spec, weights, norm_params, risk, res,
-                                 scale)
+    for k, (weights, norm_params, risk, res_params, userdata) in enumerate(
+        scorings):
+      view.userdata = userdata
+      res = task.residual(task.model, view, res_params)
+      scale = (task.weight_mod(task.model, view, res_params)
+               if task.weight_mod is not None else None)
+      totals[k] = totals[k] + cost_value_t(task.spec, weights, norm_params,
+                                           risk, res, scale)
     lam = view.efc_lambda
-  total = total / horizon
-  return torch.where(torch.isfinite(total), total,
-                     torch.full_like(total, MAX_RETURN))
+  out = []
+  for total in totals:
+    total = total / horizon
+    out.append(torch.where(torch.isfinite(total), total,
+                           torch.full_like(total, MAX_RETURN)))
+  return out
 
 
 # ---------------------------------------------------------------------------
@@ -88,18 +99,30 @@ def _rollout_body(tm, task, horizon, qpos0, qvel0, actions, weights,
 # ---------------------------------------------------------------------------
 
 MAX_NQ, MAX_NV, MAX_BODY, MAX_JNT, MAX_NU = 32, 30, 20, 25, 24
-MAX_CON, MAX_LIM, MAX_TEN, MAX_WRAP = 40, 24, 4, 4
-MAX_ROW, MAX_DENSE = 130, 32
+MAX_LIM, MAX_TEN, MAX_WRAP, MAX_DENSE = 24, 4, 4, 32
 MAX_TERM, MAX_RES, MAX_RES_INT, MAX_RES_FLOAT = 16, 80, 12, 32
 MAX_SITE, MAX_MOCAP, MAX_USERDATA, MAX_EQ = 8, 4, 32, 4
 _CON_KIND = {"plane_sphere": 0, "plane_capend": 0, "cap_cap": 1,
              "plane_boxcorner": 2, "sphere_sphere": 3, "sphere_box": 4,
-             "cap_box": 5}
+             "cap_box": 5, "boxbox_corner": 6}
+
+
+@dataclasses.dataclass(frozen=True)
+class Tier:
+  """A size tier of the kernel (csrc/megarollout.cu MRSmall, MRLarge): its
+  contact points, constraint rows, and whether it has the box-box pair."""
+  name: str
+  max_con: int
+  max_row: int
+  boxbox: bool
+
+
+# smallest first: MegaRollout takes the first that holds the model
+TIERS = (Tier("small", 40, 130, False), Tier("large", 72, 250, True))
 
 _I = ctypes.c_int32
-# the kernel's scalar type per torch dtype, and its C entry points
-_PRECISION = {torch.float32: (ctypes.c_float, "mr_returns", "mr_step"),
-              torch.float64: (ctypes.c_double, "mr_returns64", "mr_step64")}
+# the kernel's scalar type per torch dtype
+_SCALAR = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 
 
 def _arr(t, *dims):
@@ -108,8 +131,10 @@ def _arr(t, *dims):
   return t
 
 
-def _model_struct(_F):
-  """ctypes mirror of MRModelT<T> for the scalar type _F."""
+def _model_struct(_F, tier: Tier):
+  """ctypes mirror of MRModelT<T, tier> for the scalar type _F."""
+  MAX_CON = tier.max_con  # noqa: N806 (the C maximum's name)
+  BB_CON = MAX_CON if tier.boxbox else 1  # noqa: N806 (the C BBCON)
   fields = [
       ("nq", _I), ("nv", _I), ("nu", _I), ("nbody", _I), ("njnt", _I),
       ("ncon", _I), ("nfric", _I), ("ntor", _I), ("nroll", _I),
@@ -180,6 +205,9 @@ def _model_struct(_F):
       ("con_frame", _arr(_F, MAX_CON, 3, 3)),
       ("con_ppos", _arr(_F, MAX_CON, 3)),
       ("con_box", _arr(_F, MAX_CON, 3)),
+      ("con_owner", _arr(_I, BB_CON)),
+      ("con_size", _arr(_F, BB_CON, 2, 3)),
+      ("con_guard", _arr(_F, BB_CON, 2)),
       ("con_sgn", _arr(_F, MAX_CON, MAX_NV)),
       ("con_imp", _arr(_F, MAX_CON, 5)),
       ("con_k", _arr(_F, MAX_CON)),
@@ -216,34 +244,26 @@ def _model_struct(_F):
       ("term_dim", _arr(_I, MAX_TERM)),
       ("term_norm", _arr(_I, MAX_TERM)),
   ]
-  return type(f"MRModel_{_F.__name__}", (ctypes.Structure,),
+  return type(f"MRModel_{_F.__name__}_{tier.name}", (ctypes.Structure,),
               {"_fields_": fields})
 
 
-_MODEL_STRUCT = {dt: _model_struct(v[0]) for dt, v in _PRECISION.items()}
+_MODEL_STRUCT = {(tier, dt): _model_struct(f, tier)
+                 for tier in TIERS for dt, f in _SCALAR.items()}
 
 
-def pack_model(tm: tilestep.TileModel, task: Task,
-               dtype=torch.float32) -> bytes:
-  """The kernel's MRModelT for a TileModel and task, with float or double
-  scalars for dtype float32 or float64 (the same float32 model values in
-  both; the residual's constants at the struct's precision, as the plain
-  residual reads them); raises tilestep.UnsupportedModel where the model
-  exceeds the struct's maxima or the task has no CUDA residual."""
-  if task.device_residual is None:
-    raise tilestep.UnsupportedModel(
-        f"task {task.name!r} has no CUDA residual in csrc/megarollout.cu")
+def _over_limits(tm: tilestep.TileModel, task: Task, tier: Tier):
+  """What of the model exceeds the tier's maxima: (what, count, maximum)
+  triples, the shared maxima first."""
   spec = task.spec
   dres = task.device_residual
   limits = [("nq", tm.nq, MAX_NQ), ("nv", tm.nv, MAX_NV),
             ("nbody", tm.nbody, MAX_BODY),
             ("njnt", tm.njnt, MAX_JNT), ("nu", tm.nu, MAX_NU),
-            ("contact points", tm.ncon, MAX_CON),
             ("limited joints", len(tm.lim_jnt), MAX_LIM),
             ("tendons", len(tm.ten_wraps), MAX_TEN),
             ("tendon wraps", max([len(w) for w in tm.ten_wraps] or [0]),
              MAX_WRAP),
-            ("constraint rows", tm.nrow, MAX_ROW),
             ("equality constraints", len(tm.eq_rows), MAX_EQ),
             ("cost terms", spec.nterm, MAX_TERM),
             ("residual entries", spec.nresidual, MAX_RES),
@@ -251,13 +271,43 @@ def pack_model(tm: tilestep.TileModel, task: Task,
             ("residual constants", len(dres.floats), MAX_RES_FLOAT),
             ("residual sites", len(dres.sites), MAX_SITE),
             ("mocap bodies", tm.nmocap, MAX_MOCAP),
-            ("userdata entries", tm.nuserdata, MAX_USERDATA)]
-  for what, n, cap in limits:
-    if n > cap:
-      raise tilestep.UnsupportedModel(
-          f"{what} {n} exceed the kernel's maximum {cap}")
+            ("userdata entries", tm.nuserdata, MAX_USERDATA),
+            ("contact points", tm.ncon, tier.max_con),
+            ("constraint rows", tm.nrow, tier.max_row),
+            ("box-box contact points",
+             sum(cp.kind == "boxbox_corner" for cp in tm.con_points),
+             tier.max_con if tier.boxbox else 0)]
+  return [x for x in limits if x[1] > x[2]]
 
-  s = _MODEL_STRUCT[torch.float32]()
+
+def select_tier(tm: tilestep.TileModel, task: Task) -> Tier:
+  """The smallest size tier that holds the model; raises
+  tilestep.UnsupportedModel naming the first of the largest tier's maxima
+  that the model exceeds where none does, or where the task has no CUDA
+  residual."""
+  if task.device_residual is None:
+    raise tilestep.UnsupportedModel(
+        f"task {task.name!r} has no CUDA residual in csrc/megarollout.cu")
+  for tier in TIERS:
+    over = _over_limits(tm, task, tier)
+    if not over:
+      return tier
+  what, n, cap = over[0]
+  raise tilestep.UnsupportedModel(
+      f"{what} {n} exceed the kernel's maximum {cap} ({tier.name} tier)")
+
+
+def pack_model(tm: tilestep.TileModel, task: Task,
+               dtype=torch.float32) -> bytes:
+  """The kernel's MRModelT for a TileModel and task, in the smallest size
+  tier that holds the model, with float or double scalars for dtype
+  float32 or float64 (the same float32 model values in both; the
+  residual's constants at the struct's precision, as the plain residual
+  reads them); raises tilestep.UnsupportedModel as select_tier does."""
+  tier = select_tier(tm, task)
+  spec = task.spec
+  dres = task.device_residual
+  s = _MODEL_STRUCT[tier, torch.float32]()
 
   def put(name, values):
     np.ctypeslib.as_array(getattr(s, name))[:len(values)] = values
@@ -341,12 +391,24 @@ def pack_model(tm: tilestep.TileModel, task: Task,
                                else np.zeros((3, 3)) for cp in cps]))
     put("con_ppos", np.stack([cp.ppos if cp.ppos is not None
                               else np.zeros(3) for cp in cps]))
-    # box kinds: a corner's offset (plane_boxcorner), the half-sizes
-    # (sphere_box, cap_box)
+    # box kinds: a corner's offset in its box's frame (plane_boxcorner,
+    # boxbox_corner), the half-sizes (sphere_box, cap_box)
     put("con_box", np.stack([
         cp.size2 * cp.corner if cp.kind == "plane_boxcorner"
+        else (cp.size2 if cp.owner == 2 else cp.size1) * cp.corner
+        if cp.kind == "boxbox_corner"
         else cp.size2 if cp.size2 is not None else np.zeros(3)
         for cp in cps]))
+    # box-box: whose corner, both boxes' half-sizes, the overhang guard
+    # (fields only the box-box tier sizes by its points)
+    if tier.boxbox:
+      boxbox = [cp.kind == "boxbox_corner" for cp in cps]
+      put("con_owner", [cp.owner for cp in cps])
+      put("con_size", np.stack([np.stack([cp.size1, cp.size2]) if bb
+                                else np.zeros((2, 3))
+                                for cp, bb in zip(cps, boxbox)]))
+      put("con_guard", [tilestep.boxbox_guard(cp) if bb else (0.0, 0.0)
+                        for cp, bb in zip(cps, boxbox)])
     sgn = np.zeros((len(cps), MAX_NV), np.float32)
     for ci, cp in enumerate(cps):
       sgn[ci, :tm.nv] = (tm.dof_body_mask[:, cp.body2].astype(np.float32)
@@ -404,7 +466,7 @@ def pack_model(tm: tilestep.TileModel, task: Task,
   put("term_dim", spec.dims)
   put("term_norm", spec.norm_types)
   if dtype != torch.float32:
-    wide = _MODEL_STRUCT[dtype]()
+    wide = _MODEL_STRUCT[tier, dtype]()
     for name, _ in wide._fields_:
       v = getattr(s, name)
       if isinstance(v, (int, float)):
@@ -419,18 +481,28 @@ def pack_model(tm: tilestep.TileModel, task: Task,
   return bytes(s)
 
 
-def _check_layout(lib) -> None:
-  """The ctypes mirrors must match the compiled structs field by field."""
-  for dbl, struct in enumerate(_MODEL_STRUCT.values()):
-    names = [f[0] for f in struct._fields_]
-    offsets = (ctypes.c_longlong * 256)()
-    count = lib.mr_model_layout(dbl, ctypes.cast(offsets, ctypes.c_void_p),
-                                256)
-    want = [getattr(struct, n).offset for n in names]
-    if (count != len(names) or list(offsets[:count]) != want
-        or lib.mr_model_size(dbl) != ctypes.sizeof(struct)):
-      raise RuntimeError(f"{struct.__name__} layout differs between "
-                         "csrc/megarollout.cu and ops/megarollout.py")
+def check_layout(layout, size, struct) -> None:
+  """A ctypes mirror must match the compiled struct field by field:
+  `layout(offsets, capacity)` and `size()` are a library's mr_model_layout
+  and mr_model_size."""
+  names = [f[0] for f in struct._fields_]
+  offsets = (ctypes.c_longlong * 256)()
+  count = layout(ctypes.cast(offsets, ctypes.c_void_p), 256)
+  want = [getattr(struct, n).offset for n in names]
+  if (count != len(names) or list(offsets[:count]) != want
+      or size() != ctypes.sizeof(struct)):
+    raise RuntimeError(f"{struct.__name__} layout differs between "
+                       "csrc/megarollout.cu and ops/megarollout.py")
+
+
+@functools.cache
+def _library(tier: Tier, dtype) -> ctypes.CDLL:
+  """The kernel library of one tier and precision, built on first use and
+  checked against its ctypes mirror."""
+  lib = _cuda_build.load(TIERS.index(tier), dtype == torch.float64)
+  check_layout(lib.mr_model_layout, lib.mr_model_size,
+               _MODEL_STRUCT[tier, dtype])
+  return lib
 
 
 def _check(name, t, device, shape, dtype):
@@ -454,7 +526,8 @@ class MegaRollout:
   """Whole-rollout scoring for a concrete (task, horizon).
 
   Raises tilestep.UnsupportedModel when the model is outside the kernel's
-  class; built for a CUDA device, also when the task has no CUDA residual.
+  class; built for a CUDA device, also when the task has no CUDA residual
+  or no size tier holds the model (`tier`: the smallest that does).
   The kernel runs in the dtype of its operands: float32 (the planner's) or
   float64 (to hold the kernel against the plain version in float64, where
   chaotic rollouts still compare candidate by candidate). `launches` and
@@ -468,22 +541,34 @@ class MegaRollout:
     self.launches = 0
     self.step_launches = 0
     self.device = devices.resolve(device)
+    self.tier = None  # the kernel's size tier, on a CUDA device
     self._bufs = {}  # packed MRModelT on the card, per dtype
     if self.device.type == "cuda":
+      self.tier = select_tier(self.tm, task)
       self._model_buffer(self.device, torch.float32)
-      _check_layout(_cuda_build.load())
+      _library(self.tier, torch.float32)
 
   def _model_buffer(self, device: torch.device, dtype) -> torch.Tensor:
     if self.device.type != "cuda" or device != self.device:
       raise ValueError(f"tensors on {device}; this MegaRollout was built "
                        f"for {self.device}")
-    if dtype not in _PRECISION:
+    if dtype not in _SCALAR:
       raise ValueError(f"no kernel for {dtype}")
     if dtype not in self._bufs:
       raw = pack_model(self.tm, self.task, dtype)
       self._bufs[dtype] = torch.frombuffer(
           bytearray(raw), dtype=torch.uint8).to(self.device)
     return self._bufs[dtype]
+
+  def _launch(self, entry: str, dtype, dev, *args) -> None:
+    """Calls the C entry of this tier's library in `dtype` on `dev`'s
+    current stream; raises on a CUDA error."""
+    fn = getattr(_library(self.tier, dtype), entry)
+    with torch.cuda.device(dev):
+      err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+      raise RuntimeError(f"{entry} ({self.tier.name} tier, {dtype}) launch "
+                         f"failed: CUDA error {err}")
 
   def _aux(self, dev, dtype, mocap_pos, mocap_quat, userdata):
     """The mocap poses and userdata as the kernel takes them, never empty:
@@ -539,18 +624,12 @@ class MegaRollout:
     out = torch.empty((n,), dtype=dtype, device=dev)
     if n == 0:
       return out
-    entry = getattr(_cuda_build.load(), _PRECISION[dtype][1])
-    with torch.cuda.device(dev):
-      err = entry(
-          buf.data_ptr(), qpos0.data_ptr(), qvel0.data_ptr(),
-          actions.data_ptr(), params.weights.data_ptr(),
-          params.norm_params.data_ptr(), params.risk.data_ptr(),
-          rp.data_ptr(), t0.data_ptr(), *(x.data_ptr() for x in aux),
-          out.data_ptr(), n, self.horizon,
-          torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-      raise RuntimeError(f"{_PRECISION[dtype][1]} launch failed: CUDA error "
-                         f"{err}")
+    self._launch("mr_returns", dtype, dev, buf.data_ptr(),
+                 qpos0.data_ptr(), qvel0.data_ptr(), actions.data_ptr(),
+                 params.weights.data_ptr(), params.norm_params.data_ptr(),
+                 params.risk.data_ptr(), rp.data_ptr(), t0.data_ptr(),
+                 *(x.data_ptr() for x in aux), out.data_ptr(), n,
+                 self.horizon)
     self.launches += 1
     return out
 
@@ -560,14 +639,30 @@ class MegaRollout:
     """The same returns from the plain PyTorch version, on any device, in
     `dtype` (float32 as the planner's kernel; float64 as an arbiter of f32
     rounding); inputs are cast."""
-    p = params.to(dtype=dtype)
+    return self.returns_plain_variants(
+        qpos0, qvel0, actions, [(params, userdata)], t0, dtype, mocap_pos,
+        mocap_quat)[0]
+
+  def returns_plain_variants(self, qpos0, qvel0, actions, variants, t0,
+                             dtype=torch.float32, mocap_pos=None,
+                             mocap_quat=None):
+    """returns_plain under each (TaskParams, userdata) of `variants`, a
+    list of returns, from one plain physics rollout (the physics reads
+    neither)."""
     dev = actions.device
+    scorings = []
+    for params, userdata in variants:
+      p = params.to(dtype=dtype)
+      ud = tilestep.aux_operands(self.tm, userdata=userdata, dtype=dtype,
+                                 device=dev)[2]
+      scorings.append((p.weights, p.norm_params, p.risk, p.residual_params,
+                       ud))
+    mp, mq, _ = tilestep.aux_operands(self.tm, mocap_pos, mocap_quat,
+                                      dtype=dtype, device=dev)
     return _rollout_body(
         self.tm, self.task, self.horizon, qpos0.to(dtype), qvel0.to(dtype),
-        actions.to(dtype), p.weights, p.norm_params, p.risk,
-        p.residual_params, torch.as_tensor(t0, dtype=dtype, device=dev),
-        *tilestep.aux_operands(self.tm, mocap_pos, mocap_quat, userdata,
-                               dtype, dev))
+        actions.to(dtype), scorings,
+        torch.as_tensor(t0, dtype=dtype, device=dev), mp, mq)
 
   # -------------------------------------------------------------------- step
   def step(self, qpos, qvel, ctrl, efc_lambda=None, mocap_pos=None,
@@ -596,14 +691,8 @@ class MegaRollout:
       _check(name, t, dev, (b, w), dtype)
     aux = self._aux(dev, dtype, mocap_pos, mocap_quat, userdata)
     outs = [torch.empty_like(ins[i]) for i in (0, 1, 3)]
-    entry = getattr(_cuda_build.load(), _PRECISION[dtype][2])
-    with torch.cuda.device(dev):
-      err = entry(buf.data_ptr(), *(t.data_ptr() for t in ins),
-                  *(x.data_ptr() for x in aux),
-                  *(t.data_ptr() for t in outs), b,
-                  torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-      raise RuntimeError(f"{_PRECISION[dtype][2]} launch failed: CUDA error "
-                         f"{err}")
+    self._launch("mr_step", dtype, dev, buf.data_ptr(),
+                 *(t.data_ptr() for t in ins), *(x.data_ptr() for x in aux),
+                 *(t.data_ptr() for t in outs), b)
     self.step_launches += 1
     return tuple(t.T for t in outs)

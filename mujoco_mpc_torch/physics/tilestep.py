@@ -13,7 +13,8 @@ scalar-joint springs and friction loss, fixed tendons with limits, springs
 and dampers, mocap bodies (poses are rollout-constant operands; no joints,
 no colliding geoms), contacts of a world plane against sphere, capsule and
 cylinder ends and box corners, of sphere against sphere and box, of capsule
-against capsule, and of capsule ends against a box, with condim 1, 3, 4 or
+against capsule, of capsule ends against a box, and of box against box (the
+corners of each against the other's face-SAT slab), with condim 1, 3, 4 or
 6, joint limits, joint, connect and weld equality constraints, and the
 dense or matrix-free Delassus solve. Everything else raises
 UnsupportedModel naming the ROADMAP item that ports it.
@@ -61,7 +62,6 @@ def _unsupported(what: str, item: str):
 
 
 _S3 = "queue 2 slice S3"
-_BOXBOX = "queue 2 slice S5, the box-box pair"
 _SPHERE_CAP = "queue 2 slice S5, the sphere-capsule pair"
 _GENERAL = "queue 1 items 3 and 6, the general engine"
 
@@ -76,6 +76,7 @@ class ConPoint:
   """One static candidate contact point."""
   kind: str  # 'plane_sphere' | 'plane_capend' | 'plane_boxcorner'
   #            | 'sphere_sphere' | 'sphere_box' | 'cap_cap' | 'cap_box'
+  #            | 'boxbox_corner'
   g1: int
   g2: int
   body1: int
@@ -91,8 +92,10 @@ class ConPoint:
   solref: np.ndarray
   solimp: np.ndarray
   margin: float
+  size1: Optional[np.ndarray] = None  # (3,) box half-sizes of g1 (box-box)
   size2: Optional[np.ndarray] = None  # (3,) box half-sizes of g2 (box kinds)
-  corner: Optional[np.ndarray] = None  # (3,) +-1 corner (plane_boxcorner)
+  corner: Optional[np.ndarray] = None  # (3,) +-1 corner (box corner kinds)
+  owner: int = 0  # boxbox_corner: 1 = a corner of g1, 2 = a corner of g2
   condim: int = 3  # 1 = normal row only; 4/6 add torsional/rolling rows
   mu_tor: float = 0.0  # torsional friction coefficient (condim >= 4)
   mu_roll: float = 0.0  # rolling friction coefficient (condim 6)
@@ -369,10 +372,19 @@ def extract(m: Model) -> TileModel:
         con_points.append(ConPoint(kind="cap_box", sign=sgn, frame=None,
                                    ppos=None, size2=gs[g2].astype(np.float32),
                                    **common))
+    elif (t1, t2) == (GeomType.BOX, GeomType.BOX):
+      # collision._box_box: a face-SAT normal shared by 16 corner points,
+      # box 2's corners first, each box's in sx, sy, sz loop order
+      for owner in (2, 1):
+        for corner in itertools.product((-1.0, 1.0), repeat=3):
+          con_points.append(ConPoint(
+              kind="boxbox_corner", sign=0.0, frame=None, ppos=None,
+              size1=gs[g1].astype(np.float32),
+              size2=gs[g2].astype(np.float32),
+              corner=np.asarray(corner, np.float32), owner=owner, **common))
     else:
-      # the JAX kernel's other pairs; anything else is the general engine's
+      # the JAX kernel's other pair; anything else is the general engine's
       _unsupported(f"contact pair {t1.name}/{t2.name}", {
-          (GeomType.BOX, GeomType.BOX): _BOXBOX,
           (GeomType.SPHERE, GeomType.CAPSULE): _SPHERE_CAP}.get(
               (t1, t2), _GENERAL))
 
@@ -480,7 +492,7 @@ _EQ_KIND = {EqType.JOINT: "eq_joint", EqType.CONNECT: "eq_connect",
 def row_kinds(tm: TileModel) -> Tuple[str, ...]:
   """The class of every constraint row, in the tile layout: the contact
   kind ('plane_capend', 'plane_sphere', 'plane_boxcorner', 'sphere_sphere',
-  'sphere_box', 'cap_cap', 'cap_box'), 'torsional', 'rolling',
+  'sphere_box', 'cap_cap', 'cap_box', 'boxbox_corner'), 'torsional', 'rolling',
   'joint_limit', 'tendon_limit', 'eq_joint', 'eq_connect' or 'eq_weld'."""
   fric, ones, tor, roll = row_points(tm)
   kinds = [cp.kind for cp in fric for _ in range(3)]
@@ -1120,9 +1132,69 @@ def _sphere_box_point(center, radius, bp, bm, bsize):
   return dist, world - 0.5 * dist * n, n
 
 
-def _contact_geometry(tm, cp, geom_frame, const):
+def _boxbox_sat(p1, m1, p2, m2, s1, s2):
+  """The face-SAT of a box pair at (p1, m1) and (p2, m2) with half-sizes s1
+  and s2 (collision._box_box): over the 6 face axes of both boxes, the one
+  of largest separation, first-max as jnp.argmax ties, signed from box 1 to
+  box 2 (jnp.sign: a zero projection gives a zero normal). Returns (n, the
+  support radii of box 1 and box 2 along n, the frame from n)."""
+  s1, s2 = [float(x) for x in s1], [float(x) for x in s2]
+
+  def radius(ax, m, s):
+    return sum(torch.abs(_dot3(ax, m[:, i])) * s[i] for i in range(3))
+
+  t = p2 - p1
+  axes = [m[:, a] for m in (m1, m2) for a in range(3)]
+  r_sum = [radius(ax, m1, s1) + radius(ax, m2, s2) for ax in axes]
+  proj = [_dot3(ax, t) for ax in axes]
+  best_sep = torch.abs(proj[0]) - r_sum[0]
+  best_ax, best_proj = axes[0], proj[0]
+  for a in range(1, 6):
+    sep = torch.abs(proj[a]) - r_sum[a]
+    take = sep > best_sep
+    best_sep = torch.maximum(best_sep, sep)
+    best_ax = torch.where(take[None], axes[a], best_ax)
+    best_proj = torch.where(take, proj[a], best_proj)
+  n = best_ax * torch.sign(best_proj)
+  return n, radius(n, m1, s1), radius(n, m2, s2), _frame_from_normal(n)
+
+
+def _boxbox_corner(cp, p1, m1, p2, m2, sat):
+  """(dist, contact position) of one box's corner against the other box's
+  slab along the shared SAT normal, with the lateral-overhang guard
+  (collision._box_box corner_points); `sat` is _boxbox_sat's result."""
+  n, sup1, sup2, _ = sat
+  if cp.owner == 2:  # a corner of box 2 against box 1's slab
+    pc, mc, sc, po, mo, so, sup_o, sgn = (p2, m2, cp.size2, p1, m1, cp.size1,
+                                          sup1, 1.0)
+  else:  # a corner of box 1 against box 2's slab
+    pc, mc, sc, po, mo, so, sup_o, sgn = (p1, m1, cp.size1, p2, m2, cp.size2,
+                                          sup2, -1.0)
+  c = pc + _mat_vec(mc, _c(sc * cp.corner))
+  rel = c - po
+  dist = sgn * _dot3(rel, n) - sup_o
+  local, n_loc = _mat_tvec(mo, rel), _mat_tvec(mo, n)
+  big, slack = boxbox_guard(cp)
+  so = _c(so)
+  over = [torch.abs(local[i]) - so[i] - big * torch.abs(n_loc[i])
+          for i in range(3)]
+  overhang = torch.maximum(torch.maximum(over[0], over[1]), over[2]) - slack
+  dist = torch.maximum(dist, overhang)
+  return dist, torch.stack([c[i] - 0.5 * dist * sgn * n[i] for i in range(3)])
+
+
+def boxbox_guard(cp):
+  """The overhang guard's (big, slack) of a boxbox_corner point at float32:
+  4 (max size1 + max size2) and 0.05 min(the other box's sizes)."""
+  so = cp.size1 if cp.owner == 2 else cp.size2
+  return _c([4.0 * (float(np.max(cp.size1)) + float(np.max(cp.size2))),
+             0.05 * float(np.min(so))])
+
+
+def _contact_geometry(tm, cp, geom_frame, const, sat_memo):
   """(dist (B,), frame (3 rows, 3, B), cpos (3, B)) of one contact point,
-  the margin taken off dist (tilestep.py narrowphase)."""
+  the margin taken off dist (tilestep.py narrowphase); `sat_memo` holds
+  each box pair's SAT within the step."""
   if cp.kind in ("plane_sphere", "plane_capend", "plane_boxcorner"):
     gpos, gquat = geom_frame(cp.g2)
     n_c = _c(cp.frame[0])
@@ -1143,6 +1215,13 @@ def _contact_geometry(tm, cp, geom_frame, const):
     return dist - cp.margin, frame, cpos
   p1, q1 = geom_frame(cp.g1)
   p2, q2 = geom_frame(cp.g2)
+  if cp.kind == "boxbox_corner":
+    m1, m2 = _quat_to_mat(q1), _quat_to_mat(q2)
+    key = (cp.g1, cp.g2)
+    if key not in sat_memo:
+      sat_memo[key] = _boxbox_sat(p1, m1, p2, m2, cp.size1, cp.size2)
+    dist, cpos = _boxbox_corner(cp, p1, m1, p2, m2, sat_memo[key])
+    return dist - cp.margin, sat_memo[key][3], cpos
   if cp.kind in ("sphere_box", "cap_box"):
     if cp.kind == "cap_box":  # the sphere at one capsule end
       p1 = p1 + cp.sign * cp.half1 * _quat_to_mat(q1)[:, 2]
@@ -1291,7 +1370,8 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
   # condim-6 points, about the first tangent for all of them, then about
   # the second
   fric, ones, tor, roll = row_points(tm)
-  geo = {id(cp): _contact_geometry(tm, cp, geom_frame, const)
+  sat_memo = {}
+  geo = {id(cp): _contact_geometry(tm, cp, geom_frame, const, sat_memo)
          for cp in fric + ones}
   for cps, nr in ((fric, 3), (ones, 1)):
     if cps:

@@ -29,7 +29,7 @@ from mujoco_mpc_torch import device as devices
 from mujoco_mpc_torch.physics import sensors
 from mujoco_mpc_torch.tasks import base, registry
 
-# residual_shadow in csrc/megarollout.cu
+# residual_reorient in csrc/megarollout.cu (Shadow and Allegro)
 DEVICE_RESIDUAL_ID = 4
 
 _NHAND = 24
@@ -40,25 +40,35 @@ def _cube_adr(model):
   return model.jnt_qposadr[j], model.jnt_dofadr[j]
 
 
-def residual(model, data, params):
-  """Residual (77, B); `data` fields are component-leading, batch-trailing
-  (the tile view of physics/tilestep.py::step_tb), the mocap quaternion
-  with a trailing axis of 1."""
+def reorient_residual(model, data, site: str, nhand: int,
+                      hold=(0.0, 0.0, 0.0)):
+  """The in-hand reorientation residual of a hand with `nhand` joints
+  first in qpos and a free cube: cube position - site - hold (3), goal (-)
+  cube orientation (3), cube linear velocity (3), actuator force (nu), hand
+  qpos - home (nhand), hand qvel (nhand). `data` fields are
+  component-leading, batch-trailing (the tile view of
+  physics/tilestep.py::step_tb), the mocap quaternion with a trailing axis
+  of 1. csrc/megarollout.cu::residual_reorient computes it on the card."""
   qadr, vadr = _cube_adr(model)
   cube_pos = data.qpos[qadr:qadr + 3]
   cube_quat = data.qpos[qadr + 3:qadr + 7]
-  palm = data.site_xpos[model.site("grasp_site")]
+  rel = cube_pos - data.site_xpos[model.site(site)]
   goal = data.mocap_quat[0]
   goal = goal / sensors.norm0(goal)
   home = model.keyframe("home")[0]
   return torch.cat([
-      cube_pos - palm,
+      torch.stack([rel[i] - float(hold[i]) for i in range(3)]),
       sensors.quat_sub0(goal, cube_quat),
       data.qvel[vadr:vadr + 3],
       data.actuator_force,  # hand.cc:73 reads actuator_force, not ctrl
-      torch.stack([data.qpos[i] - float(home[i]) for i in range(_NHAND)]),
-      data.qvel[:_NHAND],
+      torch.stack([data.qpos[i] - float(home[i]) for i in range(nhand)]),
+      data.qvel[:nhand],
   ])
+
+
+def residual(model, data, params):
+  """Residual (77, B), reorient_residual on the grasp site."""
+  return reorient_residual(model, data, "grasp_site", _NHAND)
 
 
 def probe_states(model, b: int, seed: int = 0):
@@ -100,16 +110,18 @@ def probe_states(model, b: int, seed: int = 0):
                for x in (qpos, qvel, ctrl))
 
 
-def _device_residual(model) -> base.DeviceResidual:
-  """residual_shadow's operands: the cube's qpos and dof addresses, the
-  grasp site and the home keyframe's 24 hand angles."""
-  site = model.site("grasp_site")
-  spos = model.site_pos.detach().cpu().numpy()[site]
+def device_residual(model, site: str, nhand: int,
+                    hold=(0.0, 0.0, 0.0)) -> base.DeviceResidual:
+  """residual_reorient's operands: the cube's qpos and dof addresses and
+  the hand's joint count; the hold offset and the home keyframe's hand
+  angles; the site."""
+  sid = model.site(site)
+  spos = model.site_pos.detach().cpu().numpy()[sid]
   home = model.keyframe("home")[0]
   return base.DeviceResidual(
-      DEVICE_RESIDUAL_ID, tuple(int(x) for x in _cube_adr(model)),
-      tuple(float(x) for x in home[:_NHAND]),
-      ((model.site_bodyid[site], tuple(float(x) for x in spos)),))
+      DEVICE_RESIDUAL_ID, tuple(int(x) for x in _cube_adr(model)) + (nhand,),
+      tuple(float(x) for x in hold) + tuple(float(x) for x in home[:nhand]),
+      ((model.site_bodyid[sid], tuple(float(x) for x in spos)),))
 
 
 def build_hand_reorient():
@@ -128,4 +140,5 @@ def make(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
       "hand_reorient", dtype, device)
   return base.Task(name="Shadow", model=model, spec=spec, params=params,
                    residual=residual, param_names=pnames,
-                   device_residual=_device_residual(model))
+                   device_residual=device_residual(model, "grasp_site",
+                                                   _NHAND))

@@ -107,7 +107,7 @@ def load_task_model(stem: str, dtype=torch.float32,
 
 def _register_all():
   from mujoco_mpc_torch.tasks import (  # noqa: F401
-      bimanual, hand_reorient, humanoid, quadruped, walker)
+      allegro, bimanual, hand_reorient, humanoid, quadruped, walker)
 
 
 _register_all()

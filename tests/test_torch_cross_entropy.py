@@ -29,6 +29,7 @@ from mujoco_mpc_tpu.physics import tilestep as jts
 from mujoco_mpc_tpu.planners import cross_entropy as jcem
 from mujoco_mpc_tpu.tasks import registry as jreg
 from tests.test_torch_tilestep_classes import jax_returns
+from tests.torch_cases import one_torch_thread
 
 N, K, T, ELITE = 16, 5, 4, 4
 
@@ -139,6 +140,7 @@ def test_cem_optimize_matches_jax_composition(setup):
                              atol=1e-5)
 
 
+@one_torch_thread()
 def test_agent_cross_entropy_plans_on_cpu():
   """Agent(planner="cross_entropy") at the Walker's candidate count, over 4
   steps: finite costs, the std at or above std_min, the plain version on

@@ -34,8 +34,8 @@ from mujoco_mpc_torch.tasks import registry as treg
 from mujoco_mpc_tpu.physics import tilestep as jts
 from mujoco_mpc_tpu.tasks import registry as jreg
 from tests.test_torch_model import _same
-from tests.test_torch_tilestep_classes import jax_returns
-from tests.torch_cases import SHADOW_GOAL
+from tests.test_torch_tilestep_classes import jax_probe_and_returns
+from tests.torch_cases import SHADOW_GOAL, one_torch_thread
 
 B, N, T = 8, 8, 4
 _KINDS = ("cap_box", "sphere_box", "torsional", "joint_limit")
@@ -114,26 +114,29 @@ def test_shadow_extract_matches_jax(tile_models):
 
 
 @pytest.fixture(scope="module")
-def two_steps(tasks, tile_models):
+def jax_run(tasks, tile_models):
+  """One JAX rollout for the one-step checks and the returns check
+  (tests/test_torch_tilestep_classes.py::jax_probe_and_returns)."""
+  t, j = tasks
+  _, jtm = tile_models
+  return jax_probe_and_returns(j, jtm, thand.probe_states(t.model, B),
+                               *_returns_inputs(t), 0.1, _operands())
+
+
+@pytest.fixture(scope="module")
+def two_steps(tasks, tile_models, jax_run):
   """A cold step, then a warm-started one, in both packages."""
   t, _ = tasks
-  ttm, jtm = tile_models
+  ttm, _ = tile_models
   qp, qv, ct = thand.probe_states(t.model, B)
-  ops = _operands()
-  names = ("mocap_pos", "mocap_quat", "userdata")
-  tops = dict(zip(names, map(torch.tensor, ops)))
-  jops = dict(zip(names, map(jnp.asarray, ops)))
+  tops = dict(zip(("mocap_pos", "mocap_quat", "userdata"),
+                  map(torch.tensor, _operands())))
   tq, tv, tl = torch.tensor(qp), torch.tensor(qv), None
-  jq, jv = jnp.asarray(qp), jnp.asarray(qv)
-  jl = jnp.zeros((ttm.nrow, B), jnp.float32)
   out = []
-  for _ in range(2):
+  for jq, jv, jview in jax_run[0]:
     tq, tv, tview = tts.step_tb(ttm, tq, tv, torch.tensor(ct), tl, **tops)
     tl = tview.efc_lambda
-    jq, jv, jview = jts.step_tb(jtm, jq, jv, jnp.asarray(ct), efc_lambda=jl,
-                                **jops)
-    jl = jview.efc_lambda
-    out.append((tq, tv, tview, np.asarray(jq), np.asarray(jv), jview))
+    out.append((tq, tv, tview, jq, jv, jview))
   return out
 
 
@@ -172,25 +175,30 @@ def test_shadow_residual_matches_jax(tasks, two_steps):
   np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), atol=1e-5)
 
 
-def test_shadow_returns_match_jax(tasks, tile_models):
-  """The port's CPU MegaRollout against the JAX composition, with the
-  goal."""
-  t, j = tasks
-  _, jtm = tile_models
+def _returns_inputs(t):
+  """The returns check's start state, velocities and N candidates."""
   rng = np.random.RandomState(3)
   home = np.asarray(t.model.keyframe("home")[0], np.float32)
   qvel0 = rng.uniform(-0.2, 0.2, 30).astype(np.float32)
   acts = (np.asarray(t.default_ctrl()) + 0.2 * rng.randn(N, T, 20)
           ).astype(np.float32)
-  ops = _operands()
+  return home, qvel0, acts
+
+
+def test_shadow_returns_match_jax(tasks, jax_run):
+  """The port's CPU MegaRollout against the JAX composition, with the
+  goal."""
+  t, _ = tasks
+  home, qvel0, acts = _returns_inputs(t)
   got = tmr.MegaRollout(t, T, device="cpu").returns(
       torch.tensor(home), torch.tensor(qvel0), torch.tensor(acts), t.params,
-      0.1, *(torch.tensor(x[..., 0]) for x in ops)).numpy()
-  want = jax_returns(j, jtm, home, qvel0, acts, 0.1, ops)
+      0.1, *(torch.tensor(x[..., 0]) for x in _operands())).numpy()
+  want = jax_run[1]
   assert np.all(np.isfinite(got)) and np.all(got < tmr.MAX_RETURN)
   np.testing.assert_allclose(got, want, rtol=2e-3)
 
 
+@one_torch_thread()
 def test_shadow_agent_plans_on_cpu():
   """Two plan iterations at a fixed state with the goal set through
   set_state: finite, and the best return does not rise (candidate 0 is the

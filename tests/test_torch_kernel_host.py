@@ -2,22 +2,28 @@
 
 csrc/megarollout.cu is built here with the host C++ compiler under a stub
 cuda_runtime.h (the CUDA qualifiers empty, one thread per block, the launch
-syntax removed), and each candidate's block is run in turn. That checks the
-kernel's arithmetic, its struct layout against ops/megarollout.py::_MRModel
-and its task residuals on a host without a card; the card's own build is
-tested in tests/test_torch_megarollout_cuda.py. Built without contraction
-(-ffp-contract=off), so it rounds as the plain version does.
+syntax removed, a static buffer for the dynamic shared memory and a no-op
+cudaFuncSetAttribute), once per size tier (-DMR_TIER), and each candidate's
+block is run in turn. That checks the kernel's arithmetic, its struct
+layouts against ops/megarollout.py's ctypes mirrors and its task residuals
+on a host without a card; the card's own build is tested in
+tests/test_torch_megarollout_cuda.py. Built without contraction
+(-ffp-contract=off), so it rounds as the plain version does. This file
+holds the one-step checks and the helpers; the returns are in
+test_torch_kernel_host_returns.py and the residual terms and branches in
+test_torch_kernel_host_terms.py, so that the test workers share them out.
 
 Tolerances, with the errors measured when they were set: Walker step qpos
 atol 1e-6 (3.0e-8), qvel 1e-4 (6.4e-6), duals 1e-5 * max (1.2e-3 of 1.1e3);
 Humanoid step qpos 1e-5 (5.1e-7), qvel 1e-3 (7.6e-5), duals 1e-4 * max
 (3.2e-3 of 2.2e3); Quadruped step qpos 1e-5 (2.4e-7), qvel 1e-3 (6.7e-6),
-duals 1e-4 * max (3.7e-4 of 9.2e2); Shadow, Bimanual Handover and the small
-class models of tests/test_torch_tilestep_classes.py as the Quadruped;
-returns rtol 2e-3 (Walker 1.2e-7, Humanoid 1.3e-6).
+duals 1e-4 * max (3.7e-4 of 9.2e2); Shadow, Bimanual Handover, Allegro and
+the small class models of tests/test_torch_tilestep_classes.py as the
+Quadruped; returns rtol 2e-3 (Walker 1.2e-7, Humanoid 1.3e-6).
 """
 
 import ctypes
+import functools
 import re
 import shutil
 import subprocess
@@ -29,6 +35,7 @@ import torch
 from mujoco_mpc_torch.ops import _cuda_build
 from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.physics import tilestep as tts
+from mujoco_mpc_torch.tasks import allegro as tall
 from mujoco_mpc_torch.tasks import bimanual as tbim
 from mujoco_mpc_torch.tasks import class_models
 from mujoco_mpc_torch.tasks import hand_reorient as thand
@@ -36,8 +43,7 @@ from mujoco_mpc_torch.tasks import humanoid as thum
 from mujoco_mpc_torch.tasks import quadruped as tquad
 from mujoco_mpc_torch.tasks import registry as treg
 from tests.test_torch_tilestep_classes import CLASS_MODELS, class_task
-from tests.torch_cases import (HANDOVER_TARGET, QUADRUPED_MODES,
-                               SHADOW_GOAL, quadruped_mode)
+from tests.torch_cases import HANDOVER_TARGET, SHADOW_GOAL
 
 _STUB = r"""
 #pragma once
@@ -46,15 +52,24 @@ _STUB = r"""
 #define __device__
 #define __forceinline__ inline
 #define __global__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 #define __constant__ static
 #define __restrict__
+#define __align__(n) alignas(n)
+#define MR_DYNAMIC_SHARED(name) alignas(16) static unsigned char name[1 << 18]
 struct host_dim3 { unsigned x, y, z; };
 static host_dim3 threadIdx, blockIdx, blockDim;
 #define __syncthreads()
 typedef void* cudaStream_t;
-static inline int cudaGetLastError() { return 0; }
+typedef int cudaError_t;
+#define cudaSuccess 0
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F>
+static inline cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int) {
+  return 0;
+}
+static inline cudaError_t cudaGetLastError() { return 0; }
 static inline float __int_as_float(int i) {
   float f; std::memcpy(&f, &i, 4); return f;
 }
@@ -63,6 +78,7 @@ using std::isfinite;
 
 _HOST_MAIN = r"""
 #include "kernel.cc"
+static_assert(shared_bytes<double, MRTier>() <= (1 << 18), "stub buffer");
 // one thread per block, so a block's load_model copies the whole struct
 template <class T>
 static void returns(const void* model, const void* qpos0, const void* qvel0,
@@ -73,7 +89,8 @@ static void returns(const void* model, const void* qpos0, const void* qvel0,
   blockDim.x = 1; threadIdx.x = 0;
   for (int c = 0; c < n; ++c) {
     blockIdx.x = c;
-    mr_returns_kernel<T>((const MRModelT<T>*)model, (const T*)qpos0,
+    mr_returns_kernel<T, MRTier>((const MRModelT<T, MRTier>*)model,
+        (const T*)qpos0,
         (const T*)qvel0, (const T*)actions, (const T*)weights,
         (const T*)norm_params, (const T*)risk, (const T*)res_params,
         (const T*)t0, (const T*)mp, (const T*)mq, (const T*)ud, (T*)out, n,
@@ -87,7 +104,7 @@ static void step(const void* model, const void* qpos, const void* qvel,
   blockDim.x = 1; threadIdx.x = 0;
   for (int c = 0; c < b; ++c) {
     blockIdx.x = c;
-    mr_step_kernel<T>((const MRModelT<T>*)model, (const T*)qpos,
+    mr_step_kernel<T, MRTier>((const MRModelT<T, MRTier>*)model, (const T*)qpos,
         (const T*)qvel, (const T*)ctrl, (const T*)lam, (const T*)mp,
         (const T*)mq, (const T*)ud, (T*)qpos_out, (T*)qvel_out,
         (T*)lam_out, b);
@@ -112,6 +129,14 @@ extern "C" void host_step(STEP_ARGS) {
 extern "C" void host_step64(STEP_ARGS) {
   step<double>(m, q, v, c, l, mp, mq, ud, qo, vo, lo, b);
 }
+extern "C" int host_model_layout(int dbl, long long* offsets, int capacity) {
+  return dbl ? model_layout<double, MRTier>(offsets, capacity)
+             : model_layout<float, MRTier>(offsets, capacity);
+}
+extern "C" long long host_model_size(int dbl) {
+  return dbl ? (long long)sizeof(MRModelT<double, MRTier>)
+             : (long long)sizeof(MRModelT<float, MRTier>);
+}
 """
 
 _P = ctypes.c_void_p
@@ -121,8 +146,9 @@ def _ptr(a):
   return a.ctypes.data_as(_P)
 
 
-def _build(d, flags):
-  """The kernel source under the stub, built into d with extra flags."""
+def _build(d, flags, tier):
+  """The kernel source of one size tier under the stub, built into d with
+  extra flags; both precisions, each layout checked against its mirror."""
   cxx = shutil.which("g++") or shutil.which("c++")
   if cxx is None:
     pytest.skip("needs a host C++ compiler")
@@ -132,32 +158,48 @@ def _build(d, flags):
   (d / "host_main.cc").write_text(_HOST_MAIN)
   so = d / "kernel_host.so"
   subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", *flags,
-                  "-I", str(d), "-o", str(so), str(d / "host_main.cc")],
+                  f"-DMR_TIER={tmr.TIERS.index(tier)}", "-I", str(d), "-o",
+                  str(so), str(d / "host_main.cc")],
                  check=True, capture_output=True)
   lib = ctypes.CDLL(str(so))
-  lib.mr_model_layout.argtypes = [ctypes.c_int, _P, ctypes.c_int]
-  lib.mr_model_size.argtypes = [ctypes.c_int]
-  lib.mr_model_size.restype = ctypes.c_longlong
+  lib.host_model_layout.argtypes = [ctypes.c_int, _P, ctypes.c_int]
+  lib.host_model_size.argtypes = [ctypes.c_int]
+  lib.host_model_size.restype = ctypes.c_longlong
   for name in ("host_returns", "host_returns64"):
     getattr(lib, name).argtypes = [_P] * 13 + [ctypes.c_int] * 2
   for name in ("host_step", "host_step64"):
     getattr(lib, name).argtypes = [_P] * 11 + [ctypes.c_int]
-  tmr._check_layout(lib)  # the ctypes mirrors match the compiled structs
+  for dbl, dt in enumerate((torch.float32, torch.float64)):
+    tmr.check_layout(functools.partial(lib.host_model_layout, dbl),
+                     functools.partial(lib.host_model_size, dbl),
+                     tmr._MODEL_STRUCT[tier, dt])
   return lib
+
+
+class HostLibs:
+  """The host builds of the kernel per size tier, each built on first
+  use."""
+
+  def __init__(self, tmp_path_factory, flags):
+    self._tmp, self._flags, self._libs = tmp_path_factory, flags, {}
+
+  def __getitem__(self, tier):
+    if tier not in self._libs:
+      self._libs[tier] = _build(self._tmp.mktemp(f"kernel_{tier.name}"),
+                                self._flags, tier)
+    return self._libs[tier]
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-  return _build(tmp_path_factory.mktemp("kernel_host"),
-                ["-ffp-contract=off"])
+  return HostLibs(tmp_path_factory, ["-ffp-contract=off"])
 
 
 @pytest.fixture(scope="module")
 def lib_contracted(tmp_path_factory):
   """Built as nvcc builds for the card: multiply-adds contracted (on a
   host CPU with FMA)."""
-  return _build(tmp_path_factory.mktemp("kernel_host_fma"),
-                ["-march=native", "-ffp-contract=fast"])
+  return HostLibs(tmp_path_factory, ["-march=native", "-ffp-contract=fast"])
 
 
 def _walker_states(model, b):
@@ -177,6 +219,7 @@ _CASES = {
     "Quadruped Flat": (tquad.probe_states, (1e-5, 1e-3, 1e-4)),
     "Shadow": (thand.probe_states, (1e-5, 1e-3, 1e-4)),
     "Bimanual Handover": (tbim.probe_states, (1e-5, 1e-3, 1e-4)),
+    "Allegro": (tall.probe_states, (1e-5, 1e-3, 1e-4)),
 }
 for _name in CLASS_MODELS:
   _CASES[_name] = (lambda model, b, name=_name: class_models.states(name, model, b),
@@ -197,10 +240,10 @@ def _task(name):
 def _aux(tm, dtype, userdata=None, name=None):
   """The rollout-constant operands as the kernel takes them: for the
   quadruped the goal at (1.0, 0.3, 0.3) and a trot's userdata, for Shadow
-  the goal quaternion SHADOW_GOAL, for the handover the target
+  and Allegro the goal quaternion SHADOW_GOAL, for the handover the target
   HANDOVER_TARGET, otherwise the defaults."""
   mocap_pos, mocap_quat = [[1.0, 0.3, 0.3]] * tm.nmocap, None
-  if name == "Shadow":
+  if name in ("Shadow", "Allegro"):
     mocap_quat = SHADOW_GOAL
   elif name == "Bimanual Handover":
     mocap_pos = HANDOVER_TARGET
@@ -219,12 +262,19 @@ def _host_step(lib, raw, dtype, qp, qv, ct, lam, aux):
   return tuple(x.T.copy() for x in outs)
 
 
-def _check_steps(lib, name, dtype, tols):
+def _packed(tm, task, dtype):
+  """(the packed model in its tier, the tier)."""
+  tier = tmr.select_tier(tm, task)
+  raw = np.frombuffer(tmr.pack_model(tm, task, dtype), np.uint8)
+  return raw.copy(), tier
+
+
+def _check_steps(libs, name, dtype, tols):
   states, _ = _CASES[name]
   tq, tv, tl = tols
   task = _task(name)
   tm = tts.extract(task.model)
-  raw = np.frombuffer(tmr.pack_model(tm, task, dtype), np.uint8).copy()
+  raw, tier = _packed(tm, task, dtype)
   qp, qv, ct = (x.astype(_NP[dtype]) for x in states(task.model, 8))
   b = qp.shape[1]
   aux = _aux(tm, dtype, name=name)
@@ -233,7 +283,7 @@ def _check_steps(lib, name, dtype, tols):
   kq, kv, kl = qp, qv, np.zeros((max(tm.nrow, 1), b), _NP[dtype])
   pq, pv, pl = torch.tensor(qp), torch.tensor(qv), None
   for _ in range(2):  # cold, then warm-started
-    kq, kv, kl = _host_step(lib, raw, dtype, kq, kv, ct, kl, aux)
+    kq, kv, kl = _host_step(libs[tier], raw, dtype, kq, kv, ct, kl, aux)
     pq, pv, view = tts.step_tb(tm, pq, pv, torch.tensor(ct), pl, **ops)
     pl = view.efc_lambda
     scale = float(pl.abs().max())
@@ -257,12 +307,28 @@ def test_host_kernel_float64_step_matches_plain(lib, name):
   _check_steps(lib, name, torch.float64, _TOL64)
 
 
-def _check_returns(lib, name, dtype, horizon, rtol, userdata=None,
-                   params=None, qpos0=None):
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_host_kernel_picks_the_smallest_tier(name):
+  """Every model runs in the small tier but Allegro, whose 144 rows and
+  box-box pair take the large one; a packed model is as long as its
+  tier's struct."""
+  task = _task(name)
+  tm = tts.extract(task.model)
+  tier = tmr.select_tier(tm, task)
+  assert tier.name == ("large" if name == "Allegro" else "small")
+  for dt in (torch.float32, torch.float64):
+    assert len(tmr.pack_model(tm, task, dt)) == ctypes.sizeof(
+        tmr._MODEL_STRUCT[tier, dt])
+
+
+def rollout_inputs(name, dtype, horizon, qpos0=None):
+  """(task, MegaRollout, the start state, zero velocities, 8 candidates'
+  actions, the operands) of a returns check; a diverging candidate 1
+  where the residual reads the raw controls (a 1e30 command; the other
+  costs read the state or the actuator forces of the clamped controls)."""
   task = _task(name)
   n = 8
   mr = tmr.MegaRollout(task, horizon, device="cpu")
-  raw = np.frombuffer(tmr.pack_model(mr.tm, task, dtype), np.uint8).copy()
   if qpos0 is not None:
     home = qpos0
   elif name in CLASS_MODELS:
@@ -273,85 +339,42 @@ def _check_returns(lib, name, dtype, horizon, rtol, userdata=None,
   acts = (0.4 * np.random.RandomState(0).randn(n, horizon, mr.tm.nu)
           ).astype(np.float32)
   home, v0, acts = (x.astype(_NP[dtype]) for x in (home, v0, acts))
-  # a diverging candidate: its squared controls overflow (the other costs
-  # read the state or the actuator forces of the clamped controls)
-  diverge = name in _RAW_CTRL
-  if diverge:
+  if name in _RAW_CTRL:
     acts[1] = 1e30 if dtype == torch.float32 else 1e300
-  p = (params or task.params).to(dtype=dtype)
-  aux = _aux(mr.tm, dtype, userdata, name)
+  return task, mr, home, v0, acts
+
+
+def host_returns(libs, mr, dtype, home, v0, acts, params, aux):
+  """The host kernel's returns (8,) of a returns check, t0 0.25."""
+  task = mr.task
+  raw, tier = _packed(mr.tm, task, dtype)
+  p = params.to(dtype=dtype)
   ops = [raw, home, v0, acts] + [
       np.ascontiguousarray(x.numpy().reshape(-1))
       for x in (p.weights, p.norm_params, p.risk, p.residual_params)] + [
           np.asarray([0.25], _NP[dtype])] + aux
-  out = np.empty(n, _NP[dtype])
-  getattr(lib, "host_returns" + _SUFFIX[dtype])(
-      *map(_ptr, ops), _ptr(out), n, horizon)
+  out = np.empty(acts.shape[0], _NP[dtype])
+  getattr(libs[tier], "host_returns" + _SUFFIX[dtype])(
+      *map(_ptr, ops), _ptr(out), acts.shape[0], acts.shape[1])
+  return out
+
+
+def check_returns(libs, name, dtype, horizon, rtol, userdata=None,
+                  params=None, qpos0=None):
+  """The host kernel's returns against MegaRollout.returns_plain."""
+  task, mr, home, v0, acts = rollout_inputs(name, dtype, horizon, qpos0)
+  p = (params or task.params).to(dtype=dtype)
+  aux = _aux(mr.tm, dtype, userdata, name)
+  out = host_returns(libs, mr, dtype, home, v0, acts, p, aux)
   want = mr.returns(torch.tensor(home), torch.tensor(v0),
                     torch.tensor(acts), p, 0.25,
                     *(torch.tensor(x) for x in aux)).numpy()
   assert want.dtype == _NP[dtype]
-  if diverge:
+  if name in _RAW_CTRL:
     assert out[1] == want[1] == tmr.MAX_RETURN
   else:
     assert np.all(want < tmr.MAX_RETURN)
   np.testing.assert_allclose(out, want, rtol=rtol)
-
-
-@pytest.mark.parametrize("name", sorted(_CASES))
-def test_host_kernel_returns_match_plain(lib, name):
-  _check_returns(lib, name, torch.float32, 4, 2e-3)
-
-
-@pytest.mark.parametrize("name", sorted(_CASES))
-def test_host_kernel_float64_returns_match_plain(lib, name):
-  """30 steps, against the plain version in float64. Measured: rel
-  7.6e-16 (Walker) and 1.4e-15 (Humanoid)."""
-  _check_returns(lib, name, torch.float64, 30, 1e-9)
-
-
-@pytest.mark.parametrize("term", range(6))
-def test_host_kernel_shadow_residual_terms_match_plain(lib, term):
-  """residual_shadow against the Python residual, one cost term at a time
-  (the other weights 0): the cube against the grasp site, the orientation
-  error to the unnormalized goal, the cube's velocity, the actuator forces
-  (four of them through the coupling tendons), the hand posture and its
-  velocity. float32 over 4 steps at rtol 2e-3, float64 over 12 at 1e-9."""
-  task = treg.get_task("Shadow", device="cpu")
-  w = torch.zeros_like(task.params.weights)
-  w[term] = task.params.weights[term]
-  params = task.params.replace(weights=w)
-  _check_returns(lib, "Shadow", torch.float32, 4, 2e-3, params=params)
-  _check_returns(lib, "Shadow", torch.float64, 12, 1e-9, params=params)
-
-
-@pytest.mark.parametrize("term", range(5))
-def test_host_kernel_handover_residual_terms_match_plain(lib, term):
-  """residual_handover against the Python residual, one cost term at a
-  time (the other weights 0): reach in each gripper's frame, the grasp
-  quality, box - target, the arms' velocities. From a handover (both
-  grippers pinching the box, probe state 1), where the grasp term reads
-  the fingers' contact normals; float32 over 4 steps at rtol 2e-3, float64
-  over 12 at 1e-9."""
-  task = treg.get_task("Bimanual Handover", device="cpu")
-  w = torch.zeros_like(task.params.weights)
-  w[term] = task.params.weights[term]
-  params = task.params.replace(weights=w)
-  pinch = tbim.probe_states(task.model, 2)[0][:, 1]
-  _check_returns(lib, "Bimanual Handover", torch.float32, 4, 2e-3,
-                 params=params, qpos0=pinch)
-  _check_returns(lib, "Bimanual Handover", torch.float64, 12, 1e-9,
-                 params=params, qpos0=pinch)
-
-
-@pytest.mark.parametrize("case", sorted(QUADRUPED_MODES))
-def test_host_kernel_quadruped_modes_match_plain(lib, case):
-  """Each residual branch, float32 over 4 steps (rtol 2e-3) and float64
-  over 30 (rtol 1e-9)."""
-  task = treg.get_task("Quadruped Flat", device="cpu")
-  u, params = quadruped_mode(task, case)
-  _check_returns(lib, "Quadruped Flat", torch.float32, 4, 2e-3, u, params)
-  _check_returns(lib, "Quadruped Flat", torch.float64, 30, 1e-9, u, params)
 
 
 def test_host_kernel_contraction_moves_only_float_rounding(lib_contracted):
@@ -377,8 +400,8 @@ def test_host_kernel_contraction_moves_only_float_rounding(lib_contracted):
                  view.efc_lambda.double().numpy())
   noise = np.abs(plain[torch.float32][1] - plain[torch.float64][1]).max(0)
   for dt in (torch.float32, torch.float64):
-    raw = np.frombuffer(tmr.pack_model(tm, task, dt), np.uint8).copy()
-    kq, kv, kl = _host_step(lib_contracted, raw, dt,
+    raw, tier = _packed(tm, task, dt)
+    kq, kv, kl = _host_step(lib_contracted[tier], raw, dt,
                             *(x.astype(_NP[dt]) for x in (qp, qv, ct, lam0)),
                             _aux(tm, dt, name="Humanoid Walk"))
     err = np.abs(kv - plain[dt][1]).max(0)

@@ -11,8 +11,8 @@ instance against the plain version in float64, as in
 tests/test_torch_kernel_host.py: step qpos atol 1e-12, qvel 1e-10, duals
 1e-12 * max|duals|; returns over 30 steps rtol 1e-9. The CEM planner's
 elite update from the kernel's returns against the same update on the CPU
-at atol 1e-6. The handover and the small class models (from their
-snapshots) as the Quadruped.
+at atol 1e-6. The handover, Allegro (the large size tier) and the small
+class models (from their snapshots) as the Quadruped.
 """
 
 import numpy as np
@@ -23,6 +23,7 @@ from mujoco_mpc_torch.agent.agent import Agent
 from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.physics import tilestep as tts
 from mujoco_mpc_torch.planners import cross_entropy as tcem
+from mujoco_mpc_torch.tasks import allegro as tall
 from mujoco_mpc_torch.tasks import bimanual as tbim
 from mujoco_mpc_torch.tasks import class_models
 from mujoco_mpc_torch.tasks import hand_reorient as thand
@@ -497,3 +498,69 @@ def test_class_model_step_matches_plain(name, dtype):
   q, v, c = (torch.tensor(x, device=dev, dtype=dtype)
              for x in class_models.states(name, task.model, 72))
   _check_two_steps(mr, q, v, c, {}, dtype)
+
+
+@pytest.fixture(scope="module")
+def allegro():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device and nvcc")
+  dev = torch.device("cuda")
+  return treg.get_task("Allegro", device=dev), dev
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_allegro_step_matches_plain(allegro, dtype):
+  """The large tier: box-box corners of both boxes, capsule-box and
+  plane-box corner points, joint limits (nrow 144), each row class
+  carrying force in some of the states."""
+  task, dev = allegro
+  mr = tmr.MegaRollout(task, 1, device=dev)
+  assert (mr.tier.name, mr.tm.nrow, mr.tm.ncon) == ("large", 144, 40)
+  q, v, c = (torch.tensor(x, device=dev, dtype=dtype)
+             for x in tall.probe_states(task.model, 70))
+  lam, kinds = _check_two_steps(mr, q, v, c, _shadow_operands(dev, dtype),
+                                dtype)
+  fric = tts.row_points(mr.tm)[0]
+  for owner in (1, 2):
+    rows = [3 * i for i, cp in enumerate(fric)
+            if cp.kind == "boxbox_corner" and cp.owner == owner]
+    assert np.abs(lam[rows]).max() > 0.0, owner
+
+
+def test_allegro_returns_match_plain(allegro):
+  """float32 over 6 steps at rtol 2e-3, float64 over 30 at rtol 1e-9,
+  from the cube over a palm corner (probe state 1) with the goal
+  quaternion as an operand."""
+  task, dev = allegro
+  n = 70
+  q0 = torch.tensor(tall.probe_states(task.model, 2)[0][:, 1], device=dev)
+  for dtype, horizon, rtol in ((torch.float32, 6, 2e-3),
+                               (torch.float64, 30, 1e-9)):
+    mr = tmr.MegaRollout(task, horizon, device=dev)
+    acts = (task.default_ctrl().to(dtype) + torch.tensor(
+        0.2 * np.random.RandomState(2).randn(n, horizon, 12), dtype=dtype,
+        device=dev)).contiguous()
+    args = (q0.to(dtype), torch.zeros(18, device=dev, dtype=dtype), acts,
+            task.params.to(dtype=dtype), 0.1)
+    ops = _shadow_operands(dev, dtype)
+    got = mr.returns(*args, **ops)
+    want = mr.returns_plain(*args, dtype=dtype, **ops)
+    torch.cuda.synchronize()
+    assert mr.launches == 1
+    assert bool(torch.all(want < tmr.MAX_RETURN))
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+
+
+def test_tiers_build_and_match_their_mirrors():
+  """Every tier's library builds in both precisions, and its struct
+  matches the ctypes mirror; the small tier holds the handover, the large
+  one Allegro."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device and nvcc")
+  for tier in tmr.TIERS:
+    for dt in (torch.float32, torch.float64):
+      tmr._library(tier, dt)
+  cpu = {name: treg.get_task(name, device="cpu")
+         for name in ("Bimanual Handover", "Allegro")}
+  assert [tmr.select_tier(tts.extract(t.model), t).name
+          for t in cpu.values()] == ["small", "large"]

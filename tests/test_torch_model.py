@@ -19,8 +19,11 @@ import torch
 
 from mujoco_mpc_torch import convert
 from mujoco_mpc_torch.agent.agent import Agent
+from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.physics import io as tio
 from mujoco_mpc_torch.physics import tilestep as tts
+from mujoco_mpc_torch.tasks import allegro as tallegro
+from mujoco_mpc_torch.tasks import class_models
 from mujoco_mpc_torch.tasks import dm_suite
 from mujoco_mpc_torch.tasks import registry as treg
 from mujoco_mpc_tpu.physics import io as jio
@@ -68,12 +71,11 @@ def test_from_mjmodel_matches_jax_model(walker_mj):
   assert ours.keyframe("home") == jm.keyframe("home")
 
 
-def test_walker_snapshot_matches_fresh_build():
-  """The committed snapshot is exactly what from_mjmodel builds now."""
+def _snapshot_matches_fresh_build(builder, stem):
   fresh, spec, params, names = treg.build_task_model(
-      dm_suite.build_walker, dtype=torch.float64, device="cpu")
+      builder, dtype=torch.float64, device="cpu")
   snap, sspec, sparams, snames = treg.load_task_model(
-      "walker", dtype=torch.float64, device="cpu")
+      stem, dtype=torch.float64, device="cpu")
   for f in dataclasses.fields(fresh):
     if f.name == "opt":
       for g in dataclasses.fields(fresh.opt):
@@ -84,6 +86,20 @@ def test_walker_snapshot_matches_fresh_build():
   assert (spec, names) == (sspec, snames)
   for f in dataclasses.fields(params):
     _same(f.name, getattr(params, f.name), getattr(sparams, f.name), 0.0)
+  return snap
+
+
+def test_walker_snapshot_matches_fresh_build():
+  """The committed snapshot is exactly what from_mjmodel builds now."""
+  _snapshot_matches_fresh_build(dm_suite.build_walker, "walker")
+
+
+def test_allegro_snapshot_matches_fresh_build():
+  """The Allegro snapshot likewise (tasks/models/allegro.npz, from the
+  XML copy beside it)."""
+  snap = _snapshot_matches_fresh_build(tallegro.build_allegro, "allegro")
+  assert (snap.nq, snap.nv, snap.nu, snap.nmocap, snap.nsite) == (
+      19, 18, 12, 1, 1)
 
 
 def test_task_matches_jax_task():
@@ -101,11 +117,8 @@ def test_task_matches_jax_task():
         np.asarray(theirs.default_ctrl()), 1e-6)
 
 
-def test_extract_matches_jax_extract():
-  ours = tts.extract(treg.get_task("Walker", device="cpu").model)
-  theirs = jts.extract(jreg.get_task("Walker", dtype=jnp.float32).model)
-  assert (ours.ncon, ours.nlim, ours.nrow) == (
-      theirs.ncon, theirs.nlim, theirs.nrow) == (14, 12, 54)
+def _same_extract(ours, theirs):
+  """Two TileModels field by field, the contact points too."""
   for f in dataclasses.fields(ours):
     if f.name == "con_points":
       continue
@@ -115,6 +128,14 @@ def test_extract_matches_jax_extract():
     for f in dataclasses.fields(a):
       _same(f"con_points[{i}].{f.name}", getattr(a, f.name),
             getattr(b, f.name), 1e-6)
+
+
+def test_extract_matches_jax_extract():
+  ours = tts.extract(treg.get_task("Walker", device="cpu").model)
+  theirs = jts.extract(jreg.get_task("Walker", dtype=jnp.float32).model)
+  assert (ours.ncon, ours.nlim, ours.nrow) == (
+      theirs.ncon, theirs.nlim, theirs.nrow) == (14, 12, 54)
+  _same_extract(ours, theirs)
 
 
 def test_import_leaves_jax_out():
@@ -156,7 +177,6 @@ _OUT_OF_CLASS = {
     "colliding_mocap": ("<mujoco><worldbody><body mocap='true' pos='0 0 1'>"
                         "<geom size='.1'/></body>" + _BODY +
                         "</worldbody></mujoco>", "general engine"),
-    "box_box": (_bodies(("box", ".1 .1 .1"), ("box", ".1 .1 .1")), "S5"),
     # capsule-box contacts with rolling friction (condim 6) are in the
     # class; a ball joint beside them is not
     "capsule_box": (_bodies(("capsule", ".05 .1"), ("box", ".1 .1 .1"),
@@ -165,21 +185,56 @@ _OUT_OF_CLASS = {
                     "S3"),
     "sphere_capsule": (_bodies(("sphere", ".1"), ("capsule", ".05 .1")),
                        "S5"),
-    # the next slice's first task: the Allegro hand's box-box pairs
-    "allegro": (os.path.join(REPO, "mujoco_mpc_tpu", "tasks", "models",
-                             "allegro.xml"), "S5, the box-box pair"),
+}
+
+# models whose box-box pairs are in the class: two free boxes, the Allegro
+# hand's palm and cube
+_BOX_BOX = {
+    "box_box": _bodies(("box", ".1 .1 .1"), ("box", ".1 .2 .05")),
+    "allegro": os.path.join(REPO, "mujoco_mpc_tpu", "tasks", "models",
+                            "allegro.xml"),
 }
 
 
-@pytest.mark.parametrize("case", sorted(_OUT_OF_CLASS) + ["jointed_mocap"])
+@pytest.mark.parametrize("case", sorted(_BOX_BOX))
+def test_box_box_models_match_jax_extract(case):
+  """The box-box pair is in the class: 16 points per pair, box 2's corners
+  first, each box's in sx, sy, sz order, both boxes' sizes, as the JAX
+  extract gives them."""
+  ours = tts.extract(tio.load_model(_BOX_BOX[case], device="cpu"))
+  theirs = jts.extract(jio.load_model(_BOX_BOX[case]))
+  boxbox = [cp for cp in ours.con_points if cp.kind == "boxbox_corner"]
+  assert len(boxbox) == 16
+  assert [cp.owner for cp in boxbox] == [2] * 8 + [1] * 8
+  assert (ours.ncon, ours.nrow) == (theirs.ncon, theirs.nrow) == {
+      "box_box": (16, 48), "allegro": (40, 144)}[case]
+  _same_extract(ours, theirs)
+  assert tts.row_kinds(ours).count("boxbox_corner") == 48
+
+
+@pytest.mark.parametrize("case", sorted(_OUT_OF_CLASS)
+                         + ["jointed_mocap", "beyond_large_tier"])
 def test_out_of_class_models_raise(case):
   """The free joint, fixed tendons (limits, springs, actuators), mocap
   bodies, condim 4 and 6, equality constraints and the plane-sphere,
-  plane-box, sphere-sphere, sphere-box, capsule-capsule and capsule-box
-  contacts are in the class now; these stay out, naming the ROADMAP item
-  that ports them: ball joints (slice S3), the remaining pairs (S5), and
-  what the JAX kernel leaves to the general engine, stateful actuators and
-  a mocap body with a joint or a colliding geom."""
+  plane-box, sphere-sphere, sphere-box, capsule-capsule, capsule-box and
+  box-box contacts are in the class now; these stay out, naming the
+  ROADMAP item that ports them: ball joints (slice S3), the sphere-capsule
+  pair (S5), and what the JAX kernel leaves to the general engine,
+  stateful actuators and a mocap body with a joint or a colliding geom. A
+  model in the class but beyond the kernel's largest size tier (four free
+  boxes: 96 box-box points, 288 rows) packs into no struct."""
+  if case == "beyond_large_tier":
+    model = tio.load_model(_bodies(*[("box", ".1 .1 .1")] * 4),
+                           device="cpu")
+    tm = tts.extract(model)
+    assert (tm.ncon, tm.nrow) == (96, 288)
+    task = class_models.task("boxes", model=model, device="cpu")
+    with pytest.raises(tts.UnsupportedModel,
+                       match="contact points 96 exceed the kernel's "
+                       "maximum 72"):
+      tmr.pack_model(tm, task)
+    return
   if case == "jointed_mocap":  # MJCF refuses it: the Walker's torso
     walker = treg.get_task("Walker", device="cpu").model
     torso = walker.body("torso")

@@ -23,6 +23,7 @@ from mujoco_mpc_torch.tasks import registry as treg
 from mujoco_mpc_tpu.ops import megarollout as jmr
 from mujoco_mpc_tpu.ops import spline as jspline
 from mujoco_mpc_tpu.tasks import registry as jreg
+from tests.torch_cases import one_torch_thread
 
 T, N, K = 10, 8, 6
 
@@ -96,6 +97,7 @@ def test_agent_walker_defaults():
   assert float(agent.task.model.opt.timestep) == pytest.approx(0.01)
 
 
+@one_torch_thread()
 def test_agent_cpu_best_return_does_not_increase():
   """Three plan iterations at a fixed state, over a horizon of 4 steps:
   candidate 0 is the previous winner, so the best return cannot rise."""

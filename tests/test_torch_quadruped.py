@@ -34,11 +34,12 @@ from mujoco_mpc_torch.physics import tilestep as tts
 from mujoco_mpc_torch.planners import sampling as tsampling
 from mujoco_mpc_torch.tasks import quadruped as tquad
 from mujoco_mpc_torch.tasks import registry as treg
-from mujoco_mpc_tpu.ops import megarollout as jmr
 from mujoco_mpc_tpu.physics import tilestep as jts
 from mujoco_mpc_tpu.tasks import registry as jreg
-from tests.torch_cases import QUADRUPED_MODES, quadruped_mode
+from tests.torch_cases import (QUADRUPED_MODES, one_torch_thread,
+                               quadruped_mode)
 from tests.test_torch_model import _same
+from tests.test_torch_tilestep_classes import jax_probe_and_returns
 
 B, N, T = 8, 8, 4
 _KINDS = ("plane_boxcorner", "plane_sphere", "sphere_box", "sphere_sphere",
@@ -116,27 +117,30 @@ def test_quadruped_extract_matches_jax(tile_models):
 
 
 @pytest.fixture(scope="module")
-def two_steps(tasks, tile_models):
+def jax_run(tasks, tile_models):
+  """One JAX rollout for the one-step checks and the returns check
+  (tests/test_torch_tilestep_classes.py::jax_probe_and_returns)."""
+  t, j = tasks
+  _, jtm = tile_models
+  return jax_probe_and_returns(j, jtm, tquad.probe_states(t.model, B),
+                               *_returns_inputs(t), 0.1,
+                               _operands(t.model.nuserdata))
+
+
+@pytest.fixture(scope="module")
+def two_steps(tasks, tile_models, jax_run):
   """A cold step, then a warm-started one, in both packages."""
   t, _ = tasks
-  ttm, jtm = tile_models
+  ttm, _ = tile_models
   qp, qv, ct = tquad.probe_states(t.model, B)
-  ops = _operands(ttm.nuserdata)
   tops = dict(zip(("mocap_pos", "mocap_quat", "userdata"),
-                  map(torch.tensor, ops)))
-  jops = dict(zip(("mocap_pos", "mocap_quat", "userdata"),
-                  map(jnp.asarray, ops)))
+                  map(torch.tensor, _operands(t.model.nuserdata))))
   tq, tv, tl = torch.tensor(qp), torch.tensor(qv), None
-  jq, jv = jnp.asarray(qp), jnp.asarray(qv)
-  jl = jnp.zeros((ttm.nrow, B), jnp.float32)
   out = []
-  for _ in range(2):
+  for jq, jv, jview in jax_run[0]:
     tq, tv, tview = tts.step_tb(ttm, tq, tv, torch.tensor(ct), tl, **tops)
     tl = tview.efc_lambda
-    jq, jv, jview = jts.step_tb(jtm, jq, jv, jnp.asarray(ct), efc_lambda=jl,
-                                **jops)
-    jl = jview.efc_lambda
-    out.append((tq, tv, tview, np.asarray(jq), np.asarray(jv), jview))
+    out.append((tq, tv, tview, jq, jv, jview))
   return out
 
 
@@ -187,49 +191,32 @@ def test_quadruped_residual_matches_jax(tasks, two_steps, case):
       np.asarray(j.weight_mod(j.model, jview, jp)), atol=1e-5)
 
 
-def _jax_returns(j, jtm, qpos0, qvel0, actions, t0, ops):
-  """The composition _rollout_body runs: JAX step_tb with the mocap and
-  userdata operands, the quadruped residual, weight_mod and cost_value_t
-  per step, then the divergence guard."""
-  n = actions.shape[0]
-  mp, mq, ud = map(jnp.asarray, ops)
-  qpos = jnp.asarray(np.repeat(qpos0[:, None], n, 1))
-  qvel = jnp.asarray(np.repeat(qvel0[:, None], n, 1))
-  lam = jnp.zeros((jtm.nrow, n), jnp.float32)
-  total = jnp.zeros((n,), jnp.float32)
-  p = j.params
-  for i in range(actions.shape[1]):
-    qpos, qvel, view = jts.step_tb(jtm, qpos, qvel,
-                                   jnp.asarray(actions[:, i].T), mocap_pos=mp,
-                                   mocap_quat=mq, userdata=ud,
-                                   efc_lambda=lam)
-    view.time = t0 + (i + 1) * jtm.timestep
-    res = j.residual(j.model, view, p.residual_params)
-    scale = j.weight_mod(j.model, view, p.residual_params)
-    total = total + jmr.cost_value_t(j.spec, p.weights, p.norm_params,
-                                     p.risk, res, scale)
-    lam = view.efc_lambda
-  total = np.asarray(total / actions.shape[1])
-  return np.where(np.isfinite(total), total, jmr.MAX_RETURN)
-
-
-def test_quadruped_returns_match_jax(tasks, tile_models):
-  t, j = tasks
-  _, jtm = tile_models
+def _returns_inputs(t):
+  """The returns check's start state, velocities and N candidates."""
   rng = np.random.RandomState(3)
   home = np.asarray(t.model.keyframe("home")[0], np.float32)
   qvel0 = rng.uniform(-0.2, 0.2, 18).astype(np.float32)
   acts = (np.asarray(t.default_ctrl()) + 0.2 * rng.randn(N, T, 12)
           ).astype(np.float32)
-  ops = _operands(t.model.nuserdata)
+  return home, qvel0, acts
+
+
+def test_quadruped_returns_match_jax(tasks, jax_run):
+  """The port's CPU MegaRollout against the JAX composition (step_tb with
+  the mocap and userdata operands, the quadruped residual, weight_mod and
+  cost_value_t per step)."""
+  t, _ = tasks
+  home, qvel0, acts = _returns_inputs(t)
   got = tmr.MegaRollout(t, T, device="cpu").returns(
       torch.tensor(home), torch.tensor(qvel0), torch.tensor(acts), t.params,
-      0.1, *(torch.tensor(x[..., 0]) for x in ops)).numpy()
-  want = _jax_returns(j, jtm, home, qvel0, acts, 0.1, ops)
+      0.1, *(torch.tensor(x[..., 0]) for x in _operands(t.model.nuserdata))
+  ).numpy()
+  want = jax_run[1]
   assert np.all(np.isfinite(got)) and np.all(got < tmr.MAX_RETURN)
   np.testing.assert_allclose(got, want, rtol=2e-3)
 
 
+@one_torch_thread()
 def test_quadruped_agent_plans_on_cpu():
   """Two plan iterations at a fixed state with the goal and a trot set
   through set_state: finite, and the best return does not rise (candidate

@@ -1,32 +1,26 @@
-"""The port's plain tile step and rollout held against the JAX tile path.
+"""The port's plain tile step held against the JAX tile path.
 
 mujoco_mpc_torch.physics.tilestep.step_tb against
-mujoco_mpc_tpu.physics.tilestep.step_tb, and the port's CPU
-MegaRollout.returns against the JAX MegaRollout.returns_xla (which
-tests/test_megarollout.py pins to the interpret-mode Pallas kernel), on the
-same float32 inputs made with numpy from a seed.
+mujoco_mpc_tpu.physics.tilestep.step_tb on the same float32 inputs made
+with numpy from a seed; the rollouts are held in
+tests/test_torch_tilestep_returns.py.
 
 Tolerances, with the errors measured when they were set:
   one step: qpos atol 1e-6 (measured 3e-8), qvel atol 1e-4 (8e-6), duals
-    atol 1e-5 * max|duals| (3e-3 of 2.2e3, i.e. 1.4e-6 relative);
-  returns: rtol 2e-3, the repo's tolerance between two implementations
-    (test_megarollout.py), measured 2.4e-7 at T=10, n=8.
+    atol 1e-5 * max|duals| (3e-3 of 2.2e3, i.e. 1.4e-6 relative).
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.physics import tilestep as tts
 from mujoco_mpc_torch.tasks import registry as treg
-from mujoco_mpc_tpu.ops import megarollout as jmr
 from mujoco_mpc_tpu.physics import tilestep as jts
 from mujoco_mpc_tpu.tasks import registry as jreg
 
-T, N, B = 10, 8, 8
+B = 8
 
 
 @pytest.fixture(scope="module")
@@ -45,10 +39,12 @@ def _states(seed, home):
 
 
 def _jax_step(jtm):
+  """The JAX tile step, eagerly: two steps take seconds, where compiling it
+  takes half a minute on a CPU."""
   def f(q, v, c, lam):
     q2, v2, view = jts.step_tb(jtm, q, v, c, efc_lambda=lam)
     return q2, v2, view.efc_lambda
-  return jax.jit(f)
+  return f
 
 
 def _compare_two_steps(ttm, jtm, home):
@@ -87,59 +83,3 @@ def test_step_matches_jax_dense(tasks):
   jtm = jts.extract(j.model.replace(collision_pairs=pairs))
   assert ttm.nrow == 24 and tts.amat_is_dense(ttm.nrow)
   _compare_two_steps(ttm, jtm, np.asarray(t.model.keyframe("home")[0]))
-
-
-@pytest.fixture(scope="module")
-def rollouts(tasks):
-  t, j = tasks
-  home = np.asarray(t.model.keyframe("home")[0], np.float32)
-  acts = (0.4 * np.random.RandomState(0).randn(N, T, 6)).astype(np.float32)
-  jm = jmr.MegaRollout(j, T)
-  jf = jax.jit(jm.returns_xla)
-
-  def jax_returns(actions, params):
-    return np.asarray(jf(jnp.asarray(home), jnp.zeros(9, jnp.float32),
-                         jnp.asarray(actions), params, 0.0))
-
-  def torch_returns(actions, params):
-    return tmr.MegaRollout(t, T, device="cpu").returns(
-        torch.tensor(home), torch.zeros(9), torch.tensor(actions), params,
-        torch.tensor(0.0)).numpy()
-
-  return t, j, acts, jax_returns, torch_returns
-
-
-def test_returns_match_jax_returns_xla(rollouts):
-  t, j, acts, jax_returns, torch_returns = rollouts
-  got = torch_returns(acts, t.params)
-  want = jax_returns(acts, j.params)
-  np.testing.assert_allclose(got, want, rtol=2e-3)
-  assert np.all(np.isfinite(got)) and np.all(got < tmr.MAX_RETURN)
-
-
-def test_divergence_guard(rollouts):
-  """Exploding actions -> MAX_RETURN in both packages, not nan."""
-  t, j, acts, jax_returns, torch_returns = rollouts
-  bad = acts.copy()
-  bad[0] = 1e30
-  got = torch_returns(bad, t.params)
-  assert got[0] == tmr.MAX_RETURN
-  np.testing.assert_allclose(got, jax_returns(bad, j.params), rtol=2e-3)
-
-
-def test_params_are_runtime_tunable(rollouts):
-  """Changing weights and residual params changes returns, no rebuild."""
-  t, j, acts, jax_returns, torch_returns = rollouts
-  mr = tmr.MegaRollout(t, T, device="cpu")
-  args = (torch.tensor(np.asarray(t.model.keyframe("home")[0], np.float32)),
-          torch.zeros(9), torch.tensor(acts))
-  r1 = mr.returns(*args, t.params, 0.0).numpy()
-  heavier = t.params.replace(weights=t.params.weights * 3.0)
-  r2 = mr.returns(*args, heavier, 0.0).numpy()
-  np.testing.assert_allclose(r2, 3.0 * r1, rtol=1e-5)
-  faster = t.set_parameter("Speed", 2.0).params
-  r3 = mr.returns(*args, faster, 0.0).numpy()
-  assert not np.allclose(r1, r3)
-  np.testing.assert_allclose(
-      r3, jax_returns(acts, j.set_parameter("Speed", 2.0).params),
-      rtol=2e-3)

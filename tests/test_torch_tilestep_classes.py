@@ -24,6 +24,7 @@ actuator forces atol 1e-5 (0); returns at n = 8, T = 8 rtol 2e-3
 """
 
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import mujoco
@@ -55,37 +56,107 @@ def class_task(name, device="cpu"):
   return class_models.task(name, device=device, model=m)
 
 
-def jax_returns(j, jtm, qpos0, qvel0, actions, t0=0.0, ops=None):
-  """The composition the JAX kernel's _rollout_body runs, eagerly: step_tb
-  (with the mocap and userdata operands `ops`, shaped (nmocap, 3, 1),
-  (nmocap, 4, 1), (nuserdata, 1)), the residual and cost_value_t per step,
-  then the divergence guard."""
-  n, horizon = actions.shape[:2]
+def jax_rollout(j, jtm, qpos, qvel, ctrl, t0=0.0, ops=None):
+  """The composition the JAX kernel's _rollout_body runs, eagerly, on the
+  columns qpos (nq, M), qvel (nv, M) with controls ctrl (T, nu, M):
+  step_tb (with the mocap and userdata operands `ops`, shaped (nmocap, 3,
+  1), (nmocap, 4, 1), (nuserdata, 1)), the residual, the task's
+  weight_mod and cost_value_t per step, then the divergence guard. Each
+  column is computed alone. Returns each step's (qpos, qvel, view) and the
+  returns (M,)."""
   aux = {} if ops is None else dict(zip(
       ("mocap_pos", "mocap_quat", "userdata"), map(jnp.asarray, ops)))
-  qpos = jnp.asarray(np.repeat(qpos0[:, None], n, 1))
-  qvel = jnp.asarray(np.repeat(qvel0[:, None], n, 1))
-  lam = jnp.zeros((max(jtm.nrow, 1), n), jnp.float32)
-  total = jnp.zeros((n,), jnp.float32)
+  qpos, qvel = jnp.asarray(qpos), jnp.asarray(qvel)
+  m = qpos.shape[1]
+  lam = jnp.zeros((max(jtm.nrow, 1), m), jnp.float32)
+  total = jnp.zeros((m,), jnp.float32)
   p = j.params
-  for i in range(horizon):
-    qpos, qvel, view = jts.step_tb(jtm, qpos, qvel, jnp.asarray(actions[:, i].T),
+  steps = []
+  for i in range(ctrl.shape[0]):
+    qpos, qvel, view = jts.step_tb(jtm, qpos, qvel, jnp.asarray(ctrl[i]),
                                    efc_lambda=lam, **aux)
     view.time = t0 + (i + 1) * jtm.timestep
     res = j.residual(j.model, view, p.residual_params)
+    scale = (j.weight_mod(j.model, view, p.residual_params)
+             if j.weight_mod is not None else None)
     total = total + jmr.cost_value_t(j.spec, p.weights, p.norm_params, p.risk,
-                                     res)
+                                     res, scale)
     lam = view.efc_lambda
-  total = np.asarray(total / horizon)
-  return np.where(np.isfinite(total), total, jmr.MAX_RETURN)
+    steps.append((qpos, qvel, view))
+  total = np.asarray(total / ctrl.shape[0])
+  return steps, np.where(np.isfinite(total), total, jmr.MAX_RETURN)
 
 
-@pytest.fixture(scope="module", params=sorted(CLASS_MODELS))
-def models(request):
-  name = request.param
-  t = class_task(name)
-  j = jtests._make_task(CLASS_MODELS[name].xml)
-  return name, t, j, tts.extract(t.model), jts.extract(j.model)
+def jax_returns(j, jtm, qpos0, qvel0, actions, t0=0.0, ops=None):
+  """jax_rollout's returns of actions (N, T, nu) from (qpos0, qvel0)."""
+  n = actions.shape[0]
+  return jax_rollout(j, jtm, np.repeat(qpos0[:, None], n, 1),
+                     np.repeat(qvel0[:, None], n, 1),
+                     np.transpose(actions, (1, 2, 0)), t0, ops)[1]
+
+
+class _FirstColumns:
+  """The first b columns of a lazy view's arrays, taken when read (the
+  JAX step's contact view)."""
+
+  def __init__(self, inner, b):
+    self._inner, self._b = inner, b
+
+  def __getattr__(self, name):
+    return getattr(self._inner, name)[..., :self._b]
+
+
+def _first_columns(view, b):
+  """The JAX step's view of the first b columns (the rollout-constant
+  operands and the time as they are)."""
+  out = types.SimpleNamespace()
+  for k, x in vars(view).items():
+    if k == "contact":
+      x = _FirstColumns(x, b)
+    elif k not in ("mocap_pos", "mocap_quat", "userdata", "time") and \
+        x is not None:
+      x = x[..., :b]
+    setattr(out, k, x)
+  return out
+
+
+def jax_probe_and_returns(j, jtm, probe, qpos0, qvel0, actions, t0=0.0,
+                          ops=None):
+  """One JAX rollout serves a module's one-step checks and its returns
+  check: the probe states (qpos (nq, B), qvel (nv, B), ctrl (nu, B)) and
+  the N candidates of jax_returns go through jax_rollout as B + N columns,
+  the probe states holding their ctrl. Returns the probe columns' (qpos,
+  qvel, view) after the first (cold) and the second (warm) step, and the
+  candidates' returns."""
+  qp, qv, ct = probe
+  b, (n, t) = qp.shape[1], actions.shape[:2]
+  steps, returns = jax_rollout(
+      j, jtm, np.concatenate([qp, np.repeat(qpos0[:, None], n, 1)], 1),
+      np.concatenate([qv, np.repeat(qvel0[:, None], n, 1)], 1),
+      np.concatenate([np.repeat(ct[None], t, 0),
+                      np.transpose(actions, (1, 2, 0))], 2), t0, ops)
+  return ([(np.asarray(q)[:, :b], np.asarray(v)[:, :b],
+            _first_columns(view, b)) for q, v, view in steps[:2]],
+          returns[b:])
+
+
+def models_fixture(names):
+  """A module fixture over `names`: (name, the port's Task, the JAX Task,
+  both TileModels). The per-model tests below run over four of the models
+  here and the other four in test_torch_tilestep_classes_b.py, so that the
+  test workers share them out."""
+
+  @pytest.fixture(scope="module", params=names)
+  def models(request):
+    name = request.param
+    t = class_task(name)
+    j = jtests._make_task(CLASS_MODELS[name].xml)
+    return name, t, j, tts.extract(t.model), jts.extract(j.model)
+  return models
+
+
+HALF_A = ("capsule_box", "connect", "tendon_actuator", "weld")
+models = models_fixture(HALF_A)
 
 
 def test_class_models_are_the_jax_tests_models():
@@ -152,18 +223,33 @@ def test_class_model_extract_matches_jax(models):
 
 
 
-def test_class_model_step_matches_jax(models):
+def _returns_inputs(name, t):
+  """The returns check's start state (the model's first state), zero
+  velocities and N candidates."""
+  qp, _, _ = class_models.states(name, t.model, 1)
+  acts = (0.4 * np.random.RandomState(5).randn(N, T, t.model.nu)
+          ).astype(np.float32)
+  return qp[:, 0], np.zeros(t.model.nv, np.float32), acts
+
+
+@pytest.fixture(scope="module")
+def jax_run(models):
+  """One JAX rollout for the one-step check and the returns check
+  (jax_probe_and_returns)."""
+  name, t, j, _, jtm = models
+  return jax_probe_and_returns(j, jtm, class_models.states(name, t.model, B),
+                               *_returns_inputs(name, t))
+
+
+def test_class_model_step_matches_jax(models, jax_run):
   """A cold step, then a warm-started one."""
-  name, t, _, ttm, jtm = models
+  name, t, _, ttm, _ = models
   qp, qv, ct = class_models.states(name, t.model, B)
   kinds = np.asarray(tts.row_kinds(ttm))
   tq, tv, tl = torch.tensor(qp), torch.tensor(qv), None
-  jq, jv = jnp.asarray(qp), jnp.asarray(qv)
-  jl = jnp.zeros((max(ttm.nrow, 1), B), jnp.float32)
-  for _ in range(2):
+  for jq, jv, jview in jax_run[0]:
     tq, tv, view = tts.step_tb(ttm, tq, tv, torch.tensor(ct), tl)
     tl = view.efc_lambda
-    jq, jv, jview = jts.step_tb(jtm, jq, jv, jnp.asarray(ct), efc_lambda=jl)
     jl = jview.efc_lambda
     lam = tl.numpy()
     for kind in CLASS_MODELS[name].kinds:
@@ -176,35 +262,35 @@ def test_class_model_step_matches_jax(models):
                                np.asarray(jview.actuator_force), atol=1e-5)
 
 
-def test_class_model_returns_match_jax(models):
+def test_class_model_returns_match_jax(models, jax_run):
   """The port's CPU MegaRollout against the JAX composition
-  (jax_returns)."""
-  name, t, j, _, jtm = models
-  qp, _, _ = class_models.states(name, t.model, 1)
-  q0 = qp[:, 0]
-  v0 = np.zeros(t.model.nv, np.float32)
-  acts = (0.4 * np.random.RandomState(5).randn(N, T, t.model.nu)
-          ).astype(np.float32)
+  (jax_rollout)."""
+  name, t, _, _, _ = models
+  q0, v0, acts = _returns_inputs(name, t)
   got = tmr.MegaRollout(t, T, device="cpu").returns(
       torch.tensor(q0), torch.tensor(v0), torch.tensor(acts), t.params,
       0.0).numpy()
-  want = jax_returns(j, jtm, q0, v0, acts)
+  want = jax_run[1]
   assert np.all(np.isfinite(got)) and np.all(got < tmr.MAX_RETURN)
   np.testing.assert_allclose(got, want, rtol=2e-3)
 
 
 def test_condim6_and_equality_stay_outside_the_class():
   """Condim 6 and the equality rows are in the class now (the models
-  above); what stays outside beside them raises UnsupportedModel naming
-  its ROADMAP item, and is not taken on a plain path: the box-box pair
-  and the sphere-capsule pair (slice S5), a ball joint (slice S3)."""
+  above), and so is the box-box pair (16 points, here at condim 6: a
+  torsional and two rolling rows each); what stays outside beside them
+  raises UnsupportedModel naming its ROADMAP item, and is not taken on a
+  plain path: the sphere-capsule pair (slice S5), a ball joint (slice
+  S3)."""
   box_box = ("<mujoco><worldbody>" + "".join(
       f"<body pos='0 0 {i}'><freejoint/><geom type='box' size='.1 .1 .1' "
       "condim='6'/></body>" for i in range(2)) + "</worldbody></mujoco>")
+  tm = tts.extract(tio.from_mjmodel(mujoco.MjModel.from_xml_string(box_box),
+                                    dtype=torch.float32, device="cpu"))
+  assert (tm.ncon, tm.ntor, tm.nroll, tm.nrow) == (16, 16, 16, 96)
   ball = class_models.CHAIN_XML.format(eq="").replace(
       '<joint name="j3" type="hinge"', '<joint name="j3" type="ball"')
-  for xml, item in ((box_box, "S5, the box-box pair"),
-                    (jtests._BALL_XML.format(condim=6).replace(
+  for xml, item in ((jtests._BALL_XML.format(condim=6).replace(
                         'type="sphere" size="0.08"',
                         'type="capsule" size="0.08 0.05"'),
                      "S5, the sphere-capsule pair"),

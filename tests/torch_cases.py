@@ -1,8 +1,29 @@
 """Inputs shared by the port's kernel tests, importable without JAX or
 mujoco (the card's host has neither): the Quadruped's residual branches,
-the Shadow goal and the handover's target."""
+the Shadow goal and the handover's target; and one_torch_thread for the
+tests that plan on the CPU."""
+
+import contextlib
+
+import torch
 
 from mujoco_mpc_torch.tasks import quadruped as tquad
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+  """PyTorch on one CPU thread, as a context or a test decorator. An
+  Agent planning on the CPU with 60 to 256 candidates has ops large
+  enough for PyTorch to split over threads, and test workers that share
+  the host's cores leave those threads waiting on each other: two Allegro
+  plan steps took 96.6 s on eight threads beside three busy processes on
+  an 8-core host, 1.6 s on one."""
+  n = torch.get_num_threads()
+  torch.set_num_threads(1)
+  try:
+    yield
+  finally:
+    torch.set_num_threads(n)
 
 # Shadow's goal: an unnormalized quaternion (the residual normalizes it)
 SHADOW_GOAL = [[0.8, 0.2, 0.4, 0.3]]
