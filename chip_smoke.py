@@ -6,20 +6,29 @@ Builds the CUDA kernel from mujoco_mpc_torch/csrc/ (one library per size
 tier and precision, and an uncontracted float library per tier, the nvcc
 processes at once) and, for each path it
 serves (Walker, Humanoid Walk, Quadruped Flat, Shadow, Bimanual Handover
-and Allegro, and the cross-entropy planner on Walker and Shadow), holds it
-against its plain PyTorch version, drives the agent's plan loop through it,
-and times the planner: Walker at 1024 candidates x 80 steps, Humanoid at
-the north-star 256 x 67 at the planning dt 0.015, Quadruped at 1024 x 70,
-Shadow at 512 x 100, the handover at 256 x 80 and Allegro at 512 x 80, the
-last four at dt 0.005. The small class models (every equality kind,
-condim 6) are held one step each. Humanoid rollouts that long are chaotic
-in float32, so there the kernel's float64 instance is held against the
-plain version in float64 candidate by candidate, and the float32 kernel as
-a population; the Quadruped's, Shadow's, the handover's and Allegro's
-float32 kernel is held per candidate within its own float32 noise; a
-candidate beyond it passes only where the same source built without
-multiply-add contraction lands within it, so that the miss lies in the
-contraction's rounding alone.
+and Allegro, the cross-entropy planner on Walker and Shadow, and the small
+tasks Cartpole, Acrobot, Particle, ParticleFixed, Fingers, Arm Reach, Push
+and Rubik Faces), holds it against its plain PyTorch version, drives the
+agent's plan loop through it, and times the planner: Walker at 1024
+candidates x 80 steps, Humanoid at the north-star 256 x 67 at the planning
+dt 0.015, Quadruped at 1024 x 70, Shadow at 512 x 100, the handover at
+256 x 80 and Allegro at 512 x 80, the last four at dt 0.005, and each small
+task at 1024 candidates over its Agent's horizon at the model's dt. The
+small class models (every equality kind, condim 6, the ball chain with a
+ball joint and the sphere-capsule pair) and Rubik Faces, which has no
+constraint rows, are held one step each. Each phase's returns are held
+as its Hold says: Humanoid rollouts that long, and Acrobot's at its
+folded elbow, are chaotic in float32, so there the kernel's float64
+instance is held against the plain version in float64 candidate by
+candidate, and the float32 kernel as a population; elsewhere the float32
+kernel is held per candidate, at rtol 2e-3 or within its own float32
+noise; a candidate beyond that noise passes only where a witness shows
+the miss is rounding: the same source built without multiply-add
+contraction lands within it, or the plain version itself, perturbed by
+one float32 rounding, lands beyond it on the kernel's side. The plain
+version's rollouts run in worker processes on the host's
+CPU cores, beside the card's work (the checks wait for them at the end);
+the one-step checks run it on the card.
 Exits non-zero, printing no result, without a CUDA
 device or on any failed check. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernel once per
@@ -29,8 +38,12 @@ path with its launch count, error, time, plain time and bound.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
+import dataclasses
+import functools
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -54,6 +67,160 @@ def run_plain(fn, *args, **kwargs):
     return fn(*args, **kwargs)
 
 
+# The plain version's returns run in worker processes while the main
+# process goes on with the card: each comparison's checks run when its
+# plain returns are in (DEFERRED, resolved before the kernels line). The
+# float64 runs go to PLAIN, on the host's CPU cores (split over the
+# candidates), from the start: they never touch the card, so no kernel
+# timing shares it with them. The float32 runs must round as the card
+# does, so they wait (CARD_QUEUE) until the card's work is done, then run
+# on it in CARD_WORKERS processes at once. A worker builds each (task,
+# planning timestep, horizon, device) MegaRollout once.
+PLAIN = None
+PLAIN_WORKERS = 7
+CARD_WORKERS = 4
+CARD_QUEUE = []
+DEFERRED = []
+_WORKER_ROLLOUTS = {}
+
+
+def _worker_init(card: bool):
+  import os
+  if not card:
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+  import torch
+  torch.set_num_threads(1)
+
+
+def _worker_warm():
+  """A worker's imports, made while the main process builds the kernel."""
+  from mujoco_mpc_torch.tasks import registry  # noqa: F401
+  return True
+
+
+def _plain_job(spec, arrays, variants, dtype_name, device, trig64=False):
+  """MegaRollout.returns_plain_variants in a worker: spec (task name, the
+  model's timestep, horizon); arrays the numpy inputs; variants (weights,
+  norm_params, risk, residual_params, userdata or None) numpy tuples; on
+  `device`; with `trig64`, sin and cos rounded from float64
+  (trig_from_float64). Returns (the returns per variant, numpy; ms)."""
+  import torch
+  from mujoco_mpc_torch.ops import megarollout as MR
+  from mujoco_mpc_torch.tasks import base, registry
+  if (spec, device) not in _WORKER_ROLLOUTS:
+    name, timestep, horizon = spec
+    task = registry.get_task(name, device=device)
+    m = task.model
+    task = task.replace(model=m.replace(opt=m.opt.replace(
+        timestep=torch.tensor(timestep, dtype=m.dtype, device=device))))
+    _WORKER_ROLLOUTS[spec, device] = MR.MegaRollout(task, horizon,
+                                                    device=device)
+  mr = _WORKER_ROLLOUTS[spec, device]
+  dt = getattr(torch, dtype_name)
+
+  def t(a):
+    return None if a is None else torch.tensor(a, dtype=dt, device=device)
+
+  x = {k: t(v) for k, v in arrays.items()}
+  vs = [(base.TaskParams(*(t(a) for a in v[:4])), t(v[4]))
+        for v in variants]
+  start = time.perf_counter()
+  trig = trig_from_float64() if trig64 else contextlib.nullcontext()
+  with torch.inference_mode(), trig:
+    out = mr.returns_plain_variants(x["qpos0"], x["qvel0"], x["actions"],
+                                    vs, x["t0"], dt, x.get("mocap_pos"),
+                                    x.get("mocap_quat"))
+    out = [o.cpu().numpy() for o in out]
+  return out, (time.perf_counter() - start) * 1e3
+
+
+class PlainReturns:
+  """The plain version's returns of one action set from the workers:
+  `get()` waits and gives (the returns on the card, one tensor per
+  variant; the milliseconds of plain work, summed over the chunks: a
+  float32 run's time on the card beside CARD_WORKERS - 1 others, a
+  float64 run's on the host's CPU cores)."""
+
+  def __init__(self, jobs, dev):
+    self.jobs, self.dev = jobs, dev  # futures, or CARD_QUEUE entries
+
+  def get(self):
+    import numpy as np
+    import torch
+    parts = [(j["future"] if isinstance(j, dict) else j).result()
+             for j in self.jobs]
+    outs = [torch.tensor(np.concatenate([p[0][k] for p in parts]),
+                         device=self.dev) for k in range(len(parts[0][0]))]
+    return outs, sum(p[1] for p in parts)
+
+
+def plain_submit(task, horizon, args, ops, dtype, variants=None,
+                 witness=None):
+  """MegaRollout(task, horizon).returns_plain(*args, dtype, **ops) (or,
+  with `variants`, (TaskParams, userdata) pairs, returns_plain_variants)
+  as worker jobs: float64 to PLAIN now, in chunks of candidates; float32
+  to CARD_QUEUE; or, given `witness` ("trig64" or "nudge":
+  rounding_witnesses), float32 to PLAIN now. A PlainReturns."""
+  import numpy as np
+  import torch
+
+  def npy(a):
+    return None if a is None else a.detach().cpu().double().numpy()
+
+  qpos0, qvel0, actions, params, t0 = args
+  if variants is None:
+    variants = [(params, ops.get("userdata"))]
+  vs = [(npy(p.weights), npy(p.norm_params), npy(p.risk),
+         npy(p.residual_params), npy(u)) for p, u in variants]
+  common = {"qpos0": npy(qpos0), "qvel0": npy(qvel0),
+            "t0": np.asarray(float(t0)),
+            "mocap_pos": npy(ops.get("mocap_pos")),
+            "mocap_quat": npy(ops.get("mocap_quat"))}
+  spec = (task.name, float(task.model.opt.timestep), horizon)
+  acts = npy(actions)
+  if dtype == torch.float32 and witness is None:
+    entry = {"job": (spec, {**common, "actions": acts}, vs, "float32",
+                     "cuda")}
+    CARD_QUEUE.append(entry)
+    return PlainReturns([entry], actions.device)
+  # chunks of at least 128 candidates: below that a chunk's time is the
+  # per-op dispatch of every step, the same for any count
+  chunks = np.array_split(np.arange(acts.shape[0]), max(1, min(
+      PLAIN_WORKERS, acts.shape[0] // 128)))
+  futures = [PLAIN.submit(_plain_job, spec, {**common, "actions": acts[c]},
+                          vs, str(dtype).split(".")[1], "cpu",
+                          witness == "trig64")
+             for c in chunks if len(c)]
+  return PlainReturns(futures, actions.device)
+
+
+def run_card_queue():
+  """The queued float32 runs, CARD_WORKERS at once on the card (none of
+  the card's work is timed any more); the pool, for main to stop."""
+  pool = concurrent.futures.ProcessPoolExecutor(
+      max_workers=CARD_WORKERS, initializer=_worker_init, initargs=(True,),
+      mp_context=multiprocessing.get_context("spawn"))
+  for entry in CARD_QUEUE:
+    entry["future"] = pool.submit(_plain_job, *entry["job"])
+  return pool
+
+
+def resolve_deferred():
+  """Every deferred comparison, in the order the phases made them."""
+  while DEFERRED:
+    DEFERRED.pop(0)()
+
+
+def ratio(num, den):
+  """num / den elementwise, 0 where both are 0 (a return of exactly 0 in
+  both versions) and inf where only den is."""
+  import torch
+  zero = den == 0
+  safe = torch.where(zero, torch.ones_like(den), den)
+  return torch.where(zero, torch.where(num == 0, 0.0, float("inf")).to(
+      num.dtype), num / safe)
+
+
 def agreement(got, want, what: str):
   """(max relative, max absolute) |kernel - plain| of returns; fails on a
   non-finite kernel return or beyond rtol 2e-3."""
@@ -61,7 +228,7 @@ def agreement(got, want, what: str):
   check(bool(torch.all(torch.isfinite(got))),
         f"{what}: non-finite kernel returns")
   diff = (got - want).abs()
-  rel = float((diff / want.abs()).max())
+  rel = float(ratio(diff, want.abs()).max())
   check(rel <= 2e-3, f"{what}: kernel disagrees with the plain version "
         f"(max rel err {rel:.3g} > 2e-3)")
   return rel, float(diff.max())
@@ -91,16 +258,94 @@ def uncontracted(MR):
     MR._library = library
 
 
-def noise_bound(got, plain, plain64, what: str, hold: bool = True,
-                witness=None) -> dict:
+# How a phase holds the kernel's returns against the plain version's: in
+# float32 per candidate at rtol 2e-3 (agreement), per candidate within the
+# plain float32 version's own distance from float64 (NOISE_BOUND:
+# noise_bound), or as a population (float_noise) where rounding decides
+# the rollouts, so that no two float32 orderings agree per candidate; in
+# float64 per candidate at rtol 2e-3 (agreement64) or not at all (None).
+PER_CANDIDATE, NOISE_BOUND, POPULATION = ("per candidate", "noise bound",
+                                          "population")
+
+
+@dataclasses.dataclass(frozen=True)
+class Hold:
+  f32: str = PER_CANDIDATE
+  f64: str | None = None
+
+
+def hold_returns(what: str, hold: Hold, got, plain, got64=None, plain64=None,
+                 witness=None, perturbed=None) -> dict:
+  """The kernel's returns (got; got64 from its double instance) held
+  against the plain version's (plain; plain64 in float64) as `hold` says;
+  `witness` and `perturbed` are noise_bound's witnesses of rounding. Fails
+  on any candidate or population beyond its hold. Returns the results per
+  precision, the max rel and abs |kernel - plain| in float32 and
+  `err_over_tol`, the largest error as a fraction of what its hold
+  allows."""
+  out = {"hold": dataclasses.asdict(hold)}
+  diff = (got - plain).abs()
+  out["rel_err"] = float(ratio(diff, plain.abs()).max())
+  out["abs_err"] = float(diff.max())
+  over = []
+  if hold.f32 == PER_CANDIDATE:
+    agreement(got, plain, what)
+    over.append(out["rel_err"] / 2e-3)
+  elif hold.f32 == NOISE_BOUND:
+    nb = out["f32"] = noise_bound(got, plain, plain64, what, witness,
+                                  perturbed)
+    over.append(nb["held_over_bound"])
+  else:
+    pop = out["f32"] = float_noise(got, plain, plain64, what)
+    over.append(population_ratio(pop))
+  if hold.f64 == PER_CANDIDATE:
+    r64 = out["f64"] = agreement64(got64, plain64, f"{what} in float64")
+    over.append(r64["max_rel"] / 2e-3)
+  out["err_over_tol"] = max(over)
+  return out
+
+
+def hold_summary(res: dict) -> str:
+  """One line of a hold_returns result."""
+  hold = res["hold"]
+  line = (f"float32 {hold['f32']}: max rel err {res['rel_err']:.3g}, max "
+          f"abs err {res['abs_err']:.3g}")
+  f32 = res.get("f32", {})
+  if hold["f32"] == NOISE_BOUND:
+    line += (f", within 2e-3 |p32| + 4 |p32 - p64| at most "
+             f"{f32['held_over_bound']:.3g} of it, "
+             f"{len(f32['contraction_only'])} beyond it by contraction alone "
+             f"and {len(f32['rounding_witnessed'])} with a perturbed plain "
+             f"run beyond it on the kernel's side; plain float32 vs float64 "
+             f"max rel {f32['plain_f32_vs_f64_max_rel']:.3g}")
+  elif hold["f32"] == POPULATION:
+    line += (f", beyond rel 2e-3 of float64: kernel {f32['kernel_beyond']},"
+             f" plain float32 {f32['plain_beyond']} (median rel "
+             f"{f32['kernel_median']:.3g} and {f32['plain_median']:.3g}); "
+             f"winner kernel {f32['winner']}, plain {f32['plain_winner']}")
+  else:
+    line += " (tol 2e-3)"
+  f64 = res.get("f64")
+  if hold["f64"] == PER_CANDIDATE:
+    line += (f"; float64 per candidate: max rel err {f64['max_rel']:.3g} "
+             f"(tol 2e-3), max abs {f64['max_abs']:.3g}, {f64['blown']} at "
+             f"or past MAX_RETURN in both")
+  return line
+
+
+def noise_bound(got, plain, plain64, what: str, witness=None,
+                perturbed=None) -> dict:
   """The float32 kernel per candidate against the plain float32 version
   within 2e-3 |p32| + 4 |p32 - p64|: the plain version's own float32
-  distance from float64 widens the bound where rounding is amplified.
-  Where a candidate is beyond it, `witness()` gives the returns of the
-  same kernel built without contraction: a candidate whose uncontracted
-  returns lie within the bound missed it by contraction rounding alone
-  (listed in contraction_only). Fails, where `hold`, on any other
-  candidate beyond the bound."""
+  distance from float64 widens the bound where rounding is amplified. A
+  candidate beyond it passes only where a witness shows the miss is
+  rounding: the same kernel built without contraction (`witness`, its
+  returns) lands within the bound, so the miss is the contraction's
+  rounding alone (contraction_only); or the plain float32 version itself,
+  under a perturbation the size of float32 rounding (`perturbed(idx)`,
+  rounding_witnesses), lands beyond the bound on the kernel's side, so the
+  plain version's own answer there is rounding's (rounding_witnessed).
+  Fails on any other candidate beyond the bound."""
   import torch
   check(bool(torch.all(torch.isfinite(got))),
         f"{what}: non-finite kernel returns")
@@ -108,34 +353,113 @@ def noise_bound(got, plain, plain64, what: str, hold: bool = True,
   dist = (plain - plain64.to(plain.dtype)).abs()
   allowed = 2e-3 * plain.abs() + 4.0 * dist
   beyond = gap > allowed
-  out = {"rel_err": float((gap / plain.abs()).max()),
+  over = ratio(gap, allowed)
+  out = {"rel_err": float(ratio(gap, plain.abs()).max()),
          "abs_err": float(gap.max()),
-         "gap_over_bound": float((gap / allowed).max()),
+         "gap_over_bound": float(over.max()),
          "plain_f32_vs_f64_max_abs": float(dist.max()),
-         "plain_f32_vs_f64_max_rel": float((dist / plain64.abs()).max()),
-         "contraction_only": []}
-  worst = int(torch.argmax(gap / allowed))
+         "plain_f32_vs_f64_max_rel": float(ratio(
+             dist.double(), plain64.abs()).max()),
+         "contraction_only": [], "rounding_witnessed": []}
+  worst = int(torch.argmax(over))
   out["worst"] = {"candidate": worst, "kernel": float(got[worst]),
                   "plain32": float(plain[worst]),
                   "plain64": float(plain64[worst])}
   if witness is not None and bool(beyond.any()):
-    u = witness()
-    ugap = (u - plain).abs()
+    ugap = (witness - plain).abs()
     explained = beyond & (ugap <= allowed)
     for i in torch.nonzero(explained).flatten().tolist():
       out["contraction_only"].append({
           "candidate": i, "kernel": float(got[i]),
-          "uncontracted": float(u[i]), "plain32": float(plain[i]),
+          "uncontracted": float(witness[i]), "plain32": float(plain[i]),
           "plain64": float(plain64[i]),
           "kernel_over_bound": float(gap[i] / allowed[i]),
           "uncontracted_over_bound": float(ugap[i] / allowed[i])})
     beyond = beyond & ~explained
-  over = out["beyond_noise_bound"] = int(beyond.sum())
-  check(over == 0 or not hold, f"{what}: {over} candidates beyond |k - "
-        f"p32| <= 2e-3 |p32| + 4 |p32 - p64| (the uncontracted kernel "
-        f"beyond it too); the worst, {out['worst']}, at "
+  if perturbed is not None and bool(beyond.any()):
+    idx = torch.nonzero(beyond).flatten()
+    runs = perturbed(idx)
+    side = torch.sign(got[idx] - plain[idx])
+    for j, i in enumerate(idx.tolist()):
+      sides = [k for k, r in runs.items()
+               if abs(float(r[j] - plain[i])) > float(allowed[i])
+               and torch.sign(r[j] - plain[i]) == side[j]]
+      if sides:
+        beyond[i] = False
+        out["rounding_witnessed"].append({
+            "candidate": i, "kernel": float(got[i]),
+            "plain32": float(plain[i]), "plain64": float(plain64[i]),
+            "kernel_over_bound": float(gap[i] / allowed[i]),
+            "perturbed": {k: float(r[j]) for k, r in runs.items()},
+            "sides_with_the_kernel": sides})
+  out["held_over_bound"] = float(torch.where(beyond | (gap <= allowed),
+                                             over, 0.0).max())
+  n_out = out["beyond_noise_bound"] = int(beyond.sum())
+  check(n_out == 0, f"{what}: {n_out} candidates beyond |k - p32| <= "
+        f"2e-3 |p32| + 4 |p32 - p64| with no witness of rounding (the "
+        f"uncontracted kernel beyond it too, and no perturbed plain run "
+        f"beyond it on the kernel's side); the worst, {out['worst']}, at "
         f"{out['gap_over_bound']:.4g} of it")
   return out
+
+
+# float32's machine epsilon
+EPS32 = 1.1920929e-07
+
+
+@contextlib.contextmanager
+def trig_from_float64():
+  """torch.sin and torch.cos computed in float64 and rounded to the
+  argument's dtype: another rounding of the plain version's joint
+  quaternions."""
+  import torch
+  sin, cos = torch.sin, torch.cos
+  torch.sin = lambda x: sin(x.double()).to(x.dtype)
+  torch.cos = lambda x: cos(x.double()).to(x.dtype)
+  try:
+    yield
+  finally:
+    torch.sin, torch.cos = sin, cos
+
+
+def rounding_witnesses(task, args, ops):
+  """noise_bound's `perturbed`: idx -> the plain float32 returns of those
+  candidates of args (qpos0, qvel0, actions, params, t0) under five
+  perturbations the size of float32 rounding, on the CPU workers at once:
+  sin and cos rounded from float64, and the start qpos, then qvel, moved
+  by one machine epsilon (relative, at least absolute) either way."""
+  import torch
+  qpos0, qvel0, actions, params, t0 = args
+
+  def nudge(x, sign):
+    return x + sign * EPS32 * torch.clamp(x.abs(), min=1.0)
+
+  def runs(idx):
+    sub = actions[idx].contiguous()
+
+    def submit(q, v, trig64=False):
+      return plain_submit(task, sub.shape[1], (q, v, sub, params, t0), ops,
+                          torch.float32,
+                          witness="trig64" if trig64 else "nudge")
+
+    jobs = {"trig_from_float64": submit(qpos0, qvel0, trig64=True)}
+    for sign in (1, -1):
+      jobs[f"qpos{sign:+d}eps"] = submit(nudge(qpos0, sign), qvel0)
+      jobs[f"qvel{sign:+d}eps"] = submit(qpos0, nudge(qvel0, sign))
+    return {k: j.get()[0][0] for k, j in jobs.items()}
+
+  return runs
+
+
+def print_witnessed(tag: str, res: dict) -> None:
+  """The candidates noise_bound let pass on a perturbed plain run."""
+  for c in res.get("f32", {}).get("rounding_witnessed", []):
+    print(f"[{tag}] candidate {c['candidate']} beyond the bound "
+          f"({c['kernel_over_bound']:.3g} of it), a perturbed plain run "
+          f"beyond it on the kernel's side: kernel {c['kernel']:.7g}, plain "
+          f"float32 {c['plain32']:.7g}, float64 {c['plain64']:.10g}, "
+          f"perturbed {c['perturbed']}, on the kernel's side "
+          f"{c['sides_with_the_kernel']}")
 
 
 def row_classes(tm):
@@ -162,6 +486,15 @@ _ELEMENTWISE = {"add", "sub", "rsub", "mul", "div", "neg", "reciprocal",
                 "maximum", "where", "lt", "le", "gt", "ge", "eq", "ne",
                 "bitwise_and", "bitwise_or", "logical_not", "isfinite"}
 _REDUCTIONS = {"sum", "max", "amax", "min", "amin"}
+
+
+def start_qpos(model):
+  """The model's home keyframe's qpos, or qpos0 where it has none."""
+  import numpy as np
+  try:
+    return np.asarray(model.keyframe("home")[0], np.float32)
+  except KeyError:
+    return model.qpos0.detach().cpu().numpy().astype(np.float32)
 
 
 def step_ops(task) -> int:
@@ -196,8 +529,7 @@ def step_ops(task) -> int:
 
   tm = tilestep.extract(task.model)
   p = task.params
-  qpos = torch.tensor(np.asarray(task.model.keyframe("home")[0],
-                                 np.float32))[:, None]
+  qpos = torch.tensor(start_qpos(task.model))[:, None]
   with torch.inference_mode(), Count():
     _, _, view = tilestep.step_tb(tm, qpos, torch.zeros(tm.nv, 1),
                                   torch.zeros(tm.nu, 1),
@@ -227,9 +559,10 @@ def bound(ops_per_step: int, n: int, horizon: int, task):
 
 def agreement64(got, want, what: str) -> dict:
   """Kernel vs plain returns, both in float64, candidate by candidate at
-  rtol 2e-3. A candidate the plain version scores at MAX_RETURN or more
-  (diverged, or blown up to a finite return past it) must be scored so by
-  the kernel too: past that point nothing compares, in any precision."""
+  rtol 2e-3. A candidate the
+  plain version scores at MAX_RETURN or more (diverged, or blown up to a
+  finite return past it) must be scored so by the kernel too: past that
+  point nothing compares, in any precision."""
   import torch
   from mujoco_mpc_torch.ops import megarollout as MR
   check(bool(torch.all(~torch.isnan(got))), f"{what}: NaN kernel returns")
@@ -239,11 +572,11 @@ def agreement64(got, want, what: str) -> dict:
         f"plain version scores at or above it")
   ok = ~blown
   diff = (got[ok] - want[ok]).abs()
-  rel = diff / want[ok].abs()
+  rel = ratio(diff, want[ok].abs())
   out = {"max_rel": float(rel.max()), "max_abs": float(diff.max()),
          "blown": int(blown.sum())}
-  check(out["max_rel"] <= 2e-3, f"{what}: kernel disagrees with the plain "
-        f"version (max rel err {out['max_rel']:.3g} > 2e-3)")
+  check(out["max_rel"] <= 2e-3, f"{what}: kernel disagrees "
+        f"with the plain version (max rel err {out['max_rel']:.3g} > 2e-3)")
   return out
 
 
@@ -260,13 +593,15 @@ def float_noise(got, plain, plain64, what: str) -> dict:
   import torch
   check(bool(torch.all(torch.isfinite(got))),
         f"{what}: non-finite kernel returns")
-  rel_k = ((got.double() - plain64) / plain64).abs()
-  rel_p = ((plain.double() - plain64) / plain64).abs()
+  rel_k = ratio((got.double() - plain64).abs(), plain64.abs())
+  rel_p = ratio((plain.double() - plain64).abs(), plain64.abs())
   out = {"kernel_beyond": int((rel_k > 2e-3).sum()),
          "plain_beyond": int((rel_p > 2e-3).sum()),
          "kernel_median": float(rel_k.median()),
          "plain_median": float(rel_p.median()),
-         "kernel_vs_plain_max_rel": float(((got - plain) / plain).abs().max()),
+         "kernel_vs_plain_max_rel": float(ratio(
+             (got.double() - plain.double()).abs(), plain.double().abs())
+             .max()),
          "winner": int(torch.argmin(got)),
          "plain_winner": int(torch.argmin(plain))}
   best = float(plain.min())
@@ -280,6 +615,12 @@ def float_noise(got, plain, plain64, what: str) -> dict:
   check(float(plain[out["winner"]]) <= best + 2e-3 * abs(best),
         f"{what}: the kernel's winner is not the plain version's best")
   return out
+
+
+def population_ratio(pop: dict) -> float:
+  """A float_noise result as a fraction of what it allows: the kernel's
+  count beyond rel 2e-3 of float64 over the count allowed."""
+  return pop["kernel_beyond"] / max(2 * pop["plain_beyond"], 2)
 
 
 def timed_cuda(fn, reps: int) -> float:
@@ -365,15 +706,15 @@ def probe_step(tag: str, mr, states, operands) -> dict:
 
 
 def drive_agent(tag: str, agent, nu: int, monotone: bool = True,
-                noisy: bool = False):
+                hold: Hold = Hold()):
   """The main path: the agent's launch count set to 0, 5 plan steps at a
   fixed state, the count read back. Checks one launch per plan, finite
   costs and action, and (for the sampling planner, whose candidate 0 is
   the previous winner) a best return that does not rise. Then one plan's
   candidates, with the state's mocap poses and userdata, through the
-  kernel (timed) and the plain version, per candidate at rtol 2e-3 or,
-  `noisy`, within 2e-3 |p32| + 4 |p32 - p64| (noise_bound). Returns (the
-  numbers, that plan's actions)."""
+  kernel (timed) and the plain version (on the workers; the checks
+  deferred to resolve_deferred), held as `hold` says (hold_returns).
+  Returns (the numbers, that plan's actions)."""
   import numpy as np
   import torch
   cfg = agent.planner.config
@@ -402,46 +743,82 @@ def drive_agent(tag: str, agent, nu: int, monotone: bool = True,
   new_times, _, cands = pl._gen_candidates(atask, agent.policy, d,
                                            agent.generator)
   acts = pl._actions(atask, d, new_times, cands)
-  args = (d.qpos, d.qvel, acts, atask.params, d.time)
-  ops = dict(mocap_pos=d.mocap_pos, mocap_quat=d.mocap_quat,
-             userdata=d.userdata)
-  got = pl.mega.returns(*args, **ops)
-  t = time.perf_counter()
-  want = run_plain(pl.mega.returns_plain, *args, **ops)
-  torch.cuda.synchronize()
-  plain_ms = (time.perf_counter() - t) * 1e3
-  what = f"{tag}: returns {tuple(acts.shape)}"
-  out = {"best": best, "launches": launches, "ms_per_plan": plan_ms,
-         "plain_ms": plain_ms}
-  if noisy:
-    want64 = run_plain(pl.mega.returns_plain, *args,
-                       dtype=torch.float64, **ops)
-    nb = out["noise"] = noise_bound(got, want, want64, what)
-    rel, abs_err = nb["rel_err"], nb["abs_err"]
-    tol = (f"tol 2e-3 |p32| + 4 |p32 - p64|, at most "
-           f"{nb['gap_over_bound']:.3g} of it; plain float32 vs float64 "
-           f"max abs {nb['plain_f32_vs_f64_max_abs']:.3g}, max rel "
-           f"{nb['plain_f32_vs_f64_max_rel']:.3g}")
-  else:
-    rel, abs_err = agreement(got, want, what)
-    tol = "tol 2e-3"
-  ms = timed_cuda(lambda: pl.mega.returns(*args, **ops), 3)
-  print(f"[{tag}] one plan's candidates {tuple(acts.shape)}: max rel err "
-        f"{rel:.3g}, max abs err {abs_err:.3g} ({tol}); kernel {ms:.3f} "
-        f"ms/call, plain {plain_ms:.1f} ms/call")
-  out.update(returns_rel_err=rel, returns_abs_err=abs_err, kernel_ms=ms)
+  out = {"best": best, "launches": launches, "ms_per_plan": plan_ms}
+  finish = hold_deferred(f"{tag}: returns {tuple(acts.shape)}", hold,
+                         pl.mega, (d.qpos, d.qvel, acts, atask.params,
+                                   d.time),
+                         dict(mocap_pos=d.mocap_pos, mocap_quat=d.mocap_quat,
+                              userdata=d.userdata), out)
+
+  def report():
+    res = finish()
+    print(f"[{tag}] one plan's candidates {tuple(acts.shape)}: "
+          f"{hold_summary(res)}; kernel {out['kernel_ms']:.3f} ms/call, "
+          f"plain {out['plain_ms']:.1f} ms (on the card, beside "
+          f"{CARD_WORKERS - 1} more plain runs)")
+    print_witnessed(tag, res)
+
+  DEFERRED.append(report)
   return out, acts
 
 
+def hold_deferred(what: str, hold: Hold, mr, args, ops, out: dict,
+                  witness=None):
+  """The kernel's returns of args (qpos0, qvel0, actions, params, t0) with
+  the rollout-constant ops, in float32 (timed into out["kernel_ms"]) and,
+  where `hold` compares float64, from the double instance; the plain
+  version's in float32 (the card's queue) and, where a hold needs it, in
+  float64 (the CPU workers). Returns the deferred check: it waits for the
+  plain returns, holds the kernel's (hold_returns, with the uncontracted
+  kernel's returns `witness` and the plain version's under rounding-sized
+  perturbations as noise_bound's witnesses), records the result and the
+  plain times in `out` and returns the result."""
+  import torch
+  qpos0, qvel0, actions, params, t0 = args
+  got = mr.returns(*args, **ops)
+  out["kernel_ms"] = timed_cuda(lambda: mr.returns(*args, **ops), 3)
+  got64 = None
+  if hold.f64 is not None:
+    wide = {k: v.double() for k, v in ops.items()}
+    got64 = mr.returns(qpos0.double(), qvel0.double(), actions.double(),
+                       params.to(dtype=torch.float64), torch.as_tensor(
+                           t0).double(), **wide)
+  torch.cuda.synchronize()
+  task, horizon = mr.task, actions.shape[1]
+  jobs = plain_submit(task, horizon, args, ops, torch.float32)
+  needs64 = hold.f32 != PER_CANDIDATE or hold.f64 is not None
+  jobs64 = (plain_submit(task, horizon, args, ops, torch.float64)
+            if needs64 else None)
+
+  def finish():
+    (plain,), out["plain_ms"] = jobs.get()
+    plain64 = None
+    if jobs64 is not None:
+      (plain64,), out["plain64_ms"] = jobs64.get()
+    res = hold_returns(what, hold, got, plain, got64, plain64,
+                       witness=witness,
+                       perturbed=rounding_witnesses(task, args, ops))
+    out.update(res)
+    out.update(returns_rel_err=res["rel_err"], returns_abs_err=res["abs_err"])
+    return res
+
+  return finish
+
+
 def bench_shape(tag: str, task, n: int, horizon: int, cfg, operands,
-                reps: int, chaotic: bool = False) -> dict:
+                reps: int, hold: Hold | None = Hold(NOISE_BOUND,
+                                                     PER_CANDIDATE),
+                prefix=None) -> dict:
   """The bench shape: SamplingPlanner.optimize timed at n x horizon at the
   task model's dt (median, p66.7, max over reps calls after a warm-up
   call), the kernel timed between CUDA events, and one plan's returns held
-  against the plain version: the double instance per candidate in float64
-  (agreement64), and the float kernel per candidate within 2e-3 |p32| +
-  4 |p32 - p64| (noise_bound, with the uncontracted kernel as its
-  witness) or, for chaotic rollouts, as a population (float_noise)."""
+  against the plain version as `hold` says (hold_returns; by default the
+  float kernel within its own float32 noise, the uncontracted kernel its
+  witness, and the double instance per candidate). With `prefix`, the
+  plain comparisons run on the first `prefix` candidates of the same
+  action set: candidates are independent. With no `hold`, the bench is
+  timed only: a caller whose Agent plans at the same horizon and dt holds
+  the kernel there."""
   import numpy as np
   import torch
   from mujoco_mpc_torch.ops import megarollout as MR
@@ -455,7 +832,7 @@ def bench_shape(tag: str, task, n: int, horizon: int, cfg, operands,
       num_trajectories=n, horizon=horizon, spline_points=cfg.spline_points,
       interp=cfg.interp))
   policy = planner.init(task)
-  home = torch.tensor(task.model.keyframe("home")[0], device=dev)
+  home = torch.tensor(start_qpos(task.model), device=dev)
   ops32 = operands(torch.float32)
   data = phys_io.make_data(task.model).replace(qpos=home.clone(), **ops32)
   gen = torch.Generator(device=dev).manual_seed(0)
@@ -473,80 +850,68 @@ def bench_shape(tag: str, task, n: int, horizon: int, cfg, operands,
   new_times, _, cands = planner._gen_candidates(task, policy, data, gen)
   acts = planner._actions(task, data, new_times, cands)
   v0 = torch.zeros(task.model.nv, device=dev)
-  args = (home, v0, acts, task.params, data.time)
-  got = planner.mega.returns(*args, **ops32)
-  torch.cuda.synchronize()
-  t = time.perf_counter()
-  plain = run_plain(planner.mega.returns_plain, *args, **ops32)
-  torch.cuda.synchronize()
-  plain_ms = (time.perf_counter() - t) * 1e3
   ops64 = operands(torch.float64)
-  args64 = (home.double(), v0.double(), acts.double(),
+
+  def wide(a):
+    return (home.double(), v0.double(), a.double(),
             task.params.to(dtype=torch.float64), data.time.double())
-  got64 = planner.mega.returns(*args64, **ops64)
-  torch.cuda.synchronize()
-  t = time.perf_counter()
-  plain64 = run_plain(planner.mega.returns_plain, *args64,
-                      dtype=torch.float64, **ops64)
-  torch.cuda.synchronize()
-  plain64_ms = (time.perf_counter() - t) * 1e3
+
+  # the kernel timed over the whole action set before any plain run
+  timed_args, timed64 = (home, v0, acts, task.params, data.time), wide(acts)
+  ms = timed_cuda(lambda: planner.mega.returns(*timed_args, **ops32), 3)
+  ms64 = timed_cuda(lambda: planner.mega.returns(*timed64, **ops64), 1)
   name = task.name
-  r64 = agreement64(got64, plain64, f"{name} returns {shape} in float64")
-  check(bool(torch.all(torch.isfinite(got))),
-        f"{name}: non-finite kernel returns at {shape}")
-  rel_p = ((plain.double() - plain64) / plain64).abs()
-
-  def witness():
-    with uncontracted(MR):
-      return planner.mega.returns(*args, **ops32)
-
   out = {"optimize_ms": per_call, "steps_per_s": steps_s,
-         "plan_hz": reps / wall, "plain_ms": plain_ms,
-         "plain64_ms": plain64_ms, "f64": r64,
-         **noise_bound(got, plain, plain64, f"{name} returns {shape}",
-                       hold=not chaotic, witness=None if chaotic else witness),
-         "plain_f32_beyond_2e-3_of_f64": int((rel_p > 2e-3).sum())}
-  over = out["beyond_noise_bound"]
-  if chaotic:
-    pop = out["population"] = float_noise(got, plain, plain64,
-                                          f"{name} returns {shape}")
-    print(f"[{tag}] float32 against float64, over all candidates: kernel "
-          f"{pop['kernel_beyond']} beyond rel 2e-3 (median rel "
-          f"{pop['kernel_median']:.3g}), plain float32 {pop['plain_beyond']} "
-          f"(median {pop['plain_median']:.3g}); winner kernel "
-          f"{pop['winner']}, plain {pop['plain_winner']}")
-  out["kernel_ms"] = ms = timed_cuda(
-      lambda: planner.mega.returns(*args, **ops32), 3)
-  out["kernel64_ms"] = timed_cuda(
-      lambda: planner.mega.returns(*args64, **ops64), 1)
-  out["step_ops"] = step_ops(registry.get_task(name, device="cpu"))
+         "plan_hz": reps / wall, "kernel_ms": ms, "kernel64_ms": ms64,
+         "step_ops": step_ops(registry.get_task(name, device="cpu"))}
   out["bound_ms"], out["bound_by"] = bound(out["step_ops"], n, horizon, task)
-  print(f"[{tag}] SamplingPlanner {shape} at dt "
-        f"{float(task.model.opt.timestep):g}: {steps_s:.0f} steps/s, "
-        f"{reps / wall:.3f} plan Hz; optimize ms median {q[0]:.3f}, p66.7 "
-        f"{q[1]:.3f}, max {q[2]:.3f} (n={reps}); kernel {ms:.3f} ms/call "
-        f"({ms / horizon:.3f} ms per step), plain {plain_ms:.1f} ms/call")
-  print(f"[{tag}] float64 kernel vs float64 plain, per candidate: max rel "
-        f"err {r64['max_rel']:.3g} (tol 2e-3), max abs err "
-        f"{r64['max_abs']:.3g}, {r64['blown']} at or past MAX_RETURN in "
-        f"both; float64 kernel {out['kernel64_ms']:.3f} ms/call, plain "
-        f"{plain64_ms:.1f} ms/call")
-  print(f"[{tag}] float32 kernel vs float32 plain, per candidate: max rel "
-        f"err {out['rel_err']:.3g}, max abs err {out['abs_err']:.3g}; beyond "
-        f"2e-3 |p32| + 4 |p32 - p64|: {over}"
-        f"{' (not a check: chaotic, held as a population)' if chaotic else ''}"
-        f"; plain float32 vs float64 max rel "
-        f"{out['plain_f32_vs_f64_max_rel']:.3g}, "
-        f"{out['plain_f32_beyond_2e-3_of_f64']} candidates beyond 2e-3")
-  for c in out["contraction_only"]:
-    print(f"[{tag}] candidate {c['candidate']} beyond the bound by "
-          f"contraction alone: kernel {c['kernel']:.7g} "
-          f"({c['kernel_over_bound']:.3g} of the bound), uncontracted "
-          f"{c['uncontracted']:.7g} ({c['uncontracted_over_bound']:.3g}), "
-          f"plain float32 {c['plain32']:.7g}, float64 {c['plain64']:.10g}")
-  print(f"[{tag}] plain {name} step at B=1: {out['step_ops']} operations; "
-        f"bound at {shape} {out['bound_ms']:.4f} ms ({out['bound_by']}); "
-        f"kernel at {100 * out['bound_ms'] / ms:.4f} % of it")
+  summary = (f"[{tag}] SamplingPlanner {shape} at dt "
+             f"{float(task.model.opt.timestep):g}: {steps_s:.0f} steps/s, "
+             f"{reps / wall:.3f} plan Hz; optimize ms median {q[0]:.3f}, "
+             f"p66.7 {q[1]:.3f}, max {q[2]:.3f} (n={reps}); kernel "
+             f"{ms:.3f} ms/call ({ms / horizon:.3f} ms per step), float64 "
+             f"{ms64:.3f} ms/call")
+  bounded = (f"[{tag}] plain {name} step at B=1: {out['step_ops']} "
+             f"operations; bound at {shape} {out['bound_ms']:.4f} ms "
+             f"({out['bound_by']}); kernel at "
+             f"{100 * out['bound_ms'] / ms:.4f} % of it")
+  if hold is None:
+    print(f"{summary} (timed only: the Agent's phase held the kernel at "
+          f"this horizon and dt)")
+    print(bounded)
+    return out
+  if prefix is not None:  # the comparisons' candidates
+    acts = acts[:prefix].contiguous()
+  args = (home, v0, acts, task.params, data.time)
+  # the uncontracted kernel's returns, on the card now (no timing runs
+  # later in this phase): the witness of a candidate beyond the bound
+  unfused = None
+  if hold.f32 == NOISE_BOUND:
+    with uncontracted(MR):
+      unfused = planner.mega.returns(*args, **ops32)
+  timing = {}
+  finish = hold_deferred(f"{name} returns {shape}", hold, planner.mega, args,
+                         ops32, timing, witness=unfused)
+
+  def report():
+    res = finish()
+    out.update(res, plain_ms=timing["plain_ms"],
+               plain64_ms=timing.get("plain64_ms"))
+    print(f"{summary}, plain {timing['plain_ms']:.1f} ms on the card beside "
+          f"{CARD_WORKERS - 1} more plain runs ({acts.shape[0]} "
+          f"candidates)")
+    print(f"[{tag}] {hold_summary(res)}")
+    for c in res.get("f32", {}).get("contraction_only", []):
+      print(f"[{tag}] candidate {c['candidate']} beyond the bound by "
+            f"contraction alone: kernel {c['kernel']:.7g} "
+            f"({c['kernel_over_bound']:.3g} of the bound), uncontracted "
+            f"{c['uncontracted']:.7g} "
+            f"({c['uncontracted_over_bound']:.3g}), plain float32 "
+            f"{c['plain32']:.7g}, float64 {c['plain64']:.10g}")
+    print_witnessed(tag, res)
+    print(bounded)
+
+  DEFERRED.append(report)
   return out
 
 
@@ -585,7 +950,6 @@ def run_quadruped(dev, rec: dict, reps: int) -> dict:
   agent.set_state(mocap_pos=goal, userdata=quadruped.fsm_userdata(nud))
   cfg = agent.planner.config
   drive, acts = drive_agent("4q", agent, 12)
-  rel4, abs4 = drive["returns_rel_err"], drive["returns_abs_err"]
   pl, atask, d = agent.planner, agent.task, agent.data
 
   # ---- 4q-modes. every branch of residual_quadruped and
@@ -607,35 +971,42 @@ def run_quadruped(dev, rec: dict, reps: int) -> dict:
                                           biped_type).params, ud)
   ops = operands(torch.float32)
   # the plain version scores every branch from one physics rollout
-  wants = run_plain(
-      pl.mega.returns_plain_variants, d.qpos, d.qvel, acts,
-      [(p, torch.tensor(u, device=dev)) for p, u in variants.values()],
-      d.time, mocap_pos=ops["mocap_pos"], mocap_quat=ops["mocap_quat"])
-  mode_err = {}
-  for (case, (params, ud)), want in zip(variants.items(), wants):
-    got = pl.mega.returns(d.qpos, d.qvel, acts, params, d.time,
+  jobs = plain_submit(
+      atask, acts.shape[1], (d.qpos, d.qvel, acts, atask.params, d.time),
+      ops, torch.float32,
+      [(p, torch.tensor(u, device=dev)) for p, u in variants.values()])
+  gots = [pl.mega.returns(d.qpos, d.qvel, acts, params, d.time,
                           **operands(torch.float32, ud))
-    torch.cuda.synchronize()
-    mode_err[case] = agreement(got, want, f"Quadruped {case} returns")
-  print(f"[4q-modes] per candidate at {tuple(acts.shape)}, (max rel, max "
-        f"abs) err per branch (tol rel 2e-3): "
-        f"{({k: (float(f'{r:.3g}'), float(f'{a:.3g}')) for k, (r, a) in mode_err.items()})}")
+          for params, ud in variants.values()]
+  torch.cuda.synchronize()
+  mode_err = {}
   rec.update(quadruped_agent=drive, quadruped_mode_errs=mode_err)
+
+  def finish():
+    wants, _ = jobs.get()
+    for case, got, want in zip(variants, gots, wants):
+      mode_err[case] = agreement(got, want, f"Quadruped {case} returns")
+    errs = {k: (float(f"{r:.3g}"), float(f"{a:.3g}"))
+            for k, (r, a) in mode_err.items()}
+    print(f"[4q-modes] per candidate at {tuple(acts.shape)}, (max rel, max "
+          f"abs) err per branch (tol rel 2e-3): {errs}")
+
+  DEFERRED.append(finish)
 
   # ---- 5q. the bench shape: 1024 candidates x 70 steps at the XML dt
   b5 = bench_shape("5q", task, 1024, 70, cfg, operands, reps)
   rec["quadruped_bench_1024x70"] = b5
-  return {
+  return lambda: {
       "name": "megarollout_returns[quadruped]", "route": "cuda",
       "source": "mujoco_mpc_torch/csrc/megarollout.cu",
       "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
-      "launches": drive["launches"], "max_abs_err": max(abs4,
-                                                         b5["abs_err"]),
+      "launches": drive["launches"],
+      "max_abs_err": max(drive["returns_abs_err"], b5["abs_err"]),
       "ms": b5["kernel_ms"], "plain_ms": b5["plain_ms"],
       "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
       "library_ms": None,
-      "err_over_tol": max([rel4, b5["f64"]["max_rel"]]
-                          + [r for r, _ in mode_err.values()]) / 2e-3}
+      "err_over_tol": max([drive["err_over_tol"], b5["err_over_tol"]]
+                          + [r / 2e-3 for r, _ in mode_err.values()])}
 
 
 # Shadow's goal orientation: a quarter turn about the vertical
@@ -675,7 +1046,7 @@ def run_shadow(dev, rec: dict, reps: int) -> dict:
   # ---- 5s. the bench shape: 512 candidates x 100 steps at the XML dt
   b5 = bench_shape("5s", task, 512, 100, cfg, operands, reps)
   rec["shadow_bench_512x100"] = b5
-  return {
+  return lambda: {
       "name": "megarollout_returns[shadow]", "route": "cuda",
       "source": "mujoco_mpc_torch/csrc/megarollout.cu",
       "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
@@ -684,8 +1055,7 @@ def run_shadow(dev, rec: dict, reps: int) -> dict:
       "ms": b5["kernel_ms"], "plain_ms": b5["plain_ms"],
       "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
       "library_ms": None,
-      "err_over_tol": max(drive["returns_rel_err"],
-                          b5["f64"]["max_rel"]) / 2e-3}
+      "err_over_tol": max(drive["err_over_tol"], b5["err_over_tol"])}
 
 
 # the handover's target: across the table from the box, as its transition
@@ -737,13 +1107,13 @@ def run_handover(dev, rec: dict, reps: int) -> dict:
   agent.reset("home")
   agent.set_state(mocap_pos=HANDOVER_TARGET)
   cfg = agent.planner.config
-  drive, _ = drive_agent("4b", agent, 16, noisy=True)
+  drive, _ = drive_agent("4b", agent, 16, hold=Hold(NOISE_BOUND))
   rec["handover_agent"] = drive
 
   # ---- 5b. the bench shape: 256 candidates x 80 steps at the XML dt
   b5 = bench_shape("5b", task, 256, 80, cfg, operands, reps)
   rec["handover_bench_256x80"] = b5
-  return {
+  return lambda: {
       "name": "megarollout_returns[handover]", "route": "cuda",
       "source": "mujoco_mpc_torch/csrc/megarollout.cu",
       "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
@@ -752,8 +1122,7 @@ def run_handover(dev, rec: dict, reps: int) -> dict:
       "ms": b5["kernel_ms"], "plain_ms": b5["plain_ms"],
       "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
       "library_ms": None,
-      "err_over_tol": max(drive["noise"]["gap_over_bound"],
-                          b5["f64"]["max_rel"] / 2e-3)}
+      "err_over_tol": max(drive["err_over_tol"], b5["err_over_tol"])}
 
 
 def run_allegro(dev, rec: dict, reps: int) -> dict:
@@ -788,13 +1157,13 @@ def run_allegro(dev, rec: dict, reps: int) -> dict:
   cfg = agent.planner.config
   check(agent.planner.mega.tier.name == "large",
         "Agent('Allegro') plans outside the large tier")
-  drive, _ = drive_agent("4a", agent, 12, noisy=True)
+  drive, _ = drive_agent("4a", agent, 12, hold=Hold(NOISE_BOUND))
   rec["allegro_agent"] = drive
 
   # ---- 5a. the bench shape: 512 candidates x 80 steps at the XML dt
   b5 = bench_shape("5a", task, 512, 80, cfg, operands, reps)
   rec["allegro_bench_512x80"] = b5
-  return {
+  return lambda: {
       "name": "megarollout_returns[allegro]", "route": "cuda",
       "source": "mujoco_mpc_torch/csrc/megarollout.cu",
       "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
@@ -803,8 +1172,162 @@ def run_allegro(dev, rec: dict, reps: int) -> dict:
       "ms": b5["kernel_ms"], "plain_ms": b5["plain_ms"],
       "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
       "library_ms": None,
-      "err_over_tol": max(drive["noise"]["gap_over_bound"],
-                          b5["gap_over_bound"], b5["f64"]["max_rel"] / 2e-3)}
+      "err_over_tol": max(drive["err_over_tol"], b5["err_over_tol"])}
+
+
+# the small tasks' Agent operands (tests/test_torch_small_tasks.py): a goal
+# for the mocap tasks, Rubik Faces' face targets
+SMALL_GOALS = {"Particle": [[0.1, -0.15, 0.01]],
+               "ParticleFixed": [[0.1, -0.15, 0.01]],
+               "Arm Reach": [[0.35, 0.25, 0.45]],
+               "Push": [[0.55, -0.2, 0.035]]}
+RUBIK_TARGETS = [1.5707963, 0.0, -1.5707963, 0.0, 0.0, 0.0]
+# the bench shape of each small task: 1024 candidates over the Agent's
+# horizon at the model's dt (ParticleFixed shares Particle's model)
+SMALL_BENCH = {"Cartpole": 100, "Acrobot": 150, "Particle": 50,
+               "Fingers": 100, "Arm Reach": 160, "Push": 140,
+               "Rubik Faces": 50}
+# the tasks whose model dt is their agent_timestep: the Agent plans at the
+# bench's horizon and dt, so the Agent's phase holds the kernel there and
+# the bench is timed only
+SAME_DT = ("Cartpole", "Acrobot", "Particle", "Rubik Faces")
+# how each small task's Agent plan (4x) is held: per candidate in both
+# precisions, the float32 kernel within its own float32 noise, but
+# Acrobot's float32 kernel as a population: its folded elbow (the links
+# antiparallel, the reference's parent-child capsule pair active) puts
+# the float32 closest points of the two links where rounding decides
+# them, so a candidate's float32 rollout may cross a contact that float64
+# does not (a state where the kernel and the plain float32 version agree,
+# 31468 and 31417 N, and float64 has no contact)
+SMALL_HOLD = {"Acrobot": Hold(POPULATION, PER_CANDIDATE)}
+
+
+def zero_row_step(tag: str, mr, states, operands) -> dict:
+  """One step of a model with no constraint rows (Rubik Faces) in both
+  precisions: finite, no duals, and the plain step_tb's qpos and qvel
+  (float32 1e-5 and 1e-4, float64 1e-12 and 1e-10)."""
+  import torch
+  from mujoco_mpc_torch.physics import tilestep
+
+  check(mr.tm.nrow == 0, f"{tag}: {mr.tm.nrow} constraint rows")
+  err = {}
+  for dt, key, tq, tv in ((torch.float32, "f32", 1e-5, 1e-4),
+                          (torch.float64, "f64", 1e-12, 1e-10)):
+    x = [torch.tensor(v, device=mr.device, dtype=dt) for v in states]
+    ops = operands(dt)
+    kq, kv, kl = mr.step(*x, **ops)
+    pq, pv, _ = run_plain(tilestep.step_tb, mr.tm, *x, **ops)
+    torch.cuda.synchronize()
+    err[key] = {"qpos": float((kq - pq).abs().max()),
+                "qvel": float((kv - pv).abs().max())}
+    check(bool(torch.all(torch.isfinite(kq)) and torch.all(
+        torch.isfinite(kv))) and kl.shape[0] == 0,
+          f"{tag}: non-finite step or duals in a zero-row model")
+    check(err[key]["qpos"] <= tq and err[key]["qvel"] <= tv,
+          f"{tag}: {key} zero-row step kernel disagrees: {err[key]}")
+  print(f"[{tag}] one step with no constraint rows, B="
+        f"{states[0].shape[1]}: float32 qpos {err['f32']['qpos']:.3g} "
+        f"(tol 1e-5), qvel {err['f32']['qvel']:.3g} (tol 1e-4); float64 "
+        f"{err['f64']['qpos']:.3g} (1e-12), {err['f64']['qvel']:.3g} (1e-10)")
+  return err
+
+
+def small_row(name, drive, b5) -> dict:
+  """A small task's row of the kernels line, once its comparisons are in:
+  the bench's kernel time (the Agent's for ParticleFixed), and the plain
+  time where the bench compared, else the Agent's (at the same horizon and
+  dt)."""
+  timed = b5 if b5 is not None else drive
+  held = [x for x in (drive, b5) if x and "err_over_tol" in x]
+  return {
+      "name": f"megarollout_returns[{name.lower()}]", "route": "cuda",
+      "source": "mujoco_mpc_torch/csrc/megarollout.cu",
+      "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
+      "launches": drive["launches"],
+      "max_abs_err": max(x["abs_err"] for x in held),
+      "ms": timed["kernel_ms"], "plain_ms": (b5 or {}).get(
+          "plain_ms", drive["plain_ms"]),
+      "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+      "library_ms": None, "err_over_tol": max(x["err_over_tol"]
+                                              for x in held)}
+
+
+def run_small_tasks(dev, rec: dict, reps: int) -> list:
+  """Phases 3k (the ball chain: a ball joint and the sphere-capsule pair),
+  3r (Rubik Faces' zero-row step), 4x and 5x per small task: the Agent at
+  its defaults (Cartpole through planner="sampling": its MJCF names the
+  gradient planner, not ported), held as SMALL_HOLD says, and the bench
+  shape, 1024 candidates at the model's dt, compared on a 128-candidate
+  prefix (timed only for SAME_DT). Returns their rows of the kernels
+  line."""
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.ops import megarollout as MR
+  from mujoco_mpc_torch.tasks import base
+  from mujoco_mpc_torch.tasks import class_models
+  from mujoco_mpc_torch.tasks import registry
+  from mujoco_mpc_torch.tasks import rubik
+
+  # ---- 3k. the ball chain from its snapshot: a ball joint mid-chain
+  #      (quaternions far from identity, some unnormalized), the
+  #      sphere-capsule pair, plane-sphere and plane-capsule end points
+  ctask = class_models.task("ball_chain", device=dev)
+  rec["ball_chain_step"] = probe_step(
+      "3k", MR.MegaRollout(ctask, 1, device=dev),
+      class_models.states("ball_chain", ctask.model, 128), lambda dt: {})
+
+  rows = []
+  for name in ("Cartpole", "Acrobot", "Particle", "ParticleFixed",
+               "Fingers", "Arm Reach", "Push", "Rubik Faces"):
+    t_task = time.perf_counter()
+    task = registry.get_task(name, device=dev)
+    ud = None
+    if name == "Rubik Faces":
+      ud = rubik.faces_userdata(task.model.nuserdata, RUBIK_TARGETS)
+    goal = SMALL_GOALS.get(name)
+
+    def operands(dtype, goal=goal, ud=ud):
+      ops = {}
+      if goal is not None:
+        ops["mocap_pos"] = torch.tensor(goal, dtype=dtype, device=dev)
+      if ud is not None:
+        ops["userdata"] = torch.tensor(ud, dtype=dtype, device=dev)
+      return ops
+
+    if name == "Rubik Faces":  # ---- 3r. no constraint rows at all
+      rec["rubik_zero_row_step"] = zero_row_step(
+          "3r", MR.MegaRollout(task, 1, device=dev),
+          base.probe_states(task.model, 128), operands)
+    # ---- 4x. the main path: the Agent at its defaults on the card
+    agent = Agent(name, device=dev, planner="sampling")
+    try:
+      agent.reset("home")
+    except KeyError:
+      agent.reset()
+    agent.set_state(**{k: v.cpu().numpy()
+                       for k, v in operands(torch.float32).items()})
+    drive, _ = drive_agent(f"4x {name}", agent, task.model.nu,
+                              hold=SMALL_HOLD.get(
+                                  name, Hold(NOISE_BOUND, PER_CANDIDATE)))
+    rec[f"agent[{name}]"] = drive
+    # ---- 5x. the bench shape (ParticleFixed: Particle's model and path)
+    b5 = None
+    if name in SMALL_BENCH:
+      b5 = bench_shape(f"5x {name}", task, 1024, SMALL_BENCH[name],
+                       agent.planner.config, operands, reps, prefix=128,
+                       hold=None if name in SAME_DT else Hold(
+                           NOISE_BOUND, PER_CANDIDATE))
+      rec[f"bench[{name}]"] = b5
+    if b5 is None:  # the kernels line's bound, at the Agent's shape
+      cfg = agent.planner.config
+      drive["bound_ms"], drive["bound_by"] = bound(
+          step_ops(registry.get_task(name, device="cpu")),
+          cfg.num_trajectories, cfg.horizon, agent.task)
+    rec[f"phase_s[{name}]"] = time.perf_counter() - t_task
+    print(f"[5x {name}] phases of {name} on the card: "
+          f"{rec[f'phase_s[{name}]']:.1f} s")
+    rows.append(functools.partial(small_row, name, drive, b5))
+  return rows
 
 
 def run_cem(dev, rec: dict) -> dict:
@@ -839,10 +1362,11 @@ def run_cem(dev, rec: dict) -> dict:
           f"from the same kernel returns {pol_err:.3g} (tol 1e-6)")
     check(pol_err <= 1e-6, f"{name} CEM: the new policy differs from the "
           f"CPU elite update by {pol_err:.3g}")
-    rec[f"cem_{name.lower()}"] = dict(drive, policy_err=pol_err)
+    drive["policy_err"] = pol_err
+    rec[f"cem_{name.lower()}"] = drive
   ops = step_ops(registry.get_task(name, device="cpu"))
   bound_ms, bound_by = bound(ops, acts.shape[0], acts.shape[1], agent.task)
-  return {
+  return lambda: {
       "name": "megarollout_returns[cem shadow]", "route": "cuda",
       "source": "mujoco_mpc_torch/csrc/megarollout.cu",
       "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
@@ -857,13 +1381,35 @@ def main() -> int:
   ap.add_argument("--out", help="also write every measured number here")
   args = ap.parse_args()
 
-  import numpy as np
   import torch
   if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
           file=sys.stderr)
     return 2
   t_start = time.perf_counter()
+  import mujoco_mpc_torch  # noqa: F401 (fails outside a checkout)
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  dev = torch.device("cuda", 0)
+  rec = {}
+  global PLAIN
+  PLAIN = concurrent.futures.ProcessPoolExecutor(
+      max_workers=PLAIN_WORKERS, initializer=_worker_init, initargs=(False,),
+      mp_context=multiprocessing.get_context("spawn"))
+  pools = [PLAIN]
+  try:
+    return run_all(args, dev, rec, t_start, pools)
+  finally:
+    for pool in pools:
+      pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
+  """Every phase, in order; the card's worker pool joins `pools`, which
+  main stops."""
+  import numpy as np
+  import torch
   from mujoco_mpc_torch.agent.agent import Agent
   from mujoco_mpc_torch.ops import _cuda_build
   from mujoco_mpc_torch.ops import megarollout as MR
@@ -872,11 +1418,6 @@ def main() -> int:
   from mujoco_mpc_torch.planners import sampling
   from mujoco_mpc_torch.tasks import humanoid
   from mujoco_mpc_torch.tasks import registry
-
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
-  dev = torch.device("cuda", 0)
-  rec = {}
 
   # ---- 1. the card and the toolchain
   smi = subprocess.run(
@@ -890,7 +1431,8 @@ def main() -> int:
 
   # ---- 2. build the kernel from the sources: a library per size tier and
   #      precision, the nvcc processes at once, each checked against its
-  #      ctypes mirror
+  #      ctypes mirror; the plain version's workers start meanwhile
+  warm = [PLAIN.submit(_worker_warm) for _ in range(PLAIN_WORKERS)]
   t = time.perf_counter()
   libs = _cuda_build.build_all(
       [(i, double, True) for i in range(len(MR.TIERS))
@@ -900,6 +1442,7 @@ def main() -> int:
     for dt in (torch.float32, torch.float64):
       MR._library(tier, dt)
   rec["build_s"] = time.perf_counter() - t
+  check(all(w.result() for w in warm), "the plain version's workers")
   print(f"[2] built {len(libs)} libraries ({2 * len(libs)} kernel instances;"
         f" {len(MR.TIERS)} of them uncontracted witnesses) in "
         f"{rec['build_s']:.2f} s")
@@ -948,25 +1491,26 @@ def main() -> int:
   acts[7] = 1e30  # a diverging candidate
   v0 = torch.zeros(9, device=dev)
   t0 = torch.tensor(0.0, device=dev)
-  got = mr.returns(home, v0, acts, task.params, t0)
-  want = run_plain(mr.returns_plain, home, v0, acts, task.params, t0)
-  torch.cuda.synchronize()
-  rel, max_abs = agreement(got, want, f"returns {n}x{horizon}")
-  print(f"[3] returns {n}x{horizon}: max rel err {rel:.3g} (tol 2e-3), "
-        f"max abs err {max_abs:.3g}; diverging candidate: kernel "
-        f"{float(got[7]):g}, plain {float(want[7]):g}")
-  check(float(got[7]) == float(want[7]) == MR.MAX_RETURN,
-        "divergence guard")
+  got3 = mr.returns(home, v0, acts, task.params, t0)
   ms_small = timed_cuda(
       lambda: mr.returns(home, v0, acts, task.params, t0), 3)
-  t = time.perf_counter()
-  run_plain(mr.returns_plain, home, v0, acts, task.params, t0)
-  torch.cuda.synchronize()
-  plain_small = (time.perf_counter() - t) * 1e3
-  print(f"[3] {n}x{horizon}: kernel {ms_small:.3f} ms, plain "
-        f"{plain_small:.1f} ms")
-  rec.update(returns_rel_err=rel, returns_abs_err=max_abs,
-             kernel_ms_256x20=ms_small, plain_ms_256x20=plain_small)
+  jobs3 = plain_submit(task, horizon, (home, v0, acts, task.params, t0), {},
+                       torch.float32)
+
+  def finish3():
+    (want,), plain_small = jobs3.get()
+    rel, max_abs = agreement(got3, want, f"returns {n}x{horizon}")
+    print(f"[3] returns {n}x{horizon}: max rel err {rel:.3g} (tol 2e-3), "
+          f"max abs err {max_abs:.3g}; diverging candidate: kernel "
+          f"{float(got3[7]):g}, plain {float(want[7]):g}; kernel "
+          f"{ms_small:.3f} ms, plain {plain_small:.1f} ms (on the card, "
+          f"beside {CARD_WORKERS - 1} more plain runs)")
+    check(float(got3[7]) == float(want[7]) == MR.MAX_RETURN,
+          "divergence guard")
+    rec.update(returns_rel_err=rel, returns_abs_err=max_abs,
+               kernel_ms_256x20=ms_small, plain_ms_256x20=plain_small)
+
+  DEFERRED.append(finish3)
 
   # ---- 4. the main path: the agent's plan loop on the card
   agent = Agent("Walker", device=dev)
@@ -997,26 +1541,28 @@ def main() -> int:
   steps_s = reps * cfg.num_trajectories * cfg.horizon / wall
   acts = torch.tensor(0.4 * rng.randn(1024, 80, 6), dtype=torch.float32,
                       device=dev)
-  got = planner.mega.returns(home, v0, acts, task.params, t0)
-  torch.cuda.synchronize()
-  t = time.perf_counter()
-  plain = run_plain(planner.mega.returns_plain, home, v0, acts, task.params,
-                    t0)
-  torch.cuda.synchronize()
-  plain_big = (time.perf_counter() - t) * 1e3
-  rel5, abs5 = agreement(got, plain, "returns 1024x80")
+  got5 = planner.mega.returns(home, v0, acts, task.params, t0)
   ms_big = timed_cuda(
       lambda: planner.mega.returns(home, v0, acts, task.params, t0), 3)
-  print(f"[5] SamplingPlanner 1024x80 at dt {float(task.model.opt.timestep):g}"
-        f": {steps_s:.0f} steps/s, {reps / wall:.2f} plan Hz; optimize "
-        f"ms median {q[0]:.3f}, p66.7 {q[1]:.3f}, max {q[2]:.3f} (n={reps});"
-        f" kernel {ms_big:.3f} ms/call, plain {plain_big:.1f} ms/call;"
-        f" kernel vs plain max rel err {rel5:.3g} (tol 2e-3), max abs err "
-        f"{abs5:.3g}")
-  rec.update(returns_rel_err_1024x80=rel5, returns_abs_err_1024x80=abs5,
-             plan_steps_per_s=steps_s, plan_hz=reps / wall,
-             optimize_ms=per_call,
-             kernel_ms_1024x80=ms_big, plain_ms_1024x80=plain_big)
+  jobs5 = plain_submit(task, 80, (home, v0, acts, task.params, t0), {},
+                       torch.float32)
+  rec.update(plan_steps_per_s=steps_s, plan_hz=reps / wall,
+             optimize_ms=per_call, kernel_ms_1024x80=ms_big)
+
+  def finish5():
+    (plain,), plain_big = jobs5.get()
+    rel5, abs5 = agreement(got5, plain, "returns 1024x80")
+    print(f"[5] SamplingPlanner 1024x80 at dt "
+          f"{float(task.model.opt.timestep):g}: {steps_s:.0f} steps/s, "
+          f"{reps / wall:.2f} plan Hz; optimize ms median {q[0]:.3f}, "
+          f"p66.7 {q[1]:.3f}, max {q[2]:.3f} (n={reps}); kernel "
+          f"{ms_big:.3f} ms/call, plain {plain_big:.1f} ms (on the card, "
+          f"beside {CARD_WORKERS - 1} more plain runs); kernel vs plain max "
+          f"rel err {rel5:.3g} (tol 2e-3), max abs err {abs5:.3g}")
+    rec.update(returns_rel_err_1024x80=rel5, returns_abs_err_1024x80=abs5,
+               plain_ms_1024x80=plain_big)
+
+  DEFERRED.append(finish5)
 
   ops_w = step_ops(registry.get_task("Walker", device="cpu"))
   bound_w, by_w = bound(ops_w, 1024, 80, task)
@@ -1024,15 +1570,18 @@ def main() -> int:
         f"1024x80 {bound_w:.4f} ms ({by_w}); kernel at "
         f"{100 * bound_w / ms_big:.4f} % of it")
   rec.update(walker_step_ops=ops_w, walker_bound_ms=bound_w)
-  walker_row = {
+  rows = [lambda: {
       "name": "megarollout_returns[walker]", "route": "cuda",
       "source": "mujoco_mpc_torch/csrc/megarollout.cu",
       "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
-      "launches": drive["launches"], "max_abs_err": abs5,
-      "ms": ms_big, "plain_ms": plain_big, "bound_ms": bound_w,
-      "bound_by": by_w, "library_ms": None,
-      "err_over_tol": max(rel, drive["returns_rel_err"], rel5) / 2e-3}
+      "launches": drive["launches"],
+      "max_abs_err": rec["returns_abs_err_1024x80"],
+      "ms": ms_big, "plain_ms": rec["plain_ms_1024x80"],
+      "bound_ms": bound_w, "bound_by": by_w, "library_ms": None,
+      "err_over_tol": max(rec["returns_rel_err"], drive["returns_rel_err"],
+                          rec["returns_rel_err_1024x80"]) / 2e-3}]
 
+  print(f"[t] {time.perf_counter() - t_start:.1f} s: Humanoid")
   # ---- 3h. Humanoid: one step against the plain version, on states in
   #      which every constraint row class carries force (a state whose own
   #      float32 step is far from float64, a stiff leg-leg crossing, may
@@ -1051,9 +1600,9 @@ def main() -> int:
   # ---- 5h. the north star: 256 candidates x 67 steps at the planning dt;
   #      chaotic in float32, so the float kernel is held as a population
   b5h = bench_shape("5h", hagent.task, 256, 67, hagent.planner.config,
-                    lambda dt: {}, reps, chaotic=True)
+                    lambda dt: {}, reps, Hold(POPULATION, PER_CANDIDATE))
   rec["humanoid_bench_256x67"] = b5h
-  humanoid_row = {
+  rows.append(lambda: {
       "name": "megarollout_returns[humanoid]", "route": "cuda",
       "source": "mujoco_mpc_torch/csrc/megarollout.cu",
       "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
@@ -1061,16 +1610,19 @@ def main() -> int:
       "ms": b5h["kernel_ms"], "plain_ms": b5h["plain_ms"],
       "bound_ms": b5h["bound_ms"], "bound_by": b5h["bound_by"],
       "library_ms": None,
-      "err_over_tol": max(hdrive["returns_rel_err"],
-                          b5h["f64"]["max_rel"]) / 2e-3}
+      "err_over_tol": max(hdrive["err_over_tol"], b5h["err_over_tol"])})
 
-  quadruped_row = run_quadruped(dev, rec, reps)
-  shadow_row = run_shadow(dev, rec, reps)
-  handover_row = run_handover(dev, rec, reps)
-  allegro_row = run_allegro(dev, rec, reps)
-  cem_row = run_cem(dev, rec)
-  kernels = {"kernels": [walker_row, humanoid_row, quadruped_row, shadow_row,
-                         handover_row, allegro_row, cem_row]}
+  for run in (run_quadruped, run_shadow, run_handover, run_allegro,
+              run_cem, run_small_tasks):
+    print(f"[t] {time.perf_counter() - t_start:.1f} s: {run.__name__}")
+    made = run(dev, rec) if run is run_cem else run(dev, rec, reps)
+    rows += made if isinstance(made, list) else [made]
+  rec["card_s"] = time.perf_counter() - t_start
+  print(f"[t] {rec['card_s']:.1f} s: every phase's work on the card done; "
+        f"the comparisons with the plain version as its returns come in")
+  pools.append(run_card_queue())
+  resolve_deferred()
+  kernels = {"kernels": [row() for row in rows]}
   rec["total_s"] = time.perf_counter() - t_start
   print(f"[end] every phase passed in {rec['total_s']:.1f} s, the build "
         f"included")

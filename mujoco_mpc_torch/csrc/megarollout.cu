@@ -30,14 +30,16 @@
 // literals that a float cannot hold exactly are written T(...), as the
 // plain version's Python constants are rounded to its dtype.
 //
-// The model class: hinge, slide and free joints (the free joint's
-// quaternion normalized in forward kinematics and after the exact
-// exponential-map integration), actuators on scalar joints or fixed
+// The model class, the whole of the TPU kernel's: hinge, slide, ball and
+// free joints (a quaternion joint's quaternion normalized in forward
+// kinematics and after the exact exponential-map integration; a ball
+// joint's rotations about its anchor), actuators on scalar joints or fixed
 // tendons, joint springs, friction loss, fixed tendons with limits, springs
 // and dampers, mocap bodies (their poses are rollout-constant operands,
 // like the task's userdata; each block keeps them in shared memory),
 // contacts of a world plane against sphere and capsule ends and box
-// corners, of sphere against sphere and box, of capsule against capsule,
+// corners, of sphere against sphere, capsule and box, of capsule against
+// capsule,
 // of capsule ends against a box and (large tier) of box against box, with
 // condim 1, 3, 4 or 6 (a torsional row per condim>=4 point, two rolling
 // rows per condim-6 point), joint limits, joint, connect and weld equality
@@ -59,6 +61,7 @@
 // Not built with --use_fast_math: it could fold away the isfinite guard and
 // changes expf/sqrtf/log1pf against the plain version.
 
+#include <cfloat>
 #include <cstddef>
 #include <cuda_runtime.h>
 
@@ -109,9 +112,11 @@ struct MRLarge {
 
 #define MR_ITERATIONS 12
 #define MR_POWER_ITERS 8
+#define MR_COINCIDE 64.0 // tilestep.COINCIDE
 #define MR_MAX_RETURN 1e6f
 
 #define MR_FREE 0
+#define MR_BALL 1
 #define MR_SLIDE 2
 #define MR_HINGE 3
 
@@ -122,6 +127,7 @@ struct MRLarge {
 #define MR_CON_SPHEREBOX 4  // sphere vs box
 #define MR_CON_CAPBOX 5     // capsule end vs box
 #define MR_CON_BOXBOX 6     // a box's corner vs the other box's slab
+#define MR_CON_SPHERECAP 7  // sphere vs capsule
 
 #define MR_RES_WALKER 1
 #define MR_RES_HUMANOID 2
@@ -129,6 +135,13 @@ struct MRLarge {
 #define MR_RES_REORIENT 4   // Shadow and Allegro
 #define MR_RES_STATE 5      // (qpos, qvel): the small class models' residual
 #define MR_RES_HANDOVER 6
+#define MR_RES_CARTPOLE 7
+#define MR_RES_ACROBOT 8
+#define MR_RES_PARTICLE 9   // Particle and ParticleFixed
+#define MR_RES_FINGERS 10
+#define MR_RES_ARM_REACH 11
+#define MR_RES_PUSH 12
+#define MR_RES_RUBIK_FACES 13
 
 #define MR_EQ_CONNECT 0
 #define MR_EQ_WELD 1
@@ -614,6 +627,12 @@ __device__ __forceinline__ void mat_tvec(const T* m, const T* v, T* o) {
     o[i] = m[i] * v[0] + m[3 + i] * v[1] + m[6 + i] * v[2];
 }
 
+// the machine epsilon of T
+template <class T>
+__device__ __forceinline__ T mr_eps() {
+  return sizeof(T) == 4 ? T(FLT_EPSILON) : T(DBL_EPSILON);
+}
+
 // sphere (centre c, radius) against a box of half-sizes s at (bp, bm):
 // returns dist and writes the contact position and the normal from the
 // sphere into the box (collision._sphere_box_point; the argmin of the face
@@ -645,8 +664,13 @@ __device__ T sphere_box_point(const T* c, T radius, const T* bp,
   }
   const T dn = r_sqrt(r_max(dot3(delta, delta), T(0)));
   const T inv = 1.0f / r_max(dn, T(1e-12));
+  // a centre within rounding of the mid-plane across the chosen face axis
+  // has no side to be pushed out of (tilestep.COINCIDE): no normal
+  const T tol = T(MR_COINCIDE) * mr_eps<T>();
+  const T tol2 = tol * tol * (1.0f + dot3(c, c));
   T push[3], n_in[3];
-  for (int i = 0; i < 3; ++i) push[i] = is_k[i] ? -sgn[i] : T(0);
+  for (int i = 0; i < 3; ++i)
+    push[i] = is_k[i] && local[i] * local[i] > tol2 ? -sgn[i] : T(0);
   mat_vec(bm, push, n_in);
   for (int i = 0; i < 3; ++i) n[i] = inside ? n_in[i] : -delta[i] * inv;
   const T dist = inside ? -dn - radius : dn - radius;
@@ -784,6 +808,13 @@ __device__ T contact_geometry(const MRModelT<T, S>& m, const T (*xpos)[3],
   T c1[3], c2[3], d[3];
   if (kind == MR_CON_SPHERE) {
     for (int i = 0; i < 3; ++i) { c1[i] = p1[i]; c2[i] = p2[i]; }
+  } else if (kind == MR_CON_SPHERECAP) {
+    // the point of g2's segment nearest the sphere's centre
+    T u2[3], w[3];
+    for (int i = 0; i < 3; ++i) { u2[i] = m2[3 * i + 2]; w[i] = p1[i] - p2[i]; }
+    const T h2 = m.con_half[ci][1];
+    const T t2 = r_min(r_max(dot3(w, u2), -h2), h2);
+    for (int i = 0; i < 3; ++i) { c1[i] = p1[i]; c2[i] = p2[i] + t2 * u2[i]; }
   } else {  // capsule-capsule: smooth clamped closest points
     T u1[3], u2[3], rvec[3], w[3];
     for (int i = 0; i < 3; ++i) { u1[i] = m1[3 * i + 2]; u2[i] = m2[3 * i + 2]; }
@@ -803,7 +834,15 @@ __device__ T contact_geometry(const MRModelT<T, S>& m, const T (*xpos)[3],
     }
   }
   for (int i = 0; i < 3; ++i) d[i] = c2[i] - c1[i];
-  const T dn = r_sqrt(r_max(dot3(d, d), T(1e-24)));
+  // closest points that coincide to within rounding have no normal: the
+  // residue's direction is rounding (tilestep.COINCIDE)
+  const T tol = T(MR_COINCIDE) * mr_eps<T>();
+  T dd = dot3(d, d);
+  if (dd <= tol * tol * (1.0f + dot3(c1, c1))) {
+    for (int i = 0; i < 3; ++i) d[i] = 0.0f;
+    dd = 0.0f;
+  }
+  const T dn = r_sqrt(r_max(dd, T(1e-24)));
   for (int i = 0; i < 3; ++i) n[i] = d[i] / dn;
   dist = dn - (r1 + r2);
   const T scale = r1 + 0.5f * dist;
@@ -859,7 +898,16 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
       quat_rot(quat, jp, tmp);
       for (int i = 0; i < 3; ++i) anchor[i] = pos[i] + tmp[i];
       T d = qpos[qadr] - m.qpos0[qadr];
-      if (m.jnt_type[j] == MR_SLIDE) {
+      if (m.jnt_type[j] == MR_BALL) {
+        // the local rotation normalized; no qpos0 offset, unlike a hinge
+        T ql[4], q2[4];
+        for (int i = 0; i < 4; ++i) ql[i] = qpos[qadr + i];
+        quat_normalize(ql);
+        quat_mul(quat, ql, q2);
+        for (int i = 0; i < 4; ++i) quat[i] = q2[i];
+        quat_rot(quat, jp, tmp);
+        for (int i = 0; i < 3; ++i) pos[i] = anchor[i] - tmp[i];
+      } else if (m.jnt_type[j] == MR_SLIDE) {
         quat_rot(quat, ax, tmp);
         for (int i = 0; i < 3; ++i) pos[i] = pos[i] + tmp[i] * d;
       } else {  // hinge
@@ -896,7 +944,8 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
   }
 
   // ---- cdof [ang; lin] per dof; a free joint's translations are the
-  //      world axes, its rotations the body axes (xmat columns) about xpos
+  //      world axes, its rotations the body axes (xmat columns) about xpos;
+  //      a ball joint's rotations the body axes about its anchor
   T cdof[MR_MAX_NV][6];
   for (int j = 0; j < m.njnt; ++j) {
     const int k = m.jnt_dofadr[j];
@@ -905,15 +954,20 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
     } else if (m.jnt_type[j] == MR_HINGE) {
       for (int i = 0; i < 3; ++i) cdof[k][i] = xaxis[j][i];
       cross3(xanchor[j], xaxis[j], cdof[k] + 3);
-    } else {  // free
+    } else {  // ball, free
       const int bd = m.jnt_bodyid[j];
+      const bool free = m.jnt_type[j] == MR_FREE;
+      const int rot0 = free ? k + 3 : k;
+      const T* origin = free ? xpos[bd] : xanchor[j];
       for (int a = 0; a < 3; ++a) {
         for (int i = 0; i < 3; ++i) {
-          cdof[k + a][i] = 0.0f;
-          cdof[k + a][3 + i] = i == a ? 1.0f : 0.0f;
-          cdof[k + 3 + a][i] = xmat[bd][3 * i + a];
+          if (free) {
+            cdof[k + a][i] = 0.0f;
+            cdof[k + a][3 + i] = i == a ? 1.0f : 0.0f;
+          }
+          cdof[rot0 + a][i] = xmat[bd][3 * i + a];
         }
-        cross3(xpos[bd], cdof[k + 3 + a], cdof[k + 3 + a] + 3);
+        cross3(origin, cdof[rot0 + a], cdof[rot0 + a] + 3);
       }
     }
   }
@@ -1459,7 +1513,7 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
   }
 
   // ---- integrate (semi-implicit Euler, implicit damping in the factor);
-  //      a free joint's quaternion by the exact exponential map
+  //      a free or ball joint's quaternion by the exact exponential map
   T qacc[MR_MAX_NV];
   for (int k = 0; k < nv; ++k) qfrc[k] = qfrc[k] + qfrc_c[k];
   chol_solve(L, qfrc, qacc, nv);
@@ -1469,6 +1523,8 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
     if (m.jnt_type[j] == MR_FREE) {
       for (int i = 0; i < 3; ++i) qpos[qadr + i] += h * qvel[vadr + i];
       quat_integrate(qpos + qadr + 3, qvel + vadr + 3, h);
+    } else if (m.jnt_type[j] == MR_BALL) {
+      quat_integrate(qpos + qadr, qvel + vadr, h);
     } else {
       qpos[qadr] = qpos[qadr] + h * qvel[vadr];
     }
@@ -1905,6 +1961,101 @@ __device__ void residual_state(const MRModelT<T, S>& m, const T* qpos,
   for (int i = 0; i < m.nv; ++i) res[m.nq + i] = qvel[i];
 }
 
+// tasks/cartpole.py::residual (4 entries): cos(pole) - 1, cart - goal
+// (rp[0], 0 where the task has none: the operand is then a zero), the
+// pole's velocity, the control
+template <class T>
+__device__ void residual_cartpole(const T* qpos, const T* qvel,
+                                  const T* ctrl, const T* rp, T* res) {
+  res[0] = r_cos(qpos[1]) - 1.0f;
+  res[1] = qpos[0] - rp[0];
+  res[2] = qvel[1];
+  res[3] = ctrl[0];
+}
+
+// tasks/acrobot.py::residual (4 entries): |tip - target| (sites 0 and 1),
+// qvel[:2], ctrl[:1]
+template <class T, class S>
+__device__ void residual_acrobot(const StepOut<T, S>& o, const T* qvel,
+                                 const T* ctrl, T* res) {
+  T d[3];
+  for (int i = 0; i < 3; ++i) d[i] = o.site_xpos[0][i] - o.site_xpos[1][i];
+  res[0] = r_sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+  res[1] = qvel[0];
+  res[2] = qvel[1];
+  res[3] = ctrl[0];
+}
+
+// tasks/particle.py::residual (6 entries): the tip (site 0) less the goal
+// (mocap body 0) in x and y, qvel[:2], ctrl[:2]
+template <class T, class S>
+__device__ void residual_particle(const StepOut<T, S>& o, const T* qvel,
+                                  const T* ctrl, const T* mocap_pos,
+                                  T* res) {
+  for (int i = 0; i < 2; ++i) {
+    res[i] = o.site_xpos[0][i] - mocap_pos[i];
+    res[2 + i] = qvel[i];
+    res[4 + i] = ctrl[i];
+  }
+}
+
+// tasks/fingers.py::residual (7 entries): the spin rate less SpinGoal
+// (rp[0]), each fingertip's planar distance to the paddle less 0.12, the
+// controls. res_int = (spin dof, spinner body, f1_tip body, f2_tip body)
+template <class T, class S>
+__device__ void residual_fingers(const MRModelT<T, S>& m,
+                                 const StepOut<T, S>& o, const T* qvel,
+                                 const T* ctrl, const T* rp, T* res) {
+  const T* paddle = o.xpos[m.res_int[1]];
+  res[0] = qvel[m.res_int[0]] - rp[0];
+  for (int f = 0; f < 2; ++f) {
+    const T* tip = o.xpos[m.res_int[2 + f]];
+    const T dx = tip[0] - paddle[0], dy = tip[1] - paddle[1];
+    res[1 + f] = r_sqrt(dx * dx + dy * dy) - T(0.12);
+  }
+  for (int u = 0; u < m.nu; ++u) res[3 + u] = ctrl[u];
+}
+
+// tasks/arm_reach.py::residual (3 + nv + nu entries): the end effector
+// (site 0) less the goal (mocap body 0), qvel, ctrl less the home
+// keyframe's (res_float)
+template <class T, class S>
+__device__ void residual_arm_reach(const MRModelT<T, S>& m,
+                                   const StepOut<T, S>& o, const T* qvel,
+                                   const T* ctrl, const T* mocap_pos,
+                                   T* res) {
+  for (int i = 0; i < 3; ++i) res[i] = o.site_xpos[0][i] - mocap_pos[i];
+  for (int k = 0; k < m.nv; ++k) res[3 + k] = qvel[k];
+  for (int u = 0; u < m.nu; ++u) res[3 + m.nv + u] = ctrl[u] - m.res_float[u];
+}
+
+// tasks/push.py::residual (9 + nu entries): the box (res_int[0]) less the
+// target (mocap body 0) in x and y, the end effector (site 0) less the
+// box, qvel[:4], ctrl less the home keyframe's (res_float)
+template <class T, class S>
+__device__ void residual_push(const MRModelT<T, S>& m,
+                              const StepOut<T, S>& o, const T* qvel,
+                              const T* ctrl, const T* mocap_pos, T* res) {
+  const T* box = o.xpos[m.res_int[0]];
+  for (int i = 0; i < 2; ++i) res[i] = box[i] - mocap_pos[i];
+  for (int i = 0; i < 3; ++i) res[2 + i] = o.site_xpos[0][i] - box[i];
+  for (int k = 0; k < 4; ++k) res[5 + k] = qvel[k];
+  for (int u = 0; u < m.nu; ++u) res[9 + u] = ctrl[u] - m.res_float[u];
+}
+
+// tasks/rubik.py::residual (18 entries): the six face angles less their
+// targets (userdata[2:8]), the six face velocities, the controls
+template <class T, class S>
+__device__ void residual_rubik_faces(const MRModelT<T, S>& m, const T* qpos,
+                                     const T* qvel, const T* ctrl,
+                                     const T* ud, T* res) {
+  for (int i = 0; i < 6; ++i) {
+    res[i] = qpos[i] - ud[2 + i];
+    res[6 + i] = qvel[i];
+  }
+  for (int u = 0; u < m.nu; ++u) res[12 + u] = ctrl[u];
+}
+
 template <class T, class S>
 __device__ __forceinline__ void residual(const MRModelT<T, S>& m,
                                          const StepOut<T, S>& o, const T* qpos,
@@ -1924,6 +2075,20 @@ __device__ __forceinline__ void residual(const MRModelT<T, S>& m,
     residual_state(m, qpos, qvel, res);
   else if (m.res_id == MR_RES_HANDOVER)
     residual_handover(m, o, qvel, mocap_pos, res);
+  else if (m.res_id == MR_RES_CARTPOLE)
+    residual_cartpole(qpos, qvel, ctrl, rp, res);
+  else if (m.res_id == MR_RES_ACROBOT)
+    residual_acrobot(o, qvel, ctrl, res);
+  else if (m.res_id == MR_RES_PARTICLE)
+    residual_particle(o, qvel, ctrl, mocap_pos, res);
+  else if (m.res_id == MR_RES_FINGERS)
+    residual_fingers(m, o, qvel, ctrl, rp, res);
+  else if (m.res_id == MR_RES_ARM_REACH)
+    residual_arm_reach(m, o, qvel, ctrl, mocap_pos, res);
+  else if (m.res_id == MR_RES_PUSH)
+    residual_push(m, o, qvel, ctrl, mocap_pos, res);
+  else if (m.res_id == MR_RES_RUBIK_FACES)
+    residual_rubik_faces(m, qpos, qvel, ctrl, ud, res);
 }
 
 // the task's state-dependent cost weight multipliers (Task.weight_mod);

@@ -104,7 +104,7 @@ MAX_TERM, MAX_RES, MAX_RES_INT, MAX_RES_FLOAT = 16, 80, 12, 32
 MAX_SITE, MAX_MOCAP, MAX_USERDATA, MAX_EQ = 8, 4, 32, 4
 _CON_KIND = {"plane_sphere": 0, "plane_capend": 0, "cap_cap": 1,
              "plane_boxcorner": 2, "sphere_sphere": 3, "sphere_box": 4,
-             "cap_box": 5, "boxbox_corner": 6}
+             "cap_box": 5, "boxbox_corner": 6, "sphere_cap": 7}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,17 +7,19 @@ version of one semi-implicit Euler step with the batch dimension trailing
 the same step, one thread per candidate; `step_tb` is what it is held
 against, and what runs when the tensors lie on the CPU.
 
-The class this port covers so far: hinge, slide and free joints,
-actuators (fixed or affine gain/bias) on scalar joints or fixed tendons,
-scalar-joint springs and friction loss, fixed tendons with limits, springs
-and dampers, mocap bodies (poses are rollout-constant operands; no joints,
-no colliding geoms), contacts of a world plane against sphere, capsule and
-cylinder ends and box corners, of sphere against sphere and box, of capsule
-against capsule, of capsule ends against a box, and of box against box (the
-corners of each against the other's face-SAT slab), with condim 1, 3, 4 or
-6, joint limits, joint, connect and weld equality constraints, and the
-dense or matrix-free Delassus solve. Everything else raises
-UnsupportedModel naming the ROADMAP item that ports it.
+The class this port covers, the whole of the JAX kernel's: hinge, slide,
+ball and free joints, actuators (fixed or affine gain/bias) on scalar
+joints or fixed tendons, scalar-joint springs and friction loss, fixed
+tendons with limits, springs and dampers, mocap bodies (poses are
+rollout-constant operands; no joints, no colliding geoms), contacts of a
+world plane against sphere, capsule and cylinder ends and box corners, of
+sphere against sphere, capsule and box, of capsule against capsule, of
+capsule ends against a box, and of box against box (the corners of each
+against the other's face-SAT slab), with condim 1, 3, 4 or 6, joint
+limits, joint, connect and weld equality constraints, and the dense or
+matrix-free Delassus solve. Everything else raises
+UnsupportedModel, with the JAX extract's reason where it refuses the same,
+naming the ROADMAP item that ports it: the general engine.
 
 Constraint rows are in the tile layout: condim>=3 points (n, t1, t2 each),
 condim-1 points (n), torsional rows (one per condim>=4 point), rolling rows
@@ -42,6 +44,11 @@ from mujoco_mpc_torch.physics.types import (ActDyn, EqType, GainBias,
 
 _ITERATIONS = 12  # warm-started APGD iterations (physics/solver.py)
 _POWER_ITERS = 8  # power iterations for the matrix-free step size
+# closest points nearer than COINCIDE machine epsilons of their coordinates
+# coincide, and a sphere's centre that near a box's mid-plane lies on it
+# (_contact_geometry, _sphere_box_point): the offset there is rounding, so
+# no normal is taken from it (the reference takes one; ROADMAP queue 3)
+COINCIDE = 64.0
 _MINIMP, _MAXIMP = 1e-4, 0.9999
 _DEFAULT_SOLIMP = (0.9, 0.95, 0.001, 0.5, 2.0)
 
@@ -61,8 +68,6 @@ def _unsupported(what: str, item: str):
                          f"(ROADMAP {item})")
 
 
-_S3 = "queue 2 slice S3"
-_SPHERE_CAP = "queue 2 slice S5, the sphere-capsule pair"
 _GENERAL = "queue 1 items 3 and 6, the general engine"
 
 
@@ -75,8 +80,8 @@ _GENERAL = "queue 1 items 3 and 6, the general engine"
 class ConPoint:
   """One static candidate contact point."""
   kind: str  # 'plane_sphere' | 'plane_capend' | 'plane_boxcorner'
-  #            | 'sphere_sphere' | 'sphere_box' | 'cap_cap' | 'cap_box'
-  #            | 'boxbox_corner'
+  #            | 'sphere_sphere' | 'sphere_cap' | 'sphere_box' | 'cap_cap'
+  #            | 'cap_box' | 'boxbox_corner'
   g1: int
   g2: int
   body1: int
@@ -246,14 +251,14 @@ def extract(m: Model) -> TileModel:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
 
+  # the quaternion joints (ball, free) take no spring, limit, actuator,
+  # tendon or joint equality: the JAX extract's refusals and reasons
   scalar = (JointType.HINGE, JointType.SLIDE)
   for j, jt in enumerate(m.jnt_type):
-    if jt == JointType.BALL:
-      _unsupported("ball joints", _S3)
-    if jt not in scalar + (JointType.FREE,):
+    if jt not in scalar + (JointType.BALL, JointType.FREE):
       _unsupported(f"joint type {jt}", _GENERAL)
     if jt not in scalar and float(npy(m.jnt_stiffness)[j]) != 0.0:
-      _unsupported("spring on a free joint", _S3)
+      _unsupported("spring on quaternion joint", _GENERAL)
   if m.na != 0:
     _unsupported("stateful actuators", _GENERAL)
   # mocap bodies: rollout-constant poses (kernel operands), as markers and
@@ -278,7 +283,7 @@ def extract(m: Model) -> TileModel:
     if kind == EqType.JOINT:
       for j in (m.eq_obj1id[e], m.eq_obj2id[e]):
         if j >= 0 and m.jnt_type[j] not in scalar:
-          _unsupported("joint equality on a free joint", _GENERAL)
+          _unsupported("joint equality on quaternion joint", _GENERAL)
     row = EqRow(kind=int(kind), ob1=int(m.eq_obj1id[e]),
                 ob2=int(m.eq_obj2id[e]),
                 data=npy(m.eq_data)[e].astype(np.float32),
@@ -299,7 +304,7 @@ def extract(m: Model) -> TileModel:
     if m.actuator_trntype[u] == TrnType.TENDON:
       act_tendon[u] = int(m.actuator_trnid[u])
     elif m.jnt_type[m.actuator_trnid[u]] not in scalar:
-      _unsupported("actuator on a free joint", _GENERAL)
+      _unsupported("actuator on quaternion joint", _GENERAL)
 
   # fixed tendons over scalar joints: constant Jacobian rows (limits,
   # springs and dampers, actuation)
@@ -308,7 +313,7 @@ def extract(m: Model) -> TileModel:
     lst = []
     for jid, coef in wraps:
       if m.jnt_type[jid] not in scalar:
-        _unsupported("tendon wrapping a free joint", _GENERAL)
+        _unsupported("tendon wrapping a quaternion joint", _GENERAL)
       # the coefficient at float32, as the kernel's model holds it
       lst.append((int(m.jnt_qposadr[jid]), int(m.jnt_dofadr[jid]),
                   float(np.float32(coef))))
@@ -359,6 +364,9 @@ def extract(m: Model) -> TileModel:
     elif (t1, t2) == (GeomType.SPHERE, GeomType.SPHERE):
       con_points.append(ConPoint(kind="sphere_sphere", sign=0.0, frame=None,
                                  ppos=None, **common))
+    elif (t1, t2) == (GeomType.SPHERE, GeomType.CAPSULE):
+      con_points.append(ConPoint(kind="sphere_cap", sign=0.0, frame=None,
+                                 ppos=None, **common))
     elif (t1, t2) == (GeomType.SPHERE, GeomType.BOX):
       con_points.append(ConPoint(kind="sphere_box", sign=0.0, frame=None,
                                  ppos=None, size2=gs[g2].astype(np.float32),
@@ -383,19 +391,16 @@ def extract(m: Model) -> TileModel:
               size2=gs[g2].astype(np.float32),
               corner=np.asarray(corner, np.float32), owner=owner, **common))
     else:
-      # the JAX kernel's other pair; anything else is the general engine's
-      _unsupported(f"contact pair {t1.name}/{t2.name}", {
-          (GeomType.SPHERE, GeomType.CAPSULE): _SPHERE_CAP}.get(
-              (t1, t2), _GENERAL))
+      _unsupported(f"contact pair {t1.name}/{t2.name}", _GENERAL)
 
   lim = [j for j in range(m.njnt) if m.jnt_limited[j]]
   for j in lim:
     if m.jnt_type[j] not in scalar:
-      _unsupported("limit on a free joint", _GENERAL)
+      _unsupported("limit on quaternion joint", _GENERAL)
   jr = npy(m.jnt_range)
   dof_body = [0] * m.nv
   for j in range(m.njnt):
-    ndof = 6 if m.jnt_type[j] == JointType.FREE else 1
+    ndof = {JointType.FREE: 6, JointType.BALL: 3}.get(m.jnt_type[j], 1)
     for i in range(ndof):
       dof_body[m.jnt_dofadr[j] + i] = m.jnt_bodyid[j]
 
@@ -492,8 +497,9 @@ _EQ_KIND = {EqType.JOINT: "eq_joint", EqType.CONNECT: "eq_connect",
 def row_kinds(tm: TileModel) -> Tuple[str, ...]:
   """The class of every constraint row, in the tile layout: the contact
   kind ('plane_capend', 'plane_sphere', 'plane_boxcorner', 'sphere_sphere',
-  'sphere_box', 'cap_cap', 'cap_box', 'boxbox_corner'), 'torsional', 'rolling',
-  'joint_limit', 'tendon_limit', 'eq_joint', 'eq_connect' or 'eq_weld'."""
+  'sphere_cap', 'sphere_box', 'cap_cap', 'cap_box', 'boxbox_corner'),
+  'torsional', 'rolling', 'joint_limit', 'tendon_limit', 'eq_joint',
+  'eq_connect' or 'eq_weld'."""
   fric, ones, tor, roll = row_points(tm)
   kinds = [cp.kind for cp in fric for _ in range(3)]
   kinds += [cp.kind for cp in ones]
@@ -777,7 +783,11 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
         xaxis[j] = _quat_rot(quat, ax)
         continue
       anchor = pos + _quat_rot(quat, jp)
-      if tm.jnt_type[j] == JointType.SLIDE:
+      if tm.jnt_type[j] == JointType.BALL:
+        # the local rotation normalized; no qpos0 offset, unlike a hinge
+        quat = _quat_mul(quat, _quat_normalize(qpos[qadr:qadr + 4]))
+        pos = anchor - _quat_rot(quat, jp)
+      elif tm.jnt_type[j] == JointType.SLIDE:
         pos = pos + _quat_rot(quat, ax) * (
             qpos[qadr] - float(tm.qpos0[qadr]))
       else:  # HINGE
@@ -797,7 +807,8 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
 
   # ---- cdof (world-origin motion subspace) per dof; a free joint's
   #      translations are the world axes, its rotations the body axes
-  #      (xmat columns) about xpos
+  #      (xmat columns) about xpos; a ball joint's rotations the body axes
+  #      about its anchor
   cdof = [None] * nv
   for j in range(tm.njnt):
     k0 = tm.jnt_dofadr[j]
@@ -805,13 +816,17 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
       cdof[k0] = (zero3, xaxis[j])
     elif tm.jnt_type[j] == JointType.HINGE:
       cdof[k0] = (xaxis[j], _cross(xanchor[j], xaxis[j]))
-    else:  # FREE
+    else:  # BALL, FREE
       bd = tm.jnt_bodyid[j]
+      rot0, origin = k0, xanchor[j]
+      if tm.jnt_type[j] == JointType.FREE:
+        for i in range(3):
+          cdof[k0 + i] = (zero3, torch.stack(
+              [zero + 1.0 if c == i else zero for c in range(3)]))
+        rot0, origin = k0 + 3, xpos[bd]
       for i in range(3):
-        cdof[k0 + i] = (zero3, torch.stack(
-            [zero + 1.0 if c == i else zero for c in range(3)]))
         ang = xmat[bd][:, i]
-        cdof[k0 + 3 + i] = (ang, _cross(xpos[bd], ang))
+        cdof[rot0 + i] = (ang, _cross(origin, ang))
 
   # ---- body spatial velocities + cdof_dot (static masks)
   contrib = [(cdof[k][0] * qvel[k], cdof[k][1] * qvel[k]) for k in range(nv)]
@@ -1024,7 +1039,7 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
                if efc_lambda is None else efc_lambda)
 
   # ---- integrate (semi-implicit Euler, implicit damping in the factor);
-  #      a free joint's quaternion by the exact exponential map
+  #      a free or ball joint's quaternion by the exact exponential map
   qacc = _chol_solve(L, qfrc_smooth + qfrc_constraint)
   qvel2 = qvel + h * qacc
   out_q = [None] * tm.nq
@@ -1037,6 +1052,11 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
                              qvel2[vadr + 4], qvel2[vadr + 5], h)
       for i in range(4):
         out_q[qadr + 3 + i] = quat[i]
+    elif tm.jnt_type[j] == JointType.BALL:
+      quat = _quat_integrate(qpos[qadr:qadr + 4], qvel2[vadr],
+                             qvel2[vadr + 1], qvel2[vadr + 2], h)
+      for i in range(4):
+        out_q[qadr + i] = quat[i]
     else:
       out_q[qadr] = qpos[qadr] + h * qvel2[vadr]
   qpos2 = torch.stack(out_q)
@@ -1125,7 +1145,12 @@ def _sphere_box_point(center, radius, bp, bm, bsize):
   dn = torch.sqrt(torch.clamp(_dot3(delta, delta), min=0.0))
   inv = 1.0 / torch.clamp(dn, min=1e-12)
   n_out = torch.stack([-delta[i] * inv for i in range(3)])
-  push = torch.stack([torch.where(is_k[i], -sgn[i], torch.zeros_like(dn))
+  # a centre inside the box within rounding of its mid-plane across the
+  # chosen face axis has no side to be pushed out of (COINCIDE): no normal
+  eps = torch.finfo(dn.dtype).eps
+  tol2 = (COINCIDE * eps) ** 2 * (1.0 + _dot3(center, center))
+  push = torch.stack([torch.where(is_k[i] & (local[i] * local[i] > tol2),
+                                  -sgn[i], torch.zeros_like(dn))
                       for i in range(3)])
   n = torch.where(inside[None], _mat_vec(bm, push), n_out)
   dist = torch.where(inside, -dn - radius, dn - radius)
@@ -1230,6 +1255,10 @@ def _contact_geometry(tm, cp, geom_frame, const, sat_memo):
     return dist - cp.margin, _frame_from_normal(n), cpos
   if cp.kind == "sphere_sphere":
     c1, c2 = p1, p2
+  elif cp.kind == "sphere_cap":  # g2's segment point nearest the sphere
+    u2 = _quat_to_mat(q2)[:, 2]
+    t = torch.clamp(_dot3(p1 - p2, u2), -cp.half2, cp.half2)
+    c1, c2 = p1, p2 + t * u2
   else:  # cap_cap (collision._capsule_capsule, smooth clamped)
     u1, u2 = _quat_to_mat(q1)[:, 2], _quat_to_mat(q2)[:, 2]
     rvec = p2 - p1
@@ -1242,7 +1271,15 @@ def _contact_geometry(tm, cp, geom_frame, const, sat_memo):
     c1 = p1 + t1c * u1
     c2 = p2 + t2c * u2
   delta = c2 - c1
-  dn = torch.sqrt(torch.clamp(_dot3(delta, delta), min=1e-24))
+  dd = _dot3(delta, delta)
+  # closest points that coincide to within rounding (crossing segments, a
+  # centre on the other's axis) have no normal in exact arithmetic, and
+  # the residue's direction is rounding: it is dropped, so the point's rows
+  # are degenerate in float32 as they are in float64 (COINCIDE)
+  eps = torch.finfo(delta.dtype).eps
+  same = dd <= (COINCIDE * eps) ** 2 * (1.0 + _dot3(c1, c1))
+  delta = torch.where(same, torch.zeros_like(delta), delta)
+  dn = torch.sqrt(torch.clamp(torch.where(same, 0.0, dd), min=1e-24))
   n = delta / dn
   dist = dn - (cp.r1 + cp.r2)
   cpos = c1 + n * (cp.r1 + 0.5 * dist)

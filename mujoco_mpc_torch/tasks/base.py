@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from mujoco_mpc_torch.ops import norms
@@ -70,6 +71,61 @@ class DeviceResidual:
   ints: Tuple[int, ...] = ()
   floats: Tuple[float, ...] = ()
   sites: Tuple[tuple, ...] = ()
+
+
+def site_ref(model: Model, name: str) -> tuple:
+  """A DeviceResidual site entry for the model's site `name`: (body, local
+  position)."""
+  sid = model.site(name)
+  pos = model.site_pos.detach().cpu().numpy()[sid]
+  return (model.site_bodyid[sid], tuple(float(x) for x in pos))
+
+
+def home_ctrl(model: Model) -> Tuple[float, ...]:
+  """The home keyframe's ctrl, a residual's constant."""
+  return tuple(float(x) for x in model.keyframe("home")[2])
+
+
+def probe_states(model: Model, b: int, seed: int = 0, qpos=None):
+  """(qpos (nq, b), qvel (nv, b), ctrl (nu, b)) float32 numpy states about
+  `qpos`, by default the home keyframe (qpos0 without one), for one-step
+  checks: each hinge
+  and slide moved by up to 0.3, a limited one 0.01 past its low end in
+  state 1 and its high end in state 3 of every 4, moving into the limit
+  at 4, with its actuator's control at that end of its range;
+  each free joint's body 2 mm lower, turning about z; velocities up to
+  0.5, controls over their ranges."""
+  from mujoco_mpc_torch.physics.types import JointType, TrnType
+  rng = np.random.RandomState(seed)
+  if qpos is not None:
+    q0 = np.asarray(qpos, np.float64)
+  else:
+    try:
+      q0 = np.asarray(model.keyframe("home")[0], np.float64)
+    except KeyError:
+      q0 = model.qpos0.detach().cpu().numpy().astype(np.float64)
+  qp = np.repeat(q0[:, None], b, 1)
+  qv = rng.uniform(-0.5, 0.5, (model.nv, b))
+  rng_lim = model.jnt_range.detach().cpu().numpy()
+  side = np.arange(b) % 4
+  for j, jt in enumerate(model.jnt_type):
+    qa, va = model.jnt_qposadr[j], model.jnt_dofadr[j]
+    if jt == JointType.FREE:
+      qp[qa + 2] -= 0.002
+      qv[va + 5] = rng.uniform(1.0, 2.0, b)
+    elif jt != JointType.BALL:
+      qp[qa] += rng.uniform(-0.3, 0.3, b)
+      if model.jnt_limited[j]:
+        lo, hi = rng_lim[j]
+        qp[qa, side == 1], qv[va, side == 1] = lo - 0.01, -4.0
+        qp[qa, side == 3], qv[va, side == 3] = hi + 0.01, 4.0
+  crange = model.actuator_ctrlrange.detach().cpu().numpy()
+  ct = rng.uniform(crange[:, 0], crange[:, 1], (b, model.nu)).T
+  for u in range(model.nu):
+    j = model.actuator_trnid[u]
+    if model.actuator_trntype[u] == TrnType.JOINT and model.jnt_limited[j]:
+      ct[u, side == 1], ct[u, side == 3] = crange[u]
+  return tuple(np.ascontiguousarray(x, np.float32) for x in (qp, qv, ct))
 
 
 def parse_cost_spec_mj(mj_model, model: Model, dtype, device):

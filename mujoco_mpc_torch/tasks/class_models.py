@@ -127,6 +127,47 @@ CAPBOX_XML = """
 </mujoco>
 """
 
+# the port's own model (no JAX test has a ball-joint tile model): a ball
+# joint mid-chain, with damping and armature on its dofs and a limited
+# hinge after it, whose tip sphere meets a capsule on a slide joint
+# (sphere-capsule) and the floor (plane-sphere); the chain's capsules
+# collide with nothing
+BALL_CHAIN_XML = """
+<mujoco>
+  <compiler angle="radian"/>
+  <option timestep="0.005"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="2 2 0.1"/>
+    <body name="base" pos="0 0 0.598">
+      <joint name="swing" type="hinge" axis="0 1 0" damping="0.2"/>
+      <geom type="capsule" size="0.03" fromto="0 0 0 0 0 -0.2" mass="1"
+            contype="0" conaffinity="0"/>
+      <body name="arm" pos="0 0 -0.2">
+        <joint name="ball" type="ball" damping="0.3" armature="0.01"/>
+        <geom type="capsule" size="0.03" fromto="0 0 0 0.2 0 0" mass="0.5"
+              contype="0" conaffinity="0"/>
+        <body name="fore" pos="0.2 0 0">
+          <joint name="elbow" type="hinge" axis="0 0 1" damping="0.1"
+                 limited="true" range="-1 1"/>
+          <geom name="tip" type="sphere" size="0.05" pos="0.15 0 0"
+                mass="0.3"/>
+        </body>
+      </body>
+    </body>
+    <body name="rod" pos="0.3 0 0.1">
+      <joint name="lift" type="slide" axis="0 0 1" damping="1"/>
+      <geom name="rod" type="capsule" size="0.04" fromto="-0.2 0 0 0.2 0 0"
+            mass="0.5"/>
+    </body>
+  </worldbody>
+  <actuator>
+    <motor joint="swing" gear="1" ctrlrange="-1 1" ctrllimited="true"/>
+    <motor joint="elbow" gear="1" ctrlrange="-1 1" ctrllimited="true"/>
+    <motor joint="lift" gear="5" ctrlrange="-1 1" ctrllimited="true"/>
+  </actuator>
+</mujoco>
+"""
+
 # the ball 2 mm into the floor, the pusher into the ball
 _BALL_Q0 = (0.0, 0.0, 0.098, 1.0, 0.0, 0.0, 0.0, -0.33)
 
@@ -174,6 +215,10 @@ MODELS = {
     "condim6_ball": ClassModel(
         BALL_XML.format(condim=6), _BALL_Q0, 0.3,
         ("plane_sphere", "sphere_sphere", "torsional", "rolling")),
+    # states: _ball_chain_states
+    "ball_chain": ClassModel(
+        BALL_CHAIN_XML, (0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0), 1.0,
+        ("sphere_cap", "plane_sphere", "plane_capend", "joint_limit")),
 }
 
 
@@ -215,10 +260,50 @@ def task(name: str, dtype=torch.float32, device=devices.DEFAULT,
       device_residual=base.DeviceResidual(STATE_RESIDUAL_ID))
 
 
+def _axis_quat(axis, angle):
+  """Quaternions (b, 4) of rotations by angle (b,) about a unit axis."""
+  return np.concatenate([np.cos(angle / 2)[:, None],
+                         np.sin(angle / 2)[:, None] * np.asarray(axis)[None]],
+                        1)
+
+
+def _ball_chain_states(b: int, rng):
+  """State i % 3 of the ball chain: 0 turns the ball far about the arm's
+  axis and lifts the rod into the tip sphere (sphere-capsule); 1 turns it
+  a quarter about y, so the arm points down and the tip sinks into the
+  floor (plane-sphere), and lowers the rod's ends into the floor
+  (plane-capsule end); 2 bends the elbow past its range (joint limit).
+  Every ball quaternion is far from identity, and every third one is
+  unnormalized (scaled by 1.3). qpos is (swing, ball w x y z, elbow,
+  lift)."""
+  kind = np.arange(b) % 3
+  qp = np.zeros((b, 7))
+  qp[:, 0] = rng.uniform(-0.02, 0.02, b)
+  about_x = _axis_quat((1.0, 0.0, 0.0), rng.uniform(1.8, 2.4, b))
+  # the tip on the arm's axis at (0.35, 0, 0.398): the rod 5 mm into it
+  qp[:, 1:5] = about_x
+  qp[:, 5] = rng.uniform(-0.02, 0.02, b)
+  qp[:, 6] = 0.398 - 0.09 + 0.005 - 0.1
+  down = kind == 1  # the arm down: the tip 2 mm into the floor
+  qp[down, 1:5] = _axis_quat((0.0, 1.0, 0.0), np.full(down.sum(),
+                                                      np.pi / 2))
+  qp[down, 6] = -0.062
+  past = kind == 2
+  qp[past, 5] = 1.05
+  qp[np.arange(b) % 3 == 0, 1:5] *= 1.3
+  qv = rng.uniform(-1.0, 1.0, (b, 6))
+  qv[kind == 0, 5] = rng.uniform(0.2, 0.5, (kind == 0).sum())  # rod up
+  ct = rng.uniform(-1.0, 1.0, (b, 3))
+  return tuple(np.ascontiguousarray(x.T, np.float32) for x in (qp, qv, ct))
+
+
 def states(name: str, model, b: int, seed: int = 0):
   """(qpos (nq, b), qvel (nv, b), ctrl (nu, b)) float32 numpy: the model's
   start state with noise; with a spin about the vertical on the free
-  bodies, so the torsional rows carry force."""
+  bodies, so the torsional rows carry force. The ball chain's are
+  _ball_chain_states."""
+  if name == "ball_chain":
+    return _ball_chain_states(b, np.random.RandomState(seed))
   cm = MODELS[name]
   rng = np.random.RandomState(seed)
   qp = np.asarray(cm.qpos0, np.float32)[:, None] + rng.uniform(

@@ -162,3 +162,121 @@ def build_humanoid():
   spec.add_key(name="home",
                qpos=[0, 0, 1.282, 1, 0, 0, 0] + [0.0] * 21)
   return compile_model(spec)
+
+
+def build_cartpole():
+  """dm_control cartpole + reference patch semantics (cartpole.xml.patch:
+  Euler @ 1 kHz, lighter joint damping)."""
+  import mujoco
+
+  spec = load_spec("cartpole")
+  spec.modelname = "Cartpole (dm_control)"
+  spec.option.timestep = 0.01  # planning timestep == sim here
+  spec.option.integrator = mujoco.mjtIntegrator.mjINT_EULER
+  spec.joint("slider").damping = [1.0e-4, 0.0, 0.0]
+  spec.joint("hinge_1").damping = [1.0e-4, 0.0, 0.0]
+  strip_sensors(spec)
+
+  add_numerics(spec, {
+      # reference task.xml:10 runs cartpole with the GRADIENT planner —
+      # random spline noise alone cannot pump out of the hanging
+      # equilibrium at dm_control's gear-10 torque budget
+      "agent_planner": 1,
+      "agent_horizon": 1.0,
+      "agent_timestep": 0.01,
+      "sampling_spline_points": 10,
+      "sampling_trajectories": 128,
+      "sampling_exploration": 0.5,
+      "residual_Goal": 0.0,
+  })
+  add_cost_sensors(spec, [
+      # norms/params mirror reference task.xml:31-34 (SMOOTH_ABS)
+      ("Vertical", 1, [6, 10.0, 0, 100.0, 0.01]),
+      ("Centered", 1, [6, 10.0, 0, 100.0, 0.1]),
+      ("Velocity", 1, [0, 0.1, 0, 1.0]),
+      ("Control", 1, [0, 0.1, 0, 1.0]),
+  ])
+  # reference task.xml:48 home: cart offset at x=1, pole UP — the
+  # gradient planner (agent_planner 1) balances while recentering; the
+  # exact hanging pose is a saddle where its gradient vanishes. A "down"
+  # keyframe is kept for swing-up experiments.
+  spec.add_key(name="home", qpos=[1.0, 0.0])
+  spec.add_key(name="down", qpos=[0.0, 3.14159265])
+  return compile_model(spec)
+
+
+def build_acrobot():
+  """dm_control acrobot + patch semantics (Euler instead of RK4)."""
+  import mujoco
+
+  spec = load_spec("acrobot")
+  spec.modelname = "Acrobot (dm_control)"
+  spec.option.integrator = mujoco.mjtIntegrator.mjINT_EULER
+  strip_sensors(spec)
+
+  add_numerics(spec, {
+      "agent_planner": 0,
+      "agent_horizon": 1.5,
+      "agent_timestep": 0.01,
+      "sampling_spline_points": 10,
+      "sampling_trajectories": 128,
+      "sampling_exploration": 0.4,
+  })
+  add_cost_sensors(spec, [
+      ("Height", 1, [6, 8.0, 0, 50.0, 0.02]),
+      ("Velocity", 2, [0, 0.05, 0, 1.0]),
+      ("Control", 1, [0, 0.05, 0, 1.0]),
+  ])
+  return compile_model(spec)
+
+
+def build_particle():
+  """dm_control point_mass + patch semantics (particle.xml.patch: mocap
+  goal body, direct joint motors instead of tendon transmission)."""
+  import mujoco
+
+  spec = load_spec("point_mass")
+  spec.modelname = "Particle (dm_control)"
+  spec.option.timestep = 0.01
+  strip_sensors(spec)
+
+  # tendon-transmission motors -> direct joint motors (patch semantics;
+  # also keeps this task in the megakernel's joint-transmission class)
+  for a in list(spec.actuators):
+    spec.delete(a)
+  for t in list(spec.tendons):
+    spec.delete(t)
+  for jnt, name in (("root_x", "x_motor"), ("root_y", "y_motor")):
+    a = spec.add_actuator(name=name, target=jnt,
+                          trntype=mujoco.mjtTrn.mjTRN_JOINT,
+                          ctrllimited=mujoco.mjtLimited.mjLIMITED_TRUE,
+                          ctrlrange=[-1.0, 1.0])
+    a.gear = [1, 0, 0, 0, 0, 0]
+
+  # tip site on the point mass (patch adds it; the residual reads it)
+  spec.body("pointmass").add_site(name="tip", pos=[0, 0, 0],
+                                  size=[0.01, 0, 0])
+
+  # target geom -> mocap goal body
+  tgt = spec.geom("target")
+  spec.delete(tgt)
+  goal = spec.worldbody.add_body(name="goal", mocap=True,
+                                 pos=[0.15, 0.15, 0.01])
+  goal.add_geom(name="goal", type=mujoco.mjtGeom.mjGEOM_SPHERE,
+                size=[0.01, 0, 0], contype=0, conaffinity=0,
+                rgba=[0, 1, 0, 0.5])
+
+  add_numerics(spec, {
+      "agent_planner": 0,
+      "agent_horizon": 0.5,
+      "agent_timestep": 0.01,
+      "sampling_spline_points": 5,
+      "sampling_trajectories": 64,
+      "sampling_exploration": 0.3,
+  })
+  add_cost_sensors(spec, [
+      ("Position", 2, [2, 5.0, 0, 20.0, 0.01]),
+      ("Velocity", 2, [0, 0.1, 0, 1.0]),
+      ("Control", 2, [0, 0.05, 0, 1.0]),
+  ])
+  return compile_model(spec)

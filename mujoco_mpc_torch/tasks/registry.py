@@ -107,7 +107,8 @@ def load_task_model(stem: str, dtype=torch.float32,
 
 def _register_all():
   from mujoco_mpc_torch.tasks import (  # noqa: F401
-      allegro, bimanual, hand_reorient, humanoid, quadruped, walker)
+      acrobot, allegro, arm_reach, bimanual, cartpole, fingers,
+      hand_reorient, humanoid, particle, push, quadruped, rubik, walker)
 
 
 _register_all()

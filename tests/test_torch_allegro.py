@@ -45,7 +45,7 @@ from tests.test_torch_model import _same
 from tests.test_torch_tilestep_classes import jax_probe_and_returns
 from tests.torch_cases import SHADOW_GOAL, one_torch_thread
 
-B, N, T = 10, 8, 4
+B, N, T = 8, 8, 4
 _KINDS = ("boxbox_corner", "cap_box", "plane_boxcorner", "joint_limit")
 GOAL = np.asarray(SHADOW_GOAL, np.float32)
 

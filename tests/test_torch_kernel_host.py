@@ -17,9 +17,13 @@ Tolerances, with the errors measured when they were set: Walker step qpos
 atol 1e-6 (3.0e-8), qvel 1e-4 (6.4e-6), duals 1e-5 * max (1.2e-3 of 1.1e3);
 Humanoid step qpos 1e-5 (5.1e-7), qvel 1e-3 (7.6e-5), duals 1e-4 * max
 (3.2e-3 of 2.2e3); Quadruped step qpos 1e-5 (2.4e-7), qvel 1e-3 (6.7e-6),
-duals 1e-4 * max (3.7e-4 of 9.2e2); Shadow, Bimanual Handover, Allegro and
-the small class models of tests/test_torch_tilestep_classes.py as the
-Quadruped; returns rtol 2e-3 (Walker 1.2e-7, Humanoid 1.3e-6).
+duals 1e-4 * max (3.7e-4 of 9.2e2); Shadow, Bimanual Handover, Allegro,
+the small class models of tests/test_torch_tilestep_classes.py and the
+small tasks (SMALL_TASKS, on tasks.base.probe_states; Rubik Faces has no
+constraint rows) as the Quadruped; returns rtol 2e-3 (Walker 1.2e-7,
+Humanoid 1.3e-6). Acrobot and Cartpole run their registered models, the
+reference's parent-child pair kept: both versions drop its rows, whose
+normal would come from a rounding residue (tilestep.COINCIDE).
 """
 
 import ctypes
@@ -42,8 +46,10 @@ from mujoco_mpc_torch.tasks import hand_reorient as thand
 from mujoco_mpc_torch.tasks import humanoid as thum
 from mujoco_mpc_torch.tasks import quadruped as tquad
 from mujoco_mpc_torch.tasks import registry as treg
+from mujoco_mpc_torch.tasks import rubik as trubik
 from tests.test_torch_tilestep_classes import CLASS_MODELS, class_task
-from tests.torch_cases import HANDOVER_TARGET, SHADOW_GOAL
+from tests.torch_cases import (HANDOVER_TARGET, RUBIK_TARGETS, SHADOW_GOAL,
+                               SMALL_TASKS, small_task_states)
 
 _STUB = r"""
 #pragma once
@@ -224,29 +230,37 @@ _CASES = {
 for _name in CLASS_MODELS:
   _CASES[_name] = (lambda model, b, name=_name: class_models.states(name, model, b),
                    (1e-5, 1e-3, 1e-4))
+for _name in SMALL_TASKS:
+  _CASES[_name] = (small_task_states(_name), (1e-5, 1e-3, 1e-4))
 # float64: the kernel's double instance against step_tb in float64
 _TOL64 = (1e-12, 1e-11, 1e-12)
 _NP = {torch.float32: np.float32, torch.float64: np.float64}
 _SUFFIX = {torch.float32: "", torch.float64: "64"}
 # the residuals that read the raw controls: a 1e30 command diverges there
-_RAW_CTRL = ("Walker", "Humanoid Walk")
+_RAW_CTRL = ("Walker", "Humanoid Walk") + SMALL_TASKS
 
 
 def _task(name):
-  return class_task(name) if name in CLASS_MODELS else treg.get_task(
-      name, device="cpu")
+  if name in CLASS_MODELS:
+    return class_task(name)
+  return treg.get_task(name, device="cpu")
 
 
 def _aux(tm, dtype, userdata=None, name=None):
   """The rollout-constant operands as the kernel takes them: for the
   quadruped the goal at (1.0, 0.3, 0.3) and a trot's userdata, for Shadow
   and Allegro the goal quaternion SHADOW_GOAL, for the handover the target
-  HANDOVER_TARGET, otherwise the defaults."""
+  HANDOVER_TARGET, for Rubik Faces the face targets RUBIK_TARGETS,
+  otherwise the defaults (a mocap goal at (1.0, 0.3, 0.3))."""
   mocap_pos, mocap_quat = [[1.0, 0.3, 0.3]] * tm.nmocap, None
   if name in ("Shadow", "Allegro"):
     mocap_quat = SHADOW_GOAL
   elif name == "Bimanual Handover":
     mocap_pos = HANDOVER_TARGET
+  elif name == "Rubik Faces":
+    userdata = trubik.faces_userdata(tm.nuserdata, RUBIK_TARGETS)
+  elif name in SMALL_TASKS:
+    pass
   elif tm.nmocap and userdata is None:
     userdata = tquad.fsm_userdata(tm.nuserdata)
   mp, mq, ud = tts.aux_operands(tm, mocap_pos, mocap_quat, userdata, dtype)
@@ -333,6 +347,8 @@ def rollout_inputs(name, dtype, horizon, qpos0=None):
     home = qpos0
   elif name in CLASS_MODELS:
     home = class_models.states(name, task.model, 1)[0][:, 0]
+  elif name in SMALL_TASKS:  # a probe state: a limit or contact engaged
+    home = small_task_states(name)(task.model, 2)[0][:, 1]
   else:
     home = np.asarray(task.model.keyframe("home")[0], np.float32)
   v0 = np.zeros(mr.tm.nv, np.float32)
@@ -375,6 +391,34 @@ def check_returns(libs, name, dtype, horizon, rtol, userdata=None,
   else:
     assert np.all(want < tmr.MAX_RETURN)
   np.testing.assert_allclose(out, want, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_host_kernel_all_rows_inactive_stay_finite(lib, dtype):
+  """Arm Reach about its home pose: 14 joint-limit rows, none active, so
+  the preconditioner and the power-iteration step size see nothing but
+  inactive rows. The kernel's step stays finite, carries no force and
+  matches the plain version, cold and warm, in both precisions."""
+  task = treg.get_task("Arm Reach", device="cpu")
+  tm = tts.extract(task.model)
+  raw, tier = _packed(tm, task, dtype)
+  rng = np.random.RandomState(4)
+  home = np.asarray(task.model.keyframe("home")[0])
+  qp = (home[:, None] + rng.uniform(-0.1, 0.1, (7, 8))).astype(_NP[dtype])
+  qv = rng.uniform(-0.5, 0.5, (7, 8)).astype(_NP[dtype])
+  ct = rng.uniform(-1.0, 1.0, (7, 8)).astype(_NP[dtype])
+  aux = _aux(tm, dtype, name="Arm Reach")
+  kq, kv, kl = qp, qv, np.zeros((tm.nrow, 8), _NP[dtype])
+  pq, pv, pl = torch.tensor(qp), torch.tensor(qv), None
+  tol = _CASES["Arm Reach"][1] if dtype == torch.float32 else _TOL64
+  for _ in range(2):
+    kq, kv, kl = _host_step(lib[tier], raw, dtype, kq, kv, ct, kl, aux)
+    pq, pv, view = tts.step_tb(tm, pq, pv, torch.tensor(ct), pl)
+    pl = view.efc_lambda
+    assert tm.nrow == 14 and not np.any(kl) and not bool(pl.any())
+    assert np.all(np.isfinite(kq)) and np.all(np.isfinite(kv))
+    np.testing.assert_allclose(kq, pq.numpy(), atol=tol[0], rtol=0)
+    np.testing.assert_allclose(kv, pv.numpy(), atol=tol[1], rtol=0)
 
 
 def test_host_kernel_contraction_moves_only_float_rounding(lib_contracted):

@@ -166,8 +166,10 @@ def _bodies(*geoms, condim=3):
 
 # case: (MJCF, the ROADMAP item the error names)
 _OUT_OF_CLASS = {
-    "ball": ("<mujoco><worldbody><body><joint type='ball'/><geom size='.1'/>"
-             "</body></worldbody></mujoco>", "S3"),
+    # ball joints are in the class; a limited one is not, as in JAX
+    "ball": ("<mujoco><worldbody><body><joint type='ball' limited='true' "
+             "range='0 1'/><geom size='.1'/></body></worldbody></mujoco>",
+             "limit on quaternion joint.*general engine"),
     # a tendon actuator with activation dynamics (stateful)
     "tendon_actuator": ("<mujoco><worldbody>" + _BODY + "</worldbody><tendon>"
                         "<fixed name='t'><joint joint='a' coef='1'/></fixed>"
@@ -177,15 +179,71 @@ _OUT_OF_CLASS = {
     "colliding_mocap": ("<mujoco><worldbody><body mocap='true' pos='0 0 1'>"
                         "<geom size='.1'/></body>" + _BODY +
                         "</worldbody></mujoco>", "general engine"),
-    # capsule-box contacts with rolling friction (condim 6) are in the
-    # class; a ball joint beside them is not
+    # capsule-box contacts with rolling friction (condim 6) and ball
+    # joints are in the class; a spring on the ball joint is not
     "capsule_box": (_bodies(("capsule", ".05 .1"), ("box", ".1 .1 .1"),
-                            condim=6).replace("<freejoint/>",
-                                              "<joint type='ball'/>", 1),
-                    "S3"),
-    "sphere_capsule": (_bodies(("sphere", ".1"), ("capsule", ".05 .1")),
-                       "S5"),
+                            condim=6).replace(
+                                "<freejoint/>",
+                                "<joint type='ball' stiffness='2'/>", 1),
+                    "spring on quaternion joint.*general engine"),
+    # the sphere-capsule pair is in the class; a motor on a free joint
+    # is not
+    "sphere_capsule": (_bodies(("sphere", ".1"), ("capsule", ".05 .1"))
+                       .replace("<freejoint/>", "<freejoint name='f'/>", 1)
+                       .replace("</worldbody>", "</worldbody><actuator>"
+                                "<motor joint='f' gear='1 0 0 0 0 0'/>"
+                                "</actuator>"),
+                       "actuator on quaternion joint.*general engine"),
 }
+
+# a ball or free joint `q` beside a hinge chain, with each quaternion-joint
+# feature the JAX extract refuses; a joint equality on a quaternion joint
+# and a free joint's limit do not compile, so they are set on the Model
+_QUAT_JOINT_XML = """<mujoco><worldbody>
+<body name="b1" pos="0 0 1"><joint name="h" type="hinge"/><geom size=".1"/>
+<body name="b2" pos="0 0 -.3"><joint name="h2" type="hinge"/>
+<geom size=".1"/></body></body>
+<body name="b3" pos="1 0 1"><joint name="q" type="{jt}" {attr}/>
+<geom size=".1"/></body></worldbody>{extra}</mujoco>"""
+_QUAT_JOINT_REFUSALS = {
+    "limit": ("limited='true' range='0 1'", "", "limit on quaternion joint"),
+    "spring": ("stiffness='2'", "", "spring on quaternion joint"),
+    "actuator": ("", "<actuator><motor joint='q' gear='1 0 0 0 0 0'/>"
+                     "</actuator>", "actuator on quaternion joint"),
+    "tendon": ("", "<tendon><fixed name='t'><joint joint='q' coef='1'/>"
+                   "<joint joint='h' coef='1'/></fixed></tendon>",
+               "tendon wrapping a quaternion joint"),
+    "joint_equality": ("", "<equality><joint joint1='h2' joint2='h'/>"
+                           "</equality>",
+                       "joint equality on quaternion joint"),
+}
+
+
+@pytest.mark.parametrize("jt", ["ball", "free"])
+@pytest.mark.parametrize("case", sorted(_QUAT_JOINT_REFUSALS))
+def test_quaternion_joint_refusals_match_jax(case, jt):
+  """What the JAX extract refuses on a quaternion joint, the port's
+  refuses too, for ball and free joints alike, with JAX's reason; the
+  same model with the feature on a hinge instead is in the class."""
+  attr, extra, reason = _QUAT_JOINT_REFUSALS[case]
+  xml = _QUAT_JOINT_XML.format(jt=jt, attr=attr, extra=extra)
+  ours, theirs = tio.load_model(xml, device="cpu"), jio.load_model(xml)
+  if case == "joint_equality":  # its first joint moved onto q
+    q = ours.joint("q")
+    ours = ours.replace(eq_obj1id=(q,))
+    theirs = theirs.replace(eq_obj1id=(q,))
+  if case == "limit" and jt == "free":  # MuJoCo drops a free joint's
+    lim = tuple(j == ours.joint("q") for j in range(ours.njnt))
+    ours, theirs = ours.replace(jnt_limited=lim), theirs.replace(
+        jnt_limited=lim)
+  assert case != "limit" or ours.jnt_limited[ours.joint("q")]
+  with pytest.raises(tts.UnsupportedModel, match=reason):
+    tts.extract(ours)
+  with pytest.raises(jts.UnsupportedModel, match=reason):
+    jts.extract(theirs)
+  hinge = tio.load_model(_QUAT_JOINT_XML.format(jt="hinge", attr=attr,
+                                                extra=extra), device="cpu")
+  tts.extract(hinge)
 
 # models whose box-box pairs are in the class: two free boxes, the Allegro
 # hand's palm and cube
@@ -215,15 +273,16 @@ def test_box_box_models_match_jax_extract(case):
 @pytest.mark.parametrize("case", sorted(_OUT_OF_CLASS)
                          + ["jointed_mocap", "beyond_large_tier"])
 def test_out_of_class_models_raise(case):
-  """The free joint, fixed tendons (limits, springs, actuators), mocap
-  bodies, condim 4 and 6, equality constraints and the plane-sphere,
-  plane-box, sphere-sphere, sphere-box, capsule-capsule, capsule-box and
-  box-box contacts are in the class now; these stay out, naming the
-  ROADMAP item that ports them: ball joints (slice S3), the sphere-capsule
-  pair (S5), and what the JAX kernel leaves to the general engine,
-  stateful actuators and a mocap body with a joint or a colliding geom. A
-  model in the class but beyond the kernel's largest size tier (four free
-  boxes: 96 box-box points, 288 rows) packs into no struct."""
+  """Ball and free joints, fixed tendons (limits, springs, actuators),
+  mocap bodies, condim 4 and 6, equality constraints and the
+  plane-sphere, plane-box, sphere-sphere, sphere-capsule, sphere-box,
+  capsule-capsule, capsule-box and box-box contacts are in the class: the
+  JAX kernel's whole class. These stay out, naming the ROADMAP item that
+  ports them, the general engine: what the JAX kernel leaves to it, a
+  limit, a spring or an actuator on a quaternion joint, stateful actuators
+  and a mocap body with a joint or a colliding geom. A model in the class
+  but beyond the kernel's largest size tier (four free boxes: 96 box-box
+  points, 288 rows) packs into no struct."""
   if case == "beyond_large_tier":
     model = tio.load_model(_bodies(*[("box", ".1 .1 .1")] * 4),
                            device="cpu")

@@ -1,4 +1,10 @@
-"""The port's sampling planner and agent.
+"""The port's sampling and cross-entropy planners, the agent, and the CPU
+MegaRollout.returns, on the Walker, held against the JAX package.
+
+Every JAX rollout here is the Walker's MegaRollout.returns_xla at T = 10
+steps over N = 8 candidates (which tests/test_megarollout.py pins to the
+interpret-mode Pallas kernel), jitted once per module: compiling it takes
+about a minute on a CPU, and the tests call it eight times.
 
 SamplingPlanner.optimize with injected numpy noise is held against the same
 composition on the JAX side (spline.resample, noise, clamp,
@@ -6,6 +12,20 @@ spline.sample_many, MegaRollout.returns_xla, argmin): returns at rtol 2e-3
 (the repo's tolerance between two implementations), the winner and its
 spline values at atol 1e-6. jax.random and torch.Generator draw different
 numbers, so parity is never held on seeds.
+
+The port's CPU MegaRollout.returns against returns_xla on the same float32
+inputs: rtol 2e-3, measured 2.4e-7 at T=10, n=8.
+
+CrossEntropyPlanner's candidates, from the same standard normals (drawn
+with jax.random.normal and injected as `noise`), against JAX
+_gen_candidates: atol 1e-6 (measured 0). The elite update from the same
+returns against JAX's top_k / mean / variance / std_min: the elite indices
+exactly, mean and std atol 1e-6 (measured 0). A full optimize on the
+Walker against the JAX composition (its _gen_candidates, returns_xla and
+the elite update): returns rtol 2e-3 (measured 8.2e-8), the winner
+exactly, the new policy atol 1e-5 (measured 0). Returns without
+near-ties where the order matters: tie order in top_k is not a parity
+target.
 """
 
 import jax
@@ -16,12 +36,16 @@ import torch
 
 from mujoco_mpc_torch.agent.agent import Agent
 from mujoco_mpc_torch.ops import megarollout
+from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.ops import spline as tspline
 from mujoco_mpc_torch.physics import io as tio
+from mujoco_mpc_torch.planners import cross_entropy as tcem
 from mujoco_mpc_torch.planners import sampling as tsampling
 from mujoco_mpc_torch.tasks import registry as treg
 from mujoco_mpc_tpu.ops import megarollout as jmr
 from mujoco_mpc_tpu.ops import spline as jspline
+from mujoco_mpc_tpu.physics import io as jio
+from mujoco_mpc_tpu.planners import cross_entropy as jcem
 from mujoco_mpc_tpu.tasks import registry as jreg
 from tests.torch_cases import one_torch_thread
 
@@ -34,6 +58,66 @@ def setup():
   j = jreg.get_task("Walker", dtype=jnp.float32)
   jf = jax.jit(jmr.MegaRollout(j, T).returns_xla)
   return t, j, jf
+
+
+# ------------------------------------------------ CPU MegaRollout.returns
+
+
+@pytest.fixture(scope="module")
+def rollouts(setup):
+  t, j, jf = setup
+  home = np.asarray(t.model.keyframe("home")[0], np.float32)
+  acts = (0.4 * np.random.RandomState(0).randn(N, T, 6)).astype(np.float32)
+
+  def jax_returns(actions, params):
+    return np.asarray(jf(jnp.asarray(home), jnp.zeros(9, jnp.float32),
+                         jnp.asarray(actions), params, np.float32(0.0)))
+
+  def torch_returns(actions, params):
+    return tmr.MegaRollout(t, T, device="cpu").returns(
+        torch.tensor(home), torch.zeros(9), torch.tensor(actions), params,
+        torch.tensor(0.0)).numpy()
+
+  return t, j, acts, jax_returns, torch_returns
+
+
+def test_returns_match_jax_returns_xla(rollouts):
+  t, j, acts, jax_returns, torch_returns = rollouts
+  got = torch_returns(acts, t.params)
+  want = jax_returns(acts, j.params)
+  np.testing.assert_allclose(got, want, rtol=2e-3)
+  assert np.all(np.isfinite(got)) and np.all(got < tmr.MAX_RETURN)
+
+
+def test_divergence_guard(rollouts):
+  """Exploding actions -> MAX_RETURN in both packages, not nan."""
+  t, j, acts, jax_returns, torch_returns = rollouts
+  bad = acts.copy()
+  bad[0] = 1e30
+  got = torch_returns(bad, t.params)
+  assert got[0] == tmr.MAX_RETURN
+  np.testing.assert_allclose(got, jax_returns(bad, j.params), rtol=2e-3)
+
+
+def test_params_are_runtime_tunable(rollouts):
+  """Changing weights and residual params changes returns, no rebuild."""
+  t, j, acts, jax_returns, torch_returns = rollouts
+  mr = tmr.MegaRollout(t, T, device="cpu")
+  args = (torch.tensor(np.asarray(t.model.keyframe("home")[0], np.float32)),
+          torch.zeros(9), torch.tensor(acts))
+  r1 = mr.returns(*args, t.params, 0.0).numpy()
+  heavier = t.params.replace(weights=t.params.weights * 3.0)
+  r2 = mr.returns(*args, heavier, 0.0).numpy()
+  np.testing.assert_allclose(r2, 3.0 * r1, rtol=1e-5)
+  faster = t.set_parameter("Speed", 2.0).params
+  r3 = mr.returns(*args, faster, 0.0).numpy()
+  assert not np.allclose(r1, r3)
+  np.testing.assert_allclose(
+      r3, jax_returns(acts, j.set_parameter("Speed", 2.0).params),
+      rtol=2e-3)
+
+
+# ----------------------------------------------------- the sampling planner
 
 
 @pytest.mark.parametrize("interp", list(tspline.Interp))
@@ -150,3 +234,139 @@ def test_default_device_is_the_card(entry):
 def test_other_planners_are_not_ported():
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     Agent("Walker", planner="ilqg", device="cpu")
+
+
+# -------------------------------------------------- the cross-entropy planner
+# its candidates and returns over the module's N and T, so that returns_xla
+# compiles once
+K_CEM, ELITE = 5, 4
+
+
+@pytest.fixture(scope="module")
+def cem_setup():
+  t = treg.get_task("Walker", device="cpu")
+  j = jreg.get_task("Walker", dtype=jnp.float32)
+  cfg = dict(num_trajectories=N, n_elite=ELITE, spline_points=K_CEM,
+             horizon=T, std_min=0.05, std_initial=0.3)
+  tp = tcem.CrossEntropyPlanner(tcem.CEMConfig(**cfg))
+  tp.init(t)
+  jp = jcem.CrossEntropyPlanner(jcem.CEMConfig(**cfg), use_megakernel=False)
+  return t, j, tp, jp
+
+
+def _state(t, j, seed):
+  """The same policy (times, values, std) and state in both packages, and
+  the JAX key whose standard normals both use."""
+  rng = np.random.RandomState(seed)
+  home = np.asarray(t.model.keyframe("home")[0], np.float32)
+  time0 = np.float32(0.021)
+  times = np.linspace(0.0, 0.04, K_CEM).astype(np.float32)
+  values = rng.uniform(-0.5, 0.5, (K_CEM, 6)).astype(np.float32)
+  std = rng.uniform(0.05, 0.4, (K_CEM, 6)).astype(np.float32)
+  tpol = tcem.CEMPolicy(torch.tensor(times), torch.tensor(values),
+                        torch.tensor(std))
+  jpol = jcem.CEMPolicy(jnp.asarray(times), jnp.asarray(values),
+                        jnp.asarray(std))
+  tdata = tio.make_data(t.model).replace(qpos=torch.tensor(home),
+                                         time=torch.tensor(time0))
+  jdata = jio.make_data(j.model).replace(qpos=jnp.asarray(home),
+                                         time=jnp.float32(time0))
+  return tpol, jpol, tdata, jdata, jax.random.PRNGKey(seed)
+
+
+def _jax_noise(key):
+  return np.asarray(jax.random.normal(key, (N - 1, K_CEM, 6),
+                                      dtype=jnp.float32))
+
+
+def test_cem_init_matches_jax(cem_setup):
+  t, j, tp, jp = cem_setup
+  ours, theirs = tp.init(t), jp.init(j)
+  for f in ("times", "values", "std"):
+    np.testing.assert_allclose(getattr(ours, f).numpy(),
+                               np.asarray(getattr(theirs, f)), atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cem_candidates_match_jax(cem_setup, seed):
+  t, j, tp, jp = cem_setup
+  tpol, jpol, tdata, jdata, key = _state(t, j, seed)
+  got = tp._gen_candidates(t, tpol, tdata, None,
+                           noise=torch.tensor(_jax_noise(key)))
+  want = jp._gen_candidates(j, jpol, jdata, key)
+  for name, a, b in zip(("new_times", "nominal", "candidates"), got, want):
+    np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6,
+                               err_msg=name)
+
+
+def test_cem_elite_update_matches_jax():
+  rng = np.random.RandomState(7)
+  cands = rng.randn(N, K_CEM, 6).astype(np.float32)
+  returns = rng.permutation(N).astype(np.float32) * 0.5 + 1.0  # no ties
+  idx, mean, std = tcem.elite_update(torch.tensor(cands),
+                                     torch.tensor(returns), ELITE, 0.3)
+  _, jidx = jax.lax.top_k(-jnp.asarray(returns), ELITE)
+  elites = jnp.asarray(cands)[jidx]
+  jmean = jnp.mean(elites, axis=0)
+  jvar = jnp.sum((elites - jmean[None]) ** 2, axis=0) / max(ELITE - 1, 1)
+  jstd = jnp.maximum(jnp.sqrt(jvar), 0.3)
+  np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+  np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), atol=1e-6)
+  np.testing.assert_allclose(std.numpy(), np.asarray(jstd), atol=1e-6)
+  assert float(std.min()) >= 0.3  # the floor binds somewhere
+  assert float(std.min()) == pytest.approx(0.3)
+
+
+def test_cem_optimize_matches_jax_composition(setup, cem_setup):
+  """One CEM iteration on the Walker: candidates, returns (returns_xla),
+  elite update."""
+  jf = setup[2]
+  t, j, tp, jp = cem_setup
+  tpol, jpol, tdata, jdata, key = _state(t, j, 4)
+  new_policy, info = tp.optimize(t, tpol, tdata, None,
+                                 noise=torch.tensor(_jax_noise(key)))
+  new_times, _, cands = jp._gen_candidates(j, jpol, jdata, key)
+  ts = jdata.time + jnp.arange(T, dtype=jnp.float32) * j.model.opt.timestep
+  actions = jax.vmap(lambda v: jspline.sample_many(
+      new_times, v, ts, jp.config.interp))(cands)
+  want = np.asarray(jf(jdata.qpos, jdata.qvel, actions, j.params,
+                       jdata.time))
+  _, jidx = jax.lax.top_k(-jnp.asarray(want), ELITE)
+  elites = cands[jidx]
+  jmean = jnp.mean(elites, axis=0)
+  jstd = jnp.maximum(jnp.sqrt(jnp.sum((elites - jmean[None]) ** 2, axis=0)
+                              / (ELITE - 1)), jp.config.std_min)
+  np.testing.assert_allclose(info.costs.numpy(), want, rtol=2e-3)
+  # no near-tie where the order matters: the winner, and the last elite
+  order = np.sort(want)
+  assert order[1] - order[0] > 1e-4 * order[0]
+  assert order[ELITE] - order[ELITE - 1] > 1e-4 * order[ELITE]
+  assert int(info.winner) == int(jidx[0])
+  np.testing.assert_allclose(new_policy.times.numpy(), np.asarray(new_times),
+                             atol=1e-6)
+  np.testing.assert_allclose(new_policy.values.numpy(), np.asarray(jmean),
+                             atol=1e-5)
+  np.testing.assert_allclose(new_policy.std.numpy(), np.asarray(jstd),
+                             atol=1e-5)
+
+
+@one_torch_thread()
+def test_agent_cross_entropy_plans_on_cpu():
+  """Agent(planner="cross_entropy") at the Walker's candidate count, over 4
+  steps: finite costs, the std at or above std_min, the plain version on
+  CPU tensors."""
+  agent = Agent("Walker", planner="cross_entropy", device="cpu",
+                horizon_steps=4)
+  assert isinstance(agent.planner, tcem.CrossEntropyPlanner)
+  cfg = agent.planner.config
+  assert (cfg.num_trajectories, cfg.n_elite) == (128, 12)
+  agent.reset("home")
+  for _ in range(2):
+    info = agent.planner_step()
+    assert info.costs.shape == (128,)
+    assert bool(torch.all(torch.isfinite(info.costs)))
+    assert float(info.best_return) == float(info.costs.min())
+  assert float(agent.policy.std.min()) >= cfg.std_min
+  u = agent.action()
+  assert u.shape == (6,) and np.all(np.isfinite(u))
+  assert agent.planner.mega.launches == 0  # CPU tensors: the plain version

@@ -3,7 +3,7 @@
 mujoco_mpc_torch.physics.tilestep.step_tb against
 mujoco_mpc_tpu.physics.tilestep.step_tb on the same float32 inputs made
 with numpy from a seed; the rollouts are held in
-tests/test_torch_tilestep_returns.py.
+tests/test_torch_planner.py.
 
 Tolerances, with the errors measured when they were set:
   one step: qpos atol 1e-6 (measured 3e-8), qvel atol 1e-4 (8e-6), duals
@@ -20,7 +20,7 @@ from mujoco_mpc_torch.tasks import registry as treg
 from mujoco_mpc_tpu.physics import tilestep as jts
 from mujoco_mpc_tpu.tasks import registry as jreg
 
-B = 8
+B = 16
 
 
 @pytest.fixture(scope="module")

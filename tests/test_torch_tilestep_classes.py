@@ -8,10 +8,12 @@ motor on a fixed tendon (:108-113); a joint equality with a quadratic
 coupling (:116-122); a connect and a weld equality between two bodies
 (:151-161); the condim-4 and condim-6 versions of its ball model
 (:164-196: plane-sphere and sphere-sphere with a torsional row each, and at
-condim 6 two rolling rows each); and a capsule pressing a box
-(capsule-box and plane-capsule points at condim 4, plane-box corners at
-condim 3). Their residual is the state (qpos, qvel), the JAX test's, which
-the kernel computes as residual_state.
+condim 6 two rolling rows each); a capsule pressing a box (capsule-box and
+plane-capsule points at condim 4, plane-box corners at condim 3); and the
+port's own ball chain (a ball joint mid-chain with a limited hinge after
+it; sphere-capsule, plane-sphere and plane-capsule points). Their residual
+is the state (qpos, qvel), the JAX test's, which the kernel computes as
+residual_state.
 
 The same float32 inputs, made with numpy from a seed, go through both
 packages; the JAX tile step runs eagerly, as in
@@ -19,6 +21,11 @@ tests/test_torch_quadruped.py. Tolerances, with the errors measured when
 they were set: one step, cold then warm, qpos atol 1e-6 (measured 6.0e-8),
 qvel atol 1e-4 (4.8e-7; the connect and weld models 2.4e-6), duals atol
 1e-5 * max(max|duals|, 1) (4.8e-6 of 12.9; connect 9.2e-5 of 413),
+except the ball chain's qpos atol 1e-5 (measured 2.0e-6), qvel 1e-3
+(2.8e-4) and duals 1e-4 * max (1.3e-5 * max, 0.18 of 1.38e4): its tip
+pressing the floor through the chain is ill-conditioned in float32, where
+the port's own float32 step is 3.5e-6 (qpos) and 4.4e-4 (qvel) from its
+float64 step, and JAX's 2.6e-4 (qvel);
 actuator forces atol 1e-5 (0); returns at n = 8, T = 8 rtol 2e-3
 (measured 2.5e-7). A snapshot equals a fresh build exactly.
 """
@@ -45,6 +52,9 @@ B, N, T = 8, 8, 8
 # name: ClassModel (MJCF, start qpos, qvel scale, row classes that must
 # carry force in the step test)
 CLASS_MODELS = class_models.MODELS
+# (qpos, qvel, duals / max|duals|) atol of the one-step check (the module
+# docstring)
+_STEP_TOL = {"ball_chain": (1e-5, 1e-3, 1e-4)}
 
 
 def class_task(name, device="cpu"):
@@ -142,9 +152,10 @@ def jax_probe_and_returns(j, jtm, probe, qpos0, qvel0, actions, t0=0.0,
 
 def models_fixture(names):
   """A module fixture over `names`: (name, the port's Task, the JAX Task,
-  both TileModels). The per-model tests below run over four of the models
-  here and the other four in test_torch_tilestep_classes_b.py, so that the
-  test workers share them out."""
+  both TileModels). The per-model tests below run over the chain models
+  here (the ball chain among them) and the three JAX contact models in
+  test_torch_tilestep_classes_b.py, so that the test workers share them
+  out, each module's models sharing most of their eager JAX primitives."""
 
   @pytest.fixture(scope="module", params=names)
   def models(request):
@@ -155,7 +166,8 @@ def models_fixture(names):
   return models
 
 
-HALF_A = ("capsule_box", "connect", "tendon_actuator", "weld")
+HALF_A = ("ball_chain", "connect", "joint_equality", "tendon_actuator",
+          "tendon_spring", "weld")
 models = models_fixture(HALF_A)
 
 
@@ -220,6 +232,10 @@ def test_class_model_extract_matches_jax(models):
   if name in ("joint_equality", "connect", "weld"):
     assert ours.neq_rows == {"joint_equality": 1, "connect": 3,
                              "weld": 6}[name]
+  if name == "ball_chain":  # the ball's 4 qpos and 3 dofs mid-chain
+    assert (ours.jnt_qposadr, ours.jnt_dofadr) == ((0, 1, 5, 6), (0, 1, 4, 5))
+    assert ours.dof_body == theirs.dof_body == (1, 2, 2, 2, 3, 4)
+    assert tts.row_kinds(ours).count("sphere_cap") == 3
 
 
 
@@ -254,10 +270,11 @@ def test_class_model_step_matches_jax(models, jax_run):
     lam = tl.numpy()
     for kind in CLASS_MODELS[name].kinds:
       assert np.abs(lam[kinds == kind]).max() > 0, kind
-    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=1e-6)
-    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-4)
+    tol_q, tol_v, tol_l = _STEP_TOL.get(name, (1e-6, 1e-4, 1e-5))
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=tol_q)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=tol_v)
     np.testing.assert_allclose(
-        lam, np.asarray(jl), atol=1e-5 * max(float(np.abs(lam).max()), 1.0))
+        lam, np.asarray(jl), atol=tol_l * max(float(np.abs(lam).max()), 1.0))
     np.testing.assert_allclose(view.actuator_force.numpy(),
                                np.asarray(jview.actuator_force), atol=1e-5)
 
@@ -277,11 +294,11 @@ def test_class_model_returns_match_jax(models, jax_run):
 
 def test_condim6_and_equality_stay_outside_the_class():
   """Condim 6 and the equality rows are in the class now (the models
-  above), and so is the box-box pair (16 points, here at condim 6: a
-  torsional and two rolling rows each); what stays outside beside them
-  raises UnsupportedModel naming its ROADMAP item, and is not taken on a
-  plain path: the sphere-capsule pair (slice S5), a ball joint (slice
-  S3)."""
+  above), and so are the box-box pair (16 points, here at condim 6: a
+  torsional and two rolling rows each), the sphere-capsule pair and ball
+  joints: the JAX kernel's whole class. What stays outside is what the
+  JAX extract refuses, as tests/test_torch_model.py::
+  test_quaternion_joint_refusals_match_jax holds."""
   box_box = ("<mujoco><worldbody>" + "".join(
       f"<body pos='0 0 {i}'><freejoint/><geom type='box' size='.1 .1 .1' "
       "condim='6'/></body>" for i in range(2)) + "</worldbody></mujoco>")
@@ -290,12 +307,12 @@ def test_condim6_and_equality_stay_outside_the_class():
   assert (tm.ncon, tm.ntor, tm.nroll, tm.nrow) == (16, 16, 16, 96)
   ball = class_models.CHAIN_XML.format(eq="").replace(
       '<joint name="j3" type="hinge"', '<joint name="j3" type="ball"')
-  for xml, item in ((jtests._BALL_XML.format(condim=6).replace(
-                        'type="sphere" size="0.08"',
-                        'type="capsule" size="0.08 0.05"'),
-                     "S5, the sphere-capsule pair"),
-                    (ball, "S3")):
-    m = tio.from_mjmodel(mujoco.MjModel.from_xml_string(xml),
-                         dtype=torch.float32, device="cpu")
-    with pytest.raises(tts.UnsupportedModel, match=item):
-      tts.extract(m)
+  sphere_cap = jtests._BALL_XML.format(condim=6).replace(
+      'type="sphere" size="0.08"', 'type="capsule" size="0.08 0.05"')
+  for xml, kind in ((sphere_cap, "sphere_cap"), (ball, None)):
+    tm = tts.extract(tio.from_mjmodel(mujoco.MjModel.from_xml_string(xml),
+                                      dtype=torch.float32, device="cpu"))
+    if kind:
+      assert [cp.kind for cp in tm.con_points].count(kind) == 1
+    else:
+      assert tm.nv == 5 and tm.dof_body[2:] == (3, 3, 3)

@@ -1,6 +1,7 @@
 """The per-model tests of tests/test_torch_tilestep_classes.py (extract,
-one step, returns, against the JAX tile path) over the other four class
-models; the tests, the fixtures and their tolerances are that file's."""
+one step, returns, against the JAX tile path) over the JAX tests' three
+contact models; the tests, the fixtures and their tolerances are that
+file's."""
 
 from tests.test_torch_tilestep_classes import (  # noqa: F401 (collected)
     CLASS_MODELS, HALF_A, jax_run, models_fixture,
