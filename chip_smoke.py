@@ -3,8 +3,10 @@
     python3 chip_smoke.py [--out FILE.json]
 
 Builds the CUDA kernel from mujoco_mpc_torch/csrc/ (one library per size
-tier and precision, and an uncontracted float library per tier, the nvcc
-processes at once) and, for each path it
+tier and precision, an uncontracted float library per tier, and each
+tier's float library with its phase counters, the nvcc processes at once;
+it prints each instance's ptxas registers and stack frame, and fails at a
+card instance's frame of 8 KB or more) and, for each path it
 serves (Walker, Humanoid Walk, Quadruped Flat, Shadow, Bimanual Handover
 and Allegro, the cross-entropy planner on Walker and Shadow, and the small
 tasks Cartpole, Acrobot, Particle, ParticleFixed, Fingers, Arm Reach, Push
@@ -30,9 +32,15 @@ version's rollouts run in worker processes on the host's
 CPU cores, beside the card's work (the checks wait for them at the end);
 the one-step checks run it on the card.
 Exits non-zero, printing no result, without a CUDA
-device or on any failed check. The last line of standard output is
-{"ok": true, "device": {...}}; the line before it lists the kernel once per
-path with its launch count, error, time, plain time and bound.
+device or on any failed check. Phase P measures where the time goes: the
+Walker, Humanoid and Allegro benches' returns once through the profiling
+build (where a step's cycles go), the device's busy share over 5
+planner_steps of the Walker and Rubik Faces Agents (torch.profiler), and
+Nsight Compute's occupancy and stall reasons where ncu runs. The
+last line of standard output is {"ok": true, "device": {...}}; the line
+before it lists the kernel once per path with its launch count, error,
+time, plain time, bound and launch geometry (warps per block, blocks
+resident per SM, SMs in use).
 """
 
 from __future__ import annotations
@@ -44,6 +52,9 @@ import dataclasses
 import functools
 import json
 import multiprocessing
+import os
+import re
+import signal
 import subprocess
 import sys
 import time
@@ -232,30 +243,6 @@ def agreement(got, want, what: str):
   check(rel <= 2e-3, f"{what}: kernel disagrees with the plain version "
         f"(max rel err {rel:.3g} > 2e-3)")
   return rel, float(diff.max())
-
-
-@contextlib.contextmanager
-def uncontracted(MR):
-  """MegaRollout's float kernels swapped for the same source built
-  without multiply-add contraction (-fmad=false), which rounds as the
-  plain version does, op for op."""
-  import torch
-  from mujoco_mpc_torch.ops import _cuda_build
-  library = MR._library
-
-  def swapped(tier, dtype):
-    if dtype != torch.float32:
-      return library(tier, dtype)
-    lib = _cuda_build.load(MR.TIERS.index(tier), False, contract=False)
-    MR.check_layout(lib.mr_model_layout, lib.mr_model_size,
-                    MR._MODEL_STRUCT[tier, dtype])
-    return lib
-
-  MR._library = swapped
-  try:
-    yield
-  finally:
-    MR._library = library
 
 
 # How a phase holds the kernel's returns against the plain version's: in
@@ -488,6 +475,44 @@ _ELEMENTWISE = {"add", "sub", "rsub", "mul", "div", "neg", "reciprocal",
 _REDUCTIONS = {"sum", "max", "amax", "min", "amin"}
 
 
+def ptxas_entries(log: str) -> list:
+  """Each kernel entry's registers, stack frame, spills and static shared
+  bytes from nvcc's -Xptxas -v report."""
+  out, cur = [], None
+  for ln in log.splitlines():
+    m = re.search(r"Compiling entry function '(\w+)'", ln)
+    if m:
+      name = m.group(1)
+      kernel = next((k for k in ("mr_returns_kernel", "mr_step_kernel")
+                     if k in name), name)
+      cur = {"kernel": kernel, "registers": None, "stack": 0,
+             "spill_stores": 0, "spill_loads": 0, "smem": 0}
+      out.append(cur)
+      continue
+    if cur is None:
+      continue
+    m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                  r"(\d+) bytes spill loads", ln)
+    if m and cur["registers"] is None:
+      cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                 spill_loads=int(m.group(3)))
+    m = re.search(r"Used (\d+) registers", ln)
+    if m:
+      cur["registers"] = int(m.group(1))
+      sm = re.search(r"(\d+) bytes smem", ln)
+      cur["smem"] = int(sm.group(1)) if sm else 0
+  return out
+
+
+def geometry_keys(out: dict) -> dict:
+  """The launch geometry a kernels-line row reports, from a phase's
+  numbers."""
+  g = out["geometry"]
+  return {"warps_per_block": g["warps_per_block"],
+          "blocks_per_sm": g["blocks_per_sm"],
+          "sms_in_use": g["sms_in_use"]}
+
+
 def start_qpos(model):
   """The model's home keyframe's qpos, or qpos0 where it has none."""
   import numpy as np
@@ -636,6 +661,109 @@ def timed_cuda(fn, reps: int) -> float:
   return start.elapsed_time(end) / reps
 
 
+def phase_breakdown(tag: str, mr, args, ops) -> dict:
+  """Phase P at one bench cell: one plan's returns `args` through the
+  float kernel of mr's size tier built with its phase counters
+  (-DMR_PROFILE=1: clock64() on each candidate's lane 0 around each phase
+  of a step, summed over candidates and steps), after a warm-up call
+  through it. The cycles per candidate step by phase, their shares, and
+  the counted call's kernel ms."""
+  from mujoco_mpc_torch.ops import megarollout as MR
+  n, horizon = args[2].shape[:2]
+  with MR.float_kernels(profile=True):
+    mr.returns(*args, **ops)
+    MR.phase_cycles(mr.tier)  # the read zeroes the counters
+    ms = timed_cuda(lambda: mr.returns(*args, **ops), 1)
+    cyc = MR.phase_cycles(mr.tier)
+  total, steps = sum(cyc.values()), n * horizon
+  check(total > 0, f"{tag}: the profiling build counted no cycles")
+  print(f"[P] {tag} {n}x{horizon} ({mr.tier.name} tier) through the "
+        f"profiling build: {total / steps:.0f} cycles per candidate step, "
+        f"kernel {ms:.3f} ms with the counters")
+  for phase, c in cyc.items():
+    print(f"    {phase:24s} {c / steps:10.0f} cycles/step "
+          f"{100 * c / total:6.2f} %")
+  return {"kernel_ms_profiled": ms, "cycles_per_step": total / steps,
+          "per_step": {k: v / steps for k, v in cyc.items()},
+          "share": {k: v / total for k, v in cyc.items()}}
+
+
+def busy_share(agent, steps: int = 5) -> dict:
+  """The device's busy share over `steps` planner_steps of `agent` after
+  a warm-up one: the union of the CUDA kernels' and copies' intervals that
+  torch.profiler records, over the host's wall time of the window (which
+  ends in torch.cuda.synchronize())."""
+  import torch
+  from torch.autograd import DeviceType
+  agent.planner_step()
+  torch.cuda.synchronize()
+  acts = [torch.profiler.ProfilerActivity.CPU,
+          torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=acts) as prof:
+    t = time.perf_counter()
+    for _ in range(steps):
+      agent.planner_step()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t) * 1e6
+  spans = sorted((e.time_range.start, e.time_range.end)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+  busy, cur = 0.0, None
+  for a, b in spans:  # the union of the device intervals
+    if cur is None or a > cur[1]:
+      busy += 0.0 if cur is None else cur[1] - cur[0]
+      cur = [a, b]
+    else:
+      cur[1] = max(cur[1], b)
+  busy += 0.0 if cur is None else cur[1] - cur[0]
+  return {"wall_ms": wall_us / 1e3, "device_events": len(spans),
+          "busy_ms": busy / 1e3,
+          "busy_share": busy / wall_us if spans else None}
+
+
+def ncu_probe(timeout: int = 180) -> dict:
+  """Whether Nsight Compute (ncu) is on the host and, if it is, what it
+  says of one Walker launch's occupancy and warp stalls (this script's
+  --ncu-target, in a session of its own that a timeout stops whole)."""
+  import shutil
+  path = shutil.which("ncu") or next(
+      (p for p in ("/usr/local/cuda/bin/ncu",) if os.path.exists(p)), None)
+  if path is None:
+    print("[P] ncu is not on this host: occupancy and stall reasons not "
+          "measured")
+    return {"present": False}
+  proc = subprocess.Popen(
+      [path, "--section", "Occupancy", "--section", "WarpStateStats", "-k",
+       "regex:mr_returns", "-c", "1", sys.executable,
+       os.path.abspath(__file__), "--ncu-target"],
+      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+      start_new_session=True)
+  try:
+    text, _ = proc.communicate(timeout=timeout)
+  except subprocess.TimeoutExpired:
+    os.killpg(proc.pid, signal.SIGKILL)
+    text = proc.communicate()[0] + f"\n(stopped after {timeout} s)"
+  text = text[-3000:]
+  print(f"[P] {path}, exit {proc.returncode}:\n{text}")
+  return {"present": True, "path": path, "rc": proc.returncode,
+          "output": text}
+
+
+def ncu_target() -> int:
+  """The process ncu profiles: one Walker launch of 256 x 20."""
+  import torch
+  from mujoco_mpc_torch.ops import megarollout as MR
+  from mujoco_mpc_torch.tasks import registry
+  dev = torch.device("cuda", 0)
+  task = registry.get_task("Walker", device=dev)
+  mr = MR.MegaRollout(task, 20, device=dev)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  acts = 0.4 * torch.randn((256, 20, 6), device=dev, generator=gen)
+  home = torch.tensor(task.model.keyframe("home")[0], device=dev)
+  mr.returns(home, torch.zeros(9, device=dev), acts, task.params, 0.0)
+  torch.cuda.synchronize()
+  return 0
+
+
 def probe_step(tag: str, mr, states, operands) -> dict:
   """One step of the float and double step kernels on probe states in which
   every row class carries force, against the plain step_tb: float32 qpos
@@ -743,7 +871,8 @@ def drive_agent(tag: str, agent, nu: int, monotone: bool = True,
   new_times, _, cands = pl._gen_candidates(atask, agent.policy, d,
                                            agent.generator)
   acts = pl._actions(atask, d, new_times, cands)
-  out = {"best": best, "launches": launches, "ms_per_plan": plan_ms}
+  out = {"best": best, "launches": launches, "ms_per_plan": plan_ms,
+         "geometry": pl.mega.geometry(cfg.num_trajectories)}
   finish = hold_deferred(f"{tag}: returns {tuple(acts.shape)}", hold,
                          pl.mega, (d.qpos, d.qvel, acts, atask.params,
                                    d.time),
@@ -808,7 +937,7 @@ def hold_deferred(what: str, hold: Hold, mr, args, ops, out: dict,
 def bench_shape(tag: str, task, n: int, horizon: int, cfg, operands,
                 reps: int, hold: Hold | None = Hold(NOISE_BOUND,
                                                      PER_CANDIDATE),
-                prefix=None) -> dict:
+                prefix=None, profile: bool = False) -> dict:
   """The bench shape: SamplingPlanner.optimize timed at n x horizon at the
   task model's dt (median, p66.7, max over reps calls after a warm-up
   call), the kernel timed between CUDA events, and one plan's returns held
@@ -818,7 +947,8 @@ def bench_shape(tag: str, task, n: int, horizon: int, cfg, operands,
   plain comparisons run on the first `prefix` candidates of the same
   action set: candidates are independent. With no `hold`, the bench is
   timed only: a caller whose Agent plans at the same horizon and dt holds
-  the kernel there."""
+  the kernel there. With `profile`, phase P's breakdown of the timed
+  returns (phase_breakdown)."""
   import numpy as np
   import torch
   from mujoco_mpc_torch.ops import megarollout as MR
@@ -863,8 +993,12 @@ def bench_shape(tag: str, task, n: int, horizon: int, cfg, operands,
   name = task.name
   out = {"optimize_ms": per_call, "steps_per_s": steps_s,
          "plan_hz": reps / wall, "kernel_ms": ms, "kernel64_ms": ms64,
+         "geometry": planner.mega.geometry(n),
          "step_ops": step_ops(registry.get_task(name, device="cpu"))}
   out["bound_ms"], out["bound_by"] = bound(out["step_ops"], n, horizon, task)
+  if profile:
+    out["phases"] = phase_breakdown(task.name, planner.mega, timed_args,
+                                    ops32)
   summary = (f"[{tag}] SamplingPlanner {shape} at dt "
              f"{float(task.model.opt.timestep):g}: {steps_s:.0f} steps/s, "
              f"{reps / wall:.3f} plan Hz; optimize ms median {q[0]:.3f}, "
@@ -887,7 +1021,7 @@ def bench_shape(tag: str, task, n: int, horizon: int, cfg, operands,
   # later in this phase): the witness of a candidate beyond the bound
   unfused = None
   if hold.f32 == NOISE_BOUND:
-    with uncontracted(MR):
+    with MR.float_kernels(contract=False):
       unfused = planner.mega.returns(*args, **ops32)
   timing = {}
   finish = hold_deferred(f"{name} returns {shape}", hold, planner.mega, args,
@@ -1004,7 +1138,7 @@ def run_quadruped(dev, rec: dict, reps: int) -> dict:
       "max_abs_err": max(drive["returns_abs_err"], b5["abs_err"]),
       "ms": b5["kernel_ms"], "plain_ms": b5["plain_ms"],
       "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
-      "library_ms": None,
+      "library_ms": None, **geometry_keys(b5),
       "err_over_tol": max([drive["err_over_tol"], b5["err_over_tol"]]
                           + [r / 2e-3 for r, _ in mode_err.values()])}
 
@@ -1054,7 +1188,7 @@ def run_shadow(dev, rec: dict, reps: int) -> dict:
       "max_abs_err": max(drive["returns_abs_err"], b5["abs_err"]),
       "ms": b5["kernel_ms"], "plain_ms": b5["plain_ms"],
       "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
-      "library_ms": None,
+      "library_ms": None, **geometry_keys(b5),
       "err_over_tol": max(drive["err_over_tol"], b5["err_over_tol"])}
 
 
@@ -1121,7 +1255,7 @@ def run_handover(dev, rec: dict, reps: int) -> dict:
       "max_abs_err": max(drive["returns_abs_err"], b5["abs_err"]),
       "ms": b5["kernel_ms"], "plain_ms": b5["plain_ms"],
       "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
-      "library_ms": None,
+      "library_ms": None, **geometry_keys(b5),
       "err_over_tol": max(drive["err_over_tol"], b5["err_over_tol"])}
 
 
@@ -1161,7 +1295,7 @@ def run_allegro(dev, rec: dict, reps: int) -> dict:
   rec["allegro_agent"] = drive
 
   # ---- 5a. the bench shape: 512 candidates x 80 steps at the XML dt
-  b5 = bench_shape("5a", task, 512, 80, cfg, operands, reps)
+  b5 = bench_shape("5a", task, 512, 80, cfg, operands, reps, profile=True)
   rec["allegro_bench_512x80"] = b5
   return lambda: {
       "name": "megarollout_returns[allegro]", "route": "cuda",
@@ -1171,7 +1305,7 @@ def run_allegro(dev, rec: dict, reps: int) -> dict:
       "max_abs_err": max(drive["returns_abs_err"], b5["abs_err"]),
       "ms": b5["kernel_ms"], "plain_ms": b5["plain_ms"],
       "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
-      "library_ms": None,
+      "library_ms": None, **geometry_keys(b5),
       "err_over_tol": max(drive["err_over_tol"], b5["err_over_tol"])}
 
 
@@ -1248,7 +1382,7 @@ def small_row(name, drive, b5) -> dict:
       "ms": timed["kernel_ms"], "plain_ms": (b5 or {}).get(
           "plain_ms", drive["plain_ms"]),
       "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-      "library_ms": None, "err_over_tol": max(x["err_over_tol"]
+      "library_ms": None, **geometry_keys(timed), "err_over_tol": max(x["err_over_tol"]
                                               for x in held)}
 
 
@@ -1373,12 +1507,14 @@ def run_cem(dev, rec: dict) -> dict:
       "launches": drive["launches"], "max_abs_err": drive["returns_abs_err"],
       "ms": drive["kernel_ms"], "plain_ms": drive["plain_ms"],
       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+      **geometry_keys(drive),
       "err_over_tol": drive["returns_rel_err"] / 2e-3}
 
 
 def main() -> int:
   ap = argparse.ArgumentParser()
   ap.add_argument("--out", help="also write every measured number here")
+  ap.add_argument("--ncu-target", action="store_true", help=argparse.SUPPRESS)
   args = ap.parse_args()
 
   import torch
@@ -1388,6 +1524,8 @@ def main() -> int:
     return 2
   t_start = time.perf_counter()
   import mujoco_mpc_torch  # noqa: F401 (fails outside a checkout)
+  if args.ncu_target:
+    return ncu_target()
 
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -1418,6 +1556,7 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
   from mujoco_mpc_torch.planners import sampling
   from mujoco_mpc_torch.tasks import humanoid
   from mujoco_mpc_torch.tasks import registry
+  from mujoco_mpc_torch.tasks import rubik
 
   # ---- 1. the card and the toolchain
   smi = subprocess.run(
@@ -1430,31 +1569,40 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
   rec["card"] = card
 
   # ---- 2. build the kernel from the sources: a library per size tier and
-  #      precision, the nvcc processes at once, each checked against its
-  #      ctypes mirror; the plain version's workers start meanwhile
+  #      precision, the uncontracted witnesses and each tier's float
+  #      kernel with its phase counters, the nvcc processes at once, each
+  #      checked against its ctypes mirror; the plain version's workers
+  #      start meanwhile
   warm = [PLAIN.submit(_worker_warm) for _ in range(PLAIN_WORKERS)]
   t = time.perf_counter()
+  card_libs = [(i, double, True) for i in range(len(MR.TIERS))
+               for double in (False, True)]
   libs = _cuda_build.build_all(
-      [(i, double, True) for i in range(len(MR.TIERS))
-       for double in (False, True)]
-      + [(i, False, False) for i in range(len(MR.TIERS))])
+      card_libs + [(i, False, False) for i in range(len(MR.TIERS))]
+      + [(i, False, True, True) for i in range(len(MR.TIERS))])
   for tier in MR.TIERS:
     for dt in (torch.float32, torch.float64):
       MR._library(tier, dt)
   rec["build_s"] = time.perf_counter() - t
   check(all(w.result() for w in warm), "the plain version's workers")
   print(f"[2] built {len(libs)} libraries ({2 * len(libs)} kernel instances;"
-        f" {len(MR.TIERS)} of them uncontracted witnesses) in "
-        f"{rec['build_s']:.2f} s")
+        f" {len(MR.TIERS)} pairs of them uncontracted witnesses, "
+        f"{len(MR.TIERS)} pairs with phase counters) in {rec['build_s']:.2f} s")
   rec["ptxas"] = {}
-  for so in libs:
-    ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "stack frame" in ln
-             or "Function properties" in ln]
-    rec["ptxas"][so.name] = ptxas
+  for i, so in enumerate(libs):
+    entries = ptxas_entries(so.with_suffix(".log").read_text())
+    rec["ptxas"][so.name] = entries
     print(f"    {so.name}:")
-    for ln in ptxas:
-      print(f"      {ln}")
+    for e in entries:
+      print(f"      {e['kernel']}: {e['registers']} registers, "
+            f"{e['stack']} bytes stack frame, {e['spill_stores']} bytes "
+            f"spill stores, {e['spill_loads']} spill loads, "
+            f"{e['smem']} bytes static shared (the working set is dynamic "
+            f"shared memory, sized per launch)")
+      if i < len(card_libs):  # the instances the card runs
+        check(e["stack"] < 8192, f"{so.name} {e['kernel']}: a "
+              f"{e['stack']}-byte stack frame (the working set belongs in "
+              f"shared memory)")
 
   # ---- 3. kernel against its plain version on the card
   task = registry.get_task("Walker", device=dev)
@@ -1548,6 +1696,13 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
                        torch.float32)
   rec.update(plan_steps_per_s=steps_s, plan_hz=reps / wall,
              optimize_ms=per_call, kernel_ms_1024x80=ms_big)
+  rec["walker_bench"] = {"geometry": planner.mega.geometry(1024)}
+  print(f"[5] launch geometry at 1024x80: {rec['walker_bench']['geometry']}")
+
+  # ---- P. where a step's cycles go: the same returns through the
+  #      profiling build (the Humanoid's and Allegro's in 5h and 5a)
+  rec["walker_bench"]["phases"] = phase_breakdown(
+      "Walker", planner.mega, (home, v0, acts, task.params, t0), {})
 
   def finish5():
     (plain,), plain_big = jobs5.get()
@@ -1578,6 +1733,7 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
       "max_abs_err": rec["returns_abs_err_1024x80"],
       "ms": ms_big, "plain_ms": rec["plain_ms_1024x80"],
       "bound_ms": bound_w, "bound_by": by_w, "library_ms": None,
+      **geometry_keys(rec["walker_bench"]),
       "err_over_tol": max(rec["returns_rel_err"], drive["returns_rel_err"],
                           rec["returns_rel_err_1024x80"]) / 2e-3}]
 
@@ -1600,7 +1756,8 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
   # ---- 5h. the north star: 256 candidates x 67 steps at the planning dt;
   #      chaotic in float32, so the float kernel is held as a population
   b5h = bench_shape("5h", hagent.task, 256, 67, hagent.planner.config,
-                    lambda dt: {}, reps, Hold(POPULATION, PER_CANDIDATE))
+                    lambda dt: {}, reps, Hold(POPULATION, PER_CANDIDATE),
+                    profile=True)
   rec["humanoid_bench_256x67"] = b5h
   rows.append(lambda: {
       "name": "megarollout_returns[humanoid]", "route": "cuda",
@@ -1609,7 +1766,7 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
       "launches": hdrive["launches"], "max_abs_err": hdrive["returns_abs_err"],
       "ms": b5h["kernel_ms"], "plain_ms": b5h["plain_ms"],
       "bound_ms": b5h["bound_ms"], "bound_by": b5h["bound_by"],
-      "library_ms": None,
+      "library_ms": None, **geometry_keys(b5h),
       "err_over_tol": max(hdrive["err_over_tol"], b5h["err_over_tol"])})
 
   for run in (run_quadruped, run_shadow, run_handover, run_allegro,
@@ -1623,6 +1780,27 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
   pools.append(run_card_queue())
   resolve_deferred()
   kernels = {"kernels": [row() for row in rows]}
+
+  # ---- P. the device's busy share at two Agents' plan loops, on a quiet
+  #      host (the plain version's workers are done), and Nsight Compute
+  #      where it runs
+  rec["busy"] = {}
+  for name in ("Walker", "Rubik Faces"):
+    pagent = Agent(name, device=dev, planner="sampling")
+    try:
+      pagent.reset("home")
+    except KeyError:
+      pagent.reset()
+    if name == "Rubik Faces":
+      pagent.set_state(userdata=rubik.faces_userdata(
+          pagent.task.model.nuserdata, RUBIK_TARGETS))
+    b = rec["busy"][name] = busy_share(pagent)
+    share = ("not measured (the profiler recorded no device events)"
+             if b["busy_share"] is None else f"{100 * b['busy_share']:.2f} %")
+    print(f"[P] Agent('{name}') 5 planner_steps: wall {b['wall_ms']:.3f} ms, "
+          f"{b['device_events']} device events, busy {b['busy_ms']:.3f} ms: "
+          f"busy share {share}")
+  rec["ncu"] = ncu_probe()
   rec["total_s"] = time.perf_counter() - t_start
   print(f"[end] every phase passed in {rec['total_s']:.1f} s, the build "
         f"included")

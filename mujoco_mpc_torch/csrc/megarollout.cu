@@ -9,15 +9,56 @@
 // non-finite total becomes MAX_RETURN (1e6). The plain PyTorch version it
 // is held against is mujoco_mpc_torch/ops/megarollout.py::_rollout_body.
 //
-// Design: one thread per candidate, blocks of 64 threads. Each thread keeps
-// its whole state in local arrays with compile-time maximum sizes (qpos,
-// qvel, the duals, the constraint Jacobian J[nrow][nv], the nv x nv
-// Cholesky factor, the APGD vectors) and runs the T-step loop itself. The
-// model is a POD struct (MRModelT) packed once per MegaRollout; each block
-// copies it into its dynamic shared memory. The maxima that size the
-// per-point fields and the per-row arrays come from a size tier (MRSmall,
-// MRLarge), a second template parameter: the ops wrapper picks the
+// Design: one warp per candidate. The 32 lanes of a warp run one
+// candidate's whole T-step rollout together; a block holds W warps, W
+// chosen at launch (mr_geometry): 2 where the model copy and two
+// candidates' working sets fit the block's shared memory and the launch
+// has at least two candidates per SM, else 1, so 256 candidates cover 128
+// of the 132 SMs. Each candidate's working set lives in its warp's slice
+// of the block's dynamic shared memory, carved at launch from the model's
+// own sizes (carve): qpos, qvel and the duals, the frames the residual
+// reads (StepOut), the tree recursions' per-body arrays, the constraint
+// Jacobian J (nrow x nv), the Cholesky factor (nv x nv), the dense
+// Delassus matrix where nrow <= 32, the row vectors of the solve. The
+// model (MRModelT, a POD struct packed once per MegaRollout) is copied
+// once per block into the same shared memory: read in place from global
+// memory through the read-only path instead, it let more blocks reside
+// per SM but ran a few per cent slower at Walker, Humanoid and Allegro
+// (PERF.md), where the launches fit in one wave either way.
+// __launch_bounds__(64, 8) caps a thread at 128 registers: the float
+// instances fit without spilling, and a higher cap ran no faster. The
+// maxima that size the model's per-point fields come from a size tier
+// (MRSmall, MRLarge), a template parameter: the ops wrapper picks the
 // smallest tier that holds the model.
+//
+// The lanes take the work that is independent across rows, contact
+// points, dofs, joints or bodies:
+//   - over points and rows: the narrowphase and each point's, limit's and
+//     equality's rows (J, aref, impedance); the Delassus diagonal, each
+//     lane solving its own rows with the serial chol_solve; a0, the
+//     regularizer and the preconditioner; project per contact point; the
+//     APGD updates; J x;
+//   - over dofs: J^T v, qfrc_c = J^T lambda, the mass matrix's columns,
+//     cdof_dot, the bias and passive forces, the velocity update;
+//   - over bodies and joints: the frames, cdof, cvel, the spatial and
+//     composite inertias, the RNE forces, the position update;
+//   - the Cholesky factorization and the forward substitution go column
+//     by column, each pivot broadcast from its lane by a shuffle; the back
+//     substitution runs on lane 0 in the serial order (chol_solve_lanes);
+//   - the tree recursions (forward kinematics, the composite-inertia and
+//     RNE accumulations), the tendon and actuator forces, the residual and
+//     the cost stay on lane 0, each followed by a __syncwarp().
+// Summation order: an output one lane computes sums in the serial order
+// (over nv for J x, over rows for J^T v, over columns for the factor).
+// Only true scalar reductions cross lanes (lane_sum: the APGD restart dot
+// product, the power iteration's norm and Rayleigh quotient, and the sum
+// of |lambda|, which only meets a test against 0; lane_max, exact: the
+// largest Delassus diagonal and the dense step size's row bound).
+// Every warp primitive goes through lane_id, lane_sync, lane_bcast,
+// lane_sum and lane_max, and the lane count L is a template parameter:
+// the card's instances use 32 (MR_LANES); the host build of
+// tests/test_torch_kernel_host.py instantiates 1, where the helpers are
+// identities, and 4, whose lanes are threads.
 //
 // Precision: everything is a template on the scalar type T. The planner
 // runs T = float. T = double (the libraries built with -DMR_DOUBLE=1) is
@@ -49,20 +90,21 @@
 // and contact distances and normals (StepOut).
 //
 // What bounds it on this card: latency, not bytes or FLOPs. A step is a
-// long chain of dependent scalar arithmetic per candidate (Walker ~30
-// kFLOP, Humanoid ~10x that), most of it in the 21 matrix-free Delassus
-// products of the constraint solve, and the per-thread working set
-// (the constraint Jacobian J[nrow][nv] above all) lives in local memory
-// (L1/L2). N candidates fill only N threads: at 1024, 16 blocks of 64 on
-// 132 SMs, two warps per busy SM. That occupancy is a known limit, left to
-// later performance work (e.g. one warp per candidate with rows spread
-// over the lanes).
+// long chain of dependent arithmetic per candidate (Walker ~90 k
+// operations, Humanoid ~600 k). The lanes take its independent work,
+// every operand of the chain is a shared-memory load, and one warp per
+// candidate puts 256 candidates on 128 SMs. What stays serial is the tree
+// recursions and the solves' chains (nv pivots each): the 21 Delassus
+// products of the step size and APGD, two triangular solves each, take
+// about two thirds of a step's cycles and the Delassus diagonal a tenth
+// to a sixth (chip_smoke.py phase P).
 //
 // Not built with --use_fast_math: it could fold away the isfinite guard and
 // changes expf/sqrtf/log1pf against the plain version.
 
 #include <cfloat>
 #include <cstddef>
+#include <mutex>
 #include <cuda_runtime.h>
 
 // Maxima, sized for the dm_control humanoid (nq 28, nv 27, nbody 17,
@@ -80,7 +122,6 @@
 #define MR_MAX_LIM 24     // limited joints (two rows each)
 #define MR_MAX_TEN 4      // fixed tendons (limited ones: two rows each)
 #define MR_MAX_WRAP 4     // joints a fixed tendon wraps
-#define MR_MAX_DENSE 32   // largest nrow solved with a materialized Delassus
 #define MR_MAX_TERM 16
 #define MR_MAX_RES 80     // residual entries
 #define MR_MAX_RES_INT 12
@@ -91,11 +132,11 @@
 #define MR_MAX_EQ 4       // equality constraints (a weld has 6 rows)
 
 // Size tiers: the kernel is a template on one of these, which sizes the
-// model struct's per-point fields (CON contact points) and each thread's
-// constraint arrays (ROW rows; J is ROW x MR_MAX_NV). The small tier holds
-// every model without a box pair, the handover's 130 rows the most, and
-// compiles no box-box code, so its threads keep the stack frame they had
-// before the tiers; the large tier holds the box-box group: Allegro (40
+// model struct's per-point fields (CON contact points) and bounds the rows
+// (ROW) a model may have; a candidate's arrays in shared memory are sized
+// from the model itself (carve). The small tier holds every model without
+// a box pair, the handover's 130 rows the most, and compiles no box-box
+// code; the large tier holds the box-box group: Allegro (40
 // points, 144 rows), OP3 (45, 159), Pick (40, 179), PickAndPlace (64, 206),
 // Humanoid Interact (71, 219) and Bimanual Reorient (72, 250). A library
 // is built per tier and precision (-DMR_TIER, -DMR_DOUBLE, below).
@@ -146,6 +187,40 @@ struct MRLarge {
 #define MR_EQ_CONNECT 0
 #define MR_EQ_WELD 1
 #define MR_EQ_JOINT 2
+
+// Phase counters, compiled in only with -DMR_PROFILE=1 (a profiling build):
+// clock64() cycles per phase of a step on each candidate's lane 0, summed
+// over every candidate and step into mr_phase_cycles and read back through
+// mr_profile(). The phases, in order (ops/megarollout.py PHASES): forward
+// kinematics, CRB and the mass matrix, Cholesky, RNE and the smooth
+// forces, the narrowphase and the constraint rows, the Delassus diagonal,
+// the step size, APGD, integration, the residual and the cost.
+#define MR_NPHASE 10
+#if defined(MR_PROFILE) && MR_PROFILE
+__device__ unsigned long long mr_phase_cycles[MR_NPHASE];
+struct MRProf {
+  unsigned long long cyc[MR_NPHASE];
+  long long t;
+  __device__ void start() {
+    for (int p = 0; p < MR_NPHASE; ++p) cyc[p] = 0;
+    t = clock64();
+  }
+  __device__ void mark(int p) {
+    const long long now = clock64();
+    cyc[p] += (unsigned long long)(now - t);
+    t = now;
+  }
+  __device__ void flush() {
+    for (int p = 0; p < MR_NPHASE; ++p) atomicAdd(&mr_phase_cycles[p], cyc[p]);
+  }
+};
+#else
+struct MRProf {
+  __device__ void start() {}
+  __device__ void mark(int) {}
+  __device__ void flush() {}
+};
+#endif
 
 // Fields are int or T. The wrapper (ops/megarollout.py::_model_struct)
 // mirrors every instantiation with ctypes, which pads as C does, and
@@ -436,38 +511,260 @@ __device__ __forceinline__ T impedance(T pos, const T* c) {
   return r_min(r_max(c[0] + y * (c[1] - c[0]), T(1e-4)), T(0.9999));
 }
 
-// L L^T x = b with L lower-triangular, stored in l[MR_MAX_NV][MR_MAX_NV]
+// ---------------------------------------------------------------------------
+// lanes: the L lanes of a warp share one candidate. Every warp primitive
+// goes through these helpers; with L = 1 they are identities.
+// ---------------------------------------------------------------------------
+
+#ifndef MR_LANES
+#define MR_LANES 32  // the card's instances
+#endif
+#define MR_FULL_MASK 0xffffffffu
+
+template <int L>
+__device__ __forceinline__ int lane_id() {
+  return L == 1 ? 0 : (int)(threadIdx.x % L);
+}
+
+template <int L>
+__device__ __forceinline__ void lane_sync() {
+  if constexpr (L > 1) __syncwarp();
+}
+
+// x as lane src holds it, on every lane
+template <int L, class V>
+__device__ __forceinline__ V lane_bcast(V x, int src) {
+  if constexpr (L == 1) return x;
+  else return __shfl_sync(MR_FULL_MASK, x, src, L);
+}
+
+// the sum of x over the lanes, the same on every lane (an xor butterfly:
+// the two lanes of a pair add the same two values)
+template <int L, class V>
+__device__ __forceinline__ V lane_sum(V x) {
+  if constexpr (L > 1)
+    for (int o = L / 2; o > 0; o >>= 1)
+      x += __shfl_xor_sync(MR_FULL_MASK, x, o, L);
+  return x;
+}
+
+// the largest x over the lanes (fmax: a NaN is ignored, as in a serial
+// r_max fold)
+template <int L, class V>
+__device__ __forceinline__ V lane_max(V x) {
+  if constexpr (L > 1)
+    for (int o = L / 2; o > 0; o >>= 1)
+      x = r_max(x, __shfl_xor_sync(MR_FULL_MASK, x, o, L));
+  return x;
+}
+
+// a quiet NaN of T: the identity of an fmax fold
 template <class T>
-__device__ __forceinline__ void chol_solve(const T (*l)[MR_MAX_NV],
-                                           const T* b, T* x, int n) {
+__device__ __forceinline__ T mr_nan() {
+  if constexpr (sizeof(T) == 4) return __int_as_float(0x7fc00000);
+  else return __longlong_as_double(0x7ff8000000000000ll);
+}
+
+// L L^T x = b with L lower-triangular (row stride ldl), on one lane
+template <class T>
+__device__ __forceinline__ void chol_solve(const T* l, int ldl, const T* b,
+                                           T* x, int n) {
   T y[MR_MAX_NV];
   for (int i = 0; i < n; ++i) {
     T acc = b[i];
-    for (int k = 0; k < i; ++k) acc -= l[i][k] * y[k];
-    y[i] = acc / l[i][i];
+    for (int k = 0; k < i; ++k) acc -= l[i * ldl + k] * y[k];
+    y[i] = acc / l[i * ldl + i];
   }
   for (int i = n - 1; i >= 0; --i) {
     T acc = y[i];
-    for (int k = i + 1; k < n; ++k) acc -= l[k][i] * x[k];
-    x[i] = acc / l[i][i];
+    for (int k = i + 1; k < n; ++k) acc -= l[k * ldl + i] * x[k];
+    x[i] = acc / l[i * ldl + i];
   }
 }
 
+// The same solve by the L lanes. The forward substitution goes column by
+// column: the lane of row r (r % L) keeps row r's running sum in a
+// register, and each y_i is broadcast from its row's lane; it subtracts
+// in chol_solve's order (ascending columns). The back substitution runs on
+// lane 0 in chol_solve's order too: done column by column it would
+// subtract in descending order, which moved a Walker rollout's return
+// 0.34 % from the plain version's (PERF.md, Findings); unrolled into
+// registers on every lane it was slower. b and x must not alias; the
+// caller syncs the lanes before reading x.
+template <class T, int L>
+__device__ void chol_solve_lanes(const T* __restrict__ l, int ldl,
+                                 const T* __restrict__ b, T* __restrict__ x,
+                                 int n) {
+  constexpr int PER = (MR_MAX_NV + L - 1) / L;  // rows per lane
+  const int lane = lane_id<L>();
+  T acc[PER];
+#pragma unroll
+  for (int p = 0; p < PER; ++p) {
+    const int r = lane + p * L;
+    acc[p] = r < n ? b[r] : T(0);
+  }
+  for (int i = 0; i < n; ++i) {
+    const T yi = lane_bcast<L>(acc[PER == 1 ? 0 : i / L] / l[i * ldl + i],
+                               i % L);
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const int r = lane + p * L;
+      if (r > i && r < n) acc[p] -= l[r * ldl + i] * yi;
+      if (r == i) acc[p] = yi;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < PER; ++p) {
+    const int r = lane + p * L;
+    if (r < n) x[r] = acc[p];
+  }
+  lane_sync<L>();
+  if (lane == 0)
+    for (int i = n - 1; i >= 0; --i) {
+      T a = x[i];
+#pragma unroll 4
+      for (int k = i + 1; k < n; ++k) a -= l[k * ldl + i] * x[k];
+      x[i] = a / l[i * ldl + i];
+    }
+}
+
 // ---------------------------------------------------------------------------
-// constraint solve helpers
+// a candidate's working set, in its warp's slice of shared memory
 // ---------------------------------------------------------------------------
 
+// What a residual reads after a step: PRE-step frames (the state the step
+// started from), as in tilestep.StepView, and the actuator forces of the
+// step's clamped ctrl; views into the candidate's working set
 template <class T, class S>
-struct Rows {
-  T J[S::ROW][MR_MAX_NV];
-  T s_pre[S::ROW];
-  T reg[S::ROW];
-  int active[S::ROW];
-  T mu_t[S::CON];
-  T mu_tor[S::CON];  // per torsional row
-  T mu_roll[S::CON];  // per rolling pair of rows
-  T amat[MR_MAX_DENSE * MR_MAX_DENSE];  // only when m.dense
+struct StepOut {
+  T (*xpos)[3];
+  T (*xquat)[4];
+  T (*xmat)[9];
+  T (*xipos)[3];
+  T (*ximat)[9];
+  T (*cvel)[6];
+  T (*subtree_com)[3];
+  T (*site_xpos)[3];
+  T (*site_xmat)[9];
+  T* act_force;
+  // the contact points in the model's order (con_id): dist (the margin
+  // taken off) and normal (frame row 0), from the step's narrowphase
+  T* con_dist;
+  T (*con_normal)[3];
 };
+
+// The views of one candidate's working set, kept at the start of its
+// slice (carve). The vectors of the step size and of APGD take the place
+// of four that only the rows' set-up reads (aref, raw_diag, a0, imp), and
+// APGD's y and gn that of diag and dr.
+template <class T, class S>
+struct Cand {
+  StepOut<T, S> out;
+  T *qpos, *qvel, *lam, *res;
+  T (*xanchor)[3], (*xaxis)[3], (*cdof)[6], (*cdofdot)[6], (*Iw)[9];
+  T (*compTL)[9], (*compMC)[3], *compM;
+  T (*cacc)[6], (*cfrc)[6];  // over compTL and compMC, dead by RNE
+  T *qfrc, *qact, *qacc_s, *qacc, *qfrc_c, *jtv, *xv, *ten_len, *ten_vel;
+  T* L;     // the joint-space inertia, then its Cholesky factor (stride ldl)
+  T* J;     // the constraint Jacobian, nrow x nv (stride ldj)
+  T* amat;  // the Delassus matrix, nrow x nrow (stride lda; dense only)
+  int ldl, ldj, lda;
+  int* active;
+  T *s_pre, *reg, *g, *y, *gn, *bvec, *mu_t, *mu_tor, *mu_roll, *eq_da;
+  T *aref, *raw_diag, *a0, *imp;  // the rows' set-up, then
+  T *v, *w, *sv, *av;             // the step size's and APGD's
+  T *diag, *dr;                   // (y and gn)
+};
+
+template <class E>
+__host__ __device__ inline void take(unsigned char* base, size_t& off, E*& p,
+                                     long count) {
+  p = base ? reinterpret_cast<E*>(base + off) : nullptr;
+  off += ((size_t)count * sizeof(E) + 15) & ~(size_t)15;
+}
+
+// Lays out a candidate's working set from base (nullptr: only counts),
+// every array sized from the model, the views in w; returns its bytes,
+// the Cand included. Row strides are odd, so that lanes walking rows of J,
+// L or amat hit distinct shared-memory banks.
+template <class T, class S>
+__host__ __device__ size_t carve(const MRModelT<T, S>& m, unsigned char* base,
+                                 Cand<T, S>& w) {
+  size_t off = (sizeof(Cand<T, S>) + 15) & ~(size_t)15;
+  const int nv = m.nv, nb = m.nbody, nrow = m.nrow;
+  w.ldl = nv | 1;
+  w.ldj = nv | 1;
+  w.lda = m.dense ? (nrow | 1) : 0;
+  take(base, off, w.qpos, m.nq);
+  take(base, off, w.qvel, nv);
+  take(base, off, w.lam, nrow);
+  take(base, off, w.res, m.nres);
+  StepOut<T, S>& o = w.out;
+  take(base, off, o.xpos, nb);
+  take(base, off, o.xquat, nb);
+  take(base, off, o.xmat, nb);
+  take(base, off, o.xipos, nb);
+  take(base, off, o.ximat, nb);
+  take(base, off, o.cvel, nb);
+  take(base, off, o.subtree_com, nb);
+  take(base, off, o.site_xpos, m.nsite);
+  take(base, off, o.site_xmat, m.nsite);
+  take(base, off, o.act_force, m.nu);
+  take(base, off, o.con_dist, m.ncon);
+  take(base, off, o.con_normal, m.ncon);
+  take(base, off, w.xanchor, m.njnt);
+  take(base, off, w.xaxis, m.njnt);
+  take(base, off, w.cdof, nv);
+  take(base, off, w.cdofdot, nv);
+  take(base, off, w.Iw, nb);
+  T* comp;  // compTL, compMC, compM (13 per body), then cacc, cfrc (12)
+  take(base, off, comp, 13 * nb);
+  if (base) {
+    w.compTL = reinterpret_cast<T (*)[9]>(comp);
+    w.compMC = reinterpret_cast<T (*)[3]>(comp + 9 * nb);
+    w.compM = comp + 12 * nb;
+    w.cacc = reinterpret_cast<T (*)[6]>(comp);
+    w.cfrc = reinterpret_cast<T (*)[6]>(comp + 6 * nb);
+  }
+  take(base, off, w.qfrc, nv);
+  take(base, off, w.qact, nv);
+  take(base, off, w.qacc_s, nv);
+  take(base, off, w.qacc, nv);
+  take(base, off, w.qfrc_c, nv);
+  take(base, off, w.jtv, nv);
+  take(base, off, w.xv, nv);
+  take(base, off, w.ten_len, m.nten);
+  take(base, off, w.ten_vel, m.nten);
+  take(base, off, w.L, nv * w.ldl);
+  take(base, off, w.J, nrow * w.ldj);
+  take(base, off, w.amat, nrow * w.lda);
+  take(base, off, w.active, nrow);
+  take(base, off, w.s_pre, nrow);
+  take(base, off, w.reg, nrow);
+  take(base, off, w.g, nrow);
+  take(base, off, w.y, nrow);
+  take(base, off, w.gn, nrow);
+  take(base, off, w.bvec, nrow);
+  take(base, off, w.aref, nrow);
+  take(base, off, w.raw_diag, nrow);
+  take(base, off, w.a0, nrow);
+  take(base, off, w.imp, nrow);
+  take(base, off, w.mu_t, m.nfric);
+  take(base, off, w.mu_tor, m.ntor);
+  take(base, off, w.mu_roll, m.nroll);
+  take(base, off, w.eq_da, m.neqrow);
+  w.v = w.aref;
+  w.w = w.raw_diag;
+  w.sv = w.a0;
+  w.av = w.imp;
+  w.diag = w.y;
+  w.dr = w.gn;
+  return off;
+}
+
+// ---------------------------------------------------------------------------
+// constraint solve helpers, by the lanes of one candidate
+// ---------------------------------------------------------------------------
 
 // first torsional row: after the condim>=3 points' three rows each and the
 // condim-1 points' one
@@ -490,32 +787,43 @@ __device__ __forceinline__ int lim_row0(const MRModelT<T, S>& m) {
   return roll_row0(m) + 2 * m.nroll;
 }
 
-// out = A v with A = J M^-1 J^T (dense: the materialized matrix)
-template <class T, class S>
-__device__ void amul(const MRModelT<T, S>& m, const Rows<T, S>& R,
-                     const T (*l)[MR_MAX_NV], const T* v,
-                     T* out) {
+// the rows of an equality of kind k
+__device__ __forceinline__ int eq_nrows(int kind) {
+  return kind == MR_EQ_JOINT ? 1 : (kind == MR_EQ_CONNECT ? 3 : 6);
+}
+
+// out = A v with A = J M^-1 J^T (dense: the materialized matrix); v is
+// complete on every lane (the caller synced); returns synced
+template <class T, class S, int L>
+__device__ void amul(const MRModelT<T, S>& m, const Cand<T, S>& w,
+                     const T* v, T* out) {
+  const int lane = lane_id<L>();
   const int nrow = m.nrow, nv = m.nv;
+  const T* J = w.J;
+  const int ldj = w.ldj;
   if (m.dense) {
-    for (int r = 0; r < nrow; ++r) {
+    for (int r = lane; r < nrow; r += L) {
       T s = 0.0f;
-      for (int c = 0; c < nrow; ++c) s += R.amat[r * nrow + c] * v[c];
+      for (int c = 0; c < nrow; ++c) s += w.amat[r * w.lda + c] * v[c];
       out[r] = s;
     }
+    lane_sync<L>();
     return;
   }
-  T jtv[MR_MAX_NV], x[MR_MAX_NV];
-  for (int k = 0; k < nv; ++k) {
+  for (int k = lane; k < nv; k += L) {
     T s = 0.0f;
-    for (int r = 0; r < nrow; ++r) s += R.J[r][k] * v[r];
-    jtv[k] = s;
+    for (int r = 0; r < nrow; ++r) s += J[r * ldj + k] * v[r];
+    w.jtv[k] = s;
   }
-  chol_solve(l, jtv, x, nv);
-  for (int r = 0; r < nrow; ++r) {
+  lane_sync<L>();
+  chol_solve_lanes<T, L>(w.L, w.ldl, w.jtv, w.xv, nv);
+  lane_sync<L>();
+  for (int r = lane; r < nrow; r += L) {
     T s = 0.0f;
-    for (int k = 0; k < nv; ++k) s += R.J[r][k] * x[k];
+    for (int k = 0; k < nv; ++k) s += J[r * ldj + k] * w.xv[k];
     out[r] = s;
   }
+  lane_sync<L>();
 }
 
 // friction cone on the condim>=3 points, an interval on each torsional row
@@ -523,80 +831,66 @@ __device__ void amul(const MRModelT<T, S>& m, const Rows<T, S>& R,
 // normal iterate (not a coupled elliptic cone: the JAX package's
 // approximation), the nonnegative orthant on condim-1 normals and joint
 // and tendon limits, nothing on the bilateral equality rows, then the
-// active mask
-template <class T, class S>
-__device__ void project(const MRModelT<T, S>& m, const Rows<T, S>& R, T* g) {
-  const int tor0 = tor_row0(m), roll0 = roll_row0(m);
-  for (int ci = 0; ci < m.nfric; ++ci) {
+// active mask; a lane per contact point, then a lane per other row
+template <class T, class S, int L>
+__device__ void project(const MRModelT<T, S>& m, const Cand<T, S>& w, T* g) {
+  const int lane = lane_id<L>();
+  const int tor0 = tor_row0(m), roll0 = roll_row0(m), lim0 = lim_row0(m);
+  const int eq0 = m.nrow - m.neqrow;
+  const int* active = w.active;
+  for (int ci = lane; ci < m.nfric; ci += L) {
     T* gc = g + 3 * ci;
     T gn = r_max(gc[0], 0.0f);
     T tsq = gc[1] * gc[1] + gc[2] * gc[2];
     T tnorm = tsq < T(1e-24) ? 0.0f : r_sqrt(tsq);
-    T cap = R.mu_t[ci] * gn;
+    T cap = w.mu_t[ci] * gn;
     T sc = tnorm > cap ? cap / r_max(tnorm, T(1e-12)) : 1.0f;
     gc[0] = gn;
     gc[1] *= sc;
     gc[2] *= sc;
+    for (int i = 0; i < 3; ++i)
+      if (!active[3 * ci + i]) gc[i] = 0.0f;
     const int ti = m.con_tor[ci];
     if (ti >= 0) {
-      const T tcap = R.mu_tor[ti] * gn;
-      g[tor0 + ti] = r_min(r_max(g[tor0 + ti], -tcap), tcap);
+      const int r = tor0 + ti;
+      const T tcap = w.mu_tor[ti] * gn;
+      g[r] = active[r] ? r_min(r_max(g[r], -tcap), tcap) : T(0);
     }
     const int ri = m.con_roll[ci];
     if (ri >= 0) {
-      T* r1 = g + roll0 + ri;
-      T* r2 = g + roll0 + m.nroll + ri;
-      const T rsq = *r1 * *r1 + *r2 * *r2;
+      const int ra = roll0 + ri, rb = roll0 + m.nroll + ri;
+      const T rsq = g[ra] * g[ra] + g[rb] * g[rb];
       const T rnorm = rsq < T(1e-24) ? 0.0f : r_sqrt(rsq);
-      const T rcap = R.mu_roll[ri] * gn;
+      const T rcap = w.mu_roll[ri] * gn;
       const T rs = rnorm > rcap ? rcap / r_max(rnorm, T(1e-12)) : 1.0f;
-      *r1 *= rs;
-      *r2 *= rs;
+      g[ra] = active[ra] ? g[ra] * rs : T(0);
+      g[rb] = active[rb] ? g[rb] * rs : T(0);
     }
   }
-  for (int r = 3 * m.nfric; r < tor0; ++r) g[r] = r_max(g[r], 0.0f);
-  for (int r = lim_row0(m); r < m.nrow - m.neqrow; ++r)
-    g[r] = r_max(g[r], 0.0f);
-  for (int r = 0; r < m.nrow; ++r)
-    if (!R.active[r]) g[r] = 0.0f;
+  for (int r = 3 * m.nfric + lane; r < tor0; r += L)
+    g[r] = active[r] ? r_max(g[r], 0.0f) : T(0);
+  for (int r = lim0 + lane; r < m.nrow; r += L)
+    g[r] = active[r] ? (r < eq0 ? r_max(g[r], 0.0f) : g[r]) : T(0);
+  lane_sync<L>();
 }
 
-template <class T, class S>
-__device__ void opmul(const MRModelT<T, S>& m, const Rows<T, S>& R,
-                      const T (*l)[MR_MAX_NV], const T* v,
-                      T* out) {
-  T sv[S::ROW], av[S::ROW];
-  for (int r = 0; r < m.nrow; ++r)
-    sv[r] = R.active[r] ? R.s_pre[r] * v[r] : 0.0f;
-  amul(m, R, l, sv, av);
-  for (int r = 0; r < m.nrow; ++r)
-    out[r] = R.active[r] ? R.s_pre[r] * (av[r] + R.reg[r] * sv[r]) : 0.0f;
+template <class T, class S, int L>
+__device__ void opmul(const MRModelT<T, S>& m, const Cand<T, S>& w,
+                      const T* v, T* out) {
+  const int lane = lane_id<L>();
+  for (int r = lane; r < m.nrow; r += L)
+    w.sv[r] = w.active[r] ? w.s_pre[r] * v[r] : 0.0f;
+  lane_sync<L>();
+  amul<T, S, L>(m, w, w.sv, w.av);
+  for (int r = lane; r < m.nrow; r += L)
+    out[r] = w.active[r] ? w.s_pre[r] * (w.av[r] + w.reg[r] * w.sv[r])
+                         : 0.0f;
+  lane_sync<L>();
 }
 
 // ---------------------------------------------------------------------------
 // one physics step (physics/tilestep.py::step_tb)
 // ---------------------------------------------------------------------------
-
-// What a residual reads after a step: PRE-step frames (the state the step
-// started from), as in tilestep.StepView, and the actuator forces of the
-// step's clamped ctrl
-template <class T, class S>
-struct StepOut {
-  T xpos[MR_MAX_BODY][3];
-  T xquat[MR_MAX_BODY][4];
-  T xmat[MR_MAX_BODY][9];
-  T xipos[MR_MAX_BODY][3];
-  T ximat[MR_MAX_BODY][9];
-  T cvel[MR_MAX_BODY][6];
-  T subtree_com[MR_MAX_BODY][3];
-  T site_xpos[MR_MAX_SITE][3];
-  T site_xmat[MR_MAX_SITE][9];
-  T act_force[MR_MAX_NU];
-  // the contact points in the model's order (con_id): dist (the margin
-  // taken off) and normal (frame row 0), from the step's narrowphase
-  T con_dist[S::CON];
-  T con_normal[S::CON][3];
-};
 
 // world position and rotation matrix of geom side s (0 = g1, 1 = g2) of
 // contact point ci
@@ -851,81 +1145,96 @@ __device__ T contact_geometry(const MRModelT<T, S>& m, const T (*xpos)[3],
   return dist - m.con_margin[ci];
 }
 
-// Advances qpos/qvel in place and replaces lam with the converged duals.
-// `out` receives the PRE-step quantities the residual reads. mocap_pos
-// (nmocap, 3) and mocap_quat (nmocap, 4) are the mocap bodies' poses.
-template <class T, class S>
-__device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
-                          const T* ctrl, T* lam, const T* mocap_pos,
-                          const T* mocap_quat, StepOut<T, S>& out) {
+// Advances the candidate's qpos/qvel in place and replaces its duals with
+// the converged ones, by the L lanes of its warp; w.out receives the
+// PRE-step quantities the residual reads. mocap_pos (nmocap, 3) and
+// mocap_quat (nmocap, 4) are the mocap bodies' poses. Returns with the
+// lanes synced.
+template <class T, class S, int L>
+__device__ void tile_step(const MRModelT<T, S>& m, const Cand<T, S>& w,
+                          const T* ctrl, const T* mocap_pos,
+                          const T* mocap_quat, MRProf& prof) {
+  const int lane = lane_id<L>();
   const int nv = m.nv, nbody = m.nbody;
   const T h = m.timestep;
+  T* qpos = w.qpos;
+  T* qvel = w.qvel;
+  T* lam = w.lam;
+  const StepOut<T, S>& out = w.out;
   T (*xpos)[3] = out.xpos;
   T (*xquat)[4] = out.xquat;
   T (*xmat)[9] = out.xmat;
   T (*xipos)[3] = out.xipos;
   T (*ximat)[9] = out.ximat;
+  T (*xanchor)[3] = w.xanchor;
+  T (*xaxis)[3] = w.xaxis;
+  T (*cdof)[6] = w.cdof;
+  T* Lm = w.L;
+  const int ldl = w.ldl;
 
-  // ---- forward kinematics
-  T xanchor[MR_MAX_JNT][3], xaxis[MR_MAX_JNT][3];
-  for (int i = 0; i < 3; ++i) xpos[0][i] = 0.0f;
-  xquat[0][0] = 1.0f; xquat[0][1] = xquat[0][2] = xquat[0][3] = 0.0f;
-  for (int bd = 1; bd < nbody; ++bd) {
-    const int p = m.body_parentid[bd];
-    T quat[4], pos[3], tmp[3];
-    quat_mul(xquat[p], m.body_quat[bd], quat);
-    quat_rot(xquat[p], m.body_pos[bd], tmp);
-    for (int i = 0; i < 3; ++i) pos[i] = xpos[p][i] + tmp[i];
-    const int mid = m.body_mocapid[bd];
-    if (mid >= 0) {  // the mocap pose overrides (rollout-constant)
-      for (int i = 0; i < 3; ++i) pos[i] = mocap_pos[3 * mid + i];
-      for (int i = 0; i < 4; ++i) quat[i] = mocap_quat[4 * mid + i];
-    }
-    const int j0 = m.body_jntadr[bd], j1 = j0 + m.body_jntnum[bd];
-    for (int j = j0; j < j1; ++j) {
-      const int qadr = m.jnt_qposadr[j];
-      const T* ax = m.jnt_axis[j];
-      const T* jp = m.jnt_pos[j];
-      if (m.jnt_type[j] == MR_FREE) {
-        for (int i = 0; i < 3; ++i) pos[i] = qpos[qadr + i];
-        for (int i = 0; i < 4; ++i) quat[i] = qpos[qadr + 3 + i];
-        quat_normalize(quat);
-        for (int i = 0; i < 3; ++i) xanchor[j][i] = pos[i];
+  // ---- forward kinematics: the tree walk on lane 0
+  if (lane == 0) {
+    for (int i = 0; i < 3; ++i) xpos[0][i] = 0.0f;
+    xquat[0][0] = 1.0f; xquat[0][1] = xquat[0][2] = xquat[0][3] = 0.0f;
+    for (int bd = 1; bd < nbody; ++bd) {
+      const int p = m.body_parentid[bd];
+      T quat[4], pos[3], tmp[3];
+      quat_mul(xquat[p], m.body_quat[bd], quat);
+      quat_rot(xquat[p], m.body_pos[bd], tmp);
+      for (int i = 0; i < 3; ++i) pos[i] = xpos[p][i] + tmp[i];
+      const int mid = m.body_mocapid[bd];
+      if (mid >= 0) {  // the mocap pose overrides (rollout-constant)
+        for (int i = 0; i < 3; ++i) pos[i] = mocap_pos[3 * mid + i];
+        for (int i = 0; i < 4; ++i) quat[i] = mocap_quat[4 * mid + i];
+      }
+      const int j0 = m.body_jntadr[bd], j1 = j0 + m.body_jntnum[bd];
+      for (int j = j0; j < j1; ++j) {
+        const int qadr = m.jnt_qposadr[j];
+        const T* ax = m.jnt_axis[j];
+        const T* jp = m.jnt_pos[j];
+        if (m.jnt_type[j] == MR_FREE) {
+          for (int i = 0; i < 3; ++i) pos[i] = qpos[qadr + i];
+          for (int i = 0; i < 4; ++i) quat[i] = qpos[qadr + 3 + i];
+          quat_normalize(quat);
+          for (int i = 0; i < 3; ++i) xanchor[j][i] = pos[i];
+          quat_rot(quat, ax, xaxis[j]);
+          continue;
+        }
+        T anchor[3];
+        quat_rot(quat, jp, tmp);
+        for (int i = 0; i < 3; ++i) anchor[i] = pos[i] + tmp[i];
+        T d = qpos[qadr] - m.qpos0[qadr];
+        if (m.jnt_type[j] == MR_BALL) {
+          // the local rotation normalized; no qpos0 offset, unlike a hinge
+          T ql[4], q2[4];
+          for (int i = 0; i < 4; ++i) ql[i] = qpos[qadr + i];
+          quat_normalize(ql);
+          quat_mul(quat, ql, q2);
+          for (int i = 0; i < 4; ++i) quat[i] = q2[i];
+          quat_rot(quat, jp, tmp);
+          for (int i = 0; i < 3; ++i) pos[i] = anchor[i] - tmp[i];
+        } else if (m.jnt_type[j] == MR_SLIDE) {
+          quat_rot(quat, ax, tmp);
+          for (int i = 0; i < 3; ++i) pos[i] = pos[i] + tmp[i] * d;
+        } else {  // hinge
+          T half = 0.5f * d, s = r_sin(half);
+          T aq[4] = {r_cos(half), ax[0] * s, ax[1] * s, ax[2] * s};
+          T q2[4];
+          quat_mul(quat, aq, q2);
+          for (int i = 0; i < 4; ++i) quat[i] = q2[i];
+          quat_rot(quat, jp, tmp);
+          for (int i = 0; i < 3; ++i) pos[i] = anchor[i] - tmp[i];
+        }
+        for (int i = 0; i < 3; ++i) xanchor[j][i] = anchor[i];
         quat_rot(quat, ax, xaxis[j]);
-        continue;
       }
-      T anchor[3];
-      quat_rot(quat, jp, tmp);
-      for (int i = 0; i < 3; ++i) anchor[i] = pos[i] + tmp[i];
-      T d = qpos[qadr] - m.qpos0[qadr];
-      if (m.jnt_type[j] == MR_BALL) {
-        // the local rotation normalized; no qpos0 offset, unlike a hinge
-        T ql[4], q2[4];
-        for (int i = 0; i < 4; ++i) ql[i] = qpos[qadr + i];
-        quat_normalize(ql);
-        quat_mul(quat, ql, q2);
-        for (int i = 0; i < 4; ++i) quat[i] = q2[i];
-        quat_rot(quat, jp, tmp);
-        for (int i = 0; i < 3; ++i) pos[i] = anchor[i] - tmp[i];
-      } else if (m.jnt_type[j] == MR_SLIDE) {
-        quat_rot(quat, ax, tmp);
-        for (int i = 0; i < 3; ++i) pos[i] = pos[i] + tmp[i] * d;
-      } else {  // hinge
-        T half = 0.5f * d, s = r_sin(half);
-        T aq[4] = {r_cos(half), ax[0] * s, ax[1] * s, ax[2] * s};
-        T q2[4];
-        quat_mul(quat, aq, q2);
-        for (int i = 0; i < 4; ++i) quat[i] = q2[i];
-        quat_rot(quat, jp, tmp);
-        for (int i = 0; i < 3; ++i) pos[i] = anchor[i] - tmp[i];
-      }
-      for (int i = 0; i < 3; ++i) xanchor[j][i] = anchor[i];
-      quat_rot(quat, ax, xaxis[j]);
+      for (int i = 0; i < 3; ++i) xpos[bd][i] = pos[i];
+      for (int i = 0; i < 4; ++i) xquat[bd][i] = quat[i];
     }
-    for (int i = 0; i < 3; ++i) xpos[bd][i] = pos[i];
-    for (int i = 0; i < 4; ++i) xquat[bd][i] = quat[i];
   }
-  for (int bd = 0; bd < nbody; ++bd) {
+  lane_sync<L>();
+  // per body: the rotation matrices and inertial frames; per site
+  for (int bd = lane; bd < nbody; bd += L) {
     T tmp[3], q[4];
     quat_to_mat(xquat[bd], xmat[bd]);
     quat_rot(xquat[bd], m.body_ipos[bd], tmp);
@@ -934,7 +1243,7 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
     quat_to_mat(q, ximat[bd]);
   }
   // the frames the residual reads (sites, geom centres)
-  for (int st = 0; st < m.nsite; ++st) {
+  for (int st = lane; st < m.nsite; st += L) {
     const int bd = m.site_body[st];
     T tmp[3], q[4];
     quat_rot(xquat[bd], m.site_pos[st], tmp);
@@ -942,12 +1251,13 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
     quat_mul(xquat[bd], m.site_quat[st], q);
     quat_to_mat(q, out.site_xmat[st]);
   }
+  lane_sync<L>();
 
-  // ---- cdof [ang; lin] per dof; a free joint's translations are the
-  //      world axes, its rotations the body axes (xmat columns) about xpos;
-  //      a ball joint's rotations the body axes about its anchor
-  T cdof[MR_MAX_NV][6];
-  for (int j = 0; j < m.njnt; ++j) {
+  // ---- cdof [ang; lin] per dof, a lane per joint; a free joint's
+  //      translations are the world axes, its rotations the body axes
+  //      (xmat columns) about xpos; a ball joint's rotations the body axes
+  //      about its anchor
+  for (int j = lane; j < m.njnt; j += L) {
     const int k = m.jnt_dofadr[j];
     if (m.jnt_type[j] == MR_SLIDE) {
       for (int i = 0; i < 3; ++i) { cdof[k][i] = 0.0f; cdof[k][3 + i] = xaxis[j][i]; }
@@ -971,17 +1281,19 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
       }
     }
   }
+  lane_sync<L>();
 
-  // ---- body velocities + cdof_dot (static masks)
+  // ---- body velocities (a lane per body) + cdof_dot (a lane per dof;
+  //      static masks)
   T (*cvel)[6] = out.cvel;
-  for (int bd = 0; bd < nbody; ++bd) {
+  for (int bd = lane; bd < nbody; bd += L) {
     for (int i = 0; i < 6; ++i) cvel[bd][i] = 0.0f;
     for (int k = 0; k < nv; ++k)
       if (m.dof_body_mask[k][bd])
         for (int i = 0; i < 6; ++i) cvel[bd][i] += cdof[k][i] * qvel[k];
   }
-  T cdofdot[MR_MAX_NV][6];
-  for (int k = 0; k < nv; ++k) {
+  T (*cdofdot)[6] = w.cdofdot;
+  for (int k = lane; k < nv; k += L) {
     T v[6] = {0, 0, 0, 0, 0, 0};
     for (int i = 0; i < nv; ++i)
       if (m.cdofdot_vel_mask[k][i])
@@ -992,11 +1304,16 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
     cross3(v + 3, cdof[k], t2);
     for (int i = 0; i < 3; ++i) cdofdot[k][3 + i] = t1[i] + t2[i];
   }
+  lane_sync<L>();
+  prof.mark(0);
 
-  // ---- spatial inertias and composite (CRB) inertias
-  T Iw[MR_MAX_BODY][9], compTL[MR_MAX_BODY][9];
-  T compMC[MR_MAX_BODY][3], compM[MR_MAX_BODY];
-  for (int bd = 0; bd < nbody; ++bd) {
+  // ---- spatial inertias and composite (CRB) inertias: a lane per body,
+  //      the accumulation up the tree on lane 0
+  T (*Iw)[9] = w.Iw;
+  T (*compTL)[9] = w.compTL;
+  T (*compMC)[3] = w.compMC;
+  T* compM = w.compM;
+  for (int bd = lane; bd < nbody; bd += L) {
     const T* R = ximat[bd];
     const T* I = m.body_inertia[bd];
     const T mass = m.body_mass[bd];
@@ -1008,41 +1325,43 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
       }
     const T cx = xipos[bd][0], cy = xipos[bd][1], cz = xipos[bd][2];
     const T cc[9] = {cy * cy + cz * cz, -cx * cy, -cx * cz,
-                         -cx * cy, cx * cx + cz * cz, -cy * cz,
-                         -cx * cz, -cy * cz, cx * cx + cy * cy};
+                     -cx * cy, cx * cx + cz * cz, -cy * cz,
+                     -cx * cz, -cy * cz, cx * cx + cy * cy};
     for (int i = 0; i < 9; ++i) compTL[bd][i] = Iw[bd][i] + mass * cc[i];
     for (int i = 0; i < 3; ++i) compMC[bd][i] = mass * xipos[bd][i];
     compM[bd] = mass;
   }
-  for (int bd = nbody - 1; bd > 0; --bd) {
-    const int p = m.body_parentid[bd];
-    if (p > 0) {
-      for (int i = 0; i < 9; ++i) compTL[p][i] += compTL[bd][i];
-      for (int i = 0; i < 3; ++i) compMC[p][i] += compMC[bd][i];
-      compM[p] += compM[bd];
-    }
-  }
-  // subtree CoM: the composite sums per body; body 0 is the whole system
-  {
-    T mc[3] = {compMC[0][0], compMC[0][1], compMC[0][2]};
-    T mm = compM[0];
-    for (int bd = 1; bd < nbody; ++bd)
-      if (m.body_parentid[bd] == 0) {
-        for (int i = 0; i < 3; ++i) mc[i] += compMC[bd][i];
-        mm += compM[bd];
+  lane_sync<L>();
+  if (lane == 0)
+    for (int bd = nbody - 1; bd > 0; --bd) {
+      const int p = m.body_parentid[bd];
+      if (p > 0) {
+        for (int i = 0; i < 9; ++i) compTL[p][i] += compTL[bd][i];
+        for (int i = 0; i < 3; ++i) compMC[p][i] += compMC[bd][i];
+        compM[p] += compM[bd];
       }
-    for (int i = 0; i < 3; ++i)
-      out.subtree_com[0][i] = mc[i] / r_max(mm, T(1e-12));
-    for (int bd = 1; bd < nbody; ++bd)
+    }
+  lane_sync<L>();
+  // subtree CoM: the composite sums per body; body 0 is the whole system
+  for (int bd = lane; bd < nbody; bd += L) {
+    if (bd == 0) {
+      T mc[3] = {compMC[0][0], compMC[0][1], compMC[0][2]};
+      T mm = compM[0];
+      for (int b = 1; b < nbody; ++b)
+        if (m.body_parentid[b] == 0) {
+          for (int i = 0; i < 3; ++i) mc[i] += compMC[b][i];
+          mm += compM[b];
+        }
+      for (int i = 0; i < 3; ++i)
+        out.subtree_com[0][i] = mc[i] / r_max(mm, T(1e-12));
+    } else {
       for (int i = 0; i < 3; ++i)
         out.subtree_com[bd][i] = compMC[bd][i] / r_max(compM[bd], T(1e-12));
+    }
   }
-
-  // ---- joint-space inertia (ancestor sparsity) + implicit damping
-  T L[MR_MAX_NV][MR_MAX_NV];
-  for (int i = 0; i < nv; ++i)
-    for (int j = 0; j < nv; ++j) L[i][j] = 0.0f;
-  for (int j = 0; j < nv; ++j) {
+  // ---- joint-space inertia (ancestor sparsity) + implicit damping: the
+  //      lane of dof j writes column j above the diagonal and row j below
+  for (int j = lane; j < nv; j += L) {
     const int bd = m.dof_body[j];
     const T* va = cdof[j];
     const T* vl = cdof[j] + 3;
@@ -1055,40 +1374,56 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
     }
     cross3(compMC[bd], va, t);
     for (int i = 0; i < 3; ++i) fl[i] = -t[i] + compM[bd] * vl[i];
-    for (int i = 0; i <= j; ++i)
-      if (m.dof_ancestor_mask[i][j]) {
-        T v = dot3(cdof[i], fa) + dot3(cdof[i] + 3, fl);
-        L[i][j] = v;
-        L[j][i] = v;
-      }
+    for (int i = 0; i <= j; ++i) {
+      T v = 0.0f;
+      if (m.dof_ancestor_mask[i][j])
+        v = dot3(cdof[i], fa) + dot3(cdof[i] + 3, fl);
+      Lm[i * ldl + j] = v;
+      Lm[j * ldl + i] = v;
+    }
+    Lm[j * ldl + j] = Lm[j * ldl + j] + m.dof_armature[j] + h * m.dof_damping[j];
   }
-  for (int k = 0; k < nv; ++k)
-    L[k][k] = L[k][k] + m.dof_armature[k] + h * m.dof_damping[k];
-  // in-place Cholesky (lower triangle), pivots clamped at 1e-12
+  lane_sync<L>();
+  prof.mark(1);
+
+  // ---- in-place Cholesky (lower triangle), pivots clamped at 1e-12,
+  //      column by column: the pivot on lane 0, broadcast; the column
+  //      below it a row per lane
   for (int j = 0; j < nv; ++j) {
-    T s = L[j][j];
-    for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-    const T ljj = r_sqrt(r_max(s, T(1e-12)));
+    T ljj = 0.0f;
+    if (lane == 0) {
+      T s = Lm[j * ldl + j];
+      for (int k = 0; k < j; ++k) s -= Lm[j * ldl + k] * Lm[j * ldl + k];
+      ljj = r_sqrt(r_max(s, T(1e-12)));
+      Lm[j * ldl + j] = ljj;
+    }
+    ljj = lane_bcast<L>(ljj, 0);
     const T inv = 1.0f / ljj;
-    L[j][j] = ljj;
-    for (int i = j + 1; i < nv; ++i) {
-      T r = L[i][j];
-      for (int k = 0; k < j; ++k) r -= L[i][k] * L[j][k];
-      L[i][j] = r * inv;
+    for (int i = j + 1 + lane; i < nv; i += L) {
+      T r = Lm[i * ldl + j];
+      for (int k = 0; k < j; ++k) r -= Lm[i * ldl + k] * Lm[j * ldl + k];
+      Lm[i * ldl + j] = r * inv;
+    }
+    lane_sync<L>();
+  }
+  prof.mark(2);
+
+  // ---- RNE bias (qacc = 0, base acceleration = -gravity): the tree walks
+  //      on lane 0, the body forces a lane per body
+  T (*cacc)[6] = w.cacc;  // compTL and compMC are dead from here on
+  T (*cfrc)[6] = w.cfrc;
+  if (lane == 0) {
+    for (int i = 0; i < 3; ++i) { cacc[0][i] = 0.0f; cacc[0][3 + i] = 0.0f - m.gravity[i]; }
+    for (int bd = 1; bd < nbody; ++bd) {
+      const int p = m.body_parentid[bd];
+      for (int i = 0; i < 6; ++i) cacc[bd][i] = cacc[p][i];
+      for (int k = 0; k < nv; ++k)
+        if (m.dof_body[k] == bd)
+          for (int i = 0; i < 6; ++i) cacc[bd][i] += cdofdot[k][i] * qvel[k];
     }
   }
-
-  // ---- RNE bias (qacc = 0, base acceleration = -gravity)
-  T cacc[MR_MAX_BODY][6], cfrc[MR_MAX_BODY][6];
-  for (int i = 0; i < 3; ++i) { cacc[0][i] = 0.0f; cacc[0][3 + i] = 0.0f - m.gravity[i]; }
-  for (int bd = 1; bd < nbody; ++bd) {
-    const int p = m.body_parentid[bd];
-    for (int i = 0; i < 6; ++i) cacc[bd][i] = cacc[p][i];
-    for (int k = 0; k < nv; ++k)
-      if (m.dof_body[k] == bd)
-        for (int i = 0; i < 6; ++i) cacc[bd][i] += cdofdot[k][i] * qvel[k];
-  }
-  for (int bd = 0; bd < nbody; ++bd) {
+  lane_sync<L>();
+  for (int bd = lane; bd < nbody; bd += L) {
     T fav[3], flv[3], faa[3], fla[3], t1[3], t2[3], t3[3];
     const T* va = cvel[bd];
     const T* vl = cvel[bd] + 3;
@@ -1103,87 +1438,95 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
       cfrc[bd][3 + i] = fla[i] + t3[i];
     }
   }
-  for (int bd = nbody - 1; bd > 0; --bd) {
-    const int p = m.body_parentid[bd];
-    for (int i = 0; i < 6; ++i) cfrc[p][i] += cfrc[bd][i];
-  }
 
-  // ---- passive + actuation -> smooth force and acceleration
-  T qfrc[MR_MAX_NV], qacc_smooth[MR_MAX_NV];
-  T qact[MR_MAX_NV];
-  for (int k = 0; k < nv; ++k) {
+  // ---- passive + actuation -> smooth force and acceleration: damping and
+  //      friction loss a lane per dof; springs, tendons and actuators on
+  //      lane 0
+  T* qfrc = w.qfrc;
+  T* qact = w.qact;
+  for (int k = lane; k < nv; k += L) {
     T f = -m.dof_damping[k] * qvel[k];
     if (m.dof_frictionloss[k] != 0.0f)
       f = f - m.dof_frictionloss[k] * r_tanh(qvel[k] / T(0.01));
     qfrc[k] = f;
     qact[k] = 0.0f;
   }
-  for (int j = 0; j < m.njnt; ++j) {
-    const T ks = m.jnt_stiffness[j];
-    if (ks != 0.0f && m.jnt_type[j] != MR_FREE) {
-      const int qadr = m.jnt_qposadr[j], vadr = m.jnt_dofadr[j];
-      qfrc[vadr] = qfrc[vadr] - ks * (qpos[qadr] - m.qpos_spring[qadr]);
+  lane_sync<L>();
+  if (lane == 0) {
+    for (int bd = nbody - 1; bd > 0; --bd) {
+      const int p = m.body_parentid[bd];
+      for (int i = 0; i < 6; ++i) cfrc[p][i] += cfrc[bd][i];
     }
-  }
-  // fixed tendons: length and velocity (limits, springs, actuators read
-  // them); a spring with a deadband about lengthspring and a damper, through
-  // the tendon's constant Jacobian
-  T ten_len[MR_MAX_TEN], ten_vel[MR_MAX_TEN];
-  for (int t = 0; t < m.nten; ++t) {
-    T ln = 0.0f, vl = 0.0f;
-    for (int w = 0; w < m.ten_nwrap[t]; ++w) {
-      const T lt = m.ten_coef[t][w] * qpos[m.ten_qadr[t][w]];
-      const T vt = m.ten_coef[t][w] * qvel[m.ten_vadr[t][w]];
-      ln = w == 0 ? lt : ln + lt;
-      vl = w == 0 ? vt : vl + vt;
+    for (int j = 0; j < m.njnt; ++j) {
+      const T ks = m.jnt_stiffness[j];
+      if (ks != 0.0f && m.jnt_type[j] != MR_FREE) {
+        const int qadr = m.jnt_qposadr[j], vadr = m.jnt_dofadr[j];
+        qfrc[vadr] = qfrc[vadr] - ks * (qpos[qadr] - m.qpos_spring[qadr]);
+      }
     }
-    ten_len[t] = ln;
-    ten_vel[t] = vl;
-    const T kt = m.ten_stiffness[t], ct = m.ten_damping[t];
-    if (kt != 0.0f || ct != 0.0f) {
-      const T lo = m.ten_lengthspring[t][0], hi = m.ten_lengthspring[t][1];
-      const T stretch = ln > hi ? ln - hi : (ln < lo ? ln - lo : T(0));
-      const T f = -kt * stretch - ct * vl;
-      for (int w = 0; w < m.ten_nwrap[t]; ++w) {
-        const int vadr = m.ten_vadr[t][w];
-        qfrc[vadr] = qfrc[vadr] + m.ten_coef[t][w] * f;
+    // fixed tendons: length and velocity (limits, springs, actuators read
+    // them); a spring with a deadband about lengthspring and a damper,
+    // through the tendon's constant Jacobian
+    for (int t = 0; t < m.nten; ++t) {
+      T ln = 0.0f, vl = 0.0f;
+      for (int wr = 0; wr < m.ten_nwrap[t]; ++wr) {
+        const T lt = m.ten_coef[t][wr] * qpos[m.ten_qadr[t][wr]];
+        const T vt = m.ten_coef[t][wr] * qvel[m.ten_vadr[t][wr]];
+        ln = wr == 0 ? lt : ln + lt;
+        vl = wr == 0 ? vt : vl + vt;
+      }
+      w.ten_len[t] = ln;
+      w.ten_vel[t] = vl;
+      const T kt = m.ten_stiffness[t], ct = m.ten_damping[t];
+      if (kt != 0.0f || ct != 0.0f) {
+        const T lo = m.ten_lengthspring[t][0], hi = m.ten_lengthspring[t][1];
+        const T stretch = ln > hi ? ln - hi : (ln < lo ? ln - lo : T(0));
+        const T f = -kt * stretch - ct * vl;
+        for (int wr = 0; wr < m.ten_nwrap[t]; ++wr) {
+          const int vadr = m.ten_vadr[t][wr];
+          qfrc[vadr] = qfrc[vadr] + m.ten_coef[t][wr] * f;
+        }
+      }
+    }
+    for (int u = 0; u < m.nu; ++u) {
+      T c = ctrl[u];
+      if (m.ctrl_limited[u]) c = r_min(r_max(c, m.ctrl_lo[u]), m.ctrl_hi[u]);
+      const T gear = m.act_gear[u];
+      const int tid = m.act_tendon[u];  // a fixed-tendon transmission, or -1
+      const T length = tid >= 0 ? gear * w.ten_len[tid]
+                                : gear * qpos[m.act_qadr[u]];
+      const T velocity = tid >= 0 ? gear * w.ten_vel[tid]
+                                  : gear * qvel[m.act_vadr[u]];
+      const T* gp = m.act_gainprm[u];
+      const T* bp = m.act_biasprm[u];
+      const T gain = m.act_gain_fixed[u]
+          ? gp[0] : gp[0] + gp[1] * length + gp[2] * velocity;
+      const T bias = m.act_bias_fixed[u]
+          ? 0.0f : bp[0] + bp[1] * length + bp[2] * velocity;
+      T force = gain * c + bias;
+      if (m.force_limited[u])
+        force = r_min(r_max(force, m.force_lo[u]), m.force_hi[u]);
+      out.act_force[u] = force;
+      if (tid >= 0) {  // moment: gear times the tendon's coefficients
+        for (int wr = 0; wr < m.ten_nwrap[tid]; ++wr) {
+          const int vadr = m.ten_vadr[tid][wr];
+          qact[vadr] = qact[vadr] + gear * m.ten_coef[tid][wr] * force;
+        }
+      } else {
+        qact[m.act_vadr[u]] += gear * force;
       }
     }
   }
-  for (int u = 0; u < m.nu; ++u) {
-    T c = ctrl[u];
-    if (m.ctrl_limited[u]) c = r_min(r_max(c, m.ctrl_lo[u]), m.ctrl_hi[u]);
-    const T gear = m.act_gear[u];
-    const int tid = m.act_tendon[u];  // a fixed-tendon transmission, or -1
-    const T length = tid >= 0 ? gear * ten_len[tid]
-                              : gear * qpos[m.act_qadr[u]];
-    const T velocity = tid >= 0 ? gear * ten_vel[tid]
-                                : gear * qvel[m.act_vadr[u]];
-    const T* gp = m.act_gainprm[u];
-    const T* bp = m.act_biasprm[u];
-    const T gain = m.act_gain_fixed[u]
-        ? gp[0] : gp[0] + gp[1] * length + gp[2] * velocity;
-    const T bias = m.act_bias_fixed[u]
-        ? 0.0f : bp[0] + bp[1] * length + bp[2] * velocity;
-    T force = gain * c + bias;
-    if (m.force_limited[u])
-      force = r_min(r_max(force, m.force_lo[u]), m.force_hi[u]);
-    out.act_force[u] = force;
-    if (tid >= 0) {  // moment: gear times the tendon's coefficients
-      for (int w = 0; w < m.ten_nwrap[tid]; ++w) {
-        const int vadr = m.ten_vadr[tid][w];
-        qact[vadr] = qact[vadr] + gear * m.ten_coef[tid][w] * force;
-      }
-    } else {
-      qact[m.act_vadr[u]] += gear * force;
-    }
-  }
-  for (int k = 0; k < nv; ++k) {
+  lane_sync<L>();
+  for (int k = lane; k < nv; k += L) {
     const int bd = m.dof_body[k];
     const T bias = dot3(cdof[k], cfrc[bd]) + dot3(cdof[k] + 3, cfrc[bd] + 3);
     qfrc[k] = qfrc[k] + qact[k] - bias;
   }
-  chol_solve(L, qfrc, qacc_smooth, nv);
+  lane_sync<L>();
+  chol_solve_lanes<T, L>(Lm, ldl, qfrc, w.qacc_s, nv);
+  lane_sync<L>();
+  prof.mark(3);
 
   // ---- constraint rows: condim>=3 points (n, t1, t2), condim-1 points (n),
   //      torsional rows of the condim>=4 points, rolling rows of the
@@ -1193,13 +1536,15 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
   const int nrow = m.nrow;
   const int tor0 = tor_row0(m), roll0 = roll_row0(m), lim0 = lim_row0(m);
   const int eq0 = nrow - m.neqrow;
-  T qfrc_c[MR_MAX_NV];
-  for (int k = 0; k < nv; ++k) qfrc_c[k] = 0.0f;
+  T* qfrc_c = w.qfrc_c;
   if (nrow > 0) {
-    Rows<T, S> R;
-    T aref[S::ROW], raw_diag[S::ROW], a0[S::ROW];
-    T imp[S::ROW];
-    for (int ci = 0; ci < m.ncon; ++ci) {
+    T* J = w.J;
+    const int ldj = w.ldj;
+    int* active = w.active;
+    T* aref = w.aref;
+    T* imp = w.imp;
+    // a lane per contact point: its narrowphase and its rows
+    for (int ci = lane; ci < m.ncon; ci += L) {
       T frame[3][3], cpos[3];
       const T dist = contact_geometry(m, xpos, xquat, ci, frame, cpos);
       const T im = impedance(dist, m.con_imp[ci]);
@@ -1210,22 +1555,23 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
       const int r0 = fric ? 3 * ci : 3 * m.nfric + (ci - m.nfric);
       for (int row = 0; row < (fric ? 3 : 1); ++row) {
         const int r = r0 + row;
+        T* Jr = J + r * ldj;
         for (int k = 0; k < nv; ++k) {
           const T sg = m.con_sgn[ci][k];
           if (sg != 0.0f) {
             T jp[3], tmp[3];
             cross3(cdof[k], cpos, tmp);
             for (int i = 0; i < 3; ++i) jp[i] = cdof[k][3 + i] + tmp[i];
-            R.J[r][k] = sg * dot3(frame[row], jp);
+            Jr[k] = sg * dot3(frame[row], jp);
           } else {
-            R.J[r][k] = 0.0f;
+            Jr[k] = 0.0f;
           }
         }
         const T pos = row == 0 ? r_min(dist, 0.0f) : 0.0f;
-        R.active[r] = dist < 0.0f;
+        active[r] = dist < 0.0f;
         imp[r] = im;
         T vel = 0.0f;
-        for (int k = 0; k < nv; ++k) vel += R.J[r][k] * qvel[k];
+        for (int k = 0; k < nv; ++k) vel += Jr[k] * qvel[k];
         aref[r] = -im * (m.con_k[ci] * pos + m.con_b[ci] * vel);
       }
       // torsional row: the relative angular velocity about the normal, no
@@ -1233,14 +1579,15 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
       const int ti = fric ? m.con_tor[ci] : -1;
       if (ti >= 0) {
         const int r = tor0 + ti;
+        T* Jr = J + r * ldj;
         for (int k = 0; k < nv; ++k) {
           const T sg = m.con_sgn[ci][k];
-          R.J[r][k] = sg != 0.0f ? sg * dot3(frame[0], cdof[k]) : T(0);
+          Jr[k] = sg != 0.0f ? sg * dot3(frame[0], cdof[k]) : T(0);
         }
-        R.active[r] = dist < 0.0f;
+        active[r] = dist < 0.0f;
         imp[r] = im;
         T vel = 0.0f;
-        for (int k = 0; k < nv; ++k) vel += R.J[r][k] * qvel[k];
+        for (int k = 0; k < nv; ++k) vel += Jr[k] * qvel[k];
         aref[r] = -im * (m.con_k[ci] * T(0) + m.con_b[ci] * vel);
       }
       // rolling rows: the relative angular velocity about each tangent,
@@ -1248,64 +1595,72 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
       const int ri = fric ? m.con_roll[ci] : -1;
       for (int ax = 1; ri >= 0 && ax <= 2; ++ax) {
         const int r = roll0 + (ax - 1) * m.nroll + ri;
+        T* Jr = J + r * ldj;
         for (int k = 0; k < nv; ++k) {
           const T sg = m.con_sgn[ci][k];
-          R.J[r][k] = sg != 0.0f ? sg * dot3(frame[ax], cdof[k]) : T(0);
+          Jr[k] = sg != 0.0f ? sg * dot3(frame[ax], cdof[k]) : T(0);
         }
-        R.active[r] = dist < 0.0f;
+        active[r] = dist < 0.0f;
         imp[r] = im;
         T vel = 0.0f;
-        for (int k = 0; k < nv; ++k) vel += R.J[r][k] * qvel[k];
+        for (int k = 0; k < nv; ++k) vel += Jr[k] * qvel[k];
         aref[r] = -im * (m.con_k[ci] * T(0) + m.con_b[ci] * vel);
       }
     }
-    int r = lim0;
-    for (int li = 0; li < m.nlim; ++li) {
+    // a lane per limited joint, then per limited tendon
+    for (int li = lane; li < m.nlim; li += L) {
       const T q = qpos[m.lim_qadr[li]];
-      for (int side = 0; side < 2; ++side, ++r) {
+      for (int side = 0; side < 2; ++side) {
+        const int r = lim0 + 2 * li + side;
+        T* Jr = J + r * ldj;
         const T posv = side == 0 ? q - m.lim_lo[li] - m.lim_margin[li]
-                                     : m.lim_hi[li] - q - m.lim_margin[li];
+                                 : m.lim_hi[li] - q - m.lim_margin[li];
         const T sgn = side == 0 ? 1.0f : -1.0f;
-        for (int k = 0; k < nv; ++k) R.J[r][k] = 0.0f;
-        R.J[r][m.lim_vadr[li]] = sgn;
-        R.active[r] = posv < 0.0f;
+        for (int k = 0; k < nv; ++k) Jr[k] = 0.0f;
+        Jr[m.lim_vadr[li]] = sgn;
+        active[r] = posv < 0.0f;
         imp[r] = impedance(posv, m.lim_imp);
         const T vel = sgn * qvel[m.lim_vadr[li]];
         aref[r] = -imp[r] * (m.lim_k[li] * r_min(posv, 0.0f) +
                              m.lim_b[li] * vel);
       }
     }
-    for (int ti = 0; ti < m.ntenlim; ++ti) {
+    for (int ti = lane; ti < m.ntenlim; ti += L) {
       const int t = m.ten_lim_id[ti];
-      const T len = ten_len[t];
-      for (int side = 0; side < 2; ++side, ++r) {
+      const T len = w.ten_len[t];
+      for (int side = 0; side < 2; ++side) {
+        const int r = lim0 + 2 * m.nlim + 2 * ti + side;
+        T* Jr = J + r * ldj;
         const T posv = side == 0
             ? len - m.ten_lo[ti] - m.ten_margin[ti]
             : m.ten_hi[ti] - len - m.ten_margin[ti];
         const T sgn = side == 0 ? 1.0f : -1.0f;
-        for (int k = 0; k < nv; ++k) R.J[r][k] = 0.0f;
-        for (int w = 0; w < m.ten_nwrap[t]; ++w)
-          R.J[r][m.ten_vadr[t][w]] += sgn * m.ten_coef[t][w];
-        R.active[r] = posv < 0.0f;
+        for (int k = 0; k < nv; ++k) Jr[k] = 0.0f;
+        for (int wr = 0; wr < m.ten_nwrap[t]; ++wr)
+          Jr[m.ten_vadr[t][wr]] += sgn * m.ten_coef[t][wr];
+        active[r] = posv < 0.0f;
         imp[r] = impedance(posv, m.lim_imp);
         T vel = 0.0f;
-        for (int k = 0; k < nv; ++k) vel += R.J[r][k] * qvel[k];
+        for (int k = 0; k < nv; ++k) vel += Jr[k] * qvel[k];
         aref[r] = -imp[r] * (m.ten_k[ti] * r_min(posv, 0.0f) +
                              m.ten_b[ti] * vel);
       }
     }
-    // equality rows: bilateral (a signed position error, always active);
-    // their softness scale is the model's diagApprox
-    T eq_da[6 * MR_MAX_EQ];
-    for (int e = 0; e < m.neq; ++e) {
+    // equality rows, a lane per equality: bilateral (a signed position
+    // error, always active); their softness scale is the model's
+    // diagApprox
+    for (int e = lane; e < m.neq; e += L) {
       const T* d = m.eq_data[e];
+      int r = eq0;
+      for (int e2 = 0; e2 < e; ++e2) r += eq_nrows(m.eq_kind[e2]);
       const int r_first = r;
       T pos[6];
       if (m.eq_kind[e] == MR_EQ_JOINT) {
         // q1 - qpos0_1 = poly(q2 - qpos0_2), the derivative in q2's column
         const int qa1 = m.jnt_qposadr[m.eq_ob1[e]];
-        for (int k = 0; k < nv; ++k) R.J[r][k] = 0.0f;
-        R.J[r][m.jnt_dofadr[m.eq_ob1[e]]] = 1.0f;
+        T* Jr = J + r * ldj;
+        for (int k = 0; k < nv; ++k) Jr[k] = 0.0f;
+        Jr[m.jnt_dofadr[m.eq_ob1[e]]] = 1.0f;
         const T q1 = qpos[qa1] - m.qpos0[qa1];
         if (m.eq_ob2[e] >= 0) {
           const int qa2 = m.jnt_qposadr[m.eq_ob2[e]];
@@ -1315,7 +1670,7 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
                          d[4] * (dq2 * dq2);
           const T dpoly = d[1] + (T(2) * d[2]) * dq + (T(3) * d[3]) * dq2 +
                           (T(4) * d[4]) * dq3;
-          R.J[r][m.jnt_dofadr[m.eq_ob2[e]]] -= dpoly;
+          Jr[m.jnt_dofadr[m.eq_ob2[e]]] -= dpoly;
           pos[0] = q1 - poly;
         } else {
           pos[0] = q1 - d[0];
@@ -1332,13 +1687,14 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
         quat_rot(xquat[b2], weld ? d : d + 3, tmp);
         for (int i = 0; i < 3; ++i) p2[i] = xpos[b2][i] + tmp[i];
         for (int i = 0; i < 3; ++i, ++r) {
+          T* Jr = J + r * ldj;
           for (int k = 0; k < nv; ++k) {
             const bool m1 = m.dof_body_mask[k][b1], m2 = m.dof_body_mask[k][b2];
             T c1[3], c2[3];
             cross3(cdof[k], p1, c1);
             cross3(cdof[k], p2, c2);
             const T j1 = cdof[k][3 + i] + c1[i], j2 = cdof[k][3 + i] + c2[i];
-            R.J[r][k] = m1 ? (m2 ? j1 - j2 : j1) : (m2 ? -j2 : T(0));
+            Jr[k] = m1 ? (m2 ? j1 - j2 : j1) : (m2 ? -j2 : T(0));
           }
           pos[i] = p1[i] - p2[i];
         }
@@ -1353,10 +1709,11 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
           quat_mul(c2, q1r, dq);
           const T sg = dq[0] < 0.0f ? T(-2) : T(2);
           for (int i = 0; i < 3; ++i, ++r) {
+            T* Jr = J + r * ldj;
             for (int k = 0; k < nv; ++k) {
-              const T w = T(m.dof_body_mask[k][b1] ? 1 : 0) -
-                          T(m.dof_body_mask[k][b2] ? 1 : 0);
-              R.J[r][k] = w != 0.0f ? (tq * w) * cdof[k][i] : T(0);
+              const T wt = T(m.dof_body_mask[k][b1] ? 1 : 0) -
+                           T(m.dof_body_mask[k][b2] ? 1 : 0);
+              Jr[k] = wt != 0.0f ? (tq * wt) * cdof[k][i] : T(0);
             }
             pos[3 + i] = tq * (dq[1 + i] * sg);
           }
@@ -1364,161 +1721,201 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
       }
       for (int rr = r_first; rr < r; ++rr) {
         const T posv = pos[rr - r_first];
-        R.active[rr] = 1;
+        active[rr] = 1;
         imp[rr] = impedance(posv, m.eq_imp[e]);
-        eq_da[rr - eq0] = m.eq_da[e][rr - r_first];
+        w.eq_da[rr - eq0] = m.eq_da[e][rr - r_first];
         T vel = 0.0f;
-        for (int k = 0; k < nv; ++k) vel += R.J[rr][k] * qvel[k];
+        for (int k = 0; k < nv; ++k) vel += J[rr * ldj + k] * qvel[k];
         aref[rr] = -imp[rr] * (m.eq_k[e] * posv + m.eq_b[e] * vel);
       }
     }
+    lane_sync<L>();
+    prof.mark(4);
 
-    // ---- Delassus diagonal (and matrix when dense), free acceleration
-    for (int s = 0; s < nrow; ++s) {
+    // ---- Delassus diagonal (and matrix when dense), a lane per row, each
+    //      solving its own rows; the largest diagonal across the lanes
+    T* raw_diag = w.raw_diag;
+    T mx = mr_nan<T>();
+    for (int s = lane; s < nrow; s += L) {
       T x[MR_MAX_NV];
-      chol_solve(L, R.J[s], x, nv);
+      const T* Js = J + s * ldj;
+      chol_solve(Lm, ldl, Js, x, nv);
       if (m.dense) {
         for (int rr = 0; rr < nrow; ++rr) {
           T a = 0.0f;
-          for (int k = 0; k < nv; ++k) a += R.J[rr][k] * x[k];
-          R.amat[rr * nrow + s] = a;
+          for (int k = 0; k < nv; ++k) a += J[rr * ldj + k] * x[k];
+          w.amat[rr * w.lda + s] = a;
         }
-        raw_diag[s] = R.amat[s * nrow + s];
+        raw_diag[s] = w.amat[s * w.lda + s];
       } else {
         T a = 0.0f;
-        for (int k = 0; k < nv; ++k) a += R.J[s][k] * x[k];
+        for (int k = 0; k < nv; ++k) a += Js[k] * x[k];
         raw_diag[s] = a;
       }
+      mx = r_max(mx, raw_diag[s]);
     }
-    T maxd = raw_diag[0];
-    for (int rr = 1; rr < nrow; ++rr) maxd = r_max(maxd, raw_diag[rr]);
-    T dr[S::ROW], diag[S::ROW];
-    for (int rr = 0; rr < nrow; ++rr) {
+    const T maxd = lane_max<L>(mx);
+    // free acceleration, softness, degenerate rows: a lane per row
+    T* a0 = w.a0;
+    T* diag = w.diag;
+    T* reg = w.reg;
+    T* dr = w.dr;
+    for (int rr = lane; rr < nrow; rr += L) {
       T a = 0.0f;
-      for (int k = 0; k < nv; ++k) a += R.J[rr][k] * qacc_smooth[k];
+      for (int k = 0; k < nv; ++k) a += J[rr * ldj + k] * w.qacc_s[k];
       a0[rr] = a;
       diag[rr] = r_max(raw_diag[rr], T(1e-10));
       const bool eq = rr >= eq0;
-      R.reg[rr] = (1.0f - imp[rr]) / imp[rr] * (eq ? eq_da[rr - eq0]
-                                                    : diag[rr]);
+      reg[rr] = (1.0f - imp[rr]) / imp[rr] * (eq ? w.eq_da[rr - eq0]
+                                                 : diag[rr]);
       // degenerate rows (A_rr ~ 0 against the largest) are deactivated,
       // except the equality rows, whose softness keeps the dual bounded
-      R.active[rr] = R.active[rr] && (eq || raw_diag[rr] > T(1e-8) * maxd);
-      dr[rr] = diag[rr] + R.reg[rr];
+      active[rr] = active[rr] && (eq || raw_diag[rr] > T(1e-8) * maxd);
+      dr[rr] = diag[rr] + reg[rr];
     }
+    lane_sync<L>();
 
     // ---- Jacobi preconditioning, tangent scales tied inside a point and
     //      the scales of a point's two rolling rows tied
-    for (int ci = 0; ci < m.nfric; ++ci) {
+    for (int ci = lane; ci < m.nfric; ci += L) {
       const T mt = 0.5f * (dr[3 * ci + 1] + dr[3 * ci + 2]);
       dr[3 * ci + 1] = mt;
       dr[3 * ci + 2] = mt;
     }
-    for (int i = 0; i < m.nroll; ++i) {
+    for (int i = lane; i < m.nroll; i += L) {
       const T mr = 0.5f * (dr[roll0 + i] + dr[roll0 + m.nroll + i]);
       dr[roll0 + i] = mr;
       dr[roll0 + m.nroll + i] = mr;
     }
-    for (int rr = 0; rr < nrow; ++rr)
-      R.s_pre[rr] = 1.0f / r_sqrt(r_max(dr[rr], T(1e-12)));
-    for (int ci = 0; ci < m.nfric; ++ci) {
-      R.mu_t[ci] = m.con_mu[ci] * R.s_pre[3 * ci] / R.s_pre[3 * ci + 1];
+    lane_sync<L>();
+    T* s_pre = w.s_pre;
+    for (int rr = lane; rr < nrow; rr += L)
+      s_pre[rr] = 1.0f / r_sqrt(r_max(dr[rr], T(1e-12)));
+    lane_sync<L>();
+    for (int ci = lane; ci < m.nfric; ci += L) {
+      w.mu_t[ci] = m.con_mu[ci] * s_pre[3 * ci] / s_pre[3 * ci + 1];
       const int ti = m.con_tor[ci];
       if (ti >= 0)  // the torsional cap against the normal's scale
-        R.mu_tor[ti] = m.con_mu_tor[ci] * R.s_pre[3 * ci] / R.s_pre[tor0 + ti];
+        w.mu_tor[ti] = m.con_mu_tor[ci] * s_pre[3 * ci] / s_pre[tor0 + ti];
       const int ri = m.con_roll[ci];
       if (ri >= 0)  // the rolling cap likewise
-        R.mu_roll[ri] =
-            m.con_mu_roll[ci] * R.s_pre[3 * ci] / R.s_pre[roll0 + ri];
+        w.mu_roll[ri] =
+            m.con_mu_roll[ci] * s_pre[3 * ci] / s_pre[roll0 + ri];
     }
     // ---- initial iterate: cold start, or the previous step's duals; the
     //      angular (torsional, rolling) and equality rows always start
     //      cold (their duals can be non-unique, and warm-starting them
     //      integrates drift)
-    T g[S::ROW], y[S::ROW], gn[S::ROW], b_vec[S::ROW];
+    T* g = w.g;
     T lam_abs = 0.0f;
-    for (int rr = 0; rr < nrow; ++rr) lam_abs += r_abs(lam[rr]);
-    const bool cold = lam_abs == 0.0f;
-    for (int rr = 0; rr < nrow; ++rr) {
-      const T dinv = 1.0f / (diag[rr] + R.reg[rr]);
-      g[rr] = (aref[rr] - a0[rr]) * dinv / R.s_pre[rr];
+    for (int rr = lane; rr < nrow; rr += L) lam_abs += r_abs(lam[rr]);
+    const bool cold = lane_sum<L>(lam_abs) == 0.0f;
+    for (int rr = lane; rr < nrow; rr += L) {
+      const T dinv = 1.0f / (diag[rr] + reg[rr]);
+      g[rr] = (aref[rr] - a0[rr]) * dinv / s_pre[rr];
     }
-    project(m, R, g);
-    if (!cold)
-      for (int rr = 0; rr < nrow; ++rr)
+    lane_sync<L>();
+    project<T, S, L>(m, w, g);
+    if (!cold) {
+      for (int rr = lane; rr < nrow; rr += L)
         if (rr < tor0 || (rr >= lim0 && rr < eq0))
-          g[rr] = lam[rr] / R.s_pre[rr];
-    project(m, R, g);
-    for (int rr = 0; rr < nrow; ++rr) b_vec[rr] = a0[rr] - aref[rr];
+          g[rr] = lam[rr] / s_pre[rr];
+      lane_sync<L>();
+    }
+    project<T, S, L>(m, w, g);
+    T* bvec = w.bvec;
+    for (int rr = lane; rr < nrow; rr += L) bvec[rr] = a0[rr] - aref[rr];
+    lane_sync<L>();
+    prof.mark(5);
 
     // ---- step size: Gershgorin (dense) or power iteration (matrix-free),
     //      denominators floored at 1
     T step;
     if (m.dense) {
-      T mx = 0.0f;
-      for (int rr = 0; rr < nrow; ++rr) {
+      T bound = 0.0f;
+      for (int rr = lane; rr < nrow; rr += L) {
         T s = 0.0f;
         for (int c = 0; c < nrow; ++c)
-          s += r_abs(R.amat[rr * nrow + c]) * R.s_pre[c];
-        const T rs = R.s_pre[rr] * s + R.s_pre[rr] * R.s_pre[rr] * R.reg[rr];
-        mx = r_max(mx, R.active[rr] ? rs : 0.0f);
+          s += r_abs(w.amat[rr * w.lda + c]) * s_pre[c];
+        const T rs = s_pre[rr] * s + s_pre[rr] * s_pre[rr] * reg[rr];
+        bound = r_max(bound, active[rr] ? rs : 0.0f);
       }
-      step = 1.0f / r_max(mx, 1.0f);
+      step = 1.0f / r_max(lane_max<L>(bound), 1.0f);
     } else {
-      T v[S::ROW], w[S::ROW];
-      for (int rr = 0; rr < nrow; ++rr) v[rr] = R.active[rr] ? 1.0f : 0.0f;
+      T* v = w.v;
+      T* wv = w.w;
+      for (int rr = lane; rr < nrow; rr += L) v[rr] = active[rr] ? 1.0f : 0.0f;
+      lane_sync<L>();
       for (int it = 0; it < MR_POWER_ITERS; ++it) {
-        opmul(m, R, L, v, w);
+        opmul<T, S, L>(m, w, v, wv);
         T ss = 0.0f;
-        for (int rr = 0; rr < nrow; ++rr) ss += w[rr] * w[rr];
+        for (int rr = lane; rr < nrow; rr += L) ss += wv[rr] * wv[rr];
+        ss = lane_sum<L>(ss);
         const T nrm = r_sqrt(r_max(ss, T(1e-30)));
-        for (int rr = 0; rr < nrow; ++rr) v[rr] = w[rr] / nrm;
+        for (int rr = lane; rr < nrow; rr += L) v[rr] = wv[rr] / nrm;
+        lane_sync<L>();
       }
-      opmul(m, R, L, v, w);
-      T lmax = 0.0f;
-      for (int rr = 0; rr < nrow; ++rr) lmax += v[rr] * w[rr];
-      step = 1.0f / r_max(1.25f * lmax, 1.0f);
+      opmul<T, S, L>(m, w, v, wv);
+      T lm = 0.0f;
+      for (int rr = lane; rr < nrow; rr += L) lm += v[rr] * wv[rr];
+      lm = lane_sum<L>(lm);
+      step = 1.0f / r_max(1.25f * lm, 1.0f);
     }
+    prof.mark(6);
 
     // ---- APGD with adaptive restart, in g = f / s coordinates
-    for (int rr = 0; rr < nrow; ++rr) y[rr] = g[rr];
+    T* y = w.y;
+    T* gn = w.gn;
+    T* f = w.v;
+    T* af = w.w;
+    for (int rr = lane; rr < nrow; rr += L) y[rr] = g[rr];
     T t = 1.0f;
     for (int it = 0; it < MR_ITERATIONS; ++it) {
-      T f[S::ROW], af[S::ROW];
-      for (int rr = 0; rr < nrow; ++rr) f[rr] = R.s_pre[rr] * y[rr];
-      amul(m, R, L, f, af);
-      for (int rr = 0; rr < nrow; ++rr) {
-        const T gr = R.s_pre[rr] * (af[rr] + R.reg[rr] * f[rr] + b_vec[rr]);
+      for (int rr = lane; rr < nrow; rr += L) f[rr] = s_pre[rr] * y[rr];
+      lane_sync<L>();
+      amul<T, S, L>(m, w, f, af);
+      for (int rr = lane; rr < nrow; rr += L) {
+        const T gr = s_pre[rr] * (af[rr] + reg[rr] * f[rr] + bvec[rr]);
         gn[rr] = y[rr] - step * gr;
       }
-      project(m, R, gn);
+      lane_sync<L>();
+      project<T, S, L>(m, w, gn);
       const T t_new = 0.5f * (1.0f + r_sqrt(1.0f + 4.0f * t * t));
       const T beta = (t - 1.0f) / t_new;
       T dot = 0.0f;
-      for (int rr = 0; rr < nrow; ++rr) dot += (gn[rr] - g[rr]) * (y[rr] - gn[rr]);
+      for (int rr = lane; rr < nrow; rr += L)
+        dot += (gn[rr] - g[rr]) * (y[rr] - gn[rr]);
+      dot = lane_sum<L>(dot);
       const bool reverse = dot > 0.0f;
-      for (int rr = 0; rr < nrow; ++rr) {
+      for (int rr = lane; rr < nrow; rr += L) {
         const T dg = gn[rr] - g[rr];
         y[rr] = reverse ? gn[rr] : gn[rr] + beta * dg;
         g[rr] = gn[rr];
       }
       t = reverse ? 1.0f : t_new;
     }
-    for (int rr = 0; rr < nrow; ++rr) lam[rr] = R.s_pre[rr] * g[rr];
-    for (int k = 0; k < nv; ++k) {
+    for (int rr = lane; rr < nrow; rr += L) lam[rr] = s_pre[rr] * g[rr];
+    lane_sync<L>();
+    for (int k = lane; k < nv; k += L) {
       T s = 0.0f;
-      for (int rr = 0; rr < nrow; ++rr) s += R.J[rr][k] * lam[rr];
+      for (int rr = 0; rr < nrow; ++rr) s += J[rr * ldj + k] * lam[rr];
       qfrc_c[k] = s;
     }
+  } else {
+    for (int k = lane; k < nv; k += L) qfrc_c[k] = 0.0f;
   }
+  lane_sync<L>();
+  prof.mark(7);
 
   // ---- integrate (semi-implicit Euler, implicit damping in the factor);
   //      a free or ball joint's quaternion by the exact exponential map
-  T qacc[MR_MAX_NV];
-  for (int k = 0; k < nv; ++k) qfrc[k] = qfrc[k] + qfrc_c[k];
-  chol_solve(L, qfrc, qacc, nv);
-  for (int k = 0; k < nv; ++k) qvel[k] = qvel[k] + h * qacc[k];
-  for (int j = 0; j < m.njnt; ++j) {
+  for (int k = lane; k < nv; k += L) qfrc[k] = qfrc[k] + qfrc_c[k];
+  lane_sync<L>();
+  chol_solve_lanes<T, L>(Lm, ldl, qfrc, w.qacc, nv);
+  lane_sync<L>();
+  for (int k = lane; k < nv; k += L) qvel[k] = qvel[k] + h * w.qacc[k];
+  lane_sync<L>();
+  for (int j = lane; j < m.njnt; j += L) {
     const int qadr = m.jnt_qposadr[j], vadr = m.jnt_dofadr[j];
     if (m.jnt_type[j] == MR_FREE) {
       for (int i = 0; i < 3; ++i) qpos[qadr + i] += h * qvel[vadr + i];
@@ -1529,6 +1926,8 @@ __device__ void tile_step(const MRModelT<T, S>& m, T* qpos, T* qvel,
       qpos[qadr] = qpos[qadr] + h * qvel[vadr];
     }
   }
+  lane_sync<L>();
+  prof.mark(8);
 }
 
 
@@ -2167,17 +2566,6 @@ __device__ T cost_value(const MRModelT<T, S>& m, const T* res,
 // kernels
 // ---------------------------------------------------------------------------
 
-template <class T, class S>
-__device__ void load_model(const MRModelT<T, S>* __restrict__ src,
-                           MRModelT<T, S>* dst) {
-  const int* s = reinterpret_cast<const int*>(src);
-  int* d = reinterpret_cast<int*>(dst);
-  for (int i = threadIdx.x; i < (int)(sizeof(MRModelT<T, S>) / 4);
-       i += blockDim.x)
-    d[i] = s[i];
-  __syncthreads();
-}
-
 // the rollout-constant operands, copied into the block's shared memory
 template <class T>
 struct Aux {
@@ -2186,115 +2574,213 @@ struct Aux {
   T userdata[MR_MAX_USERDATA];
 };
 
-template <class T, class S>
-__device__ void load_aux(const MRModelT<T, S>& m,
-                         const T* __restrict__ mocap_pos,
-                         const T* __restrict__ mocap_quat,
-                         const T* __restrict__ userdata, Aux<T>* dst) {
-  for (int i = threadIdx.x; i < 3 * m.nmocap; i += blockDim.x)
-    dst->mocap_pos[i] = mocap_pos[i];
-  for (int i = threadIdx.x; i < 4 * m.nmocap; i += blockDim.x)
-    dst->mocap_quat[i] = mocap_quat[i];
-  for (int i = threadIdx.x; i < m.nuserdata; i += blockDim.x)
-    dst->userdata[i] = userdata[i];
-  __syncthreads();
-}
-
-// A block's dynamic shared memory: the model struct, then the
-// rollout-constant operands. The large tier's double struct exceeds the 48
-// KB of static shared memory, so the launch sets the kernel's dynamic
-// maximum first. A host build may define MR_DYNAMIC_SHARED as a static
-// buffer.
+// A block's dynamic shared memory: the rollout-constant operands, the
+// model's copy, then one slice of cand_bytes per warp for its
+// candidate's working set (carve). A host build may define
+// MR_DYNAMIC_SHARED as a static buffer.
 #ifndef MR_DYNAMIC_SHARED
 #define MR_DYNAMIC_SHARED(name) \
   extern __shared__ __align__(16) unsigned char name[]
 #endif
 
 template <class T, class S>
-constexpr size_t shared_bytes() {
-  return sizeof(MRModelT<T, S>) + sizeof(Aux<T>);
+__host__ __device__ constexpr size_t head_bytes() {
+  return (sizeof(Aux<T>) + sizeof(MRModelT<T, S>) + 15) & ~(size_t)15;
 }
 
-// __launch_bounds__(64, 1): a block of 64 threads, at least one per SM.
-// With the model in dynamic shared memory ptxas no longer sees a block's
-// shared memory and otherwise trades registers for occupancy the few
-// blocks of a launch never use (the small tier's float kernel: 96
-// registers and a spill, against 113 with static shared memory).
+// the block's model, copied by all its threads first, then the operands
+// (both end in __syncthreads)
 template <class T, class S>
-__global__ void __launch_bounds__(64, 1) mr_returns_kernel(
+__device__ const MRModelT<T, S>& block_setup(
+    const MRModelT<T, S>* __restrict__ model, unsigned char* smem,
+    const T* __restrict__ mocap_pos, const T* __restrict__ mocap_quat,
+    const T* __restrict__ userdata) {
+  MRModelT<T, S>* copy =
+      reinterpret_cast<MRModelT<T, S>*>(smem + sizeof(Aux<T>));
+  const int* s = reinterpret_cast<const int*>(model);
+  int* d = reinterpret_cast<int*>(copy);
+  for (int i = threadIdx.x; i < (int)(sizeof(MRModelT<T, S>) / 4);
+       i += blockDim.x)
+    d[i] = s[i];
+  __syncthreads();
+  const MRModelT<T, S>& m = *copy;
+  Aux<T>* aux = reinterpret_cast<Aux<T>*>(smem);
+  for (int i = threadIdx.x; i < 3 * m.nmocap; i += blockDim.x)
+    aux->mocap_pos[i] = mocap_pos[i];
+  for (int i = threadIdx.x; i < 4 * m.nmocap; i += blockDim.x)
+    aux->mocap_quat[i] = mocap_quat[i];
+  for (int i = threadIdx.x; i < m.nuserdata; i += blockDim.x)
+    aux->userdata[i] = userdata[i];
+  __syncthreads();
+  return m;
+}
+
+// the views of the candidate of this thread's warp, laid out by its lane 0
+template <class T, class S, int L>
+__device__ const Cand<T, S>& warp_cand(const MRModelT<T, S>& m,
+                                       unsigned char* smem, int cand_bytes) {
+  unsigned char* slice = smem + head_bytes<T, S>() +
+                         (size_t)(threadIdx.x / L) * cand_bytes;
+  Cand<T, S>& w = *reinterpret_cast<Cand<T, S>*>(slice);
+  if (lane_id<L>() == 0) carve(m, slice, w);
+  lane_sync<L>();
+  return w;
+}
+
+// blocks of at most MR_MAX_WARPS warps; MR_MIN_BLOCKS of them per SM keep
+// the registers at or below 128 a thread
+#define MR_MAX_WARPS 2
+#define MR_MIN_BLOCKS 8
+
+template <class T, class S, int L>
+__global__ void __launch_bounds__(MR_MAX_WARPS * 32, MR_MIN_BLOCKS)
+mr_returns_kernel(
     const MRModelT<T, S>* __restrict__ model, const T* __restrict__ qpos0,
     const T* __restrict__ qvel0, const T* __restrict__ actions,
     const T* __restrict__ weights, const T* __restrict__ norm_params,
     const T* __restrict__ risk, const T* __restrict__ res_params,
     const T* __restrict__ t0, const T* __restrict__ mocap_pos,
     const T* __restrict__ mocap_quat, const T* __restrict__ userdata,
-    T* __restrict__ out, int n, int horizon) {
+    T* __restrict__ out, int n, int horizon, int cand_bytes) {
   MR_DYNAMIC_SHARED(smem);
-  MRModelT<T, S>& sm = *reinterpret_cast<MRModelT<T, S>*>(smem);
-  Aux<T>& aux = *reinterpret_cast<Aux<T>*>(smem + sizeof(MRModelT<T, S>));
-  load_model(model, &sm);
-  load_aux(sm, mocap_pos, mocap_quat, userdata, &aux);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n) return;  // ragged edge
-  const MRModelT<T, S>& m = sm;
-  T qpos[MR_MAX_NQ], qvel[MR_MAX_NV], lam[S::ROW], res[MR_MAX_RES];
-  StepOut<T, S> o;
-  for (int k = 0; k < m.nq; ++k) qpos[k] = qpos0[k];
-  for (int k = 0; k < m.nv; ++k) qvel[k] = qvel0[k];
-  for (int r = 0; r < m.nrow; ++r) lam[r] = 0.0f;  // first step is cold
+  const MRModelT<T, S>& m =
+      block_setup(model, smem, mocap_pos, mocap_quat, userdata);
+  const Aux<T>& aux = *reinterpret_cast<const Aux<T>*>(smem);
+  const int lane = lane_id<L>();
+  const int c = blockIdx.x * (blockDim.x / L) + threadIdx.x / L;
+  if (c >= n) return;  // ragged edge: the whole warp
+  const Cand<T, S>& w = warp_cand<T, S, L>(m, smem, cand_bytes);
+  for (int k = lane; k < m.nq; k += L) w.qpos[k] = qpos0[k];
+  for (int k = lane; k < m.nv; k += L) w.qvel[k] = qvel0[k];
+  for (int r = lane; r < m.nrow; r += L) w.lam[r] = 0.0f;  // cold first step
+  lane_sync<L>();
   const T rk = *risk, time0 = *t0;
-  // state-dependent weights read userdata alone: once per rollout
+  // state-dependent weights read userdata alone: once per rollout, on the
+  // lane that scores
   T scale[MR_MAX_TERM];
-  const bool scaled = weight_mod(m, aux.userdata, scale);
+  const bool scaled = lane == 0 && weight_mod(m, aux.userdata, scale);
   T total = 0.0f;
+  MRProf prof;
+  prof.start();
   for (int i = 0; i < horizon; ++i) {
     const T* u = actions + ((size_t)c * horizon + i) * m.nu;
-    tile_step(m, qpos, qvel, u, lam, aux.mocap_pos, aux.mocap_quat, o);
-    const T time = time0 + (T)(i + 1) * m.timestep;
-    residual(m, o, qpos, qvel, u, time, res_params, aux.userdata,
-             aux.mocap_pos, aux.mocap_quat, res);
-    total += cost_value(m, res, weights, norm_params, rk,
-                        scaled ? scale : nullptr);
+    tile_step<T, S, L>(m, w, u, aux.mocap_pos, aux.mocap_quat, prof);
+    if (lane == 0) {
+      const T time = time0 + (T)(i + 1) * m.timestep;
+      residual(m, w.out, w.qpos, w.qvel, u, time, res_params, aux.userdata,
+               aux.mocap_pos, aux.mocap_quat, w.res);
+      total += cost_value(m, w.res, weights, norm_params, rk,
+                          scaled ? scale : nullptr);
+    }
+    prof.mark(9);
   }
-  total = total / horizon;
-  out[c] = isfinite(total) ? total : MR_MAX_RETURN;
+  if (lane == 0) {
+    total = total / horizon;
+    out[c] = isfinite(total) ? total : MR_MAX_RETURN;
+    prof.flush();
+  }
 }
 
-template <class T, class S>
-__global__ void __launch_bounds__(64, 1) mr_step_kernel(
+template <class T, class S, int L>
+__global__ void __launch_bounds__(MR_MAX_WARPS * 32, MR_MIN_BLOCKS)
+mr_step_kernel(
     const MRModelT<T, S>* __restrict__ model, const T* __restrict__ qpos_in,
     const T* __restrict__ qvel_in, const T* __restrict__ ctrl,
     const T* __restrict__ lam_in, const T* __restrict__ mocap_pos,
     const T* __restrict__ mocap_quat, const T* __restrict__ userdata,
     T* __restrict__ qpos_out, T* __restrict__ qvel_out,
-    T* __restrict__ lam_out, int b) {
+    T* __restrict__ lam_out, int b, int cand_bytes) {
   MR_DYNAMIC_SHARED(smem);
-  MRModelT<T, S>& sm = *reinterpret_cast<MRModelT<T, S>*>(smem);
-  Aux<T>& aux = *reinterpret_cast<Aux<T>*>(smem + sizeof(MRModelT<T, S>));
-  load_model(model, &sm);
-  load_aux(sm, mocap_pos, mocap_quat, userdata, &aux);
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const MRModelT<T, S>& m =
+      block_setup(model, smem, mocap_pos, mocap_quat, userdata);
+  const Aux<T>& aux = *reinterpret_cast<const Aux<T>*>(smem);
+  const int lane = lane_id<L>();
+  const int c = blockIdx.x * (blockDim.x / L) + threadIdx.x / L;
   if (c >= b) return;
-  const MRModelT<T, S>& m = sm;
-  T qpos[MR_MAX_NQ], qvel[MR_MAX_NV], lam[S::ROW];
-  StepOut<T, S> o;
-  for (int k = 0; k < m.nq; ++k) qpos[k] = qpos_in[c * m.nq + k];
-  for (int k = 0; k < m.nv; ++k) qvel[k] = qvel_in[c * m.nv + k];
-  for (int r = 0; r < m.nrow; ++r) lam[r] = lam_in[c * m.nrow + r];
-  tile_step(m, qpos, qvel, ctrl + c * m.nu, lam, aux.mocap_pos,
-            aux.mocap_quat, o);
-  for (int k = 0; k < m.nq; ++k) qpos_out[c * m.nq + k] = qpos[k];
-  for (int k = 0; k < m.nv; ++k) qvel_out[c * m.nv + k] = qvel[k];
-  for (int r = 0; r < m.nrow; ++r) lam_out[c * m.nrow + r] = lam[r];
+  const Cand<T, S>& w = warp_cand<T, S, L>(m, smem, cand_bytes);
+  for (int k = lane; k < m.nq; k += L) w.qpos[k] = qpos_in[c * m.nq + k];
+  for (int k = lane; k < m.nv; k += L) w.qvel[k] = qvel_in[c * m.nv + k];
+  for (int r = lane; r < m.nrow; r += L) w.lam[r] = lam_in[c * m.nrow + r];
+  lane_sync<L>();
+  MRProf prof;
+  prof.start();
+  tile_step<T, S, L>(m, w, ctrl + c * m.nu, aux.mocap_pos, aux.mocap_quat,
+                     prof);
+  for (int k = lane; k < m.nq; k += L) qpos_out[c * m.nq + k] = w.qpos[k];
+  for (int k = lane; k < m.nv; k += L) qvel_out[c * m.nv + k] = w.qvel[k];
+  for (int r = lane; r < m.nrow; r += L) lam_out[c * m.nrow + r] = w.lam[r];
 }
 
 // ---------------------------------------------------------------------------
-// C interface (loaded with ctypes): pointers are device pointers, the
-// stream is PyTorch's current stream; each entry returns a CUDA error code
-// (the attribute call's, else cudaGetLastError()). A library holds one
-// tier and one precision: -DMR_TIER=0 the small tier, 1 the large;
-// -DMR_DOUBLE=1 double operands and MRModelT<double, tier>, else float.
+// C interface (loaded with ctypes): pointers are device pointers but
+// model_host, the packed model's copy in host memory that sizes the launch;
+// the stream is PyTorch's current stream; each entry returns a CUDA error
+// code (the set-up's, else cudaGetLastError()). A library holds one tier
+// and one precision: -DMR_TIER=0 the small tier, 1 the large; -DMR_DOUBLE=1
+// double operands and MRModelT<double, tier>, else float.
 // ---------------------------------------------------------------------------
+
+// the largest dynamic shared memory a block may have on sm_90
+#define MR_SMEM_MAX 232448
+
+// A launch's shape: warps per block, blocks, bytes of a candidate's
+// working set and of a block's shared memory
+struct MRShape {
+  int warps, blocks, cand_bytes, smem;
+};
+
+#define MR_MAX_DEVICES 64
+
+// the current device and its SM count, read from the runtime once per
+// device
+static cudaError_t device_sms(int* dev, int* sms) {
+  static int known[MR_MAX_DEVICES];
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev < 0 || *dev >= MR_MAX_DEVICES) return cudaErrorInvalidValue;
+  if (known[*dev] == 0) {
+    err = cudaDeviceGetAttribute(&known[*dev],
+                                 cudaDevAttrMultiProcessorCount, *dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = known[*dev];
+  return cudaSuccess;
+}
+
+// the dynamic shared bytes each device allows mr_returns_kernel (0) and
+// mr_step_kernel (1) so far: the attribute is raised only for a block
+// larger than any before
+static int mr_smem_allowed[2][MR_MAX_DEVICES];
+static std::mutex mr_smem_mutex;
+
+// W = 2 where the model copy and two candidates' working sets fit a block
+// and the launch has two candidates per SM (a block then carries one model
+// copy for two), else 1
+template <class T, class S, class K>
+static cudaError_t launch_shape(K kernel, int which, const void* model_host,
+                                int n, MRShape* g, int* sms) {
+  Cand<T, S> views;
+  const size_t cand =
+      carve(*static_cast<const MRModelT<T, S>*>(model_host), nullptr, views);
+  const size_t head = head_bytes<T, S>();
+  if (head + cand > MR_SMEM_MAX) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = device_sms(&dev, sms);
+  if (err != cudaSuccess) return err;
+  const bool two = head + 2 * cand <= MR_SMEM_MAX && n >= 2 * *sms;
+  g->warps = two ? 2 : 1;
+  g->cand_bytes = (int)cand;
+  g->smem = (int)(head + g->warps * cand);
+  g->blocks = (n + g->warps - 1) / g->warps;
+  std::lock_guard<std::mutex> hold(mr_smem_mutex);
+  int& allowed = mr_smem_allowed[which][dev];
+  if (g->smem > allowed) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g->smem);
+    if (err == cudaSuccess) allowed = g->smem;
+  }
+  return err;
+}
 
 template <class T, class S>
 static int model_layout(long long* offsets, int capacity) {
@@ -2308,46 +2794,50 @@ static int model_layout(long long* offsets, int capacity) {
 }
 
 template <class T, class S>
-static int launch_returns(const void* model, const void* qpos0,
-                          const void* qvel0, const void* actions,
-                          const void* weights, const void* norm_params,
-                          const void* risk, const void* res_params,
-                          const void* t0, const void* mocap_pos,
-                          const void* mocap_quat, const void* userdata,
-                          void* out, int n, int horizon, void* stream) {
+static int launch_returns(const void* model, const void* model_host,
+                          const void* qpos0, const void* qvel0,
+                          const void* actions, const void* weights,
+                          const void* norm_params, const void* risk,
+                          const void* res_params, const void* t0,
+                          const void* mocap_pos, const void* mocap_quat,
+                          const void* userdata, void* out, int n,
+                          int horizon, void* stream) {
   if (n > 0) {
-    const int smem = (int)shared_bytes<T, S>();
-    const cudaError_t err = cudaFuncSetAttribute(
-        mr_returns_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+    MRShape g;
+    int sms;
+    const cudaError_t err = launch_shape<T, S>(
+        mr_returns_kernel<T, S, MR_LANES>, 0, model_host, n, &g, &sms);
     if (err != cudaSuccess) return (int)err;
-    mr_returns_kernel<T, S><<<(n + 63) / 64, 64, smem, (cudaStream_t)stream>>>(
+    mr_returns_kernel<T, S, MR_LANES>
+        <<<g.blocks, 32 * g.warps, g.smem, (cudaStream_t)stream>>>(
         (const MRModelT<T, S>*)model, (const T*)qpos0, (const T*)qvel0,
         (const T*)actions, (const T*)weights, (const T*)norm_params,
         (const T*)risk, (const T*)res_params, (const T*)t0,
         (const T*)mocap_pos, (const T*)mocap_quat, (const T*)userdata,
-        (T*)out, n, horizon);
+        (T*)out, n, horizon, g.cand_bytes);
   }
   return (int)cudaGetLastError();
 }
 
 template <class T, class S>
-static int launch_step(const void* model, const void* qpos,
-                       const void* qvel, const void* ctrl, const void* lam,
-                       const void* mocap_pos, const void* mocap_quat,
-                       const void* userdata, void* qpos_out, void* qvel_out,
-                       void* lam_out, int b, void* stream) {
+static int launch_step(const void* model, const void* model_host,
+                       const void* qpos, const void* qvel, const void* ctrl,
+                       const void* lam, const void* mocap_pos,
+                       const void* mocap_quat, const void* userdata,
+                       void* qpos_out, void* qvel_out, void* lam_out, int b,
+                       void* stream) {
   if (b > 0) {
-    const int smem = (int)shared_bytes<T, S>();
-    const cudaError_t err = cudaFuncSetAttribute(
-        mr_step_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+    MRShape g;
+    int sms;
+    const cudaError_t err = launch_shape<T, S>(
+        mr_step_kernel<T, S, MR_LANES>, 1, model_host, b, &g, &sms);
     if (err != cudaSuccess) return (int)err;
-    mr_step_kernel<T, S><<<(b + 63) / 64, 64, smem, (cudaStream_t)stream>>>(
+    mr_step_kernel<T, S, MR_LANES>
+        <<<g.blocks, 32 * g.warps, g.smem, (cudaStream_t)stream>>>(
         (const MRModelT<T, S>*)model, (const T*)qpos, (const T*)qvel,
         (const T*)ctrl, (const T*)lam, (const T*)mocap_pos,
         (const T*)mocap_quat, (const T*)userdata, (T*)qpos_out,
-        (T*)qvel_out, (T*)lam_out, b);
+        (T*)qvel_out, (T*)lam_out, b, g.cand_bytes);
   }
   return (int)cudaGetLastError();
 }
@@ -2370,28 +2860,78 @@ extern "C" int mr_model_layout(long long* offsets, int capacity) {
   return model_layout<MRScalar, MRTier>(offsets, capacity);
 }
 
+// the phase counters of a profiling build (MR_NPHASE, copied to out, then
+// zeroed if reset); 0 in any other build, a negative CUDA error on failure
+extern "C" int mr_profile(unsigned long long* out, int reset) {
+#if defined(MR_PROFILE) && MR_PROFILE
+  cudaError_t err = cudaMemcpyFromSymbol(out, mr_phase_cycles,
+                                         sizeof(mr_phase_cycles));
+  if (err == cudaSuccess && reset) {
+    unsigned long long zero[MR_NPHASE] = {};
+    err = cudaMemcpyToSymbol(mr_phase_cycles, zero, sizeof(zero));
+  }
+  return err == cudaSuccess ? MR_NPHASE : -(int)err;
+#else
+  (void)out; (void)reset;
+  return 0;
+#endif
+}
+
 extern "C" long long mr_model_size() {
   return (long long)sizeof(MRModelT<MRScalar, MRTier>);
 }
 
-extern "C" int mr_returns(
-    const void* model, const void* qpos0, const void* qvel0,
-    const void* actions, const void* weights, const void* norm_params,
-    const void* risk, const void* res_params, const void* t0,
-    const void* mocap_pos, const void* mocap_quat, const void* userdata,
-    void* out, int n, int horizon, void* stream) {
-  return launch_returns<MRScalar, MRTier>(
-      model, qpos0, qvel0, actions, weights, norm_params, risk, res_params,
-      t0, mocap_pos, mocap_quat, userdata, out, n, horizon, stream);
+// the geometry of mr_returns (step 0) or mr_step (1) for n candidates:
+// out = warps per block, blocks, candidate bytes, block shared bytes,
+// blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// SMs in use (computed from the launch: min(blocks, SMs)); a report, off
+// the launch path
+template <class T, class S, class K>
+static int geometry(K kernel, int which, const void* model_host, int n,
+                    int* out) {
+  MRShape g = {};
+  int sms = 0, resident = 0;
+  cudaError_t err = launch_shape<T, S>(kernel, which, model_host, n, &g,
+                                       &sms);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, kernel, 32 * g.warps, g.smem);
+  const int v[6] = {g.warps, g.blocks, g.cand_bytes, g.smem, resident,
+                    g.blocks < sms ? g.blocks : sms};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return (int)err;
 }
 
-extern "C" int mr_step(const void* model, const void* qpos, const void* qvel,
-                       const void* ctrl, const void* lam,
-                       const void* mocap_pos, const void* mocap_quat,
-                       const void* userdata, void* qpos_out, void* qvel_out,
-                       void* lam_out, int b, void* stream) {
-  return launch_step<MRScalar, MRTier>(model, qpos, qvel, ctrl, lam,
-                                       mocap_pos, mocap_quat, userdata,
+extern "C" int mr_geometry(const void* model_host, int n, int step,
+                           int* out) {
+  return step ? geometry<MRScalar, MRTier>(
+                    mr_step_kernel<MRScalar, MRTier, MR_LANES>, 1,
+                    model_host, n, out)
+              : geometry<MRScalar, MRTier>(
+                    mr_returns_kernel<MRScalar, MRTier, MR_LANES>, 0,
+                    model_host, n, out);
+}
+
+extern "C" int mr_returns(
+    const void* model, const void* model_host, const void* qpos0,
+    const void* qvel0, const void* actions, const void* weights,
+    const void* norm_params, const void* risk, const void* res_params,
+    const void* t0, const void* mocap_pos, const void* mocap_quat,
+    const void* userdata, void* out, int n, int horizon, void* stream) {
+  return launch_returns<MRScalar, MRTier>(
+      model, model_host, qpos0, qvel0, actions, weights, norm_params, risk,
+      res_params, t0, mocap_pos, mocap_quat, userdata, out, n, horizon,
+      stream);
+}
+
+extern "C" int mr_step(const void* model, const void* model_host,
+                       const void* qpos, const void* qvel, const void* ctrl,
+                       const void* lam, const void* mocap_pos,
+                       const void* mocap_quat, const void* userdata,
+                       void* qpos_out, void* qvel_out, void* lam_out, int b,
+                       void* stream) {
+  return launch_step<MRScalar, MRTier>(model, model_host, qpos, qvel, ctrl,
+                                       lam, mocap_pos, mocap_quat, userdata,
                                        qpos_out, qvel_out, lam_out, b,
                                        stream);
 }

@@ -13,6 +13,7 @@ on the CPU. There is no fallback from one to the other. Built once per
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -99,7 +100,7 @@ def _rollout_body(tm, task, horizon, qpos0, qvel0, actions, scorings, t0,
 # ---------------------------------------------------------------------------
 
 MAX_NQ, MAX_NV, MAX_BODY, MAX_JNT, MAX_NU = 32, 30, 20, 25, 24
-MAX_LIM, MAX_TEN, MAX_WRAP, MAX_DENSE = 24, 4, 4, 32
+MAX_LIM, MAX_TEN, MAX_WRAP = 24, 4, 4
 MAX_TERM, MAX_RES, MAX_RES_INT, MAX_RES_FLOAT = 16, 80, 12, 32
 MAX_SITE, MAX_MOCAP, MAX_USERDATA, MAX_EQ = 8, 4, 32, 4
 _CON_KIND = {"plane_sphere": 0, "plane_capend": 0, "cap_cap": 1,
@@ -505,6 +506,55 @@ def _library(tier: Tier, dtype) -> ctypes.CDLL:
   return lib
 
 
+# the kernel's phases, in the order of its counters (csrc/megarollout.cu
+# MR_NPHASE), which only a profiling build (-DMR_PROFILE=1) carries
+PHASES = ("forward kinematics", "CRB and mass matrix", "Cholesky",
+          "RNE and smooth forces", "narrowphase and rows",
+          "Delassus diagonal", "step size", "APGD", "integration",
+          "residual and cost")
+
+
+@functools.cache
+def _float_variant(tier: Tier, contract: bool,
+                   profile: bool) -> ctypes.CDLL:
+  lib = _cuda_build.load(TIERS.index(tier), False, contract, profile)
+  check_layout(lib.mr_model_layout, lib.mr_model_size,
+               _MODEL_STRUCT[tier, torch.float32])
+  return lib
+
+
+@contextlib.contextmanager
+def float_kernels(contract: bool = True, profile: bool = False):
+  """Every MegaRollout's float32 kernels swapped for the same source built
+  otherwise, on first use: without multiply-add contraction (contract
+  False: -fmad=false, which rounds as the plain version does, op for op)
+  or with the per-phase counters that phase_cycles reads (profile)."""
+  global _library
+  library = _library
+
+  def swapped(tier, dtype):
+    return (_float_variant(tier, contract, profile)
+            if dtype == torch.float32 else library(tier, dtype))
+
+  _library = swapped
+  try:
+    yield
+  finally:
+    _library = library
+
+
+def phase_cycles(tier: Tier) -> dict:
+  """{phase: cycles} of the tier's float32 profiling build, summed over
+  every candidate and step since the last read, which zeroes them."""
+  torch.cuda.synchronize()
+  buf = (ctypes.c_ulonglong * len(PHASES))()
+  got = _float_variant(tier, True, True).mr_profile(
+      ctypes.cast(buf, ctypes.c_void_p), 1)
+  if got != len(PHASES):
+    raise RuntimeError(f"mr_profile returned {got}")
+  return dict(zip(PHASES, (int(c) for c in buf)))
+
+
 def _check(name, t, device, shape, dtype):
   if t.device != device:
     raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -531,7 +581,8 @@ class MegaRollout:
   The kernel runs in the dtype of its operands: float32 (the planner's) or
   float64 (to hold the kernel against the plain version in float64, where
   chaotic rollouts still compare candidate by candidate). `launches` and
-  `step_launches` count the kernel launches of `returns` and `step`.
+  `step_launches` count the kernel launches of `returns` and `step`;
+  `geometry` gives a launch's shape on the card.
   """
 
   def __init__(self, task: Task, horizon: int, device=devices.DEFAULT):
@@ -543,6 +594,7 @@ class MegaRollout:
     self.device = devices.resolve(device)
     self.tier = None  # the kernel's size tier, on a CUDA device
     self._bufs = {}  # packed MRModelT on the card, per dtype
+    self._host = {}  # and its host copy, which sizes each launch
     if self.device.type == "cuda":
       self.tier = select_tier(self.tm, task)
       self._model_buffer(self.device, torch.float32)
@@ -556,16 +608,20 @@ class MegaRollout:
       raise ValueError(f"no kernel for {dtype}")
     if dtype not in self._bufs:
       raw = pack_model(self.tm, self.task, dtype)
+      self._host[dtype] = ctypes.create_string_buffer(raw, len(raw))
       self._bufs[dtype] = torch.frombuffer(
           bytearray(raw), dtype=torch.uint8).to(self.device)
     return self._bufs[dtype]
 
-  def _launch(self, entry: str, dtype, dev, *args) -> None:
+  def _launch(self, entry: str, dtype, dev, buf, *args) -> None:
     """Calls the C entry of this tier's library in `dtype` on `dev`'s
-    current stream; raises on a CUDA error."""
+    current stream with the packed model `buf` (and its host copy); raises
+    on a CUDA error."""
     fn = getattr(_library(self.tier, dtype), entry)
+    host = ctypes.addressof(self._host[dtype])
     with torch.cuda.device(dev):
-      err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+      err = fn(buf.data_ptr(), host, *args,
+               torch.cuda.current_stream(dev).cuda_stream)
     if err:
       raise RuntimeError(f"{entry} ({self.tier.name} tier, {dtype}) launch "
                          f"failed: CUDA error {err}")
@@ -624,7 +680,7 @@ class MegaRollout:
     out = torch.empty((n,), dtype=dtype, device=dev)
     if n == 0:
       return out
-    self._launch("mr_returns", dtype, dev, buf.data_ptr(),
+    self._launch("mr_returns", dtype, dev, buf,
                  qpos0.data_ptr(), qvel0.data_ptr(), actions.data_ptr(),
                  params.weights.data_ptr(), params.norm_params.data_ptr(),
                  params.risk.data_ptr(), rp.data_ptr(), t0.data_ptr(),
@@ -664,6 +720,24 @@ class MegaRollout:
         actions.to(dtype), scorings,
         torch.as_tensor(t0, dtype=dtype, device=dev), mp, mq)
 
+  def geometry(self, n: int, dtype=torch.float32, step: bool = False):
+    """The shape of a `returns` (or `step`) launch of n candidates on the
+    card: warps per block (one candidate each), blocks, a candidate's
+    working-set bytes, a block's shared bytes, blocks resident per SM (as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them) and SMs in
+    use (computed from the launch: min(blocks, the card's SMs)). A report:
+    the launch itself makes no occupancy query."""
+    self._model_buffer(self.device, dtype)
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(self.device):
+      err = _library(self.tier, dtype).mr_geometry(
+          ctypes.addressof(self._host[dtype]), n, int(step),
+          ctypes.cast(out, ctypes.c_void_p))
+    if err:
+      raise RuntimeError(f"mr_geometry failed: CUDA error {err}")
+    return dict(zip(("warps_per_block", "blocks", "cand_bytes",
+                     "smem_bytes", "blocks_per_sm", "sms_in_use"), out))
+
   # -------------------------------------------------------------------- step
   def step(self, qpos, qvel, ctrl, efc_lambda=None, mocap_pos=None,
            mocap_quat=None, userdata=None):
@@ -691,7 +765,7 @@ class MegaRollout:
       _check(name, t, dev, (b, w), dtype)
     aux = self._aux(dev, dtype, mocap_pos, mocap_quat, userdata)
     outs = [torch.empty_like(ins[i]) for i in (0, 1, 3)]
-    self._launch("mr_step", dtype, dev, buf.data_ptr(),
+    self._launch("mr_step", dtype, dev, buf,
                  *(t.data_ptr() for t in ins), *(x.data_ptr() for x in aux),
                  *(t.data_ptr() for t in outs), b)
     self.step_launches += 1

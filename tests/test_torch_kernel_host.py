@@ -53,9 +53,11 @@ from tests.torch_cases import (HANDOVER_TARGET, RUBIK_TARGETS, SHADOW_GOAL,
 
 _STUB = r"""
 #pragma once
+#include <barrier>
 #include <cmath>
 #include <cstring>
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __global__
 #define __launch_bounds__(...)
@@ -65,55 +67,131 @@ _STUB = r"""
 #define __align__(n) alignas(n)
 #define MR_DYNAMIC_SHARED(name) alignas(16) static unsigned char name[1 << 18]
 struct host_dim3 { unsigned x, y, z; };
-static host_dim3 threadIdx, blockIdx, blockDim;
-#define __syncthreads()
+// a block's threads are std::threads (one per lane of its one warp), each
+// with its own threadIdx; __syncthreads, __syncwarp and the shuffles meet
+// at the block's barrier
+static thread_local host_dim3 threadIdx;
+static host_dim3 blockIdx, blockDim;
+static std::barrier<>* mr_block_barrier = nullptr;
+static double mr_lane_value[64];
+static inline void mr_block_sync() {
+  if (mr_block_barrier) mr_block_barrier->arrive_and_wait();
+}
+#define __syncthreads() mr_block_sync()
+#define __syncwarp(...) mr_block_sync()
+template <class V>
+static V mr_exchange(V v, int src) {
+  mr_lane_value[threadIdx.x] = (double)v;
+  mr_block_sync();
+  const V r = (V)mr_lane_value[src];
+  mr_block_sync();
+  return r;
+}
+template <class V>
+static V __shfl_sync(unsigned, V v, int src, int width) {
+  return mr_exchange(v, (int)(threadIdx.x / width * width + src % width));
+}
+template <class V>
+static V __shfl_xor_sync(unsigned, V v, int mask, int width) {
+  return mr_exchange(
+      v, (int)(threadIdx.x / width * width + ((threadIdx.x % width) ^ mask)));
+}
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 #define cudaSuccess 0
+#define cudaErrorInvalidValue 1
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 template <class F>
 static inline cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int) {
+  return 0;
+}
+template <class F>
+static inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* blocks, F*, int, size_t) {
+  *blocks = 1;
+  return 0;
+}
+static inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+static inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr,
+                                                 int) {
+  *v = 1;
   return 0;
 }
 static inline cudaError_t cudaGetLastError() { return 0; }
 static inline float __int_as_float(int i) {
   float f; std::memcpy(&f, &i, 4); return f;
 }
+static inline double __longlong_as_double(long long i) {
+  double d; std::memcpy(&d, &i, 8); return d;
+}
 using std::isfinite;
 """
 
 _HOST_MAIN = r"""
+#include <cstdlib>
+#include <thread>
+#include <vector>
 #include "kernel.cc"
-static_assert(shared_bytes<double, MRTier>() <= (1 << 18), "stub buffer");
-// one thread per block, so a block's load_model copies the whole struct
+// One candidate per block of one warp of L lanes: L = 1 runs the block on
+// this thread, L > 1 on L threads that meet at a barrier.
+template <int L, class F>
+static void run_block(F body) {
+  blockDim.x = L;
+  if (L == 1) {
+    threadIdx.x = 0;
+    body();
+    return;
+  }
+  std::barrier<> bar(L);
+  mr_block_barrier = &bar;
+  std::vector<std::thread> lanes;
+  for (int t = 0; t < L; ++t)
+    lanes.emplace_back([&body, t] { threadIdx.x = t; body(); });
+  for (auto& th : lanes) th.join();
+  mr_block_barrier = nullptr;
+}
+// a candidate's working-set bytes; aborts where a block outgrows the
+// stub's buffer
 template <class T>
+static int cand_bytes(const void* model) {
+  Cand<T, MRTier> views;
+  const size_t cand =
+      carve(*(const MRModelT<T, MRTier>*)model, nullptr, views);
+  if (head_bytes<T, MRTier>() + cand > (1 << 18)) std::abort();
+  return (int)cand;
+}
+template <class T, int L>
 static void returns(const void* model, const void* qpos0, const void* qvel0,
     const void* actions, const void* weights, const void* norm_params,
     const void* risk, const void* res_params, const void* t0,
     const void* mp, const void* mq, const void* ud, void* out, int n,
     int horizon) {
-  blockDim.x = 1; threadIdx.x = 0;
+  const int cand = cand_bytes<T>(model);
   for (int c = 0; c < n; ++c) {
     blockIdx.x = c;
-    mr_returns_kernel<T, MRTier>((const MRModelT<T, MRTier>*)model,
-        (const T*)qpos0,
-        (const T*)qvel0, (const T*)actions, (const T*)weights,
-        (const T*)norm_params, (const T*)risk, (const T*)res_params,
-        (const T*)t0, (const T*)mp, (const T*)mq, (const T*)ud, (T*)out, n,
-        horizon);
+    run_block<L>([&] {
+      mr_returns_kernel<T, MRTier, L>((const MRModelT<T, MRTier>*)model,
+          (const T*)qpos0, (const T*)qvel0, (const T*)actions,
+          (const T*)weights, (const T*)norm_params, (const T*)risk,
+          (const T*)res_params, (const T*)t0, (const T*)mp, (const T*)mq,
+          (const T*)ud, (T*)out, n, horizon, cand);
+    });
   }
 }
-template <class T>
+template <class T, int L>
 static void step(const void* model, const void* qpos, const void* qvel,
     const void* ctrl, const void* lam, const void* mp, const void* mq,
     const void* ud, void* qpos_out, void* qvel_out, void* lam_out, int b) {
-  blockDim.x = 1; threadIdx.x = 0;
+  const int cand = cand_bytes<T>(model);
   for (int c = 0; c < b; ++c) {
     blockIdx.x = c;
-    mr_step_kernel<T, MRTier>((const MRModelT<T, MRTier>*)model, (const T*)qpos,
-        (const T*)qvel, (const T*)ctrl, (const T*)lam, (const T*)mp,
-        (const T*)mq, (const T*)ud, (T*)qpos_out, (T*)qvel_out,
-        (T*)lam_out, b);
+    run_block<L>([&] {
+      mr_step_kernel<T, MRTier, L>((const MRModelT<T, MRTier>*)model,
+          (const T*)qpos, (const T*)qvel, (const T*)ctrl, (const T*)lam,
+          (const T*)mp, (const T*)mq, (const T*)ud, (T*)qpos_out,
+          (T*)qvel_out, (T*)lam_out, b, cand);
+    });
   }
 }
 #define RETURNS_ARGS const void* m, const void* q, const void* v, \
@@ -124,16 +202,22 @@ static void step(const void* model, const void* qpos, const void* qvel,
     const void* c, const void* l, const void* mp, const void* mq, \
     const void* ud, void* qo, void* vo, void* lo, int b
 extern "C" void host_returns(RETURNS_ARGS) {
-  returns<float>(m, q, v, a, w, np, r, rp, t0, mp, mq, ud, out, n, h);
+  returns<float, 1>(m, q, v, a, w, np, r, rp, t0, mp, mq, ud, out, n, h);
 }
 extern "C" void host_returns64(RETURNS_ARGS) {
-  returns<double>(m, q, v, a, w, np, r, rp, t0, mp, mq, ud, out, n, h);
+  returns<double, 1>(m, q, v, a, w, np, r, rp, t0, mp, mq, ud, out, n, h);
 }
 extern "C" void host_step(STEP_ARGS) {
-  step<float>(m, q, v, c, l, mp, mq, ud, qo, vo, lo, b);
+  step<float, 1>(m, q, v, c, l, mp, mq, ud, qo, vo, lo, b);
 }
 extern "C" void host_step64(STEP_ARGS) {
-  step<double>(m, q, v, c, l, mp, mq, ud, qo, vo, lo, b);
+  step<double, 1>(m, q, v, c, l, mp, mq, ud, qo, vo, lo, b);
+}
+extern "C" void host_step_lanes4(STEP_ARGS) {
+  step<float, 4>(m, q, v, c, l, mp, mq, ud, qo, vo, lo, b);
+}
+extern "C" void host_step64_lanes4(STEP_ARGS) {
+  step<double, 4>(m, q, v, c, l, mp, mq, ud, qo, vo, lo, b);
 }
 extern "C" int host_model_layout(int dbl, long long* offsets, int capacity) {
   return dbl ? model_layout<double, MRTier>(offsets, capacity)
@@ -163,7 +247,8 @@ def _build(d, flags, tier):
   (d / "cuda_runtime.h").write_text(_STUB)
   (d / "host_main.cc").write_text(_HOST_MAIN)
   so = d / "kernel_host.so"
-  subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", *flags,
+  subprocess.run([cxx, "-O2", "-std=c++20", "-pthread", "-shared", "-fPIC",
+                  *flags,
                   f"-DMR_TIER={tmr.TIERS.index(tier)}", "-I", str(d), "-o",
                   str(so), str(d / "host_main.cc")],
                  check=True, capture_output=True)
@@ -173,7 +258,8 @@ def _build(d, flags, tier):
   lib.host_model_size.restype = ctypes.c_longlong
   for name in ("host_returns", "host_returns64"):
     getattr(lib, name).argtypes = [_P] * 13 + [ctypes.c_int] * 2
-  for name in ("host_step", "host_step64"):
+  for name in ("host_step", "host_step64", "host_step_lanes4",
+               "host_step64_lanes4"):
     getattr(lib, name).argtypes = [_P] * 11 + [ctypes.c_int]
   for dbl, dt in enumerate((torch.float32, torch.float64)):
     tmr.check_layout(functools.partial(lib.host_model_layout, dbl),
@@ -267,10 +353,12 @@ def _aux(tm, dtype, userdata=None, name=None):
   return [np.ascontiguousarray(x[..., 0].numpy()) for x in (mp, mq, ud)]
 
 
-def _host_step(lib, raw, dtype, qp, qv, ct, lam, aux):
+def _host_step(lib, raw, dtype, qp, qv, ct, lam, aux, lanes=1):
+  """One step of the host kernel with 1 lane a candidate, or 4 (threads)."""
   ins = [np.ascontiguousarray(x.T) for x in (qp, qv, ct, lam)]
   outs = [np.empty_like(ins[i]) for i in (0, 1, 3)]
-  getattr(lib, "host_step" + _SUFFIX[dtype])(
+  entry = "host_step" + _SUFFIX[dtype] + ("_lanes4" if lanes == 4 else "")
+  getattr(lib, entry)(
       _ptr(raw), *map(_ptr, ins), *map(_ptr, aux), *map(_ptr, outs),
       qp.shape[1])
   return tuple(x.T.copy() for x in outs)
@@ -283,7 +371,7 @@ def _packed(tm, task, dtype):
   return raw.copy(), tier
 
 
-def _check_steps(libs, name, dtype, tols):
+def _check_steps(libs, name, dtype, tols, lanes=1):
   states, _ = _CASES[name]
   tq, tv, tl = tols
   task = _task(name)
@@ -297,7 +385,8 @@ def _check_steps(libs, name, dtype, tols):
   kq, kv, kl = qp, qv, np.zeros((max(tm.nrow, 1), b), _NP[dtype])
   pq, pv, pl = torch.tensor(qp), torch.tensor(qv), None
   for _ in range(2):  # cold, then warm-started
-    kq, kv, kl = _host_step(libs[tier], raw, dtype, kq, kv, ct, kl, aux)
+    kq, kv, kl = _host_step(libs[tier], raw, dtype, kq, kv, ct, kl, aux,
+                            lanes)
     pq, pv, view = tts.step_tb(tm, pq, pv, torch.tensor(ct), pl, **ops)
     pl = view.efc_lambda
     scale = float(pl.abs().max())
@@ -319,6 +408,18 @@ def test_host_kernel_float64_step_matches_plain(lib, name):
   4.2e-16, qvel 8.2e-14, duals 9.1e-12 of 2.2e3; Quadruped qpos 1.1e-16,
   qvel 1.1e-14, duals 9.1e-13 of 9.2e2."""
   _check_steps(lib, name, torch.float64, _TOL64)
+
+
+@pytest.mark.parametrize("name", ["Humanoid Walk", "Allegro"])
+def test_host_kernel_four_lanes_step_matches_plain(lib, name):
+  """The step kernel with 4 lanes a candidate (threads that meet at the
+  block's barrier for every sync and shuffle), one model per tier: the
+  lanes' striding over rows, points, dofs, joints and bodies, the
+  column-by-column factorization and solves, and the sums across lanes,
+  against the plain step at the one-lane tolerances, in both
+  precisions."""
+  _check_steps(lib, name, torch.float32, _CASES[name][1], lanes=4)
+  _check_steps(lib, name, torch.float64, _TOL64, lanes=4)
 
 
 @pytest.mark.parametrize("name", sorted(_CASES))

@@ -110,6 +110,35 @@ def test_returns_match_plain(walker, dense):
   torch.testing.assert_close(got3[keep], 3.0 * got[keep], rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("n", [1, 33, 257])
+def test_returns_at_block_edges(walker, n):
+  """Candidate counts that leave the last block of W warps part-filled:
+  every candidate's return against the plain version (rtol 2e-3), a
+  diverging last candidate held at MAX_RETURN, and a geometry that
+  covers the SMs (at 257 candidates at least 128 of them, on a card with
+  132)."""
+  task, dev = walker
+  horizon = 8
+  mr = tmr.MegaRollout(task, horizon, device=dev)
+  acts = torch.tensor(0.4 * np.random.RandomState(3).randn(n, horizon, 6),
+                      dtype=torch.float32, device=dev)
+  acts[-1] = 1e30
+  q0 = torch.tensor(task.model.keyframe("home")[0], device=dev)
+  v0 = torch.zeros(9, device=dev)
+  got = mr.returns(q0, v0, acts, task.params, 0.5)
+  want = mr.returns_plain(q0, v0, acts, task.params, 0.5)
+  torch.cuda.synchronize()
+  assert float(got[-1]) == float(want[-1]) == tmr.MAX_RETURN
+  torch.testing.assert_close(got, want, rtol=2e-3, atol=0)
+  geo = mr.geometry(n)
+  w = geo["warps_per_block"]
+  assert (geo["blocks"] - 1) * w < n <= geo["blocks"] * w
+  assert geo["blocks_per_sm"] >= 1  # the runtime's occupancy reading
+  sms = torch.cuda.get_device_properties(dev).multi_processor_count
+  if n == 257:
+    assert geo["sms_in_use"] >= min(128, sms)
+
+
 def test_wrapper_checks_inputs(walker):
   task, dev = walker
   mr = tmr.MegaRollout(task, 4, device=dev)
@@ -408,9 +437,9 @@ def _handover_operands(dev, dtype=torch.float32):
                                      device=dev))
 
 
-def _check_two_steps(mr, q, v, c, ops, dtype):
+def _check_two_steps(mr, q, v, c, ops, dtype, every_kind=True):
   """A cold step, then a warm-started one, kernel against step_tb: every
-  row class carries force; float32 qpos 1e-5, qvel max(1e-3, 8 x the
+  row class carries force (unless every_kind is False); float32 qpos 1e-5, qvel max(1e-3, 8 x the
   state's own plain float32-vs-float64 distance) (chip_smoke.py's
   probe_step: the pinched box spins at up to 16 rad/s, where contracted
   multiply-adds move qvel by 1e-3), duals 1e-4 * max; float64 1e-12,
@@ -430,7 +459,7 @@ def _check_two_steps(mr, q, v, c, ops, dtype):
     wl = wview.efc_lambda
     torch.cuda.synchronize()
     lam = pl.cpu().numpy()
-    for kind in set(kinds):
+    for kind in set(kinds) if every_kind else ():
       assert np.abs(lam[kinds == kind]).max() > 0.0, kind
     scale = float(np.abs(lam).max())
     torch.testing.assert_close(kq, pq, atol=tq, rtol=0)
@@ -525,6 +554,25 @@ def test_allegro_step_matches_plain(allegro, dtype):
     rows = [3 * i for i, cp in enumerate(fric)
             if cp.kind == "boxbox_corner" and cp.owner == owner]
     assert np.abs(lam[rows]).max() > 0.0, owner
+
+
+@pytest.mark.parametrize("b", [1, 33, 257])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_allegro_step_at_block_edges(allegro, dtype, b):
+  """The large tier's largest registered model at candidate counts that
+  leave a block of W warps part-filled (W = 2 where the launch has two
+  candidates per SM): each candidate's step against the plain version at
+  the tolerances of test_allegro_step_matches_plain."""
+  task, dev = allegro
+  mr = tmr.MegaRollout(task, 1, device=dev)
+  geo = mr.geometry(b, dtype, step=True)
+  w = geo["warps_per_block"]
+  assert (geo["blocks"] - 1) * w < b <= geo["blocks"] * w
+  q, v, c = (torch.tensor(x, device=dev, dtype=dtype)
+             for x in tall.probe_states(task.model, b))
+  _check_two_steps(mr, q, v, c, _shadow_operands(dev, dtype), dtype,
+                   every_kind=False)
+  assert mr.step_launches == 2
 
 
 def test_allegro_returns_match_plain(allegro):
