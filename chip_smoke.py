@@ -36,7 +36,17 @@ device or on any failed check. Phase P measures where the time goes: the
 Walker, Humanoid and Allegro benches' returns once through the profiling
 build (where a step's cycles go), the device's busy share over 5
 planner_steps of the Walker and Rubik Faces Agents (torch.profiler), and
-Nsight Compute's occupancy and stall reasons where ncu runs. The
+Nsight Compute's occupancy and stall reasons where ncu runs. Phases G1-G3
+hold the general engine (physics/step.py, plain PyTorch) and the closed
+loop: G1 one general step of five models' probe states on the card
+against the CPU in float64 and against the kernel's step, and one step
+under torch.cuda.set_sync_debug_mode("error"); G2 the general batched
+rollout's returns against the kernel's at the Walker and Humanoid agent
+shapes; G3 the Walker, Quadruped Flat and Cartpole agents from their home
+keyframes, a planner_step every 2 steps, each loop counting its kernel
+launches (reported per kernel row as closed_loop_launches), with ms per
+Agent.step and per plan, CUDA launches per step and the device's busy
+share (torch.profiler, after every timing). The
 last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernel once per path with its launch count, error,
 time, plain time, bound and launch geometry (warps per block, blocks
@@ -1511,6 +1521,465 @@ def run_cem(dev, rec: dict) -> dict:
       "err_over_tol": drive["returns_rel_err"] / 2e-3}
 
 
+# ---------------------------------------------------------------------------
+# G: the general engine (physics/step.py) and the closed loop (Agent.step)
+# ---------------------------------------------------------------------------
+
+# the models of G1, and each one's probe states: (task, states(model, b))
+GENERAL_MODELS = (("Walker", "base"), ("Humanoid Walk", "humanoid"),
+                  ("Quadruped Flat", "quadruped"),
+                  ("Bimanual Handover", "bimanual"), ("Allegro", "allegro"))
+
+
+def tile_row_class(tm):
+  """The coarse class of each row of the kernel's (tile) layout: normal,
+  friction, torsional, rolling, limit, equality."""
+  import numpy as np
+  from mujoco_mpc_torch.physics import tilestep
+  fric = tilestep.row_points(tm)[0]
+  out = []
+  for i, k in enumerate(tilestep.row_kinds(tm)):
+    if i < 3 * len(fric):
+      out.append("normal" if i % 3 == 0 else "friction")
+    elif k in ("torsional", "rolling"):
+      out.append(k)
+    elif k in ("joint_limit", "tendon_limit"):
+      out.append("limit")
+    elif k.startswith("eq_"):
+      out.append("equality")
+    else:  # a condim-1 point's one row
+      out.append("normal")
+  return np.asarray(out)
+
+
+def general_row_class(m):
+  """The same classes in the general solver's layout (physics/solver.py)."""
+  import numpy as np
+  from mujoco_mpc_torch.physics import solver
+  out = []
+  if m.collision_pairs:
+    lay = solver._Layout(m)
+    rows = np.full(lay.ncrow, "friction", dtype=object)
+    rows[lay.nrm] = "normal"
+    out += list(rows) + ["torsional"] * len(lay.tor) + [
+        "rolling"] * (2 * len(lay.roll))
+  neq = sum({0: 3, 1: 6, 2: 1}[int(k)] for e, k in enumerate(m.eq_type)
+            if m.eq_active0[e])
+  out += ["limit"] * (solver.nrow_static(m) - len(out) - neq)
+  out += ["equality"] * neq
+  return np.asarray(out)
+
+
+def class_sums(lam, classes):
+  """{class: per-state sum of the duals (B,)} of lam (B, nrow)."""
+  import numpy as np
+  lam = np.asarray(lam)
+  return {str(c): lam[:, classes == c].sum(1) for c in dict.fromkeys(classes)}
+
+
+def profile_launches(fn) -> dict:
+  """The CUDA kernels one call of fn launches (torch.profiler: device
+  kernel events, and the host's cudaLaunchKernel calls)."""
+  import torch
+  from torch.autograd import DeviceType
+  acts = [torch.profiler.ProfilerActivity.CPU,
+          torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=acts) as prof:
+    fn()
+    torch.cuda.synchronize()
+  events = prof.events()
+  kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+  launches = sum(1 for e in events if e.name in (
+      "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+      "cuLaunchKernelEx"))
+  return {"device_events": kernels, "launch_calls": launches}
+
+
+def general_step_check(name: str, states_of, dev, b: int = 16) -> dict:
+  """G1 on one model: the general step of b probe states on the card in
+  float64 against the same code on the CPU (1e-10), and against the
+  kernel's float32 MegaRollout.step (qpos 1e-5; qvel max(1e-3, 8 x the
+  state's float32-vs-float64 distance of the general step); each row
+  class's summed force within max(1e-3 x its summed |force|, 8 x that
+  distance of the general step's sum, 1e-6)). Then ms and CUDA launches
+  per step of one state (the Agent's step) in float32."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.ops import megarollout as MR
+  from mujoco_mpc_torch.ops import rollout as R
+  from mujoco_mpc_torch.physics import io as phys_io
+  from mujoco_mpc_torch.physics import step as S
+  from mujoco_mpc_torch.tasks import registry
+  task32 = registry.get_task(name, device=dev)
+  states = [np.ascontiguousarray(x[:, :b]) for x in states_of(task32.model,
+                                                             b)]
+  out = {}
+  for key, device, dt in (("card64", dev, torch.float64),
+                          ("cpu64", "cpu", torch.float64),
+                          ("card32", dev, torch.float32)):
+    m = registry.get_task(name, dtype=dt, device=device).model
+    qp, qv, ct = (torch.tensor(x.T, dtype=dt, device=device) for x in states)
+    d = R.broadcast(phys_io.make_data(m), (b,)).replace(qpos=qp, qvel=qv,
+                                                         ctrl=ct)
+    out[key] = run_plain(S.step, m, d)
+  c64, h64, c32 = out["card64"], out["cpu64"], out["card32"]
+  torch.cuda.synchronize()
+  cpu_err = {f: float((getattr(c64, f).cpu() - getattr(h64, f)).abs().max())
+             for f in ("qpos", "qvel", "efc_lambda")}
+  check(cpu_err["qpos"] <= 1e-10 and cpu_err["qvel"] <= 1e-10,
+        f"G1 {name}: the general step on the card is {cpu_err} from the "
+        "CPU's in float64")
+  # the kernel's step on the same states, with make_data's mocap poses
+  mr = MR.MegaRollout(task32, 1, device=dev)
+  d32 = phys_io.make_data(task32.model)
+  x32 = [torch.tensor(x, device=dev) for x in states]
+  kq, kv, kl = mr.step(*x32, mocap_pos=d32.mocap_pos,
+                       mocap_quat=d32.mocap_quat, userdata=d32.userdata)
+  torch.cuda.synchronize()
+  noise = (c32.qvel.double() - c64.qvel).abs().amax(1).cpu()
+  eq = (kq.T.double() - c64.qpos).abs().max().item()
+  ev = (kv.T.double() - c64.qvel).abs().amax(1).cpu()
+  tol_v = torch.clamp(8.0 * noise, min=1e-3)
+  tcls, gcls = tile_row_class(mr.tm), general_row_class(task32.model)
+  ks = class_sums(kl.T.double().cpu(), tcls)
+  gs = class_sums(c64.efc_lambda.cpu(), gcls)
+  gs32 = class_sums(c32.efc_lambda.double().cpu(), gcls)
+  ga = class_sums(c64.efc_lambda.abs().cpu(), gcls)
+  check(set(ks) == set(gs), f"G1 {name}: row classes {sorted(ks)} (kernel) "
+        f"against {sorted(gs)} (general)")
+  cls_err = {}
+  for c in gs:
+    tol = np.maximum(np.maximum(1e-3 * ga[c], 8.0 * np.abs(gs32[c] - gs[c])),
+                     1e-6)
+    cls_err[c] = float(np.max(np.abs(ks[c] - gs[c]) / tol))
+  print(f"[G1] {name}, {b} probe states: general step card vs CPU (float64) "
+        f"qpos {cpu_err['qpos']:.3g}, qvel {cpu_err['qvel']:.3g} (tol 1e-10),"
+        f" duals {cpu_err['efc_lambda']:.3g}; general (float64) vs the "
+        f"kernel's step (float32) qpos {eq:.3g} (tol 1e-5), qvel "
+        f"{float(ev.max())!r} (tol max(1e-3, 8 x the general step's float32-"
+        f"vs-float64 distance), worst ratio {float((ev / tol_v).max()):.3g});"
+        f" per row class |sum kernel - sum general| over its tolerance "
+        f"{ {c: round(v, 4) for c, v in cls_err.items()} }, summed force "
+        f"{ {c: round(float(np.abs(v).max()), 3) for c, v in gs.items()} }")
+  check(eq <= 1e-5 and bool(torch.all(ev <= tol_v)),
+        f"G1 {name}: the general step disagrees with the kernel's")
+  check(all(v <= 1.0 for v in cls_err.values()),
+        f"G1 {name}: a row class's force disagrees with the kernel's")
+  # one state, the Agent's step, in float32
+  m = task32.model
+  d1 = phys_io.make_data(m).replace(qpos=x32[0][:, 0].clone(),
+                                    qvel=x32[1][:, 0].clone(),
+                                    ctrl=x32[2][:, 0].clone())
+  S.step(m, d1)  # builds the model's constants
+  ms = timed_cuda(lambda: S.step(m, d1), 20)
+  print(f"[G1] {name}: one state's general step (float32) {ms:.3f} ms "
+        f"(CUDA events over 20 steps)")
+  return {"card_vs_cpu": cpu_err, "qpos_vs_kernel": eq,
+          "qvel_vs_kernel": float(ev.max()), "class_err": cls_err,
+          "ms_per_step": ms, "one_step": lambda: S.step(m, d1)}
+
+
+def no_sync_step(name: str, dev) -> None:
+  """G1: one general step of one state under
+  torch.cuda.set_sync_debug_mode("error"), which raises on a host sync."""
+  import torch
+  from mujoco_mpc_torch.physics import io as phys_io
+  from mujoco_mpc_torch.physics import step as S
+  from mujoco_mpc_torch.tasks import registry
+  m = registry.get_task(name, device=dev).model
+  d = phys_io.make_data(m)
+  d = d.replace(qpos=torch.tensor(m.keyframe("home")[0], device=dev))
+  d = S.step(m, d)  # the model's constants are built once, outside
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    d = S.step(m, d)
+  except RuntimeError as e:
+    fail(f"G1 {name}: the general step synchronizes with the host: {e}")
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  torch.cuda.synchronize()
+  check(bool(torch.all(torch.isfinite(d.qpos))), f"G1 {name}: non-finite")
+  print(f"[G1] {name}: one general step under set_sync_debug_mode('error')"
+        f": no host sync")
+
+
+def task_in(task, dtype, dev):
+  """`task` (an Agent's, in float32) in `dtype` on dev: the registered
+  task in `dtype` with `task`'s model constants, planning timestep and
+  parameters cast to it. In float64 the general engine then holds the
+  float32-rounded constants that the kernel's double instance packs
+  (tilestep.extract of the float32 model)."""
+  import dataclasses
+  import torch
+  from mujoco_mpc_torch.tasks import registry
+
+  def cast(obj):
+    return dataclasses.replace(obj, **{
+        f.name: v.to(device=dev, dtype=dtype)
+        for f in dataclasses.fields(obj) for v in (getattr(obj, f.name),)
+        if isinstance(v, torch.Tensor) and v.is_floating_point()})
+
+  t = registry.get_task(task.name, dtype=dtype, device=dev)
+  m = task.model
+  return t.replace(model=cast(m).replace(opt=cast(m.opt)),
+                   params=task.params.to(device=dev, dtype=dtype))
+
+
+def general_rollout_check(name: str, dev, n: int, horizon: int,
+                          float32: bool) -> dict:
+  """G2: one plan's candidates of Agent(name) (n x horizon) through the
+  general batched rollout (ops/rollout.py) against the kernel's returns,
+  per candidate at rtol 2e-3, atol 1e-4: in float64 (the double kernel
+  instance; the general engine on the same float32-rounded constants,
+  task_in) and, where float32 is not chaotic, in float32.
+
+  The kernel rounds its derived constants (contact stiffness and damping,
+  impedance, mixed pair parameters) to float32 in both instances, so a
+  float64 step of the two paths differs by that rounding (1e-6 of the
+  Humanoid's contact forces), which a chaotic rollout amplifies. Where a
+  float64 candidate misses, the returns are held as a population
+  (float_noise): the kernel no further from the general returns than the
+  general rollout on the unrounded (registered float64) constants is
+  (twice its count beyond rel 2e-3, at least 2; twice its median), and
+  the kernel's winner within 2e-3 of the general best."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.planners import sampling
+  from mujoco_mpc_torch.tasks import registry
+  agent = Agent(name, device=dev, horizon_steps=horizon)
+  agent.reset("home")
+  cfg = agent.planner.config
+  check(cfg.num_trajectories == n, f"G2 {name}: {cfg.num_trajectories} "
+        f"candidates, not {n}")
+  pl, task, d = agent.planner, agent.task, agent.data
+  new_times, _, cands = pl._gen_candidates(task, agent.policy, d,
+                                           agent.generator)
+  res = {}
+  for dt in ((torch.float64, torch.float32) if float32 else
+             (torch.float64,)):
+    acts = pl._actions(task, d, new_times, cands).to(dt)
+    tdt = task_in(task, dt, dev)
+    dd = d.replace(**{f: v.to(dt) for f, v in vars(d).items()
+                      if isinstance(v, torch.Tensor) and v.is_floating_point()})
+
+    def kernel_returns():
+      return pl.mega.returns(dd.qpos, dd.qvel, acts, tdt.params, dd.time,
+                             mocap_pos=dd.mocap_pos,
+                             mocap_quat=dd.mocap_quat, userdata=dd.userdata)
+
+    kernel = kernel_returns()
+    kms = timed_cuda(kernel_returns, 3)
+    t = time.perf_counter()
+    general = run_plain(sampling.general_returns, tdt, dd,
+                        new_times.to(dt), cands.to(dt), horizon, cfg.interp,
+                        None)
+    torch.cuda.synchronize()
+    gms = (time.perf_counter() - t) * 1e3
+    k, g = kernel.double().cpu().numpy(), general.double().cpu().numpy()
+
+    bad = np.flatnonzero(np.abs(k - g) > 1e-4 + 2e-3 * np.abs(g))
+    key = "f64" if dt == torch.float64 else "f32"
+    res[key] = {"max_rel": float(np.max(np.abs(k - g) / np.maximum(
+        np.abs(g), 1e-12))), "max_abs": float(np.max(np.abs(k - g))),
+                "misses": [int(i) for i in bad],
+                "kernel_ms": kms, "general_ms": gms}
+    print(f"[G2] {name} {n}x{horizon} ({key}): general rollout vs kernel "
+          f"returns, per candidate max rel {res[key]['max_rel']:.3g}, max "
+          f"abs {res[key]['max_abs']:.3g} (rtol 2e-3, atol 1e-4), misses "
+          f"{res[key]['misses']}; general rollout {gms:.1f} ms, kernel "
+          f"{kms:.3f} ms")
+    if len(bad) and dt == torch.float64:
+      t64 = registry.get_task(name, dtype=dt, device=dev)
+      t64 = t64.replace(model=t64.model.replace(opt=t64.model.opt.replace(
+          timestep=tdt.model.opt.timestep)), params=tdt.params)
+      unrounded = run_plain(sampling.general_returns, t64, dd,
+                            new_times.to(dt), cands.to(dt), horizon,
+                            cfg.interp, None)
+      pop = res[key]["population"] = float_noise(
+          kernel, unrounded, general, f"G2 {name} ({key})")
+      print(f"[G2] {name} ({key}): held as a population, {pop}")
+    else:
+      check(not len(bad), f"G2 {name} ({key}): the general returns "
+            f"disagree with the kernel's at candidates {res[key]['misses']}")
+  return res
+
+
+def closed_loop(name: str, dev, steps: int, plan_every: int = 2,
+                planner=None, record_at: int = 0):
+  """G3, the main path: Agent(name) from reset("home"), a planner_step
+  every plan_every steps and step() between, for `steps` steps, with the
+  kernel's launch count set to 0 before and read after. Returns (the
+  numbers, the agent): the root body's horizontal displacement (also after
+  record_at steps), the final total_cost, ms per Agent.step and per
+  planner_step (each call synchronized), kernel launches and plans."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.physics import step as S
+  agent = (Agent(name, device=dev) if planner is None
+           else Agent(name, device=dev, planner=planner))
+  agent.reset("home")
+  m = agent.sim_task.model
+
+  def root():
+    return S.forward(m, agent.data).xpos[1].cpu().numpy()
+
+  start = root()
+  agent.planner.mega.launches = 0
+  plan_ms, step_ms, plans, early = [], [], 0, None
+  for i in range(0, steps, plan_every):
+    t = time.perf_counter()
+    agent.planner_step()
+    torch.cuda.synchronize()
+    plan_ms.append((time.perf_counter() - t) * 1e3)
+    plans += 1
+    for k in range(min(plan_every, steps - i)):
+      t = time.perf_counter()
+      agent.step()
+      torch.cuda.synchronize()
+      step_ms.append((time.perf_counter() - t) * 1e3)
+      if i + k + 1 == record_at:
+        early = root() - start
+  launches = agent.planner.mega.launches
+  delta = root() - start
+  cost = agent.total_cost()
+  out = {"steps": steps, "plans": plans, "launches": launches,
+         "horizontal_displacement": float(np.linalg.norm(delta[:2])),
+         "displacement": [float(x) for x in delta], "final_cost": cost,
+         "ms_per_step": float(np.mean(step_ms)),
+         "ms_per_plan": float(np.mean(plan_ms)),
+         "sim_time": float(agent.data.time),
+         "userdata": [float(x) for x in agent.data.userdata[:8].cpu()]}
+  if early is not None:
+    out[f"horizontal_displacement_at_{record_at}"] = float(
+        np.linalg.norm(early[:2]))
+  print(f"[G3] {name}: {steps} steps ({out['sim_time']:.3f} s), a "
+        f"planner_step every {plan_every}: horizontal displacement "
+        f"{out['horizontal_displacement']:.4f} m"
+        + (f" ({out[f'horizontal_displacement_at_{record_at}']:.4f} m "
+           f"after {record_at} steps)" if early is not None else "")
+        + f", final total_cost {cost:.4f}; {out['ms_per_step']:.3f} ms per "
+        f"Agent.step, {out['ms_per_plan']:.3f} ms per planner_step (each "
+        f"synchronized), kernel launches {launches} in {plans} plans")
+  check(launches == plans, f"G3 {name}: {launches} kernel launches in "
+        f"{plans} plans")
+  check(np.isfinite(cost) and np.all(np.isfinite(delta)),
+        f"G3 {name}: non-finite state or cost")
+  return out, agent
+
+
+def loop_window(name: str, agent, out: dict, plan_every: int = 2,
+                window: int = 10) -> None:
+  """G3 under torch.profiler: `window` more plan-and-steps iterations of
+  a driven agent; into `out` the CUDA launches per step, kernel launches
+  per plan and the device's busy share (the union of the device intervals
+  over the window's host wall time, ending in a synchronize)."""
+  import torch
+  from torch.autograd import DeviceType
+  acts = [torch.profiler.ProfilerActivity.CPU,
+          torch.profiler.ProfilerActivity.CUDA]
+  agent.planner.mega.launches = 0
+  step_calls = []
+  with torch.profiler.profile(activities=acts) as prof:
+    t = time.perf_counter()
+    for _ in range(window):
+      agent.planner_step()
+      for _ in range(plan_every):
+        with torch.profiler.record_function("agent_step"):
+          agent.step()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t) * 1e6
+  events = prof.events()
+  # the device's work: kernels, copies and sets (not the agent_step
+  # range's own annotation on the device's timeline)
+  spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == DeviceType.CUDA
+                 and e.name != "agent_step")
+  busy, cur = 0.0, None
+  for a, b in spans:
+    if cur is None or a > cur[1]:
+      busy += 0.0 if cur is None else cur[1] - cur[0]
+      cur = [a, b]
+    else:
+      cur[1] = max(cur[1], b)
+  busy += 0.0 if cur is None else cur[1] - cur[0]
+  names = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+           "cuLaunchKernelEx")
+  steps = [e for e in events if e.name == "agent_step"
+           and e.device_type == DeviceType.CPU]
+  in_steps = sum(1 for e in events if e.name in names and any(
+      s.time_range.start <= e.time_range.start <= s.time_range.end
+      for s in steps))
+  calls = sum(1 for e in events if e.name in names)
+  nsteps = window * plan_every
+  out.update(window_plans=window, window_steps=nsteps,
+             window_wall_ms=wall_us / 1e3,
+             window_kernel_launches=agent.planner.mega.launches,
+             launches_per_step=in_steps / nsteps,
+             launch_calls_per_plan=(calls - in_steps) / window,
+             busy_share=busy / wall_us if spans else None)
+  share = ("not measured (no device events)" if out["busy_share"] is None
+           else f"{100 * out['busy_share']:.2f} %")
+  print(f"[G3] {name}, {window} more plans and {nsteps} steps under "
+        f"torch.profiler: {out['launches_per_step']:.1f} CUDA launches per "
+        f"Agent.step, {out['launch_calls_per_plan']:.1f} per planner_step "
+        f"({out['window_kernel_launches']} of them the rollout kernel), the "
+        f"device busy {share} of {out['window_wall_ms']:.1f} ms")
+  check(agent.planner.mega.launches == window,
+        f"G3 {name}: {agent.planner.mega.launches} kernel launches in "
+        f"{window} plans")
+
+
+def run_general(dev, rec: dict) -> None:
+  """Phases G1-G3. Every timing comes before the first torch.profiler
+  run (the launch counts and busy shares, at the end)."""
+  from mujoco_mpc_torch.tasks import (allegro, base, bimanual, humanoid,
+                                      quadruped)
+  probes = {"base": base.probe_states, "humanoid": humanoid.probe_states,
+            "quadruped": quadruped.probe_states,
+            "bimanual": bimanual.probe_states,
+            "allegro": allegro.probe_states}
+  g = rec["general"] = {"G1": {}, "G2": {}, "G3": {}}
+  one_step = {}
+  for name, probe in GENERAL_MODELS:
+    g["G1"][name] = general_step_check(name, probes[probe], dev)
+    one_step[name] = g["G1"][name].pop("one_step")
+  for name in ("Walker", "Humanoid Walk"):
+    no_sync_step(name, dev)
+  # the closed loops; the Walker's JAX lock (tests/test_behaviors_tpu.py)
+  # is 2.0 m in 800 steps at the model's 0.0025 s: 2 s, more than the
+  # task's 1 m/s speed goal allows from rest; the JAX package's README
+  # says "walks >=2 m in a 4 s sim", so the drive is 4 s
+  agents = {}
+  for name, steps, planner, at in (("Walker", 1600, None, 800),
+                                   ("Quadruped Flat", 500, None, 0),
+                                   ("Cartpole", 300, "sampling", 0)):
+    g["G3"][name], agents[name] = closed_loop(name, dev, steps,
+                                              planner=planner, record_at=at)
+  walker, quad = g["G3"]["Walker"], g["G3"]["Quadruped Flat"]
+  check(walker["horizontal_displacement"] >= 2.0
+        and walker["final_cost"] < 10.0,
+        f"G3 Walker: {walker['horizontal_displacement']:.4f} m (at least "
+        f"2.0), final cost {walker['final_cost']:.4f} (below 10)")
+  check(quad["horizontal_displacement"] >= 0.3 and quad["final_cost"] < 10.0,
+        f"G3 Quadruped Flat: {quad['horizontal_displacement']:.4f} m (at "
+        f"least 0.3), final cost {quad['final_cost']:.4f} (below 10)")
+  g["G2"]["Walker"] = general_rollout_check("Walker", dev, 128, 80, True)
+  g["G2"]["Humanoid Walk"] = general_rollout_check("Humanoid Walk", dev, 128,
+                                                   33, False)
+  # the profiler runs
+  for name, fn in one_step.items():
+    prof = profile_launches(fn)
+    g["G1"][name].update(prof)
+    print(f"[G1] {name}: one state's general step launches "
+          f"{prof['launch_calls']} CUDA kernels ({prof['device_events']} "
+          f"device events in torch.profiler)")
+  for name, agent in agents.items():
+    loop_window(name, agent, g["G3"][name])
+
+
 def main() -> int:
   ap = argparse.ArgumentParser()
   ap.add_argument("--out", help="also write every measured number here")
@@ -1779,7 +2248,17 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
         f"the comparisons with the plain version as its returns come in")
   pools.append(run_card_queue())
   resolve_deferred()
+
+  # ---- G. the general engine and the closed loop, on a quiet host
+  print(f"[t] {time.perf_counter() - t_start:.1f} s: the general engine")
+  run_general(dev, rec)
   kernels = {"kernels": [row() for row in rows]}
+  loops = rec["general"]["G3"]
+  for row in kernels["kernels"]:
+    for name, tag in (("Walker", "walker"), ("Quadruped Flat", "quadruped"),
+                      ("Cartpole", "cartpole")):
+      if row["name"] == f"megarollout_returns[{tag}]":
+        row["closed_loop_launches"] = loops[name]["launches"]
 
   # ---- P. the device's busy share at two Agents' plan loops, on a quiet
   #      host (the plain version's workers are done), and Nsight Compute

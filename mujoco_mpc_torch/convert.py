@@ -45,5 +45,9 @@ def task_params(jax_params_np, device) -> base.TaskParams:
 
 
 def data(jax_data_np, device) -> types.Data:
-  """JAX Data (numpy leaves) -> Data (its state fields) on `device`."""
-  return _fields(types.Data, jax_data_np, device)
+  """JAX Data (numpy leaves) -> Data on `device`, derived fields and the
+  contact set included (the contact's static `pairs` stay empty)."""
+  contact = getattr(jax_data_np, "contact", None)
+  if contact is not None:
+    contact = _fields(types.Contact, contact, device)
+  return _fields(types.Data, jax_data_np, device, contact=contact)

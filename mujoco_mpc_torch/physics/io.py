@@ -536,7 +536,11 @@ def from_mjmodel(mj, dtype=torch.float32,
 
 
 def make_data(m: types.Model, dtype=None) -> types.Data:
-  """Fresh Data at the model reference configuration qpos0."""
+  """Fresh Data at the model reference configuration qpos0, its derived
+  fields allocated (zeros, identity frames, an inactive contact set of the
+  model's point count and a cold warm start), as the JAX make_data."""
+  from mujoco_mpc_torch.physics import collision, solver
+
   dtype = dtype or m.dtype
   dev = m.device
 
@@ -552,6 +556,20 @@ def make_data(m: types.Model, dtype=None) -> types.Data:
   else:
     mocap_pos0 = z(0, 3)
     mocap_quat0 = z(0, 4)
+
+  def eye(n):
+    return torch.eye(3, dtype=dtype, device=dev).expand(n, 3, 3).clone()
+
+  npt = max(collision.npoints(m), 1)  # contact points, not pairs
+  contact = types.Contact(
+      dist=torch.full((npt,), 1e10, dtype=dtype, device=dev),
+      pos=z(npt, 3), frame=eye(npt), friction=z(npt), torsion=z(npt),
+      roll=z(npt), solref=z(npt, 2), solimp=z(npt, 5),
+      geom1=torch.zeros((npt,), dtype=torch.int32, device=dev),
+      geom2=torch.zeros((npt,), dtype=torch.int32, device=dev),
+      force=z(npt, 3))
+  quat0 = torch.zeros((max(m.nbody, 1), 4), dtype=dtype, device=dev)
+  quat0[:, 0] = 1.0
   return types.Data(
       time=z(),
       qpos=m.qpos0.to(dtype).clone(),
@@ -563,6 +581,16 @@ def make_data(m: types.Model, dtype=None) -> types.Data:
       mocap_pos=mocap_pos0,
       mocap_quat=mocap_quat0,
       userdata=z(m.nuserdata),
+      xpos=z(m.nbody, 3), xquat=quat0, xmat=eye(m.nbody),
+      xipos=z(m.nbody, 3), ximat=eye(m.nbody), xanchor=z(m.njnt, 3),
+      xaxis=z(m.njnt, 3), geom_xpos=z(m.ngeom, 3), geom_xmat=eye(m.ngeom),
+      site_xpos=z(m.nsite, 3), site_xmat=eye(m.nsite),
+      subtree_com=z(m.nbody, 3), cdof=z(m.nv, 6), cvel=z(m.nbody, 6),
+      qM=z(m.nv, m.nv), qLD=z(m.nv, m.nv), qfrc_bias=z(m.nv),
+      qfrc_passive=z(m.nv), qfrc_actuator=z(m.nv), qfrc_constraint=z(m.nv),
+      actuator_force=z(m.nu), act_dot=z(m.na), qacc=z(m.nv),
+      contact=contact, sensordata=z(m.nsensordata),
+      efc_lambda=z(max(solver.nrow_static(m), 1)),
   )
 
 

@@ -6,9 +6,12 @@ metadata; numeric parameters are tensors on one device. Conventions match
 MuJoCo: quaternions (w, x, y, z); joint types FREE/BALL/SLIDE/HINGE;
 spatial 6-vectors [angular; linear] about the world origin.
 
-`Data` holds the simulation state only. The derived fields of the JAX
-`Data` (kinematics, inertia, contacts, sensors) are outputs of the general
-engine, which this package does not have yet (ROADMAP queue 1 item 3).
+`Data` holds the simulation state and the derived fields the general
+engine (physics/step.py) fills: kinematics, inertia, forces, contacts,
+sensors and the constraint solve's warm start, as in the JAX Data. The
+engine takes leading batch dimensions: a field of shape (n, 3) in one
+state is (*b, n, 3) in a batch. Residuals read the batch-trailing view
+(`batch_trailing`).
 """
 
 from __future__ import annotations
@@ -257,6 +260,16 @@ class Model:
   def replace(self, **kw) -> "Model":
     return dataclasses.replace(self, **kw)
 
+  def const(self, key, build):
+    """`build()`, made once per Model object and kept: the engine's
+    constants derived from the static structure (index and mask tensors
+    on the model's device), so that a step copies nothing from the host.
+    `replace` makes a new Model, which builds its own."""
+    cache = self.__dict__.setdefault("_const", {})
+    if key not in cache:
+      cache[key] = build()
+    return cache[key]
+
   # --------------------------- name lookups --------------------------------
   def _name_id(self, names: Tuple[str, ...], name: str, kind: str) -> int:
     try:
@@ -305,8 +318,33 @@ class Model:
 
 
 @dataclasses.dataclass
+class Contact:
+  """The contact points of the static candidate pairs, dense: an inactive
+  point has dist > 0 and carries no force. Shapes per state; `pairs`, the
+  (g1, g2) geom pair of each point (its normal points g1 -> g2), is static
+  and set by collision.collide (empty in make_data's placeholder)."""
+  dist: torch.Tensor  # (npt,) signed distance, the margin taken off
+  pos: torch.Tensor  # (npt, 3) midpoint
+  frame: torch.Tensor  # (npt, 3, 3) rows: normal, tangent1, tangent2
+  friction: torch.Tensor  # (npt,) sliding
+  torsion: torch.Tensor  # (npt,) torsional (condim >= 4)
+  roll: torch.Tensor  # (npt,) rolling (condim 6)
+  solref: torch.Tensor  # (npt, 2)
+  solimp: torch.Tensor  # (npt, 5)
+  geom1: torch.Tensor  # (npt,) int
+  geom2: torch.Tensor  # (npt,) int
+  force: torch.Tensor  # (npt, 3) solved force in the contact frame
+  pairs: tuple = ()
+
+  def replace(self, **kw) -> "Contact":
+    return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass
 class Data:
-  """Simulation state (the state fields of the JAX Data)."""
+  """Simulation state and the general engine's derived fields (the JAX
+  Data's fields; the derived ones are None until make_data or the engine
+  fills them)."""
   time: torch.Tensor  # ()
   qpos: torch.Tensor  # (nq,)
   qvel: torch.Tensor  # (nv,)
@@ -318,5 +356,69 @@ class Data:
   mocap_quat: torch.Tensor  # (nmocap, 4)
   userdata: torch.Tensor  # (nuserdata,)
 
+  # kinematics
+  xpos: Optional[torch.Tensor] = None  # (nbody, 3)
+  xquat: Optional[torch.Tensor] = None  # (nbody, 4)
+  xmat: Optional[torch.Tensor] = None  # (nbody, 3, 3)
+  xipos: Optional[torch.Tensor] = None  # (nbody, 3) body CoM
+  ximat: Optional[torch.Tensor] = None  # (nbody, 3, 3) inertial frame
+  xanchor: Optional[torch.Tensor] = None  # (njnt, 3)
+  xaxis: Optional[torch.Tensor] = None  # (njnt, 3)
+  geom_xpos: Optional[torch.Tensor] = None  # (ngeom, 3)
+  geom_xmat: Optional[torch.Tensor] = None  # (ngeom, 3, 3)
+  site_xpos: Optional[torch.Tensor] = None  # (nsite, 3)
+  site_xmat: Optional[torch.Tensor] = None  # (nsite, 3, 3)
+  subtree_com: Optional[torch.Tensor] = None  # (nbody, 3)
+
+  # velocities and dynamics
+  cdof: Optional[torch.Tensor] = None  # (nv, 6)
+  cvel: Optional[torch.Tensor] = None  # (nbody, 6)
+  qM: Optional[torch.Tensor] = None  # (nv, nv)
+  qLD: Optional[torch.Tensor] = None  # (nv, nv) Cholesky factor
+  qfrc_bias: Optional[torch.Tensor] = None  # (nv,)
+  qfrc_passive: Optional[torch.Tensor] = None  # (nv,)
+  qfrc_actuator: Optional[torch.Tensor] = None  # (nv,)
+  qfrc_constraint: Optional[torch.Tensor] = None  # (nv,)
+  actuator_force: Optional[torch.Tensor] = None  # (nu,)
+  act_dot: Optional[torch.Tensor] = None  # (na,)
+  qacc: Optional[torch.Tensor] = None  # (nv,)
+
+  contact: Optional[Contact] = None
+  sensordata: Optional[torch.Tensor] = None  # (nsensordata,)
+  # the constraint solve's duals, its next warm start (physics/solver.py
+  # row layout); zeros are a cold start
+  efc_lambda: Optional[torch.Tensor] = None  # (nrow,)
+
   def replace(self, **kw) -> "Data":
     return dataclasses.replace(self, **kw)
+
+
+def _moved(obj, nb: int, leading: bool):
+  """obj (a Data or Contact) with nb batch dimensions moved from leading
+  to trailing (leading=True) or back; views, no copies."""
+  kw = {}
+  for f in dataclasses.fields(obj):
+    v = getattr(obj, f.name)
+    if isinstance(v, Contact):
+      kw[f.name] = _moved(v, nb, leading)
+    elif isinstance(v, torch.Tensor) and nb:
+      d = v.dim()
+      lead, trail = list(range(nb)), list(range(d - nb, d))
+      kw[f.name] = (torch.movedim(v, lead, trail) if leading
+                    else torch.movedim(v, trail, lead))
+    else:
+      kw[f.name] = v
+  return dataclasses.replace(obj, **kw)
+
+
+def batch_trailing(d: Data) -> Data:
+  """The component-leading, batch-trailing view of a Data with leading
+  batch dimensions (qpos (*b, nq) -> (nq, *b)), the layout task residuals
+  and transitions read (physics/tilestep.py::StepView). One state is its
+  own view."""
+  return _moved(d, d.qpos.dim() - 1, True)
+
+
+def batch_leading(d: Data, nb: int) -> Data:
+  """The inverse of batch_trailing for nb batch dimensions."""
+  return _moved(d, nb, False)

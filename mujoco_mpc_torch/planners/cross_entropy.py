@@ -3,9 +3,10 @@
 Counterpart of mujoco_mpc_tpu/planners/cross_entropy.py (reference
 mjpc/planners/cross_entropy/planner.cc:168-260): the sampling planner's
 candidates, scored by the same MegaRollout call (the CUDA kernel on the
-card, its plain version on the CPU), but the nominal is refit to the mean
-of the n_elite best candidates and the per-parameter sampling std is
-re-estimated from them, floored at std_min.
+card, its plain version on the CPU; the general rollout for a task with
+no CUDA residual, or with use_megakernel=False), but the nominal is
+refit to the mean of the n_elite best candidates and the per-parameter
+sampling std is re-estimated from them, floored at std_min.
 
 Noise comes from an explicit torch.Generator, or is given (tests hand the
 same standard normals to both packages).
@@ -79,15 +80,18 @@ def elite_update(cands: torch.Tensor, returns: torch.Tensor, n_elite: int,
 class CrossEntropyPlanner:
   """CEM planner over MegaRollout."""
 
-  def __init__(self, config: CEMConfig):
+  def __init__(self, config: CEMConfig, use_megakernel: bool = True):
     self.config = config
+    self.use_megakernel = use_megakernel
     self.mega: Optional[megarollout.MegaRollout] = None
+    self.general_reason: Optional[str] = None
 
   def init(self, task: Task) -> CEMPolicy:
     """Fresh policy (the std at std_initial times half the control range);
-    builds the MegaRollout as SamplingPlanner.init does."""
-    if self.mega is None:
-      self.mega = sampling.build_rollout(task, self.config.horizon)
+    picks the route as SamplingPlanner.init does."""
+    if self.mega is None and self.general_reason is None:
+      self.mega, self.general_reason = sampling.build_rollout(
+          task, self.config.horizon, self.use_megakernel)
     m = task.model
     k = self.config.spline_points
     horizon_time = self.config.horizon * m.opt.timestep
@@ -143,7 +147,12 @@ class CrossEntropyPlanner:
                cands: torch.Tensor,
                params: Optional[TaskParams]) -> torch.Tensor:
     """Candidate returns (N,) from one MegaRollout call, with the state's
-    mocap poses and userdata as rollout constants."""
+    mocap poses and userdata as rollout constants; from the general
+    rollout where there is no MegaRollout."""
+    if self.mega is None:
+      return sampling.general_returns(task, data, new_times, cands,
+                                      self.config.horizon, self.config.interp,
+                                      params)
     return self.mega.returns(
         data.qpos, data.qvel, self._actions(task, data, new_times, cands),
         params if params is not None else task.params, data.time,

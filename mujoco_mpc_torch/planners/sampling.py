@@ -4,7 +4,10 @@ Counterpart of mujoco_mpc_tpu/planners/sampling.py (reference
 mjpc/planners/sampling/planner.cc:155-393): N noisy copies of the nominal
 spline policy (index 0 = the noise-free nominal), one rollout each, keep
 the argmin. The rollouts are one MegaRollout call (ops/megarollout.py):
-the CUDA kernel on the card, its plain version on the CPU.
+the CUDA kernel on the card, its plain version on the CPU. A model outside
+the kernel's class, or a planner built with use_megakernel=False, scores
+its candidates through the general batched rollout (ops/rollout.py)
+instead, as the JAX planner does off the TPU.
 
 Noise follows the reference (AddNoiseToPolicy, planner.cc:326-352):
 per-actuator std = exploration * ctrlrange/2, with 20% of samples on a
@@ -16,13 +19,14 @@ both packages).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Tuple
 
 import torch
 
 from mujoco_mpc_torch.ops import megarollout
+from mujoco_mpc_torch.ops import rollout as rollout_mod
 from mujoco_mpc_torch.ops import spline
-from mujoco_mpc_torch.physics import tilestep
 from mujoco_mpc_torch.physics.types import Data
 from mujoco_mpc_torch.planners.base import PlanInfo
 from mujoco_mpc_torch.tasks.base import Task, TaskParams
@@ -30,16 +34,48 @@ from mujoco_mpc_torch.tasks.base import Task, TaskParams
 _STD2_PROPORTION = 0.2  # reference kStd2Proportion
 
 
-def build_rollout(task: Task, horizon: int) -> megarollout.MegaRollout:
-  """The MegaRollout a sampling-family planner scores its candidates with,
-  on the task model's device; NotImplementedError for a model outside the
-  kernel's class."""
-  try:
-    return megarollout.MegaRollout(task, horizon, device=task.model.device)
-  except tilestep.UnsupportedModel as e:
-    raise NotImplementedError(
-        f"{e}; the general batched rollout that would run it is not "
-        "ported yet (ROADMAP queue 1 item 6)") from e
+def general_reason(task: Task, use_megakernel: bool = True) -> Optional[str]:
+  """Why a sampling-family planner scores `task`'s candidates through the
+  general batched rollout instead of MegaRollout, or None where it takes
+  the kernel. The route follows what the caller and the task declare: a
+  task with a CUDA residual takes the kernel, and a model that the kernel
+  then refuses raises tilestep.UnsupportedModel rather than planning
+  slower."""
+  if not use_megakernel:
+    return "use_megakernel=False"
+  if task.device_residual is None:
+    return (f"task {task.name!r} has no CUDA residual in "
+            "csrc/megarollout.cu (ROADMAP queue 1 item 11)")
+  return None
+
+
+def build_rollout(task: Task, horizon: int, use_megakernel: bool = True
+                  ) -> Tuple[Optional[megarollout.MegaRollout], Optional[str]]:
+  """(the MegaRollout a sampling-family planner scores its candidates
+  with, on the task model's device, or None; general_reason). Taking the
+  general route warns with the reason unless the caller asked for it."""
+  reason = general_reason(task, use_megakernel)
+  if reason is None:
+    return megarollout.MegaRollout(task, horizon,
+                                   device=task.model.device), None
+  if use_megakernel:
+    warnings.warn(f"planning through the general rollout: {reason}",
+                  stacklevel=3)
+  return None, reason
+
+
+def general_returns(task: Task, data: Data, new_times: torch.Tensor,
+                    cands: torch.Tensor, horizon: int, interp: spline.Interp,
+                    params: Optional[TaskParams]) -> torch.Tensor:
+  """Candidate returns (N,) of the splines cands (N, k, nu) on the grid
+  new_times through the general batched rollout from `data` (its warm
+  start included); each step's action is the spline at the rollout's
+  clock, which all candidates share."""
+  def policy(t, d):
+    return spline.sample(new_times, cands, t.reshape(-1)[0], interp)
+
+  d0 = rollout_mod.broadcast(data, cands.shape[:1])
+  return rollout_mod.rollout_return(task, d0, policy, horizon, params)
 
 
 def spline_action(task: Task, times: torch.Tensor, values: torch.Tensor, t,
@@ -97,17 +133,20 @@ class SamplingConfig:
 
 
 class SamplingPlanner:
-  """Predictive-sampling planner over MegaRollout."""
+  """Predictive-sampling planner over MegaRollout, or over the general
+  rollout (`mega` is None, `general_reason` says why)."""
 
-  def __init__(self, config: SamplingConfig):
+  def __init__(self, config: SamplingConfig, use_megakernel: bool = True):
     self.config = config
+    self.use_megakernel = use_megakernel
     self.mega: Optional[megarollout.MegaRollout] = None
+    self.general_reason: Optional[str] = None
 
   def init(self, task: Task) -> SamplingPolicy:
-    """Fresh policy; builds the MegaRollout for this task on its model's
-    device (raises NotImplementedError for a model outside its class)."""
-    if self.mega is None:
-      self.mega = build_rollout(task, self.config.horizon)
+    """Fresh policy; the first call picks the route (build_rollout)."""
+    if self.mega is None and self.general_reason is None:
+      self.mega, self.general_reason = build_rollout(
+          task, self.config.horizon, self.use_megakernel)
     m = task.model
     k = self.config.spline_points
     horizon_time = self.config.horizon * m.opt.timestep
@@ -178,7 +217,11 @@ class SamplingPlanner:
                cands: torch.Tensor,
                params: Optional[TaskParams]) -> torch.Tensor:
     """Candidate returns (N,) from one MegaRollout call, with the state's
-    mocap poses and userdata as rollout constants."""
+    mocap poses and userdata as rollout constants; from the general
+    rollout where there is no MegaRollout."""
+    if self.mega is None:
+      return general_returns(task, data, new_times, cands,
+                             self.config.horizon, self.config.interp, params)
     actions = self._actions(task, data, new_times, cands)
     return self.mega.returns(
         data.qpos, data.qvel, actions,

@@ -9,10 +9,8 @@ the goal orientation as the mocap body's quaternion. Contacts, all condim
 the 8 finger capsules' ends against the cube and the cube's corners on the
 floor.
 
-The goal-advance and drop-reset FSM (JAX: hand_reorient.transition) needs
-the current state's kinematics, which come with the general engine and
-Agent.step (ROADMAP queue 1 item 3); until then callers set the goal
-through Agent.set_state(mocap_quat=...).
+Its transition is Shadow's goal-advance and drop-reset FSM
+(hand_reorient.transition), as in the JAX package.
 
 Residual layout (allegro.cc:38-73), hand_reorient.reorient_residual on the
 world-fixed palm site with a hold offset of -0.04 in z:
@@ -122,5 +120,6 @@ def make(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
       "allegro", dtype, device)
   return base.Task(name="Allegro", model=model, spec=spec, params=params,
                    residual=residual, param_names=pnames,
+                   transition=hand_reorient.transition,
                    device_residual=hand_reorient.device_residual(
                        model, _SITE, _NHAND, _HOLD))

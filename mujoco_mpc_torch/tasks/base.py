@@ -128,6 +128,17 @@ def probe_states(model: Model, b: int, seed: int = 0, qpos=None):
   return tuple(np.ascontiguousarray(x, np.float32) for x in (qp, qv, ct))
 
 
+def const_column(model: Model, key, values, like: torch.Tensor):
+  """values (n,) as a tensor in like's dtype and on its device, made once
+  per model, shaped (n, 1, ...) against like's trailing batch dimensions
+  (like: an (m, *b) field of a batch-trailing Data)."""
+  t = model.const(("column", key, like.dtype, like.device),
+                  lambda: torch.as_tensor(np.asarray(values, np.float64),
+                                          dtype=like.dtype,
+                                          device=like.device))
+  return t.reshape(t.shape + (1,) * (like.dim() - 1))
+
+
 def parse_cost_spec_mj(mj_model, model: Model, dtype, device):
   """(CostSpec, TaskParams, residual param names) from a mujoco.MjModel."""
   import mujoco
@@ -205,9 +216,11 @@ class Task:
 
   `weight_mod(model, data, residual_params)` is an optional (nterm, ...)
   state-dependent weight multiplier (the reference's Transition writing
-  cost weights). The task FSM (`transition`) waits for Agent.step and the
-  general engine (ROADMAP queue 1 item 3); until then callers set userdata
-  and mocap poses through Agent.set_state."""
+  cost weights). `transition(model, data, residual_params)` is the task's
+  FSM (reference Task::Transition), a pure function of a Data that returns
+  the Data with its userdata, mocap poses or state moved on; Agent.step
+  runs it before each action. Both read the component-leading,
+  batch-trailing layout residuals read (one state is its own view)."""
   model: Model
   params: TaskParams
   name: str
@@ -221,9 +234,25 @@ class Task:
   # the residual (and weight_mod) as CUDA device functions, for
   # MegaRollout on the card
   device_residual: Optional[DeviceResidual] = None
+  transition: Optional[Callable] = None
 
   def replace(self, **kw) -> "Task":
     return dataclasses.replace(self, **kw)
+
+  def cost(self, data, params: Optional[TaskParams] = None) -> torch.Tensor:
+    """The scalar cost of one state's Data (its derived fields filled)."""
+    tp = params if params is not None else self.params
+    r = self.residual(self.model, data, tp.residual_params)
+    scale = (self.weight_mod(self.model, data, tp.residual_params)
+             if self.weight_mod is not None else None)
+    return cost_value(self.spec, tp, r, scale)
+
+  def run_transition(self, data, params: Optional[TaskParams] = None):
+    """The task's transition on data (unchanged without one)."""
+    if self.transition is None:
+      return data
+    tp = params if params is not None else self.params
+    return self.transition(self.model, data, tp.residual_params)
 
   def default_ctrl(self) -> torch.Tensor:
     """Initial nominal control: the home keyframe's ctrl when present and

@@ -8,10 +8,10 @@ on a table and the target as the mocap body. Contacts are the box's 8
 corners against the table and two points per finger capsule against the
 box, all condim 6.
 
-The success, drop and timeout FSM (`transition`) needs the current state's
-kinematics, which come with the general engine and Agent.step (ROADMAP
-queue 1 item 3); until then callers set the target through
-Agent.set_state(mocap_pos=...).
+`transition` is the success, drop and timeout FSM (handover.cc:134-185):
+a solved target moves across the table (userdata[0] counts solves,
+userdata[1] holds the last solve's time), a box off the table and arms
+stuck for 30 s without a solve go back to the home keyframe.
 
 Residual layout (handover.cc:33-131), 26 entries:
   Reach L (3), Reach R (3): the box in the gripper site's frame, y and z
@@ -38,6 +38,8 @@ from mujoco_mpc_torch.tasks import base, registry
 DEVICE_RESIDUAL_ID = 6
 
 _NARM = 16  # 2 x (6 joints + 2 fingers)
+_SOLVE_TIMEOUT = 30.0
+_PHI = 0.6180339887498949  # golden-ratio conjugate: a low-discrepancy walk
 _GRASP_MARGIN = 0.02  # handover task.xml:85: grasp normals count within it
 _SITES = ("left/gripper", "right/gripper")
 # the finger geoms, in the order the grasp term reads them
@@ -110,6 +112,47 @@ def residual(model, data, params):
       box - target,
       data.qvel[:_NARM],
   ])
+
+
+def transition(model, data, params):
+  """The handover FSM of the JAX package (handover.cc:134-185): on
+  success the target jumps to the table's other side at a low-discrepancy
+  offset; a box below z -0.1 returns to its home pose at rest; after
+  _SOLVE_TIMEOUT s without a solve, the whole state returns home."""
+  box = data.xpos[model.body("box")]
+  target = data.mocap_pos[0]
+  size = model.const("handover_target_size", lambda: float(
+      model.geom_size[model.geom("target_geom"), 0]))
+  solved = torch.linalg.vector_norm(box - target, dim=0) < size
+  ud = data.userdata
+  count = ud[0] + torch.where(solved, 1.0, 0.0)
+  u1 = torch.remainder(count * _PHI, 1.0)
+  u2 = torch.remainder(count * _PHI * 7.0, 1.0)
+  u3 = torch.remainder(count * _PHI * 13.0, 1.0)
+  flip = torch.where(target[0] > 0, -1.0, 1.0)
+  side = torch.where(u2 > 0.5, 1.0, -1.0)
+  new_target = torch.stack([flip * (0.3 + 0.1 * u1),
+                            side * (0.2 + 0.1 * u2), 0.25 + 0.45 * u3])
+  mocap0 = torch.where(solved, new_target.to(target.dtype), target)
+  solve_time = torch.where(solved, data.time, ud[1])
+  home = base.const_column(model, "home_qpos", model.keyframe("home")[0],
+                           data.qpos)
+  fell = box[2] < -0.1
+  qpos = torch.cat([data.qpos[:16],
+                    torch.where(fell, home[16:23], data.qpos[16:23]),
+                    data.qpos[23:]])
+  qvel = torch.cat([data.qvel[:16],
+                    torch.where(fell, 0.0, data.qvel[16:22]),
+                    data.qvel[22:]])
+  stuck = data.time > solve_time + _SOLVE_TIMEOUT
+  qpos = torch.where(stuck, home, qpos)
+  qvel = torch.where(stuck, 0.0, qvel)
+  solve_time = torch.where(stuck, data.time, solve_time)
+  return data.replace(
+      qpos=qpos, qvel=qvel,
+      mocap_pos=torch.cat([mocap0[None], data.mocap_pos[1:]]),
+      userdata=torch.cat([count[None], solve_time[None].to(ud.dtype),
+                          ud[2:]]))
 
 
 # a horizontal pinch at the table's centre, 0.15 m up: lift, elbow and
@@ -249,4 +292,5 @@ def make(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
       "bimanual", dtype, device)
   return base.Task(name="Bimanual Handover", model=model, spec=spec,
                    params=params, residual=residual, param_names=pnames,
+                   transition=transition,
                    device_residual=_device_residual(model))

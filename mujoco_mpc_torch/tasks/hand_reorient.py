@@ -7,10 +7,10 @@ through fixed tendons: actuators 4, 7, 10 and 14), a free cube, and the goal
 orientation as the mocap body's quaternion. Contacts are the distal
 capsules' ends and four palm pads against the cube, all condim 4.
 
-The goal-advance and drop-reset FSM (`transition`) needs the current
-state's kinematics, which come with the general engine and Agent.step
-(ROADMAP queue 1 item 3); until then callers set the goal through
-Agent.set_state(mocap_quat=...).
+`transition` is the goal-advance and drop-reset FSM (Allegro's too): a
+goal reached within residual_Tolerance moves on along a deterministic
+sequence (userdata[0] counts them), and a dropped cube goes back into the
+hand at rest.
 
 Residual layout (hand.cc:36-85):
   cube position - grasp site (3), goal (-) cube orientation (3), cube
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from mujoco_mpc_torch import device as devices
+from mujoco_mpc_torch.physics import math as pmath
 from mujoco_mpc_torch.physics import sensors
 from mujoco_mpc_torch.tasks import base, registry
 
@@ -33,6 +34,9 @@ from mujoco_mpc_torch.tasks import base, registry
 DEVICE_RESIDUAL_ID = 4
 
 _NHAND = 24
+_GOLDEN = 2.39996322972865332  # radians
+# the cube's pose and velocity after a drop
+_CUBE_HOME = (0.0, 0.0, 0.285, 1.0, 0.0, 0.0, 0.0)
 
 
 def _cube_adr(model):
@@ -69,6 +73,40 @@ def reorient_residual(model, data, site: str, nhand: int,
 def residual(model, data, params):
   """Residual (77, B), reorient_residual on the grasp site."""
   return reorient_residual(model, data, "grasp_site", _NHAND)
+
+
+def transition(model, data, params):
+  """Goal advance and drop reset (the JAX package's FSM; counter in
+  userdata[0]): once the cube is within params[0] of the goal orientation
+  (the norm of mju_subQuat's rotation vector), the goal moves to the next
+  of a golden-angle sequence about a wandering axis; a cube below z 0.15
+  goes back to _CUBE_HOME at rest."""
+  tol = params[0]
+  qadr, vadr = _cube_adr(model)
+  cube_pos = data.qpos[qadr:qadr + 3]
+  cube_quat = data.qpos[qadr + 3:qadr + 7]
+  goal = data.mocap_quat[0]
+  goal = goal / torch.linalg.vector_norm(goal, dim=0)
+  err = pmath.quat_sub(torch.movedim(goal, 0, -1),
+                       torch.movedim(cube_quat, 0, -1))
+  reached = torch.linalg.vector_norm(err, dim=-1) < tol
+  idx = data.userdata[0] + torch.where(reached, 1.0, 0.0)
+  ang = _GOLDEN * idx
+  raw = torch.stack([torch.sin(1.7 * idx), torch.cos(2.3 * idx),
+                     torch.sin(0.9 * idx + 1.0)])
+  axis = raw / torch.clamp(torch.linalg.vector_norm(raw, dim=0), min=1e-9)
+  new_goal = torch.cat([torch.cos(ang / 2)[None], torch.sin(ang / 2) * axis])
+  goal2 = torch.where(reached, new_goal.to(goal.dtype), goal)
+  dropped = cube_pos[2] < 0.15
+  home = base.const_column(model, "cube_home", _CUBE_HOME, data.qpos)
+  cube_q = torch.where(dropped, home, data.qpos[qadr:qadr + 7])
+  qpos = torch.cat([data.qpos[:qadr], cube_q, data.qpos[qadr + 7:]])
+  cube_v = torch.where(dropped, 0.0, data.qvel[vadr:vadr + 6])
+  qvel = torch.cat([data.qvel[:vadr], cube_v, data.qvel[vadr + 6:]])
+  mocap_quat = torch.cat([goal2[None], data.mocap_quat[1:]])
+  userdata = torch.cat([idx[None], data.userdata[1:]])
+  return data.replace(qpos=qpos, qvel=qvel, mocap_quat=mocap_quat,
+                      userdata=userdata)
 
 
 def probe_states(model, b: int, seed: int = 0):
@@ -140,5 +178,6 @@ def make(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
       "hand_reorient", dtype, device)
   return base.Task(name="Shadow", model=model, spec=spec, params=params,
                    residual=residual, param_names=pnames,
+                   transition=transition,
                    device_residual=device_residual(model, "grasp_site",
                                                    _NHAND))

@@ -2,11 +2,10 @@
 
 Counterpart of mujoco_mpc_tpu/tasks/particle.py ("Particle",
 "ParticleFixed") on the dm_control point mass with a mocap goal
-(dm_suite.build_particle). Both tasks share the model and the residual.
-Particle's transition, the goal moving on a Lissajous path, waits for the
-general engine and Agent.step (ROADMAP queue 1 item 5), as the other
-transitions do; until then callers set the goal through
-Agent.set_state(mocap_pos=[[x, y, z]]).
+(dm_suite.build_particle). Both tasks share the model and the residual;
+Particle's transition moves the goal on a Lissajous path, a function of
+time, and ParticleFixed keeps the goal Agent.set_state(mocap_pos=...)
+gives it.
 """
 
 from __future__ import annotations
@@ -28,12 +27,21 @@ def residual(model, data, params):
   return torch.cat([pos - goal, data.qvel[:2], data.ctrl[:2]])
 
 
-def _make(name, dtype, device):
+def transition(model, data, params):
+  """The goal (mocap body 0) at 0.25 (sin 0.4 t, cos 0.8 t)."""
+  t = data.time
+  mocap = data.mocap_pos.clone()
+  mocap[0, :2] = 0.25 * torch.stack([torch.sin(0.4 * t),
+                                     torch.cos(0.8 * t)]).to(mocap.dtype)
+  return data.replace(mocap_pos=mocap)
+
+
+def _make(name, dtype, device, transition=None):
   model, spec, params, pnames = registry.load_task_model(
       "particle", dtype, device)
   return base.Task(
       name=name, model=model, spec=spec, params=params, residual=residual,
-      param_names=pnames,
+      param_names=pnames, transition=transition,
       device_residual=base.DeviceResidual(
           DEVICE_RESIDUAL_ID, sites=(base.site_ref(model, "tip"),)))
 
@@ -41,7 +49,7 @@ def _make(name, dtype, device):
 @registry.register("Particle", snapshot="particle",
                    builder=dm_suite.build_particle)
 def make(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
-  return _make("Particle", dtype, device)
+  return _make("Particle", dtype, device, transition)
 
 
 @registry.register("ParticleFixed", snapshot="particle",

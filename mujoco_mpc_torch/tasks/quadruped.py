@@ -6,9 +6,9 @@ Counterpart of mujoco_mpc_tpu/tasks/quadruped.py, Quadruped Flat: 5 gaits
 gait-dependent cost weights (`weight_mod`) and the modes Quadruped, Biped,
 Walk, Scramble and Flip. The FSM state lives in userdata and the goal in
 the mocap body, both rollout-constant operands of the planner's rollouts.
-The FSM's `transition` needs the current state's kinematics, which come
-with the general engine and Agent.step (ROADMAP queue 1 item 3); until
-then callers set userdata and the goal through Agent.set_state.
+`transition` runs the FSM (automatic gait switching, the phase clock,
+Walk's moving goal, Flip's entry and exit) before each Agent.step;
+fsm_userdata holds it in a mode and gait instead.
 
 Residual layout (quadruped.cc:33-228): Upright(3), Height(1), Position(3),
 Gait(4), Balance(2), Effort(nu), Posture(nu), Orientation(2), Angmom(3).
@@ -69,8 +69,15 @@ _FOOT_RADIUS = 0.02
 _POSTURE_GAIN = np.asarray([2.0, 1.0, 1.0] * 4, np.float32)  # abd, hip, knee
 _FEET = ("FL_foot", "FR_foot", "RL_foot", "RR_foot")
 _FRONT = (1.0, 1.0, 0.0, 0.0)
+# automatic gait switching (quadruped.h:99-103): CoM speed filter (s),
+# least time between switches (s), and each gait's speed threshold
+_AUTO_GAIT_FILTER = 0.2
+_AUTO_GAIT_MIN_TIME = 1.0
+_GAIT_AUTO = (0.0, 0.02, 0.02, 0.6, 2.0)
+_MIN_ANGVEL = 0.01
 
 # residual_params indices (XML custom numeric order)
+_P_GAIT, _P_GAIT_SWITCH, _P_WALK_SPEED, _P_WALK_TURN = 0, 1, 2, 3
 _P_BIPED_TYPE, _P_HEADING, _P_ARM_POSTURE, _P_FLIP_DIR = 4, 5, 6, 7
 
 # cost term indices (XML sensor order)
@@ -319,6 +326,118 @@ def weight_mod(model, data, params):
   return torch.stack(rows)
 
 
+def transition(model, data, params):
+  """The gait and mode FSM (reference TransitionLocked, quadruped.cc:
+  229-390, as the JAX package has it): reset detection, the forbidden
+  mode switches, Flip's entry (start time, torso orientation, ground
+  height saved) and exit, automatic gait switching on the filtered CoM
+  speed, phase continuity across a cadence change, and Walk's goal moving
+  along a line or circle. Flat ground only (the ground height is 0)."""
+  dtype = data.qpos.dtype
+  u = list(torch.unbind(data.userdata, 0))
+  t = data.time
+  trunk = model.body("trunk")
+
+  def where(c, a, b):
+    return torch.where(c, a, b)
+
+  # reset detection (quadruped.cc:230-238)
+  is_reset = t < u[7]
+  req = u[base.MODE_SLOT].to(torch.int32)
+  cur = u[16].to(torch.int32)
+  req = where(is_reset & (req != MODE_QUADRUPED) & (req != MODE_BIPED),
+              MODE_QUADRUPED, req)
+  u[1] = where(is_reset, t, u[1])
+  u[2] = where(is_reset, t, u[2])
+  # Walk and Flip only from Quadruped (quadruped.cc:240-248)
+  req = where((req != cur) & (cur != MODE_QUADRUPED) &
+              ((req == MODE_WALK) | (req == MODE_FLIP)), MODE_QUADRUPED, req)
+  # Flip entry and exit (quadruped.cc:350-390)
+  entering_flip = (req == MODE_FLIP) & (cur != MODE_FLIP)
+  torso_xquat = data.xquat[trunk]
+  u[8] = where(entering_flip, t, u[8])
+  for i in range(4):
+    u[17 + i] = where(entering_flip, torso_xquat[i], u[17 + i])
+  u[21] = where(entering_flip, 0.0, u[21])  # flat ground under the CoM
+  flip_done = (req == MODE_FLIP) & ~entering_flip & (
+      t - u[8] >= _FLIP_TOTAL_TIME)
+  req = where(flip_done, MODE_QUADRUPED, req)
+  # automatic gait switching (quadruped.cc:259-289)
+  comvel = sensors.subtree_linvel(model, data, trunk)[:2]
+  beta = torch.exp(-(t - u[7]) / _AUTO_GAIT_FILTER)
+  u[4] = beta * u[4] + (1.0 - beta) * comvel[0]
+  u[5] = beta * u[5] + (1.0 - beta) * comvel[1]
+  speed = torch.sqrt(u[4] * u[4] + u[5] * u[5])
+  auto_gait = where(
+      speed <= _GAIT_AUTO[GAIT_TROT], GAIT_STAND,
+      where(speed <= _GAIT_AUTO[GAIT_CANTER], GAIT_TROT,
+            where(speed <= _GAIT_AUTO[GAIT_GALLOP], GAIT_CANTER,
+                  GAIT_GALLOP)))
+  auto_gait = where((req == MODE_SCRAMBLE) & (auto_gait == GAIT_STAND),
+                    GAIT_TROT, auto_gait)
+  waited = torch.abs(u[6] - t) > _AUTO_GAIT_MIN_TIME
+  auto_on = params[_P_GAIT_SWITCH] > 0.5
+  gait = u[0].to(torch.int32)
+  manual = params[_P_GAIT].to(torch.int32)
+  new_gait = where(auto_on, where(waited, auto_gait, gait), manual)
+  new_gait = where(req == MODE_FLIP, gait, new_gait)
+  switched = new_gait != gait
+  u[0] = new_gait.to(dtype)
+  u[6] = where(switched & auto_on, t, u[6])
+  # phase continuity across a cadence change (quadruped.cc:250-257)
+  cadence = _sel_scalar(_GAIT_PARAM, _gait_of(u, req), 1, u[0])
+  new_vel = 2 * math.pi * cadence
+  vel_changed = new_vel != u[3]
+  phase_now = _get_phase(u, t)
+  u[1] = where(vel_changed, phase_now, u[1])
+  u[2] = where(vel_changed, t, u[2])
+  u[3] = new_vel.to(dtype)
+  # Walk: the goal moves along a line or a circle (quadruped.cc:305-345)
+  speed_p, angvel_p = params[_P_WALK_SPEED], params[_P_WALK_TURN]
+  goal = data.mocap_pos[0]
+  entering = (req == MODE_WALK) & ((cur != MODE_WALK) | (u[13] != speed_p) |
+                                   (u[14] != angvel_p))
+  forward = data.xmat[trunk][:2, 0]
+  forward = forward / torch.clamp(torch.linalg.vector_norm(forward, dim=0),
+                                  min=1e-9)
+  leftward = torch.stack([-forward[1], forward[0]])
+  torso_xy = data.xpos[trunk][:2]
+  turning = torch.abs(angvel_p) > _MIN_ANGVEL
+  d_off = speed_p / torch.where(turning, angvel_p, 1.0)
+  axis = torso_xy + torch.where(turning, d_off * leftward, 0.0)
+  u[8] = where(entering, t, u[8])
+  for i in range(2):
+    u[9 + i] = where(entering, axis[i], u[9 + i])
+    u[11 + i] = where(entering, goal[i] - axis[i], u[11 + i])
+  u[13] = where(entering, speed_p, u[13])
+  u[14] = where(entering, angvel_p, u[14])
+  mode_time = t - u[8]
+  heading = torch.stack([u[11], u[12]])
+  centre = torch.stack([u[9], u[10]])
+  hnorm = heading / torch.clamp(torch.linalg.vector_norm(heading, dim=0),
+                                min=1e-9)
+  straight = centre + heading + mode_time * u[13] * hnorm
+  ang = mode_time * u[14]
+  circle = centre + torch.stack([
+      torch.cos(ang) * heading[0] - torch.sin(ang) * heading[1],
+      torch.sin(ang) * heading[0] + torch.cos(ang) * heading[1]])
+  walk_xy = torch.where(torch.abs(u[14]) > _MIN_ANGVEL, circle, straight)
+  new_goal = torch.where(req == MODE_WALK, torch.cat([walk_xy, goal[2:]]),
+                         goal)
+  # Flip's exit parks the goal at the head (quadruped.cc:386-388)
+  head_xy = data.site_xpos[model.site("head")][:2]
+  new_goal = torch.where(flip_done, torch.cat([head_xy, goal[2:]]),
+                         new_goal)
+  u[7] = t
+  u[16] = req.to(dtype)
+  u[base.MODE_SLOT] = req.to(dtype)
+  userdata = torch.stack([x.expand(t.shape).to(dtype) for x in u])
+  return data.replace(
+      userdata=userdata,
+      mocap_pos=torch.cat([new_goal[None].to(goal.dtype),
+                           data.mocap_pos[1:]]))
+
+
 def probe_states(model, b: int, seed: int = 0):
   """(qpos (19, b), qvel (18, b), ctrl (12, b)) float32 numpy states in
   which every constraint row class carries force. State i % 4: 0 stands at
@@ -407,4 +526,5 @@ def make(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
   return base.Task(name="Quadruped Flat", model=model, spec=spec,
                    params=params, residual=residual, param_names=pnames,
                    mode_names=MODE_NAMES, weight_mod=weight_mod,
+                   transition=transition,
                    device_residual=_device_residual(model))

@@ -1,0 +1,22 @@
+"""The port's general forward pass held against the JAX package and
+against MuJoCo C, in float64 on the CPU: the class models with fixed
+tendons (springs, limits, a tendon actuator) and with a weld equality.
+The models, their checks and tolerances: tests/torch_engine_cases.py."""
+
+import pytest
+
+from tests import torch_engine_cases as cases
+
+
+@pytest.fixture(scope="module",
+                params=["tendon_spring", "tendon_actuator", "weld"])
+def case(request):
+  return cases.engine_case(request.param)
+
+
+def test_forward_matches_jax(case):
+  cases.check_forward(case)
+
+
+def test_smooth_matches_mujoco(case):
+  cases.check_smooth(case)

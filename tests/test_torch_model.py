@@ -34,7 +34,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _same(name, a, b, atol):
-  """Field equality: tensors/arrays by value, everything else by ==."""
+  """Field equality: tensors/arrays by value, dataclasses (a Data's
+  Contact) field by field, everything else by ==."""
+  if dataclasses.is_dataclass(a) and dataclasses.is_dataclass(b):
+    for f in dataclasses.fields(a):
+      _same(f"{name}.{f.name}", getattr(a, f.name), getattr(b, f.name), atol)
+    return
   if isinstance(a, torch.Tensor):
     a = a.cpu().numpy()
   if isinstance(b, torch.Tensor):
@@ -320,6 +325,13 @@ def test_make_data_matches_jax():
 
 
 def test_agent_step_is_not_ported():
+  """Agent.step was the one Agent call that raised until the general
+  engine came; it now advances the world by the model's timestep (its
+  parity with JAX: tests/test_torch_agent_step.py)."""
   agent = Agent("Walker", device="cpu", horizon_steps=2)
-  with pytest.raises(NotImplementedError, match="general physics engine"):
-    agent.step()
+  agent.reset("home")
+  d = agent.step()
+  assert float(d.time) == pytest.approx(
+      float(agent.sim_task.model.opt.timestep))
+  assert bool(torch.all(torch.isfinite(d.qpos)))
+  assert d.xpos is not None and d.contact.pairs
