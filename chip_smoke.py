@@ -46,7 +46,20 @@ shapes; G3 the Walker, Quadruped Flat and Cartpole agents from their home
 keyframes, a planner_step every 2 steps, each loop counting its kernel
 launches (reported per kernel row as closed_loop_launches), with ms per
 Agent.step and per plan, CUDA launches per step and the device's busy
-share (torch.profiler, after every timing). The
+share (torch.profiler, after every timing). Phases D1-D3 hold the
+planners (planners/*.py): D1 iLQG's transition Jacobians of the Walker
+and Humanoid Walk at 8 states from home, on the card against the CPU in
+float64 and against central differences of the card's step, and the ms
+and launches of one Jacobian call over the Agent's horizon; D2 each of
+the seven planners through Agent("Walker", planner=p): its first float64
+plan on the card against the CPU's (the CPU's in a worker, the same
+injected noise), its kernel launches a plan (reported on the Walker
+kernel row as planner_launches), 5 timed float32 plans, the host syncs of
+one iLQG and one gradient optimize and their peak memory; D3 the iLQG
+(Walker 80, Humanoid Walk 33) and gradient (Walker 80) iterations split
+by phase with CUDA events and the device's busy share, and the Cartpole
+quick start with its own (gradient) planner for about 120 s, its first 6
+float64 steps held against the CPU's. The
 last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernel once per path with its launch count, error,
 time, plain time, bound and launch geometry (warps per block, blocks
@@ -698,25 +711,45 @@ def phase_breakdown(tag: str, mr, args, ops) -> dict:
           "share": {k: v / total for k, v in cyc.items()}}
 
 
-def busy_share(agent, steps: int = 5) -> dict:
+# the host's CUDA launch calls as torch.profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def raw_events(prof) -> list:
+  """A finished torch.profiler run's events as the profiler recorded
+  them (name(), device_type(), start_ns(), end_ns()), without building
+  its event tree, which takes minutes over the hundreds of thousands of
+  launches of a derivative planner's plan."""
+  return prof.profiler.kineto_results.events()
+
+
+def busy_share(agent, steps: int = 5, warm: bool = True,
+               host_ops: bool = True) -> dict:
   """The device's busy share over `steps` planner_steps of `agent` after
-  a warm-up one: the union of the CUDA kernels' and copies' intervals that
+  a warm-up one (unless `warm` is False: the agent has planned already):
+  the union of the CUDA kernels' and copies' intervals that
   torch.profiler records, over the host's wall time of the window (which
-  ends in torch.cuda.synchronize())."""
+  ends in torch.cuda.synchronize()). With host_ops False the profiler
+  records the device's activity alone: a derivative planner's plan runs
+  hundreds of thousands of host ops, whose recording doubles its wall
+  time."""
   import torch
   from torch.autograd import DeviceType
-  agent.planner_step()
+  if warm:
+    agent.planner_step()
   torch.cuda.synchronize()
-  acts = [torch.profiler.ProfilerActivity.CPU,
-          torch.profiler.ProfilerActivity.CUDA]
+  acts = ([torch.profiler.ProfilerActivity.CPU] if host_ops else []) + [
+      torch.profiler.ProfilerActivity.CUDA]
   with torch.profiler.profile(activities=acts) as prof:
     t = time.perf_counter()
     for _ in range(steps):
       agent.planner_step()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t) * 1e6
-  spans = sorted((e.time_range.start, e.time_range.end)
-                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+  spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3)
+                 for e in raw_events(prof)
+                 if e.device_type() == DeviceType.CUDA)
   busy, cur = 0.0, None
   for a, b in spans:  # the union of the device intervals
     if cur is None or a > cur[1]:
@@ -1587,11 +1620,9 @@ def profile_launches(fn) -> dict:
   with torch.profiler.profile(activities=acts) as prof:
     fn()
     torch.cuda.synchronize()
-  events = prof.events()
-  kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA)
-  launches = sum(1 for e in events if e.name in (
-      "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-      "cuLaunchKernelEx"))
+  events = raw_events(prof)
+  kernels = sum(1 for e in events if e.device_type() == DeviceType.CUDA)
+  launches = sum(1 for e in events if e.name() in LAUNCH_CALLS)
   return {"device_events": kernels, "launch_calls": launches}
 
 
@@ -1980,6 +2011,541 @@ def run_general(dev, rec: dict) -> None:
     loop_window(name, agent, g["G3"][name])
 
 
+# ---------------------------------------------------------------------------
+# D: every planner through the Agent, and the derivative planners' rates
+# ---------------------------------------------------------------------------
+
+# the reference order (mjpc/planners/include.h:26-34)
+PLANNERS = ("sampling", "gradient", "ilqg", "ilqs", "robust",
+            "cross_entropy", "sample_gradient")
+# MegaRollout launches per plan on the Walker: sample-gradient scores its
+# perturbations, then its gradient candidates; robust and iLQS score their
+# sampling candidates once; iLQG and the gradient planner run the general
+# engine only
+PLAN_LAUNCHES = {"sampling": 1, "gradient": 0, "ilqg": 0, "ilqs": 1,
+                 "robust": 1, "cross_entropy": 1, "sample_gradient": 2}
+# D3's quick start: Agent("Cartpole") with its own planner, a plan every 2
+# steps, for about this many seconds and at least this many steps
+QUICK_START_S, QUICK_START_STEPS = 120.0, 20
+
+
+def planner_inputs(name: str, planner, model, seed: int = 0) -> dict:
+  """The random inputs of one optimize of `planner` (numpy, from a seed):
+  the sampling candidates' standard normals and second-std flags,
+  robust's re-scoring normals (T, ncandidates, nrepetitions, nbody, 6),
+  sample-gradient's perturbations; none for iLQG and the gradient
+  planner."""
+  import numpy as np
+  rng = np.random.RandomState(seed)
+  if name == "sample_gradient":
+    c = planner.config
+    return {"noise": rng.randn(c.num_noisy, c.spline_points, model.nu)}
+  if name not in ("sampling", "ilqs", "robust", "cross_entropy"):
+    return {}
+  cfg = {"ilqs": lambda: planner.config.sampling,
+         "robust": lambda: planner.delegate.config}.get(
+             name, lambda: planner.config)()
+  n, k = cfg.num_trajectories, cfg.spline_points
+  out = {"noise": rng.randn(n - 1, k, model.nu)}
+  if name != "cross_entropy":
+    out["use2"] = rng.rand(n - 1) < 0.2
+  if name == "robust":
+    rc = planner.config
+    out["eps"] = rng.randn(cfg.horizon, rc.ncandidates, rc.nrepetitions,
+                           model.nbody, 6)
+  return out
+
+
+def first_plan(name: str, device, seed: int = 0) -> dict:
+  """D2: the first optimize of Agent("Walker", planner=name) in float64
+  from reset("home") on `device`, with planner_inputs(seed): its
+  best_return, winner and the new policy's arrays (numpy), its kernel
+  launches, and whether the kernel scored the winning return."""
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.tasks import registry
+  task = registry.get_task("Walker", dtype=torch.float64, device=device)
+  agent = Agent(task, planner=name, device=device)
+  agent.reset("home")
+  inputs = planner_inputs(name, agent.planner, agent.task.model, seed)
+  kw = {k: torch.as_tensor(v, device=device) for k, v in inputs.items()}
+  mega = agent.planner.mega
+  if mega is not None:
+    mega.launches = 0
+  policy, info = agent.planner.optimize(agent.task, agent.policy, agent.data,
+                                        agent.generator, **kw)
+  fields = {"ilqg": ("us", "gains"),
+            "ilqs": ("sampling.values", "ilqg.us", "ilqg.gains")}.get(
+                name, ("values",))
+  out = {"best_return": float(info.best_return),
+         "winner": int(info.winner),
+         "launches": 0 if mega is None else mega.launches,
+         "kernel_scored": name in KERNEL_SCORED or (
+             name == "ilqs" and not bool(policy.use_ilqg))}
+  for f in fields:
+    v = policy
+    for part in f.split("."):
+      v = getattr(v, part)
+    out[f] = v.detach().cpu().numpy()
+  return out
+
+
+def _first_plan_job(name: str) -> dict:
+  """first_plan on the CPU, in a worker, with its seconds."""
+  t = time.perf_counter()
+  return {**first_plan(name, "cpu"), "cpu_s": time.perf_counter() - t}
+
+
+# the planners whose winning return the kernel scores (iLQS's too where
+# its sampling half wins)
+KERNEL_SCORED = ("sampling", "cross_entropy", "sample_gradient")
+# D2's holds of a first float64 plan, card against CPU: the policy's
+# arrays within 1e-6 of their max, best_return within 1e-8 of itself where
+# the general engine scored it. The kernel's double instance is held to
+# the plain version at 1e-10 a step in qvel (phase 3), which the Walker's
+# 80 steps carry to a few 1e-8 of a return, so a return the kernel scored
+# is held at 1e-6.
+PLAN_TOL = {"arrays": 1e-6, "general": 1e-8, "kernel": 1e-6}
+
+
+def quick_start(device, steps: int, dtype_name: str = "float64") -> dict:
+  """Agent("Cartpole") with its own planner from reset("home"), a
+  planner_step every 2 steps, for `steps` steps in `dtype_name`: the
+  states after each step (numpy)."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.tasks import registry
+  task = registry.get_task("Cartpole", dtype=getattr(torch, dtype_name),
+                           device=device)
+  agent = Agent(task, device=device)
+  agent.reset("home")
+  qpos, qvel = [], []
+  for i in range(steps):
+    if i % 2 == 0:
+      agent.planner_step()
+    d = agent.step()
+    qpos.append(d.qpos.cpu().numpy())
+    qvel.append(d.qvel.cpu().numpy())
+  return {"planner": agent.planner_name, "qpos": np.stack(qpos),
+          "qvel": np.stack(qvel)}
+
+
+def _quick_start_job(steps: int) -> dict:
+  """quick_start on the CPU in float64, in a worker, with its seconds."""
+  t = time.perf_counter()
+  return {**quick_start("cpu", steps), "cpu_s": time.perf_counter() - t}
+
+
+def rel_to_max(got, want) -> float:
+  """max |got - want| over max |want|."""
+  import numpy as np
+  got, want = np.asarray(got), np.asarray(want)
+  return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)),
+                                                1e-300))
+
+
+def nominal_states(task, horizon: int, seed: int = 0):
+  """(xs (T+1, nq+nv), us (T, nu), ts (T,), the start Data): the general
+  step from the home keyframe under random controls inside the control
+  range."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.physics import io as phys_io
+  from mujoco_mpc_torch.physics import step as S
+  m = task.model
+  q, v, _ = m.keyframe("home")
+  d = phys_io.make_data(m).replace(
+      qpos=torch.tensor(q, dtype=m.dtype, device=m.device),
+      qvel=torch.tensor(v, dtype=m.dtype, device=m.device))
+  lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+  us = lo + (hi - lo) * torch.tensor(
+      np.random.RandomState(seed).uniform(0.1, 0.9, (horizon, m.nu)),
+      dtype=m.dtype, device=m.device)
+  xs, dd = [torch.cat([d.qpos, d.qvel])], d
+  for i in range(horizon):
+    dd = S.step(m, dd.replace(ctrl=us[i]))
+    xs.append(torch.cat([dd.qpos, dd.qvel]))
+  ts = d.time + m.opt.timestep * torch.arange(horizon, dtype=m.dtype,
+                                              device=m.device)
+  return torch.stack(xs), us, ts, d
+
+
+def jacobian_check(name: str, dev, states: int = 8) -> dict:
+  """D1 on one model: the transition Jacobians A and B at `states` states
+  along a nominal from home, in float64 on the card, against the same
+  call on the CPU (each matrix within 1e-9 of its max) and against
+  central differences of the card's own float64 step (eps 1e-6; the
+  worst gap within 1e-3 of each Jacobian's max)."""
+  import torch
+  from mujoco_mpc_torch.ops import rollout as R
+  from mujoco_mpc_torch.physics import step as S
+  from mujoco_mpc_torch.planners import ilqg
+  from mujoco_mpc_torch.tasks import registry
+  out = {}
+  planner = ilqg.ILQGPlanner(ilqg.ILQGConfig(horizon=states))
+  for key, device in (("card", dev), ("cpu", "cpu")):
+    task = registry.get_task(name, dtype=torch.float64, device=device)
+    xs, us, ts, d = nominal_states(task, states)
+    a, b = planner.jacobians(task, d, xs, us, ts)
+    out[key] = (a.cpu(), b.cpu())
+    if key == "card":
+      card = (task, xs, us, ts, d)
+  torch.cuda.synchronize()
+  cpu_gap = max(rel_to_max(x[t], y[t]) for x, y in zip(out["card"],
+                                                        out["cpu"])
+                for t in range(states))
+  # central differences: every +-eps of every state in one batched step
+  task, xs, us, ts, d = card
+  m = task.model
+  nx, nxu, eps = 2 * m.nv, 2 * m.nv + m.nu, 1e-6
+  e = eps * torch.eye(nxu, dtype=torch.float64, device=dev)
+  dxu = torch.cat([e, -e])[None].expand(states, 2 * nxu, nxu)
+  xf = ilqg.apply_tangent(m, xs[:-1, None], dxu[..., :nx])
+  dd = R.broadcast(d, dxu.shape[:2]).replace(
+      qpos=xf[..., :m.nq], qvel=xf[..., m.nq:],
+      ctrl=us[:, None] + dxu[..., nx:],
+      time=ts[:, None].expand(dxu.shape[:2]))
+  dd = run_plain(S.step, m, dd)
+  f = ilqg.tangent(m, torch.cat([dd.qpos, dd.qvel], dim=-1), xs[1:, None])
+  cd = ((f[:, :nxu] - f[:, nxu:]) / (2 * eps)).transpose(1, 2).cpu()
+  jac = torch.cat(out["card"], dim=-1)
+  cd_gap = max(rel_to_max(jac[t], cd[t]) for t in range(states))
+  print(f"[D1] {name}: A {tuple(jac.shape[1:2]) * 2}, B "
+        f"{tuple(out['card'][1].shape[1:])} at {states} states from home "
+        f"(float64): card vs CPU worst {cpu_gap:.3g} of a matrix's max "
+        f"(tol 1e-9); against central differences of the card's step "
+        f"(eps 1e-6) worst {cd_gap:.3g} of a Jacobian's max (tol 1e-3)")
+  check(cpu_gap <= 1e-9, f"D1 {name}: the Jacobians on the card are "
+        f"{cpu_gap:.3g} from the CPU's")
+  check(cd_gap <= 1e-3, f"D1 {name}: the Jacobians are {cd_gap:.3g} from "
+        "central differences")
+  return {"card_vs_cpu": cpu_gap, "vs_central_differences": cd_gap}
+
+
+def precision_check(what: str) -> None:
+  """Float32 matmuls at full precision (no TF32), as the derivative
+  planners need."""
+  import torch
+  check(torch.get_float32_matmul_precision() == "highest"
+        and not torch.backends.cuda.matmul.allow_tf32,
+        f"{what}: float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()!r}, allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+
+
+class PhaseTimer:
+  """A planner's timer (planners/base.py::PhaseMarks): a CUDA event and a
+  host clock reading at the start of each plan and at the end of each of
+  its phases."""
+
+  def __init__(self):
+    self.plans = []
+
+  def start(self):
+    self.plans.append([])
+    self("start")
+
+  def __call__(self, name: str):
+    import torch
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    self.plans[-1].append((name, ev, time.perf_counter()))
+
+  def split(self) -> dict:
+    """{phase: (mean device ms, mean host enqueue ms)} over the plans."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    out = {}
+    for plan in self.plans:
+      for (_, e0, h0), (name, e1, h1) in zip(plan, plan[1:]):
+        out.setdefault(name, []).append((e0.elapsed_time(e1),
+                                         (h1 - h0) * 1e3))
+    return {k: tuple(float(x) for x in np.mean(v, axis=0))
+            for k, v in out.items()}
+
+
+# what set_sync_debug_mode("warn") says at a host sync
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def count_syncs(agent) -> dict:
+  """Host syncs in one optimize of the agent's planner, counted as
+  torch.cuda.set_sync_debug_mode("warn") warns them ("called a
+  synchronizing CUDA operation"; the mode, PyTorch warns, does not yet
+  detect every synchronizing operation): the count, the count in each of
+  the planner's phases (its `timer` hook), and the source line each
+  warning names."""
+  import collections
+  import warnings
+  import torch
+  torch.cuda.synchronize()
+  marks = []
+  # the mode is entered before the recording starts: only the plan's own
+  # syncs are counted
+  torch.cuda.set_sync_debug_mode("warn")
+  try:
+    with warnings.catch_warnings(record=True) as caught:
+      warnings.simplefilter("always")
+
+      def syncs():
+        return sum(1 for w in caught if SYNC_WARNING in str(w.message))
+
+      agent.planner.timer = lambda name: marks.append((name, syncs()))
+      try:
+        agent.planner.optimize(agent.task, agent.policy, agent.data,
+                               agent.generator)
+        count = syncs()
+      finally:
+        agent.planner.timer = None
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  torch.cuda.synchronize()
+  phases, before = {}, 0
+  for name, n in marks:
+    phases[name], before = n - before, n
+  where = collections.Counter(
+      f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+      if SYNC_WARNING in str(w.message))
+  return {"count": count, "by_phase": phases, "where": dict(where)}
+
+
+def time_planner(name: str, dev, reps: int = 5, task: str = "Walker"):
+  """D2/D3: Agent(task, planner=name) in float32 from reset("home"), one
+  warm-up and `reps` timed planner_steps (each synchronized), with the
+  kernel's launch count set to 0 before and read after, and the phases of
+  iLQG and the gradient planner timed (PhaseTimer). Returns (the numbers,
+  the agent)."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  agent = Agent(task, planner=name, device=dev)
+  agent.reset("home")
+  precision_check(f"{task} {name}")
+  agent.planner_step()
+  torch.cuda.synchronize()
+  mega = agent.planner.mega
+  if mega is not None:
+    mega.launches = 0
+  timer = None
+  if name in ("ilqg", "gradient"):
+    timer = agent.planner.timer = PhaseTimer()
+  ms, best = [], []
+  for _ in range(reps):
+    t = time.perf_counter()
+    if timer is not None:
+      timer.start()
+    info = agent.planner_step()
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t) * 1e3)
+    best.append(float(info.best_return))
+  agent.planner.timer = None
+  precision_check(f"{task} {name}")
+  launches = 0 if mega is None else mega.launches
+  q = np.percentile(ms, [50, 66.7])
+  cfg = agent.planner.config
+  horizon = {"ilqs": lambda: cfg.ilqg.horizon,
+             "robust": lambda: agent.planner.delegate.config.horizon}.get(
+                 name, lambda: cfg.horizon)()
+  out = {"ms": ms, "median_ms": float(q[0]), "p66_7_ms": float(q[1]),
+         "launches": launches, "launches_per_plan": launches / reps,
+         "best_return": best, "horizon": horizon}
+  if timer is not None:
+    out["phases"] = timer.split()
+  policy = agent.policy.ilqg if name == "ilqs" else agent.policy
+  if hasattr(policy, "gains"):  # a finding to report, with its state
+    out["gains_finite"] = bool(torch.all(torch.isfinite(policy.gains)))
+    if not out["gains_finite"]:
+      print(f"[D] {task} {name}: non-finite float32 feedback gains, from "
+            f"the state qpos {agent.data.qpos.tolist()}, qvel "
+            f"{agent.data.qvel.tolist()} at t {float(agent.data.time)}")
+  check(all(np.isfinite(best)), f"D {task} {name}: non-finite best return")
+  check(launches == PLAN_LAUNCHES[name] * reps,
+        f"D {task} {name}: {launches} kernel launches in {reps} plans, not "
+        f"{PLAN_LAUNCHES[name]} a plan")
+  return out, agent
+
+
+def print_phases(tag: str, what: str, res: dict) -> None:
+  total = sum(v[0] for v in res["phases"].values())
+  split = ", ".join(f"{k} {v[0]:.1f} ms (host {v[1]:.1f})"
+                    for k, v in res["phases"].items())
+  print(f"[{tag}] {what}: {res['median_ms']:.1f} ms an iteration (median "
+        f"of {len(res['ms'])}, p66.7 {res['p66_7_ms']:.1f}); CUDA events "
+        f"{total:.1f} ms: {split}")
+
+
+def run_derivative(dev, rec: dict) -> None:
+  """Phases D1-D3. The float64 holds first, their CPU halves in the
+  plain version's workers; every timing after the workers are done; the
+  profiler runs last."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  r = rec["derivative"] = {"D1": {}, "D2": {}, "D3": {}}
+  t0 = time.perf_counter()
+
+  def stamp(what):
+    print(f"[t] D +{time.perf_counter() - t0:.1f} s: {what}", flush=True)
+
+  cpu_quick = PLAIN.submit(_quick_start_job, 6)
+  cpu_plans = {name: PLAIN.submit(_first_plan_job, name)
+               for name in PLANNERS}
+  # ---- D1: the transition Jacobians on the card
+  for name in ("Walker", "Humanoid Walk"):
+    r["D1"][name] = jacobian_check(name, dev)
+  stamp("D1's holds")
+  # ---- D2: each planner's first float64 plan on the card against the CPU
+  for name in PLANNERS:
+    card = first_plan(name, dev)
+    stamp(f"{name}'s first float64 plan on the card")
+    cpu = cpu_plans[name].result()
+    br_tol = PLAN_TOL["kernel" if cpu["kernel_scored"] else "general"]
+    br = abs(card["best_return"] - cpu["best_return"]) / max(
+        abs(cpu["best_return"]), 1e-300)
+    gaps = {f: rel_to_max(card[f], cpu[f]) for f in cpu
+            if isinstance(cpu[f], np.ndarray)}
+    r["D2"][name] = {"first_plan": {
+        "best_return": card["best_return"], "best_return_rel": br,
+        "best_return_tol": br_tol, "gaps": gaps,
+        "winner": (card["winner"], cpu["winner"]),
+        "launches": card["launches"]}}
+    print(f"[D2] Agent('Walker', '{name}') first plan, float64, card vs "
+          f"CPU: best_return {card['best_return']:.10g} rel {br:.3g} (tol "
+          f"{br_tol:g}, scored by the "
+          f"{'kernel' if cpu['kernel_scored'] else 'general engine'}); "
+          + ", ".join(f"{f} {g:.3g}" for f, g in gaps.items())
+          + f" of the max (tol {PLAN_TOL['arrays']:g}); winner "
+          f"{card['winner']} ({cpu['winner']} on the CPU, "
+          f"{cpu['cpu_s']:.1f} s in its worker); kernel launches "
+          f"{card['launches']}")
+    check(card["winner"] == cpu["winner"] and br <= br_tol
+          and all(g <= PLAN_TOL["arrays"] for g in gaps.values()),
+          f"D2 {name}: the first plan on the card disagrees with the CPU's")
+    check(card["launches"] == PLAN_LAUNCHES[name],
+          f"D2 {name}: {card['launches']} kernel launches in one plan")
+  quick64 = quick_start(dev, 6)
+  stamp("the quick start's 6 float64 steps on the card")
+  quick64_cpu = cpu_quick.result()
+  qgap = max(float(np.max(np.abs(quick64[k] - quick64_cpu[k])))
+             for k in ("qpos", "qvel"))
+  print(f"[D3] Agent('Cartpole') quick start ({quick64['planner']} planner),"
+        f" 6 steps in float64, card vs CPU: max |qpos, qvel| gap "
+        f"{qgap:.3g} (tol 1e-6; {quick64_cpu['cpu_s']:.1f} s in its worker)")
+  check(quick64["planner"] == "gradient" and qgap <= 1e-6,
+        "D3: the Cartpole quick start on the card disagrees with the CPU's")
+  r["D3"]["quick_start_f64_gap"] = qgap
+  # ---- D2: float32 timings, a quiet host (the workers are done)
+  agents = {}
+  for name in PLANNERS:
+    res, agents[name] = time_planner(name, dev)
+    r["D2"][name].update(res)
+    print(f"[D2] Agent('Walker', '{name}') float32, horizon "
+          f"{res['horizon']}: planner_step median {res['median_ms']:.1f} ms, "
+          f"p66.7 {res['p66_7_ms']:.1f} ms (n=5, each synchronized); "
+          f"kernel launches {res['launches_per_plan']:g} a plan")
+  stamp("D2's timings")
+  # the host syncs of one optimize each; the gradient planner's peak
+  # memory over its optimize
+  for name in ("ilqg", "gradient"):
+    a = agents[name]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    syncs = r["D2"][name]["syncs"] = count_syncs(a)
+    peak = r["D2"][name]["peak_bytes"] = (
+        torch.cuda.max_memory_allocated() - base)
+    print(f"[D2] one {type(a.planner).__name__}.optimize under "
+          f"set_sync_debug_mode('warn'): {syncs['count']} host syncs "
+          f"(by phase {syncs['by_phase']}, warned at {syncs['where']})"
+          + f"; peak memory {peak / 2 ** 20:.1f} MiB above the "
+          f"{base / 2 ** 20:.1f} MiB resident"
+          + (" (activations kept, no checkpointing)"
+             if name == "gradient" else ""))
+  stamp("the syncs")
+  # ---- D3: the derivative rates
+  print_phases("D3", "iLQG Walker, horizon 80", r["D2"]["ilqg"])
+  print_phases("D3", "gradient Walker, horizon 80", r["D2"]["gradient"])
+  res, hagent = time_planner("ilqg", dev, reps=3, task="Humanoid Walk")
+  stamp("iLQG on Humanoid Walk")
+  r["D3"]["ilqg_humanoid"] = res
+  print_phases("D3", f"iLQG Humanoid Walk, horizon {res['horizon']} at dt "
+               f"{float(hagent.task.model.opt.timestep):g}", res)
+  # D1's Jacobian call over the whole horizon, float32
+  jac_calls = {}
+  for name, a in (("Walker", agents["ilqg"]), ("Humanoid Walk", hagent)):
+    pl, task, d = a.planner, a.task, a.data
+    T = pl.config.horizon
+    xs, us = a.policy.xs, a.policy.us
+    ts = d.time + task.model.opt.timestep * torch.arange(
+        T, dtype=d.qpos.dtype, device=dev)
+    jac_calls[name] = lambda pl=pl, task=task, d=d, xs=xs, us=us, ts=ts: (
+        pl.jacobians(task, d, xs, us, ts))
+    jac_calls[name]()
+    ms = timed_cuda(jac_calls[name], 3)
+    r["D1"][name]["jacobian_ms"] = ms
+    r["D1"][name]["horizon"] = T
+    print(f"[D1] {name}: one Jacobian call over the horizon ({T} steps, "
+          f"{T * (2 * task.model.nv + task.model.nu)} states, float32) "
+          f"{ms:.1f} ms (CUDA events over 3)")
+  stamp("the Jacobian calls")
+  # the quick start: Agent("Cartpole"), its default planner, float32
+  agent = Agent("Cartpole", device=dev)
+  check(agent.planner_name == "gradient",
+        f"D3: Agent('Cartpole') plans with {agent.planner_name}")
+  agent.reset("home")
+  plan_ms, step_ms, start = [], [], time.perf_counter()
+  steps = 0
+  while steps < QUICK_START_STEPS or (
+      time.perf_counter() - start < QUICK_START_S):
+    t = time.perf_counter()
+    agent.planner_step()
+    torch.cuda.synchronize()
+    plan_ms.append((time.perf_counter() - t) * 1e3)
+    for _ in range(2):
+      t = time.perf_counter()
+      agent.step()
+      torch.cuda.synchronize()
+      step_ms.append((time.perf_counter() - t) * 1e3)
+      steps += 1
+  q = agent.data.qpos.cpu().numpy()
+  cost = agent.total_cost()
+  qs = r["D3"]["quick_start"] = {
+      "steps": steps, "plans": len(plan_ms),
+      "ms_per_plan": float(np.mean(plan_ms)),
+      "ms_per_step": float(np.mean(step_ms)),
+      "cart_position": float(q[0]), "pole_angle": float(q[1]),
+      "cost": cost, "sim_time": float(agent.data.time)}
+  print(f"[D3] Agent('Cartpole') quick start, {agent.planner_name} planner "
+        f"(horizon {agent.planner.config.horizon}), a plan every 2 steps: "
+        f"{steps} steps ({qs['sim_time']:.2f} s) in "
+        f"{time.perf_counter() - start:.1f} s; {qs['ms_per_plan']:.1f} ms a "
+        f"plan, {qs['ms_per_step']:.1f} ms an Agent.step; cart at "
+        f"{qs['cart_position']:.4f}, pole angle {qs['pole_angle']:.4f}, "
+        f"cost {cost:.4f}")
+  check(np.all(np.isfinite(q)) and np.isfinite(cost),
+        "D3: the Cartpole quick start went non-finite")
+  stamp("the quick start")
+  # ---- the profiler runs: the Jacobian call's launches, the busy shares
+  for name, fn in jac_calls.items():
+    prof = profile_launches(fn)
+    r["D1"][name].update(prof)
+    print(f"[D1] {name}: one Jacobian call over the horizon launches "
+          f"{prof['launch_calls']} CUDA kernels ({prof['device_events']} "
+          f"device events in torch.profiler)")
+  for key, a in (("ilqg_walker", agents["ilqg"]), ("ilqg_humanoid", hagent),
+                 ("gradient_walker", agents["gradient"])):
+    b = r["D3"].setdefault("busy", {})[key] = busy_share(
+        a, steps=1, warm=False, host_ops=False)
+    share = ("not measured (no device events)" if b["busy_share"] is None
+             else f"{100 * b['busy_share']:.2f} %")
+    print(f"[D3] {key}: one planner_step under torch.profiler, wall "
+          f"{b['wall_ms']:.1f} ms, busy {b['busy_ms']:.1f} ms: busy share "
+          f"{share}")
+  stamp("the profiler runs")
+
+
 def main() -> int:
   ap = argparse.ArgumentParser()
   ap.add_argument("--out", help="also write every measured number here")
@@ -2252,6 +2818,9 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
   # ---- G. the general engine and the closed loop, on a quiet host
   print(f"[t] {time.perf_counter() - t_start:.1f} s: the general engine")
   run_general(dev, rec)
+  # ---- D. every planner, and the derivative planners' rates
+  print(f"[t] {time.perf_counter() - t_start:.1f} s: the planners")
+  run_derivative(dev, rec)
   kernels = {"kernels": [row() for row in rows]}
   loops = rec["general"]["G3"]
   for row in kernels["kernels"]:
@@ -2259,6 +2828,10 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
                       ("Cartpole", "cartpole")):
       if row["name"] == f"megarollout_returns[{tag}]":
         row["closed_loop_launches"] = loops[name]["launches"]
+    if row["name"] == "megarollout_returns[walker]":
+      row["planner_launches"] = {
+          name: res["launches"]
+          for name, res in rec["derivative"]["D2"].items()}
 
   # ---- P. the device's busy share at two Agents' plan loops, on a quiet
   #      host (the plain version's workers are done), and Nsight Compute

@@ -60,15 +60,26 @@ def broadcast(d: Data, batch) -> Data:
   return grow(d)
 
 
-def _score(task: task_base.Task, tp: task_base.TaskParams, d: Data):
-  """(cost (*b,), residual (nres, *b)) of a stepped Data."""
+def _score(task: task_base.Task, tp: task_base.TaskParams, d: Data,
+           scaled: bool = True):
+  """(cost (*b,), residual (nres, *b)) of a stepped Data; with `scaled`
+  False, without the task's weight_mod (the derivative planners' cost, as
+  in the JAX package)."""
   view = batch_trailing(d)
   res = task.residual(task.model, view, tp.residual_params)
   scale = (task.weight_mod(task.model, view, tp.residual_params)
-           if task.weight_mod is not None else None)
+           if scaled and task.weight_mod is not None else None)
   cost = megarollout.cost_value_t(task.spec, tp.weights, tp.norm_params,
                                   tp.risk, res, scale)
   return cost, res
+
+
+def step_cost(task: task_base.Task, tp: task_base.TaskParams,
+              d: Data) -> torch.Tensor:
+  """The cost (*b,) of a stepped Data without the task's weight_mod: the
+  per-step cost of the gradient and iLQG planners (JAX tasks.base.
+  cost_value on the residual)."""
+  return _score(task, tp, d, scaled=False)[0]
 
 
 def run_transition(task: task_base.Task, d: Data,

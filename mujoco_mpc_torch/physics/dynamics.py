@@ -300,7 +300,7 @@ def actuation(m: Model, d: Data) -> Data:
                      act_dot=torch.zeros_like(d.act))
   crange = m.actuator_ctrlrange.to(dtype)
   ctrl = torch.where(m.actuator_ctrllimited,
-                     torch.clamp(d.ctrl, crange[:, 0], crange[:, 1]), d.ctrl)
+                     math.clip(d.ctrl, crange[:, 0], crange[:, 1]), d.ctrl)
   gear_all = m.actuator_gear.to(dtype)
   scalar_u, other_u = _partition(m)
 
@@ -380,7 +380,7 @@ def actuation(m: Model, d: Data) -> Data:
   force = gain * inp + bias
   frange = m.actuator_forcerange.to(dtype)
   force = torch.where(m.actuator_forcelimited,
-                      torch.clamp(force, frange[:, 0], frange[:, 1]), force)
+                      math.clip(force, frange[:, 0], frange[:, 1]), force)
 
   qfrc = torch.zeros_like(d.qvel)
   if scalar_u:

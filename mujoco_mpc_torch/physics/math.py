@@ -39,6 +39,13 @@ def mat_tvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
   return torch.matmul(m.transpose(-1, -2), v[..., None])[..., 0]
 
 
+def clip(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+  """x clamped to [lo, hi] as jnp.clip does it, a maximum then a minimum:
+  at a bound the derivative is 1/2 (torch.clamp's is 1), which the
+  derivative planners' Jacobians at saturated controls inherit."""
+  return torch.minimum(torch.maximum(x, lo), hi)
+
+
 def quat_mul(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
   """Hamilton product u (x) v, as u's 4x4 left-multiplication matrix
   times v (three ops, where the sum of products takes some thirty)."""
@@ -126,18 +133,18 @@ def safe_norm(v: torch.Tensor, eps: float = 1e-12):
   return n, unit
 
 
-def _identity_quat_like(q: torch.Tensor) -> torch.Tensor:
-  return torch.cat([torch.ones_like(q[..., :1]),
-                    torch.zeros_like(q[..., 1:])], dim=-1)
-
-
 def quat_integrate(q: torch.Tensor, omega_local: torch.Tensor,
                    dt) -> torch.Tensor:
   """Integrate a unit quaternion by the body-frame angular velocity for
-  dt (the exact exponential map, mju_quatIntegrate)."""
+  dt (the exact exponential map, mju_quatIntegrate). Below an angle of
+  1e-12 the map is its first-order form (1, omega dt / 2), which equals
+  the identity there to rounding and keeps the derivative in omega at
+  omega = 0 (the JAX package's identity has none there: its iLQG
+  Jacobians lose the rotation columns of free and ball joints)."""
   theta, axis = safe_norm(omega_local)
   dq = axis_angle_quat(axis, (theta * dt)[..., 0])
-  dq = torch.where(theta < 1e-12, _identity_quat_like(dq), dq)
+  first = torch.cat([torch.ones_like(theta), 0.5 * dt * omega_local], dim=-1)
+  dq = torch.where(theta < 1e-12, first, dq)
   out = quat_mul(q, dq)
   return out / torch.linalg.vector_norm(out, dim=-1, keepdim=True)
 

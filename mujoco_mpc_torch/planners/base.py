@@ -1,14 +1,19 @@
 """What a planning iteration reports (reference Planner::Plots).
 
-Counterpart of mujoco_mpc_tpu/planners/base.py. The Planner protocol comes
-with the second planner (ROADMAP queue 1 item 9).
+Counterpart of mujoco_mpc_tpu/planners/base.py. A planner has `config`,
+`init(task)`, `optimize(task, policy, data, generator, params=None)` ->
+(policy, PlanInfo) and `action(task, policy, data)`; `mega` is the
+MegaRollout its candidates go through, or None.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from mujoco_mpc_torch.ops import spline
 
 
 class PlanInfo(NamedTuple):
@@ -17,3 +22,41 @@ class PlanInfo(NamedTuple):
   winner: torch.Tensor  # index of the selected candidate
   best_return: torch.Tensor  # scalar winning return
 
+
+
+def pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+  """x[i] for a 0-d index tensor on x's device, as a gather: indexing with
+  a tensor scalar would read it back to the host."""
+  return torch.index_select(x, 0, i.reshape(1))[0]
+
+
+class PhaseMarks:
+  """A planner whose optimize names its phases: `timer`, where set, is
+  called with each phase's name as optimize ends it (chip_smoke.py times
+  the phases with CUDA events through it)."""
+
+  timer: Optional[Callable[[str], None]] = None
+
+  def _mark(self, name: str) -> None:
+    if self.timer is not None:
+      self.timer(name)
+
+
+def new_grid(cfg, policy_times: torch.Tensor, data, timestep) -> torch.Tensor:
+  """A spline policy's node times for the next plan: cfg.spline_points
+  nodes over the planning horizon, anchored at the state's time (the
+  reference's UpdateNominalPolicy grid)."""
+  k = cfg.spline_points
+  horizon_time = (cfg.horizon - 1) * timestep
+  denom = k if cfg.interp == spline.Interp.ZERO else k - 1
+  return data.time + torch.arange(
+      k, dtype=policy_times.dtype, device=policy_times.device) * (
+          horizon_time / max(denom, 1))
+
+
+def log_steps(lo: float, hi: float, n: int, like: torch.Tensor):
+  """n step sizes log-spaced over [lo, hi], in like's dtype and device
+  (made in float64, as the JAX package makes them under x64)."""
+  return torch.exp(torch.linspace(math.log(lo), math.log(hi), n,
+                                  dtype=torch.float64, device=like.device)
+                   ).to(like.dtype)

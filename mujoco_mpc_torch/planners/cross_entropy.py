@@ -23,7 +23,7 @@ from mujoco_mpc_torch.ops import megarollout
 from mujoco_mpc_torch.ops import spline
 from mujoco_mpc_torch.physics.types import Data
 from mujoco_mpc_torch.planners import sampling
-from mujoco_mpc_torch.planners.base import PlanInfo
+from mujoco_mpc_torch.planners.base import PlanInfo, new_grid
 from mujoco_mpc_torch.tasks.base import Task, TaskParams
 
 
@@ -120,11 +120,7 @@ class CrossEntropyPlanner:
     cfg = self.config
     m = task.model
     k, n = cfg.spline_points, cfg.num_trajectories
-    horizon_time = (cfg.horizon - 1) * m.opt.timestep
-    denom = k if cfg.interp == spline.Interp.ZERO else k - 1
-    new_times = data.time + torch.arange(
-        k, dtype=policy.times.dtype, device=m.device) * (
-            horizon_time / max(denom, 1))
+    new_times = new_grid(cfg, policy.times, data, m.opt.timestep)
     nominal = spline.resample(policy.times, policy.values, new_times,
                               cfg.interp)
     std_rs = spline.resample(policy.times, policy.std, new_times, cfg.interp)

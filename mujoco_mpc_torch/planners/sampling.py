@@ -28,7 +28,7 @@ from mujoco_mpc_torch.ops import megarollout
 from mujoco_mpc_torch.ops import rollout as rollout_mod
 from mujoco_mpc_torch.ops import spline
 from mujoco_mpc_torch.physics.types import Data
-from mujoco_mpc_torch.planners.base import PlanInfo
+from mujoco_mpc_torch.planners.base import PlanInfo, new_grid
 from mujoco_mpc_torch.tasks.base import Task, TaskParams
 
 _STD2_PROPORTION = 0.2  # reference kStd2Proportion
@@ -177,14 +177,9 @@ class SamplingPlanner:
     cfg = self.config
     m = task.model
     k, n = cfg.spline_points, cfg.num_trajectories
-    dt = m.opt.timestep
 
     # 1. resample the nominal onto a grid anchored at the current time
-    horizon_time = (cfg.horizon - 1) * dt
-    denom = k if cfg.interp == spline.Interp.ZERO else k - 1
-    new_times = data.time + torch.arange(
-        k, dtype=policy.times.dtype, device=m.device) * (
-            horizon_time / max(denom, 1))
+    new_times = new_grid(cfg, policy.times, data, m.opt.timestep)
     nominal = spline.resample(policy.times, policy.values, new_times,
                               cfg.interp)
 

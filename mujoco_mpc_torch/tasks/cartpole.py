@@ -2,9 +2,9 @@
 
 Counterpart of mujoco_mpc_tpu/tasks/cartpole.py ("Cartpole") on the
 dm_control cartpole (dm_suite.build_cartpole). Its MJCF names the gradient
-planner (`agent_planner` 1), which is not ported yet (ROADMAP queue 1 item
-10): plan it with Agent("Cartpole", planner="sampling"), which takes the
-model's sampling_* settings.
+planner (`agent_planner` 1), which Agent("Cartpole") plans with;
+Agent("Cartpole", planner="sampling") takes the model's sampling_*
+settings and plans through the kernel.
 """
 
 from __future__ import annotations

@@ -232,8 +232,13 @@ def test_default_device_is_the_card(entry):
 
 
 def test_other_planners_are_not_ported():
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    Agent("Walker", planner="ilqg", device="cpu")
+  """Every planner of the JAX package is ported: all seven names build an
+  Agent, and a name that is none of them raises."""
+  for name in ("sampling", "gradient", "ilqg", "ilqs", "robust",
+               "cross_entropy", "sample_gradient"):
+    assert Agent("Walker", planner=name, device="cpu").planner_name == name
+  with pytest.raises(ValueError, match="unknown planner"):
+    Agent("Walker", planner="ilqr", device="cpu")
 
 
 # -------------------------------------------------- the cross-entropy planner
