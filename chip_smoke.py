@@ -10,12 +10,18 @@ card instance's frame of 8 KB or more) and, for each path it
 serves (Walker, Humanoid Walk, Quadruped Flat, Shadow, Bimanual Handover
 and Allegro, the cross-entropy planner on Walker and Shadow, and the small
 tasks Cartpole, Acrobot, Particle, ParticleFixed, Fingers, Arm Reach, Push
-and Rubik Faces), holds it against its plain PyTorch version, drives the
-agent's plan loop through it, and times the planner: Walker at 1024
+and Rubik Faces, and the flat-ground tasks OP3, Pick, PickAndPlace,
+Bimanual Reorient and Humanoid Interact in the large tier), holds it
+against its plain PyTorch version, drives the agent's plan loop through
+it, and times the planner: Walker at 1024
 candidates x 80 steps, Humanoid at the north-star 256 x 67 at the planning
 dt 0.015, Quadruped at 1024 x 70, Shadow at 512 x 100, the handover at
-256 x 80 and Allegro at 512 x 80, the last four at dt 0.005, and each small
-task at 1024 candidates over its Agent's horizon at the model's dt. The
+256 x 80 and Allegro at 512 x 80, the last four at dt 0.005, each small
+task at 1024 candidates over its Agent's horizon at the model's dt, and
+each flat-ground kernel task at 512 over its Agent's horizon and dt
+(phases 3f, 4f and 5f, with the bytes of a block's shared memory; Pick,
+whose perturbed candidates diverge past about 26 steps, held and timed
+again over its first 20). The
 small class models (every equality kind, condim 6, the ball chain with a
 ball joint and the sphere-capsule pair) and Rubik Faces, which has no
 constraint rows, are held one step each. Each phase's returns are held
@@ -46,19 +52,26 @@ shapes; G3 the Walker, Quadruped Flat and Cartpole agents from their home
 keyframes, a planner_step every 2 steps, each loop counting its kernel
 launches (reported per kernel row as closed_loop_launches), with ms per
 Agent.step and per plan, CUDA launches per step and the device's busy
-share (torch.profiler, after every timing). Phases D1-D3 hold the
+share (torch.profiler, after every timing); G4 the nine flat-ground
+tasks' loops (the five kernel tasks 50 steps, the four on the general
+route, Quadrotor, Swimmer, Rubik and Humanoid Track, 6), the transition
+on the card at every step, and those four tasks' first float64 plans on
+the card against the CPU's. Phases D1-D3 hold the
 planners (planners/*.py): D1 iLQG's transition Jacobians of the Walker
 and Humanoid Walk at 8 states from home, on the card against the CPU in
 float64 and against central differences of the card's step, and the ms
 and launches of one Jacobian call over the Agent's horizon; D2 each of
 the seven planners through Agent("Walker", planner=p): its first float64
 plan on the card against the CPU's (the CPU's in a worker, the same
-injected noise), its kernel launches a plan (reported on the Walker
-kernel row as planner_launches), 5 timed float32 plans, the host syncs of
-one iLQG and one gradient optimize and their peak memory; D3 the iLQG
+injected noise; the kernel-scored ones also through the double library
+built without multiply-add contraction), its kernel launches a plan
+(reported on the Walker kernel row as planner_launches), 5 timed float32
+plans (2 of gradient, iLQG, iLQS and robust), sample-gradient's two
+launches timed apart, the host syncs of one iLQG and one gradient
+optimize and their peak memory; D3 the iLQG
 (Walker 80, Humanoid Walk 33) and gradient (Walker 80) iterations split
 by phase with CUDA events and the device's busy share, and the Cartpole
-quick start with its own (gradient) planner for about 120 s, its first 6
+quick start with its own (gradient) planner for about 60 s, its first 6
 float64 steps held against the CPU's. The
 last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernel once per path with its launch count, error,
@@ -807,12 +820,18 @@ def ncu_target() -> int:
   return 0
 
 
-def probe_step(tag: str, mr, states, operands) -> dict:
+def probe_step(tag: str, mr, states, operands, exempt=(),
+               qpos_witness: bool = False) -> dict:
   """One step of the float and double step kernels on probe states in which
   every row class carries force, against the plain step_tb: float32 qpos
   1e-5, qvel max(1e-3, 8 x the state's float32-vs-float64 distance), duals
-  1e-4 * max; float64 1e-12, 1e-10, 1e-12 * max. `operands(dtype)` gives
-  the mocap and userdata keywords. Returns the errors per precision and the
+  1e-4 * max; float64 1e-12, 1e-10, 1e-12 * max. With `qpos_witness` (the
+  flat-ground tasks' covering states, tasks.base.covering_states, whose
+  contact points reach up to tasks.base.COVER_DEPTH, 5 cm, into a surface)
+  the float32 qpos hold is max(1e-5, 8 x the state's float32-vs-float64
+  qpos distance), as qvel's: a step moves qpos by dt x qvel.
+  `operands(dtype)` gives the mocap and userdata keywords; the row classes in `exempt` (ones no state of the
+  model reaches) may carry none. Returns the errors per precision and the
   largest dual per row class."""
   import numpy as np
   import torch
@@ -834,17 +853,24 @@ def probe_step(tag: str, mr, states, operands) -> dict:
   sign_range = {str(k): (float(signed[kinds == k].min()),
                          float(signed[kinds == k].max()))
                 for k in dict.fromkeys(kinds)}
-  check(all(v > 0.0 for v in per_kind.values()),
-        f"{tag}: a constraint row class carries no force in the step check")
+  check(all(v > 0.0 for k, v in per_kind.items() if k not in exempt),
+        f"{tag}: a constraint row class carries no force in the step check: "
+        f"{per_kind}")
   noise = (plain[torch.float32][3].double()
            - plain[torch.float64][3]).abs().amax(0)
+  qnoise = (plain[torch.float32][2].double()
+            - plain[torch.float64][2]).abs().amax(0)
+  qtol = torch.clamp(8.0 * qnoise, min=1e-5) if qpos_witness else 1e-5
   err = {}
   for dt, key in ((torch.float32, "f32"), (torch.float64, "f64")):
     x, ops, pq, pv, pl = plain[dt]
     kq, kv, kl = mr.step(*x, **ops)
     torch.cuda.synchronize()
     ev = (kv - pv).abs().amax(0).double()
-    err[key] = {"qpos": float((kq - pq).abs().max()),
+    eq = (kq - pq).abs().amax(0).double()
+    err[key] = {"qpos": float(eq.max()), "qpos_state": int(eq.argmax()),
+                "states_qpos_over_1e-5": int((eq > 1e-5).sum()),
+                "qpos_ok": bool(torch.all(eq <= qtol)),
                 "qvel": float(ev.max()), "qvel_state": int(ev.argmax()),
                 "lambda": float((kl - pl).abs().max()),
                 "scale": float(pl.abs().max()),
@@ -854,8 +880,13 @@ def probe_step(tag: str, mr, states, operands) -> dict:
                     ev <= torch.clamp(8.0 * noise, min=1e-3)))}
   e32, e64 = err["f32"], err["f64"]
   b = states[0].shape[1]
+  qhold = (f"tol max(1e-5, 8 x the state's plain float32-vs-float64 qpos "
+           f"distance, {float(qnoise[e32['qpos_state']])!r} there)"
+           if qpos_witness else "tol 1e-5")
   print(f"[{tag}] one step, B={b}, nrow {mr.tm.nrow}, float32: max "
-        f"|kernel - plain| qpos {e32['qpos']:.3g} (tol 1e-5), qvel "
+        f"|kernel - plain| qpos {e32['qpos']:.3g} at state "
+        f"{e32['qpos_state']} ({qhold}; {e32['states_qpos_over_1e-5']} "
+        f"states above 1e-5), qvel "
         f"{e32['qvel']!r} at state {e32['qvel_state']} (tol max(1e-3, 8 x "
         f"the state's plain float32-vs-float64 distance, which is "
         f"{float(noise[e32['qvel_state']])!r} there); "
@@ -867,7 +898,7 @@ def probe_step(tag: str, mr, states, operands) -> dict:
         f"{e64['qvel']:.3g} (tol 1e-10), lambda {e64['lambda']:.3g} (tol "
         f"{1e-12 * e64['scale']:.3g}); max |lambda| per row class "
         f"{({k: round(v, 3) for k, v in per_kind.items()})}")
-  check(e32["qpos"] <= 1e-5 and e32["lambda"] <= 1e-4 * e32["scale"]
+  check(e32["qpos_ok"] and e32["lambda"] <= 1e-4 * e32["scale"]
         and e32["qvel_ok"], f"{tag}: float32 step kernel disagrees")
   check(e64["qpos"] <= 1e-12 and e64["qvel"] <= 1e-10
         and e64["lambda"] <= 1e-12 * e64["scale"],
@@ -1972,13 +2003,20 @@ def run_general(dev, rec: dict) -> None:
             "quadruped": quadruped.probe_states,
             "bimanual": bimanual.probe_states,
             "allegro": allegro.probe_states}
-  g = rec["general"] = {"G1": {}, "G2": {}, "G3": {}}
+  g = rec.setdefault("general", {})
+  g.update(G1={}, G2={}, G3={})
+  t0 = time.perf_counter()
+
+  def stamp(what):
+    print(f"[t] G +{time.perf_counter() - t0:.1f} s: {what}", flush=True)
+
   one_step = {}
   for name, probe in GENERAL_MODELS:
     g["G1"][name] = general_step_check(name, probes[probe], dev)
     one_step[name] = g["G1"][name].pop("one_step")
   for name in ("Walker", "Humanoid Walk"):
     no_sync_step(name, dev)
+  stamp("G1")
   # the closed loops; the Walker's JAX lock (tests/test_behaviors_tpu.py)
   # is 2.0 m in 800 steps at the model's 0.0025 s: 2 s, more than the
   # task's 1 m/s speed goal allows from rest; the JAX package's README
@@ -1989,6 +2027,7 @@ def run_general(dev, rec: dict) -> None:
                                    ("Cartpole", 300, "sampling", 0)):
     g["G3"][name], agents[name] = closed_loop(name, dev, steps,
                                               planner=planner, record_at=at)
+  stamp("G3's closed loops")
   walker, quad = g["G3"]["Walker"], g["G3"]["Quadruped Flat"]
   check(walker["horizontal_displacement"] >= 2.0
         and walker["final_cost"] < 10.0,
@@ -2000,6 +2039,7 @@ def run_general(dev, rec: dict) -> None:
   g["G2"]["Walker"] = general_rollout_check("Walker", dev, 128, 80, True)
   g["G2"]["Humanoid Walk"] = general_rollout_check("Humanoid Walk", dev, 128,
                                                    33, False)
+  stamp("G2")
   # the profiler runs
   for name, fn in one_step.items():
     prof = profile_launches(fn)
@@ -2009,6 +2049,336 @@ def run_general(dev, rec: dict) -> None:
           f"device events in torch.profiler)")
   for name, agent in agents.items():
     loop_window(name, agent, g["G3"][name])
+
+
+# ---------------------------------------------------------------------------
+# the flat-ground tasks: five through the kernel (3f-5f), the nine closed
+# loops (G4)
+# ---------------------------------------------------------------------------
+
+# G4's closed loops, Agent.steps each (a planner_step every 2): a
+# general-route plan takes seconds of eager general steps (Swimmer's
+# 128 x 200 7-9 s on the card), so those loops run 6 steps where the
+# kernel tasks run 50, to keep the script's time
+FLAT_LOOP_STEPS = {"kernel": 50, "general": 6}
+# G4's float64 first plans on the general route, card against CPU: the
+# candidates of each (a prefix of the Agent's count keeps the CPU's time
+# down)
+G4_CANDIDATES = 32
+# the row classes of a flat-ground kernel task that no state reaches:
+# OP3's hands move in two planes 0.15 m apart and never near a foot, so
+# its hand-hand capsule pair and hand-foot capsule-box pair carry no force
+# (tasks.base.covering_states)
+FLAT_EXEMPT = {"OP3": ("cap_cap", "cap_box")}
+# Pick's perturbed candidates diverge from about their 26th step at its
+# planning dt, in the JAX package's general rollout as in the port
+# (tests/test_torch_pick_divergence.py), so that its Agent-shape holds
+# compare one finite candidate: its returns are held again, and the kernel
+# timed, over the first PICK_FINITE_STEPS steps, where every candidate
+# stays finite
+PICK_FINITE_STEPS = 20
+
+
+def flat_operands(name, model, dev):
+  """A flat-ground task's goal and mode operands (tests/
+  torch_flat_cases.py): operands(dtype), the phases' keywords, and the
+  set_state keywords (numpy)."""
+  import torch
+  from tests import torch_flat_cases as fc
+  mp, mq, ud = fc.operands(name, model)
+  state = {"userdata": ud}
+  if model.nmocap:
+    state.update(mocap_pos=mp, mocap_quat=mq)
+
+  def operands(dtype):
+    return {k: torch.tensor(v, dtype=dtype, device=dev)
+            for k, v in state.items()}
+
+  return operands, state
+
+
+def flat_row(name, drive, b5, carve, finite=None) -> dict:
+  """A flat-ground kernel task's row of the kernels line: the bench's
+  kernel, plain and bound times and geometry, the Agent's launches; for
+  Pick (`finite`, pick_finite) also the same over its first
+  PICK_FINITE_STEPS steps."""
+  from tests import torch_flat_cases as fc
+  row = {
+      "name": f"megarollout_returns[{fc.KERNEL_ROWS[name]}]",
+      "route": "cuda", "source": "mujoco_mpc_torch/csrc/megarollout.cu",
+      "replaces": "mujoco_mpc_tpu/ops/megarollout.py:339",
+      "launches": drive["launches"],
+      "max_abs_err": max(drive["returns_abs_err"], b5["abs_err"]),
+      "ms": b5["kernel_ms"], "plain_ms": b5["plain_ms"],
+      "bound_ms": b5["bound_ms"], "bound_by": b5["bound_by"],
+      "library_ms": None, **geometry_keys(b5), "block_bytes": carve,
+      "err_over_tol": max(drive["err_over_tol"], b5["err_over_tol"])}
+  if finite is not None:
+    a, b = finite["agent"], finite["bench"]
+    row["finite_horizon"] = {
+        "steps": finite["agent"]["horizon"], "ms": b["kernel_ms"],
+        "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+        "max_abs_err": max(a["returns_abs_err"], b["abs_err"]),
+        "err_over_tol": max(a["err_over_tol"], b["err_over_tol"])}
+  return row
+
+
+def pick_finite(agent, acts, operands, reps: int) -> dict:
+  """4f and 5f for Pick over its first PICK_FINITE_STEPS steps: the
+  Agent's plan candidates `acts` cut to those steps, every float32 kernel
+  return below MAX_RETURN, held per candidate against the plain version
+  in float32 (within its noise) and float64; then 512 candidates timed
+  (bench_shape, its plain hold on a 128-candidate prefix). The deferred
+  check fails if a candidate reaches MAX_RETURN in float64. Returns the
+  hold's and the bench's numbers."""
+  import torch
+  from mujoco_mpc_torch.ops import megarollout as MR
+  task, d, h = agent.task, agent.data, PICK_FINITE_STEPS
+  cut = acts[:, :h].contiguous()
+  args = (d.qpos, d.qvel, cut, task.params, d.time)
+  ops = dict(mocap_pos=d.mocap_pos, mocap_quat=d.mocap_quat,
+             userdata=d.userdata)
+  mr = MR.MegaRollout(task, h, device=task.model.device)
+  got = mr.returns(*args, **ops)
+  check(bool(torch.all(got < MR.MAX_RETURN)),
+        f"4f Pick: a candidate at MAX_RETURN in its first {h} steps")
+  out = {"horizon": h}
+  finish = hold_deferred(f"4f Pick: returns {tuple(cut.shape)}",
+                         Hold(NOISE_BOUND, PER_CANDIDATE), mr, args, ops, out)
+  b5 = bench_shape("5f Pick", task, 512, h, agent.planner.config, operands,
+                   reps, prefix=128)
+
+  def report():
+    res = finish()
+    print(f"[4f Pick] the Agent's candidates {tuple(cut.shape)}, the first "
+          f"{h} of its {acts.shape[1]} steps: {hold_summary(res)}; kernel "
+          f"{out['kernel_ms']:.3f} ms/call")
+    print_witnessed("4f Pick", res)
+    check(out["f64"]["blown"] == 0 and b5["f64"]["blown"] == 0,
+          f"Pick: a candidate at MAX_RETURN in its first {h} steps")
+
+  DEFERRED.append(report)
+  return {"agent": out, "bench": b5}
+
+
+def run_flat_tasks(dev, rec: dict, reps: int) -> list:
+  """Phases 3f, 4f and 5f per flat-ground kernel task (OP3, Pick,
+  PickAndPlace, Bimanual Reorient, Humanoid Interact), all in the large
+  tier, at the Agent's planning dt with the task's goal and mode
+  operands: 3f one step of 128 states in which every row class carries
+  force (tasks.base.covering_states; FLAT_EXEMPT), float32 and double;
+  the bytes of a block (the model head and one candidate's working set,
+  carve) in both precisions; 4f the Agent at its own shape, its plan's
+  candidates held per candidate in both precisions; 5f 512 candidates
+  over the Agent's horizon, timed, compared on a 128-candidate prefix.
+  Returns their rows of the kernels line."""
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.ops import megarollout as MR
+  from tests import torch_flat_cases as fc
+
+  rows = []
+  for name in fc.KERNEL_TASKS:
+    t_task = time.perf_counter()
+    agent = Agent(name, device=dev)
+    agent.reset("home")
+    task, cfg = agent.task, agent.planner.config
+    operands, state = flat_operands(name, task.model, dev)
+    agent.set_state(**state)
+    mega = agent.planner.mega
+    check(mega.tier.name == "large",
+          f"{name} plans in the {mega.tier.name} tier")
+    carve = {}
+    for dt in (torch.float32, torch.float64):
+      g = mega.geometry(cfg.num_trajectories, dt)
+      carve[str(dt).split(".")[1]] = {
+          "cand_bytes": g["cand_bytes"],
+          "head_and_one_cand": g["smem_bytes"] - (g["warps_per_block"] - 1)
+          * g["cand_bytes"], "smem_bytes": g["smem_bytes"],
+          "warps_per_block": g["warps_per_block"]}
+    print(f"[3f {name}] nrow {mega.tm.nrow}, {mega.tm.ncon} contact "
+          f"points; a block's shared memory at {cfg.num_trajectories} "
+          f"candidates: {carve} (the card allows {MR.SMEM_MAX})")
+    # ---- 3f. one step on states in which every row class carries force
+    rec[f"flat_step[{name}]"] = probe_step(
+        f"3f {name}", MR.MegaRollout(task, 1, device=dev),
+        fc.states(name, task.model, 128), operands,
+        exempt=FLAT_EXEMPT.get(name, ()), qpos_witness=True)
+    # ---- 4f. the main path: the Agent at its own shape
+    drive, acts = drive_agent(f"4f {name}", agent, task.model.nu,
+                              hold=Hold(NOISE_BOUND, PER_CANDIDATE))
+    rec[f"flat_agent[{name}]"] = drive
+    # ---- 5f. 512 candidates over the Agent's horizon at its dt
+    b5 = bench_shape(f"5f {name}", task, 512, cfg.horizon, cfg, operands,
+                     reps, prefix=128)
+    b5["block_bytes"] = carve
+    rec[f"flat_bench[{name}]"] = b5
+    print(f"[5f {name}] launch geometry at 512x{cfg.horizon}: "
+          f"{b5['geometry']}; phases of {name} on the card: "
+          f"{time.perf_counter() - t_task:.1f} s")
+    finite = None
+    if name == "Pick":
+      finite = rec["flat_finite[Pick]"] = pick_finite(agent, acts, operands,
+                                                      reps)
+    rows.append(functools.partial(flat_row, name, drive, b5, carve, finite))
+  return rows
+
+
+def first_general_plan(name: str, device) -> dict:
+  """G4: the first float64 optimize of Agent(name) on the general route
+  from its home keyframe (or reset()), with the task's operands and
+  G4_CANDIDATES candidates (the injected standard normals and second-std
+  flags of seed 0): best_return, winner and the new policy's values
+  (numpy)."""
+  import warnings
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.tasks import registry
+  task = registry.get_task(name, dtype=torch.float64, device=device)
+  with warnings.catch_warnings():
+    warnings.simplefilter("ignore")  # the general route's warning
+    agent = Agent(task, device=device)
+  try:
+    agent.reset("home")
+  except KeyError:
+    agent.reset()
+  agent.set_state(**flat_operands(name, agent.task.model, device)[1])
+  cfg = agent.planner.config
+  n = G4_CANDIDATES
+  rng = np.random.RandomState(0)
+  noise = torch.tensor(rng.randn(n - 1, cfg.spline_points, task.model.nu),
+                       device=device)
+  use2 = torch.tensor(rng.rand(n - 1) < 0.2, device=device)
+  policy, info = agent.planner.optimize(agent.task, agent.policy, agent.data,
+                                        agent.generator, noise=noise,
+                                        use2=use2)
+  return {"best_return": float(info.best_return),
+          "winner": int(info.winner),
+          "values": policy.values.detach().cpu().numpy()}
+
+
+def _first_general_plan_job(name: str) -> dict:
+  """first_general_plan on the CPU, in a worker, with its seconds."""
+  t = time.perf_counter()
+  return {**first_general_plan(name, "cpu"),
+          "cpu_s": time.perf_counter() - t}
+
+
+def flat_loop(name: str, dev, steps: int) -> dict:
+  """G4, the main path: Agent(name) from its home keyframe (or reset())
+  with the task's operands, a planner_step every 2 steps and step()
+  between, for `steps` steps; the kernel's launch count set to 0
+  before and read after, the transition's calls counted with the device
+  of the state they read. Checks a finite state and cost, the transition
+  on the card at every step, and one kernel launch a plan through the
+  kernel (none on the general route)."""
+  import warnings
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  with warnings.catch_warnings():
+    warnings.simplefilter("ignore")  # the general route's warning
+    agent = Agent(name, device=dev)
+  try:
+    agent.reset("home")
+  except KeyError:
+    agent.reset()
+  agent.set_state(**flat_operands(name, agent.task.model, dev)[1])
+  seen = []
+  inner = agent.task.transition
+  if inner is not None:
+    def counted(model, data, params):
+      seen.append(data.qpos.device.type)
+      return inner(model, data, params)
+    agent.task = agent.task.replace(transition=counted)
+  mega = agent.planner.mega
+  if mega is not None:
+    mega.launches = 0
+  plan_ms, step_ms, plans = [], [], 0
+  for i in range(0, steps, 2):
+    t = time.perf_counter()
+    agent.planner_step()
+    torch.cuda.synchronize()
+    plan_ms.append((time.perf_counter() - t) * 1e3)
+    plans += 1
+    for _ in range(min(2, steps - i)):
+      t = time.perf_counter()
+      agent.step()
+      torch.cuda.synchronize()
+      step_ms.append((time.perf_counter() - t) * 1e3)
+  launches = 0 if mega is None else mega.launches
+  d = agent.data
+  finite = bool(torch.all(torch.isfinite(d.qpos))
+                and torch.all(torch.isfinite(d.qvel)))
+  cost = agent.total_cost()
+  cfg = agent.planner.config
+  out = {"steps": steps, "plans": plans, "launches": launches,
+         "route": "kernel" if mega is not None else "general",
+         "shape": [cfg.num_trajectories, cfg.horizon],
+         "ms_per_step": float(np.mean(step_ms)),
+         "ms_per_plan": float(np.mean(plan_ms)),
+         "ms_per_plan_median": float(np.median(plan_ms)),
+         "final_cost": cost, "transition_calls": len(seen),
+         "userdata": [float(x) for x in d.userdata[:4].cpu()],
+         "sim_time": float(d.time)}
+  print(f"[G4] {name} ({out['route']} route, {cfg.num_trajectories}x"
+        f"{cfg.horizon} at dt {float(agent.task.model.opt.timestep):g}): "
+        f"{steps} steps, a planner_step every 2: "
+        f"{out['ms_per_step']:.3f} ms per Agent.step, "
+        f"{out['ms_per_plan']:.3f} ms per planner_step (median "
+        f"{out['ms_per_plan_median']:.3f}; each synchronized), kernel "
+        f"launches {launches} in {plans} plans; transition calls "
+        f"{len(seen)} on {sorted(set(seen))}; final cost {cost:.4f}, "
+        f"userdata[:4] {out['userdata']}")
+  check(finite and np.isfinite(cost), f"G4 {name}: non-finite state or cost")
+  check(launches == (plans if mega is not None else 0),
+        f"G4 {name}: {launches} kernel launches in {plans} plans")
+  if inner is not None:
+    check(len(seen) == steps and set(seen) == {"cuda"},
+          f"G4 {name}: the transition ran {len(seen)} times on {set(seen)}")
+  return out
+
+
+def flat_first_plans(dev, rec: dict) -> None:
+  """Phase G4's holds: the first float64 plan of each general-route
+  flat-ground task on the card against the CPU's (rel 1e-8 of
+  best_return, the same winner, the policy's values within 1e-6 of their
+  max; G4_CANDIDATES candidates). Times nothing."""
+  import numpy as np
+  from tests import torch_flat_cases as fc
+  g = rec.setdefault("general", {})["G4"] = {}
+  cpu = {name: PLAIN.submit(_first_general_plan_job, name)
+         for name in fc.GENERAL_TASKS}
+  for name in fc.GENERAL_TASKS:
+    card = first_general_plan(name, dev)
+    ref = cpu[name].result()
+    br = abs(card["best_return"] - ref["best_return"]) / max(
+        abs(ref["best_return"]), 1e-300)
+    gap = rel_to_max(card["values"], ref["values"])
+    g[f"first_plan[{name}]"] = {"best_return": card["best_return"],
+                                "best_return_rel": br, "values_gap": gap,
+                                "winner": (card["winner"], ref["winner"]),
+                                "cpu_s": ref["cpu_s"]}
+    print(f"[G4] {name}: first float64 plan, {G4_CANDIDATES} candidates "
+          f"on the general route, card vs CPU: best_return {card['best_return']:.10g} rel "
+          f"{br:.3g} (tol 1e-8), values {gap:.3g} of the max (tol 1e-6), "
+          f"winner {card['winner']} ({ref['winner']} on the CPU, "
+          f"{ref['cpu_s']:.1f} s in its worker)")
+    check(card["winner"] == ref["winner"] and br <= 1e-8 and gap <= 1e-6
+          and np.isfinite(card["best_return"]),
+          f"G4 {name}: the first plan on the card disagrees with the CPU's")
+
+
+def run_flat_loops(dev, rec: dict) -> None:
+  """Phase G4's closed loops: the nine tasks (flat_loop,
+  FLAT_LOOP_STEPS), every float32 plan at the Agent's own shape."""
+  from tests import torch_flat_cases as fc
+  g = rec["general"]["G4"]
+  for name in fc.KERNEL_TASKS:
+    g[name] = flat_loop(name, dev, FLAT_LOOP_STEPS["kernel"])
+  for name in fc.GENERAL_TASKS:
+    g[name] = flat_loop(name, dev, FLAT_LOOP_STEPS["general"])
 
 
 # ---------------------------------------------------------------------------
@@ -2024,9 +2394,15 @@ PLANNERS = ("sampling", "gradient", "ilqg", "ilqs", "robust",
 # engine only
 PLAN_LAUNCHES = {"sampling": 1, "gradient": 0, "ilqg": 0, "ilqs": 1,
                  "robust": 1, "cross_entropy": 1, "sample_gradient": 2}
+# D2's timed float32 plans a planner: 5, but 2 of the planners whose plan
+# takes seconds of eager general steps (to keep the script's time)
+PLAN_REPS = {"gradient": 2, "ilqg": 2, "ilqs": 2, "robust": 2}
 # D3's quick start: Agent("Cartpole") with its own planner, a plan every 2
 # steps, for about this many seconds and at least this many steps
-QUICK_START_S, QUICK_START_STEPS = 120.0, 20
+QUICK_START_S, QUICK_START_STEPS = 60.0, 10
+# D2: the planner_steps over which sample-gradient's two launches are timed
+# apart
+LAUNCH_SPLIT_REPS = 3
 
 
 def planner_inputs(name: str, planner, model, seed: int = 0) -> dict:
@@ -2100,12 +2476,11 @@ def _first_plan_job(name: str) -> dict:
 # its sampling half wins)
 KERNEL_SCORED = ("sampling", "cross_entropy", "sample_gradient")
 # D2's holds of a first float64 plan, card against CPU: the policy's
-# arrays within 1e-6 of their max, best_return within 1e-8 of itself where
-# the general engine scored it. The kernel's double instance is held to
-# the plain version at 1e-10 a step in qvel (phase 3), which the Walker's
-# 80 steps carry to a few 1e-8 of a return, so a return the kernel scored
-# is held at 1e-6.
-PLAN_TOL = {"arrays": 1e-6, "general": 1e-8, "kernel": 1e-6}
+# arrays within 1e-6 of their max, best_return within 1e-8 of itself,
+# whether the general engine or the kernel scored it (through the double
+# library as built, and built without multiply-add contraction)
+PLAN_TOL = {"arrays": 1e-6, "general": 1e-8, "kernel": 1e-8,
+            "uncontracted": 1e-8}
 
 
 def quick_start(device, steps: int, dtype_name: str = "float64") -> dict:
@@ -2367,6 +2742,48 @@ def time_planner(name: str, dev, reps: int = 5, task: str = "Walker"):
   return out, agent
 
 
+def launch_split(agent) -> dict:
+  """D2: a sampling-family Agent's kernel launches timed apart over
+  LAUNCH_SPLIT_REPS planner_steps, each between CUDA events (sample-gradient's two a plan:
+  its perturbations, then its line-search candidates), with each launch's
+  candidates, geometry, bound and share of it."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.tasks import registry
+  mega = agent.planner.mega
+  inner = mega.returns
+  calls = []
+
+  def timed(*args, **kw):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = inner(*args, **kw)
+    end.record()
+    calls.append((args[2].shape[0], start, end))
+    return out
+
+  mega.returns = timed
+  try:
+    for _ in range(LAUNCH_SPLIT_REPS):
+      agent.planner_step()
+  finally:
+    del mega.returns
+  torch.cuda.synchronize()
+  per = len(calls) // LAUNCH_SPLIT_REPS
+  ops = step_ops(registry.get_task(agent.task.name, device="cpu"))
+  out = []
+  for k in range(per):
+    n = calls[k][0]
+    ms = [s.elapsed_time(e) for _, s, e in calls[k::per]]
+    b, by = bound(ops, n, mega.horizon, agent.task)
+    out.append({"candidates": n, "ms": ms, "median_ms": float(np.median(ms)),
+                "bound_ms": b, "bound_by": by,
+                "share": b / float(np.median(ms)),
+                "geometry": mega.geometry(n)})
+  return {"launches_per_plan": per, "launches": out}
+
+
 def print_phases(tag: str, what: str, res: dict) -> None:
   total = sum(v[0] for v in res["phases"].values())
   split = ", ".join(f"{k} {v[0]:.1f} ms (host {v[1]:.1f})"
@@ -2376,13 +2793,12 @@ def print_phases(tag: str, what: str, res: dict) -> None:
         f"{total:.1f} ms: {split}")
 
 
-def run_derivative(dev, rec: dict) -> None:
-  """Phases D1-D3. The float64 holds first, their CPU halves in the
-  plain version's workers; every timing after the workers are done; the
-  profiler runs last."""
+def derivative_holds(dev, rec: dict) -> None:
+  """The float64 holds of phases D1-D3, their CPU halves in the plain
+  version's workers: D1's Jacobians, D2's first plans, D3's quick start's
+  first 6 steps. Times nothing."""
   import numpy as np
-  import torch
-  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.ops import megarollout as MR
   r = rec["derivative"] = {"D1": {}, "D2": {}, "D3": {}}
   t0 = time.perf_counter()
 
@@ -2425,6 +2841,29 @@ def run_derivative(dev, rec: dict) -> None:
           f"D2 {name}: the first plan on the card disagrees with the CPU's")
     check(card["launches"] == PLAN_LAUNCHES[name],
           f"D2 {name}: {card['launches']} kernel launches in one plan")
+    if name in KERNEL_SCORED:
+      # the same plan through the double kernel built without
+      # multiply-add contraction (-fmad=false), as the plain version
+      # rounds: both libraries within the general engine's hold
+      with MR.double_kernels():
+        plain_ops = first_plan(name, dev)
+      bru = abs(plain_ops["best_return"] - cpu["best_return"]) / max(
+          abs(cpu["best_return"]), 1e-300)
+      gaps_u = {f: rel_to_max(plain_ops[f], cpu[f]) for f in cpu
+                if isinstance(cpu[f], np.ndarray)}
+      r["D2"][name]["first_plan"].update(
+          uncontracted_best_return_rel=bru, uncontracted_gaps=gaps_u,
+          uncontracted_winner=plain_ops["winner"])
+      print(f"[D2] Agent('Walker', '{name}') first plan through the "
+            f"uncontracted double kernel: best_return rel {bru:.3g} (tol "
+            f"{PLAN_TOL['uncontracted']:g}), "
+            + ", ".join(f"{f} {g:.3g}" for f, g in gaps_u.items())
+            + f" of the max; winner {plain_ops['winner']}")
+      check(plain_ops["winner"] == cpu["winner"]
+            and bru <= PLAN_TOL["uncontracted"]
+            and all(g <= PLAN_TOL["arrays"] for g in gaps_u.values()),
+            f"D2 {name}: the uncontracted double kernel's first plan "
+            f"disagrees with the CPU's")
   quick64 = quick_start(dev, 6)
   stamp("the quick start's 6 float64 steps on the card")
   quick64_cpu = cpu_quick.result()
@@ -2436,15 +2875,40 @@ def run_derivative(dev, rec: dict) -> None:
   check(quick64["planner"] == "gradient" and qgap <= 1e-6,
         "D3: the Cartpole quick start on the card disagrees with the CPU's")
   r["D3"]["quick_start_f64_gap"] = qgap
-  # ---- D2: float32 timings, a quiet host (the workers are done)
+
+
+def run_derivative(dev, rec: dict) -> None:
+  """Phases D1-D3's timings (derivative_holds held their float64 plans),
+  on a quiet host (the workers are done); the profiler runs last."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  r = rec["derivative"]
+  t0 = time.perf_counter()
+
+  def stamp(what):
+    print(f"[t] D +{time.perf_counter() - t0:.1f} s: {what}", flush=True)
+
+  # ---- D2: float32 timings
   agents = {}
   for name in PLANNERS:
-    res, agents[name] = time_planner(name, dev)
+    res, agents[name] = time_planner(name, dev, reps=PLAN_REPS.get(name, 5))
     r["D2"][name].update(res)
     print(f"[D2] Agent('Walker', '{name}') float32, horizon "
           f"{res['horizon']}: planner_step median {res['median_ms']:.1f} ms, "
-          f"p66.7 {res['p66_7_ms']:.1f} ms (n=5, each synchronized); "
+          f"p66.7 {res['p66_7_ms']:.1f} ms (n={len(res['ms'])}, each "
+          f"synchronized); "
           f"kernel launches {res['launches_per_plan']:g} a plan")
+  split = r["D2"]["sample_gradient"]["launch_split"] = launch_split(
+      agents["sample_gradient"])
+  for k, x in enumerate(split["launches"]):
+    print(f"[D2] sample_gradient launch {k + 1} of "
+          f"{split['launches_per_plan']} a plan: {x['candidates']} "
+          f"candidates x {agents['sample_gradient'].planner.mega.horizon}, "
+          f"median {x['median_ms']:.3f} ms (CUDA events, n="
+          f"{LAUNCH_SPLIT_REPS}), bound "
+          f"{x['bound_ms']:.4f} ms ({x['bound_by']}), "
+          f"{100 * x['share']:.4f} % of it; geometry {x['geometry']}")
   stamp("D2's timings")
   # the host syncs of one optimize each; the gradient planner's peak
   # memory over its optimize
@@ -2467,7 +2931,7 @@ def run_derivative(dev, rec: dict) -> None:
   # ---- D3: the derivative rates
   print_phases("D3", "iLQG Walker, horizon 80", r["D2"]["ilqg"])
   print_phases("D3", "gradient Walker, horizon 80", r["D2"]["gradient"])
-  res, hagent = time_planner("ilqg", dev, reps=3, task="Humanoid Walk")
+  res, hagent = time_planner("ilqg", dev, reps=2, task="Humanoid Walk")
   stamp("iLQG on Humanoid Walk")
   r["D3"]["ilqg_humanoid"] = res
   print_phases("D3", f"iLQG Humanoid Walk, horizon {res['horizon']} at dt "
@@ -2614,15 +3078,17 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
                for double in (False, True)]
   libs = _cuda_build.build_all(
       card_libs + [(i, False, False) for i in range(len(MR.TIERS))]
-      + [(i, False, True, True) for i in range(len(MR.TIERS))])
+      + [(i, False, True, True) for i in range(len(MR.TIERS))]
+      + [(0, True, False)])
   for tier in MR.TIERS:
     for dt in (torch.float32, torch.float64):
       MR._library(tier, dt)
   rec["build_s"] = time.perf_counter() - t
   check(all(w.result() for w in warm), "the plain version's workers")
   print(f"[2] built {len(libs)} libraries ({2 * len(libs)} kernel instances;"
-        f" {len(MR.TIERS)} pairs of them uncontracted witnesses, "
-        f"{len(MR.TIERS)} pairs with phase counters) in {rec['build_s']:.2f} s")
+        f" {len(MR.TIERS)} pairs of them uncontracted float witnesses, "
+        f"{len(MR.TIERS)} pairs with phase counters, one pair the small "
+        f"tier's uncontracted double for D2) in {rec['build_s']:.2f} s")
   rec["ptxas"] = {}
   for i, so in enumerate(libs):
     entries = ptxas_entries(so.with_suffix(".log").read_text())
@@ -2805,7 +3271,7 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
       "err_over_tol": max(hdrive["err_over_tol"], b5h["err_over_tol"])})
 
   for run in (run_quadruped, run_shadow, run_handover, run_allegro,
-              run_cem, run_small_tasks):
+              run_cem, run_small_tasks, run_flat_tasks):
     print(f"[t] {time.perf_counter() - t_start:.1f} s: {run.__name__}")
     made = run(dev, rec) if run is run_cem else run(dev, rec, reps)
     rows += made if isinstance(made, list) else [made]
@@ -2813,11 +3279,25 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
   print(f"[t] {rec['card_s']:.1f} s: every phase's work on the card done; "
         f"the comparisons with the plain version as its returns come in")
   pools.append(run_card_queue())
+  # ---- G4's and D1-D3's float64 holds, which time nothing, while the
+  #      plain version's float32 runs share the card
+  print(f"[t] {time.perf_counter() - t_start:.1f} s: the float64 holds of "
+        f"G4 and D1-D3")
+  flat_first_plans(dev, rec)
+  derivative_holds(dev, rec)
+  print(f"[t] {time.perf_counter() - t_start:.1f} s: waiting for the plain "
+        f"version's returns")
   resolve_deferred()
+  print(f"[t] {time.perf_counter() - t_start:.1f} s: every comparison with "
+        f"the plain version held")
 
   # ---- G. the general engine and the closed loop, on a quiet host
   print(f"[t] {time.perf_counter() - t_start:.1f} s: the general engine")
   run_general(dev, rec)
+  # ---- G4. the flat-ground tasks' closed loops
+  print(f"[t] {time.perf_counter() - t_start:.1f} s: the flat-ground "
+        f"tasks' closed loops")
+  run_flat_loops(dev, rec)
   # ---- D. every planner, and the derivative planners' rates
   print(f"[t] {time.perf_counter() - t_start:.1f} s: the planners")
   run_derivative(dev, rec)

@@ -183,6 +183,12 @@ struct MRLarge {
 #define MR_RES_ARM_REACH 11
 #define MR_RES_PUSH 12
 #define MR_RES_RUBIK_FACES 13
+#define MR_RES_OP3 14
+#define MR_RES_PICK 15
+#define MR_RES_PICK_AND_PLACE 16
+#define MR_RES_BIMANUAL_REORIENT 17
+#define MR_RES_HUMANOID_INTERACT 18
+#define MR_MODE_SLOT 15  // tasks/base.py MODE_SLOT: the requested mode
 
 #define MR_EQ_CONNECT 0
 #define MR_EQ_WELD 1
@@ -373,6 +379,7 @@ MR_UNARY(r_sin, sinf, sin)
 MR_UNARY(r_cos, cosf, cos)
 MR_UNARY(r_exp, expf, exp)
 MR_UNARY(r_log1p, log1pf, log1p)
+MR_UNARY(r_log10, log10f, log10)
 MR_UNARY(r_tanh, tanhf, tanh)
 MR_UNARY(r_cosh, coshf, cosh)
 #undef MR_UNARY
@@ -651,6 +658,9 @@ struct StepOut {
   // taken off) and normal (frame row 0), from the step's narrowphase
   T* con_dist;
   T (*con_normal)[3];
+  // the step's converged constraint forces, in row order (the candidate's
+  // lam)
+  const T* efc;
 };
 
 // The views of one candidate's working set, kept at the start of its
@@ -700,6 +710,7 @@ __host__ __device__ size_t carve(const MRModelT<T, S>& m, unsigned char* base,
   take(base, off, w.lam, nrow);
   take(base, off, w.res, m.nres);
   StepOut<T, S>& o = w.out;
+  o.efc = w.lam;
   take(base, off, o.xpos, nb);
   take(base, off, o.xquat, nb);
   take(base, off, o.xmat, nb);
@@ -2455,6 +2466,211 @@ __device__ void residual_rubik_faces(const MRModelT<T, S>& m, const T* qpos,
   for (int u = 0; u < m.nu; ++u) res[12 + u] = ctrl[u];
 }
 
+// the norm of a planar vector
+template <class T>
+__device__ __forceinline__ T mr_norm2(T x, T y) {
+  return r_sqrt(x * x + y * y);
+}
+
+// tasks/op3.py::residual (4 + nu + 7 + (nv - 6) entries): head over feet
+// (Stand) or feet over hands (Handstand, userdata[MODE_SLOT] 1) less the
+// goal (rp[0]); the planar distance of the torso subtree's centre of mass
+// from the feet (hands); its planar velocity; ctrl less home; the torso's
+// z axis (up, or down) and both feet's; the joint velocities past the free
+// joint. res_int = (torso, right foot, left foot, right hand, left hand,
+// torso subtree mask); res_float = (its mass, the home ctrl); sites =
+// (head)
+template <class T, class S>
+__device__ void residual_op3(const MRModelT<T, S>& m, const StepOut<T, S>& o,
+                             const T* qvel, const T* ctrl, const T* rp,
+                             const T* ud, T* res) {
+  const bool hand = ud_index(ud[MR_MODE_SLOT]) == 1;
+  const int torso = m.res_int[0];
+  const T* fr = o.xpos[m.res_int[1]];
+  const T* fl = o.xpos[m.res_int[2]];
+  const T* hr = o.xpos[m.res_int[3]];
+  const T* hl = o.xpos[m.res_int[4]];
+  T feet[3], hands[3];
+  for (int i = 0; i < 3; ++i) {
+    feet[i] = 0.5f * (fr[i] + fl[i]);
+    hands[i] = 0.5f * (hr[i] + hl[i]);
+  }
+  res[0] = hand ? (feet[2] - hands[2]) - rp[0]
+                : (o.site_xpos[0][2] - feet[2]) - rp[0];
+  const T* com = o.subtree_com[torso];
+  const T* sup = hand ? hands : feet;
+  res[1] = mr_norm2(com[0] - sup[0], com[1] - sup[1]);
+  T v[3];
+  subtree_linvel(m, o, m.res_int[5], m.res_float[0], v);
+  res[2] = v[0];
+  res[3] = v[1];
+  for (int u = 0; u < m.nu; ++u) res[4 + u] = ctrl[u] - m.res_float[1 + u];
+  T* up = res + 4 + m.nu;
+  const T sign = hand ? T(-1) : T(1);
+  up[0] = o.xmat[torso][8] - sign;
+  for (int f = 0; f < 2; ++f) {
+    const T* mat = o.xmat[m.res_int[1 + f]];
+    up[1 + 3 * f] = mat[2];
+    up[2 + 3 * f] = mat[5];
+    up[3 + 3 * f] = mat[8] - sign;
+  }
+  for (int k = 6; k < m.nv; ++k) up[7 + k - 6] = qvel[k];
+}
+
+// tasks/pick.py::residual (9 entries): the end effector less the box, box1
+// less target1 and box2 less target2 (the target sites ride mocap body 0).
+// res_int = (box body); sites = (eeff, box1, box2, target1, target2)
+template <class T, class S>
+__device__ void residual_pick(const MRModelT<T, S>& m, const StepOut<T, S>& o,
+                              T* res) {
+  const T* box = o.xpos[m.res_int[0]];
+  for (int i = 0; i < 3; ++i) {
+    res[i] = o.site_xpos[0][i] - box[i];
+    res[3 + i] = o.site_xpos[1][i] - o.site_xpos[3][i];
+    res[6 + i] = o.site_xpos[2][i] - o.site_xpos[4][i];
+  }
+}
+
+// a box corner's world position: pos + mat (sign * half sizes), corner k
+// of tasks/bring.py::_CORNERS (x outermost)
+template <class T>
+__device__ __forceinline__ void box_corner(const T* pos, const T* mat,
+                                           const T* half, int k, T* c) {
+  const T off[3] = {(k & 4 ? T(1) : T(-1)) * half[0],
+                    (k & 2 ? T(1) : T(-1)) * half[1],
+                    (k & 1 ? T(1) : T(-1)) * half[2]};
+  for (int i = 0; i < 3; ++i)
+    c[i] = pos[i] + ((mat[3 * i] * off[0] + mat[3 * i + 1] * off[1]) +
+                     mat[3 * i + 2] * off[2]);
+}
+
+// tasks/bring.py::residual (20 entries): the gripper's centre (the two
+// finger geoms' mean) less the box; each box corner's distance to the
+// target's (a box of the object's size at mocap body 0); log10(1 + the sum
+// of the palm-table points' force norms, from the step's converged rows);
+// min(0, the gripper's height - 0.25); qvel[:7]. res_int = (object,
+// target, the palm-table points' first row, their number, rows per point);
+// res_float = (the object's half sizes); sites = (the finger geoms'
+// centres)
+template <class T, class S>
+__device__ void residual_pick_and_place(const MRModelT<T, S>& m,
+                                        const StepOut<T, S>& o,
+                                        const T* qvel, T* res) {
+  const int obj = m.res_int[0], tgt = m.res_int[1];
+  T hand[3];
+  for (int i = 0; i < 3; ++i) {
+    hand[i] = 0.5f * (o.site_xpos[0][i] + o.site_xpos[1][i]);
+    res[i] = hand[i] - o.xpos[obj][i];
+  }
+  for (int k = 0; k < 8; ++k) {
+    T a[3], b[3];
+    box_corner(o.xpos[obj], o.xmat[obj], m.res_float, k, a);
+    box_corner(o.xpos[tgt], o.xmat[tgt], m.res_float, k, b);
+    const T d0 = a[0] - b[0], d1 = a[1] - b[1], d2 = a[2] - b[2];
+    res[3 + k] = r_sqrt((d0 * d0 + d1 * d1) + d2 * d2);
+  }
+  const int row0 = m.res_int[2], npt = m.res_int[3], nr = m.res_int[4];
+  T total = 0.0f;
+  for (int p = 0; p < npt; ++p) {
+    const T* f = o.efc + row0 + nr * p;
+    T ss = f[0] * f[0];
+    for (int r = 1; r < nr; ++r) ss += f[r] * f[r];
+    total += r_sqrt(ss);
+  }
+  res[11] = r_log10(total + 1.0f);
+  res[12] = r_min(hand[2] - T(0.25), T(0));
+  for (int k = 0; k < 7; ++k) res[13 + k] = qvel[k];
+}
+
+// tasks/bimanual_insert.py::reorient_residual (28 entries): the box in each
+// gripper site's frame with y and z doubled, the goal (mocap body 0's
+// quaternion, normalized with the norm clamped at 1e-24 inside the root)
+// against the box's orientation as 2 sign(w) vec(qbox^-1 qgoal), box -
+// goal position, the 16 arm joint velocities. res_int = (box body); sites
+// = (left gripper, right gripper)
+template <class T, class S>
+__device__ void residual_bimanual_reorient(const MRModelT<T, S>& m,
+                                           const StepOut<T, S>& o,
+                                           const T* qvel,
+                                           const T* mocap_pos,
+                                           const T* mocap_quat, T* res) {
+  const int box_body = m.res_int[0];
+  const T* box = o.xpos[box_body];
+  for (int s = 0; s < 2; ++s) {
+    const T* mat = o.site_xmat[s];
+    T rel[3];
+    for (int i = 0; i < 3; ++i) rel[i] = box[i] - o.site_xpos[s][i];
+    for (int i = 0; i < 3; ++i) {
+      T acc = 0.0f;
+      for (int k = 0; k < 3; ++k) acc += mat[3 * k + i] * rel[k];
+      res[3 * s + i] = i == 0 ? acc : 2.0f * acc;
+    }
+  }
+  T ss = 0.0f;
+  for (int i = 0; i < 4; ++i) ss += mocap_quat[i] * mocap_quat[i];
+  const T nrm = r_sqrt(r_max(ss, T(1e-24)));
+  T goal[4], dq[4];
+  for (int i = 0; i < 4; ++i) goal[i] = mocap_quat[i] / nrm;
+  const T* q = o.xquat[box_body];
+  const T conj[4] = {q[0], -q[1], -q[2], -q[3]};
+  quat_mul(conj, goal, dq);
+  const T sg = dq[0] < 0.0f ? T(-2) : T(2);
+  for (int i = 0; i < 3; ++i) {
+    res[6 + i] = dq[1 + i] * sg;
+    res[9 + i] = box[i] - mocap_pos[i];
+  }
+  for (int k = 0; k < 16; ++k) res[12 + k] = qvel[k];
+}
+
+// tasks/humanoid_interact.py::residual (13 + nu entries): |z_zz - 1| of
+// torso, pelvis (0 in Sit, userdata[MODE_SLOT] 0), right and left foot;
+// |head height - the mode's (rp[0] Sit, rp[1] Stand)|; the planar distance
+// of the knees' and of the torso subtree's centre of mass from the feet's;
+// the torso's planar heading against the direction to the chair; the
+// subtree's planar velocity; pelvis - seat site - 0.08 z; ctrl less home.
+// res_int = (torso, pelvis, right foot, left foot, right shin, left shin,
+// chair, torso subtree mask); res_float = (its mass, the home ctrl); sites
+// = (head, seat)
+template <class T, class S>
+__device__ void residual_humanoid_interact(const MRModelT<T, S>& m,
+                                           const StepOut<T, S>& o,
+                                           const T* ctrl, const T* rp,
+                                           const T* ud, T* res) {
+  const bool sit = ud_index(ud[MR_MODE_SLOT]) == 0;
+  const int torso = m.res_int[0], pelvis = m.res_int[1];
+  const T* fr = o.xpos[m.res_int[2]];
+  const T* fl = o.xpos[m.res_int[3]];
+  const T* kr = o.xpos[m.res_int[4]];
+  const T* kl = o.xpos[m.res_int[5]];
+  res[0] = r_abs(o.xmat[torso][8] - 1.0f);
+  res[1] = sit ? T(0) : r_abs(o.xmat[pelvis][8] - 1.0f);
+  res[2] = r_abs(o.xmat[m.res_int[2]][8] - 1.0f);
+  res[3] = r_abs(o.xmat[m.res_int[3]][8] - 1.0f);
+  res[4] = r_abs(o.site_xpos[0][2] - (sit ? rp[0] : rp[1]));
+  T feet[2], knees[2];
+  for (int i = 0; i < 2; ++i) {
+    knees[i] = 0.5f * (kr[i] + kl[i]);
+    feet[i] = 0.5f * (fr[i] + fl[i]);
+  }
+  res[5] = mr_norm2(knees[0] - feet[0], knees[1] - feet[1]);
+  const T* com = o.subtree_com[torso];
+  res[6] = mr_norm2(com[0] - feet[0], com[1] - feet[1]);
+  const T* mat = o.xmat[torso];
+  const T fn = r_max(mr_norm2(mat[0], mat[3]), T(1e-9));
+  const T* chair = o.xpos[m.res_int[6]];
+  const T c0 = chair[0] - o.xpos[torso][0], c1 = chair[1] - o.xpos[torso][1];
+  const T cn = r_max(mr_norm2(c0, c1), T(1e-9));
+  res[7] = mr_norm2(mat[0] / fn - c0 / cn, mat[3] / fn - c1 / cn);
+  T v[3];
+  subtree_linvel(m, o, m.res_int[7], m.res_float[0], v);
+  res[8] = v[0];
+  res[9] = v[1];
+  for (int i = 0; i < 3; ++i)
+    res[10 + i] = (o.xpos[pelvis][i] - o.site_xpos[1][i]) -
+                  (i == 2 ? T(0.08) : T(0));
+  for (int u = 0; u < m.nu; ++u) res[13 + u] = ctrl[u] - m.res_float[1 + u];
+}
+
 template <class T, class S>
 __device__ __forceinline__ void residual(const MRModelT<T, S>& m,
                                          const StepOut<T, S>& o, const T* qpos,
@@ -2488,6 +2704,16 @@ __device__ __forceinline__ void residual(const MRModelT<T, S>& m,
     residual_push(m, o, qvel, ctrl, mocap_pos, res);
   else if (m.res_id == MR_RES_RUBIK_FACES)
     residual_rubik_faces(m, qpos, qvel, ctrl, ud, res);
+  else if (m.res_id == MR_RES_OP3)
+    residual_op3(m, o, qvel, ctrl, rp, ud, res);
+  else if (m.res_id == MR_RES_PICK)
+    residual_pick(m, o, res);
+  else if (m.res_id == MR_RES_PICK_AND_PLACE)
+    residual_pick_and_place(m, o, qvel, res);
+  else if (m.res_id == MR_RES_BIMANUAL_REORIENT)
+    residual_bimanual_reorient(m, o, qvel, mocap_pos, mocap_quat, res);
+  else if (m.res_id == MR_RES_HUMANOID_INTERACT)
+    residual_humanoid_interact(m, o, ctrl, rp, ud, res);
 }
 
 // the task's state-dependent cost weight multipliers (Task.weight_mod);
@@ -2495,8 +2721,26 @@ __device__ __forceinline__ void residual(const MRModelT<T, S>& m,
 template <class T, class S>
 __device__ __forceinline__ bool weight_mod(const MRModelT<T, S>& m,
                                            const T* ud, T* scale) {
-  if (m.res_id != MR_RES_QUADRUPED) return false;
-  weight_mod_quadruped(ud, scale);
+  if (m.res_id == MR_RES_QUADRUPED) {
+    weight_mod_quadruped(ud, scale);
+    return true;
+  }
+  if (m.res_id != MR_RES_PICK_AND_PLACE &&
+      m.res_id != MR_RES_HUMANOID_INTERACT)
+    return false;
+  for (int k = 0; k < m.nterm; ++k) scale[k] = 1.0f;
+  if (m.res_id == MR_RES_PICK_AND_PLACE) {
+    // tasks/bring.py::weight_mod: Reach 1 - phase, Away phase (userdata[0])
+    scale[0] = 1.0f - ud[0];
+    scale[3] = ud[0];
+  } else {
+    // tasks/humanoid_interact.py::weight_mod: in Sit the seat term on and
+    // the feet-placement terms off, in Stand the other way
+    const T sit = ud_index(ud[MR_MODE_SLOT]) == 0 ? T(1) : T(0);
+    scale[9] = sit;
+    scale[5] = 1.0f - sit;
+    scale[6] = 1.0f - sit;
+  }
   return true;
 }
 

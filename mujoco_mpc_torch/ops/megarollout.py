@@ -118,6 +118,11 @@ class Tier:
   boxbox: bool
 
 
+# the largest dynamic shared memory of a block on sm_90 (csrc/
+# megarollout.cu MR_SMEM_MAX): a launch needs the model head and one
+# candidate's working set within it
+SMEM_MAX = 232448
+
 # smallest first: MegaRollout takes the first that holds the model
 TIERS = (Tier("small", 40, 130, False), Tier("large", 72, 250, True))
 
@@ -515,26 +520,24 @@ PHASES = ("forward kinematics", "CRB and mass matrix", "Cholesky",
 
 
 @functools.cache
-def _float_variant(tier: Tier, contract: bool,
-                   profile: bool) -> ctypes.CDLL:
-  lib = _cuda_build.load(TIERS.index(tier), False, contract, profile)
+def _variant(tier: Tier, dtype, contract: bool, profile: bool) -> ctypes.CDLL:
+  lib = _cuda_build.load(TIERS.index(tier), dtype == torch.float64,
+                         contract, profile)
   check_layout(lib.mr_model_layout, lib.mr_model_size,
-               _MODEL_STRUCT[tier, torch.float32])
+               _MODEL_STRUCT[tier, dtype])
   return lib
 
 
 @contextlib.contextmanager
-def float_kernels(contract: bool = True, profile: bool = False):
-  """Every MegaRollout's float32 kernels swapped for the same source built
-  otherwise, on first use: without multiply-add contraction (contract
-  False: -fmad=false, which rounds as the plain version does, op for op)
-  or with the per-phase counters that phase_cycles reads (profile)."""
+def _swapped(dtype, contract: bool, profile: bool):
+  """Every MegaRollout's kernels of `dtype` swapped for the same source
+  built otherwise, on first use."""
   global _library
   library = _library
 
-  def swapped(tier, dtype):
-    return (_float_variant(tier, contract, profile)
-            if dtype == torch.float32 else library(tier, dtype))
+  def swapped(tier, dt):
+    return (_variant(tier, dt, contract, profile) if dt == dtype
+            else library(tier, dt))
 
   _library = swapped
   try:
@@ -543,12 +546,27 @@ def float_kernels(contract: bool = True, profile: bool = False):
     _library = library
 
 
+def float_kernels(contract: bool = True, profile: bool = False):
+  """Every MegaRollout's float32 kernels swapped for the same source built
+  otherwise, on first use: without multiply-add contraction (contract
+  False: -fmad=false, which rounds as the plain version does, op for op)
+  or with the per-phase counters that phase_cycles reads (profile)."""
+  return _swapped(torch.float32, contract, profile)
+
+
+def double_kernels():
+  """Every MegaRollout's float64 kernels swapped for the same source built
+  without multiply-add contraction (-fmad=false), on first use: what the
+  double instance rounds like with the plain version's operations."""
+  return _swapped(torch.float64, False, False)
+
+
 def phase_cycles(tier: Tier) -> dict:
   """{phase: cycles} of the tier's float32 profiling build, summed over
   every candidate and step since the last read, which zeroes them."""
   torch.cuda.synchronize()
   buf = (ctypes.c_ulonglong * len(PHASES))()
-  got = _float_variant(tier, True, True).mr_profile(
+  got = _variant(tier, torch.float32, True, True).mr_profile(
       ctypes.cast(buf, ctypes.c_void_p), 1)
   if got != len(PHASES):
     raise RuntimeError(f"mr_profile returned {got}")

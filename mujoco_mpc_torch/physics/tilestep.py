@@ -248,8 +248,13 @@ def extract(m: Model) -> TileModel:
   """Concretize a Model into a TileModel; raises UnsupportedModel."""
 
   def npy(x):
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+    a = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
+    # a float64 model's constants as float32 values: the kernel's model
+    # struct holds floats in both precisions, and the plain version reads
+    # some of them as Python floats
+    return (a.astype(np.float32).astype(np.float64)
+            if a.dtype == np.float64 else a)
 
   # the quaternion joints (ball, free) take no spring, limit, actuator,
   # tendon or joint equality: the JAX extract's refusals and reasons
@@ -406,7 +411,7 @@ def extract(m: Model) -> TileModel:
 
   return TileModel(
       nq=m.nq, nv=m.nv, nu=m.nu, nbody=m.nbody, njnt=m.njnt,
-      timestep=float(m.opt.timestep),
+      timestep=float(np.float32(float(m.opt.timestep))),
       gravity=npy(m.opt.gravity),
       body_parentid=tuple(m.body_parentid),
       body_pos=npy(m.body_pos), body_quat=npy(m.body_quat),
@@ -674,6 +679,10 @@ class ContactView:
   dist: torch.Tensor  # (ncon, B)
   frame: torch.Tensor  # (ncon, 3, 3, B): rows n, t1, t2
   pairs: tuple  # (ncon,) geom pair (g1, g2) of each point; n points g1->g2
+  # (ncon, 3, B) the step's converged force in each point's frame (normal,
+  # t1, t2; a condim-1 point's tangents 0), as the general step's
+  # Contact.force; set by step_tb after the solve
+  force: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -1033,6 +1042,7 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
                                             cdof, L, qacc_smooth, efc_lambda,
                                             const)
     qfrc_constraint = f
+    contact.force = _contact_force(tm, lam_out)
   else:
     qfrc_constraint = torch.zeros_like(qfrc_smooth)
     lam_out = (torch.zeros((1, B), dtype=dtype, device=dev)
@@ -1097,6 +1107,22 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
       efc_lambda=lam_out)
   view.contact = contact
   return qpos2, qvel2, view
+
+
+def _contact_force(tm, lam):
+  """Each contact point's force (ncon, 3, B) in its frame from the
+  converged duals `lam` (nrow, B), in the order of tm.con_points: a
+  condim>=3 point's three rows, a condim-1 point's normal row and two
+  zeros."""
+  fric, ones, _, _ = row_points(tm)
+  rows = {id(cp): [3 * k, 3 * k + 1, 3 * k + 2] for k, cp in enumerate(fric)}
+  zero = lam.shape[0]  # the row of zeros appended below
+  rows.update({id(cp): [3 * len(fric) + k, zero, zero]
+               for k, cp in enumerate(ones)})
+  idx = np.asarray([rows[id(cp)] for cp in tm.con_points],
+                   np.int64).reshape(-1, 3)
+  padded = torch.cat([lam, torch.zeros_like(lam[:1])])
+  return padded[torch.as_tensor(idx, device=lam.device)]
 
 
 def _frame_from_normal(n):

@@ -47,11 +47,16 @@ def new_grid(cfg, policy_times: torch.Tensor, data, timestep) -> torch.Tensor:
   nodes over the planning horizon, anchored at the state's time (the
   reference's UpdateNominalPolicy grid)."""
   k = cfg.spline_points
-  horizon_time = (cfg.horizon - 1) * timestep
+  horizon_time = torch.as_tensor((cfg.horizon - 1) * timestep,
+                                 dtype=policy_times.dtype,
+                                 device=policy_times.device)
   denom = k if cfg.interp == spline.Interp.ZERO else k - 1
+  # a true division on either device: a CUDA tensor divided by a Python
+  # number is multiplied by its reciprocal, an ulp off the CPU's quotient,
+  # which moves a knot that falls on a step's time across it
+  spacing = horizon_time / torch.full_like(horizon_time, float(max(denom, 1)))
   return data.time + torch.arange(
-      k, dtype=policy_times.dtype, device=policy_times.device) * (
-          horizon_time / max(denom, 1))
+      k, dtype=policy_times.dtype, device=policy_times.device) * spacing
 
 
 def log_steps(lo: float, hi: float, n: int, like: torch.Tensor):

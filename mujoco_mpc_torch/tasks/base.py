@@ -282,3 +282,161 @@ class Task:
     rp = self.params.residual_params.clone()
     rp[i] = value
     return self.replace(params=self.params.replace(residual_params=rp))
+
+
+def _geom_radius(gtype: int, size) -> float:
+  """A geom's bounding radius about its centre (0 for a plane)."""
+  from mujoco_mpc_torch.physics.types import GeomType
+  if gtype == GeomType.SPHERE:
+    return float(size[0])
+  if gtype == GeomType.CAPSULE:
+    return float(size[0] + size[1])
+  if gtype == GeomType.BOX:
+    return float(np.linalg.norm(size))
+  return 0.0
+
+
+# covering_states' search: states drawn a round, rounds (more, up to 4
+# times as many, until b states are kept), and the deepest contact point a
+# kept state may have (m)
+COVER_POOL, COVER_ROUNDS, COVER_DEPTH = 128, 4, 0.05
+
+
+def covering_states(model: Model, b: int, seed: int = 0):
+  """(qpos (nq, b), qvel (nv, b), ctrl (nu, b)) float32 numpy states whose
+  one plain float64 step (tilestep.step_tb, cold) puts force on every
+  constraint row kind of the model (tilestep.row_kinds, the box-box
+  corners split by the box that holds the corner) that a seeded search
+  reaches, and the kinds that carry force. Each of COVER_ROUNDS rounds
+  (more, up to 4 times as many, until b states are kept) draws COVER_POOL
+  states: every joint over its range widened by 10 % (limits engaged),
+  free bodies at their home poses, half of them turned, lowered; in every
+  other round, for each kind still without force, a free body is moved so
+  that one of the kind's geom pairs overlaps (a geom of its subtree placed
+  at 0.8 of the two bounding radii from the other's centre; against a
+  plane, the subtree's lowest geom 1 cm into it). A state with a point
+  deeper than COVER_DEPTH or a non-finite step is dropped; the kept ones
+  are taken greedily, most new kinds first, then in order, b of them."""
+  import torch
+  from mujoco_mpc_torch.physics import tilestep
+  from mujoco_mpc_torch.physics.types import GeomType, JointType
+  rng = np.random.RandomState(seed)
+  tm = tilestep.extract(model)
+  kinds = list(tilestep.row_kinds(tm))
+  fric, ones, _, _ = tilestep.row_points(tm)
+  point_rows = {}
+  for k, cp in enumerate(fric):
+    point_rows[id(cp)] = [3 * k, 3 * k + 1, 3 * k + 2]
+    if cp.kind == "boxbox_corner":
+      kinds[3 * k:3 * k + 3] = [f"boxbox_corner[box {cp.owner}]"] * 3
+  for k, cp in enumerate(ones):
+    point_rows[id(cp)] = [3 * len(fric) + k]
+  try:
+    q0 = np.asarray(model.keyframe("home")[0], np.float64)
+  except KeyError:
+    q0 = model.qpos0.detach().cpu().numpy().astype(np.float64)
+  rng_lim = model.jnt_range.detach().cpu().numpy()
+  crange = model.actuator_ctrlrange.detach().cpu().numpy()
+  gsize = model.geom_size.detach().cpu().numpy()
+  free = [j for j, jt in enumerate(model.jnt_type) if jt == JointType.FREE]
+
+  def draw(n):
+    qp = np.repeat(q0[:, None], n, 1)
+    for j, jt in enumerate(model.jnt_type):
+      qa = model.jnt_qposadr[j]
+      if jt in (JointType.HINGE, JointType.SLIDE):
+        if model.jnt_limited[j]:
+          lo, hi = rng_lim[j]
+          pad = 0.1 * (hi - lo)
+          qp[qa] = rng.uniform(lo - pad / 2, hi + pad / 2, n)
+        else:
+          qp[qa] += rng.uniform(-0.5, 0.5, n)
+    for j in free:
+      qa = model.jnt_qposadr[j]
+      turn = rng.uniform(size=n) < 0.5
+      quat = rng.randn(4, n)
+      quat /= np.linalg.norm(quat, axis=0)
+      qp[qa + 3:qa + 7, turn] = quat[:, turn]
+      qp[qa + 2] = q0[qa + 2] * rng.uniform(0.3, 1.0, n)
+    qv = rng.uniform(-0.5, 0.5, (model.nv, n))
+    ct = rng.uniform(crange[:, 0], crange[:, 1], (n, model.nu)).T
+    return qp, qv, ct
+
+  def step(qp, qv, ct):
+    x = [torch.tensor(a, dtype=torch.float64) for a in (qp, qv, ct)]
+    _, v2, view = tilestep.step_tb(tm, *x)
+    lam = view.efc_lambda.numpy()
+    dist = (view.contact.dist.numpy() if tm.ncon
+            else np.zeros((0, qp.shape[1])))
+    got = [set(kinds[r] for r in np.nonzero(lam[:, i] != 0)[0])
+           if tm.nrow else set() for i in range(qp.shape[1])]
+    ok = np.isfinite(v2.numpy()).all(0) & (dist.min(0, initial=0.0)
+                                           > -COVER_DEPTH)
+    return got, ok, view
+
+  def free_joint_of(bd):
+    while bd > 0:
+      for j in free:
+        if model.jnt_bodyid[j] == bd:
+          return j
+      bd = model.body_parentid[bd]
+    return None
+
+  def place(qp, gx, missing):
+    """Moves a free body of each state so that a pair of a missing kind
+    overlaps."""
+    cps = [cp for cp in tm.con_points
+           if any(kinds[r] in missing for r in point_rows[id(cp)])]
+    for i in range(qp.shape[1] if cps else 0):
+      cp = cps[rng.randint(len(cps))]
+      j1 = free_joint_of(model.geom_bodyid[cp.g1])
+      j2 = free_joint_of(model.geom_bodyid[cp.g2])
+      if j2 is not None and (j1 is None or rng.uniform() < 0.5):
+        mv, tg, j = cp.g2, cp.g1, j2
+      elif j1 is not None:
+        mv, tg, j = cp.g1, cp.g2, j1
+      else:
+        continue
+      qa = model.jnt_qposadr[j]
+      if model.geom_type[tg] == GeomType.PLANE:
+        sub = [g for g in range(len(model.geom_type))
+               if free_joint_of(model.geom_bodyid[g]) == j]
+        low = min(gx[g, 2, i] - _geom_radius(model.geom_type[g], gsize[g])
+                  for g in sub)
+        qp[qa + 2, i] += gx[tg, 2, i] - 0.01 - low
+      else:
+        u = rng.randn(3)
+        u /= np.linalg.norm(u)
+        r = 0.8 * (_geom_radius(model.geom_type[mv], gsize[mv])
+                   + _geom_radius(model.geom_type[tg], gsize[tg]))
+        qp[qa:qa + 3, i] += gx[tg, :, i] + r * u - gx[mv, :, i]
+
+  states, got_all, ok_all = [], [], []
+  covered = set()
+  for rnd in range(4 * COVER_ROUNDS):
+    if rnd >= COVER_ROUNDS and sum(ok_all) >= b:
+      break
+    qp, qv, ct = draw(COVER_POOL)
+    missing = set(kinds) - covered
+    if rnd % 2 and free and missing:
+      place(qp, step(qp, qv, ct)[2].geom_xpos.numpy(), missing)
+    got, ok, _ = step(qp, qv, ct)
+    states.append((qp, qv, ct))
+    got_all += got
+    ok_all += list(ok)
+    covered |= set().union(*[g for g, o in zip(got, ok) if o])
+  cat = [np.concatenate([s[k] for s in states], 1) for k in range(3)]
+  chosen, covered = [], set()
+  good = [i for i, o in enumerate(ok_all) if o]
+  while len(chosen) < b:
+    best = max(good, key=lambda i: len(got_all[i] - covered), default=None)
+    if best is None or not got_all[best] - covered:
+      break
+    chosen.append(best)
+    covered |= got_all[best]
+    good.remove(best)
+  chosen += good[:b - len(chosen)]
+  if len(chosen) < b:
+    raise ValueError(f"only {len(chosen)} usable states of {len(ok_all)}")
+  return (tuple(np.ascontiguousarray(x[:, chosen], np.float32) for x in cat),
+          tuple(sorted(covered)))

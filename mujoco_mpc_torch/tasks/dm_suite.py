@@ -280,3 +280,146 @@ def build_particle():
       ("Control", 2, [0, 0.05, 0, 1.0]),
   ])
   return compile_model(spec)
+
+
+def build_humanoid_track():
+  """Humanoid Track model: the humanoid plant with the mocap-tracking cost
+  spec (reference humanoid/tracking/task.xml:82-91: joint velocity,
+  control, average marker position, per-marker position and marker
+  velocity terms, at nv - 6 = 21 and nu = 21)."""
+  spec = _humanoid_spec()
+  add_numerics(spec, {
+      "agent_planner": 0,
+      "agent_horizon": 0.5,
+      "agent_timestep": 0.01,
+      "sampling_spline_points": 4,
+      "sampling_trajectories": 128,
+      "sampling_exploration": 0.25,
+      "residual_Clip": 0,
+  })
+  add_cost_sensors(spec, [
+      ("JointVel", 21, [0, 0.01, 0, 0.1]),
+      ("Control", 21, [3, 0.02, 0, 1.0, 0.3]),
+      ("AvgPos", 3, [2, 4.0, 0, 20.0, 0.01]),
+      ("MarkerPos", 18, [2, 4.0, 0, 20.0, 0.01]),
+      ("MarkerVel", 18, [0, 0.05, 0, 1.0]),
+  ])
+  spec.add_key(name="home",
+               qpos=[0, 0, 1.282, 1, 0, 0, 0] + [0.0] * 21)
+  return compile_model(spec)
+
+
+def build_humanoid_interact():
+  """Humanoid Interact model: the humanoid plant with a chair (a seat and
+  a backrest that collide, four legs that do not) and the sit/stand cost
+  spec (reference humanoid/interact/interact.cc:30-196)."""
+  import mujoco
+
+  spec = _humanoid_spec()
+  spec.body("head").add_site(name="head_site", pos=[0.0, 0.0, 0.0])
+  chair = spec.worldbody.add_body(name="chair", pos=[0.6, 0.0, 0.0])
+  g = chair.add_geom(name="seat", type=mujoco.mjtGeom.mjGEOM_BOX,
+                     pos=[0.0, 0.0, 0.4], size=[0.22, 0.24, 0.03])
+  g.contype, g.conaffinity = 1, 1
+  g = chair.add_geom(name="backrest", type=mujoco.mjtGeom.mjGEOM_BOX,
+                     pos=[0.2, 0.0, 0.7], size=[0.03, 0.24, 0.3])
+  g.contype, g.conaffinity = 1, 1
+  for i, (sx, sy) in enumerate(((1, 1), (1, -1), (-1, 1), (-1, -1))):
+    g = chair.add_geom(name=f"leg{i}", type=mujoco.mjtGeom.mjGEOM_BOX,
+                       pos=[0.17 * sx, 0.19 * sy, 0.185],
+                       size=[0.03, 0.03, 0.185])
+    g.contype, g.conaffinity = 0, 0
+  chair.add_site(name="seat_site", pos=[0.0, 0.0, 0.43])
+  add_numerics(spec, {
+      "agent_planner": 0,
+      "agent_horizon": 0.5,
+      "agent_timestep": 0.01,
+      "sampling_spline_points": 4,
+      "sampling_trajectories": 128,
+      "sampling_exploration": 0.25,
+      "residual_SitHeadHeight": 0.95,
+      "residual_StandHeadHeight": 1.48,
+  })
+  add_cost_sensors(spec, [
+      ("Torso Up", 1, [6, 10.0, 0, 100.0, 0.1]),
+      ("Pelvis Up", 1, [6, 10.0, 0, 100.0, 0.1]),
+      ("RFoot Up", 1, [6, 2.0, 0, 100.0, 0.1]),
+      ("LFoot Up", 1, [6, 2.0, 0, 100.0, 0.1]),
+      ("Head Height", 1, [6, 20.0, 0, 100.0, 0.1]),
+      ("Knee Feet XY", 1, [6, 5.0, 0, 100.0, 0.1]),
+      ("COM Feet XY", 1, [6, 5.0, 0, 100.0, 0.1]),
+      ("Facing Dir", 1, [6, 2.0, 0, 100.0, 0.1]),
+      ("CoM Vel", 2, [0, 5.0, 0, 100.0]),
+      ("Pelvis Seat", 3, [2, 10.0, 0, 50.0, 0.02]),
+      ("Control", 21, [3, 0.05, 0, 1.0, 0.3]),
+  ])
+  spec.add_key(name="home",
+               qpos=[0, 0, 1.282, 1, 0, 0, 0] + [0.0] * 21)
+  return compile_model(spec)
+
+
+def build_swimmer(nsegment: int = 5):
+  """dm_control swimmer with the reference patch (swimmer.xml.patch:1-107):
+  the installed swimmer.xml holds only the head, and the patch appends five
+  segments and filter actuators; timestep 0.01, fluid density 1000,
+  contacts off, joints +-90 degrees with stiffness 0.001 and solreflimit
+  (0.05, 0.3), `general` actuators of gain 2e-3, dyntype filter, dynprm
+  0.6; the target a mocap body."""
+  import mujoco
+
+  spec = load_spec("swimmer")
+  spec.modelname = "Swimmer (dm_control)"
+  spec.option.timestep = 0.01
+  spec.option.density = 1000.0
+  spec.option.integrator = mujoco.mjtIntegrator.mjINT_EULER
+  strip_sensors(spec)
+  for g in spec.geoms:
+    g.contype, g.conaffinity = 0, 0
+
+  dflt = spec.find_default("swimmer")
+  dflt.joint.range = [-1.5707963, 1.5707963]
+  dflt.joint.stiffness = [0.001, 0.0, 0.0]
+  dflt.joint.solref_limit = [0.05, 0.3]
+
+  head = spec.body("head")
+  head.add_site(name="nose", pos=[0, -0.06, 0], size=[0.004, 0, 0])
+  parent = head
+  for i in range(nsegment):
+    seg = parent.add_body(name=f"segment_{i}", pos=[0, 0.1, 0])
+    seg.add_geom(spec.find_default("visual"), name=f"visual_{i}")
+    seg.add_geom(spec.find_default("inertial"), name=f"inertial_{i}")
+    seg.add_joint(dflt, name=f"joint_{i}")
+    parent = seg
+
+  for i in range(nsegment):
+    a = spec.add_actuator(
+        name=str(i), target=f"joint_{i}",
+        trntype=mujoco.mjtTrn.mjTRN_JOINT,
+        dyntype=mujoco.mjtDyn.mjDYN_FILTER,
+        gaintype=mujoco.mjtGain.mjGAIN_FIXED,
+        ctrllimited=mujoco.mjtLimited.mjLIMITED_TRUE,
+        ctrlrange=[-1.0, 1.0])
+    a.gainprm = [2e-3] + [0.0] * 9
+    a.dynprm = [0.6] + [0.0] * 9
+
+  spec.delete(spec.geom("target"))
+  tgt = spec.worldbody.add_body(name="target", mocap=True,
+                                pos=[0.3, 0.3, 0.05])
+  tgt.add_geom(name="target", type=mujoco.mjtGeom.mjGEOM_SPHERE,
+               size=[0.05, 0, 0], contype=0, conaffinity=0,
+               rgba=[1, 0, 0, 0.5])
+
+  add_numerics(spec, {
+      "agent_planner": 0,
+      "agent_horizon": 2.0,
+      "agent_timestep": 0.01,
+      "sampling_spline_points": 10,
+      "sampling_trajectories": 128,
+      "sampling_exploration": 0.5,
+  })
+  add_cost_sensors(spec, [
+      ("Distance", 2, [2, 3.0, 0, 10.0, 0.04]),
+      ("MoveToward", 1, [6, 2.0, 0, 10.0, 0.05]),
+      ("Control", nsegment, [0, 0.001, 0, 1.0]),
+  ])
+  return compile_model(spec)

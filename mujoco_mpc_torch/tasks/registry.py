@@ -49,8 +49,9 @@ def get_task(name: str, dtype=torch.float32,
   device = devices.resolve(device)
   if name not in _FACTORIES:
     raise KeyError(
-        f"task {name!r} is not ported yet: ROADMAP queue 1 items 5 and 11 "
-        f"port the other tasks; ported: {task_names()}")
+        f"task {name!r} is not ported yet: Bimanual Insert and Quadruped "
+        f"Hill wait for the mesh and heightfield pairs (ROADMAP queue 1 "
+        f"items 4 and 11c); ported: {task_names()}")
   return _FACTORIES[name](dtype=dtype, device=device)
 
 
@@ -107,8 +108,10 @@ def load_task_model(stem: str, dtype=torch.float32,
 
 def _register_all():
   from mujoco_mpc_torch.tasks import (  # noqa: F401
-      acrobot, allegro, arm_reach, bimanual, cartpole, fingers,
-      hand_reorient, humanoid, particle, push, quadruped, rubik, walker)
+      acrobot, allegro, arm_reach, bimanual, bimanual_insert, bring,
+      cartpole, fingers, hand_reorient, humanoid, humanoid_interact,
+      humanoid_track, op3, particle, pick, push, quadrotor, quadruped,
+      rubik, swimmer, walker)
 
 
 _register_all()

@@ -6,8 +6,19 @@ tasks/models/rubik.xml, the JAX package's MJCF: no contacts and no limits,
 so no constraint rows at all. The face targets are userdata[2:8];
 userdata[0] and [1] are the scramble/solve FSM's mode and move index,
 which `transition` advances when every face has settled on its target
-(faces_userdata sets a start). "Rubik", the hand holding the cube, is not
-ported yet (nv 36, outside the kernel's class).
+(faces_userdata sets a start).
+
+"Rubik" (mujoco_mpc_tpu/tasks/rubik.py:1-173, the reference's
+rubik/solve.cc:1-248) is the Shadow hand holding a free cube with six
+passive face hinges, on tasks/models/rubik_hand.xml: nv 36, 74 contact
+points and 344 constraint rows, beyond the CUDA kernel's maxima, so it
+plans through the general rollout. userdata[0] holds the FSM's mode and
+userdata[1] the goal stage g; the face targets at stage g are the sum of
+the moves k < g of a fixed invertible sequence. Its residual, 84 entries:
+In Hand (3) (cube - grasp site), Orientation (3) (the goal, mocap body 0,
+against the cube, sensors.quat_sub0), Cube Vel. (3), Actuator (20) (the
+actuator forces), six face errors (in solve mode, else 0), Grasp (24) (the
+hand's angles less home), Joint Vel. (24), Remaining (1) (12 g).
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ import numpy as np
 import torch
 
 from mujoco_mpc_torch import device as devices
+from mujoco_mpc_torch.physics import sensors
 from mujoco_mpc_torch.tasks import base, registry
 
 # residual_rubik_faces in csrc/megarollout.cu
@@ -94,3 +106,101 @@ def make(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
                    params=params, residual=residual, param_names=pnames,
                    transition=transition,
                    device_residual=base.DeviceResidual(DEVICE_RESIDUAL_ID))
+
+
+# the full Rubik: the hand's 24 joints, then the cube's free joint, then
+# the six face hinges
+MAX_MOVES = 10
+_NHAND = 24
+_QCUBE, _VCUBE = 24, 24
+_QFACE, _VFACE = 31, 30
+
+
+def _face_targets(g, dtype):
+  """The face angles (6, ...) at goal stage g (...): the sum of the moves
+  k < g, move k turning face (3k + 1) mod 6 by (1 - 2 (k mod 2)) pi / 2
+  (solve.cc:160-165)."""
+  cols = []
+  for j in range(6):
+    zero = torch.zeros(g.shape, dtype=dtype, device=g.device)
+    tj = None
+    for k in range(MAX_MOVES):
+      if (3 * k + 1) % 6 != j:
+        continue
+      term = torch.where(g > k, zero + (1.0 - 2.0 * (k % 2)) * _HALF_PI,
+                         zero)
+      tj = term if tj is None else tj + term
+    cols.append(zero if tj is None else tj)
+  return torch.stack(cols)
+
+
+def hand_residual(model, data, params):
+  """Residual (84, B) of "Rubik" on the component-leading,
+  batch-trailing view."""
+  mode, g = data.userdata[0], data.userdata[1]
+  dtype = data.qpos.dtype
+  goal = data.mocap_quat[0]
+  goal = goal / sensors.norm0(goal)
+  faces = data.qpos[_QFACE:_QFACE + 6]
+  face_err = torch.where(mode == MODE_SOLVE,
+                         faces - _face_targets(g, dtype), 0.0)
+  home = base.const_column(model, "rubik_home_hand",
+                           model.keyframe("home")[0][:_NHAND], data.qpos)
+  return torch.cat([
+      data.qpos[_QCUBE:_QCUBE + 3] - data.site_xpos[model.site("grasp_site")],
+      sensors.quat_sub0(goal, data.qpos[_QCUBE + 3:_QCUBE + 7]),
+      data.qvel[_VCUBE:_VCUBE + 3],
+      data.actuator_force,
+      torch.broadcast_to(face_err, (6,) + data.qpos.shape[1:]),
+      data.qpos[:_NHAND] - home,
+      data.qvel[:_NHAND],
+      torch.broadcast_to((g * 12.0).to(dtype)[None],
+                         (1,) + data.qpos.shape[1:]),
+  ])
+
+
+def hand_transition(model, data, params):
+  """The scramble, solve and wait FSM (solve.cc:141-241): in scramble
+  mode the faces jump to the stack of min(max(params[0], 0), MAX_MOVES)
+  moves at rest, g to one less, solve mode; in solve mode a stage within
+  params[1] (the norm over the faces) moves g down by one, and at g 0
+  to wait; a cube below z 0.1 (dropped) goes to wait."""
+  n_moves = torch.clamp(params[0], 0.0, float(MAX_MOVES))
+  tol = params[1]
+  ud = data.userdata
+  mode, g = ud[0], ud[1]
+  dtype = data.qpos.dtype
+  faces = data.qpos[_QFACE:_QFACE + 6]
+  in_scramble = mode == MODE_SCRAMBLE
+  new_faces = torch.where(in_scramble, _face_targets(n_moves, dtype)
+                          .reshape((6,) + (1,) * (faces.dim() - 1)), faces)
+  qpos = torch.cat([data.qpos[:_QFACE], new_faces,
+                    data.qpos[_QFACE + 6:]])
+  face_vel = torch.where(in_scramble, 0.0, data.qvel[_VFACE:_VFACE + 6])
+  qvel = torch.cat([data.qvel[:_VFACE], face_vel, data.qvel[_VFACE + 6:]])
+  err = torch.linalg.vector_norm(new_faces - _face_targets(g, dtype), dim=0)
+  reached = (mode == MODE_SOLVE) & (err < tol)
+  solved = reached & (g <= 0.0)
+  new_mode = torch.where(in_scramble, float(MODE_SOLVE), mode)
+  new_g = torch.where(in_scramble, torch.clamp(n_moves - 1.0, min=0.0), g)
+  new_g = torch.where(reached & (g > 0.0), g - 1.0, new_g)
+  new_mode = torch.where(solved, float(MODE_WAIT), new_mode)
+  new_mode = torch.where(qpos[_QCUBE + 2] < 0.1, float(MODE_WAIT), new_mode)
+  return data.replace(qpos=qpos, qvel=qvel, userdata=torch.cat([
+      new_mode[None].to(ud.dtype), new_g[None].to(ud.dtype), ud[2:]]))
+
+
+def build_rubik():
+  """tasks/models/rubik_hand.xml as a mujoco.MjModel (needs mujoco)."""
+  import mujoco
+  return mujoco.MjModel.from_xml_path(
+      os.path.join(os.path.dirname(__file__), "models", "rubik_hand.xml"))
+
+
+@registry.register("Rubik", snapshot="rubik", builder=build_rubik)
+def make_rubik(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
+  model, spec, params, pnames = registry.load_task_model("rubik", dtype,
+                                                         device)
+  return base.Task(name="Rubik", model=model, spec=spec, params=params,
+                   residual=hand_residual, param_names=pnames,
+                   transition=hand_transition)

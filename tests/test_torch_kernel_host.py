@@ -223,6 +223,12 @@ extern "C" int host_model_layout(int dbl, long long* offsets, int capacity) {
   return dbl ? model_layout<double, MRTier>(offsets, capacity)
              : model_layout<float, MRTier>(offsets, capacity);
 }
+// the dynamic shared bytes of a block of one candidate (the model head and
+// one working set), which a launch on the card caps at MR_SMEM_MAX
+extern "C" long long host_block_bytes(int dbl, const void* m) {
+  return dbl ? (long long)(head_bytes<double, MRTier>() + cand_bytes<double>(m))
+             : (long long)(head_bytes<float, MRTier>() + cand_bytes<float>(m));
+}
 extern "C" long long host_model_size(int dbl) {
   return dbl ? (long long)sizeof(MRModelT<double, MRTier>)
              : (long long)sizeof(MRModelT<float, MRTier>);
@@ -256,6 +262,8 @@ def _build(d, flags, tier):
   lib.host_model_layout.argtypes = [ctypes.c_int, _P, ctypes.c_int]
   lib.host_model_size.argtypes = [ctypes.c_int]
   lib.host_model_size.restype = ctypes.c_longlong
+  lib.host_block_bytes.argtypes = [ctypes.c_int, _P]
+  lib.host_block_bytes.restype = ctypes.c_longlong
   for name in ("host_returns", "host_returns64"):
     getattr(lib, name).argtypes = [_P] * 13 + [ctypes.c_int] * 2
   for name in ("host_step", "host_step64", "host_step_lanes4",

@@ -107,6 +107,43 @@ def test_allegro_snapshot_matches_fresh_build():
       19, 18, 12, 1, 1)
 
 
+# the nine flat-ground tasks of ROADMAP queue 1 items 11a and 11b
+_FLAT_TASKS = ("OP3", "Pick", "PickAndPlace", "Bimanual Reorient",
+               "Humanoid Interact", "Quadrotor", "Swimmer", "Rubik",
+               "Humanoid Track")
+
+
+@pytest.mark.parametrize("name", _FLAT_TASKS)
+def test_flat_task_snapshot_matches_fresh_build(name):
+  """Each flat-ground task's snapshot is exactly what from_mjmodel builds
+  now from its builder (an MJCF copy or a dm_suite builder), and the task
+  equals the JAX package's: cost spec, parameters, sizes."""
+  stem, builder = treg._SNAPSHOTS[name]
+  snap = _snapshot_matches_fresh_build(builder, stem)
+  t = treg.get_task(name, dtype=torch.float64, device="cpu")
+  j = jreg.get_task(name, dtype=jnp.float64)
+  assert (t.spec.names, t.spec.norm_types, t.spec.dims, t.param_names) == (
+      j.spec.names, j.spec.norm_types, j.spec.dims, j.param_names)
+  assert t.mode_names == j.mode_names
+  for f in ("weights", "norm_params", "risk", "residual_params"):
+    _same(f, getattr(t.params, f), np.asarray(getattr(j.params, f)), 0.0)
+  for f in ("nq", "nv", "nu", "nbody", "nmocap", "nuserdata"):
+    assert getattr(snap, f) == getattr(j.model, f), f
+
+
+def test_flat_task_files_are_the_jax_packages():
+  """The port's copies of the flat-ground tasks' MJCF and of Humanoid
+  Track's recorded clips are the JAX package's bytes."""
+  files = ["op3.xml", "panda_pick.xml", "panda_bring.xml",
+           "bimanual_reorient.xml", "quadrotor.xml", "rubik_hand.xml"] + [
+               f"assets/clips/{c}.npz" for c in ("balance", "jog",
+                                                 "strider")]
+  for name in files:
+    with open(f"{REPO}/mujoco_mpc_torch/tasks/models/{name}", "rb") as a, \
+        open(f"{REPO}/mujoco_mpc_tpu/tasks/models/{name}", "rb") as b:
+      assert a.read() == b.read(), name
+
+
 def test_task_matches_jax_task():
   ours = treg.get_task("Walker", device="cpu")
   theirs = jreg.get_task("Walker", dtype=jnp.float32)

@@ -184,20 +184,30 @@ def test_planner_general_route_matches_jax():
 
 
 def test_planner_route_follows_the_task():
-  """Every registered task plans through the kernel by default; a task
-  with no CUDA residual plans through the general rollout and says so; a
-  task with one whose model the kernel refuses raises."""
+  """Every registered task with a CUDA residual plans through the kernel
+  by default, and the four without one (Quadrotor, Swimmer, Rubik,
+  Humanoid Track) through the general rollout, saying so; a task with no
+  CUDA residual plans through the general rollout and says so; a task
+  with one whose model the kernel refuses raises."""
   cfg = tsampling.SamplingConfig(num_trajectories=4, spline_points=3,
                                  horizon=4)
+  general = set()
   for name in treg.task_names():
     t = treg.get_task(name, device="cpu")
     for planner in (tsampling.SamplingPlanner(cfg),
                     tcem.CrossEntropyPlanner(tcem.CEMConfig(
                         num_trajectories=4, n_elite=2, spline_points=3,
                         horizon=4))):
+      if t.device_residual is None:
+        general.add(name)
+        with pytest.warns(UserWarning, match="has no CUDA residual"):
+          planner.init(t)
+        assert planner.mega is None, name
+        continue
       planner.init(t)
       assert planner.general_reason is None, name
       assert isinstance(planner.mega, tmr.MegaRollout), name
+  assert general == {"Quadrotor", "Swimmer", "Rubik", "Humanoid Track"}
   t = treg.get_task("Particle", device="cpu")
   planner = tsampling.SamplingPlanner(cfg)
   with pytest.warns(UserWarning, match="has no CUDA residual"):
