@@ -71,8 +71,23 @@ launches timed apart, the host syncs of one iLQG and one gradient
 optimize and their peak memory; D3 the iLQG
 (Walker 80, Humanoid Walk 33) and gradient (Walker 80) iterations split
 by phase with CUDA events and the device's busy share, and the Cartpole
-quick start with its own (gradient) planner for about 60 s, its first 6
-float64 steps held against the CPU's. The
+quick start with its own (gradient) planner for about 20 s (at least 4
+steps), its first 6 float64 steps held against the CPU's. Phase E holds
+the estimators (estimators/*.py): E1 the ground-truth, Kalman, Unscented
+and Batch estimators and the direct optimizer on Cartpole's simulation
+model, and the measurement updates of Kalman, Unscented and Direct
+identifying a damping on the pendulum with sensors
+(estimators/sensor_model.py), E2 Kalman, Unscented, Batch and Direct
+(window 64, 3 iterations) on Humanoid Walk's, each float64 update on the
+card against the CPU's (its CPU half in the plain version's workers from
+the build on, its card half with the other float64 holds; the pendulum's
+under set_sync_debug_mode("error")), then, but for the pendulum, the ms
+and host syncs of float32 updates and the CUDA kernels and busy share of
+one; E3 Agent("Cartpole", planner="sampling") planning from its Kalman
+estimate every 2 steps (one kernel launch a plan, reported on the
+Cartpole kernel row as from_estimate_launches; the estimate within 1e-4
+of the sim state), then the estimation and plan threads beside step().
+The elapsed seconds at each phase go to --out's "t". The
 last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernel once per path with its launch count, error,
 time, plain time, bound and launch geometry (warps per block, blocks
@@ -94,6 +109,7 @@ import signal
 import subprocess
 import sys
 import time
+import traceback
 
 
 def fail(msg: str):
@@ -112,6 +128,34 @@ def run_plain(fn, *args, **kwargs):
   import torch
   with torch.inference_mode():
     return fn(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def no_sync(what: str):
+  """torch.cuda.set_sync_debug_mode("error") over the block: a host sync
+  in it fails the run."""
+  import torch
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    yield
+  except RuntimeError as e:
+    fail(f"{what}: synchronizes with the host: {e}\n"
+         f"{traceback.format_exc()}")
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+
+
+# the script's elapsed seconds at each "[t]" line (--out's "t")
+T_START = time.perf_counter()
+TIMELINE = []
+
+
+def timeline(what: str) -> float:
+  """Keep and print the script's elapsed seconds at `what`."""
+  t = time.perf_counter() - T_START
+  TIMELINE.append([t, what])
+  print(f"[t] {t:.1f} s: {what}", flush=True)
+  return t
 
 
 # The plain version's returns run in worker processes while the main
@@ -740,29 +784,34 @@ def raw_events(prof) -> list:
 def busy_share(agent, steps: int = 5, warm: bool = True,
                host_ops: bool = True) -> dict:
   """The device's busy share over `steps` planner_steps of `agent` after
-  a warm-up one (unless `warm` is False: the agent has planned already):
-  the union of the CUDA kernels' and copies' intervals that
-  torch.profiler records, over the host's wall time of the window (which
-  ends in torch.cuda.synchronize()). With host_ops False the profiler
-  records the device's activity alone: a derivative planner's plan runs
-  hundreds of thousands of host ops, whose recording doubles its wall
-  time."""
-  import torch
-  from torch.autograd import DeviceType
+  a warm-up one (unless `warm` is False: the agent has planned already),
+  as device_busy measures it. With host_ops False the profiler records
+  the device's activity alone: a derivative planner's plan runs hundreds
+  of thousands of host ops, whose recording doubles its wall time."""
   if warm:
     agent.planner_step()
+  return device_busy(agent.planner_step, steps, host_ops)
+
+
+def device_busy(fn, calls: int, host_ops: bool = False) -> dict:
+  """The device's busy share over `calls` calls of fn: the union of the
+  CUDA kernels' and copies' intervals that torch.profiler records (with
+  the host's ops too where host_ops), over the host's wall time of the
+  window, which ends in torch.cuda.synchronize(); and the kernels among
+  those device events (the copies and memsets left out)."""
+  import torch
+  from torch.autograd import DeviceType
   torch.cuda.synchronize()
   acts = ([torch.profiler.ProfilerActivity.CPU] if host_ops else []) + [
       torch.profiler.ProfilerActivity.CUDA]
   with torch.profiler.profile(activities=acts) as prof:
     t = time.perf_counter()
-    for _ in range(steps):
-      agent.planner_step()
+    for _ in range(calls):
+      fn()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t) * 1e6
-  spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3)
-                 for e in raw_events(prof)
-                 if e.device_type() == DeviceType.CUDA)
+  events = [e for e in raw_events(prof) if e.device_type() == DeviceType.CUDA]
+  spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3) for e in events)
   busy, cur = 0.0, None
   for a, b in spans:  # the union of the device intervals
     if cur is None or a > cur[1]:
@@ -772,6 +821,8 @@ def busy_share(agent, steps: int = 5, warm: bool = True,
       cur[1] = max(cur[1], b)
   busy += 0.0 if cur is None else cur[1] - cur[0]
   return {"wall_ms": wall_us / 1e3, "device_events": len(spans),
+          "kernels": sum(not e.name().startswith(("Memcpy", "Memset"))
+                         for e in events),
           "busy_ms": busy / 1e3,
           "busy_share": busy / wall_us if spans else None}
 
@@ -1753,13 +1804,8 @@ def no_sync_step(name: str, dev) -> None:
   d = d.replace(qpos=torch.tensor(m.keyframe("home")[0], device=dev))
   d = S.step(m, d)  # the model's constants are built once, outside
   torch.cuda.synchronize()
-  torch.cuda.set_sync_debug_mode("error")
-  try:
+  with no_sync(f"G1 {name}: the general step"):
     d = S.step(m, d)
-  except RuntimeError as e:
-    fail(f"G1 {name}: the general step synchronizes with the host: {e}")
-  finally:
-    torch.cuda.set_sync_debug_mode(0)
   torch.cuda.synchronize()
   check(bool(torch.all(torch.isfinite(d.qpos))), f"G1 {name}: non-finite")
   print(f"[G1] {name}: one general step under set_sync_debug_mode('error')"
@@ -2008,7 +2054,7 @@ def run_general(dev, rec: dict) -> None:
   t0 = time.perf_counter()
 
   def stamp(what):
-    print(f"[t] G +{time.perf_counter() - t0:.1f} s: {what}", flush=True)
+    timeline(f"G +{time.perf_counter() - t0:.1f} s: {what}")
 
   one_step = {}
   for name, probe in GENERAL_MODELS:
@@ -2399,7 +2445,7 @@ PLAN_LAUNCHES = {"sampling": 1, "gradient": 0, "ilqg": 0, "ilqs": 1,
 PLAN_REPS = {"gradient": 2, "ilqg": 2, "ilqs": 2, "robust": 2}
 # D3's quick start: Agent("Cartpole") with its own planner, a plan every 2
 # steps, for about this many seconds and at least this many steps
-QUICK_START_S, QUICK_START_STEPS = 60.0, 10
+QUICK_START_S, QUICK_START_STEPS = 20.0, 4
 # D2: the planner_steps over which sample-gradient's two launches are timed
 # apart
 LAUNCH_SPLIT_REPS = 3
@@ -2803,7 +2849,7 @@ def derivative_holds(dev, rec: dict) -> None:
   t0 = time.perf_counter()
 
   def stamp(what):
-    print(f"[t] D +{time.perf_counter() - t0:.1f} s: {what}", flush=True)
+    timeline(f"D +{time.perf_counter() - t0:.1f} s: {what}")
 
   cpu_quick = PLAIN.submit(_quick_start_job, 6)
   cpu_plans = {name: PLAIN.submit(_first_plan_job, name)
@@ -2887,7 +2933,7 @@ def run_derivative(dev, rec: dict) -> None:
   t0 = time.perf_counter()
 
   def stamp(what):
-    print(f"[t] D +{time.perf_counter() - t0:.1f} s: {what}", flush=True)
+    timeline(f"D +{time.perf_counter() - t0:.1f} s: {what}")
 
   # ---- D2: float32 timings
   agents = {}
@@ -3010,6 +3056,383 @@ def run_derivative(dev, rec: dict) -> None:
   stamp("the profiler runs")
 
 
+# ---------------------------------------------------------------------------
+# E: the estimators, the direct optimizer and the estimate-driven loop
+# ---------------------------------------------------------------------------
+
+# the four registered estimators and the direct optimizer
+ESTIMATOR_NAMES = ("ground_truth", "kalman", "unscented", "batch", "direct")
+# (case, model, estimators, window, timed): E1 on Cartpole's simulation
+# model, every estimator, Batch's and Direct's window Batch's default (16);
+# Cartpole measures only USER slots (C = 0, a gain of 0), so E1 also holds,
+# untimed, the measurement updates on the pendulum with sensors
+# (estimators/sensor_model.py): Kalman, Unscented, and Direct identifying
+# the pivot's damping ("direct_damping"); E2 at full width on Humanoid
+# Walk's (nv 27, nt 54, a free joint, contacts), the windows
+# MAX_FILTER_HISTORY (64); Batch and Direct take 3 Gauss-Newton iterations
+E_CASES = (("E1", "Cartpole", ESTIMATOR_NAMES, 16, True),
+           ("E1", "Pendulum", ("kalman", "unscented", "direct_damping"), 16,
+            False),
+           ("E2", "Humanoid Walk", ("kalman", "unscented", "batch",
+                                    "direct"), 64, True))
+E_ITERATIONS = 3
+# a float64 update on the card against the CPU's: |card - cpu| <= atol +
+# rtol |cpu| in every entry
+E_TOL = {"atol": 1e-10, "rtol": 1e-8}
+# the timed float32 updates of each estimator
+E_REPS = 10
+# E3: the steps of the estimate-driven loop (a plan every 2 from the
+# estimate), the seconds of the asynchronous loops beside step(), and the
+# bound on the estimate's distance from the sim state (the filter and the
+# sim take the same float32 steps)
+E3_STEPS, E3_ASYNC_S, E3_ERROR_TOL = 100, 5.0, 1e-4
+
+
+def estimator_model(task: str, dtype, device):
+  """E's model: a registered task's simulation model, or the pendulum."""
+  from mujoco_mpc_torch.estimators import sensor_model
+  from mujoco_mpc_torch.tasks import registry
+  if task == "Pendulum":
+    return sensor_model.load(dtype, device)
+  return registry.get_task(task, dtype=dtype, device=device).model
+
+
+def estimator_inputs(task: str, window: int) -> dict:
+  """E's inputs (numpy, float64, made on the CPU from seed 0): window + 1
+  states of the model from its home keyframe (the pendulum from 0.3 rad)
+  under random controls inside the control range, their sensordata with
+  noise (sigma 1e-3) and the window's configurations displaced by tangent
+  noise (sigma 1e-3), the direct optimizer's start."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.estimators import base
+  from mujoco_mpc_torch.physics import io as phys_io
+  from mujoco_mpc_torch.physics import step as S
+  m = estimator_model(task, torch.float64, "cpu")
+  rng = np.random.RandomState(0)
+  q0 = (m.qpos0 + 0.3 if task == "Pendulum" else
+        torch.tensor(m.keyframe("home")[0], dtype=torch.float64))
+  d = phys_io.make_data(m).replace(
+      qpos=q0, qvel=torch.tensor(rng.normal(0, 0.05, m.nv)))
+  lo, hi = (m.actuator_ctrlrange[:, k].numpy() for k in (0, 1))
+  out = {k: [] for k in ("qpos", "qvel", "ctrl", "sensor")}
+  with torch.inference_mode():
+    for _ in range(window + 1):
+      u = lo + (hi - lo) * rng.uniform(0.1, 0.9, m.nu)
+      d = S.step(m, d.replace(ctrl=torch.tensor(u)))
+      out["qpos"].append(d.qpos.numpy())
+      out["qvel"].append(d.qvel.numpy())
+      out["ctrl"].append(u)
+      out["sensor"].append(S.forward(m, d).sensordata.numpy() +
+                           rng.normal(0, 1e-3, m.nsensordata))
+    out = {k: np.asarray(v) for k, v in out.items()}
+    out["qpos_noisy"] = base.retract(
+        m, torch.tensor(out["qpos"][:window]),
+        torch.tensor(rng.normal(0, 1e-3, (window, m.nv)))).numpy()
+  return out
+
+
+def estimator_call(task: str, name: str, window: int, inputs: dict, device,
+                   dtype):
+  """(the estimator, its start state, one update: state -> the next one)
+  of `name` on `task`'s model in `dtype` on `device`, measuring its
+  measurement_slice: a filter starts from the window's last state and
+  takes the next control and sensordata; Batch from the window (the noisy
+  configurations, the measurements and controls) and the same; Direct
+  optimizes the window from the noisy configurations, direct_damping
+  with the first DoF's damping as a parameter (from twice its value, its
+  prior the value, weighing 1e-2)."""
+  import torch
+  from mujoco_mpc_torch.estimators import (BatchState, Direct, DirectConfig,
+                                           base, get_estimator)
+  from mujoco_mpc_torch.estimators.direct import dof_damping_parameter
+  from mujoco_mpc_torch.physics import io as phys_io
+  m = estimator_model(task, dtype, device)
+  start, dim = base.measurement_slice(m)
+  x = {k: torch.tensor(v, dtype=dtype, device=device)
+       for k, v in inputs.items()}
+  w = window
+  sensors = x["sensor"][:, start:start + dim]
+  if name in ("direct", "direct_damping"):
+    damping = float(m.dof_damping[0])
+    params = ([dof_damping_parameter([0], prior=[damping],
+                                     prior_weight=1e-2)]
+              if name == "direct_damping" else [])
+    theta0 = (torch.tensor([2.0 * damping], dtype=dtype, device=device)
+              if params else None)
+    est = Direct(m, DirectConfig(horizon=w, max_iterations=E_ITERATIONS),
+                 sensor_start=start, nsensordata=dim, parameters=params)
+    return est, None, lambda s: est.optimize(
+        x["qpos_noisy"], sensors[:w], x["ctrl"][:w], params_init=theta0)
+  kw = ({"window": w, "max_iterations": E_ITERATIONS} if name == "batch"
+        else {})
+  est = get_estimator(name, m, sensor_start=start, nsensordata=dim, **kw)
+  if name == "batch":
+    state0 = BatchState(qpos=x["qpos_noisy"], sensors=sensors[:w],
+                        ctrls=x["ctrl"][:w],
+                        time=torch.zeros((), dtype=dtype, device=device))
+  else:
+    state0 = est.init(phys_io.make_data(m).replace(
+        qpos=x["qpos"][w - 1].clone(), qvel=x["qvel"][w - 1].clone()))
+  return est, state0, lambda s: est.update(s, x["ctrl"][w], x["sensor"][w])
+
+
+def estimator_result(name: str, est, out) -> dict:
+  """What E holds of an update's result (numpy): a filter's state and
+  covariance, Batch's window, Direct's configurations, costs and
+  parameters."""
+  if name.startswith("direct"):
+    res = {"qpos": out.qpos, "cost": out.cost,
+           "cost_initial": out.cost_initial}
+    if out.parameters is not None:
+      res["parameters"] = out.parameters
+  else:
+    res = dict(zip(("qpos", "qvel"), est.state(out)[:2]))
+    for f in ("cov", "time"):
+      if hasattr(out, f):
+        res[f] = getattr(out, f)
+    if name == "batch":
+      res["window"] = out.qpos
+  return {k: v.detach().cpu().numpy() for k, v in res.items()}
+
+
+def _estimator_job(task: str, name: str, window: int) -> dict:
+  """In a worker: E's inputs (estimator_inputs, deterministic) and one
+  float64 update on the CPU from them, with its seconds."""
+  import torch
+  t = time.perf_counter()
+  inputs = estimator_inputs(task, window)
+  est, state0, call = estimator_call(task, name, window, inputs, "cpu",
+                                     torch.float64)
+  # no_grad, not inference_mode: forward-mode AD needs its tangents
+  with torch.no_grad():
+    out = estimator_result(name, est, call(state0))
+  return {"inputs": inputs, "result": out, "cpu_s": time.perf_counter() - t}
+
+
+def submit_estimator_holds() -> dict:
+  """E1's and E2's float64 updates on the CPU, submitted to the plain
+  version's workers (E2's Batch and Direct at window 64 take minutes
+  there): {(case, task, name): (window, timed, future)}."""
+  return {(case, task, name): (window, timed,
+                               PLAIN.submit(_estimator_job, task, name,
+                                            window))
+          for case, task, names, window, timed in E_CASES for name in names}
+
+
+def estimator_holds(dev, rec: dict, jobs: dict) -> None:
+  """E1 and E2's holds: each estimator's first float64 update on the card
+  against the CPU's, within E_TOL in every entry; where E1 times nothing
+  (the pendulum), the held update is the second, under
+  set_sync_debug_mode("error"). Times nothing."""
+  import numpy as np
+  import torch
+  r = rec.setdefault("estimation", {})
+  for (case, task, name), (window, timed, future) in jobs.items():
+    cpu = future.result()
+    est, state0, call = estimator_call(task, name, window, cpu["inputs"],
+                                       dev, torch.float64)
+    with torch.no_grad():
+      if not timed:
+        call(state0)  # builds the model's constants
+      with (contextlib.nullcontext() if timed
+            else no_sync(f"{case} {task} {name}")):
+        out = call(state0)
+      card = estimator_result(name, est, out)
+    worst, ratio_ = {}, 0.0
+    for k, want in cpu["result"].items():
+      gap = np.abs(card[k] - want)
+      worst[k] = float(np.max(gap)) if gap.size else 0.0
+      if gap.size:
+        ratio_ = max(ratio_, float(np.max(
+            gap / (E_TOL["atol"] + E_TOL["rtol"] * np.abs(want)))))
+    finite = all(np.all(np.isfinite(v)) for v in card.values())
+    r.setdefault(case, {}).setdefault(task, {})[name] = {
+        "card_vs_cpu": worst, "over_tol": ratio_, "cpu_s": cpu["cpu_s"],
+        "no_sync": not timed}
+    extra = "" if timed else ", no host sync in it"
+    if "parameters" in card:
+      extra += (f"; the damping identified {card['parameters'][0]:.6g} "
+                f"(from {2 * float(est.model.dof_damping[0]):g})")
+    print(f"[{case}] {task} {name} (window {window}): the "
+          f"{'first' if timed else 'second'} float64 update, card vs CPU, "
+          "max |gap| " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f"; worst gap over its tolerance (atol {E_TOL['atol']:g} + "
+          f"rtol {E_TOL['rtol']:g} |cpu|) {ratio_:.3g}; "
+          f"{cpu['cpu_s']:.1f} s in its CPU worker{extra}")
+    check(finite and ratio_ <= 1.0, f"{case} {task} {name}: the float64 "
+          f"update on the card disagrees with the CPU's")
+
+
+def time_estimator(case: str, task: str, name: str, window: int,
+                   inputs: dict, dev) -> dict:
+  """E1/E2's float32 numbers of one estimator on the card: a warm-up
+  update, then E_REPS updates (each synchronized; a filter's state carried
+  from one to the next; the first under set_sync_debug_mode("error"); the
+  direct optimizer's phases between CUDA events); then one more update
+  under torch.profiler, its CUDA kernels and the device's busy share."""
+  import numpy as np
+  import torch
+  est, state, call = estimator_call(task, name, window, inputs, dev,
+                                    torch.float32)
+  out = call(state)  # builds the model's constants
+  state = state if name == "direct" else out
+  torch.cuda.synchronize()
+  # the direct optimizer's phases (Batch's own), between CUDA events
+  direct = {"batch": lambda: est.direct, "direct": lambda: est}.get(
+      name, lambda: None)()
+  timer = None if direct is None else PhaseTimer()
+  ms = []
+  for k in range(E_REPS):
+    t = time.perf_counter()
+    if timer is not None:
+      direct.timer = timer
+      timer.start()
+    # the first timed update raises at a host sync
+    with (no_sync(f"{case} {task} {name}") if k == 0
+          else contextlib.nullcontext()):
+      out = call(state)
+    state = state if name == "direct" else out
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t) * 1e3)
+  if direct is not None:
+    direct.timer = None
+  finite = all(np.all(np.isfinite(v)) for v in estimator_result(
+      name, est, out).values())
+  prof = device_busy(lambda: call(state), 1)
+  q = np.percentile(ms, [50, 66.7])
+  res = {"ms": ms, "median_ms": float(q[0]), "p66_7_ms": float(q[1]),
+         "launches": prof["kernels"], **prof, "float32_finite": finite}
+  share = ("not measured (no device events)" if prof["busy_share"] is None
+           else f"{100 * prof['busy_share']:.2f} %")
+  if timer is not None:
+    res["phases"] = timer.split()
+  print(f"[{case}] {task} {name} (window {window}) float32: median "
+        f"{res['median_ms']:.3f} ms an update, p66.7 {res['p66_7_ms']:.3f} "
+        f"(n={E_REPS}, each synchronized); no host sync "
+        f"(set_sync_debug_mode('error')); one more update under "
+        f"torch.profiler: {res['launches']} CUDA kernels, busy {share}"
+        + ("" if timer is None else "; the optimizer's phases, mean ms "
+           "(device, host enqueue) an occurrence: " + ", ".join(
+               f"{k} {v[0]:.1f} ({v[1]:.1f})"
+               for k, v in res["phases"].items())))
+  check(finite, f"{case} {task} {name}: a non-finite float32 update")
+  return res
+
+
+def estimate_loop(dev, rec: dict) -> dict:
+  """E3: Agent("Cartpole", planner="sampling") with a Kalman filter
+  attached at an offset state, a planner_step(from_estimate=True) every 2
+  steps for E3_STEPS steps (the estimate's max error against the sim
+  state; the kernel's launches, one a plan), then start_estimation() and
+  start_planning() beside step() for E3_ASYNC_S seconds (estimator updates
+  and plans a second, the policy's age in steps)."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  agent = Agent("Cartpole", planner="sampling", device=dev)
+  agent.set_state(qpos=[0.2, 0.3])
+  agent.attach_estimator("kalman")
+  mega = agent.planner.mega
+  mega.launches = 0
+  err, plan_ms, step_ms, plans = 0.0, [], [], 0
+  for i in range(E3_STEPS):
+    if i % 2 == 0:
+      t = time.perf_counter()
+      agent.planner_step(from_estimate=True)
+      torch.cuda.synchronize()
+      plan_ms.append((time.perf_counter() - t) * 1e3)
+      plans += 1
+    t = time.perf_counter()
+    agent.step()  # the Kalman update inline
+    torch.cuda.synchronize()
+    step_ms.append((time.perf_counter() - t) * 1e3)
+    est, sim = agent.estimated_state(), agent.get_state()
+    err = max(err, float(np.max(np.abs(est["qpos"] - sim["qpos"]))),
+              float(np.max(np.abs(est["qvel"] - sim["qvel"]))))
+  launches = mega.launches
+  out = {"steps": E3_STEPS, "plans": plans, "launches": launches,
+         "launches_per_plan": launches / plans, "max_estimate_error": err,
+         "ms_per_step": float(np.mean(step_ms)),
+         "ms_per_plan": float(np.mean(plan_ms)),
+         "cart": float(agent.data.qpos[0]), "pole": float(agent.data.qpos[1]),
+         "cost": agent.total_cost()}
+  print(f"[E3] Agent('Cartpole', 'sampling') with a Kalman filter from "
+        f"qpos [0.2, 0.3]: {E3_STEPS} steps, a planner_step(from_estimate="
+        f"True) every 2: the estimate at most {err:.3g} from the sim state "
+        f"(qpos, qvel; bound {E3_ERROR_TOL:g}); {out['ms_per_step']:.3f} "
+        f"ms an Agent.step with its "
+        f"inline update, {out['ms_per_plan']:.3f} ms a plan (each "
+        f"synchronized); kernel launches {launches} in {plans} plans; cart "
+        f"{out['cart']:.4f}, pole {out['pole']:.4f}, cost {out['cost']:.4f}")
+  check(launches == plans, f"E3: {launches} kernel launches in {plans} "
+        "plans from the estimate")
+  check(err <= E3_ERROR_TOL and np.isfinite(out["cost"]),
+        f"E3: the estimate {err:.3g} from the sim state (bound "
+        f"{E3_ERROR_TOL:g}), or a non-finite cost")
+  # the estimation and plan threads beside step()
+  calls = []
+  inner = agent.planner.optimize
+
+  def counted(*args, **kw):
+    calls.append(1)
+    return inner(*args, **kw)
+
+  agent.planner.optimize = counted
+  u0, l0 = agent.estimator_updates, mega.launches
+  ages, steps, t = [], 0, time.perf_counter()
+  try:
+    agent.start_estimation()
+    agent.start_planning()  # one plan before its thread starts
+    t_loop = time.perf_counter()
+    while time.perf_counter() - t_loop < E3_ASYNC_S:
+      agent.step()
+      steps += 1
+      ages.append(agent._data_version - agent.plan_version)
+  finally:
+    agent.stop_planning()
+    agent.stop_estimation()
+    del agent.planner.optimize
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t
+  updates, plans = agent.estimator_updates - u0, len(calls)
+  launches = mega.launches - l0
+  est = agent.estimated_state()
+  out["async"] = {
+      "seconds": wall, "steps_per_s": steps / wall,
+      "estimator_updates_per_s": updates / wall, "plans_per_s": plans / wall,
+      "policy_age_steps_mean": float(np.mean(ages)),
+      "policy_age_steps_max": int(np.max(ages)), "launches": launches,
+      "plans": plans}
+  a = out["async"]
+  print(f"[E3] start_estimation() and start_planning() beside step() for "
+        f"{wall:.2f} s: {a['steps_per_s']:.1f} steps/s, "
+        f"{a['estimator_updates_per_s']:.1f} estimator updates/s, "
+        f"{a['plans_per_s']:.1f} plans/s (kernel launches {launches} in "
+        f"{plans} plans); the policy's age at a step: mean "
+        f"{a['policy_age_steps_mean']:.2f}, max {a['policy_age_steps_max']} "
+        f"steps")
+  check(updates > 0 and plans > 0 and np.all(np.isfinite(est["qpos"])),
+        "E3: the estimation and plan threads made no progress")
+  check(launches == plans, f"E3: {launches} kernel launches in the "
+        f"{plans} plans of the async window")
+  return out
+
+
+def run_estimation(dev, rec: dict, jobs: dict) -> None:
+  """E1-E3's timings on a quiet host (the holds ran beside the plain
+  version's runs): each timed estimator's float32 updates, then the
+  closed loop."""
+  r = rec.setdefault("estimation", {})
+  precision_check("E")
+  for (case, task, name), (window, timed, future) in jobs.items():
+    if timed:
+      r[case][task][name].update(time_estimator(
+          case, task, name, window, future.result()["inputs"], dev))
+  precision_check("E")
+  r["E3"] = estimate_loop(dev, rec)
+
+
 def main() -> int:
   ap = argparse.ArgumentParser()
   ap.add_argument("--out", help="also write every measured number here")
@@ -3021,7 +3444,8 @@ def main() -> int:
     print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
           file=sys.stderr)
     return 2
-  t_start = time.perf_counter()
+  global T_START
+  T_START = time.perf_counter()
   import mujoco_mpc_torch  # noqa: F401 (fails outside a checkout)
   if args.ncu_target:
     return ncu_target()
@@ -3036,13 +3460,13 @@ def main() -> int:
       mp_context=multiprocessing.get_context("spawn"))
   pools = [PLAIN]
   try:
-    return run_all(args, dev, rec, t_start, pools)
+    return run_all(args, dev, rec, pools)
   finally:
     for pool in pools:
       pool.shutdown(wait=True, cancel_futures=True)
 
 
-def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
+def run_all(args, dev, rec: dict, pools: list) -> int:
   """Every phase, in order; the card's worker pool joins `pools`, which
   main stops."""
   import numpy as np
@@ -3085,6 +3509,8 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
       MR._library(tier, dt)
   rec["build_s"] = time.perf_counter() - t
   check(all(w.result() for w in warm), "the plain version's workers")
+  # E's float64 updates on the CPU start now, in the workers
+  e_jobs = submit_estimator_holds()
   print(f"[2] built {len(libs)} libraries ({2 * len(libs)} kernel instances;"
         f" {len(MR.TIERS)} pairs of them uncontracted float witnesses, "
         f"{len(MR.TIERS)} pairs with phase counters, one pair the small "
@@ -3238,7 +3664,7 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
       "err_over_tol": max(rec["returns_rel_err"], drive["returns_rel_err"],
                           rec["returns_rel_err_1024x80"]) / 2e-3}]
 
-  print(f"[t] {time.perf_counter() - t_start:.1f} s: Humanoid")
+  timeline("Humanoid")
   # ---- 3h. Humanoid: one step against the plain version, on states in
   #      which every constraint row class carries force (a state whose own
   #      float32 step is far from float64, a stiff leg-leg crossing, may
@@ -3272,35 +3698,35 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
 
   for run in (run_quadruped, run_shadow, run_handover, run_allegro,
               run_cem, run_small_tasks, run_flat_tasks):
-    print(f"[t] {time.perf_counter() - t_start:.1f} s: {run.__name__}")
+    timeline(run.__name__)
     made = run(dev, rec) if run is run_cem else run(dev, rec, reps)
     rows += made if isinstance(made, list) else [made]
-  rec["card_s"] = time.perf_counter() - t_start
-  print(f"[t] {rec['card_s']:.1f} s: every phase's work on the card done; "
-        f"the comparisons with the plain version as its returns come in")
+  rec["card_s"] = timeline("every phase's work on the card done; the "
+                           "comparisons with the plain version as their "
+                           "returns come in")
   pools.append(run_card_queue())
-  # ---- G4's and D1-D3's float64 holds, which time nothing, while the
-  #      plain version's float32 runs share the card
-  print(f"[t] {time.perf_counter() - t_start:.1f} s: the float64 holds of "
-        f"G4 and D1-D3")
+  # ---- G4's, D1-D3's and E1-E2's float64 holds, which time nothing,
+  #      while the plain version's float32 runs share the card
+  timeline("the float64 holds of G4, D1-D3 and E1-E2")
   flat_first_plans(dev, rec)
   derivative_holds(dev, rec)
-  print(f"[t] {time.perf_counter() - t_start:.1f} s: waiting for the plain "
-        f"version's returns")
+  estimator_holds(dev, rec, e_jobs)
+  timeline("waiting for the plain version's returns")
   resolve_deferred()
-  print(f"[t] {time.perf_counter() - t_start:.1f} s: every comparison with "
-        f"the plain version held")
+  timeline("every comparison with the plain version held")
 
   # ---- G. the general engine and the closed loop, on a quiet host
-  print(f"[t] {time.perf_counter() - t_start:.1f} s: the general engine")
+  timeline("the general engine")
   run_general(dev, rec)
   # ---- G4. the flat-ground tasks' closed loops
-  print(f"[t] {time.perf_counter() - t_start:.1f} s: the flat-ground "
-        f"tasks' closed loops")
+  timeline("the flat-ground tasks' closed loops")
   run_flat_loops(dev, rec)
   # ---- D. every planner, and the derivative planners' rates
-  print(f"[t] {time.perf_counter() - t_start:.1f} s: the planners")
+  timeline("the planners")
   run_derivative(dev, rec)
+  # ---- E. the estimators' rates, and the estimate-driven loop
+  timeline("the estimators")
+  run_estimation(dev, rec, e_jobs)
   kernels = {"kernels": [row() for row in rows]}
   loops = rec["general"]["G3"]
   for row in kernels["kernels"]:
@@ -3308,6 +3734,10 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
                       ("Cartpole", "cartpole")):
       if row["name"] == f"megarollout_returns[{tag}]":
         row["closed_loop_launches"] = loops[name]["launches"]
+    if row["name"] == "megarollout_returns[cartpole]":
+      e3 = rec["estimation"]["E3"]
+      row["from_estimate_launches"] = {"launches": e3["launches"],
+                                       "plans": e3["plans"]}
     if row["name"] == "megarollout_returns[walker]":
       row["planner_launches"] = {
           name: res["launches"]
@@ -3333,7 +3763,8 @@ def run_all(args, dev, rec: dict, t_start: float, pools: list) -> int:
           f"{b['device_events']} device events, busy {b['busy_ms']:.3f} ms: "
           f"busy share {share}")
   rec["ncu"] = ncu_probe()
-  rec["total_s"] = time.perf_counter() - t_start
+  rec["total_s"] = time.perf_counter() - T_START
+  rec["t"] = TIMELINE
   print(f"[end] every phase passed in {rec['total_s']:.1f} s, the build "
         f"included")
   if args.out:

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from mujoco_mpc_torch.estimators import batch, kalman, unscented
 from mujoco_mpc_torch.physics import types
 from mujoco_mpc_torch.tasks import base
 
@@ -51,3 +52,20 @@ def data(jax_data_np, device) -> types.Data:
   if contact is not None:
     contact = _fields(types.Contact, contact, device)
   return _fields(types.Data, jax_data_np, device, contact=contact)
+
+
+def kalman_state(jax_state_np, device) -> kalman.KalmanState:
+  """JAX KalmanState (numpy leaves) -> KalmanState on `device`."""
+  return _fields(kalman.KalmanState, jax_state_np, device,
+                 data=data(jax_state_np.data, device))
+
+
+def unscented_state(jax_state_np, device) -> unscented.UnscentedState:
+  """JAX UnscentedState (numpy leaves) -> UnscentedState on `device`."""
+  return _fields(unscented.UnscentedState, jax_state_np, device,
+                 data=data(jax_state_np.data, device))
+
+
+def batch_state(jax_state_np, device) -> batch.BatchState:
+  """JAX BatchState (numpy leaves) -> BatchState on `device`."""
+  return _fields(batch.BatchState, jax_state_np, device)

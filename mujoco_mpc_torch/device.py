@@ -27,3 +27,16 @@ def resolve(device) -> torch.device:
     if device.index is None:
       device = torch.device("cuda", torch.cuda.current_device())
   return device
+
+
+def wait(device) -> None:
+  """Block the calling thread until the work it has queued on `device`'s
+  current stream so far is done (a CUDA event; nothing on the CPU): a
+  thread that publishes a result (a policy, an estimate) waits for it
+  first, as JAX's loops block until ready, so that it does not run ahead
+  and fill the stream that the other threads share."""
+  device = torch.device(device)
+  if device.type == "cuda":
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    event.synchronize()

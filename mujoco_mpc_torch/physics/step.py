@@ -17,6 +17,8 @@ reads the previous step's kinematics, and a residual reads the step's.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from mujoco_mpc_torch.ops import linalg
@@ -49,12 +51,17 @@ def forward(m: Model, d: Data, compute_sensors: bool = True) -> Data:
   """Position, velocity and acceleration stages: qacc, the contact set and
   forces, and (compute_sensors) sensordata."""
   d = _smooth(m, d, actuate=True)
+  return _forward_acc(m, collision.collide(m, d), _chol(m, d),
+                      dynamics.xfrc_accumulate(m, d), compute_sensors)
+
+
+def _forward_acc(m: Model, d: Data, factor, xfrc,
+                 compute_sensors: bool = True) -> Data:
+  """forward's acceleration stage on actuated, collided data."""
   qfrc_smooth = (d.qfrc_passive + d.qfrc_actuator + d.qfrc_applied +
-                 dynamics.xfrc_accumulate(m, d) - d.qfrc_bias)
-  factor = _chol(m, d)
+                 xfrc - d.qfrc_bias)
   d = d.replace(qLD=factor)
   qacc_smooth = linalg.chol_solve(factor, qfrc_smooth)
-  d = collision.collide(m, d)
   d = solver_mod.solve(m, d, qacc_smooth, factor)
   d = d.replace(qacc=linalg.chol_solve(factor,
                                        qfrc_smooth + d.qfrc_constraint))
@@ -153,11 +160,26 @@ def inverse(m: Model, d: Data) -> torch.Tensor:
   residual)."""
   qacc = d.qacc
   d = _smooth(m, d, actuate=False)
-  factor = _chol(m, d)
-  qfrc_smooth = (d.qfrc_passive + d.qfrc_applied +
-                 dynamics.xfrc_accumulate(m, d) - d.qfrc_bias)
+  return _inverse_force(m, collision.collide(m, d), qacc, _chol(m, d),
+                        dynamics.xfrc_accumulate(m, d))
+
+
+def _inverse_force(m: Model, d: Data, qacc, factor, xfrc) -> torch.Tensor:
+  """inverse's force on smoothed (unactuated), collided data."""
+  qfrc_smooth = d.qfrc_passive + d.qfrc_applied + xfrc - d.qfrc_bias
   qacc_smooth = linalg.chol_solve(factor, qfrc_smooth)
-  d = collision.collide(m, d)
   d = solver_mod.solve(m, d, qacc_smooth, factor)
   return (torch.matmul(d.qM, qacc[..., None])[..., 0] + d.qfrc_bias -
           d.qfrc_passive - d.qfrc_constraint)
+
+
+def forward_inverse(m: Model, d: Data) -> Tuple[Data, torch.Tensor]:
+  """(forward(m, d), inverse(m, d)) with the stages they share computed
+  once: the smooth dynamics (actuation last), the factor and the contact
+  set; the two constraint solves (inverse's without actuation) apart."""
+  qacc = d.qacc
+  d = collision.collide(m, _smooth(m, d, actuate=False))
+  factor = _chol(m, d)
+  xfrc = dynamics.xfrc_accumulate(m, d)
+  force = _inverse_force(m, d, qacc, factor, xfrc)
+  return _forward_acc(m, dynamics.actuation(m, d), factor, xfrc), force

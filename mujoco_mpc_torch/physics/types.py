@@ -110,6 +110,17 @@ class Option:
     return dataclasses.replace(self, **kw)
 
 
+# the numeric fields that Model.with_values may replace -> the keys of the
+# engine's constants (Model.const) built from their values; no other
+# constant reads them
+VALUE_CONSTS = {
+    "dof_damping": frozenset(),
+    "site_pos": frozenset(),
+    "body_mass": frozenset({"sensors_host"}),
+    "body_inertia": frozenset({"sensors_host"}),
+}
+
+
 @dataclasses.dataclass
 class Model:
   """Physics model. Field names and meanings follow the JAX Model."""
@@ -260,12 +271,29 @@ class Model:
   def replace(self, **kw) -> "Model":
     return dataclasses.replace(self, **kw)
 
+  def with_values(self, **kw) -> "Model":
+    """replace() of the numeric fields in VALUE_CONSTS, keeping this
+    Model's constants: the new Model shares them (each built once for
+    both) but for those built from the replaced values, which it builds
+    for itself."""
+    unknown = set(kw) - set(VALUE_CONSTS)
+    if unknown:
+      raise ValueError(f"with_values: no constant list for {sorted(unknown)}"
+                       f" (fields: {sorted(VALUE_CONSTS)})")
+    out = dataclasses.replace(self, **kw)
+    out.__dict__["_const"] = self.__dict__.setdefault("_const", {})
+    out.__dict__["_own"] = self.__dict__.get("_own", frozenset()).union(
+        *(VALUE_CONSTS[k] for k in kw))
+    return out
+
   def const(self, key, build):
     """`build()`, made once per Model object and kept: the engine's
     constants derived from the static structure (index and mask tensors
     on the model's device), so that a step copies nothing from the host.
-    `replace` makes a new Model, which builds its own."""
-    cache = self.__dict__.setdefault("_const", {})
+    `replace` makes a new Model, which builds its own; `with_values` one
+    that shares them."""
+    own = key in self.__dict__.get("_own", ())
+    cache = self.__dict__.setdefault("_own_const" if own else "_const", {})
     if key not in cache:
       cache[key] = build()
     return cache[key]

@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from mujoco_mpc_torch.estimators import base as est_base
 from mujoco_mpc_torch.estimators.base import local_diff, retract
 from mujoco_mpc_torch.ops import linalg, norms
 from mujoco_mpc_torch.ops import rollout as rollout_mod
@@ -123,14 +124,6 @@ def apply_tangent(m: Model, x_ref: torch.Tensor,
   nq, nv = m.nq, m.nv
   return torch.cat([retract(m, x_ref[..., :nq], dx[..., :nv]),
                     x_ref[..., nq:] + dx[..., nv:]], dim=-1)
-
-
-def _unit_tangents(batch: int, n: int, like: torch.Tensor) -> torch.Tensor:
-  """(batch, n, n) dual zeros whose row j carries the unit tangent e_j."""
-  eye = torch.eye(n, dtype=like.dtype, device=like.device)
-  return fwAD.make_dual(torch.zeros((batch, n, n), dtype=like.dtype,
-                                    device=like.device),
-                        eye.expand(batch, n, n).contiguous())
 
 
 def _perturbed(m: Model, data: Data, xs: torch.Tensor, us: torch.Tensor,
@@ -232,8 +225,8 @@ class ILQGPlanner(PhaseMarks):
     forward-mode general step over T (2 nv + nu) states."""
     m = task.model
     nx = 2 * m.nv
-    with fwAD.dual_level():
-      dxu = _unit_tangents(us.shape[0], nx + m.nu, xs)
+    with est_base.dual_level():
+      dxu = est_base.unit_tangents(nx + m.nu, xs, us.shape[:1])
       d = phys_step.step(m, _perturbed(m, data, xs[:-1], us, ts, dxu))
       out = tangent(m, torch.cat([d.qpos, d.qvel], dim=-1), xs[1:, None, :])
       jac = fwAD.unpack_dual(out).tangent.transpose(1, 2)
@@ -248,8 +241,8 @@ class ILQGPlanner(PhaseMarks):
     and the residual) and each term's norm_grad_hess."""
     m = task.model
     nxu = 2 * m.nv + m.nu
-    with fwAD.dual_level():
-      dxu = _unit_tangents(us.shape[0], nxu, xs)
+    with est_base.dual_level():
+      dxu = est_base.unit_tangents(nxu, xs, us.shape[:1])
       d = kinematics.kinematics(m, _perturbed(m, data, xs, us, ts, dxu))
       d = dynamics.com_pos(m, d)
       d, _ = dynamics.com_vel(m, d)
