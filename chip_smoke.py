@@ -87,6 +87,18 @@ one; E3 Agent("Cartpole", planner="sampling") planning from its Kalman
 estimate every 2 steps (one kernel launch a plan, reported on the
 Cartpole kernel row as from_estimate_launches; the estimate within 1e-4
 of the sim state), then the estimation and plan threads beside step().
+Phase M holds the mesh and heightfield pairs (physics/collision.py) on
+Bimanual Insert and Quadruped Hill, both on the general route: one
+float64 general step of 16 probe states each (every new pair kind
+carrying force) and each task's first float64 plan on the card against
+the CPU, a float32 step over the heightfield's far corner, then float32
+ms and launches per step and each Agent's closed loop (6 steps, a plan
+every 2). Phase S serves the Walker Agent on the card through the gRPC
+agent service in this process (service/), the port's AgentClient on
+localhost: GetAction against the Agent's own, one kernel launch per
+PlannerStep, the RPC's time beside a direct planner_step, the server's
+own plan loop; then the estimation and direct services on Cartpole, each
+response against the direct call's.
 The elapsed seconds at each phase go to --out's "t". The
 last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernel once per path with its launch count, error,
@@ -1957,7 +1969,7 @@ def closed_loop(name: str, dev, steps: int, plan_every: int = 2,
          "horizontal_displacement": float(np.linalg.norm(delta[:2])),
          "displacement": [float(x) for x in delta], "final_cost": cost,
          "ms_per_step": float(np.mean(step_ms)),
-         "ms_per_plan": float(np.mean(plan_ms)),
+         "plan_ms": plan_ms, "ms_per_plan": float(np.mean(plan_ms)),
          "sim_time": float(agent.data.time),
          "userdata": [float(x) for x in agent.data.userdata[:8].cpu()]}
   if early is not None:
@@ -2127,11 +2139,14 @@ PICK_FINITE_STEPS = 20
 
 def flat_operands(name, model, dev):
   """A flat-ground task's goal and mode operands (tests/
-  torch_flat_cases.py): operands(dtype), the phases' keywords, and the
+  torch_flat_cases.py, or tests/torch_mesh_cases.py for Bimanual Insert
+  and Quadruped Hill): operands(dtype), the phases' keywords, and the
   set_state keywords (numpy)."""
   import torch
   from tests import torch_flat_cases as fc
-  mp, mq, ud = fc.operands(name, model)
+  from tests import torch_mesh_cases as mc
+  mp, mq, ud = (mc.operands if name in mc.NEW_KINDS else fc.operands)(
+      name, model)
   state = {"userdata": ud}
   if model.nmocap:
     state.update(mocap_pos=mp, mocap_quat=mq)
@@ -2363,7 +2378,7 @@ def flat_loop(name: str, dev, steps: int) -> dict:
          "route": "kernel" if mega is not None else "general",
          "shape": [cfg.num_trajectories, cfg.horizon],
          "ms_per_step": float(np.mean(step_ms)),
-         "ms_per_plan": float(np.mean(plan_ms)),
+         "plan_ms": plan_ms, "ms_per_plan": float(np.mean(plan_ms)),
          "ms_per_plan_median": float(np.median(plan_ms)),
          "final_cost": cost, "transition_calls": len(seen),
          "userdata": [float(x) for x in d.userdata[:4].cpu()],
@@ -3354,7 +3369,7 @@ def estimate_loop(dev, rec: dict) -> dict:
   out = {"steps": E3_STEPS, "plans": plans, "launches": launches,
          "launches_per_plan": launches / plans, "max_estimate_error": err,
          "ms_per_step": float(np.mean(step_ms)),
-         "ms_per_plan": float(np.mean(plan_ms)),
+         "plan_ms": plan_ms, "ms_per_plan": float(np.mean(plan_ms)),
          "cart": float(agent.data.qpos[0]), "pole": float(agent.data.qpos[1]),
          "cost": agent.total_cost()}
   print(f"[E3] Agent('Cartpole', 'sampling') with a Kalman filter from "
@@ -3431,6 +3446,297 @@ def run_estimation(dev, rec: dict, jobs: dict) -> None:
           case, task, name, window, future.result()["inputs"], dev))
   precision_check("E")
   r["E3"] = estimate_loop(dev, rec)
+
+
+# ---------------------------------------------------------------------------
+# M: the mesh and heightfield pairs, with Bimanual Insert and Quadruped
+# Hill on the general route
+# ---------------------------------------------------------------------------
+
+# M's float64 step holds: probe states of each task (tests/
+# torch_mesh_cases.py), every new pair kind carrying force in one of them
+# at least; the closed loops' Agent.steps (a planner_step every 2)
+MESH_STATES, MESH_LOOP_STEPS = 16, 6
+
+
+def mesh_step_hold(name: str, dev, card: str) -> dict:
+  """M: one general float64 step of MESH_STATES probe states on the card
+  against the CPU (G1's bound: qpos and qvel 1e-10; each pair kind's
+  contact forces summed over its points, 1e-8 of their largest), the
+  active points of each pair kind; then one state's float32 step: ms
+  (CUDA events over 20 steps) and launches (torch.profiler)."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.ops import rollout as R
+  from mujoco_mpc_torch.physics import io as phys_io
+  from mujoco_mpc_torch.physics import step as S
+  from mujoco_mpc_torch.tasks import registry
+  from tests import torch_mesh_cases as mc
+  host = registry.get_task(name, dtype=torch.float64, device="cpu").model
+  states = mc.probe_states(name, host, MESH_STATES)
+  out = {}
+  for key, device in (("card", dev), ("cpu", "cpu")):
+    m = registry.get_task(name, dtype=torch.float64, device=device).model
+    d = R.broadcast(phys_io.make_data(m), (MESH_STATES,)).replace(**{
+        k: torch.tensor(v, dtype=torch.float64, device=device)
+        for k, v in states.items()})
+    out[key] = S.step(m, d)
+  torch.cuda.synchronize()
+  on_card, on_cpu = out["card"], out["cpu"]
+  err = {f: float((getattr(on_card, f).cpu() - getattr(on_cpu, f)).abs()
+                  .max()) for f in ("qpos", "qvel")}
+  fc, fh = mc.force_by_kind(host, on_card.contact), mc.force_by_kind(
+      host, on_cpu.contact)
+  kind_err = {k: float(np.abs(fc[k].sum(-2) - fh[k].sum(-2)).max()
+                       / max(float(np.abs(fh[k]).max()), 1e-300))
+              for k in fh if np.abs(fh[k]).max() > 0}
+  active = {k: int(np.count_nonzero(np.abs(f).sum(-1))) for k, f in fh.items()}
+  kinds = mc.active_kinds(host, on_cpu)
+  print(f"[M] {name}, {MESH_STATES} probe states: general step card vs CPU "
+        f"(float64) qpos {err['qpos']:.3g}, qvel {err['qvel']:.3g} (tol "
+        f"1e-10); per pair kind |sum card - sum CPU| over its largest force "
+        f"{ {k: float(f'{v:.3g}') for k, v in kind_err.items()} } (tol 1e-8);"
+        f" active points per pair kind (all states) {active}")
+  check(err["qpos"] <= 1e-10 and err["qvel"] <= 1e-10
+        and all(v <= 1e-8 for v in kind_err.values()),
+        f"M {name}: the general step on the card is {err}, {kind_err} from "
+        "the CPU's in float64")
+  check(kinds == mc.NEW_KINDS[name], f"M {name}: the new pair kinds "
+        f"{sorted(mc.NEW_KINDS[name])} carry force in {sorted(kinds)} only")
+  m = registry.get_task(name, device=dev).model
+  d1 = phys_io.make_data(m).replace(**{
+      k: torch.tensor(v[0], dtype=torch.float32, device=dev)
+      for k, v in states.items()})
+  S.step(m, d1)  # builds the model's constants
+  ms = timed_cuda(lambda: S.step(m, d1), 20)
+  launches = profile_launches(lambda: S.step(m, d1))
+  print(f"[M] {name}: one state's general step (float32) {ms:.3f} ms (CUDA "
+        f"events over 20 steps; {card}), {launches['launch_calls']} launches "
+        f"({launches['device_events']} device kernels; torch.profiler)")
+  return {"card_vs_cpu": err, "kind_err": kind_err, "active": active,
+          "ms_per_step": ms, "launches_per_step": launches}
+
+
+def far_edge_step(dev) -> dict:
+  """M: one float32 step of Quadruped Hill with its feet over the field's
+  far corner and beyond (tests/torch_mesh_cases.py::far_edge_state): the
+  clip bound rounds to the last grid line there and the neighbour's index
+  is clamped; it must run on the card (no device assert) and equal the
+  CPU's (qpos 1e-5, qvel 1e-3, as the float32 steps elsewhere)."""
+  import torch
+  from mujoco_mpc_torch.physics import io as phys_io
+  from mujoco_mpc_torch.physics import step as S
+  from mujoco_mpc_torch.tasks import registry
+  from tests import torch_mesh_cases as mc
+  out = {}
+  for key, device in (("card", dev), ("cpu", "cpu")):
+    m = registry.get_task("Quadruped Hill", device=device).model
+    st = mc.far_edge_state(m)
+    d = phys_io.make_data(m).replace(**{
+        k: torch.tensor(v[0], dtype=torch.float32, device=device)
+        for k, v in st.items()})
+    out[key] = S.step(m, d)
+  torch.cuda.synchronize()
+  err = {f: float((getattr(out["card"], f).cpu()
+                   - getattr(out["cpu"], f)).abs().max())
+         for f in ("qpos", "qvel")}
+  print(f"[M] Quadruped Hill over the field's far corner (float32): the "
+        f"step ran on the card; card vs CPU qpos {err['qpos']:.3g} (tol "
+        f"1e-5), qvel {err['qvel']:.3g} (tol 1e-3)")
+  check(err["qpos"] <= 1e-5 and err["qvel"] <= 1e-3
+        and bool(torch.all(torch.isfinite(out["card"].qvel))),
+        f"M: the far-edge step on the card is {err} from the CPU's")
+  return err
+
+
+def mesh_holds(dev, rec: dict) -> None:
+  """Phase M's holds, which time nothing: the float64 steps, a step with
+  no host sync (G1's), the first float64 plans on the general route
+  (G4_CANDIDATES candidates, card against the CPU's in a worker:
+  best_return rel 1e-8, the same winner, the policy's values within 1e-6
+  of their max), and the far-edge float32 step."""
+  from tests import torch_mesh_cases as mc
+  g = rec.setdefault("mesh", {})
+  cpu = {name: PLAIN.submit(_first_general_plan_job, name)
+         for name in mc.NEW_KINDS}
+  for name in mc.NEW_KINDS:
+    g[name] = {"step": mesh_step_hold(name, dev, rec["card"])}
+    no_sync_step(name, dev)
+  g["far_edge"] = far_edge_step(dev)
+  for name in mc.NEW_KINDS:
+    card = first_general_plan(name, dev)
+    ref = cpu[name].result()
+    br = abs(card["best_return"] - ref["best_return"]) / max(
+        abs(ref["best_return"]), 1e-300)
+    gap = rel_to_max(card["values"], ref["values"])
+    g[name]["first_plan"] = {"best_return": card["best_return"],
+                             "best_return_rel": br, "values_gap": gap,
+                             "winner": (card["winner"], ref["winner"]),
+                             "cpu_s": ref["cpu_s"]}
+    print(f"[M] {name}: first float64 plan, {G4_CANDIDATES} candidates on "
+          f"the general route, card vs CPU: best_return "
+          f"{card['best_return']:.10g} rel {br:.3g} (tol 1e-8), values "
+          f"{gap:.3g} of the max (tol 1e-6), winner {card['winner']} "
+          f"({ref['winner']} on the CPU, {ref['cpu_s']:.1f} s in its "
+          f"worker)")
+    check(card["winner"] == ref["winner"] and br <= 1e-8 and gap <= 1e-6,
+          f"M {name}: the first plan on the card disagrees with the CPU's")
+
+
+def run_mesh_loops(dev, rec: dict) -> None:
+  """Phase M's times: each task's closed loop at its Agent's default
+  shape (flat_loop, MESH_LOOP_STEPS steps, a planner_step every 2: the
+  transition on the card, no kernel launch on the general route); its ms
+  per plan the median of the plans after the first."""
+  import numpy as np
+  from tests import torch_mesh_cases as mc
+  for name in mc.NEW_KINDS:
+    loop = flat_loop(name, dev, MESH_LOOP_STEPS)
+    loop["ms_per_plan_warm_median"] = float(np.median(loop["plan_ms"][1:]))
+    rec["mesh"][name]["loop"] = loop
+    print(f"[M] {name}: float32 plan at the Agent's default shape "
+          f"{loop['shape'][0]}x{loop['shape'][1]}, median of "
+          f"{len(loop['plan_ms']) - 1} after the first: "
+          f"{loop['ms_per_plan_warm_median']:.3f} ms ({rec['card']})")
+
+
+# ---------------------------------------------------------------------------
+# S: the agent's serving edge: the gRPC services on the card
+# ---------------------------------------------------------------------------
+
+# S's timed RPCs, and Step calls while the server plans
+S_REPS, S_ASYNC_STEPS = 5, 5
+
+
+def _same(what: str, got, want) -> None:
+  import numpy as np
+  check(np.array_equal(np.asarray(got), np.asarray(want)),
+        f"S: {what}: the response {got} differs from the direct call's "
+        f"{want}")
+
+
+def serving_edge(dev, rec: dict) -> None:
+  """Phase S: the port's agent server in this process on a localhost port,
+  its Agent on the card, and the port's AgentClient against it on the
+  Walker: GetAction against servicer.agent.action() from the same state,
+  bitwise; one PlannerStep launches the kernel once (the launch counter);
+  the median ms of S_REPS PlannerStep RPCs beside S_REPS direct
+  planner_step calls (each ending in the returned best_return, as the RPC
+  does); StartPlanning, S_ASYNC_STEPS Steps, StopPlanning. Then the
+  estimation and direct services on Cartpole on the card, each response
+  against the port's Kalman and Direct called on the same inputs."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.estimators import base as est_base
+  from mujoco_mpc_torch.estimators import get_estimator
+  from mujoco_mpc_torch.estimators.direct import Direct, DirectConfig
+  from mujoco_mpc_torch.service import agent_service
+  from mujoco_mpc_torch.service import client as sclient
+  from mujoco_mpc_torch.service.direct_service import DirectClient
+  from mujoco_mpc_torch.service.filter_service import FilterClient
+  from mujoco_mpc_torch.tasks import registry
+  out = rec["serving"] = {}
+  servicer = agent_service.AgentServicer(device=dev)
+  server, port = agent_service.make_server(0, max_workers=1,
+                                           servicer=servicer)
+  try:
+    t = time.perf_counter()
+    c = sclient.AgentClient("Walker", port=port)
+    out["init_s"] = time.perf_counter() - t
+    a = servicer.agent
+    home = a.task.model.keyframe("home")[0]
+    c.set_state(qpos=home)
+    mega = a.planner.mega
+    mega.launches = 0
+    best = c.planner_step()
+    out["planner_step_launches"] = mega.launches
+    check(mega.launches == 1, f"S: a PlannerStep launched the kernel "
+          f"{mega.launches} times")
+    check(np.isfinite(best), "S: PlannerStep's best_return")
+    _same("GetAction", c.get_action(), a.action())
+    _same("GetState", c.get_state()["qpos"], a.get_state()["qpos"])
+    rpc_ms, direct_ms = [], []
+    for _ in range(S_REPS):
+      t = time.perf_counter()
+      c.planner_step()
+      rpc_ms.append((time.perf_counter() - t) * 1e3)
+      t = time.perf_counter()
+      float(a.planner_step().best_return)
+      direct_ms.append((time.perf_counter() - t) * 1e3)
+    out.update(rpc_ms=rpc_ms, direct_ms=direct_ms,
+               rpc_ms_median=float(np.median(rpc_ms)),
+               direct_ms_median=float(np.median(direct_ms)))
+    launches0, time0 = mega.launches, c.get_state()["time"]
+    c.start_planning()
+    for _ in range(S_ASYNC_STEPS):
+      c.step()
+    c.stop_planning()
+    out["async_plans"] = mega.launches - launches0
+    out["async_sim_time"] = c.get_state()["time"] - time0
+    check(out["async_plans"] >= 1 and out["async_sim_time"] > 0,
+          f"S: StartPlanning/Step/StopPlanning: {out['async_plans']} plans, "
+          f"{out['async_sim_time']} s of simulation")
+    c.close()
+  finally:
+    server.stop(None)
+  print(f"[S] agent server on the card ({rec['card']}), the port's "
+        f"AgentClient on localhost, Walker {a.planner.config.num_trajectories}"
+        f"x{a.planner.config.horizon}: Init {out['init_s']:.2f} s (warm-up "
+        f"included); GetAction and GetState equal the Agent's, bitwise; one "
+        f"PlannerStep launched the kernel {out['planner_step_launches']} "
+        f"time; PlannerStep RPC median {out['rpc_ms_median']:.3f} ms, direct "
+        f"planner_step median {out['direct_ms_median']:.3f} ms (n={S_REPS} "
+        f"each, alternating): {out['rpc_ms_median'] - out['direct_ms_median']:.3f}"
+        f" ms for the RPC; StartPlanning, {S_ASYNC_STEPS} Steps, "
+        f"StopPlanning: {out['async_plans']} plans, "
+        f"{out['async_sim_time']:.4f} s simulated")
+  # the estimation service against the port's Kalman on the same inputs
+  m = registry.get_task("Cartpole", device=dev).model
+  start, dim = est_base.measurement_slice(m)
+  kalman = get_estimator("kalman", m, sensor_start=start, nsensordata=dim)
+  state = kalman.init()
+  rng = np.random.RandomState(0)
+  t = time.perf_counter()
+  with FilterClient("Cartpole", filter="kalman", device=dev) as fc:
+    for _ in range(4):
+      u, z = rng.uniform(-1, 1, m.nu), rng.uniform(-1, 1, dim)
+      fc.update(u, z)
+      state = kalman.update(state, torch.tensor(u, dtype=m.dtype,
+                                                device=dev),
+                            torch.tensor(z, dtype=m.dtype, device=dev))
+    st = fc.state()
+    qpos, qvel, _ = kalman.state(state)
+    _same("State qpos", st["qpos"], qpos.cpu().numpy())
+    _same("State qvel", st["qvel"], qvel.cpu().numpy())
+    _same("Covariance", fc.covariance(), state.cov.cpu().numpy())
+  out["filter_s"] = time.perf_counter() - t
+  # the direct service against the port's Direct on the same window
+  T = 8
+  rng = np.random.RandomState(1)
+  qpos = torch.tensor(rng.normal(0, 0.05, (T, m.nq)), dtype=m.dtype,
+                      device=dev)
+  sensors = torch.tensor(rng.normal(0, 0.05, (T, dim)), dtype=m.dtype,
+                         device=dev)
+  ctrls = torch.zeros((T, m.nu), dtype=m.dtype, device=dev)
+  direct = Direct(m, DirectConfig(horizon=T, max_iterations=2),
+                  sensor_start=start, nsensordata=dim)
+  t = time.perf_counter()
+  with DirectClient("Cartpole", horizon=T, device=dev) as dc:
+    for i in range(T):
+      dc.data(i, qpos=qpos[i].cpu().numpy(), sensor=sensors[i].cpu().numpy(),
+              ctrl=ctrls[i].cpu().numpy())
+    dc.settings(max_iterations=2)
+    res = dc.optimize()
+    want = direct.optimize(qpos, sensors, ctrls)
+    _same("Optimize", [res["cost_initial"], res["cost_final"]],
+          [float(want.cost_initial), float(want.cost)])
+    _same("Cost", dc.cost(), float(direct._total_cost(
+        want.qpos, direct.default_parameters(), sensors, ctrls)))
+  out["direct_s"] = time.perf_counter() - t
+  print(f"[S] estimation service (Kalman, 4 updates) and direct service "
+        f"(window {T}, 2 iterations) on Cartpole on the card: every "
+        f"response equals the direct call's; {out['filter_s']:.2f} s and "
+        f"{out['direct_s']:.2f} s with their servers' start")
 
 
 def main() -> int:
@@ -3705,10 +4011,11 @@ def run_all(args, dev, rec: dict, pools: list) -> int:
                            "comparisons with the plain version as their "
                            "returns come in")
   pools.append(run_card_queue())
-  # ---- G4's, D1-D3's and E1-E2's float64 holds, which time nothing,
+  # ---- G4's, M's, D1-D3's and E1-E2's float64 holds, which time nothing,
   #      while the plain version's float32 runs share the card
-  timeline("the float64 holds of G4, D1-D3 and E1-E2")
+  timeline("the float64 holds of G4, M, D1-D3 and E1-E2")
   flat_first_plans(dev, rec)
+  mesh_holds(dev, rec)
   derivative_holds(dev, rec)
   estimator_holds(dev, rec, e_jobs)
   timeline("waiting for the plain version's returns")
@@ -3721,12 +4028,18 @@ def run_all(args, dev, rec: dict, pools: list) -> int:
   # ---- G4. the flat-ground tasks' closed loops
   timeline("the flat-ground tasks' closed loops")
   run_flat_loops(dev, rec)
+  # ---- M. Bimanual Insert's and Quadruped Hill's closed loops
+  timeline("the mesh and heightfield tasks' closed loops")
+  run_mesh_loops(dev, rec)
   # ---- D. every planner, and the derivative planners' rates
   timeline("the planners")
   run_derivative(dev, rec)
   # ---- E. the estimators' rates, and the estimate-driven loop
   timeline("the estimators")
   run_estimation(dev, rec, e_jobs)
+  # ---- S. the serving edge: the gRPC services on the card
+  timeline("the serving edge")
+  serving_edge(dev, rec)
   kernels = {"kernels": [row() for row in rows]}
   loops = rec["general"]["G3"]
   for row in kernels["kernels"]:
@@ -3739,6 +4052,8 @@ def run_all(args, dev, rec: dict, pools: list) -> int:
       row["from_estimate_launches"] = {"launches": e3["launches"],
                                        "plans": e3["plans"]}
     if row["name"] == "megarollout_returns[walker]":
+      row["rpc_planner_step_launches"] = rec["serving"][
+          "planner_step_launches"]
       row["planner_launches"] = {
           name: res["launches"]
           for name, res in rec["derivative"]["D2"].items()}

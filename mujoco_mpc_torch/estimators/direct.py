@@ -136,7 +136,7 @@ class DirectConfig:
   max_iterations: int = 10
   num_steps: int = 6  # the line search's step sizes 2^-k
   sensor_weight: float = 1.0  # scalar, or per sensor through noise_weights
-  force_weight: float = 1.0
+  force_weight: float = 1.0  # scalar, or per dof (nv,)
   regularization: float = 1e-8
   solver: str = "band"  # "band" (blocked Cholesky) | "dense"
 
@@ -167,16 +167,23 @@ class Direct(PhaseMarks):
     self.parameters = tuple(parameters)
     self.ntheta = sum(p.dim for p in self.parameters)
     kw = {"dtype": model.dtype, "device": model.device}
-    # per-sensor noise weighting (reference noise_sensor, direct.h)
-    w = (torch.full((self.ns,), config.sensor_weight, **kw)
-         if noise_weights is None else torch.as_tensor(noise_weights, **kw))
-    self._sensor_w_sqrt = torch.sqrt(w)
+    self.set_sensor_weights(
+        torch.full((self.ns,), config.sensor_weight, **kw)
+        if noise_weights is None else noise_weights)
     self._template = phys_io.make_data(model)
     self._prior = torch.tensor(
         [v for p in self.parameters for v in p.prior], **kw)
     self._prior_w = torch.tensor(
         [p.prior_weight for p in self.parameters for _ in range(p.dim)],
         **kw)
+
+  def set_sensor_weights(self, w) -> None:
+    """The per-sensor measurement weights (ns,) (reference noise_sensor,
+    direct.h); config.force_weight, a scalar or per dof (nv,), weighs the
+    force residual."""
+    self.sensor_weights = torch.as_tensor(w, dtype=self.model.dtype,
+                                          device=self.model.device)
+    self._sensor_w_sqrt = torch.sqrt(self.sensor_weights)
 
   # --------------------------------------------------------- parameter glue
   def _apply_params(self, theta: torch.Tensor) -> Model:
@@ -231,8 +238,11 @@ class Direct(PhaseMarks):
     # D h acc (MuJoCo's mjENBL_INVDISCRETE analog)
     f = f + m.dof_damping.to(dtype) * h * acc
     f = f - df.qfrc_actuator  # explained by the known actuation
+    force_w = self.config.force_weight  # a float (no host copy) or (nv,)
+    force_w = (math.sqrt(force_w) if isinstance(force_w, (int, float))
+               else torch.sqrt(force_w.to(dtype)))
     return torch.cat([self._sensor_w_sqrt.to(dtype) * r_sensor,
-                      math.sqrt(self.config.force_weight) * f], dim=-1)
+                      force_w * f], dim=-1)
 
   def _stencils(self, qs: torch.Tensor):
     return qs[..., :-2, :], qs[..., 1:-1, :], qs[..., 2:, :]

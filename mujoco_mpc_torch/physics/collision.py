@@ -5,28 +5,36 @@ load (physics/io.py), so every candidate pair is evaluated every step and
 an inactive point just carries a positive distance: fixed shapes, no
 data-dependent control flow. Each pair kind gives a fixed number of points
 (a capsule on a plane 2, a box on a plane its 8 corners, box against box
-16). The primitive pairs are ported; a model with a mesh or heightfield
-pair raises NotImplementedError (ROADMAP queue 1 item 4).
+16, a mesh its _MESH_COUNTS, a box on a heightfield its 8 corners).
 
 As the tile step (tilestep.COINCIDE), and unlike the JAX package, a pair
 whose closest points coincide up to rounding (crossing capsule axes, a
 sphere centre on a capsule's axis, a sphere centre inside a box on the
 mid-plane of its nearest face) takes no normal from the rounding residue:
 its rows are degenerate and the solver drops them (ROADMAP queue 3).
-Elsewhere the points are the JAX package's.
+Elsewhere the points are the JAX package's. That holds for the mesh pairs
+too: their support-function SAT takes its normal from a fixed axis set
+(face normals, the centre direction, 13 fixed axes), never from two
+coincident points, so they keep JAX's points. Their k deepest vertices
+are chosen as jax.lax.top_k chooses them, ties to the lowest vertex index
+(a stable sort; torch.topk orders ties otherwise), so a hull face lying
+flat on a plane gives JAX's contact set. Depths within _TIE_GRAIN count as
+tied: where a face lies square to the contact axis at any other angle,
+its vertices tie only up to rounding, and the port takes the lowest
+index on the CPU and on the card alike, where JAX's pick follows its
+matmul's rounding (ROADMAP queue 3). A heightfield sample
+at the field's far edge gathers its clamped neighbour, as a JAX gather
+does out of bounds.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mujoco_mpc_torch.physics import math
 from mujoco_mpc_torch.physics.tilestep import COINCIDE
 from mujoco_mpc_torch.physics.types import Contact, Data, GeomType, Model
-
-_ITEM = ("not ported yet (ROADMAP queue 1 item 4: the mesh and "
-         "heightfield pairs)")
-
 
 def _frame_from_normal(n: torch.Tensor) -> torch.Tensor:
   """(..., 3, 3) rows [normal, tangent1, tangent2] of unit normals n."""
@@ -238,8 +246,242 @@ _DISPATCH = {
     (GeomType.BOX, GeomType.BOX): _box_box,
 }
 
+# ---------------------------------------------------------------------------
+# convex meshes: support-function SAT over the hull-vertex clouds and face
+# normals that physics/io.py builds (VCAP vertices, NCAP normals, each
+# padded with copies of its first). Each mesh pair function takes its
+# group's hulls as well: hull2/norm2 (P, VCAP, 3)/(P, NCAP, 3) of the mesh
+# geom2, hull1/norm1 of geom1 where that is a mesh too.
+
+_MESH_EXTRA_AXES = 13  # half-sphere fixed axes appended to the SAT set
+_FIXED_AXES = {}  # the fixed axes, per (device, dtype)
+
+
+def _mesh_axes_fixed(like):
+  """(13, 3) golden-spiral axes over the upper half-sphere."""
+  key = (like.device, like.dtype)
+  if key not in _FIXED_AXES:
+    i = np.arange(_MESH_EXTRA_AXES, dtype=np.float64)
+    phi = np.pi * (3.0 - np.sqrt(5.0)) * i
+    z = (i + 0.5) / _MESH_EXTRA_AXES
+    r = np.sqrt(np.maximum(1.0 - z * z, 0.0))
+    _FIXED_AXES[key] = torch.as_tensor(
+        np.stack([r * np.cos(phi), r * np.sin(phi), z], axis=1),
+        dtype=like.dtype, device=like.device)
+  return _FIXED_AXES[key]
+
+
+def _mesh_world(hull, norm, p, mat):
+  """(..., P, VCAP, 3) world hull vertices, (..., P, NCAP, 3) world face
+  normals."""
+  mt = mat.transpose(-1, -2)
+  return torch.matmul(hull, mt) + p[..., None, :], torch.matmul(norm, mt)
+
+
+# the grain at which vertex depths count as tied (m): 2^-30 in float64,
+# 2^-17 in float32, some 10^7 and 10^2 times their rounding at a hull's
+# centimetre scale
+_TIE_GRAIN = {torch.float64: 2.0 ** -30, torch.float32: 2.0 ** -17}
+
+
+def _deepest(depth, k: int):
+  """Indices of the k smallest of depth (..., V) along its last axis, as
+  jax.lax.top_k(-depth, k) picks them (ties to the lowest index), with
+  depths equal to within _TIE_GRAIN counted as ties: the vertices of a
+  hull face square to an axis tie exactly, but their computed depths
+  differ by rounding, which the device's matmul decides."""
+  grain = _TIE_GRAIN[depth.dtype]
+  return torch.sort(torch.round(depth / grain), dim=-1,
+                    stable=True).indices[..., :k]
+
+
+def _take(x, idx):
+  """x (..., V, 3) at idx (..., k) -> (..., k, 3)."""
+  return torch.take_along_dim(x, idx[..., None], dim=-2)
+
+
+def _sat_contacts(v1, axes1, v2, axes2, c1, c2, k: int, inflate1=0.0):
+  """The k deepest vertices of cloud v2 (..., V2, 3) against cloud v1
+  (..., V1, 3), inflated by inflate1 (...,), along the least-penetrating
+  axis of the face axes axes1, axes2, the centre direction c1 -> c2 and
+  the fixed axes; each axis oriented hull1 -> hull2."""
+  _, cdir = math.safe_norm(c2 - c1)
+  lead = cdir.shape[:-1]
+  fixed = _mesh_axes_fixed(cdir)
+  axes = torch.cat([axes1.expand(lead + axes1.shape[-2:]),
+                    axes2.expand(lead + axes2.shape[-2:]),
+                    cdir[..., None, :],
+                    fixed.expand(lead + fixed.shape)], dim=-2)  # (..., K, 3)
+  sgn = torch.where(math.dot(axes, cdir[..., None, :]) >= 0, 1.0, -1.0)
+  axes = axes * sgn.to(axes.dtype)[..., None]
+  at = axes.transpose(-1, -2)
+  sep = (torch.amin(torch.matmul(v2, at), dim=-2) -
+         torch.amax(torch.matmul(v1, at), dim=-2) -
+         (inflate1[..., None] if torch.is_tensor(inflate1) else inflate1))
+  best = torch.argmax(sep, dim=-1)
+  axis = _take(axes, best[..., None])[..., 0, :]
+  hi1 = torch.amax(math.dot(v1, axis[..., None, :]), dim=-1) + inflate1
+  depth2 = math.dot(v2, axis[..., None, :])  # (..., V2)
+  idx = _deepest(depth2, k)
+  pts = _take(v2, idx)
+  dist = torch.take_along_dim(depth2, idx, dim=-1) - hi1[..., None]
+  pos = pts - (0.5 * torch.clamp(dist, max=0.0))[..., None] * axis[
+      ..., None, :]
+  return [(dist[..., j], pos[..., j, :], axis) for j in range(k)]
+
+
+def _plane_mesh(pp, pm, mp, mm, psize, msize, hull2, norm2):
+  """The 4 deepest hull vertices against the plane."""
+  n = pm[..., :, 2]
+  v, _ = _mesh_world(hull2, norm2, mp, mm)
+  h = math.dot(v - pp[..., None, :], n[..., None, :])  # (..., VCAP)
+  idx = _deepest(h, 4)
+  hk = torch.take_along_dim(h, idx, dim=-1)
+  pos = _take(v, idx) - (0.5 * torch.clamp(hk, max=0.0))[..., None] * n[
+      ..., None, :]
+  return [(hk[..., j], pos[..., j, :], n) for j in range(4)]
+
+
+def _no_axes(p):
+  return p.new_zeros((0, 3))
+
+
+def _sphere_mesh(sp, sm, mp, mm, ssize, msize, hull2, norm2):
+  v2, n2 = _mesh_world(hull2, norm2, mp, mm)
+  return _sat_contacts(sp[..., None, :], _no_axes(sp), v2, n2, sp,
+                       torch.mean(v2, dim=-2), k=1, inflate1=ssize[..., 0])
+
+
+def _capsule_mesh(cp, cm, mp, mm, csize, msize, hull2, norm2):
+  axis = cm[..., :, 2]
+  half = csize[..., 1][..., None]
+  ends = torch.stack([cp + half * axis, cp - half * axis], dim=-2)
+  v2, n2 = _mesh_world(hull2, norm2, mp, mm)
+  return _sat_contacts(ends, _no_axes(cp), v2, n2, cp,
+                       torch.mean(v2, dim=-2), k=2, inflate1=csize[..., 0])
+
+
+def _box_mesh(bp, bm, mp, mm, bsize, msize, hull2, norm2):
+  v2, n2 = _mesh_world(hull2, norm2, mp, mm)
+  return _sat_contacts(_corners(bp, bm, bsize), bm.transpose(-1, -2), v2,
+                       n2, bp, torch.mean(v2, dim=-2), k=4)
+
+
+def _mesh_mesh(p1, m1, p2, m2, s1, s2, hull1, norm1, hull2, norm2):
+  v1, n1 = _mesh_world(hull1, norm1, p1, m1)
+  v2, n2 = _mesh_world(hull2, norm2, p2, m2)
+  return _sat_contacts(v1, n1, v2, n2, torch.mean(v1, dim=-2),
+                       torch.mean(v2, dim=-2), k=4)
+
+
+_MESH_DISPATCH = {GeomType.PLANE: _plane_mesh, GeomType.SPHERE: _sphere_mesh,
+                  GeomType.CAPSULE: _capsule_mesh, GeomType.BOX: _box_mesh,
+                  GeomType.MESH: _mesh_mesh}
+
 _MESH_COUNTS = {GeomType.PLANE: 4, GeomType.SPHERE: 1, GeomType.CAPSULE: 2,
                 GeomType.BOX: 4, GeomType.MESH: 4}
+
+
+# ---------------------------------------------------------------------------
+# heightfields: each point a sphere against the local plane of the field's
+# bilinear surface (field 0, its heights scaled by physics/io.py). Each
+# heightfield pair function takes the field (nrow, ncol) and its size (4,).
+
+
+def hfield_sample(field, hsize, x, y):
+  """Bilinear height and its x and y gradients of the field at local
+  (x, y), elementwise over any shape. A coordinate at the far edge (the
+  clip bound nc - 1 - 1e-6 rounds to nc - 1 in float32) gathers its
+  neighbour clamped to the last row or column, as JAX's gather does."""
+  nr, nc = field.shape
+  rx, ry = hsize[0], hsize[1]
+  zero = x.new_zeros(())
+  fx = math.clip((x + rx) / (2.0 * rx) * (nc - 1), zero,
+                 x.new_full((), nc - 1 - 1e-6))
+  fy = math.clip((y + ry) / (2.0 * ry) * (nr - 1), zero,
+                 x.new_full((), nr - 1 - 1e-6))
+  ix = torch.floor(fx).to(torch.int64)
+  iy = torch.floor(fy).to(torch.int64)
+  tx, ty = fx - ix.to(fx.dtype), fy - iy.to(fy.dtype)
+  ix1 = torch.clamp(ix + 1, max=nc - 1)
+  iy1 = torch.clamp(iy + 1, max=nr - 1)
+  h00, h01 = field[iy, ix], field[iy, ix1]
+  h10, h11 = field[iy1, ix], field[iy1, ix1]
+  h = (h00 * (1 - tx) * (1 - ty) + h01 * tx * (1 - ty) +
+       h10 * (1 - tx) * ty + h11 * tx * ty)
+  dhdx = ((h01 - h00) * (1 - ty) + (h11 - h10) * ty) * (nc - 1) / (2.0 * rx)
+  dhdy = ((h10 - h00) * (1 - tx) + (h11 - h01) * tx) * (nr - 1) / (2.0 * ry)
+  return h, dhdx, dhdy
+
+
+def _hfield_point(field, hsize, hp, hm, point, radius):
+  """A sphere (point, radius) against the field's local plane; the
+  normal points from the field into the other geom."""
+  local = math.mat_tvec(hm, point - hp)
+  h, gx, gy = hfield_sample(field, hsize, local[..., 0], local[..., 1])
+  n_local = torch.stack([-gx, -gy, torch.ones_like(gx)], dim=-1)
+  n_local = n_local / torch.linalg.vector_norm(n_local, dim=-1,
+                                               keepdim=True)
+  dist = (local[..., 2] - h) * n_local[..., 2] - radius
+  n = math.mat_vec(hm, n_local)
+  return dist, point - n * (radius + 0.5 * dist)[..., None], n
+
+
+def _hfield_points(field, hsize, hp, hm, points, radius):
+  """_hfield_point over the K points (..., K, 3) of each geom at once
+  (radius (..., K)): a list of K (dist, pos, normal)."""
+  dist, pos, n = _hfield_point(field, hsize, hp[..., None, :],
+                               hm[..., None, :, :], points, radius)
+  return [(dist[..., i], pos[..., i, :], n[..., i, :])
+          for i in range(points.shape[-2])]
+
+
+def _hfield_sphere(hp, hm, sp, sm, hs, ssize, field, hsize):
+  return [_hfield_point(field, hsize, hp, hm, sp, ssize[..., 0])]
+
+
+def _hfield_capsule(hp, hm, cp, cm, hs, csize, field, hsize):
+  ends = torch.stack([cp + (sgn * csize[..., 1])[..., None] * cm[..., :, 2]
+                      for sgn in (-1.0, 1.0)], dim=-2)
+  return _hfield_points(field, hsize, hp, hm, ends,
+                        csize[..., 0, None].expand(ends.shape[:-1]))
+
+
+def _hfield_box(hp, hm, bp, bm, hs, bsize, field, hsize):
+  corners = _corners(bp, bm, bsize)
+  return _hfield_points(field, hsize, hp, hm, corners,
+                        corners.new_zeros(corners.shape[:-1]))
+
+
+_HFIELD_DISPATCH = {GeomType.SPHERE: _hfield_sphere,
+                    GeomType.CAPSULE: _hfield_capsule,
+                    GeomType.BOX: _hfield_box}
+
+
+def _pair_fn(t1, t2):
+  """The group function of a pair of geom types (t1 <= t2)."""
+  if t2 == GeomType.MESH:
+    return _MESH_DISPATCH[t1]
+  if t1 == GeomType.HFIELD:
+    return _HFIELD_DISPATCH[t2]
+  return _DISPATCH[(t1, t2)]
+
+
+def _group_arrays(m: Model, fn, g1, g2, dtype):
+  """The model arrays a group function takes beyond the geoms' poses and
+  sizes: the mesh hulls, or the heightfield."""
+  if fn in _HFIELD_DISPATCH.values():
+    return {"field": m.hfield_data.to(dtype),
+            "hsize": m.hfield_size.to(dtype)}
+  out = {}
+  if fn in _MESH_DISPATCH.values():
+    sides = (("1", g1), ("2", g2)) if fn is _mesh_mesh else (("2", g2),)
+    for side, geoms in sides:
+      mid = torch.as_tensor([m.geom_dataid[g] for g in geoms],
+                            device=m.device)
+      out["hull" + side] = m.mesh_hullvert.to(dtype)[mid]
+      out["norm" + side] = m.mesh_facenorm.to(dtype)[mid]
+  return out
 
 
 def pair_slots(m: Model):
@@ -342,15 +584,6 @@ def _point_constants(m: Model, dtype):
   return out
 
 
-def check_supported(m: Model) -> None:
-  """NotImplementedError for a model with a mesh or heightfield pair."""
-  for g1, g2 in m.collision_pairs:
-    t1, t2 = GeomType(m.geom_type[g1]), GeomType(m.geom_type[g2])
-    if (t1, t2) not in _DISPATCH:
-      raise NotImplementedError(
-          f"collision pair {t1.name}-{t2.name} (geoms {g1}, {g2}): {_ITEM}")
-
-
 def _groups(m: Model):
   """The candidate pairs grouped by pair function: (function, geom1 ids,
   geom2 ids) per group, in first-seen order, and for every contact point
@@ -358,7 +591,7 @@ def _groups(m: Model):
   pair-major)."""
   order, members = [], {}
   for i, (g1, g2) in enumerate(m.collision_pairs):
-    fn = _DISPATCH[(GeomType(m.geom_type[g1]), GeomType(m.geom_type[g2]))]
+    fn = _pair_fn(GeomType(m.geom_type[g1]), GeomType(m.geom_type[g2]))
     if fn not in members:
       order.append(fn)
       members[fn] = []
@@ -384,7 +617,6 @@ def collide(m: Model, d: Data) -> Data:
   pairs; Data with the dense Contact arrays (slot order)."""
   if not m.collision_pairs:
     return d  # make_data's inactive placeholder
-  check_supported(m)
   dtype = d.qpos.dtype
   batch = d.qpos.shape[:-1]
   groups, perm = m.const("collide_groups", lambda: _groups(m))
@@ -395,9 +627,11 @@ def collide(m: Model, d: Data) -> Data:
         g1, device=m.device))
     i2 = m.const(("collide_g2", gi), lambda: torch.as_tensor(
         g2, device=m.device))
+    arrays = m.const(("collide_arrays", gi, dtype),
+                     lambda: _group_arrays(m, fn, g1, g2, dtype))
     pts = fn(d.geom_xpos[..., i1, :], d.geom_xmat[..., i1, :, :],
              d.geom_xpos[..., i2, :], d.geom_xmat[..., i2, :, :], size[i1],
-             size[i2])
+             size[i2], **arrays)
     # (..., P, K) and (..., P, K, 3), pair-major
     npair = len(g1)
     dists.append(torch.stack([x[0].expand(batch + (npair,)) for x in pts],

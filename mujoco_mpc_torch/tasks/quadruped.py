@@ -1,7 +1,8 @@
 """Quadruped locomotion with the reference's multi-gait FSM
 (reference: mjpc/tasks/quadruped/quadruped.{h,cc}).
 
-Counterpart of mujoco_mpc_tpu/tasks/quadruped.py, Quadruped Flat: 5 gaits
+Counterpart of mujoco_mpc_tpu/tasks/quadruped.py, Quadruped Flat and
+Quadruped Hill (the same task on a heightfield terrain): 5 gaits
 (stand, walk, trot, canter, gallop) with per-foot phase signatures,
 gait-dependent cost weights (`weight_mod`) and the modes Quadruped, Biped,
 Walk, Scramble and Flip. The FSM state lives in userdata and the goal in
@@ -31,7 +32,8 @@ import numpy as np
 import torch
 
 from mujoco_mpc_torch import device as devices
-from mujoco_mpc_torch.physics import sensors
+from mujoco_mpc_torch.physics import collision, sensors
+from mujoco_mpc_torch.physics.types import GeomType
 from mujoco_mpc_torch.tasks import base, registry
 
 # residual_quadruped and weight_mod_quadruped in csrc/megarollout.cu
@@ -176,6 +178,25 @@ def _step_height(time, footphase, duty_ratio):
   return torch.where(torch.abs(value) < 1e-6, torch.zeros_like(value), value)
 
 
+def _ground_under(model, data, points):
+  """Terrain height under the points (N, 3, B), the reference's Ground()
+  raycast (JAX quadruped.py:213-230): 0 on a flat model; on Quadruped
+  Hill the bilinear surface of the heightfield geom, the same sample as
+  its collision pairs (physics/collision.py::hfield_sample), batched
+  over the points and candidates."""
+  hfield = [g for g, t in enumerate(model.geom_type) if t == GeomType.HFIELD]
+  if not hfield:
+    return torch.zeros_like(points[:, 0])
+  g = hfield[0]
+  hp, hm = data.geom_xpos[g], data.geom_xmat[g]  # (3, B), (3, 3, B)
+  rel = points - hp[None]
+  lx, ly = (sum(hm[k, i] * rel[:, k] for k in range(3)) for i in range(2))
+  h, _, _ = collision.hfield_sample(model.hfield_data.to(points.dtype),
+                                    model.hfield_size.to(points.dtype),
+                                    lx, ly)
+  return hm[2, 0] * lx + hm[2, 1] * ly + hm[2, 2] * h + hp[2]
+
+
 def _gait_of(u, mode):
   """Active gait (a biped always trots, quadruped.cc:652-656)."""
   return torch.where(mode == MODE_BIPED, GAIT_TROT, u[0].to(torch.int32))
@@ -211,7 +232,10 @@ def residual(model, data, params):
   # torso_xquat - (q_start * rot_y(angle))
   flip_time = data.time - u[8] + zero
   angle = _flip_angle(flip_time)
-  flip_axis_y = torch.where(params[_P_FLIP_DIR] > 0.5, 1.0, -1.0).to(dtype)
+  # Quadruped Hill's MJCF has no Flip dir parameter: JAX's gather clamps
+  # the index to the last one there (Arm posture), and so does the port
+  flip_dir = params[min(_P_FLIP_DIR, params.shape[0] - 1)]
+  flip_axis_y = torch.where(flip_dir > 0.5, 1.0, -1.0).to(dtype)
   half = 0.5 * angle
   dq = torch.stack([torch.cos(half), zero,
                     flip_axis_y * torch.sin(half) + zero, zero])
@@ -252,8 +276,7 @@ def residual(model, data, params):
       torch.sqrt(torch.sum(to_goal * to_goal, dim=1, keepdim=True)),
       min=1e-9)
   query = torch.where(scramble, foot_pos + 0.15 * to_goal, foot_pos)
-  ground = torch.zeros_like(query[:, 0])  # flat ground (Quadruped Hill's
-  #                                         height field is not ported)
+  ground = _ground_under(model, data, query)
   height_target = ground + _FOOT_RADIUS + step
   hdiff = foot_pos[:, 2] - height_target
   hdiff = torch.where(scramble, torch.clamp(hdiff, max=0.0), hdiff)
@@ -332,7 +355,7 @@ def transition(model, data, params):
   mode switches, Flip's entry (start time, torso orientation, ground
   height saved) and exit, automatic gait switching on the filtered CoM
   speed, phase continuity across a cadence change, and Walk's goal moving
-  along a line or circle. Flat ground only (the ground height is 0)."""
+  along a line or circle."""
   dtype = data.qpos.dtype
   u = list(torch.unbind(data.userdata, 0))
   t = data.time
@@ -358,7 +381,8 @@ def transition(model, data, params):
   u[8] = where(entering_flip, t, u[8])
   for i in range(4):
     u[17 + i] = where(entering_flip, torso_xquat[i], u[17 + i])
-  u[21] = where(entering_flip, 0.0, u[21])  # flat ground under the CoM
+  ground_com = _ground_under(model, data, data.subtree_com[trunk][None])[0]
+  u[21] = where(entering_flip, ground_com, u[21])
   flip_done = (req == MODE_FLIP) & ~entering_flip & (
       t - u[8] >= _FLIP_TOTAL_TIME)
   req = where(flip_done, MODE_QUADRUPED, req)
@@ -528,3 +552,42 @@ def make(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
                    mode_names=MODE_NAMES, weight_mod=weight_mod,
                    transition=transition,
                    device_residual=_device_residual(model))
+
+
+def _fill_hill(mj):
+  """Quadruped Hill's procedural terrain (JAX quadruped.py:534-549): a
+  smooth hill toward the goal with gentle ripples, flattened around the
+  start so that the home keyframe rests near z = 0."""
+  nr, nc = int(mj.hfield_nrow[0]), int(mj.hfield_ncol[0])
+  rx, ry = mj.hfield_size[0, 0], mj.hfield_size[0, 1]
+  y, x = np.meshgrid(np.linspace(-ry, ry, nr), np.linspace(-rx, rx, nc),
+                     indexing="ij")
+  hill = np.exp(-((x - 4.0) ** 2 + y ** 2) / 8.0)
+  ripple = 0.06 * (np.sin(2.2 * x) * np.cos(1.7 * y) + 1.0)
+  pad = np.clip((np.sqrt((x + 1.0) ** 2 + y ** 2) - 1.5) / 1.0, 0.0, 1.0)
+  h = (hill + ripple) * pad
+  mj.hfield_data[:] = (h / max(h.max(), 1e-9)).ravel()
+
+
+def build_hill():
+  """tasks/models/quadruped_hill.xml with its terrain filled, as a
+  mujoco.MjModel (needs mujoco)."""
+  import mujoco
+  mj = mujoco.MjModel.from_xml_path(
+      os.path.join(os.path.dirname(__file__), "models", "quadruped_hill.xml"))
+  _fill_hill(mj)
+  return mj
+
+
+@registry.register("Quadruped Hill", snapshot="quadruped_hill",
+                   builder=build_hill)
+def make_hill(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
+  """Quadruped Flat's task on the heightfield terrain. Heightfield pairs
+  are outside the CUDA kernel's class, so it has no CUDA residual and
+  plans through the general rollout, with its warning."""
+  model, spec, params, pnames = registry.load_task_model(
+      "quadruped_hill", dtype, device)
+  return base.Task(name="Quadruped Hill", model=model, spec=spec,
+                   params=params, residual=residual, param_names=pnames,
+                   mode_names=MODE_NAMES, weight_mod=weight_mod,
+                   transition=transition)

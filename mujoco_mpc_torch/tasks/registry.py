@@ -48,10 +48,7 @@ def get_task(name: str, dtype=torch.float32,
              device=devices.DEFAULT) -> base.Task:
   device = devices.resolve(device)
   if name not in _FACTORIES:
-    raise KeyError(
-        f"task {name!r} is not ported yet: Bimanual Insert and Quadruped "
-        f"Hill wait for the mesh and heightfield pairs (ROADMAP queue 1 "
-        f"items 4 and 11c); ported: {task_names()}")
+    raise KeyError(f"unknown task {name!r}; available: {task_names()}")
   return _FACTORIES[name](dtype=dtype, device=device)
 
 

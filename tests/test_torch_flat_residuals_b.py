@@ -5,7 +5,7 @@ float64, as tests/test_torch_flat_residuals.py holds the kernel tasks
 Track 3.8e-15 relative); Humanoid Track at the time 0.3 s with its Jog
 clip started at 0.1 s, which both packages read from the Data. The last
 test checks the route: each task plans through the general rollout with
-the warning that says why, and the registry lists the 24 ported tasks."""
+the warning that says why, and the registry lists all 26 tasks."""
 
 import warnings
 
@@ -26,10 +26,10 @@ def test_general_task_residual_matches_jax(name):
 
 def test_flat_tasks_take_their_routes():
   """The kernel tasks have a CUDA residual and no reason for the general
-  route; the general ones have none and warn; 24 tasks are registered and
-  an unported name raises naming what is left."""
+  route; the general ones have none and warn; all 26 tasks are
+  registered, Bimanual Insert among them, on the general route."""
   names = treg.task_names()
-  assert len(names) == 24
+  assert len(names) == 26
   assert set(fc.KERNEL_TASKS + fc.GENERAL_TASKS) <= set(names)
   for name in fc.KERNEL_TASKS:
     task = treg.get_task(name, device="cpu")
@@ -43,5 +43,8 @@ def test_flat_tasks_take_their_routes():
       mega, reason = tsampling.build_rollout(task, 4)
     assert mega is None and "no CUDA residual" in reason
     assert any("general rollout" in str(w.message) for w in caught)
-  with pytest.raises(KeyError, match="Bimanual Insert and Quadruped Hill"):
-    treg.get_task("Bimanual Insert", device="cpu")
+  insert = treg.get_task("Bimanual Insert", device="cpu")
+  assert insert.device_residual is None
+  with pytest.warns(UserWarning, match="general rollout"):
+    mega, reason = tsampling.build_rollout(insert, 4)
+  assert mega is None and "no CUDA residual" in reason

@@ -22,6 +22,7 @@ from mujoco_mpc_torch.agent.agent import Agent
 from mujoco_mpc_torch.ops import megarollout as tmr
 from mujoco_mpc_torch.physics import io as tio
 from mujoco_mpc_torch.physics import tilestep as tts
+from mujoco_mpc_torch.planners import sampling as tsampling
 from mujoco_mpc_torch.tasks import allegro as tallegro
 from mujoco_mpc_torch.tasks import class_models
 from mujoco_mpc_torch.tasks import dm_suite
@@ -111,13 +112,16 @@ def test_allegro_snapshot_matches_fresh_build():
 _FLAT_TASKS = ("OP3", "Pick", "PickAndPlace", "Bimanual Reorient",
                "Humanoid Interact", "Quadrotor", "Swimmer", "Rubik",
                "Humanoid Track")
+# and the two whose models have mesh and heightfield pairs (item 11c)
+_MESH_TASKS = ("Bimanual Insert", "Quadruped Hill")
 
 
-@pytest.mark.parametrize("name", _FLAT_TASKS)
+@pytest.mark.parametrize("name", _FLAT_TASKS + _MESH_TASKS)
 def test_flat_task_snapshot_matches_fresh_build(name):
   """Each flat-ground task's snapshot is exactly what from_mjmodel builds
   now from its builder (an MJCF copy or a dm_suite builder), and the task
-  equals the JAX package's: cost spec, parameters, sizes."""
+  equals the JAX package's: cost spec, parameters, sizes, and for the
+  mesh and heightfield tasks the hulls and the field."""
   stem, builder = treg._SNAPSHOTS[name]
   snap = _snapshot_matches_fresh_build(builder, stem)
   t = treg.get_task(name, dtype=torch.float64, device="cpu")
@@ -129,15 +133,26 @@ def test_flat_task_snapshot_matches_fresh_build(name):
     _same(f, getattr(t.params, f), np.asarray(getattr(j.params, f)), 0.0)
   for f in ("nq", "nv", "nu", "nbody", "nmocap", "nuserdata"):
     assert getattr(snap, f) == getattr(j.model, f), f
+  if name in _MESH_TASKS:
+    for f in ("mesh_hullvert", "mesh_facenorm", "hfield_data",
+              "hfield_size"):
+      ours, theirs = getattr(snap, f), getattr(j.model, f)
+      assert (ours is None) == (theirs is None), f
+      if ours is not None:
+        _same(f, ours, np.asarray(theirs), 0.0)
 
 
 def test_flat_task_files_are_the_jax_packages():
   """The port's copies of the flat-ground tasks' MJCF and of Humanoid
   Track's recorded clips are the JAX package's bytes."""
   files = ["op3.xml", "panda_pick.xml", "panda_bring.xml",
-           "bimanual_reorient.xml", "quadrotor.xml", "rubik_hand.xml"] + [
+           "bimanual_reorient.xml", "quadrotor.xml", "rubik_hand.xml",
+           "bimanual_insert.xml", "quadruped_hill.xml"] + [
                f"assets/clips/{c}.npz" for c in ("balance", "jog",
-                                                 "strider")]
+                                                 "strider")] + [
+               f"assets/connector/{f}" for f in (
+                   "mcX_m_collision_mcX_m_MESH.stl",
+                   "mcX_f_collision_mcX_f_MESH.stl", "README.md")]
   for name in files:
     with open(f"{REPO}/mujoco_mpc_torch/tasks/models/{name}", "rb") as a, \
         open(f"{REPO}/mujoco_mpc_tpu/tasks/models/{name}", "rb") as b:
@@ -347,8 +362,12 @@ def test_out_of_class_models_raise(case):
     model = tio.load_model(xml, device="cpu")
   with pytest.raises(tts.UnsupportedModel, match=item):
     tts.extract(model)
-  with pytest.raises(KeyError, match="not ported yet"):
-    treg.get_task("Quadruped Hill", device="cpu")
+  # a heightfield model builds, and plans through the general rollout
+  hill = treg.get_task("Quadruped Hill", device="cpu")
+  assert hill.device_residual is None
+  with pytest.warns(UserWarning, match="general rollout"):
+    mega, reason = tsampling.build_rollout(hill, 4)
+  assert mega is None and "no CUDA residual" in reason
 
 
 def test_make_data_matches_jax():

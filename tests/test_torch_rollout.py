@@ -185,8 +185,9 @@ def test_planner_general_route_matches_jax():
 
 def test_planner_route_follows_the_task():
   """Every registered task with a CUDA residual plans through the kernel
-  by default, and the four without one (Quadrotor, Swimmer, Rubik,
-  Humanoid Track) through the general rollout, saying so; a task with no
+  by default, and the six without one (Quadrotor, Swimmer, Rubik,
+  Humanoid Track, Bimanual Insert, Quadruped Hill) through the general
+  rollout, saying so; a task with no
   CUDA residual plans through the general rollout and says so; a task
   with one whose model the kernel refuses raises."""
   cfg = tsampling.SamplingConfig(num_trajectories=4, spline_points=3,
@@ -207,7 +208,8 @@ def test_planner_route_follows_the_task():
       planner.init(t)
       assert planner.general_reason is None, name
       assert isinstance(planner.mega, tmr.MegaRollout), name
-  assert general == {"Quadrotor", "Swimmer", "Rubik", "Humanoid Track"}
+  assert general == {"Quadrotor", "Swimmer", "Rubik", "Humanoid Track",
+                     "Bimanual Insert", "Quadruped Hill"}
   t = treg.get_task("Particle", device="cpu")
   planner = tsampling.SamplingPlanner(cfg)
   with pytest.warns(UserWarning, match="has no CUDA residual"):
