@@ -66,13 +66,13 @@ plan on the card against the CPU's (the CPU's in a worker, the same
 injected noise; the kernel-scored ones also through the double library
 built without multiply-add contraction), its kernel launches a plan
 (reported on the Walker kernel row as planner_launches), 5 timed float32
-plans (2 of gradient, iLQG, iLQS and robust), sample-gradient's two
+plans (1 of gradient, iLQG, iLQS and robust), sample-gradient's two
 launches timed apart, the host syncs of one iLQG and one gradient
 optimize and their peak memory; D3 the iLQG
 (Walker 80, Humanoid Walk 33) and gradient (Walker 80) iterations split
 by phase with CUDA events and the device's busy share, and the Cartpole
 quick start with its own (gradient) planner for about 20 s (at least 4
-steps), its first 6 float64 steps held against the CPU's. Phase E holds
+steps), its first 4 float64 steps held against the CPU's. Phase E holds
 the estimators (estimators/*.py): E1 the ground-truth, Kalman, Unscented
 and Batch estimators and the direct optimizer on Cartpole's simulation
 model, and the measurement updates of Kalman, Unscented and Direct
@@ -98,7 +98,23 @@ agent service in this process (service/), the port's AgentClient on
 localhost: GetAction against the Agent's own, one kernel launch per
 PlannerStep, the RPC's time beside a direct planner_step, the server's
 own plan loop; then the estimation and direct services on Cartpole, each
-response against the direct call's.
+response against the direct call's. Phase X drives the edges on the
+card: X1 the embedding interface (create_policy("Walker") on the default
+device, its plan loop in a thread beside 30 general steps from home, each
+publishing its state through step_policy and applying the action: ms a
+call, plans, kernel launches equal to the plans, the policy's age; with
+the loop stopped step_policy against Agent.action bitwise; destroy_policy
+joins the thread), X2 the C ABI (native/: built with g++ beside X1, its
+smoke on Walker on the card: nu 6, two same-state calls 300 ms apart
+with no call between differ, so the plan thread ran between them; the
+smoke asks such a pair up to 5 times), X3 a checkpoint round trip
+(the next plan bitwise; the file loaded on the CPU), X4 the phase timer
+over 5 plans and a device trace whose phase ranges hold the kernel, X5
+the CLI as a subprocess (beside X2's smoke) and its plans' launches in
+this process, X6 tools/drive.py on Walker for 100 steps, X7 the dashboard
+(ui/server.py) with its threads on the card for 5 s: its state, a weight,
+a switch to cross_entropy keeping the state, launches a plan, /frame.jpg's
+404 (no mujoco on the card's host).
 The elapsed seconds at each phase go to --out's "t". The
 last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernel once per path with its launch count, error,
@@ -117,6 +133,7 @@ import json
 import multiprocessing
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -3739,6 +3756,474 @@ def serving_edge(dev, rec: dict) -> None:
         f"{out['direct_s']:.2f} s with their servers' start")
 
 
+# ---------------------------------------------------------------------------
+# X: the edges: the embedding interface and its C ABI, checkpoint,
+#    profiling, the CLI, drive and the dashboard, on the card
+# ---------------------------------------------------------------------------
+
+# X1's sim steps beside the runner's plan loop (30: beside the plan loop a
+# Walker world step took 428 ms on an H100, in a run of 100); the C
+# smoke's gap between its two same-state calls; X5's simulated seconds;
+# X6's steps; X7's seconds of the dashboard's loops, and the most it waits
+# beyond them for 3 history samples
+X_STEPS, X_GAP_MS, X_CLI_S, X_DRIVE_STEPS = 30, 300, 0.2, 100
+X_DASH_S, X_DASH_WAIT_S = 5.0, 30.0
+
+
+@contextlib.contextmanager
+def rollouts_made():
+  """The MegaRollouts built in the block, in a list (yielded): the entry
+  points build their Agents, so their kernel launches are read from
+  these."""
+  from mujoco_mpc_torch.ops import megarollout as MR
+  made, init = [], MR.MegaRollout.__init__
+
+  def tracked(self, *args, **kwargs):
+    init(self, *args, **kwargs)
+    made.append(self)
+
+  MR.MegaRollout.__init__ = tracked
+  try:
+    yield made
+  finally:
+    MR.MegaRollout.__init__ = init
+
+
+def plan_threads() -> list:
+  """The live threads of Agent plan loops."""
+  import threading
+  return [t for t in threading.enumerate() if t.is_alive() and getattr(
+      getattr(t, "_target", None), "__qualname__", "").startswith(
+          "Agent.start_planning")]
+
+
+def printed(fn, *args):
+  """(fn(*args), its standard output), the output echoed."""
+  import io
+  buf = io.StringIO()
+  with contextlib.redirect_stdout(buf):
+    res = fn(*args)
+  sys.stdout.write(buf.getvalue())
+  return res, buf.getvalue()
+
+
+def x_interface(dev, rec: dict, out: dict) -> None:
+  """X1: create_policy("Walker") on the default device (its plan loop in
+  a thread) and the Walker's world on the card, X_STEPS general steps from
+  home, each publishing its state through step_policy and applying the
+  returned action; then, the loop stopped, step_policy against the
+  Agent's own action, bitwise; destroy_policy joins the thread."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.agent import interface
+  from mujoco_mpc_torch.physics import io as phys_io
+  from mujoco_mpc_torch.physics import step as phys_step
+  from mujoco_mpc_torch.tasks import registry
+  with rollouts_made() as made:
+    h = interface.create_policy("Walker")
+  runner = interface._RUNNERS[h]
+  agent = runner.agent
+  check(agent.device.type == "cuda" and len(made) == 1,
+        f"X1: create_policy's Agent is on {agent.device} with {len(made)} "
+        "rollouts")
+  m = registry.get_task("Walker", device=dev).model
+  d = phys_io.make_data(m).replace(qpos=torch.tensor(
+      m.keyframe("home")[0], dtype=m.dtype, device=dev))
+  ms, ages, finite = [], [], True
+  t_loop = time.perf_counter()
+  for _ in range(X_STEPS):
+    t = time.perf_counter()
+    u = interface.step_policy(h, d.qpos.cpu().numpy(), d.qvel.cpu().numpy(),
+                              float(d.time))
+    ms.append((time.perf_counter() - t) * 1e3)
+    ages.append(agent._data_version - agent.plan_version)
+    finite &= bool(np.all(np.isfinite(u)))
+    d = phys_step.step(m, d.replace(ctrl=torch.as_tensor(u, device=dev)))
+  loop_s = time.perf_counter() - t_loop
+  agent.stop_planning()
+  launches, plans = made[0].launches, agent.plans
+  qp, qv, t = d.qpos.cpu().numpy(), d.qvel.cpu().numpy(), float(d.time)
+  got = interface.step_policy(h, qp, qv, t)
+  want = agent.action()
+  interface.destroy_policy(h)
+  out.update(step_policy_ms=ms, step_policy_ms_median=float(np.median(ms)),
+             step_policy_ms_max=float(np.max(ms)), plans=plans,
+             launches=launches, age_steps_median=float(np.median(ages)),
+             age_steps_max=int(np.max(ages)), finite=finite,
+             sim_x=float(d.qpos[0]), loop_s=loop_s,
+             world_step_ms=loop_s / X_STEPS * 1e3,
+             plans_per_s=plans / loop_s)
+  check(finite, "X1: a non-finite action")
+  check(launches == plans and plans >= 2,
+        f"X1: {launches} kernel launches in {plans} plans")
+  check(np.array_equal(got, want), f"X1: step_policy {got} against the "
+        f"Agent's action {want} from the same state")
+  check(h not in interface._RUNNERS and not plan_threads(),
+        "X1: a plan thread outlived destroy_policy")
+  print(f"[X1] create_policy('Walker') on {agent.device}, its plan loop "
+        f"beside {X_STEPS} general steps from home: step_policy median "
+        f"{out['step_policy_ms_median']:.3f} ms, max "
+        f"{out['step_policy_ms_max']:.3f} ms; a world step (step_policy, "
+        f"the general step, the state's copy) {out['world_step_ms']:.1f} ms; "
+        f"{plans} plans ({out['plans_per_s']:.1f} a second), {launches} "
+        f"kernel launches; the policy {out['age_steps_median']:g} steps old "
+        f"(median; max {out['age_steps_max']}); every action finite; with "
+        f"the loop stopped step_policy equals Agent.action bitwise; "
+        f"destroy_policy left no plan thread ({rec['card']})")
+
+
+def x_capi_build() -> float:
+  """X2's build: the C ABI library and its smoke, with g++ against this
+  Python; its seconds."""
+  from mujoco_mpc_torch.native import build as native
+  t = time.perf_counter()
+  native.build()
+  native.build_test()
+  return time.perf_counter() - t
+
+
+def x_capi_start() -> tuple:
+  """X2's smoke on Walker on the default device (the card), started:
+  (the process, its start time)."""
+  from mujoco_mpc_torch.native import build as native
+  from mujoco_mpc_torch.tasks import registry
+  task = registry.get_task("Walker", device="cpu")
+  args = native.smoke_args("Walker", task.spec.names[0],
+                           task.model.keyframe("home")[0], task.model.nv,
+                           None, gap_ms=X_GAP_MS)
+  return (subprocess.Popen(args, env=native.smoke_env(),
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True), time.perf_counter())
+
+
+def x_capi_finish(rec: dict, out: dict, started: tuple) -> None:
+  """X2's checks: every return code (the smoke's own), nu = 6, and two
+  same-state actions X_GAP_MS apart with no call between them differ (in
+  one of the smoke's pairs)."""
+  proc, t = started
+  stdout, stderr = proc.communicate(timeout=120)
+  out["smoke_s"] = time.perf_counter() - t
+  out["stdout"], out["stderr_tail"] = stdout, stderr[-2000:]
+  check(proc.returncode == 0, f"X2: the C smoke exited {proc.returncode}:"
+        f"\n{stdout}\n{stderr[-4000:]}")
+  check("C ABI smoke test OK: nu=6 " in stdout,
+        f"X2: no OK line with nu=6:\n{stdout}")
+  m = re.search(r"max \|action change\| (\S+) \(pair (\d+) of", stdout)
+  change, pair = float(m[1]), int(m[2])
+  out.update(action_change=change, pair=pair, ran=True)
+  print(f"[X2] C ABI (g++, {out['build_s']:.1f} s to build) smoke on "
+        f"Walker on the card: OK, nu = 6; two same-state calls {X_GAP_MS} "
+        f"ms apart with no call between (pair {pair}): max |action change| "
+        f"{change:g} (the plan thread ran between the calls); "
+        f"{out['smoke_s']:.1f} s "
+        f"with the interpreter's start, beside X5's CLI ({rec['card']})")
+
+
+def x_checkpoint(dev, rec: dict, out: dict) -> None:
+  """X3: a Walker Agent on the card after 2 plans, saved; the file loaded
+  on the CPU equals the card's tensors bitwise; restored into a fresh
+  card Agent, the next plan's policy and returns equal the saved Agent's
+  next, bitwise."""
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.ops import _cuda_build
+  from mujoco_mpc_torch.utils import checkpoint
+  a = Agent("Walker", device=dev)
+  a.reset("home")
+  a.planner_step()
+  a.planner_step()
+  path = str(_cuda_build.BUILD_DIR / "x3_walker.pt")
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  checkpoint.save(path, a)
+  out["save_ms"] = (time.perf_counter() - t) * 1e3
+  out["bytes"] = os.path.getsize(path)
+  cpu = checkpoint.load(path, map_location="cpu")
+  for what, obj in (("policy", a.policy), ("data", a.data),
+                    ("task_params", a.task.params)):
+    for k, v in checkpoint._leaves(obj).items():
+      check(cpu[what][k].device.type == "cpu"
+            and torch.equal(cpu[what][k], v.cpu()),
+            f"X3: the CPU load's {what}.{k} differs from the card's")
+  b = Agent("Walker", device=dev)
+  torch.cuda.synchronize()
+  t = time.perf_counter()
+  checkpoint.restore(path, b)
+  torch.cuda.synchronize()
+  out["restore_ms"] = (time.perf_counter() - t) * 1e3
+  os.remove(path)
+  ia, ib = a.planner_step(), b.planner_step()
+  for k, v in checkpoint._leaves(a.policy).items():
+    check(torch.equal(v, checkpoint._leaves(b.policy)[k]),
+          f"X3: the restored Agent's next policy differs at {k}")
+  check(torch.equal(ia.costs, ib.costs),
+        "X3: the restored Agent's next returns differ")
+  print(f"[X3] checkpoint of the Walker Agent on the card after 2 plans: "
+        f"save {out['save_ms']:.3f} ms, restore {out['restore_ms']:.3f} ms, "
+        f"{out['bytes']} bytes; the CPU load equals the card's tensors and "
+        f"the restored Agent's next plan (policy and returns) the saved "
+        f"one's, bitwise ({rec['card']})")
+
+
+def x_profiling(dev, rec: dict, out: dict) -> None:
+  """X4: PhaseTimer over 5 Walker planner_steps (each phase waits for the
+  card); device_trace over 2 more: the Chrome trace holds the phase
+  ranges and a mr_returns_kernel launch inside each."""
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.ops import _cuda_build
+  from mujoco_mpc_torch.utils import profiling
+  a = Agent("Walker", device=dev)
+  a.reset("home")
+  a.planner_step()
+  timer = profiling.PhaseTimer()
+  for _ in range(5):
+    with timer.phase("planner_step", sync=dev):
+      a.planner_step()
+  out["report"] = timer.report()
+  logdir = _cuda_build.BUILD_DIR / "x4_trace"
+  with profiling.device_trace(str(logdir), device=dev):
+    for _ in range(2):
+      with timer.phase("traced_plan", sync=dev):
+        a.planner_step()
+  with open(logdir / profiling.TRACE_FILE) as f:
+    events = json.load(f)["traceEvents"]
+  shutil.rmtree(logdir)
+  # the phase's range on the host's track, and where the profiler draws
+  # one, on the card's
+  ranges = [e for e in events if e.get("name") == "traced_plan"
+            and e.get("cat") == "user_annotation"]
+  card_ranges = [e for e in events if e.get("name") == "traced_plan"
+                 and e.get("cat") == "gpu_user_annotation"]
+  kernels = [e for e in events if e.get("cat") == "kernel"
+             and "mr_returns_kernel" in e.get("name", "")]
+  inside = [k for k in kernels if any(
+      r["ts"] <= k["ts"] and k["ts"] + k["dur"] <= r["ts"] + r["dur"]
+      for r in ranges + card_ranges)]
+  out.update(trace_ranges=len(ranges), card_ranges=len(card_ranges),
+             trace_kernels=len(kernels),
+             kernels_inside=len(inside), trace_events=len(events))
+  check(len(ranges) == 2 and len(inside) >= 1,
+        f"X4: the trace has {len(ranges)} phase ranges and "
+        f"{len(inside)} of {len(kernels)} mr_returns_kernel events inside")
+  d2 = rec["derivative"]["D2"]["sampling"]["median_ms"]
+  mean = out["report"]["planner_step"]["mean_ms"]
+  print(f"[X4] PhaseTimer over 5 Walker planner_steps: mean {mean:.3f} ms "
+        f"(D2's sampling plan median {d2:.3f} ms); device_trace over 2: "
+        f"{len(events)} events, {len(ranges)} phase ranges, "
+        f"{len(inside)} mr_returns_kernel launches inside them "
+        f"({rec['card']})")
+
+
+def x_cli_start() -> tuple:
+  """X5's subprocess, python -m mujoco_mpc_torch --task Walker, started:
+  (the process, its start time)."""
+  return (subprocess.Popen(
+      [sys.executable, "-m", "mujoco_mpc_torch", "--task", "Walker",
+       "--time", str(X_CLI_S), "--plan_every", "2"],
+      cwd=os.path.dirname(os.path.abspath(__file__)),
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+      time.perf_counter())
+
+
+def x_cli_finish(rec: dict, out: dict, started: tuple) -> None:
+  """X5: the CLI subprocess's cost, wall time and realtime factor; --list
+  in this process, and a short run in this process counting the kernel's
+  launches a plan."""
+  import math
+
+  from mujoco_mpc_torch import __main__ as cli
+  from mujoco_mpc_torch.tasks import registry
+  dt = float(registry.get_task("Walker", device="cpu").model.opt.timestep)
+  proc, t = started
+  stdout, stderr = proc.communicate(timeout=300)
+  out["subprocess_s"] = time.perf_counter() - t
+  check(proc.returncode == 0, f"X5: the CLI exited {proc.returncode}:\n"
+        f"{stdout}\n{stderr[-4000:]}")
+  m = re.search(r"cost: (\S+)\nTotal wall time \((\d+) planning steps\): "
+                r"(\S+) s \((\S+)x realtime\)", stdout)
+  check(m is not None, f"X5: the CLI printed\n{stdout}")
+  cost, plans, wall = float(m[1]), int(m[2]), float(m[3])
+  # the printed factor has two decimals: the simulated seconds over the
+  # printed wall time
+  rtf = round(X_CLI_S / dt) * dt / wall
+  out.update(total_cost=cost, planning_steps=plans, wall_s=wall,
+             realtime_factor=rtf, printed_realtime_factor=float(m[4]))
+  check(math.isfinite(cost) and plans == round(X_CLI_S / dt / 2),
+        f"X5: cost {cost}, {plans} plans")
+  _, listed = printed(cli.main, ["--list"])
+  lines = dict(line.split(": ", 1) for line in listed.strip().splitlines())
+  out["tasks"] = len(lines["tasks"].split(", "))
+  out["planners"] = len(lines["planners"].split(", "))
+  check(out["tasks"] == 26 and out["planners"] == 7,
+        f"X5: --list named {out['tasks']} tasks, {out['planners']} planners")
+  with rollouts_made() as made:
+    _, text = printed(cli.main, ["--task", "Walker", "--time", "0.05",
+                                 "--plan_every", "2"])
+  n = int(re.search(r"\((\d+) planning steps\)", text)[1]) + 1  # warm-up
+  out["inprocess_plans"] = n
+  out["inprocess_launches"] = sum(r.launches for r in made)
+  check(out["inprocess_launches"] == n, f"X5: {out['inprocess_launches']} "
+        f"launches in the CLI's {n} plans")
+  print(f"[X5] python -m mujoco_mpc_torch --task Walker --time {X_CLI_S} "
+        f"--plan_every 2 (a subprocess beside X2's smoke, "
+        f"{out['subprocess_s']:.1f} s with its start): total cost "
+        f"{cost:.6f}, wall {wall:.2f} s, realtime factor {rtf:.4f}, "
+        f"{plans} plans; --list: {out['tasks']} tasks, "
+        f"{out['planners']} planners; in this process {n} plans launched the "
+        f"kernel {out['inprocess_launches']} times ({rec['card']})")
+
+
+def x_drive(rec: dict, out: dict) -> None:
+  """X6: tools.drive on Walker in this process, a plan every 2 steps."""
+  import math
+  from mujoco_mpc_torch.tools import drive
+  with rollouts_made() as made:
+    res, _ = printed(drive.main, ["--task", "Walker", "--steps",
+                                  str(X_DRIVE_STEPS), "--plan_every", "2"])
+  out.update(res)
+  out["launches"] = sum(r.launches for r in made)
+  check(out["launches"] == X_DRIVE_STEPS // 2,
+        f"X6: {out['launches']} launches in {X_DRIVE_STEPS // 2} plans")
+  check(all(math.isfinite(x) for x in res["displacement"])
+        and all(math.isfinite(res[k]) for k in (
+            "final_cost", "best_return_first", "best_return_last")),
+        f"X6: {res}")
+  print(f"[X6] drive Walker {X_DRIVE_STEPS} steps: displacement "
+        f"{res['displacement']}, final cost {res['final_cost']:.6f}, "
+        f"{res['wall_s']} s; {out['launches']} kernel launches in "
+        f"{X_DRIVE_STEPS // 2} plans ({rec['card']})")
+
+
+def x_dashboard(rec: dict, out: dict) -> None:
+  """X7: AgentUI("Walker") with its physics and plan threads on the card
+  and its server on a localhost port for X_DASH_S: the state, a weight set
+  through /api/set, a switch to cross_entropy with the loops paused (the
+  state kept) whose plans launch the kernel, and /frame.jpg's 404."""
+  import threading
+  import urllib.error
+  import urllib.request
+
+  import numpy as np
+  from mujoco_mpc_torch.ui import server
+
+  def req(port, path, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    r = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                               method="GET" if data is None else "POST")
+    try:
+      with urllib.request.urlopen(r, timeout=30) as resp:
+        return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+      return e.code, json.loads(e.read())
+
+  with rollouts_made() as made:
+    ui = server.AgentUI("Walker")
+    srv = server.make_server(ui, port=0)
+    port = srv.server_address[1]
+    serve = threading.Thread(target=srv.serve_forever, daemon=True)
+    serve.start()
+    try:
+      ui.start()
+      t = time.perf_counter()
+      time.sleep(X_DASH_S)
+      # beside the plan loop the physics loop makes a few steps a second
+      # (X1); the history takes a sample every second step
+      while (len(ui.history) < 3 and ui.error is None
+             and time.perf_counter() - t < X_DASH_S + X_DASH_WAIT_S):
+        time.sleep(0.1)
+      window = time.perf_counter() - t
+      code, st = req(port, "/api/state")
+      agent = ui.agent
+      plans = agent.plans
+      out.update(planner_hz=st["planner_hz"], planner_ms=st["planner_ms"],
+                 history=len(st["history"]), sim_time=st["time"],
+                 window_s=window, plans_per_s=plans / window)
+      check(code == 200 and "error" not in st and st["planner_hz"]
+            and len(st["history"]) >= 3,
+            f"X7: /api/state {code}: error {st.get('error')}, planner_hz "
+            f"{st['planner_hz']}, {len(st['history'])} history samples")
+      name = agent.task.spec.names[0]
+      code, _ = req(port, "/api/set", {"weights": {name: 1.625}})
+      check(code == 200 and agent.get_cost_weights()[name] == 1.625,
+            f"X7: /api/set of {name}: {code}")
+      req(port, "/api/set", {"paused": True})
+      time.sleep(0.2)
+      before = agent.get_state()
+      code, _ = req(port, "/api/planner", {"planner": "cross_entropy"})
+      after = ui.agent.get_state()
+      check(code == 200 and ui.agent.planner_name == "cross_entropy"
+            and all(np.array_equal(before[k], after[k])
+                    for k in ("qpos", "qvel", "time")),
+            "X7: the switch to cross_entropy did not keep the state")
+      req(port, "/api/set", {"paused": False})
+      time.sleep(1.0)
+      code, frame = req(port, "/frame.jpg")
+      out.update(frame_code=code, frame_reason=frame.get("error"))
+      check(code == 404 and "mujoco" in str(frame.get("error")),
+            f"X7: /frame.jpg answered {code} {frame}")
+      code, st = req(port, "/api/state")
+      check("error" not in st, f"X7: {st.get('error')}")
+    finally:
+      ui.stop()
+      srv.shutdown()
+      srv.server_close()
+  cem = ui.agent
+  out.update(sampling_plans=agent.plans, cem_plans=cem.plans,
+             launches=[r.launches for r in made])
+  check(len(made) == 2 and made[0].launches == agent.plans
+        and made[1].launches == cem.plans and cem.plans >= 1,
+        f"X7: launches {out['launches']}, plans {agent.plans} and "
+        f"{cem.plans}")
+  print(f"[X7] dashboard AgentUI('Walker') on the card, "
+        f"{out['window_s']:.1f} s of its loops: planner_hz "
+        f"{out['planner_hz']}, {out['plans_per_s']:.1f} plans a second, "
+        f"{out['history']} history samples, {out['sim_time']:.4f} s "
+        f"simulated; the weight set reached the task; cross_entropy kept "
+        f"the state; kernel launches {made[0].launches} in {agent.plans} "
+        f"sampling plans and {made[1].launches} in "
+        f"{cem.plans} CEM plans; /frame.jpg 404: {out['frame_reason']} "
+        f"({rec['card']})")
+
+
+def run_edges(dev, rec: dict) -> None:
+  """Phase X, each part timed on the timeline."""
+  out = rec["edges"] = {k: {} for k in ("X1", "X2", "X3", "X4", "X5", "X6",
+                                        "X7")}
+  t0 = time.perf_counter()
+
+  def mark(what: str) -> None:
+    timeline(f"X +{time.perf_counter() - t0:.1f} s: {what}")
+
+  # X2's g++ builds run beside X1 (host processes; X1 runs on the card)
+  with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    build = pool.submit(x_capi_build)
+    x_interface(dev, rec, out["X1"])
+    mark("X1")
+    out["X2"]["build_s"] = build.result()
+  x_checkpoint(dev, rec, out["X3"])
+  mark("X3")
+  x_profiling(dev, rec, out["X4"])
+  mark("X4")
+  # X2's smoke and X5's CLI, two processes at once: each starts an
+  # interpreter and a CUDA context (seconds), then plans on the card
+  smoke, cli = x_capi_start(), x_cli_start()
+  try:
+    x_capi_finish(rec, out["X2"], smoke)
+    mark("X2")
+    x_cli_finish(rec, out["X5"], cli)
+    mark("X5")
+  finally:
+    for proc, _ in (smoke, cli):
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+  x_drive(rec, out["X6"])
+  mark("X6")
+  x_dashboard(rec, out["X7"])
+  mark("X7")
+  out["s"] = time.perf_counter() - t0
+
+
 def main() -> int:
   ap = argparse.ArgumentParser()
   ap.add_argument("--out", help="also write every measured number here")
@@ -4040,6 +4525,10 @@ def run_all(args, dev, rec: dict, pools: list) -> int:
   # ---- S. the serving edge: the gRPC services on the card
   timeline("the serving edge")
   serving_edge(dev, rec)
+  # ---- X. the edges: interface and C ABI, checkpoint, profiling, CLI,
+  #      drive and dashboard on the card
+  timeline("the edges")
+  run_edges(dev, rec)
   kernels = {"kernels": [row() for row in rows]}
   loops = rec["general"]["G3"]
   for row in kernels["kernels"]:
@@ -4054,6 +4543,11 @@ def run_all(args, dev, rec: dict, pools: list) -> int:
     if row["name"] == "megarollout_returns[walker]":
       row["rpc_planner_step_launches"] = rec["serving"][
           "planner_step_launches"]
+      x = rec["edges"]
+      row["interface_launches"] = x["X1"]["launches"]
+      row["capi_ran"] = x["X2"]["ran"]
+      row["dashboard_launches"] = {"sampling": x["X7"]["launches"][0],
+                                   "cross_entropy": x["X7"]["launches"][1]}
       row["planner_launches"] = {
           name: res["launches"]
           for name, res in rec["derivative"]["D2"].items()}

@@ -67,6 +67,15 @@ _PLANNERS = {
 }
 
 
+def register_planner(name: str, factory):
+  """Add a planner under `name` beside the seven (reference planner
+  registry, mjpc/planners/include.h): factory(planning task,
+  horizon_steps) returns the planner, as a _PLANNERS entry does, and
+  Agent(task, planner=name) builds it. The task MJCF's agent_planner index
+  still names only the seven (_PLANNER_INDEX)."""
+  _PLANNERS[name] = factory
+
+
 class Agent:
   """Predictive-control agent: owns task, planner, policy and state."""
 
@@ -110,10 +119,12 @@ class Agent:
     self._lock = threading.Lock()
     self._plan_thread: Optional[threading.Thread] = None
     self._exit = threading.Event()
-    # the count of published world states (set_state, step), and the one
-    # the last plan started from
+    self._plan_error: Optional[BaseException] = None
+    # the count of published world states (set_state, step), the one the
+    # last plan started from, and the count of finished plans
     self._data_version = 0
     self.plan_version = 0
+    self.plans = 0
     # the attached estimator, its state, its thread, stop flag, error and
     # count of updates
     self._estimator = None
@@ -219,6 +230,7 @@ class Agent:
       self.policy = new_policy
       self.last_info = info
       self.plan_version = version
+      self.plans += 1
     return info
 
   def action(self, time: Optional[float] = None,
@@ -406,29 +418,43 @@ class Agent:
     second where given. One plan runs before the thread starts, so a
     policy of this state is in place when this returns. The thread waits
     for each plan's work on the card before the next, as the estimation
-    thread does for each update."""
+    thread does for each update. An error ends the thread, and is raised
+    again at stop_planning() and raise_planning_error()."""
     if self._plan_thread is not None:
       return
     self._exit.clear()
+    self._plan_error = None
     self.planner_step()
 
     def loop():
-      while not self._exit.is_set():
-        t0 = time_mod.perf_counter()
-        self.planner_step()
-        devices.wait(self.device)
-        if rate_limit_hz:
-          wait = 1.0 / rate_limit_hz - (time_mod.perf_counter() - t0)
-          if wait > 0:
-            self._exit.wait(wait)
+      try:
+        while not self._exit.is_set():
+          t0 = time_mod.perf_counter()
+          self.planner_step()
+          devices.wait(self.device)
+          if rate_limit_hz:
+            wait = 1.0 / rate_limit_hz - (time_mod.perf_counter() - t0)
+            if wait > 0:
+              self._exit.wait(wait)
+      except BaseException as e:  # raised again in the caller's thread
+        self._plan_error = e
 
     self._plan_thread = threading.Thread(target=loop, daemon=True)
     self._plan_thread.start()
 
+  def raise_planning_error(self):
+    """Raise the error that ended the plan thread, if one did: at every
+    call until stop_planning() joins the thread."""
+    if self._plan_error is not None:
+      raise RuntimeError("the plan thread failed") from self._plan_error
+
   def stop_planning(self):
     """Stop the plan loop and wait for its thread (its last plan ends
-    first)."""
+    first); raises the error that ended it, if one did, and forgets it."""
     self._exit.set()
     if self._plan_thread is not None:
       self._plan_thread.join()
       self._plan_thread = None
+    err, self._plan_error = self._plan_error, None
+    if err is not None:
+      raise RuntimeError("the plan thread failed") from err

@@ -52,6 +52,15 @@ def get_task(name: str, dtype=torch.float32,
   return _FACTORIES[name](dtype=dtype, device=device)
 
 
+def get_mj_model(name: str):
+  """The mujoco.MjModel task `name`'s snapshot is built from (rendering and
+  viewer use only: the port's engine never reads it; needs mujoco, and
+  dm_control for the dm_control suite's tasks)."""
+  if name not in _SNAPSHOTS:
+    raise KeyError(f"unknown task {name!r}; available: {task_names()}")
+  return _SNAPSHOTS[name][1]()
+
+
 def snapshot_path(stem: str) -> str:
   return os.path.join(_MODEL_DIR, f"{stem}.npz")
 

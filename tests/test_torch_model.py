@@ -196,7 +196,23 @@ def test_extract_matches_jax_extract():
 
 
 def test_import_leaves_jax_out():
+  # the edge modules first: the card's host has neither mujoco nor
+  # matplotlib, so they import neither (nor orbax) at import time
   code = ("import sys\n"
+          "import mujoco_mpc_torch.agent.interface\n"
+          "import mujoco_mpc_torch.utils.checkpoint\n"
+          "import mujoco_mpc_torch.utils.profiling\n"
+          "import mujoco_mpc_torch.tools.testspeed\n"
+          "import mujoco_mpc_torch.tools.drive\n"
+          "import mujoco_mpc_torch.tools.trace\n"
+          "import mujoco_mpc_torch.tools.plots\n"
+          "import mujoco_mpc_torch.tools.record_clip\n"
+          "import mujoco_mpc_torch.ui.server\n"
+          "import mujoco_mpc_torch.native.build\n"
+          "import mujoco_mpc_torch.__main__\n"
+          "heavy = [m for m in sys.modules if m.split('.')[0] in "
+          "('mujoco', 'matplotlib', 'orbax')]\n"
+          "assert not heavy, heavy\n"
           "import mujoco_mpc_torch.agent.agent, mujoco_mpc_torch.convert\n"
           "import mujoco_mpc_torch.ops.megarollout\n"
           "import mujoco_mpc_torch.tasks.humanoid\n"
