@@ -2135,7 +2135,7 @@ def run_general(dev, rec: dict) -> None:
 # general-route plan takes seconds of eager general steps (Swimmer's
 # 128 x 200 7-9 s on the card), so those loops run 6 steps where the
 # kernel tasks run 50, to keep the script's time
-FLAT_LOOP_STEPS = {"kernel": 50, "general": 6}
+FLAT_LOOP_STEPS = {"kernel": 26, "general": 6}
 # G4's float64 first plans on the general route, card against CPU: the
 # candidates of each (a prefix of the Agent's count keeps the CPU's time
 # down)
@@ -2472,9 +2472,11 @@ PLANNERS = ("sampling", "gradient", "ilqg", "ilqs", "robust",
 # engine only
 PLAN_LAUNCHES = {"sampling": 1, "gradient": 0, "ilqg": 0, "ilqs": 1,
                  "robust": 1, "cross_entropy": 1, "sample_gradient": 2}
-# D2's timed float32 plans a planner: 5, but 2 of the planners whose plan
-# takes seconds of eager general steps (to keep the script's time)
-PLAN_REPS = {"gradient": 2, "ilqg": 2, "ilqs": 2, "robust": 2}
+# D2's timed float32 plans a planner: 5, but 1 of the planners whose plan
+# takes seconds of eager general steps, and D3's of iLQG on Humanoid Walk
+# (to keep the script's time: a full run took 1,250 s on a slow host)
+PLAN_REPS = {"gradient": 1, "ilqg": 1, "ilqs": 1, "robust": 1}
+D3_HUMANOID_REPS = 1
 # D3's quick start: Agent("Cartpole") with its own planner, a plan every 2
 # steps, for about this many seconds and at least this many steps
 QUICK_START_S, QUICK_START_STEPS = 20.0, 4
@@ -3009,7 +3011,8 @@ def run_derivative(dev, rec: dict) -> None:
   # ---- D3: the derivative rates
   print_phases("D3", "iLQG Walker, horizon 80", r["D2"]["ilqg"])
   print_phases("D3", "gradient Walker, horizon 80", r["D2"]["gradient"])
-  res, hagent = time_planner("ilqg", dev, reps=2, task="Humanoid Walk")
+  res, hagent = time_planner("ilqg", dev, reps=D3_HUMANOID_REPS,
+                             task="Humanoid Walk")
   stamp("iLQG on Humanoid Walk")
   r["D3"]["ilqg_humanoid"] = res
   print_phases("D3", f"iLQG Humanoid Walk, horizon {res['horizon']} at dt "
@@ -3111,13 +3114,14 @@ E_ITERATIONS = 3
 # a float64 update on the card against the CPU's: |card - cpu| <= atol +
 # rtol |cpu| in every entry
 E_TOL = {"atol": 1e-10, "rtol": 1e-8}
-# the timed float32 updates of each estimator
-E_REPS = 10
+# the timed float32 updates of each estimator (10 until a full run took
+# 1,250 s on a slow host)
+E_REPS = 3
 # E3: the steps of the estimate-driven loop (a plan every 2 from the
 # estimate), the seconds of the asynchronous loops beside step(), and the
 # bound on the estimate's distance from the sim state (the filter and the
 # sim take the same float32 steps)
-E3_STEPS, E3_ASYNC_S, E3_ERROR_TOL = 100, 5.0, 1e-4
+E3_STEPS, E3_ASYNC_S, E3_ERROR_TOL = 50, 5.0, 1e-4
 
 
 def estimator_model(task: str, dtype, device):
@@ -3761,12 +3765,12 @@ def serving_edge(dev, rec: dict) -> None:
 #    profiling, the CLI, drive and the dashboard, on the card
 # ---------------------------------------------------------------------------
 
-# X1's sim steps beside the runner's plan loop (30: beside the plan loop a
-# Walker world step took 428 ms on an H100, in a run of 100); the C
+# X1's sim steps beside the runner's plan loop (15: beside the plan loop a
+# Walker world step took 340-430 ms on an H100); the C
 # smoke's gap between its two same-state calls; X5's simulated seconds;
 # X6's steps; X7's seconds of the dashboard's loops, and the most it waits
 # beyond them for 3 history samples
-X_STEPS, X_GAP_MS, X_CLI_S, X_DRIVE_STEPS = 30, 300, 0.2, 100
+X_STEPS, X_GAP_MS, X_CLI_S, X_DRIVE_STEPS = 15, 300, 0.2, 100
 X_DASH_S, X_DASH_WAIT_S = 5.0, 30.0
 
 
@@ -4185,6 +4189,279 @@ def x_dashboard(rec: dict, out: dict) -> None:
         f"({rec['card']})")
 
 
+# ---------------------------------------------------------------------------
+# SH: the sharded planners (parallel/mesh.py) on the card
+# ---------------------------------------------------------------------------
+
+# SH's timed plans of each planner on each mesh; its robust cell (Particle
+# at a 20-step horizon keeps the general route's re-scorings short)
+SH_REPS, SH_ROBUST_HORIZON = 5, 20
+# the sampling cell: JAX's sharded_walker_1024x80 (bench.py:263)
+SH_BENCH = (1024, 80)
+
+
+def sharded_bench(tag: str, mesh, task, cfg, dev, noise, use2) -> dict:
+  """ShardedSamplingPlanner on `mesh` at cfg's shape: the first plan's
+  returns against the unsharded kernel's on the same candidates (bitwise,
+  or within the kernel's float32 rule, rtol 2e-3, with the distance
+  printed); the launches of SH_REPS plans, the counts set to 0 just
+  before and read just after (one a shard a plan); those plans' ms beside
+  the unsharded planner's at the same draws, in turns; the returns' ms
+  (CUDA events) beside the unsharded kernel's."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.parallel import mesh as pm
+  from mujoco_mpc_torch.physics import io as phys_io
+  from mujoco_mpc_torch.planners import sampling
+  sharded = pm.ShardedSamplingPlanner(cfg, mesh)
+  plain = sampling.SamplingPlanner(cfg)
+  spol, upol = sharded.init(task), plain.init(task)
+  data = phys_io.make_data(task.model).replace(
+      qpos=torch.tensor(start_qpos(task.model), device=dev))
+  draws = dict(noise=noise, use2=use2)
+  _, si = sharded.optimize(task, spol, data, None, **draws)
+  _, ui = plain.optimize(task, upol, data, None, **draws)
+  torch.cuda.synchronize()
+  bitwise = torch.equal(si.costs, ui.costs)
+  rel, max_abs = agreement(si.costs, ui.costs, f"{tag}: sharded returns")
+  check(int(si.winner) == int(ui.winner),
+        f"{tag}: the sharded winner {int(si.winner)} is not the unsharded "
+        f"{int(ui.winner)}")
+  for m in sharded.megas.values():
+    m.launches = 0
+  ms = {"sharded": [], "unsharded": []}
+  for _ in range(SH_REPS):
+    for name, pl, pol in (("sharded", sharded, spol),
+                          ("unsharded", plain, upol)):
+      t = time.perf_counter()
+      pl.optimize(task, pol, data, None, **draws)
+      torch.cuda.synchronize()
+      ms[name].append((time.perf_counter() - t) * 1e3)
+  launches = sum(m.launches for m in sharded.megas.values())
+  check(launches == SH_REPS * len(mesh),
+        f"{tag}: {launches} kernel launches in {SH_REPS} plans on "
+        f"{len(mesh)} shards")
+  new_times, _, cands = plain._gen_candidates(task, upol, data, None,
+                                              **draws)
+  ret_ms = {
+      "sharded": timed_cuda(lambda: sharded._returns(
+          task, data, new_times, cands, None), 3),
+      "unsharded": timed_cuda(lambda: plain._returns(
+          task, data, new_times, cands, None), 3)}
+  q = {k: np.percentile(v, [50, 66.7]).tolist() for k, v in ms.items()}
+  out = {"mesh": [str(d) for d in mesh.devices], "bitwise": bitwise,
+         "rel": rel, "max_abs": max_abs, "launches": launches,
+         "plans": SH_REPS, "plan_ms": ms, "plan_ms_q": q,
+         "returns_ms": ret_ms,
+         "geometry": sharded.mega.geometry(
+             cfg.num_trajectories // len(mesh)),
+         "actions": plain._actions(task, data, new_times, cands),
+         "returns": si.costs}
+  print(f"[{tag}] ShardedSamplingPlanner on {mesh} (Walker "
+        f"{cfg.num_trajectories}x{cfg.horizon} at dt "
+        f"{float(task.model.opt.timestep):g}): first plan's returns "
+        f"{'bitwise equal to' if bitwise else 'against'} the unsharded "
+        f"kernel's (max rel {rel:.3g}, max abs {max_abs:.3g}; tol 2e-3), "
+        f"winner {int(si.winner)}; {launches} launches in {SH_REPS} plans; "
+        f"plan ms median {q['sharded'][0]:.3f}, p66.7 {q['sharded'][1]:.3f}"
+        f" (unsharded {q['unsharded'][0]:.3f}, {q['unsharded'][1]:.3f}); "
+        f"returns {ret_ms['sharded']:.3f} ms (unsharded "
+        f"{ret_ms['unsharded']:.3f}); a shard's launch {out['geometry']}")
+  return out
+
+
+def run_sharded(dev, rec: dict):
+  """Phase SH: the sharded planners of parallel/mesh.py on the card. The
+  sampling planner at the Walker bench (1024x80 at the XML dt) on
+  make_mesh() (one shard a card; distinct cards where the host has more
+  than one) and on two shards sharing cuda:0, each on its own stream
+  (sharded_bench); the first plan's float32 returns on make_mesh()
+  against the plain version in float64 on the host's cores (agreement,
+  rtol 2e-3, resolved at the end of the phase). CEM at the Walker Agent's
+  128x80 on the two shards: SH_REPS plans, two launches each, finite
+  returns. The robust planner on Particle (ncandidates 8, nrepetitions 2,
+  two shards, horizon SH_ROBUST_HORIZON): the first float64 plan on the
+  card against the CPU's on injected draws (rel 1e-8; its delegate through
+  the uncontracted double kernel, as D2), one float32 plan timed. Then
+  the rest of the Agent's constructor: Agent("Walker", dtype=float64) plans
+  once through the kernel's double instance, and model_xml on a host
+  without `mujoco` raises registry.ModelXmlRefused. The kernels line's
+  row megarollout_returns[sharded], for run_all to append."""
+  import importlib.util
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.ops import megarollout as MR
+  from mujoco_mpc_torch.parallel import mesh as pm
+  from mujoco_mpc_torch.physics import io as phys_io
+  from mujoco_mpc_torch.planners import cross_entropy as ce
+  from mujoco_mpc_torch.planners import robust, sampling
+  from mujoco_mpc_torch.tasks import registry
+  out = rec["sharded"] = {"device_count": torch.cuda.device_count()}
+  print(f"[SH] torch.cuda.device_count() {out['device_count']} "
+        f"({rec['card']})")
+  task = registry.get_task("Walker", device=dev)
+  acfg = sampling.SamplingConfig.from_task(task)
+  cfg = sampling.SamplingConfig(num_trajectories=SH_BENCH[0],
+                                horizon=SH_BENCH[1],
+                                spline_points=acfg.spline_points,
+                                interp=acfg.interp)
+  gen = torch.Generator(device=dev).manual_seed(15)
+  n, k = cfg.num_trajectories, cfg.spline_points
+  noise = torch.randn((n - 1, k, task.model.nu), generator=gen, device=dev)
+  use2 = torch.rand((n - 1,), generator=gen, device=dev) < 0.2
+  meshes = {"make_mesh": pm.make_mesh(), "two_shards": pm.Mesh((dev, dev))}
+  if out["device_count"] == 1:
+    print("[SH] one card: make_mesh() has one shard; the distinct-card "
+          "mesh is not run")
+  for name, mesh in meshes.items():
+    out[name] = sharded_bench(f"SH {name}", mesh, task, cfg, dev, noise,
+                              use2)
+  main = out["make_mesh"]
+  acts, got = main.pop("actions"), main.pop("returns")
+  for res in out.values():
+    if isinstance(res, dict):
+      res.pop("actions", None)
+      res.pop("returns", None)
+  d0 = phys_io.make_data(task.model)
+  jobs = plain_submit(task, cfg.horizon,
+                      (torch.tensor(start_qpos(task.model), device=dev),
+                       d0.qvel, acts, task.params, d0.time), {},
+                      torch.float64)
+
+  # CEM at the Walker Agent's shape on the two shards
+  agent = Agent("Walker", planner="cross_entropy", device=dev)
+  agent.reset("home")
+  cem = pm.ShardedCrossEntropyPlanner(agent.planner.config,
+                                      meshes["two_shards"])
+  pol = cem.init(agent.task)
+  cem.mega.launches = 0
+  cem_best = []
+  for _ in range(SH_REPS):
+    pol, info = cem.optimize(agent.task, pol, agent.data, agent.generator)
+    check(bool(torch.all(torch.isfinite(info.costs))),
+          "SH cem: non-finite returns")
+    cem_best.append(float(info.best_return))
+  out["cem"] = {"launches": cem.mega.launches, "best": cem_best}
+  check(cem.mega.launches == 2 * SH_REPS,
+        f"SH cem: {cem.mega.launches} launches in {SH_REPS} plans on 2 "
+        f"shards")
+  print(f"[SH] ShardedCrossEntropyPlanner on {meshes['two_shards']} (Walker "
+        f"{agent.planner.config.num_trajectories}x"
+        f"{agent.planner.config.horizon}): {SH_REPS} plans, "
+        f"{cem.mega.launches} launches, best returns "
+        f"{[round(b, 4) for b in cem_best]}")
+
+  # the robust planner on Particle: float64 card vs CPU, float32 timed
+  def robust_plan(device, dtype, draws):
+    ptask = registry.get_task("Particle", dtype=dtype, device=device)
+    scfg = sampling.SamplingConfig.from_task(ptask, SH_ROBUST_HORIZON)
+    pl = pm.ShardedRobustPlanner(
+        sampling.SamplingPlanner(scfg),
+        robust.RobustConfig(ncandidates=8, nrepetitions=2),
+        pm.Mesh((device, device)))
+    d = phys_io.make_data(ptask.model).replace(
+        qpos=torch.tensor([0.2, -0.2], dtype=dtype, device=device))
+    pol = pl.init(ptask)
+    if pl.mega is not None:
+      pl.mega.launches = 0
+    t = time.perf_counter()
+    pol, info = pl.optimize(ptask, pol, d, None, **{
+        key: v.to(device=device, dtype=dtype if v.is_floating_point()
+                  else v.dtype) for key, v in draws.items()})
+    best = float(info.best_return)
+    return {"ms": (time.perf_counter() - t) * 1e3, "best_return": best,
+            "winner": int(info.winner), "values": pol.values.cpu().numpy(),
+            "costs": info.costs.cpu().numpy(),
+            "launches": pl.mega.launches if pl.mega is not None else 0}
+
+  ptask = registry.get_task("Particle", device="cpu")
+  g = torch.Generator().manual_seed(16)
+  pn = sampling.SamplingConfig.from_task(ptask).num_trajectories
+  draws = {"noise": torch.randn((pn - 1, 5, ptask.model.nu), generator=g,
+                                dtype=torch.float64),
+           "use2": torch.zeros(pn - 1, dtype=torch.bool),
+           "eps": torch.randn((SH_ROBUST_HORIZON, 8, 2, ptask.model.nbody, 6),
+                              generator=g, dtype=torch.float64)}
+  with MR.double_kernels():
+    card64 = robust_plan(dev, torch.float64, draws)
+  cpu64 = robust_plan("cpu", torch.float64, draws)
+  br = abs(card64["best_return"] - cpu64["best_return"]) / max(
+      abs(cpu64["best_return"]), 1e-300)
+  gaps = {f: rel_to_max(card64[f], cpu64[f]) for f in ("values", "costs")}
+  card32 = robust_plan(dev, torch.float32, draws)
+  out["robust"] = {"best_return_rel": br, "gaps": gaps,
+                   "winner": (card64["winner"], cpu64["winner"]),
+                   "launches": card64["launches"], "ms_f32": card32["ms"]}
+  print(f"[SH] ShardedRobustPlanner on two shards of {dev} (Particle, 8 "
+        f"candidates x 2 repetitions, horizon {SH_ROBUST_HORIZON}): first "
+        f"float64 plan card vs CPU best_return rel {br:.3g} (tol 1e-8), "
+        + ", ".join(f"{f} {v:.3g}" for f, v in gaps.items())
+        + f" of the max; winner {card64['winner']} ({cpu64['winner']} on "
+        f"the CPU); {card64['launches']} kernel launch (the delegate); a "
+        f"float32 plan {card32['ms']:.1f} ms")
+  check(card64["winner"] == cpu64["winner"] and br <= 1e-8
+        and all(v <= 1e-8 for v in gaps.values()),
+        "SH robust: the first float64 plan on the card disagrees with the "
+        "CPU's")
+  check(card64["launches"] == 1 and np.isfinite(card32["best_return"]),
+        "SH robust: launches or a non-finite float32 plan")
+
+  # the rest of the Agent's constructor
+  a64 = Agent("Walker", dtype=torch.float64, device=dev)
+  a64.reset("home")
+  a64.planner.mega.launches = 0
+  info = a64.planner_step()
+  out["agent_f64"] = {"launches": a64.planner.mega.launches,
+                      "best_return": float(info.best_return)}
+  check(info.costs.dtype == torch.float64 and a64.planner.mega.launches == 1
+        and bool(torch.all(torch.isfinite(info.costs))),
+        "SH: Agent('Walker', dtype=float64)'s plan")
+  has_mujoco = importlib.util.find_spec("mujoco") is not None
+  if has_mujoco:
+    out["model_xml"] = "not checked: this host has mujoco"
+  else:
+    try:
+      Agent("Particle", model_xml="<mujoco/>", device=dev)
+      fail("SH: model_xml on a host without mujoco built an Agent")
+    except registry.ModelXmlRefused as e:
+      out["model_xml"] = str(e)
+  print(f"[SH] Agent('Walker', dtype=torch.float64): one plan, "
+        f"{out['agent_f64']['launches']} launch (the double instance), "
+        f"best_return {out['agent_f64']['best_return']:.6g}; "
+        f"Agent('Particle', model_xml=...): {out['model_xml']}")
+
+  # the plain version's float64 returns, waited for here: X's host
+  # timings do not share the cores with them
+  (want,), plain_ms = jobs.get()
+  rel, max_abs = agreement(got, want.to(got.dtype),
+                           "SH make_mesh: returns against the plain "
+                           "version in float64")
+  main.update(plain_rel=rel, plain_abs=max_abs, plain_ms=plain_ms)
+  print(f"[SH] make_mesh()'s first plan {tuple(acts.shape)} against the "
+        f"plain version in float64 on the host: max rel {rel:.3g} (tol "
+        f"2e-3), max abs {max_abs:.3g}; plain {plain_ms:.1f} ms (summed "
+        f"over its {PLAIN_WORKERS} workers' chunks)")
+  bound_ms, by = bound(rec["walker_step_ops"], n, cfg.horizon, task)
+  two = out["two_shards"]
+
+  def row():
+    return {
+        "name": "megarollout_returns[sharded]", "route": "cuda",
+        "source": "mujoco_mpc_torch/csrc/megarollout.cu",
+        "replaces": "mujoco_mpc_tpu/parallel/mesh.py:111",
+        "launches": main["launches"], "max_abs_err": max_abs,
+        "ms": main["returns_ms"]["sharded"], "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+        **geometry_keys(main), "shards": len(meshes["make_mesh"]),
+        "unsharded_ms": main["returns_ms"]["unsharded"],
+        "two_shards_ms": two["returns_ms"]["sharded"],
+        "two_shards_launches": two["launches"],
+        "err_over_tol": rel / 2e-3}
+
+  return row
+
+
 def run_edges(dev, rec: dict) -> None:
   """Phase X, each part timed on the timeline."""
   out = rec["edges"] = {k: {} for k in ("X1", "X2", "X3", "X4", "X5", "X6",
@@ -4525,6 +4802,9 @@ def run_all(args, dev, rec: dict, pools: list) -> int:
   # ---- S. the serving edge: the gRPC services on the card
   timeline("the serving edge")
   serving_edge(dev, rec)
+  # ---- SH. the sharded planners and the rest of the Agent's constructor
+  timeline("the sharded planners")
+  rows.append(run_sharded(dev, rec))
   # ---- X. the edges: interface and C ABI, checkpoint, profiling, CLI,
   #      drive and dashboard on the card
   timeline("the edges")

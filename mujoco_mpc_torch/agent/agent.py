@@ -82,10 +82,18 @@ class Agent:
   def __init__(self, task: str | task_base.Task,
                planner: Optional[str] = None,
                horizon_steps: Optional[int] = None, seed: int = 0,
+               dtype=torch.float32, model_xml: Optional[str] = None,
                device=devices.DEFAULT):
+    """`dtype` is the precision of a task named by string; `model_xml`
+    gives the task (named, or the registered task of a Task's name) the
+    model, cost spec and parameters of that MJCF, in `dtype`, built with
+    `mujoco` (registry.get_task; registry.ModelXmlRefused where `mujoco`
+    does not import)."""
     device = devices.resolve(device)
-    if isinstance(task, str):
-      task = registry.get_task(task, device=device)
+    if isinstance(task, str) or model_xml is not None:
+      task = registry.get_task(task if isinstance(task, str) else task.name,
+                               dtype=dtype, device=device,
+                               model_xml=model_xml)
     if planner is None:
       idx = int(task.model.custom("agent_planner", 0))
       planner = _PLANNER_INDEX[idx] if idx < len(_PLANNER_INDEX) \

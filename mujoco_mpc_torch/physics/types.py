@@ -271,6 +271,11 @@ class Model:
   def replace(self, **kw) -> "Model":
     return dataclasses.replace(self, **kw)
 
+  def to(self, device) -> "Model":
+    """A copy with every tensor on `device` (this Model where they all
+    are), which builds its engine constants there."""
+    return _on(self, torch.device(device))
+
   def with_values(self, **kw) -> "Model":
     """replace() of the numeric fields in VALUE_CONSTS, keeping this
     Model's constants: the new Model shares them (each built once for
@@ -419,6 +424,28 @@ class Data:
 
   def replace(self, **kw) -> "Data":
     return dataclasses.replace(self, **kw)
+
+  def to(self, device) -> "Data":
+    """A copy with every tensor on `device`, its contacts' too (this Data
+    where they all are)."""
+    return _on(self, torch.device(device))
+
+
+def _on(obj, device: torch.device):
+  """obj (a Model, Option, Data or Contact) with every tensor on `device`,
+  its nested Option or Contact too; obj itself where nothing moved."""
+  kw = {}
+  for f in dataclasses.fields(obj):
+    v = getattr(obj, f.name)
+    if isinstance(v, torch.Tensor):
+      w = v.to(device)
+    elif isinstance(v, (Option, Contact)):
+      w = _on(v, device)
+    else:
+      continue
+    if w is not v:
+      kw[f.name] = w
+  return dataclasses.replace(obj, **kw) if kw else obj
 
 
 def _moved(obj, nb: int, leading: bool):

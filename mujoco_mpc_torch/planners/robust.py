@@ -62,25 +62,36 @@ class RobustPlanner:
                params: Optional[TaskParams] = None, noise=None, use2=None,
                eps: Optional[torch.Tensor] = None
                ) -> Tuple[SamplingPolicy, PlanInfo]:
-    cfg = self.config
-    dcfg = self.delegate.config
-    nc, nr = cfg.ncandidates, cfg.nrepetitions
+    nc = self.config.ncandidates
     resampled, cands, returns = self.delegate.candidates(
         task, policy, data, generator, params, noise, use2)
     # the delegate's best, best first
     _, top_idx = torch.topk(returns, nc, largest=False)
     top = cands[top_idx]  # (nc, k, nu)
-    values = top[:, None].expand(nc, nr, *top.shape[1:])
-
-    def policy_fn(t, d):
-      return spline.sample(resampled.times, values, t.reshape(-1)[0],
-                           dcfg.interp)
-
-    scores = rollout_mod.noisy_rollout(
-        task, rollout_mod.broadcast(data, (nc, nr)), policy_fn, dcfg.horizon,
-        generator, xfrc_std=cfg.xfrc_std, xfrc_rate=cfg.xfrc_rate,
-        params=params, eps=eps).mean(dim=1)
+    scores = self._scores(task, data, resampled.times, top, generator,
+                          params, eps)
     best = torch.argmin(scores)
     new_policy = resampled.replace(values=pick(top, best))
     return new_policy, PlanInfo(costs=scores, winner=pick(top_idx, best),
                                 best_return=pick(scores, best))
+
+  def _scores(self, task: Task, data: Data, times: torch.Tensor,
+              top: torch.Tensor, generator: Optional[torch.Generator],
+              params: Optional[TaskParams],
+              eps: Optional[torch.Tensor]) -> torch.Tensor:
+    """The mean return (nc,) of each spline of `top` (nc, k, nu) on the
+    grid `times` over nrepetitions disturbed rollouts, one batch of the
+    general engine; eps (T, nc, nrepetitions, nbody, 6) replaces the
+    draws from `generator` when given."""
+    cfg = self.config
+    dcfg = self.delegate.config
+    nc, nr = top.shape[0], cfg.nrepetitions
+    values = top[:, None].expand(nc, nr, *top.shape[1:])
+
+    def policy_fn(t, d):
+      return spline.sample(times, values, t.reshape(-1)[0], dcfg.interp)
+
+    return rollout_mod.noisy_rollout(
+        task, rollout_mod.broadcast(data, (nc, nr)), policy_fn, dcfg.horizon,
+        generator, xfrc_std=cfg.xfrc_std, xfrc_rate=cfg.xfrc_rate,
+        params=params, eps=eps).mean(dim=1)

@@ -10,9 +10,10 @@ either package talks to a server of either. The methods are registered
 through grpc's generic handlers, as there.
 
 The server's Agent runs on the device it is given (the card unless the
-caller asks for the CPU). Init with `model_xml` is refused: building a
-model from MJCF needs `mujoco`, which the card's host does not have; the
-tasks load their snapshots (tasks/models/*.npz) instead.
+caller asks for the CPU). Init with `model_xml` builds the task on that
+MJCF where `mujoco` imports, and is refused (UNIMPLEMENTED) where it does
+not, as on a card's host without it: there the tasks load their
+snapshots (tasks/models/*.npz).
 
     python -m mujoco_mpc_torch.service.agent_service --port 10000
     python -m mujoco_mpc_torch.service.agent_service --device cpu
@@ -31,14 +32,9 @@ from mujoco_mpc_torch import device as devices
 from mujoco_mpc_torch.agent.agent import Agent
 from mujoco_mpc_torch.physics import step as phys_step
 from mujoco_mpc_torch.service import agent_pb2 as pb
+from mujoco_mpc_torch.tasks import registry
 
 _SERVICE = "mjpc_tpu.Agent"
-
-MODEL_XML_REFUSED = (
-    "Init with model_xml needs `mujoco` to build the model, and this "
-    "serving host may have none: pass a registered task_id, whose model "
-    "loads from its snapshot (mujoco_mpc_torch/tasks/models/*.npz, "
-    "written by tasks.registry.write_snapshots on a host with mujoco)")
 
 
 class AgentServicer:
@@ -50,11 +46,13 @@ class AgentServicer:
 
   # each handler: request proto -> response proto
   def Init(self, req: pb.InitRequest, ctx) -> pb.InitResponse:
-    if req.model_xml:
-      ctx.abort(grpc.StatusCode.UNIMPLEMENTED, MODEL_XML_REFUSED)
-    self.agent = Agent(req.task_id, planner=req.planner or "sampling",
-                       horizon_steps=req.horizon_steps or None,
-                       device=self.device)
+    try:
+      self.agent = Agent(req.task_id, planner=req.planner or "sampling",
+                         horizon_steps=req.horizon_steps or None,
+                         model_xml=req.model_xml or None,
+                         device=self.device)
+    except registry.ModelXmlRefused as e:
+      ctx.abort(grpc.StatusCode.UNIMPLEMENTED, str(e))
     # warm-up: builds the kernel and runs each path once (plan, step,
     # cost) under Init's long client deadline, so that later RPCs answer
     # at steady-state latency

@@ -239,6 +239,13 @@ class Task:
   def replace(self, **kw) -> "Task":
     return dataclasses.replace(self, **kw)
 
+  def to(self, device) -> "Task":
+    """This task with its model and parameters on `device` (the same
+    Model, its engine constants built, where it is there already); the
+    residual, transition and CUDA residual are kept."""
+    return self.replace(model=self.model.to(device),
+                        params=self.params.to(device=device))
+
   def cost(self, data, params: Optional[TaskParams] = None) -> torch.Tensor:
     """The scalar cost of one state's Data (its derived fields filled)."""
     tp = params if params is not None else self.params

@@ -14,9 +14,10 @@ holds each snapshot equal to a fresh build.
 
 from __future__ import annotations
 
+import contextvars
 import json
 import os
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +31,20 @@ _MODEL_DIR = os.path.join(os.path.dirname(__file__), "models")
 _FACTORIES: Dict[str, Callable[..., base.Task]] = {}
 # task name -> (snapshot stem, mujoco builder returning an MjModel)
 _SNAPSHOTS: Dict[str, Tuple[str, Callable]] = {}
+# what load_task_model returns while get_task builds a task on a model
+# given as MJCF (None otherwise)
+_XML_MODEL = contextvars.ContextVar("xml_model", default=None)
+
+
+class ModelXmlRefused(RuntimeError):
+  """A model given as MJCF on a host without `mujoco`."""
+
+  def __init__(self):
+    super().__init__(
+        "model_xml needs `mujoco` to build the model, and this host has "
+        "none: pass a registered task name, whose model loads from its "
+        "snapshot (mujoco_mpc_torch/tasks/models/*.npz, written by "
+        "tasks.registry.write_snapshots on a host with mujoco)")
 
 
 def register(name: str, snapshot: str, builder: Callable):
@@ -44,12 +59,28 @@ def task_names():
   return sorted(_FACTORIES)
 
 
-def get_task(name: str, dtype=torch.float32,
-             device=devices.DEFAULT) -> base.Task:
+def get_task(name: str, dtype=torch.float32, device=devices.DEFAULT,
+             model_xml: Optional[str] = None) -> base.Task:
+  """Task `name` on its registered model, or with model_xml on that MJCF's
+  model, cost spec and parameters (reference Init with a custom model,
+  grpc/agent.proto:21-30): the task's factory runs on it, so that its
+  residual, CUDA residual included, reads the given model. model_xml
+  needs `mujoco` (ModelXmlRefused where it does not import)."""
   device = devices.resolve(device)
   if name not in _FACTORIES:
     raise KeyError(f"unknown task {name!r}; available: {task_names()}")
-  return _FACTORIES[name](dtype=dtype, device=device)
+  if model_xml is None:
+    return _FACTORIES[name](dtype=dtype, device=device)
+  try:
+    import mujoco
+  except ImportError:
+    raise ModelXmlRefused() from None
+  token = _XML_MODEL.set(build_task_model(
+      lambda: mujoco.MjModel.from_xml_string(model_xml), dtype, device))
+  try:
+    return _FACTORIES[name](dtype=dtype, device=device)
+  finally:
+    _XML_MODEL.reset(token)
 
 
 def get_mj_model(name: str):
@@ -96,7 +127,11 @@ def write_snapshots(stems=None) -> None:
 
 def load_task_model(stem: str, dtype=torch.float32,
                     device=devices.DEFAULT):
-  """(Model, CostSpec, TaskParams, param_names) from a snapshot."""
+  """(Model, CostSpec, TaskParams, param_names) from a snapshot, or from
+  the MJCF get_task was given."""
+  given = _XML_MODEL.get()
+  if given is not None:
+    return given
   model, extra = phys_io.load_snapshot(snapshot_path(stem), dtype, device)
   meta = json.loads(str(extra["task.spec"]))
   spec = base.CostSpec(tuple(meta["names"]), tuple(meta["norm_types"]),

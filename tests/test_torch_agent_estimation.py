@@ -41,6 +41,7 @@ from mujoco_mpc_tpu.agent.agent import Agent as JaxAgent
 from mujoco_mpc_tpu.planners import sampling as jsampling
 from tests import torch_engine_cases as cases
 from tests.torch_cases import mujoco_filtered, one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 HORIZON = 20
 

@@ -19,6 +19,7 @@ from mujoco_mpc_torch.agent.agent import Agent
 from mujoco_mpc_tpu.agent.agent import Agent as JaxAgent
 from tests import torch_engine_cases as cases
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 PLANNERS = ("sampling", "gradient", "ilqg", "ilqs", "robust",
             "cross_entropy", "sample_gradient")

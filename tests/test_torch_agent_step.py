@@ -21,6 +21,7 @@ import torch
 from mujoco_mpc_tpu.agent.agent import Agent as JaxAgent
 from mujoco_mpc_torch.agent.agent import Agent
 from tests import torch_engine_cases as cases
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 
 @pytest.fixture(scope="module")

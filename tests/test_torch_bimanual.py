@@ -41,6 +41,7 @@ from mujoco_mpc_tpu.tasks import registry as jreg
 from tests.test_torch_model import _same
 from tests.test_torch_tilestep_classes import jax_probe_and_returns
 from tests.torch_cases import HANDOVER_TARGET, one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 B, N, T = 8, 8, 4
 NAME = "Bimanual Handover"

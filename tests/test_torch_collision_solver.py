@@ -35,6 +35,7 @@ from mujoco_mpc_torch.physics import step as tstep
 from mujoco_mpc_torch.physics.types import GeomType
 from tests import models as oracle_models
 from tests import torch_engine_cases as cases
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 jstep = importlib.import_module("mujoco_mpc_tpu.physics.step")
 jcol = importlib.import_module("mujoco_mpc_tpu.physics.collision")

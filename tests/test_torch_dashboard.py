@@ -24,6 +24,7 @@ from mujoco_mpc_torch.tasks import humanoid_track
 from mujoco_mpc_torch.tools import record_clip
 from mujoco_mpc_torch.ui import server as tserver
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 
 def _req(port, path, body=None, raw=None):

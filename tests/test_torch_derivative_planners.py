@@ -40,6 +40,7 @@ from mujoco_mpc_tpu.planners import sample_gradient as jsg
 from mujoco_mpc_tpu.planners import sampling as jsa
 from tests import torch_engine_cases as cases
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 H, K, N = 10, 5, 16  # horizon, spline points, sampling candidates
 F64 = torch.float64

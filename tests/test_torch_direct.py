@@ -40,6 +40,7 @@ from mujoco_mpc_tpu.estimators import direct as jdirect
 from tests import models as tm
 from tests.torch_cases import one_torch_thread
 from tests.torch_engine_cases import np_tree
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 
 @pytest.fixture(scope="module")

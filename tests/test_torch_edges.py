@@ -31,6 +31,7 @@ from mujoco_mpc_torch.tools import trace as ttrace
 from mujoco_mpc_torch.utils import checkpoint as tckpt
 from mujoco_mpc_torch.utils import profiling as tprof
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

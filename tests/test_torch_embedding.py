@@ -19,6 +19,7 @@ from mujoco_mpc_torch.agent import interface
 from mujoco_mpc_torch.native import build as native
 from mujoco_mpc_torch.tasks import registry as treg
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 
 def _plan_threads():

@@ -19,6 +19,7 @@ from mujoco_mpc_tpu.physics import math as jmath
 from mujoco_mpc_torch.ops import linalg as tlinalg
 from mujoco_mpc_torch.physics import math as tmath
 from tests import torch_engine_cases as cases
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=["cartpole", "walker"])

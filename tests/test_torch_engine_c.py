@@ -6,6 +6,7 @@ The models, their checks and tolerances: tests/torch_engine_cases.py."""
 import pytest
 
 from tests import torch_engine_cases as cases
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 
 @pytest.fixture(scope="module",

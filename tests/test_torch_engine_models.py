@@ -17,6 +17,7 @@ from mujoco_mpc_torch.physics.types import JointType
 from mujoco_mpc_tpu.physics import io as jio
 from mujoco_mpc_tpu.physics.step import step as jax_step
 from tests import torch_engine_cases as cases
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 jax.config.update("jax_enable_x64", True)
 

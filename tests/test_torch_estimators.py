@@ -49,6 +49,7 @@ from mujoco_mpc_tpu.ops import band as jband
 from tests import models as tm
 from tests.torch_cases import one_torch_thread
 from tests.torch_engine_cases import np_tree
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 K = 5  # updates per estimator
 

@@ -18,6 +18,7 @@ from mujoco_mpc_torch.agent.agent import Agent
 from mujoco_mpc_torch.ops import megarollout as tmr
 from tests import torch_flat_cases as fc
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 
 def check_agent(name):

@@ -7,6 +7,7 @@ import pytest
 
 from tests import torch_flat_cases as fc
 from tests.test_torch_flat_agents import check_agent
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 
 @pytest.mark.parametrize("name", fc.GENERAL_TASKS)

@@ -36,6 +36,7 @@ from tests import torch_flat_cases as fc
 from tests.test_torch_rollout import _rounded64
 from tests.test_torch_transitions import _state, to_jax
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 B = 4
 

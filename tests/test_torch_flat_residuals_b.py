@@ -16,6 +16,7 @@ from mujoco_mpc_torch.tasks import registry as treg
 from tests import torch_flat_cases as fc
 from tests.test_torch_flat_residuals import check_residual
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 
 @one_torch_thread()

@@ -29,6 +29,7 @@ from mujoco_mpc_torch.tasks import rubik as trubik
 from tests import torch_engine_cases as cases
 from tests.test_torch_transitions import _batch, _state, to_jax
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 
 def _home(m, b):

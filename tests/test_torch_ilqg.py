@@ -39,6 +39,7 @@ from mujoco_mpc_tpu.physics import io as jio
 from mujoco_mpc_tpu.planners import ilqg as jil
 from tests import torch_engine_cases as cases
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 F64 = torch.float64
 

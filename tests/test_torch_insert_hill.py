@@ -30,6 +30,7 @@ from mujoco_mpc_tpu.tasks import registry as jreg
 from tests import torch_mesh_cases as cases
 from tests.test_torch_transitions import _state, to_jax
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 jax.config.update("jax_enable_x64", True)
 

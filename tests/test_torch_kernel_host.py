@@ -50,6 +50,7 @@ from mujoco_mpc_torch.tasks import rubik as trubik
 from tests.test_torch_tilestep_classes import CLASS_MODELS, class_task
 from tests.torch_cases import (HANDOVER_TARGET, RUBIK_TARGETS, SHADOW_GOAL,
                                SMALL_TASKS, small_task_states)
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 _STUB = r"""
 #pragma once

@@ -38,6 +38,7 @@ from tests.test_torch_kernel_host import (_NP, _TOL64, _host_step, _packed,
                                           host_returns)
 from tests.test_torch_kernel_host import lib  # noqa: F401 (fixture)
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 _TOL32 = (1e-5, 1e-3, 1e-4)
 

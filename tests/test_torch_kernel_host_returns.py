@@ -21,6 +21,7 @@ from tests.test_torch_kernel_host import lib  # noqa: F401 (fixture)
 from tests.test_torch_kernel_host_flat import kernel_aux
 from tests.torch_cases import one_torch_thread
 from tests.torch_flat_cases import KERNEL_TASKS, states
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 
 @pytest.mark.parametrize("name", sorted(_CASES))

@@ -8,6 +8,7 @@ import torch
 
 from tests.test_torch_kernel_host import _CASES, check_returns
 from tests.test_torch_kernel_host import lib  # noqa: F401 (fixture)
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 
 @pytest.mark.parametrize("name", sorted(_CASES))

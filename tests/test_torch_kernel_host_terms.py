@@ -22,6 +22,7 @@ from mujoco_mpc_torch.tasks import bimanual as tbim
 from tests.test_torch_kernel_host import _aux, host_returns, rollout_inputs
 from tests.test_torch_kernel_host import lib  # noqa: F401 (fixture)
 from tests.torch_cases import QUADRUPED_MODES, quadruped_mode
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 _QUADRUPED = "Quadruped Flat"
 

@@ -30,6 +30,7 @@ from mujoco_mpc_torch.tasks import registry as treg
 from mujoco_mpc_tpu.physics import io as jio
 from mujoco_mpc_tpu.physics import tilestep as jts
 from mujoco_mpc_tpu.tasks import registry as jreg
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -12,6 +12,7 @@ import torch
 
 from mujoco_mpc_torch.ops import norms as tnorms
 from mujoco_mpc_tpu.ops import norms as jnorms
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 F64 = torch.float64
 

@@ -19,6 +19,7 @@ from mujoco_mpc_tpu.ops import megarollout as jmr
 from mujoco_mpc_tpu.ops import norms as jnorms
 from mujoco_mpc_tpu.ops import spline as jspline
 from mujoco_mpc_tpu.tasks import base as jbase
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 # (norm, p, q): parameters in each norm's valid range
 _NORMS = [(-1, 0.0, 0.0), (0, 0.0, 0.0), (1, 0.3, 2.5), (2, 0.2, 0.0),

@@ -29,6 +29,7 @@ from mujoco_mpc_torch.ops import rollout as trollout
 from tests import torch_engine_cases as cases
 from tests import torch_flat_cases as fc
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 N = 4
 

@@ -48,6 +48,7 @@ from mujoco_mpc_tpu.physics import io as jio
 from mujoco_mpc_tpu.planners import cross_entropy as jcem
 from mujoco_mpc_tpu.tasks import registry as jreg
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 T, N, K = 10, 8, 6
 

@@ -40,6 +40,7 @@ from tests.torch_cases import (QUADRUPED_MODES, one_torch_thread,
                                quadruped_mode)
 from tests.test_torch_model import _same
 from tests.test_torch_tilestep_classes import jax_probe_and_returns
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 B, N, T = 8, 8, 4
 _KINDS = ("plane_boxcorner", "plane_sphere", "sphere_box", "sphere_sphere",

@@ -43,6 +43,7 @@ from mujoco_mpc_torch.tasks import quadruped as tquad
 from mujoco_mpc_torch.tasks import registry as treg
 from tests import torch_engine_cases as cases
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 jio = importlib.import_module("mujoco_mpc_tpu.physics.io")
 

@@ -13,6 +13,8 @@ package's two failing service tests are no yardstick: ROADMAP queue 3).
 Planning runs on one PyTorch thread; each in-process server has one worker
 thread."""
 
+import sys
+
 import grpc
 import numpy as np
 import pytest
@@ -31,6 +33,7 @@ from mujoco_mpc_torch.service.filter_service import FilterClient
 from mujoco_mpc_torch.tasks import registry as treg
 from mujoco_mpc_tpu.service import client as jclient
 from tests.torch_cases import one_torch_thread
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 H = 8  # planning horizon (steps)
 
@@ -53,11 +56,12 @@ def _same_state(got, agent):
 
 
 @one_torch_thread()
-def test_jax_client_drives_port_server():
+def test_jax_client_drives_port_server(monkeypatch):
   """Init, SetState, GetState, PlannerStep, GetAction (plain, nominal,
   averaged over a window), Step, the mode RPCs, SetAnything, the task
   parameters, cost weights and terms, residuals and GetBestTrajectory,
-  each equal to the twin's; Init with model_xml is refused."""
+  each equal to the twin's; Init with model_xml is refused where `mujoco`
+  does not import (tests/test_torch_agent_xml.py: where it does)."""
   servicer = agent_service.AgentServicer(device="cpu")
   server, port = agent_service.make_server(0, max_workers=1,
                                            servicer=servicer)
@@ -115,6 +119,7 @@ def test_jax_client_drives_port_server():
     params = c.get_task_parameters()
     assert list(params) == list(twin.task.param_names)
     c.close()
+    monkeypatch.setitem(sys.modules, "mujoco", None)  # import fails
     with pytest.raises(grpc.RpcError) as err:
       jclient.AgentClient("Particle", port=port, model_xml="<mujoco/>")
     assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED

@@ -60,6 +60,7 @@ from tests.test_torch_tilestep_classes import jax_probe_and_returns
 from tests.torch_cases import (ILL_CONDITIONED, RUBIK_TARGETS, SMALL_TASKS,
                                mujoco_filtered, one_torch_thread,
                                small_task_states)
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 B, K, T = 4, 12, 3
 # task: (snapshot stem, the Agent's candidates and horizon steps, nrow,

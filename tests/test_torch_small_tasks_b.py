@@ -7,5 +7,6 @@ from tests.test_torch_small_tasks import (  # noqa: F401 (collected)
     test_small_task_matches_jax_task, test_small_task_residual_matches_jax,
     test_small_task_step_matches_jax)
 from tests.torch_cases import SMALL_TASKS
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 case = case_fixture(tuple(n for n in SMALL_TASKS if n not in HALF_A))

@@ -9,6 +9,12 @@ contact where the model has any, at random velocities and controls, and
 carries the solver's warm start from step to step (Data.efc_lambda), as a
 rollout does.
 
+The module starts by releasing the executables JAX holds
+(torch_engine_cases.release_jax_executables, autouse): late in a long
+test worker the jitted step's compile otherwise found the process's
+memory-map limit spent by earlier tests' executables, and the worker died
+in XLA's compile (a segfault, reported as this test failing).
+
 Tolerances, with the errors measured when they were set:
   every step's qpos, qvel, act, time and duals: rtol 1e-9, atol 1e-9
     (measured 2e-13);
@@ -28,6 +34,7 @@ from mujoco_mpc_tpu import physics as jphys
 from mujoco_mpc_torch.physics import io as tio
 from mujoco_mpc_torch.physics import step as tstep
 from tests import torch_engine_cases as cases
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 jstep = importlib.import_module("mujoco_mpc_tpu.physics.step")
 

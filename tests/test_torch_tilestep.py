@@ -19,6 +19,7 @@ from mujoco_mpc_torch.physics import tilestep as tts
 from mujoco_mpc_torch.tasks import registry as treg
 from mujoco_mpc_tpu.physics import tilestep as jts
 from mujoco_mpc_tpu.tasks import registry as jreg
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 B = 16
 

@@ -47,6 +47,7 @@ from mujoco_mpc_tpu.ops import megarollout as jmr
 from mujoco_mpc_tpu.physics import tilestep as jts
 from tests import test_tilestep_classes as jtests
 from tests.test_torch_model import _same
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 B, N, T = 8, 8, 8
 # name: ClassModel (MJCF, start qpos, qvel scale, row classes that must

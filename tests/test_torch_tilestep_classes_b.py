@@ -7,6 +7,7 @@ from tests.test_torch_tilestep_classes import (  # noqa: F401 (collected)
     CLASS_MODELS, HALF_A, jax_run, models_fixture,
     test_class_model_extract_matches_jax, test_class_model_returns_match_jax,
     test_class_model_step_matches_jax)
+from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 models = models_fixture(tuple(n for n in sorted(CLASS_MODELS)
                               if n not in HALF_A))

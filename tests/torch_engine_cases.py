@@ -31,6 +31,7 @@ set:
 """
 
 import functools
+import gc
 import importlib
 import os
 
@@ -38,6 +39,7 @@ import jax
 import jax.numpy as jnp
 import mujoco
 import numpy as np
+import pytest
 import torch
 
 from mujoco_mpc_tpu import physics as jphys
@@ -56,6 +58,21 @@ jstep = importlib.import_module("mujoco_mpc_tpu.physics.step")
 
 def np_tree(x):
   return jax.tree_util.tree_map(np.asarray, x)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def release_jax_executables():
+  """Drops every executable JAX holds in its caches (jax.clear_caches)
+  before a port test module runs: autouse in each module that imports
+  it. XLA maps each CPU executable into memory as about four regions,
+  and a test worker keeps every executable it compiled: in the full
+  suite at `-n 6` one worker held 53,925 mappings of the kernel's 65,530
+  (vm.max_map_count) before half the run, and a compile past the limit
+  fails to map its code and kills the worker (a segfault in XLA's
+  compile; the ball chain's jitted step at the limit: "allocateMappedMemory
+  failed"). A later call of a jitted function compiles again."""
+  jax.clear_caches()
+  gc.collect()
 
 
 @functools.lru_cache(maxsize=None)
