@@ -98,7 +98,13 @@ agent service in this process (service/), the port's AgentClient on
 localhost: GetAction against the Agent's own, one kernel launch per
 PlannerStep, the RPC's time beside a direct planner_step, the server's
 own plan loop; then the estimation and direct services on Cartpole, each
-response against the direct call's. Phase X drives the edges on the
+response against the direct call's. Phase N (after SH) drives the names
+taken over from the JAX package last: rubik.make() and make_faces(), a
+Rubik Faces plan and a Quadruped Flat plan after Task.set_mode (one
+launch each, returns against the plain version; the latter bitwise the
+plan after Agent.set_mode), Model.sensor_adr, and ops/linalg.py's floored
+Cholesky factor and solve on the card against the CPU, with G1's launches
+per step beside PERF.md's. Phase X drives the edges on the
 card: X1 the embedding interface (create_policy("Walker") on the default
 device, its plan loop in a thread beside 30 general steps from home, each
 publishing its state through step_policy and applying the action: ms a
@@ -275,12 +281,13 @@ class PlainReturns:
 
 
 def plain_submit(task, horizon, args, ops, dtype, variants=None,
-                 witness=None):
+                 witness=None, now=False):
   """MegaRollout(task, horizon).returns_plain(*args, dtype, **ops) (or,
   with `variants`, (TaskParams, userdata) pairs, returns_plain_variants)
   as worker jobs: float64 to PLAIN now, in chunks of candidates; float32
   to CARD_QUEUE; or, given `witness` ("trig64" or "nudge":
-  rounding_witnesses), float32 to PLAIN now. A PlainReturns."""
+  rounding_witnesses) or `now` (once CARD_QUEUE has run), float32 to
+  PLAIN now, on the host's cores. A PlainReturns."""
   import numpy as np
   import torch
 
@@ -298,7 +305,7 @@ def plain_submit(task, horizon, args, ops, dtype, variants=None,
             "mocap_quat": npy(ops.get("mocap_quat"))}
   spec = (task.name, float(task.model.opt.timestep), horizon)
   acts = npy(actions)
-  if dtype == torch.float32 and witness is None:
+  if dtype == torch.float32 and witness is None and not now:
     entry = {"job": (spec, {**common, "actions": acts}, vs, "float32",
                      "cuda")}
     CARD_QUEUE.append(entry)
@@ -4462,6 +4469,211 @@ def run_sharded(dev, rec: dict):
   return row
 
 
+# the general step's CUDA launches per step of one state (G1) that
+# PERF.md §5 records for the step with the unfloored inertia factor
+G1_LAUNCHES_RECORDED = {"Walker": 1391, "Humanoid Walk": 2193}
+# the singular PSD matrix whose second pivot floors at 1e-12, and its
+# right-hand side
+SINGULAR = ([[1.0, 1.0, 0.0], [1.0, 1.0, 0.0], [0.0, 0.0, 2.0]],
+            [1.0, 2.0, 3.0])
+
+
+def replayed_plan(agent):
+  """One planner_step of `agent` with its launch count set to 0 just
+  before, and that plan's candidates' actions, replayed from a copy of
+  the generator's state before the plan. Returns (PlanInfo, launches,
+  actions, the Data planned from)."""
+  import torch
+  gen = torch.Generator(device=agent.generator.device)
+  gen.set_state(agent.generator.get_state())
+  policy, data = agent.policy, agent.data
+  agent.planner.mega.launches = 0
+  info = agent.planner_step()
+  launches = agent.planner.mega.launches
+  pl = agent.planner
+  new_times, _, cands = pl._gen_candidates(agent.task, policy, data, gen)
+  return info, launches, pl._actions(agent.task, data, new_times, cands), \
+      data
+
+
+def names_plan(tag: str, agent):
+  """replayed_plan, its one launch checked, the plain version's float32
+  returns of the same candidates submitted to the host's workers; a
+  function that holds the plan's returns against them per candidate
+  (rtol 2e-3) and gives (max rel, max abs) err and the launches."""
+  import torch
+  info, launches, acts, d = replayed_plan(agent)
+  check(launches == 1, f"{tag}: {launches} kernel launches in one plan")
+  ops = dict(mocap_pos=d.mocap_pos, mocap_quat=d.mocap_quat,
+             userdata=d.userdata)
+  jobs = plain_submit(agent.task, acts.shape[1],
+                      (d.qpos, d.qvel, acts, agent.task.params, d.time),
+                      ops, torch.float32, now=True)
+
+  def hold():
+    (want,), _ = jobs.get()
+    return agreement(info.costs, want,
+                     f"{tag}: returns {tuple(acts.shape)}") + (launches,)
+
+  return info, hold
+
+
+def run_names(dev, rec: dict) -> None:
+  """Phase N: the names the port took over from the JAX package last,
+  on the card. rubik.make() builds "Rubik" (the hand) and
+  rubik.make_faces() "Rubik Faces"; a Rubik Faces plan (the Agent, its
+  face targets set) launches the kernel once, its returns held per
+  candidate against the plain version's on the same candidates (float32
+  on the host's workers, rtol 2e-3). Task.set_mode writes Quadruped
+  Flat's Walk mode into the requested-mode slot: the next plan launches
+  the kernel once, its returns held as the Rubik Faces plan's, and it
+  equals bitwise a plan from the same draws after Agent.set_mode to the
+  same index. Model.sensor_adr on the card's Humanoid Walk model against
+  the CPU's. ops/linalg.py's chol_factor and chol_solve on the card
+  against the CPU: the singular example in float64 (its floored pivot
+  1e-6, its solution about 1e12), and 16 Humanoid Walk inertias M + h
+  diag(damping) at probe states in float32 and float64, beside the
+  general step's unfloored factor (physics/step.py::_chol); the smallest
+  pivot printed. Then G1's launches per step beside PERF.md's."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_torch.agent.agent import Agent
+  from mujoco_mpc_torch.ops import linalg
+  from mujoco_mpc_torch.ops import rollout as R
+  from mujoco_mpc_torch.physics import io as phys_io
+  from mujoco_mpc_torch.physics import step as S
+  from mujoco_mpc_torch.tasks import humanoid, quadruped, registry, rubik
+  out = rec["names"] = {}
+  t0 = time.perf_counter()
+
+  # rubik.make is the hand, make_faces the bare face mechanism
+  hand, faces = rubik.make(device=dev), rubik.make_faces(device=dev)
+  check((hand.name, faces.name) == ("Rubik", "Rubik Faces")
+        and hand.residual is rubik.residual
+        and registry.get_task("Rubik Faces", device=dev).name
+        == "Rubik Faces", "N: rubik.make / make_faces")
+  fagent = Agent("Rubik Faces", device=dev, planner="sampling")
+  try:
+    fagent.reset("home")
+  except KeyError:
+    fagent.reset()
+  fagent.set_state(userdata=rubik.faces_userdata(
+      fagent.task.model.nuserdata, RUBIK_TARGETS))
+  _, faces_hold = names_plan("N Rubik Faces", fagent)
+
+  # Task.set_mode against Agent.set_mode, from the same draws
+  name, goal = "Quadruped Flat", [[1.0, 0.3, 0.3]]
+  mode = quadruped.MODE_WALK
+  agents = []
+  for _ in range(2):
+    a = Agent(name, device=dev)
+    a.reset("home")
+    a.set_state(mocap_pos=goal, userdata=quadruped.fsm_userdata(
+        a.task.model.nuserdata))
+    agents.append(a)
+  by_task, by_agent = agents
+  ud = by_task.task.set_mode(by_task.data, mode).userdata
+  check(int(by_task.task.get_mode(by_task.data)) == quadruped.MODE_QUADRUPED
+        and ud.dtype == by_task.data.userdata.dtype,
+        "N: Task.set_mode changed the Data it was given")
+  by_task.set_state(userdata=ud.cpu().numpy())
+  by_agent.set_mode(quadruped.MODE_NAMES[mode])
+  check(int(by_task.task.get_mode(by_task.data)) == mode
+        and by_task.task.get_mode(by_task.data).dtype == torch.int32
+        and by_agent.get_mode() == "Walk", "N: the mode register")
+  tinfo, quad_hold = names_plan("N Quadruped Flat set_mode", by_task)
+  by_agent.planner.mega.launches = 0
+  ainfo = by_agent.planner_step()
+  alaunches = by_agent.planner.mega.launches
+  bitwise = (torch.equal(tinfo.costs, ainfo.costs)
+             and torch.equal(by_task.policy.values, by_agent.policy.values))
+  check(bitwise and alaunches == 1,
+        "N: the plan after Task.set_mode is not the plan after "
+        "Agent.set_mode")
+
+  # Model.sensor_adr on a card model
+  walk = registry.get_task("Humanoid Walk", device=dev).model
+  cpu_walk = registry.get_task("Humanoid Walk", device="cpu").model
+  adr = {s: walk.sensor_adr(s) for s in walk.sensor_names}
+  check(adr == {s: cpu_walk.sensor_adr(s) for s in cpu_walk.sensor_names}
+        and adr["Posture"][1] == 21, "N: Model.sensor_adr")
+
+  # the floored factor on the card against the CPU
+  def factor_solve(a, b, device):
+    low = linalg.chol_factor(a.to(device))
+    return low, linalg.chol_solve(low, b.to(device))
+
+  a = torch.tensor(SINGULAR[0], dtype=torch.float64)
+  b = torch.tensor(SINGULAR[1], dtype=torch.float64)
+  (lc, xc), (lh, xh) = factor_solve(a, b, dev), factor_solve(a, b, "cpu")
+  chol = {"singular": {
+      "factor": rel_to_max(lc.cpu().numpy(), lh.numpy()),
+      "solve": rel_to_max(xc.cpu().numpy(), xh.numpy()),
+      "pivot": float(lc[1, 1]), "solution": xc.cpu().tolist()}}
+  check(bool(torch.all(torch.isfinite(xc))) and chol["singular"]["factor"]
+        <= 1e-12 and chol["singular"]["solve"] <= 1e-8
+        and abs(chol["singular"]["pivot"] - 1e-6) <= 1e-18,
+        f"N: the singular example on the card: {chol['singular']}")
+  states = humanoid.probe_states(walk, 16)
+  for dt, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+    mats = {}
+    for device in (dev, "cpu"):
+      m = registry.get_task("Humanoid Walk", dtype=dt, device=device).model
+      qp, qv, ct = (torch.tensor(x.T, dtype=dt, device=device)
+                    for x in states)
+      d = S._smooth(m, R.broadcast(phys_io.make_data(m), (16,)).replace(
+          qpos=qp, qvel=qv, ctrl=ct), actuate=False)
+      mats[device] = (d.qM + m.opt.timestep.to(dt) * torch.diag(
+          m.dof_damping.to(dt)), S._chol(m, d))
+    (ac, unfloored), (ah, _) = mats[dev], mats["cpu"]
+    rhs = torch.tensor(np.random.RandomState(16).randn(16, ac.shape[-1]),
+                       dtype=dt)
+    (lc, xc), (lh, xh) = factor_solve(ac, rhs, dev), factor_solve(
+        ah, rhs, "cpu")
+    pivots = torch.diagonal(lc, dim1=-2, dim2=-1) ** 2
+    key = str(dt).split(".")[1]
+    chol[key] = {"factor": rel_to_max(lc.cpu().numpy(), lh.numpy()),
+                 "solve": rel_to_max(xc.cpu().numpy(), xh.numpy()),
+                 "vs_unfloored": rel_to_max(lc.cpu().numpy(),
+                                            unfloored.cpu().numpy()),
+                 "min_pivot": float(pivots.min())}
+    check(chol[key]["factor"] <= tol and chol[key]["solve"] <= 1e3 * tol
+          and chol[key]["vs_unfloored"] <= 1e2 * tol
+          and chol[key]["min_pivot"] > 1e-6,
+          f"N: the Humanoid Walk inertias' factor in {key}: {chol[key]}")
+  torch.cuda.synchronize()
+
+  frel, fabs, flaunches = faces_hold()
+  qrel, qabs, qlaunches = quad_hold()
+  g1 = {n: rec["general"]["G1"][n]["launch_calls"]
+        for n in G1_LAUNCHES_RECORDED}
+  out.update(rubik_faces={"rel": frel, "abs": fabs, "launches": flaunches},
+             quadruped_set_mode={"rel": qrel, "abs": qabs,
+                                 "launches": qlaunches, "bitwise": bitwise,
+                                 "agent_set_mode_launches": alaunches},
+             sensor_adr=adr, chol=chol, g1_launches=g1,
+             seconds=time.perf_counter() - t0)
+  print(f"[N] rubik.make() -> '{hand.name}', rubik.make_faces() -> "
+        f"'{faces.name}'; Agent('Rubik Faces') plan: {flaunches} launch, "
+        f"returns against the plain version max rel {frel:.3g} (tol 2e-3), "
+        f"max abs {fabs:.3g}")
+  print(f"[N] Task.set_mode(data, Walk) on Quadruped Flat: requested mode "
+        f"{int(by_task.task.get_mode(by_task.data))} (int32), next plan "
+        f"{qlaunches} launch, returns max rel {qrel:.3g} (tol 2e-3), max abs "
+        f"{qabs:.3g}; equal bitwise to the plan after Agent.set_mode('Walk') "
+        f"({alaunches} launch): {bitwise}")
+  print(f"[N] Model.sensor_adr on the card's Humanoid Walk: "
+        f"{len(adr)} sensors, as on the CPU (Posture {adr['Posture']})")
+  for key, c in chol.items():
+    print(f"[N] chol_factor / chol_solve card vs CPU, {key}: "
+          + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else
+                      f"{k} {v}" for k, v in c.items()))
+  print(f"[N] G1's CUDA launches per general step of one state: "
+        + ", ".join(f"{n} {g1[n]} (recorded {G1_LAUNCHES_RECORDED[n]})"
+                    for n in g1) + f" ({rec['card']}); phase N "
+        f"{out['seconds']:.1f} s")
+
+
 def run_edges(dev, rec: dict) -> None:
   """Phase X, each part timed on the timeline."""
   out = rec["edges"] = {k: {} for k in ("X1", "X2", "X3", "X4", "X5", "X6",
@@ -4805,6 +5017,9 @@ def run_all(args, dev, rec: dict, pools: list) -> int:
   # ---- SH. the sharded planners and the rest of the Agent's constructor
   timeline("the sharded planners")
   rows.append(run_sharded(dev, rec))
+  # ---- N. the names taken over from the JAX package last
+  timeline("the names")
+  run_names(dev, rec)
   # ---- X. the edges: interface and C ABI, checkpoint, profiling, CLI,
   #      drive and dashboard on the card
   timeline("the edges")

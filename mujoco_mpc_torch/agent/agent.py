@@ -70,9 +70,10 @@ _PLANNERS = {
 def register_planner(name: str, factory):
   """Add a planner under `name` beside the seven (reference planner
   registry, mjpc/planners/include.h): factory(planning task,
-  horizon_steps) returns the planner, as a _PLANNERS entry does, and
-  Agent(task, planner=name) builds it. The task MJCF's agent_planner index
-  still names only the seven (_PLANNER_INDEX)."""
+  horizon_steps) returns the planner, an object with a `config` that
+  implements planners/base.py::Planner, as a _PLANNERS entry does, and
+  Agent(task, planner=name) builds it. The task MJCF's agent_planner
+  index still names only the seven (_PLANNER_INDEX)."""
   _PLANNERS[name] = factory
 
 
@@ -188,12 +189,10 @@ class Agent:
     idx = (self.task.mode_names.index(mode) if isinstance(mode, str)
            else int(mode))
     with self._lock:
-      ud = self.data.userdata.clone()
-      ud[task_base.MODE_SLOT] = idx
-      self.data = self.data.replace(userdata=ud)
+      self.data = self.task.set_mode(self.data, idx)
 
   def get_mode(self) -> str:
-    idx = int(self.data.userdata[task_base.MODE_SLOT])
+    idx = int(self.task.get_mode(self.data))
     names = self.task.mode_names
     return names[idx] if 0 <= idx < len(names) else str(idx)
 

@@ -2453,8 +2453,8 @@ __device__ void residual_push(const MRModelT<T, S>& m,
   for (int u = 0; u < m.nu; ++u) res[9 + u] = ctrl[u] - m.res_float[u];
 }
 
-// tasks/rubik.py::residual (18 entries): the six face angles less their
-// targets (userdata[2:8]), the six face velocities, the controls
+// tasks/rubik.py::_faces_residual (18 entries): the six face angles less
+// their targets (userdata[2:8]), the six face velocities, the controls
 template <class T, class S>
 __device__ void residual_rubik_faces(const MRModelT<T, S>& m, const T* qpos,
                                      const T* qvel, const T* ctrl,

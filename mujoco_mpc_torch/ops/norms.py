@@ -26,6 +26,15 @@ class NormType(enum.IntEnum):
   RECTIFY = 8
 
 
+def num_norm_params(norm: NormType) -> int:
+  """Parameter count per norm (reference NormParameterDimension)."""
+  return {
+      NormType.NULL: 0, NormType.QUADRATIC: 0, NormType.L22: 2,
+      NormType.L2: 1, NormType.COSH: 1, NormType.POWER_LOSS: 1,
+      NormType.SMOOTH_ABS: 1, NormType.SMOOTH_ABS2: 2, NormType.RECTIFY: 1,
+  }[NormType(norm)]
+
+
 def norm_value(x: torch.Tensor, norm: NormType, p=0.0, q=0.0,
                dim: int = -1) -> torch.Tensor:
   """Norm of residual block x, reduced over `dim` (the last axis by

@@ -126,10 +126,18 @@ def _frame(m: Model, d, objtype: int, objid: int):
   return d.xpos[objid], d.xmat[objid], objid  # BODY, XBODY
 
 
-def _mat_tvec0(mat, v):
+def mat_tvec0(mat, v):
   """mat^T v with the matrix axes leading: mat (3, 3, ...), v (3, ...)."""
   return torch.stack([sum(mat[k, i] * v[k] for k in range(3))
                       for i in range(3)])
+
+
+def sub_const0(x, c):
+  """x - c over leading axis 0, where c is a model constant: a tensor of
+  x's leading size, or a numpy array, tuple or list (cast to x's dtype
+  and device)."""
+  c = torch.as_tensor(c, dtype=x.dtype, device=x.device)
+  return x - c.reshape(c.shape + (1,) * (x.dim() - 1))
 
 
 def sensors(m: Model, d: Data) -> Data:
@@ -176,7 +184,7 @@ def sensors(m: Model, d: Data) -> Data:
       val = v.actuator_force[objid][None]
     elif st == SensorType.GYRO:
       _, rot, body = _frame(m, v, objtype, objid)
-      val = _mat_tvec0(rot, v.cvel[body][:3])
+      val = mat_tvec0(rot, v.cvel[body][:3])
     elif st == SensorType.TOUCH:
       # normal force on the geoms of the site's body
       body = m.site_bodyid[objid]
@@ -188,7 +196,7 @@ def sensors(m: Model, d: Data) -> Data:
       # gravity only, at the position stage (as the JAX package)
       _, rot, _ = _frame(m, v, objtype, objid)
       g = m.opt.gravity.to(rot.dtype).reshape((3,) + (1,) * nb)
-      val = -_mat_tvec0(rot, g + torch.zeros_like(rot[0]))
+      val = -mat_tvec0(rot, g + torch.zeros_like(rot[0]))
     if val is None:  # USER and unsupported: keep the slot
       val = v.sensordata[adr:end]
     out.append(val.to(v.sensordata.dtype).expand(

@@ -30,10 +30,16 @@ from mujoco_mpc_torch.physics.types import Data, JointType, Model
 
 def _chol(m: Model, d: Data) -> torch.Tensor:
   """Cholesky factor of the implicit-damping inertia M + h diag(damping)
-  (MuJoCo Euler's implicit damping at one factorization a step)."""
+  (MuJoCo Euler's implicit damping at one factorization a step): one
+  cholesky_ex launch and no error check (a host sync). JAX's factor
+  floors each pivot at 1e-12 (ops/linalg.py::chol_factor); on these
+  inertias the floor does not bind, the smallest pivot of every
+  registered model's being at least 1e6 times it
+  (tests/test_torch_linalg.py::test_inertia_pivots_stay_above_the_floor)."""
   dtype = d.qpos.dtype
   h = m.opt.timestep.to(dtype)
-  return linalg.chol_factor(d.qM + h * torch.diag(m.dof_damping.to(dtype)))
+  return torch.linalg.cholesky_ex(
+      d.qM + h * torch.diag(m.dof_damping.to(dtype)), check_errors=False).L
 
 
 def _smooth(m: Model, d: Data, actuate: bool) -> Data:

@@ -133,6 +133,8 @@ class TileModel:
   nu: int
   nbody: int
   njnt: int
+  ngeom: int
+  nsite: int
   timestep: float
   gravity: np.ndarray  # (3,)
   body_parentid: tuple
@@ -411,6 +413,7 @@ def extract(m: Model) -> TileModel:
 
   return TileModel(
       nq=m.nq, nv=m.nv, nu=m.nu, nbody=m.nbody, njnt=m.njnt,
+      ngeom=m.ngeom, nsite=m.nsite,
       timestep=float(np.float32(float(m.opt.timestep))),
       gravity=npy(m.opt.gravity),
       body_parentid=tuple(m.body_parentid),

@@ -328,6 +328,11 @@ class Model:
   def sensor(self, name: str) -> int:
     return self._name_id(self.sensor_names, name, "sensor")
 
+  def sensor_adr(self, name: str) -> Tuple[int, int]:
+    """(address, dim) of a named sensor in sensordata."""
+    spec = self.sensor_spec[self.sensor(name)]
+    return spec[3], spec[4]
+
   def custom(self, name: str, default=None):
     """MJCF <custom><numeric> lookup (reference GetNumberOrDefault)."""
     for key, vals in self.custom_numeric:

@@ -1,19 +1,27 @@
-"""What a planning iteration reports (reference Planner::Plots).
+"""The planner interface and what a planning iteration reports
+(reference Planner::Plots).
 
-Counterpart of mujoco_mpc_tpu/planners/base.py. A planner has `config`,
-`init(task)`, `optimize(task, policy, data, generator, params=None)` ->
-(policy, PlanInfo) and `action(task, policy, data)`; `mega` is the
-MegaRollout its candidates go through, or None.
+Counterpart of mujoco_mpc_tpu/planners/base.py. A planner (`Planner`, the
+protocol a planner given to agent.register_planner implements) has
+`config`, `init(task)`, `optimize(task, policy, data, generator,
+params=None)` -> (policy, PlanInfo) and `action(task, policy, data)`; the
+seven planners also have `mega`, the MegaRollout their candidates go
+through, or None.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import (TYPE_CHECKING, Any, Callable, NamedTuple, Optional,
+                    Protocol, Tuple)
 
 import torch
 
 from mujoco_mpc_torch.ops import spline
+
+if TYPE_CHECKING:
+  from mujoco_mpc_torch.physics.types import Data
+  from mujoco_mpc_torch.tasks.base import Task, TaskParams
 
 
 class PlanInfo(NamedTuple):
@@ -21,6 +29,25 @@ class PlanInfo(NamedTuple):
   costs: torch.Tensor  # per-candidate total returns
   winner: torch.Tensor  # index of the selected candidate
   best_return: torch.Tensor  # scalar winning return
+  trace_qpos: Any = None  # optional (T, nq) winner trajectory
+
+
+class Planner(Protocol):
+  """The structural protocol every planner implements. Where the JAX
+  package's optimize takes a PRNG key, the port's takes a torch.Generator
+  (None: the global one) for its random draws."""
+
+  def init(self, task: Task) -> Any:
+    """Fresh policy/planner state."""
+
+  def optimize(self, task: Task, state: Any, data: Data,
+               generator: Optional[torch.Generator],
+               params: Optional[TaskParams] = None
+               ) -> Tuple[Any, PlanInfo]:
+    """One OptimizePolicy iteration."""
+
+  def action(self, task: Task, state: Any, data: Data) -> torch.Tensor:
+    """ActionFromPolicy: ctrl at data.time."""
 
 
 

@@ -208,6 +208,7 @@ def cost_value(spec: CostSpec, tp: TaskParams, residual: torch.Tensor,
 
 
 ResidualFn = Callable[[Model, object, torch.Tensor], torch.Tensor]
+TransitionFn = Callable[[Model, object, torch.Tensor], object]
 
 
 @dataclasses.dataclass
@@ -234,7 +235,7 @@ class Task:
   # the residual (and weight_mod) as CUDA device functions, for
   # MegaRollout on the card
   device_residual: Optional[DeviceResidual] = None
-  transition: Optional[Callable] = None
+  transition: Optional[TransitionFn] = None
 
   def replace(self, **kw) -> "Task":
     return dataclasses.replace(self, **kw)
@@ -253,6 +254,21 @@ class Task:
     scale = (self.weight_mod(self.model, data, tp.residual_params)
              if self.weight_mod is not None else None)
     return cost_value(self.spec, tp, r, scale)
+
+  def residual_size(self) -> int:
+    return self.spec.nresidual
+
+  def set_mode(self, data, mode):
+    """data with the task mode register userdata[MODE_SLOT] set to `mode`
+    in the userdata's dtype (reference agent.proto SetMode); data itself
+    is not changed."""
+    ud = data.userdata.clone()
+    ud[..., MODE_SLOT] = torch.as_tensor(mode, dtype=ud.dtype)
+    return data.replace(userdata=ud)
+
+  def get_mode(self, data) -> torch.Tensor:
+    """The task mode register as an int32 tensor."""
+    return data.userdata[..., MODE_SLOT].to(torch.int32)
 
   def run_transition(self, data, params: Optional[TaskParams] = None):
     """The task's transition on data (unchanged without one)."""

@@ -134,9 +134,10 @@ def _humanoid_spec():
   return spec
 
 
-def build_humanoid():
+def build_humanoid(mode: str = "walk"):
   """Humanoid Stand/Walk model: the plant above plus the cost spec of
-  the reference's tasks/humanoid/walk/task.xml (Stand sets Speed to 0)."""
+  the reference's tasks/humanoid/walk/task.xml; mode "stand" sets the
+  Speed parameter to 0."""
   spec = _humanoid_spec()
   add_numerics(spec, {
       "agent_planner": 0,
@@ -146,7 +147,7 @@ def build_humanoid():
       "sampling_trajectories": 128,
       "sampling_exploration": 0.12,
       "residual_Height": 1.35,
-      "residual_Speed": 1.0,
+      "residual_Speed": 0.0 if mode == "stand" else 1.0,
       "residual_Balance": 0.3,
   })
   add_cost_sensors(spec, [
@@ -230,9 +231,11 @@ def build_acrobot():
   return compile_model(spec)
 
 
-def build_particle():
+def build_particle(fixed_goal: bool = False):
   """dm_control point_mass + patch semantics (particle.xml.patch: mocap
-  goal body, direct joint motors instead of tendon transmission)."""
+  goal body, direct joint motors instead of tendon transmission).
+  `fixed_goal` is accepted and ignored, as in the JAX package: Particle
+  and ParticleFixed share this model."""
   import mujoco
 
   spec = load_spec("point_mass")

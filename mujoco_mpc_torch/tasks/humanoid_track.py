@@ -104,6 +104,14 @@ def clip_table():
           np.asarray([c.shape[0] for c in clips], np.int64))
 
 
+def __getattr__(name):
+  """MODE_NAMES, the clips' names (clip_table()[0]): read on first use,
+  so that importing the module opens no file."""
+  if name == "MODE_NAMES":
+    return clip_table()[0]
+  raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def _clip_id(model, u, like):
   """The clip index of userdata[MODE_SLOT], truncated and then taken as
   a JAX gather takes an index: a negative one from the end, one past the

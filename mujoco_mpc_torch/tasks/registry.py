@@ -75,7 +75,7 @@ def get_task(name: str, dtype=torch.float32, device=devices.DEFAULT,
     import mujoco
   except ImportError:
     raise ModelXmlRefused() from None
-  token = _XML_MODEL.set(build_task_model(
+  token = _XML_MODEL.set(load_task_model_from_builder(
       lambda: mujoco.MjModel.from_xml_string(model_xml), dtype, device))
   try:
     return _FACTORIES[name](dtype=dtype, device=device)
@@ -96,7 +96,8 @@ def snapshot_path(stem: str) -> str:
   return os.path.join(_MODEL_DIR, f"{stem}.npz")
 
 
-def build_task_model(builder, dtype=torch.float32, device=devices.DEFAULT):
+def load_task_model_from_builder(builder, dtype=torch.float32,
+                                 device=devices.DEFAULT):
   """(Model, CostSpec, TaskParams, param_names) from a mujoco builder."""
   mj = builder()
   model = phys_io.from_mjmodel(mj, dtype=dtype, device=device)
@@ -112,8 +113,8 @@ def write_snapshots(stems=None) -> None:
   for stem, builder in dict(_SNAPSHOTS.values()).items():
     if stems is not None and stem not in stems:
       continue
-    model, spec, params, names = build_task_model(builder, torch.float64,
-                                                  device="cpu")
+    model, spec, params, names = load_task_model_from_builder(
+        builder, torch.float64, device="cpu")
     meta = {"names": spec.names, "norm_types": spec.norm_types,
             "dims": spec.dims, "param_names": names}
     phys_io.save_snapshot(

@@ -1,12 +1,14 @@
-"""Rubik Faces: the cube's six face layers as directly actuated hinges
-(reference: mjpc/tasks/rubik's transition model).
+"""Rubik and Rubik Faces, with the JAX package's names: `make`,
+`residual` and `transition` are the hand's, `make_faces` builds the bare
+face mechanism.
 
-Counterpart of mujoco_mpc_tpu/tasks/rubik.py:181-241 ("Rubik Faces") on
-tasks/models/rubik.xml, the JAX package's MJCF: no contacts and no limits,
-so no constraint rows at all. The face targets are userdata[2:8];
-userdata[0] and [1] are the scramble/solve FSM's mode and move index,
-which `transition` advances when every face has settled on its target
-(faces_userdata sets a start).
+"Rubik Faces" (mujoco_mpc_tpu/tasks/rubik.py:181-241; the reference's
+mjpc/tasks/rubik transition model) is the cube's six face layers as
+directly actuated hinges on tasks/models/rubik.xml, the JAX package's
+MJCF: no contacts and no limits, so no constraint rows at all. The face
+targets are userdata[2:8]; userdata[0] and [1] are the scramble/solve
+FSM's mode and move index, which `_faces_transition` advances when every
+face has settled on its target (faces_userdata sets a start).
 
 "Rubik" (mujoco_mpc_tpu/tasks/rubik.py:1-173, the reference's
 rubik/solve.cc:1-248) is the Shadow hand holding a free cube with six
@@ -49,8 +51,9 @@ def faces_userdata(n: int, targets, mode: float = 0.0,
   return ud
 
 
-def residual(model, data, params):
-  """[qpos[:6] - targets, qvel[:6], ctrl] (18, B)."""
+def _faces_residual(model, data, params):
+  """Residual (18, B) of "Rubik Faces": [qpos[:6] - targets, qvel[:6],
+  ctrl]."""
   return torch.cat([data.qpos[:6] - data.userdata[_TARGETS],
                     data.qvel[:6], data.ctrl])
 
@@ -61,10 +64,11 @@ def _faces_move(k):
           1.0 - 2.0 * torch.remainder(k, 2.0))
 
 
-def transition(model, data, params):
-  """Advance the scramble (or undo it, in solve mode) by one move once
-  every face is within params[1] of its target and turning slower than
-  0.6; after params[0] moves scrambled, solve; solved, wait."""
+def _faces_transition(model, data, params):
+  """Rubik Faces' FSM: advance the scramble (or undo it, in solve mode)
+  by one move once every face is within params[1] of its target and
+  turning slower than 0.6; after params[0] moves scrambled, solve;
+  solved, wait."""
   n_moves, tol = params[0], params[1]
   ud = data.userdata
   mode, idx, targets = ud[0], ud[1], ud[_TARGETS]
@@ -99,12 +103,12 @@ def build_rubik_faces():
 
 @registry.register("Rubik Faces", snapshot="rubik_faces",
                    builder=build_rubik_faces)
-def make(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
+def make_faces(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
   model, spec, params, pnames = registry.load_task_model(
       "rubik_faces", dtype, device)
   return base.Task(name="Rubik Faces", model=model, spec=spec,
-                   params=params, residual=residual, param_names=pnames,
-                   transition=transition,
+                   params=params, residual=_faces_residual,
+                   param_names=pnames, transition=_faces_transition,
                    device_residual=base.DeviceResidual(DEVICE_RESIDUAL_ID))
 
 
@@ -134,7 +138,7 @@ def _face_targets(g, dtype):
   return torch.stack(cols)
 
 
-def hand_residual(model, data, params):
+def residual(model, data, params):
   """Residual (84, B) of "Rubik" on the component-leading,
   batch-trailing view."""
   mode, g = data.userdata[0], data.userdata[1]
@@ -159,7 +163,7 @@ def hand_residual(model, data, params):
   ])
 
 
-def hand_transition(model, data, params):
+def transition(model, data, params):
   """The scramble, solve and wait FSM (solve.cc:141-241): in scramble
   mode the faces jump to the stack of min(max(params[0], 0), MAX_MOVES)
   moves at rest, g to one less, solve mode; in solve mode a stage within
@@ -198,9 +202,9 @@ def build_rubik():
 
 
 @registry.register("Rubik", snapshot="rubik", builder=build_rubik)
-def make_rubik(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
+def make(dtype=torch.float32, device=devices.DEFAULT) -> base.Task:
   model, spec, params, pnames = registry.load_task_model("rubik", dtype,
                                                          device)
   return base.Task(name="Rubik", model=model, spec=spec, params=params,
-                   residual=hand_residual, param_names=pnames,
-                   transition=hand_transition)
+                   residual=residual, param_names=pnames,
+                   transition=transition)

@@ -42,7 +42,7 @@ from mujoco_mpc_tpu.physics import collision as jcol
 from mujoco_mpc_tpu.physics import tilestep as jts
 from mujoco_mpc_tpu.tasks import registry as jreg
 from tests.test_torch_model import _same
-from tests.test_torch_tilestep_classes import jax_probe_and_returns
+from tests.test_torch_tilestep_classes import shared_probe_and_returns
 from tests.torch_cases import SHADOW_GOAL, one_torch_thread
 from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
@@ -110,13 +110,15 @@ def test_allegro_extract_matches_jax(tile_models):
 
 
 @pytest.fixture(scope="module")
-def jax_run(tasks, tile_models):
+def jax_run(tasks, tile_models, tmp_path_factory):
   """One JAX rollout for the one-step checks and the returns check
-  (tests/test_torch_tilestep_classes.py::jax_probe_and_returns)."""
+  (tests/test_torch_tilestep_classes.py::jax_probe_and_returns), once a
+  session."""
   t, j = tasks
   _, jtm = tile_models
-  return jax_probe_and_returns(j, jtm, tall.probe_states(t.model, B),
-                               *_returns_inputs(t), 0.1, _operands())
+  return shared_probe_and_returns(
+      tmp_path_factory, "allegro", j, jtm, tall.probe_states(t.model, B),
+      *_returns_inputs(t), 0.1, _operands())
 
 
 @pytest.fixture(scope="module")

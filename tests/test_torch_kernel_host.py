@@ -28,6 +28,7 @@ normal would come from a rounding residue (tilestep.COINCIDE).
 
 import ctypes
 import functools
+import hashlib
 import re
 import shutil
 import subprocess
@@ -51,6 +52,7 @@ from tests.test_torch_tilestep_classes import CLASS_MODELS, class_task
 from tests.torch_cases import (HANDOVER_TARGET, RUBIK_TARGETS, SHADOW_GOAL,
                                SMALL_TASKS, small_task_states)
 from tests.torch_engine_cases import release_jax_executables  # noqa: F401
+from tests.torch_engine_cases import session_dir, session_result
 
 _STUB = r"""
 #pragma once
@@ -245,7 +247,7 @@ def _ptr(a):
 
 def _build(d, flags, tier):
   """The kernel source of one size tier under the stub, built into d with
-  extra flags; both precisions, each layout checked against its mirror."""
+  extra flags; the library's path."""
   cxx = shutil.which("g++") or shutil.which("c++")
   if cxx is None:
     pytest.skip("needs a host C++ compiler")
@@ -259,6 +261,12 @@ def _build(d, flags, tier):
                   f"-DMR_TIER={tmr.TIERS.index(tier)}", "-I", str(d), "-o",
                   str(so), str(d / "host_main.cc")],
                  check=True, capture_output=True)
+  return so
+
+
+def _load(so, tier):
+  """The host build at so, both precisions' layouts checked against their
+  mirrors."""
   lib = ctypes.CDLL(str(so))
   lib.host_model_layout.argtypes = [ctypes.c_int, _P, ctypes.c_int]
   lib.host_model_size.argtypes = [ctypes.c_int]
@@ -278,16 +286,24 @@ def _build(d, flags, tier):
 
 
 class HostLibs:
-  """The host builds of the kernel per size tier, each built on first
-  use."""
+  """The host builds of the kernel per size tier, each built on first use,
+  once a session (torch_engine_cases.session_result): the session's other
+  test modules and workers load it."""
 
   def __init__(self, tmp_path_factory, flags):
     self._tmp, self._flags, self._libs = tmp_path_factory, flags, {}
 
   def __getitem__(self, tier):
     if tier not in self._libs:
-      self._libs[tier] = _build(self._tmp.mktemp(f"kernel_{tier.name}"),
-                                self._flags, tier)
+      name = "kernel_host_{}_{}".format(tier.name, hashlib.sha256(
+          " ".join(self._flags).encode()).hexdigest()[:8])
+
+      def build():
+        d = session_dir(self._tmp) / name
+        d.mkdir(exist_ok=True)
+        return _build(d, self._flags, tier)
+
+      self._libs[tier] = _load(session_result(self._tmp, name, build), tier)
     return self._libs[tier]
 
 

@@ -79,7 +79,7 @@ def test_from_mjmodel_matches_jax_model(walker_mj):
 
 
 def _snapshot_matches_fresh_build(builder, stem):
-  fresh, spec, params, names = treg.build_task_model(
+  fresh, spec, params, names = treg.load_task_model_from_builder(
       builder, dtype=torch.float64, device="cpu")
   snap, sspec, sparams, snames = treg.load_task_model(
       stem, dtype=torch.float64, device="cpu")

@@ -3,8 +3,10 @@ MegaRollout.returns, on the Walker, held against the JAX package.
 
 Every JAX rollout here is the Walker's MegaRollout.returns_xla at T = 10
 steps over N = 8 candidates (which tests/test_megarollout.py pins to the
-interpret-mode Pallas kernel), jitted once per module: compiling it takes
-about a minute on a CPU, and the tests call it eight times.
+interpret-mode Pallas kernel), jitted once a session: compiling it takes
+about half a minute on a CPU, so one worker computes every JAX return the
+tests compare with, on their fixed inputs, and the session's workers
+share them (jax_refs; tests/torch_engine_cases.py::session_result).
 
 SamplingPlanner.optimize with injected numpy noise is held against the same
 composition on the JAX side (spline.resample, noise, clamp,
@@ -49,16 +51,58 @@ from mujoco_mpc_tpu.planners import cross_entropy as jcem
 from mujoco_mpc_tpu.tasks import registry as jreg
 from tests.torch_cases import one_torch_thread
 from tests.torch_engine_cases import release_jax_executables  # noqa: F401
+from tests.torch_engine_cases import session_result
 
 T, N, K = 10, 8, 6
 
 
 @pytest.fixture(scope="module")
 def setup():
-  t = treg.get_task("Walker", device="cpu")
+  return (treg.get_task("Walker", device="cpu"),
+          jreg.get_task("Walker", dtype=jnp.float32))
+
+
+def _acts():
+  """The returns checks' N candidates' actions (N, T, 6)."""
+  return (0.4 * np.random.RandomState(0).randn(N, T, 6)).astype(np.float32)
+
+
+def _jax_references():
+  """Every JAX result the module's returns and optimize checks compare
+  with, on their fixed inputs, from one jitted returns_xla: the returns of
+  _acts (with the Walker's parameters, with Speed 2.0, and with
+  candidate 0 exploding), and for each spline interpolation the sampling
+  iteration's composition (_sampling_composition), and the CEM
+  iteration's (_cem_composition); numpy throughout."""
   j = jreg.get_task("Walker", dtype=jnp.float32)
   jf = jax.jit(jmr.MegaRollout(j, T).returns_xla)
-  return t, j, jf
+  home = jnp.asarray(np.asarray(j.model.keyframe("home")[0], np.float32))
+  zero, acts = jnp.zeros(9, jnp.float32), _acts()
+  bad = acts.copy()
+  bad[0] = 1e30
+
+  def returns(actions, params, qpos=home, qvel=zero, t0=np.float32(0.0)):
+    return np.asarray(jf(qpos, qvel, jnp.asarray(actions), params, t0))
+
+  refs = {"returns": returns(acts, j.params),
+          "divergence": returns(bad, j.params),
+          "speed": returns(acts, j.set_parameter("Speed", 2.0).params)}
+  for interp in tspline.Interp:
+    new_times, cands, actions, time0 = _sampling_composition(j, interp)
+    refs[f"sampling_{int(interp)}"] = (
+        np.asarray(new_times), np.asarray(cands),
+        returns(actions, j.params, t0=time0))
+  new_times, cands, actions, jdata = _cem_composition(j)
+  refs["cem"] = (np.asarray(new_times), np.asarray(cands),
+                 returns(actions, j.params, jdata.qpos, jdata.qvel,
+                         jdata.time))
+  return refs
+
+
+@pytest.fixture(scope="module")
+def jax_refs(tmp_path_factory):
+  return session_result(tmp_path_factory, "planner_walker",
+                        _jax_references)
 
 
 # ------------------------------------------------ CPU MegaRollout.returns
@@ -66,43 +110,38 @@ def setup():
 
 @pytest.fixture(scope="module")
 def rollouts(setup):
-  t, j, jf = setup
+  t, j = setup
   home = np.asarray(t.model.keyframe("home")[0], np.float32)
-  acts = (0.4 * np.random.RandomState(0).randn(N, T, 6)).astype(np.float32)
-
-  def jax_returns(actions, params):
-    return np.asarray(jf(jnp.asarray(home), jnp.zeros(9, jnp.float32),
-                         jnp.asarray(actions), params, np.float32(0.0)))
 
   def torch_returns(actions, params):
     return tmr.MegaRollout(t, T, device="cpu").returns(
         torch.tensor(home), torch.zeros(9), torch.tensor(actions), params,
         torch.tensor(0.0)).numpy()
 
-  return t, j, acts, jax_returns, torch_returns
+  return t, _acts(), torch_returns
 
 
-def test_returns_match_jax_returns_xla(rollouts):
-  t, j, acts, jax_returns, torch_returns = rollouts
+def test_returns_match_jax_returns_xla(rollouts, jax_refs):
+  t, acts, torch_returns = rollouts
   got = torch_returns(acts, t.params)
-  want = jax_returns(acts, j.params)
-  np.testing.assert_allclose(got, want, rtol=2e-3)
+  np.testing.assert_allclose(got, jax_refs["returns"], rtol=2e-3)
   assert np.all(np.isfinite(got)) and np.all(got < tmr.MAX_RETURN)
 
 
-def test_divergence_guard(rollouts):
+def test_divergence_guard(rollouts, jax_refs):
   """Exploding actions -> MAX_RETURN in both packages, not nan."""
-  t, j, acts, jax_returns, torch_returns = rollouts
+  t, acts, torch_returns = rollouts
   bad = acts.copy()
   bad[0] = 1e30
   got = torch_returns(bad, t.params)
-  assert got[0] == tmr.MAX_RETURN
-  np.testing.assert_allclose(got, jax_returns(bad, j.params), rtol=2e-3)
+  want = jax_refs["divergence"]
+  assert got[0] == tmr.MAX_RETURN == want[0]
+  np.testing.assert_allclose(got, want, rtol=2e-3)
 
 
-def test_params_are_runtime_tunable(rollouts):
+def test_params_are_runtime_tunable(rollouts, jax_refs):
   """Changing weights and residual params changes returns, no rebuild."""
-  t, j, acts, jax_returns, torch_returns = rollouts
+  t, acts, torch_returns = rollouts
   mr = tmr.MegaRollout(t, T, device="cpu")
   args = (torch.tensor(np.asarray(t.model.keyframe("home")[0], np.float32)),
           torch.zeros(9), torch.tensor(acts))
@@ -113,38 +152,30 @@ def test_params_are_runtime_tunable(rollouts):
   faster = t.set_parameter("Speed", 2.0).params
   r3 = mr.returns(*args, faster, 0.0).numpy()
   assert not np.allclose(r1, r3)
-  np.testing.assert_allclose(
-      r3, jax_returns(acts, j.set_parameter("Speed", 2.0).params),
-      rtol=2e-3)
+  np.testing.assert_allclose(r3, jax_refs["speed"], rtol=2e-3)
 
 
 # ----------------------------------------------------- the sampling planner
 
 
-@pytest.mark.parametrize("interp", list(tspline.Interp))
-def test_optimize_matches_jax_composition(setup, interp):
-  t, j, jf = setup
+def _sampling_inputs(interp):
+  """The sampling iteration's start: (home, time0, the policy's times and
+  values, the noise, the exploration) for the interpolation `interp`."""
   rng = np.random.RandomState(int(interp))
-  home = np.asarray(t.model.keyframe("home")[0], np.float32)
-  time0 = np.float32(0.013)
+  home = np.asarray(tio.load_snapshot(treg.snapshot_path("walker"),
+                                      device="cpu")[0].keyframe("home")[0],
+                    np.float32)
   times = np.linspace(0.0, 0.03, K).astype(np.float32)
   values = rng.uniform(-0.5, 0.5, (K, 6)).astype(np.float32)
   noise = rng.randn(N - 1, K, 6).astype(np.float32)
-  expl = np.float32(0.35)
+  return home, np.float32(0.013), times, values, noise, np.float32(0.35)
 
-  planner = tsampling.SamplingPlanner(tsampling.SamplingConfig(
-      num_trajectories=N, spline_points=K, horizon=T, interp=interp))
-  planner.init(t)
-  data = tio.make_data(t.model).replace(qpos=torch.tensor(home),
-                                        time=torch.tensor(time0))
-  policy = tsampling.SamplingPolicy(
-      times=torch.tensor(times), values=torch.tensor(values),
-      exploration=torch.tensor(expl), exploration2=torch.tensor(0.0))
-  new_policy, info = planner.optimize(
-      t, policy, data, None, noise=torch.tensor(noise),
-      use2=torch.zeros(N - 1, dtype=torch.bool))
 
-  # the same iteration composed from the JAX package's parts
+def _sampling_composition(j, interp):
+  """The sampling iteration on _sampling_inputs composed from the JAX
+  package's parts (spline.resample, noise, clamp, spline.sample_many):
+  (new_times, candidates, their actions, time0)."""
+  _, time0, times, values, noise, expl = _sampling_inputs(interp)
   m = j.model
   dt = m.opt.timestep
   ji = jspline.Interp(int(interp))
@@ -161,16 +192,33 @@ def test_optimize_matches_jax_composition(setup, interp):
   ts = time0 + jnp.arange(T, dtype=jnp.float32) * dt
   actions = jax.vmap(lambda v: jspline.sample_many(new_times, v, ts, ji))(
       cands)
-  want = np.asarray(jf(jnp.asarray(home), jnp.zeros(9, jnp.float32),
-                       actions, j.params, time0))
+  return new_times, cands, actions, time0
 
+
+@pytest.mark.parametrize("interp", list(tspline.Interp))
+def test_optimize_matches_jax_composition(setup, jax_refs, interp):
+  t, _ = setup
+  home, time0, times, values, noise, expl = _sampling_inputs(interp)
+  planner = tsampling.SamplingPlanner(tsampling.SamplingConfig(
+      num_trajectories=N, spline_points=K, horizon=T, interp=interp))
+  planner.init(t)
+  data = tio.make_data(t.model).replace(qpos=torch.tensor(home),
+                                        time=torch.tensor(time0))
+  policy = tsampling.SamplingPolicy(
+      times=torch.tensor(times), values=torch.tensor(values),
+      exploration=torch.tensor(expl), exploration2=torch.tensor(0.0))
+  new_policy, info = planner.optimize(
+      t, policy, data, None, noise=torch.tensor(noise),
+      use2=torch.zeros(N - 1, dtype=torch.bool))
+
+  # the same iteration composed from the JAX package's parts
+  new_times, cands, want = jax_refs[f"sampling_{int(interp)}"]
   np.testing.assert_allclose(info.costs.numpy(), want, rtol=2e-3)
   assert int(info.winner) == int(np.argmin(want))
-  np.testing.assert_allclose(new_policy.times.numpy(),
-                             np.asarray(new_times), atol=1e-6)
-  np.testing.assert_allclose(new_policy.values.numpy(),
-                             np.asarray(cands[int(np.argmin(want))]),
+  np.testing.assert_allclose(new_policy.times.numpy(), new_times,
                              atol=1e-6)
+  np.testing.assert_allclose(new_policy.values.numpy(),
+                             cands[int(np.argmin(want))], atol=1e-6)
 
 
 def test_agent_walker_defaults():
@@ -243,21 +291,25 @@ def test_other_planners_are_not_ported():
 
 
 # -------------------------------------------------- the cross-entropy planner
-# its candidates and returns over the module's N and T, so that returns_xla
-# compiles once
+# its candidates and returns over the module's N and T, so that one
+# returns_xla serves both planners' checks
 K_CEM, ELITE = 5, 4
+_CEM = dict(num_trajectories=N, n_elite=ELITE, spline_points=K_CEM,
+            horizon=T, std_min=0.05, std_initial=0.3)
+
+
+def _jax_cem():
+  return jcem.CrossEntropyPlanner(jcem.CEMConfig(**_CEM),
+                                  use_megakernel=False)
 
 
 @pytest.fixture(scope="module")
 def cem_setup():
   t = treg.get_task("Walker", device="cpu")
   j = jreg.get_task("Walker", dtype=jnp.float32)
-  cfg = dict(num_trajectories=N, n_elite=ELITE, spline_points=K_CEM,
-             horizon=T, std_min=0.05, std_initial=0.3)
-  tp = tcem.CrossEntropyPlanner(tcem.CEMConfig(**cfg))
+  tp = tcem.CrossEntropyPlanner(tcem.CEMConfig(**_CEM))
   tp.init(t)
-  jp = jcem.CrossEntropyPlanner(jcem.CEMConfig(**cfg), use_megakernel=False)
-  return t, j, tp, jp
+  return t, j, tp, _jax_cem()
 
 
 def _state(t, j, seed):
@@ -323,22 +375,30 @@ def test_cem_elite_update_matches_jax():
   assert float(std.min()) == pytest.approx(0.3)
 
 
-def test_cem_optimize_matches_jax_composition(setup, cem_setup):
-  """One CEM iteration on the Walker: candidates, returns (returns_xla),
-  elite update."""
-  jf = setup[2]
-  t, j, tp, jp = cem_setup
-  tpol, jpol, tdata, jdata, key = _state(t, j, 4)
-  new_policy, info = tp.optimize(t, tpol, tdata, None,
-                                 noise=torch.tensor(_jax_noise(key)))
+def _cem_composition(j):
+  """One CEM iteration from _state(seed 4) composed from the JAX package's
+  parts (its _gen_candidates, spline.sample_many): (new_times,
+  candidates, their actions, the JAX Data)."""
+  jp = _jax_cem()
+  _, jpol, _, jdata, key = _state(treg.get_task("Walker", device="cpu"), j,
+                                  4)
   new_times, _, cands = jp._gen_candidates(j, jpol, jdata, key)
   ts = jdata.time + jnp.arange(T, dtype=jnp.float32) * j.model.opt.timestep
   actions = jax.vmap(lambda v: jspline.sample_many(
       new_times, v, ts, jp.config.interp))(cands)
-  want = np.asarray(jf(jdata.qpos, jdata.qvel, actions, j.params,
-                       jdata.time))
+  return new_times, cands, actions, jdata
+
+
+def test_cem_optimize_matches_jax_composition(cem_setup, jax_refs):
+  """One CEM iteration on the Walker: candidates, returns (returns_xla),
+  elite update."""
+  t, j, tp, jp = cem_setup
+  tpol, _, tdata, _, key = _state(t, j, 4)
+  new_policy, info = tp.optimize(t, tpol, tdata, None,
+                                 noise=torch.tensor(_jax_noise(key)))
+  new_times, cands, want = jax_refs["cem"]
   _, jidx = jax.lax.top_k(-jnp.asarray(want), ELITE)
-  elites = cands[jidx]
+  elites = jnp.asarray(cands)[jidx]
   jmean = jnp.mean(elites, axis=0)
   jstd = jnp.maximum(jnp.sqrt(jnp.sum((elites - jmean[None]) ** 2, axis=0)
                               / (ELITE - 1)), jp.config.std_min)
@@ -348,7 +408,7 @@ def test_cem_optimize_matches_jax_composition(setup, cem_setup):
   assert order[1] - order[0] > 1e-4 * order[0]
   assert order[ELITE] - order[ELITE - 1] > 1e-4 * order[ELITE]
   assert int(info.winner) == int(jidx[0])
-  np.testing.assert_allclose(new_policy.times.numpy(), np.asarray(new_times),
+  np.testing.assert_allclose(new_policy.times.numpy(), new_times,
                              atol=1e-6)
   np.testing.assert_allclose(new_policy.values.numpy(), np.asarray(jmean),
                              atol=1e-5)

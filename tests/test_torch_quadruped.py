@@ -39,7 +39,7 @@ from mujoco_mpc_tpu.tasks import registry as jreg
 from tests.torch_cases import (QUADRUPED_MODES, one_torch_thread,
                                quadruped_mode)
 from tests.test_torch_model import _same
-from tests.test_torch_tilestep_classes import jax_probe_and_returns
+from tests.test_torch_tilestep_classes import shared_probe_and_returns
 from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 B, N, T = 8, 8, 4
@@ -69,7 +69,7 @@ def _operands(nuserdata, userdata=None):
 
 
 def test_quadruped_snapshot_matches_fresh_build():
-  fresh, spec, params, names = treg.build_task_model(
+  fresh, spec, params, names = treg.load_task_model_from_builder(
       tquad.build_quadruped, dtype=torch.float64, device="cpu")
   snap, sspec, sparams, snames = treg.load_task_model(
       "quadruped", dtype=torch.float64, device="cpu")
@@ -118,14 +118,15 @@ def test_quadruped_extract_matches_jax(tile_models):
 
 
 @pytest.fixture(scope="module")
-def jax_run(tasks, tile_models):
+def jax_run(tasks, tile_models, tmp_path_factory):
   """One JAX rollout for the one-step checks and the returns check
-  (tests/test_torch_tilestep_classes.py::jax_probe_and_returns)."""
+  (tests/test_torch_tilestep_classes.py::jax_probe_and_returns), once a
+  session."""
   t, j = tasks
   _, jtm = tile_models
-  return jax_probe_and_returns(j, jtm, tquad.probe_states(t.model, B),
-                               *_returns_inputs(t), 0.1,
-                               _operands(t.model.nuserdata))
+  return shared_probe_and_returns(
+      tmp_path_factory, "quadruped", j, jtm, tquad.probe_states(t.model, B),
+      *_returns_inputs(t), 0.1, _operands(t.model.nuserdata))
 
 
 @pytest.fixture(scope="module")

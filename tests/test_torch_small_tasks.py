@@ -201,7 +201,7 @@ def _jax_run(agent, j, jtm, probe, noise):
 def test_small_task_snapshot_matches_fresh_build(name):
   stem = _TABLE[name][0]
   builder = treg._SNAPSHOTS[name][1]
-  fresh, spec, params, names = treg.build_task_model(
+  fresh, spec, params, names = treg.load_task_model_from_builder(
       builder, dtype=torch.float64, device="cpu")
   snap, sspec, sparams, snames = treg.load_task_model(
       stem, dtype=torch.float64, device="cpu")

@@ -48,6 +48,7 @@ from mujoco_mpc_tpu.physics import tilestep as jts
 from tests import test_tilestep_classes as jtests
 from tests.test_torch_model import _same
 from tests.torch_engine_cases import release_jax_executables  # noqa: F401
+from tests.torch_engine_cases import session_result
 
 B, N, T = 8, 8, 8
 # name: ClassModel (MJCF, start qpos, qvel scale, row classes that must
@@ -151,6 +152,40 @@ def jax_probe_and_returns(j, jtm, probe, qpos0, qvel0, actions, t0=0.0,
           returns[b:])
 
 
+def _numpy_contact(contact):
+  """The contact view's dist and frame as numpy, each where JAX can read
+  it (a model without contact points has no frame to read)."""
+  out = types.SimpleNamespace()
+  for k in ("dist", "frame"):
+    try:
+      setattr(out, k, np.asarray(getattr(contact, k)))
+    except (TypeError, ValueError):
+      pass
+  return out
+
+
+def _numpy_view(view):
+  """A JAX step's view as numpy arrays (its contact view read), which
+  pickles."""
+  out = types.SimpleNamespace()
+  for k, x in vars(view).items():
+    if k == "contact":
+      x = _numpy_contact(x)
+    elif x is not None and not isinstance(x, float):
+      x = np.asarray(x)
+    setattr(out, k, x)
+  return out
+
+
+def shared_probe_and_returns(tmp_path_factory, name, *args, **kwargs):
+  """jax_probe_and_returns(*args, **kwargs), once a session for `name`
+  (torch_engine_cases.session_result), with its views as numpy."""
+  def compute():
+    steps, returns = jax_probe_and_returns(*args, **kwargs)
+    return [(q, v, _numpy_view(view)) for q, v, view in steps], returns
+  return session_result(tmp_path_factory, f"probe_{name}", compute)
+
+
 def models_fixture(names):
   """A module fixture over `names`: (name, the port's Task, the JAX Task,
   both TileModels). The per-model tests below run over the chain models
@@ -250,12 +285,13 @@ def _returns_inputs(name, t):
 
 
 @pytest.fixture(scope="module")
-def jax_run(models):
+def jax_run(models, tmp_path_factory):
   """One JAX rollout for the one-step check and the returns check
-  (jax_probe_and_returns)."""
+  (jax_probe_and_returns), once a session."""
   name, t, j, _, jtm = models
-  return jax_probe_and_returns(j, jtm, class_models.states(name, t.model, B),
-                               *_returns_inputs(name, t))
+  return shared_probe_and_returns(
+      tmp_path_factory, f"class_{name}", j, jtm,
+      class_models.states(name, t.model, B), *_returns_inputs(name, t))
 
 
 def test_class_model_step_matches_jax(models, jax_run):

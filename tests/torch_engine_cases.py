@@ -30,10 +30,12 @@ set:
     reference (ROADMAP queue 3); the port holds it against JAX above.
 """
 
+import fcntl
 import functools
 import gc
 import importlib
 import os
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +54,7 @@ from mujoco_mpc_torch.physics.types import GeomType
 from mujoco_mpc_torch.tasks import class_models, dm_suite
 from mujoco_mpc_torch.tasks import registry as treg
 from tests import models as oracle_models
+from tests.torch_cases import one_torch_thread
 
 jstep = importlib.import_module("mujoco_mpc_tpu.physics.step")
 
@@ -70,9 +73,47 @@ def release_jax_executables():
   (vm.max_map_count) before half the run, and a compile past the limit
   fails to map its code and kills the worker (a segfault in XLA's
   compile; the ball chain's jitted step at the limit: "allocateMappedMemory
-  failed"). A later call of a jitted function compiles again."""
+  failed"). A later call of a jitted function compiles again.
+
+  The module's PyTorch then runs on one CPU thread, its fixtures
+  included (torch_cases.one_torch_thread says why)."""
   jax.clear_caches()
   gc.collect()
+  with one_torch_thread():
+    yield
+
+
+_SESSION_RESULTS = {}
+
+
+def session_dir(tmp_path_factory):
+  """The pytest session's temporary directory, which its pytest-xdist
+  workers share (the parent of each worker's), a new one each session."""
+  base = tmp_path_factory.getbasetemp()
+  return base.parent if "PYTEST_XDIST_WORKER" in os.environ else base
+
+
+def session_result(tmp_path_factory, name, compute):
+  """compute()'s result (picklable: numpy arrays, tuples, lists, dicts,
+  SimpleNamespaces, paths), computed once in this pytest session. The
+  first test worker that asks computes it, under a lock the others wait
+  on, and pickles it into session_dir, where the session's other modules
+  and workers load it: a JAX reference or a build that several workers'
+  tests read runs once a session instead of once a worker and module
+  visit. `name` names the result within the session."""
+  if name not in _SESSION_RESULTS:
+    d = session_dir(tmp_path_factory)
+    path = d / f"session_result_{name}.pkl"
+    with open(d / f"session_result_{name}.lock", "w") as lock:
+      fcntl.flock(lock, fcntl.LOCK_EX)
+      if not path.exists():
+        part = path.with_suffix(".part")
+        with open(part, "wb") as f:
+          pickle.dump(compute(), f)
+        os.replace(part, path)
+      with open(path, "rb") as f:
+        _SESSION_RESULTS[name] = pickle.load(f)
+  return _SESSION_RESULTS[name]
 
 
 @functools.lru_cache(maxsize=None)
