@@ -1878,10 +1878,11 @@ def general_rollout_check(name: str, dev, n: int, horizon: int,
   instance; the general engine on the same float32-rounded constants,
   task_in) and, where float32 is not chaotic, in float32.
 
-  The kernel rounds its derived constants (contact stiffness and damping,
-  impedance, mixed pair parameters) to float32 in both instances, so a
-  float64 step of the two paths differs by that rounding (1e-6 of the
-  Humanoid's contact forces), which a chaotic rollout amplifies. Where a
+  The double instance holds the general engine's constants: a geom
+  pair's solref and solimp mixed whole, and the constants derived from
+  them (a row's stiffness, damping and impedance) whole, so a float64
+  step of the two paths differs only in the order of its operations,
+  which a chaotic rollout (the Humanoid's) may amplify. Where a
   float64 candidate misses, the returns are held as a population
   (float_noise): the kernel no further from the general returns than the
   general rollout on the unrounded (registered float64) constants is

@@ -308,15 +308,21 @@ def pack_model(tm: tilestep.TileModel, task: Task,
   """The kernel's MRModelT for a TileModel and task, in the smallest size
   tier that holds the model, with float or double scalars for dtype
   float32 or float64 (the same float32 model values in both; the
-  residual's constants at the struct's precision, as the plain residual
-  reads them); raises tilestep.UnsupportedModel as select_tier does."""
+  constants derived from them, a row's impedance, stiffness and damping
+  and the box-box guard, and the residual's constants at the struct's
+  precision, as the plain version reads them); raises
+  tilestep.UnsupportedModel as select_tier does."""
   tier = select_tier(tm, task)
   spec = task.spec
   dres = task.device_residual
-  s = _MODEL_STRUCT[tier, torch.float32]()
+  s = _MODEL_STRUCT[tier, dtype]()
 
-  def put(name, values):
-    np.ctypeslib.as_array(getattr(s, name))[:len(values)] = values
+  def put(name, values, whole=False):
+    """Model values at float32 in either struct; `whole` ones (the
+    constants derived from them) at the struct's precision."""
+    a = np.ctypeslib.as_array(getattr(s, name))
+    v = np.asarray(values)
+    a[:len(v)] = v if whole or a.dtype.kind != "f" else v.astype(np.float32)
 
   nlimj = len(tm.lim_jnt)
   fric, ones, tor, roll = tilestep.row_points(tm)
@@ -332,7 +338,7 @@ def pack_model(tm: tilestep.TileModel, task: Task,
                   ("nterm", spec.nterm), ("nres", spec.nresidual),
                   ("res_id", dres.id), ("nmocap", tm.nmocap),
                   ("nuserdata", tm.nuserdata), ("nsite", len(dres.sites)),
-                  ("timestep", tm.timestep)):
+                  ("timestep", float(np.float32(tm.timestep)))):
     setattr(s, name, v)
   put("res_int", list(dres.ints))
   if dres.sites:
@@ -414,19 +420,21 @@ def pack_model(tm: tilestep.TileModel, task: Task,
                                 else np.zeros((2, 3))
                                 for cp, bb in zip(cps, boxbox)]))
       put("con_guard", [tilestep.boxbox_guard(cp) if bb else (0.0, 0.0)
-                        for cp, bb in zip(cps, boxbox)])
+                        for cp, bb in zip(cps, boxbox)], whole=True)
     sgn = np.zeros((len(cps), MAX_NV), np.float32)
     for ci, cp in enumerate(cps):
       sgn[ci, :tm.nv] = (tm.dof_body_mask[:, cp.body2].astype(np.float32)
                          - tm.dof_body_mask[:, cp.body1])
     put("con_sgn", sgn)
-    put("con_imp", [tilestep.impedance_consts(cp.solimp) for cp in cps])
-    kbs = [tilestep.kb(cp.solref, float(cp.solimp[1])) for cp in cps]
-    put("con_k", [v[0] for v in kbs])
-    put("con_b", [v[1] for v in kbs])
+    params = [tilestep.pair_params(cp, dtype) for cp in cps]
+    put("con_imp", [tilestep.impedance_consts(si) for _, si in params],
+        whole=True)
+    kbs = [tilestep.kb(sr, float(si[1])) for sr, si in params]
+    put("con_k", [v[0] for v in kbs], whole=True)
+    put("con_b", [v[1] for v in kbs], whole=True)
   # joint and tendon limits share the default solimp
   imp = tilestep.impedance_consts(tilestep._DEFAULT_SOLIMP)
-  put("lim_imp", imp)
+  put("lim_imp", imp, whole=True)
   if nlimj:
     kbs = [tilestep.kb(tm.lim_solref[li], imp[1]) for li in range(nlimj)]
     put("lim_qadr", tm.lim_qadr)
@@ -434,8 +442,8 @@ def pack_model(tm: tilestep.TileModel, task: Task,
     put("lim_lo", tm.lim_lo)
     put("lim_hi", tm.lim_hi)
     put("lim_margin", tm.lim_margin)
-    put("lim_k", [v[0] for v in kbs])
-    put("lim_b", [v[1] for v in kbs])
+    put("lim_k", [v[0] for v in kbs], whole=True)
+    put("lim_b", [v[1] for v in kbs], whole=True)
   if tm.ten_wraps:  # every tendon: limits, springs, actuators read it
     grid = np.zeros((len(tm.ten_wraps), MAX_WRAP, 3))
     for t, ws in enumerate(tm.ten_wraps):
@@ -453,8 +461,8 @@ def pack_model(tm: tilestep.TileModel, task: Task,
     put("ten_hi", tm.ten_lim_range[:, 1])
     put("ten_margin", tm.ten_lim_margin)
     kbs = [tilestep.kb(sr, imp[1]) for sr in tm.ten_lim_solref]
-    put("ten_k", [v[0] for v in kbs])
-    put("ten_b", [v[1] for v in kbs])
+    put("ten_k", [v[0] for v in kbs], whole=True)
+    put("ten_b", [v[1] for v in kbs], whole=True)
   if tm.eq_rows:
     eqs = tm.eq_rows
     put("eq_kind", [er.kind for er in eqs])
@@ -462,25 +470,16 @@ def pack_model(tm: tilestep.TileModel, task: Task,
     put("eq_ob2", [er.ob2 for er in eqs])
     put("eq_data", np.stack([er.data for er in eqs]))
     kbs = [tilestep.kb(er.solref, float(er.solimp[1])) for er in eqs]
-    put("eq_k", [v[0] for v in kbs])
-    put("eq_b", [v[1] for v in kbs])
-    put("eq_imp", [tilestep.impedance_consts(er.solimp) for er in eqs])
+    put("eq_k", [v[0] for v in kbs], whole=True)
+    put("eq_b", [v[1] for v in kbs], whole=True)
+    put("eq_imp", [tilestep.impedance_consts(er.solimp) for er in eqs],
+        whole=True)
     da = np.zeros((len(eqs), 6), np.float32)
     for e, er in enumerate(eqs):
       da[e, :er.nrows] = er.diagapprox
     put("eq_da", da)
   put("term_dim", spec.dims)
   put("term_norm", spec.norm_types)
-  if dtype != torch.float32:
-    wide = _MODEL_STRUCT[tier, dtype]()
-    for name, _ in wide._fields_:
-      v = getattr(s, name)
-      if isinstance(v, (int, float)):
-        setattr(wide, name, v)
-      else:
-        np.ctypeslib.as_array(getattr(wide, name))[...] = \
-            np.ctypeslib.as_array(v)
-    s = wide
   # the residual's constants at the struct's precision: the plain residual
   # reads them as Python floats
   np.ctypeslib.as_array(s.res_float)[:len(dres.floats)] = dres.floats

@@ -332,6 +332,10 @@ def extract(m: Model) -> TileModel:
   geom_xpos0, geom_xmat0 = _static_geom_frames(m)
   gs = npy(m.geom_size)
   fr = npy(m.geom_friction)
+  # a pair's solref and solimp mixed whole from the geoms' float32 values
+  # (pair_params rounds them for a float32 step)
+  gsr, gsi = (npy(x).astype(np.float64) for x in (m.geom_solref,
+                                                  m.geom_solimp))
   for g1, g2 in m.collision_pairs:
     t1, t2 = GeomType(m.geom_type[g1]), GeomType(m.geom_type[g2])
     b1, b2 = m.geom_bodyid[g1], m.geom_bodyid[g2]
@@ -341,8 +345,7 @@ def extract(m: Model) -> TileModel:
         r1=float(gs[g1, 0]), r2=float(gs[g2, 0]),
         half1=float(gs[g1, 1]), half2=float(gs[g2, 1]),
         mu=float(max(fr[g1, 0], fr[g2, 0])),
-        solref=0.5 * (npy(m.geom_solref)[g1] + npy(m.geom_solref)[g2]),
-        solimp=0.5 * (npy(m.geom_solimp)[g1] + npy(m.geom_solimp)[g2]),
+        solref=0.5 * (gsr[g1] + gsr[g2]), solimp=0.5 * (gsi[g1] + gsi[g2]),
         margin=float(max(npy(m.geom_margin)[g1], npy(m.geom_margin)[g2])),
         condim=condim, mu_tor=float(max(fr[g1, 1], fr[g2, 1])),
         mu_roll=float(max(fr[g1, 2], fr[g2, 2])))
@@ -542,6 +545,15 @@ def impedance_consts(solimp) -> Tuple[float, float, float, float, float]:
   d0, d1, width, mid, power = (float(v) for v in np.asarray(solimp)[:5])
   return (d0, d1, max(width, 1e-12), min(max(mid, 1e-4), 1 - 1e-4),
           max(power, 1.0))
+
+
+def pair_params(cp: ConPoint, dtype):
+  """A contact point's (solref, solimp) at the step's precision: the
+  mixture whole in a float64 step, as a float64 model mixes the geoms'
+  values, and rounded to float32 in a float32 step, as a float32 model
+  mixes them."""
+  npd = np.float64 if dtype == torch.float64 else np.float32
+  return cp.solref.astype(npd), cp.solimp.astype(npd)
 
 
 def kb(solref, dmax: float) -> Tuple[float, float]:
@@ -764,7 +776,10 @@ def step_tb(tm: TileModel, qpos, qvel, ctrl, efc_lambda=None, *,
   zero3 = torch.stack([zero, zero, zero])
 
   def const(v):
-    return torch.as_tensor(np.asarray(v, dtype=np.float32), dtype=dtype,
+    """A constant as a tensor at the step's precision: the model's float32
+    values as they are, one derived from them (a row's impedance,
+    stiffness and damping) rounded only in a float32 step."""
+    return torch.as_tensor(np.asarray(v, dtype=np.float64), dtype=dtype,
                            device=dev)
 
   mocap_pos, mocap_quat, userdata = aux_operands(
@@ -1228,7 +1243,7 @@ def _boxbox_corner(cp, p1, m1, p2, m2, sat):
   rel = c - po
   dist = sgn * _dot3(rel, n) - sup_o
   local, n_loc = _mat_tvec(mo, rel), _mat_tvec(mo, n)
-  big, slack = boxbox_guard(cp)
+  big, slack = boxbox_guard(cp)  # rounded only in a float32 step
   so = _c(so)
   over = [torch.abs(local[i]) - so[i] - big * torch.abs(n_loc[i])
           for i in range(3)]
@@ -1238,11 +1253,11 @@ def _boxbox_corner(cp, p1, m1, p2, m2, sat):
 
 
 def boxbox_guard(cp):
-  """The overhang guard's (big, slack) of a boxbox_corner point at float32:
+  """The overhang guard's (big, slack) of a boxbox_corner point, whole:
   4 (max size1 + max size2) and 0.05 min(the other box's sizes)."""
   so = cp.size1 if cp.owner == 2 else cp.size2
-  return _c([4.0 * (float(np.max(cp.size1)) + float(np.max(cp.size2))),
-             0.05 * float(np.min(so))])
+  return (4.0 * (float(np.max(cp.size1)) + float(np.max(cp.size2))),
+          0.05 * float(np.min(so)))
 
 
 def _contact_geometry(tm, cp, geom_frame, const, sat_memo):
@@ -1424,10 +1439,11 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
         dim=1).reshape(nr * npt, B))
     act_parts.append((dist < 0)[:, None].expand(npt, nr, B)
                      .reshape(nr * npt, B))
-    ic = const([impedance_consts(cp.solimp) for cp in cps])  # (npt, 5)
+    params = [pair_params(cp, dtype) for cp in cps]
+    ic = const([impedance_consts(si) for _, si in params])  # (npt, 5)
     imp = _impedance(dist, *(ic[:, i:i + 1] for i in range(5)))
     imp_parts.append(imp[:, None].expand(npt, nr, B).reshape(nr * npt, B))
-    kbs = [kb(cp.solref, float(cp.solimp[1])) for cp in cps]
+    kbs = [kb(sr, float(si[1])) for sr, si in params]
     k_parts.append(const([[v[0]] * nr for v in kbs]).reshape(nr * npt))
     b_parts.append(const([[v[1]] * nr for v in kbs]).reshape(nr * npt))
 
@@ -1479,7 +1495,7 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
     hi = (const([x[3] for x in lims])[:, None] - q) \
         - const([x[4] for x in lims])[:, None]
     posv = torch.stack([lo, hi], dim=1).reshape(2 * nl, B)
-    jl = np.zeros((2 * nl, nv), np.float32)
+    jl = np.zeros((2 * nl, nv))
     for li, x in enumerate(lims):
       for vadr, coef in x[1].items():
         jl[2 * li, vadr] = coef
@@ -1488,7 +1504,7 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
     pos_parts.append(torch.clamp(posv, max=0.0))
     act_parts.append(posv < 0)
     ic = impedance_consts(_DEFAULT_SOLIMP)
-    imp_parts.append(_impedance(posv, *_c(ic)))
+    imp_parts.append(_impedance(posv, *const(ic)))
     kbs = [kb(x[5], ic[1]) for x in lims]
     k_parts.append(const([[v[0]] * 2 for v in kbs]).reshape(2 * nl))
     b_parts.append(const([[v[1]] * 2 for v in kbs]).reshape(2 * nl))
@@ -1504,7 +1520,7 @@ def _constraint_solve(tm, qpos, qvel, xpos, xquat, cdof, L, qacc_smooth,
     posv = torch.stack([p for _, p in rows])
     pos_parts.append(posv)
     act_parts.append(torch.ones_like(posv, dtype=torch.bool))
-    imp_parts.append(_impedance(posv, *_c(impedance_consts(er.solimp))))
+    imp_parts.append(_impedance(posv, *const(impedance_consts(er.solimp))))
     k_eq, b_eq = kb(er.solref, float(er.solimp[1]))
     k_parts.append(const([k_eq] * len(rows)))
     b_parts.append(const([b_eq] * len(rows)))

@@ -7,12 +7,17 @@ sphere-box, torsional, joint limit) carries force in at least one of them.
 The JAX reference runs eagerly, without jax.jit (compiling its Shadow tile
 path takes minutes on a CPU).
 
-Tolerances, with the errors measured when they were set:
+Tolerances, with the errors measured on a CPU host:
   snapshot: integers exact, floats 1e-6 (measured 0);
   task and extract: integers exact, floats 1e-6 (measured 0);
-  one step, cold and warm: qpos atol 2e-5 (measured 1.2e-7), qvel atol
-    2e-4 (3.7e-5), duals atol 1e-4 * max|duals| (4.3e-5 of 11.7), the
-    quadruped's tolerances; the view fields the residual reads atol 2e-4;
+  one step, cold and warm, two float32 steps, the quadruped's
+    tolerances: each field per state within max(its atol, 8 times that
+    state's distance of JAX's float32 step from the port's float64 one)
+    (torch_cases.within_rounding; parity with JAX is tests/
+    test_torch_tilestep64.py's float64 hold): qpos atol 2e-5 (measured
+    1.2e-7), qvel atol 2e-4 (3.7e-5), the view fields the residual reads
+    atol 2e-4 (9.5e-7, the actuator forces); duals per row class atol
+    1e-4 * max|duals| (4.3e-5 of 11.7);
   residual on the same view: atol 1e-5 (measured 1.4e-6);
   returns at n = 8, T = 4: rtol 2e-3.
 """
@@ -35,7 +40,8 @@ from mujoco_mpc_tpu.physics import tilestep as jts
 from mujoco_mpc_tpu.tasks import registry as jreg
 from tests.test_torch_model import _same
 from tests.test_torch_tilestep_classes import shared_probe_and_returns
-from tests.torch_cases import SHADOW_GOAL, one_torch_thread
+from tests.torch_cases import (SHADOW_GOAL, one_torch_thread, port_steps,
+                               step_operands, within_rounding)
 from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 B, N, T = 8, 8, 4
@@ -53,13 +59,6 @@ def tasks():
 def tile_models(tasks):
   t, j = tasks
   return tts.extract(t.model), jts.extract(j.model)
-
-
-def _operands():
-  """(mocap pos, the goal quaternion, userdata) shaped (1, 3, 1), (1, 4, 1),
-  (16, 1), as numpy float32."""
-  return (np.asarray([[[0.25], [0.0], [0.3]]], np.float32), GOAL[..., None],
-          np.zeros((16, 1), np.float32))
 
 
 def test_shadow_snapshot_matches_fresh_build():
@@ -123,30 +122,28 @@ def jax_run(tasks, tile_models, tmp_path_factory):
   _, jtm = tile_models
   return shared_probe_and_returns(
       tmp_path_factory, "hand_reorient", j, jtm,
-      thand.probe_states(t.model, B), *_returns_inputs(t), 0.1, _operands())
+      thand.probe_states(t.model, B), *_returns_inputs(t), 0.1,
+      step_operands(t))
 
 
 @pytest.fixture(scope="module")
 def two_steps(tasks, tile_models, jax_run):
-  """A cold step, then a warm-started one, in both packages."""
+  """A cold step, then a warm-started one, in both packages, and the
+  port's in float64 (the rounding witness)."""
   t, _ = tasks
   ttm, _ = tile_models
-  qp, qv, ct = thand.probe_states(t.model, B)
-  tops = dict(zip(("mocap_pos", "mocap_quat", "userdata"),
-                  map(torch.tensor, _operands())))
-  tq, tv, tl = torch.tensor(qp), torch.tensor(qv), None
-  out = []
-  for jq, jv, jview in jax_run[0]:
-    tq, tv, tview = tts.step_tb(ttm, tq, tv, torch.tensor(ct), tl, **tops)
-    tl = tview.efc_lambda
-    out.append((tq, tv, tview, jq, jv, jview))
-  return out
+  probe, ops = thand.probe_states(t.model, B), step_operands(t)
+  return [(v.qpos, v.qvel, v, jq, jv, jview, v64)
+          for v, v64, (jq, jv, jview) in zip(
+              port_steps(ttm, probe, ops=ops),
+              port_steps(ttm, probe, torch.float64, ops), jax_run[0])]
 
 
 @pytest.mark.parametrize("which", ["cold", "warm"])
 def test_shadow_step_matches_jax(tile_models, two_steps, which):
   ttm, _ = tile_models
-  tq, tv, tview, jq, jv, jview = two_steps[("cold", "warm").index(which)]
+  tq, tv, tview, jq, jv, jview, view64 = two_steps[
+      ("cold", "warm").index(which)]
   jl = np.asarray(jview.efc_lambda)
   lam = tview.efc_lambda.numpy()
   kinds = np.asarray(tts.row_kinds(ttm))
@@ -155,13 +152,12 @@ def test_shadow_step_matches_jax(tile_models, two_steps, which):
     assert np.abs(lam[kinds == kind]).max() > 0, kind
     np.testing.assert_allclose(lam[kinds == kind], jl[kinds == kind],
                                atol=1e-4 * scale, err_msg=kind)
-  np.testing.assert_allclose(tq.numpy(), jq, atol=2e-5)
-  np.testing.assert_allclose(tv.numpy(), jv, atol=2e-4)
+  within_rounding(tq, jq, view64.qpos, 2e-5, "qpos")
+  within_rounding(tv, jv, view64.qvel, 2e-4, "qvel")
   for name in ("xpos", "xquat", "xmat", "site_xpos", "actuator_force",
                "mocap_quat"):
-    np.testing.assert_allclose(getattr(tview, name).numpy(),
-                               np.asarray(getattr(jview, name)), atol=2e-4,
-                               err_msg=name)
+    within_rounding(getattr(tview, name), getattr(jview, name),
+                    getattr(view64, name), 2e-4, name)
 
 
 def test_shadow_residual_matches_jax(tasks, two_steps):
@@ -195,7 +191,7 @@ def test_shadow_returns_match_jax(tasks, jax_run):
   home, qvel0, acts = _returns_inputs(t)
   got = tmr.MegaRollout(t, T, device="cpu").returns(
       torch.tensor(home), torch.tensor(qvel0), torch.tensor(acts), t.params,
-      0.1, *(torch.tensor(x[..., 0]) for x in _operands())).numpy()
+      0.1, *(torch.tensor(x[..., 0]) for x in step_operands(t))).numpy()
   want = jax_run[1]
   assert np.all(np.isfinite(got)) and np.all(got < tmr.MAX_RETURN)
   np.testing.assert_allclose(got, want, rtol=2e-3)

@@ -7,14 +7,20 @@ tendon limit) carries force in at least one of them. The JAX reference runs
 eagerly, without an outer jax.jit (compiling its humanoid tile path takes
 minutes on a CPU), and each JAX result is computed once per module.
 
-Tolerances, with the errors measured when they were set:
+Tolerances, with the errors measured on a CPU host:
   snapshot: integers exact, floats 1e-6 (measured 0);
   extract: integers exact, floats 1e-6 (measured 0);
-  one step, cold and warm: qpos atol 2e-5 (measured 3.9e-7), qvel atol
-    2e-4 (7.3e-5), duals atol 1e-4 * max|duals| (2.7e-3 of 1.35e3, i.e.
-    2e-6 relative) -- the tolerances of test_megarollout.py:113-114
-    between two f32 paths; the frames the residual reads atol 2e-4
-    (4.9e-5, cvel after the warm step);
+  one step, cold and warm, two float32 steps, the tolerances of
+    test_megarollout.py:113-114 between two f32 paths: each field per
+    state within max(its atol, 8 times that state's distance of JAX's
+    float32 step from the port's float64 one) (torch_cases.
+    within_rounding; parity with JAX is tests/test_torch_tilestep64.py's
+    float64 hold): qpos atol 2e-5 (measured 1.5e-6), qvel atol 2e-4
+    (1.96e-4, the cold step, a margin under 2 that the witness, 8 x
+    1.0e-4 there, covers 4.1 times), the frames the residual reads atol
+    2e-4 (2.06e-4, cvel after the warm step, beyond the atol within
+    8 x 1.04e-4: a margin of 4.0); duals atol 1e-4 * max|duals| (4.5e-3
+    of 2.25e3, i.e. 2.0e-6 relative);
   residual on the same view: atol 1e-5 (measured 0);
   returns at n = 8, T = 4: rtol 2e-3 (measured 3.6e-7).
 """
@@ -37,7 +43,7 @@ from mujoco_mpc_tpu.physics import tilestep as jts
 from mujoco_mpc_tpu.tasks import registry as jreg
 from tests.test_torch_model import _same
 from tests.test_torch_tilestep_classes import shared_probe_and_returns
-from tests.torch_cases import one_torch_thread
+from tests.torch_cases import one_torch_thread, port_steps, within_rounding
 from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 
 B, N, T = 8, 8, 4
@@ -121,36 +127,34 @@ def jax_run(tasks, tile_models, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def two_steps(tasks, tile_models, jax_run):
-  """A cold step, then a warm-started one, in both packages."""
+  """A cold step, then a warm-started one, in both packages, and the
+  port's in float64 (the rounding witness)."""
   t, _ = tasks
   ttm, _ = tile_models
-  qp, qv, ct = thum.probe_states(t.model, B)
-  tq, tv, tl = torch.tensor(qp), torch.tensor(qv), None
-  out = []
-  for jq, jv, jview in jax_run[0]:
-    tq, tv, tview = tts.step_tb(ttm, tq, tv, torch.tensor(ct), tl)
-    tl = tview.efc_lambda
-    out.append((tq, tv, tview, jq, jv, jview))
-  return out
+  probe = thum.probe_states(t.model, B)
+  return [(v.qpos, v.qvel, v, jq, jv, jview, v64)
+          for v, v64, (jq, jv, jview) in zip(
+              port_steps(ttm, probe), port_steps(ttm, probe, torch.float64),
+              jax_run[0])]
 
 
 @pytest.mark.parametrize("which", ["cold", "warm"])
 def test_humanoid_step_matches_jax(tile_models, two_steps, which):
   ttm, _ = tile_models
-  tq, tv, tview, jq, jv, jview = two_steps[("cold", "warm").index(which)]
+  tq, tv, tview, jq, jv, jview, view64 = two_steps[
+      ("cold", "warm").index(which)]
   jl = np.asarray(jview.efc_lambda)
   kinds = np.asarray(tts.row_kinds(ttm))
   for kind in _KINDS:  # every row class carries force in some state
     assert np.abs(tview.efc_lambda.numpy()[kinds == kind]).max() > 0, kind
   scale = float(np.abs(jl).max())
-  np.testing.assert_allclose(tq.numpy(), jq, atol=2e-5)
-  np.testing.assert_allclose(tv.numpy(), jv, atol=2e-4)
+  within_rounding(tq, jq, view64.qpos, 2e-5, "qpos")
+  within_rounding(tv, jv, view64.qvel, 2e-4, "qvel")
   np.testing.assert_allclose(tview.efc_lambda.numpy(), jl,
                              atol=1e-4 * scale)
   for name in ("xpos", "xmat", "xipos", "cvel", "subtree_com"):
-    np.testing.assert_allclose(getattr(tview, name).numpy(),
-                               np.asarray(getattr(jview, name)), atol=2e-4,
-                               err_msg=name)
+    within_rounding(getattr(tview, name), getattr(jview, name),
+                    getattr(view64, name), 2e-4, name)
   # free joint: the integrated quaternion stays unit
   np.testing.assert_allclose(np.linalg.norm(tq.numpy()[3:7], axis=0), 1.0,
                              atol=1e-6)

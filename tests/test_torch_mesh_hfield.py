@@ -7,7 +7,13 @@ Insert and Quadruped Hill on states where every new pair kind carries
 force. JAX runs eagerly, its step jitted once per model. Where
 the two packages pick different hull vertices that tie in depth only up
 to rounding (a hull face square to the contact axis), the positions are
-held along the normal and the substitutions counted (printed with -s)."""
+held along the normal and the substitutions counted (printed with -s).
+
+The module holds no float32 tile step. Measured on a CPU host: the mesh
+pairs within 5.6e-17 of TOL; the heightfield pairs 8.9e-16 of TOL in
+float64 and 4.8e-7 of 2e-6 in float32 (the box); the steps' qpos 8.9e-16
+and qvel 3.3e-13 of 1e-10, each pair kind's summed forces 1.3e-11 where
+1e-8 of the largest is 3.2e-6."""
 
 import functools
 import types

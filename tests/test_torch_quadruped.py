@@ -8,13 +8,18 @@ limit) carries force in at least one of them. The JAX reference runs
 eagerly, without jax.jit (compiling its quadruped tile path takes minutes
 on a CPU), and each JAX result is computed once per module.
 
-Tolerances, with the errors measured when they were set:
+Tolerances, with the errors measured on a CPU host:
   snapshot: integers exact, floats 1e-6 (measured 0);
   task and extract: integers exact, floats 1e-6 (measured 0);
-  one step, cold and warm: qpos atol 2e-5 (measured 2.4e-7), qvel atol
-    2e-4 (8.6e-6), duals atol 1e-4 * max|duals| (2.0e-3 of 1.0e3) -- the
-    tolerances of test_megarollout.py:113-114 between two f32 paths; the
-    view fields the residual reads atol 2e-4 (1.5e-5, after the warm step);
+  one step, cold and warm, two float32 steps, the tolerances of
+    test_megarollout.py:113-114 between two f32 paths: each field per
+    state within max(its atol, 8 times that state's distance of JAX's
+    float32 step from the port's float64 one) (torch_cases.
+    within_rounding; parity with JAX is tests/test_torch_tilestep64.py's
+    float64 hold): qpos atol 2e-5 (measured 2.4e-7), qvel atol 2e-4
+    (1.0e-5), the view fields the residual reads atol 2e-4 (9.5e-6, the
+    actuator forces after the warm step); duals atol 1e-4 * max|duals|
+    (1.8e-3 of 1.03e3);
   residual and weight_mod on the same view, per mode: atol 1e-5
     (measured 1.2e-7, Flip);
   returns at n = 8, T = 4: rtol 2e-3 (measured 1.3e-7).
@@ -36,8 +41,9 @@ from mujoco_mpc_torch.tasks import quadruped as tquad
 from mujoco_mpc_torch.tasks import registry as treg
 from mujoco_mpc_tpu.physics import tilestep as jts
 from mujoco_mpc_tpu.tasks import registry as jreg
-from tests.torch_cases import (QUADRUPED_MODES, one_torch_thread,
-                               quadruped_mode)
+from tests.torch_cases import (QUADRUPED_GOAL, QUADRUPED_MODES,
+                               one_torch_thread, port_steps, quadruped_mode,
+                               step_operands, within_rounding)
 from tests.test_torch_model import _same
 from tests.test_torch_tilestep_classes import shared_probe_and_returns
 from tests.torch_engine_cases import release_jax_executables  # noqa: F401
@@ -45,7 +51,7 @@ from tests.torch_engine_cases import release_jax_executables  # noqa: F401
 B, N, T = 8, 8, 4
 _KINDS = ("plane_boxcorner", "plane_sphere", "sphere_box", "sphere_sphere",
           "joint_limit")
-GOAL = np.asarray([[1.0, 0.3, 0.3]], np.float32)
+GOAL = np.asarray(QUADRUPED_GOAL, np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -58,14 +64,6 @@ def tasks():
 def tile_models(tasks):
   t, j = tasks
   return tts.extract(t.model), jts.extract(j.model)
-
-
-def _operands(nuserdata, userdata=None):
-  """(goal, identity quaternion, userdata) shaped (1, 3, 1), (1, 4, 1),
-  (nuserdata, 1), as numpy float32."""
-  u = tquad.fsm_userdata(nuserdata) if userdata is None else userdata
-  return (GOAL[..., None], np.asarray([[[1.0], [0.0], [0.0], [0.0]]],
-                                      np.float32), u[:, None])
 
 
 def test_quadruped_snapshot_matches_fresh_build():
@@ -126,45 +124,41 @@ def jax_run(tasks, tile_models, tmp_path_factory):
   _, jtm = tile_models
   return shared_probe_and_returns(
       tmp_path_factory, "quadruped", j, jtm, tquad.probe_states(t.model, B),
-      *_returns_inputs(t), 0.1, _operands(t.model.nuserdata))
+      *_returns_inputs(t), 0.1, step_operands(t))
 
 
 @pytest.fixture(scope="module")
 def two_steps(tasks, tile_models, jax_run):
-  """A cold step, then a warm-started one, in both packages."""
+  """A cold step, then a warm-started one, in both packages, and the
+  port's in float64 (the rounding witness)."""
   t, _ = tasks
   ttm, _ = tile_models
-  qp, qv, ct = tquad.probe_states(t.model, B)
-  tops = dict(zip(("mocap_pos", "mocap_quat", "userdata"),
-                  map(torch.tensor, _operands(t.model.nuserdata))))
-  tq, tv, tl = torch.tensor(qp), torch.tensor(qv), None
-  out = []
-  for jq, jv, jview in jax_run[0]:
-    tq, tv, tview = tts.step_tb(ttm, tq, tv, torch.tensor(ct), tl, **tops)
-    tl = tview.efc_lambda
-    out.append((tq, tv, tview, jq, jv, jview))
-  return out
+  probe, ops = tquad.probe_states(t.model, B), step_operands(t)
+  return [(v.qpos, v.qvel, v, jq, jv, jview, v64)
+          for v, v64, (jq, jv, jview) in zip(
+              port_steps(ttm, probe, ops=ops),
+              port_steps(ttm, probe, torch.float64, ops), jax_run[0])]
 
 
 @pytest.mark.parametrize("which", ["cold", "warm"])
 def test_quadruped_step_matches_jax(tile_models, two_steps, which):
   ttm, _ = tile_models
-  tq, tv, tview, jq, jv, jview = two_steps[("cold", "warm").index(which)]
+  tq, tv, tview, jq, jv, jview, view64 = two_steps[
+      ("cold", "warm").index(which)]
   jl = np.asarray(jview.efc_lambda)
   kinds = np.asarray(tts.row_kinds(ttm))
   for kind in _KINDS:  # every row class carries force in some state
     assert np.abs(tview.efc_lambda.numpy()[kinds == kind]).max() > 0, kind
   scale = float(np.abs(jl).max())
-  np.testing.assert_allclose(tq.numpy(), jq, atol=2e-5)
-  np.testing.assert_allclose(tv.numpy(), jv, atol=2e-4)
+  within_rounding(tq, jq, view64.qpos, 2e-5, "qpos")
+  within_rounding(tv, jv, view64.qvel, 2e-4, "qvel")
   np.testing.assert_allclose(tview.efc_lambda.numpy(), jl,
                              atol=1e-4 * scale)
   for name in ("xpos", "xquat", "xmat", "xipos", "ximat", "cvel",
                "subtree_com", "site_xpos", "geom_xpos", "actuator_force",
                "mocap_pos", "userdata"):
-    np.testing.assert_allclose(getattr(tview, name).numpy(),
-                               np.asarray(getattr(jview, name)), atol=2e-4,
-                               err_msg=name)
+    within_rounding(getattr(tview, name), getattr(jview, name),
+                    getattr(view64, name), 2e-4, name)
   # the mocap pose overrides the goal body's kinematics
   goal = ttm.body_mocapid.index(0)
   np.testing.assert_array_equal(tview.xpos[goal].numpy(),
@@ -211,7 +205,7 @@ def test_quadruped_returns_match_jax(tasks, jax_run):
   home, qvel0, acts = _returns_inputs(t)
   got = tmr.MegaRollout(t, T, device="cpu").returns(
       torch.tensor(home), torch.tensor(qvel0), torch.tensor(acts), t.params,
-      0.1, *(torch.tensor(x[..., 0]) for x in _operands(t.model.nuserdata))
+      0.1, *(torch.tensor(x[..., 0]) for x in step_operands(t))
   ).numpy()
   want = jax_run[1]
   assert np.all(np.isfinite(got)) and np.all(got < tmr.MAX_RETURN)

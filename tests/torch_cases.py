@@ -1,12 +1,15 @@
 """Inputs shared by the port's kernel tests, importable without JAX or
 mujoco (the card's host has neither): the Quadruped's residual branches,
-the Shadow goal and the handover's target; and one_torch_thread for the
-tests that plan on the CPU."""
+the Shadow goal, the handover's target and the quadruped's goal;
+one_torch_thread for the tests that plan on the CPU; and step_operands,
+port_steps and within_rounding for the float32 step holds against JAX."""
 
 import contextlib
 
+import numpy as np
 import torch
 
+from mujoco_mpc_torch.physics import tilestep as tts
 from mujoco_mpc_torch.tasks import quadruped as tquad
 
 
@@ -25,12 +28,84 @@ def one_torch_thread():
   finally:
     torch.set_num_threads(n)
 
+
+def port_steps(tm, probe, dtype=torch.float32, ops=None):
+  """The port's cold and warm tile steps (physics/tilestep.py::step_tb) of
+  the probe states (qpos, qvel, ctrl as numpy) in dtype, the warm one from
+  the cold one's duals, with the rollout-constant operands `ops`
+  ((mocap_pos, mocap_quat, userdata) as numpy shaped for step_tb, or
+  None): the two steps' views (each with its post-step qpos and qvel)."""
+  qp, qv, ct = (torch.tensor(x).to(dtype) for x in probe)
+  aux = {} if ops is None else dict(zip(
+      ("mocap_pos", "mocap_quat", "userdata"),
+      (torch.tensor(x).to(dtype) for x in ops)))
+  lam, views = None, []
+  for _ in range(2):
+    qp, qv, view = tts.step_tb(tm, qp, qv, ct, lam, **aux)
+    lam = view.efc_lambda
+    views.append(view)
+  return views
+
+
+# the rounding witness of a float32 step hold: a state's miss may reach
+# this many times the port's own float32 distance from float64 there
+WITNESS = 8.0
+
+
+def within_rounding(got, want, got64, atol, what):
+  """Holds the port's float32 step result `got` to JAX's float32 `want`
+  per state (the last axis, a column of the tile step): each state's
+  largest miss within max(atol, WITNESS times that state's largest
+  distance of `want` from `got64`, the port's float64 step from the same
+  float32 inputs). The witness comes from the reference: the port's
+  float64 step is held to JAX's at 1e-9 (tests/test_torch_tilestep64.py,
+  which carries parity with JAX), so `want - got64` is JAX's own float32
+  rounding, and a fault of the port's float32 path alone cannot widen the
+  bound it is held to. A miss beyond atol passes only on that witness.
+  The rule of chip_smoke.py::noise_bound and tests/
+  test_torch_kernel_host_flat.py, which hold the kernel to the plain
+  version per state (per candidate), the witness taken from the plain
+  version."""
+  got, want, got64 = (np.asarray(x, np.float64) for x in (got, want, got64))
+  b = got.shape[-1]
+  miss = np.abs(got - want).reshape(-1, b).max(0)
+  noise = np.abs(want - got64).reshape(-1, b).max(0)
+  bound = np.maximum(atol, WITNESS * noise)
+  assert np.all(miss <= bound), (
+      f"{what}: per-state miss {miss} beyond max({atol}, {WITNESS} x "
+      f"{noise})")
+
+
 # Shadow's goal: an unnormalized quaternion (the residual normalizes it)
 SHADOW_GOAL = [[0.8, 0.2, 0.4, 0.3]]
 
 # the handover's target: across the table from the box, as the task's
 # transition places it (x +-(0.3..0.4), y +-(0.2..0.3), z 0.25..0.7)
 HANDOVER_TARGET = [[0.35, -0.25, 0.3]]
+
+# the quadruped's goal
+QUADRUPED_GOAL = [[1.0, 0.3, 0.3]]
+
+
+def step_operands(task):
+  """A task's rollout-constant operands in its float32 step and returns
+  holds against JAX: (mocap_pos, mocap_quat, userdata) as numpy float32
+  shaped (1, 3, 1), (1, 4, 1), (nuserdata, 1), or None for a task without
+  a mocap body (Humanoid Walk). The handover's target, the quadruped's
+  goal and its FSM's initial userdata, the hands' goal quaternion; the
+  identity quaternion and zero userdata elsewhere."""
+  def col(x):
+    return np.asarray(x, np.float32)[..., None]
+  ident = col([[1.0, 0.0, 0.0, 0.0]])
+  zeros = np.zeros((task.model.nuserdata, 1), np.float32)
+  if task.name == "Bimanual Handover":
+    return col(HANDOVER_TARGET), ident, zeros
+  if task.name == "Quadruped Flat":
+    return (col(QUADRUPED_GOAL), ident,
+            tquad.fsm_userdata(task.model.nuserdata)[:, None])
+  if task.name in ("Shadow", "Allegro"):
+    return col([[0.25, 0.0, 0.3]]), col(SHADOW_GOAL), zeros
+  return None
 
 # the tasks that need no kernel change: hinge, slide and free joints and
 # contact pairs the kernel had, each with its own residual
